@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of chandy_lamport_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, which stays the reference: the same
-dense encoding (``core/state.py``), the same sync-scheduler tick
-(``ops/tick.py``) over an explicit lane axis (``parallel/batch.py``), and
-the Pallas kernels of that path hand-written in CUDA C++
-(``kernels/csrc``). It imports neither jax nor chandy_lamport_tpu.
+dense encoding (``core/state.py``), the same sync and exact (cascade)
+ticks (``ops/tick.py``) over an explicit lane axis (``parallel/batch.py``),
+the single-instance golden driver (``core/dense.py``, ``api.py``), and the
+Pallas kernels of those paths hand-written in CUDA C++ (``kernels/csrc``).
+It imports neither jax nor chandy_lamport_tpu.
 
 Entry points run on the card unless the caller passes ``device="cpu"``::
 
@@ -12,10 +13,15 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
     from chandy_lamport_tpu_torch.models.workloads import scale_free
     from chandy_lamport_tpu_torch.ops.delay import HashDelay
 
-The bench: ``python -m chandy_lamport_tpu_torch storm``.
+    snaps, sim = run_events_file("x.top", "x.events")   # Go-exact delays
+
+The bench: ``python -m chandy_lamport_tpu_torch storm``; the 7 reference
+goldens: ``python -m chandy_lamport_tpu_torch test``.
 """
 
+from chandy_lamport_tpu_torch.api import run_events_file
 from chandy_lamport_tpu_torch.config import SimConfig
+from chandy_lamport_tpu_torch.core.dense import DenseSim
 from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
 
-__all__ = ["BatchedRunner", "SimConfig"]
+__all__ = ["BatchedRunner", "DenseSim", "SimConfig", "run_events_file"]

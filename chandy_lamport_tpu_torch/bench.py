@@ -1,8 +1,9 @@
-"""The sync-storm bench of the port: node-ticks per second on one card.
+"""The storm bench of the port: node-ticks per second on one card.
 
 ``python -m chandy_lamport_tpu_torch storm`` takes the JAX bench's flags
-and defaults for the sync storm (the bench's config 4: scale-free 1024
-nodes, 2048 lanes, 32 phases, 8 snapshots, hash delay, int16 log), runs
+and defaults (the bench's config 4: the sync scheduler on scale-free 1024
+nodes, 2048 lanes, 32 phases, 8 snapshots, hash delay, int16 log;
+``--scheduler exact`` runs the bit-exact cascade tick instead), runs
 one warm storm that doubles as the validity check — with the JAX bench's
 doubling retry on queue or record overflow — then ``--repeats`` timed
 storms, and prints one JSON row shaped like the JAX bench's row. Log lines
@@ -60,8 +61,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--snapshots", type=int, default=8,
                    help="concurrent initiators per instance")
     p.add_argument("--repeats", type=int, default=3)
-    p.add_argument("--scheduler", choices=["sync"], default="sync",
-                   help="only the sync scheduler is ported")
+    p.add_argument("--scheduler", choices=["sync", "exact"], default="sync",
+                   help="sync = simultaneous delivery (the production "
+                        "path); exact = the reference's sequential fold")
+    p.add_argument("--exact-impl", choices=["cascade"], default="cascade",
+                   help="bit-exact tick formulation when --scheduler exact "
+                        "(wave and fold are not ported yet)")
     p.add_argument("--capacity", type=int, default=0,
                    help="per-edge queue slots; 0 = size to the workload")
     p.add_argument("--max-recorded", type=int, default=0,
@@ -134,7 +139,7 @@ def main(argv=None) -> int:
                                  max_recorded=args.max_recorded,
                                  record_dtype=args.record_dtype,
                                  window_dtype=args.window_dtype,
-                                 split_markers=True)
+                                 split_markers=args.scheduler == "sync")
     if args.capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=args.capacity)
 
@@ -142,7 +147,7 @@ def main(argv=None) -> int:
     for cap_try in range(4):
         runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
                                batch=args.batch, scheduler=args.scheduler,
-                               device=device)
+                               exact_impl=args.exact_impl, device=device)
         topo = runner.topo
         log(f"graph: {topo.n} nodes, {topo.e} edges, max out-degree "
             f"{topo.d}; queue_capacity={cfg.queue_capacity}")
@@ -196,10 +201,12 @@ def main(argv=None) -> int:
     for r in range(args.repeats):
         state = runner.init_batch_device()
         _sync(device)
+        folds = runner.kernel.fold_steps
         t0 = time.perf_counter()
         final = runner.run_storm(state, prog)
         _sync(device)
         dt = time.perf_counter() - t0
+        folds = runner.kernel.fold_steps - folds
         total_ticks = int(final.time.sum())
         # the batch ticks together until its slowest lane has drained
         batched_ticks = int(final.time.max())
@@ -208,8 +215,8 @@ def main(argv=None) -> int:
         node_ticks.append(total_ticks * topo.n)
         log(f"run {r}: {dt:.3f}s, {total_ticks} total ticks "
             f"({total_ticks / args.batch:.1f}/lane, {batched_ticks} batched "
-            f"ticks at {dt / batched_ticks * 1e3:.2f}ms) -> "
-            f"{node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
+            f"ticks at {dt / batched_ticks * 1e3:.2f}ms, {folds} marker-fold "
+            f"steps) -> {node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
     best = max(nt / dt for nt, dt in zip(node_ticks, times))
     if args.profile:
         _profile(runner, prog, device, args.profile)
@@ -221,7 +228,8 @@ def main(argv=None) -> int:
         "platform": "gpu" if device.type == "cuda" else device.type,
         "device_kind": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
-        "scheduler": args.scheduler,
+        "scheduler": (args.scheduler if args.scheduler == "sync"
+                      else f"exact/{args.exact_impl}"),
         "graph": args.graph,
         "nodes": args.nodes,
         "batch": args.batch,

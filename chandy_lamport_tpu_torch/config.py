@@ -1,9 +1,10 @@
 """Static capacities and knobs of the PyTorch port.
 
-A copy of the JAX package's ``config.py`` cut to what the sync-scheduler
-batch storm reads. The capacities bound every structure the Go reference
-grows dynamically (per-link queues, snapshot slots, recorded-message
-logs), so the state is fixed-shape tensors on the device. The JAX
+A copy of the JAX package's ``config.py`` cut to what the ported paths
+(the sync and exact batch storms, the golden driver) read. The
+capacities bound every structure the Go reference grows dynamically
+(per-link queues, snapshot slots, recorded-message logs), so the state is
+fixed-shape tensors on the device. The JAX
 config's supervisor, flight-recorder and engine knobs are not ported:
 the port runs without them, as the JAX package does at their defaults.
 """
@@ -13,6 +14,10 @@ import dataclasses
 # Max random delay added to packet delivery: receive_time = time + 1 +
 # Intn(MAX_DELAY) (reference sim.go:10, sim.go:100-102).
 MAX_DELAY = 5
+
+# Fixed seed of the reference test suite (reference snapshot_test.go:9,20:
+# rand.Seed(seed + 1)).
+REFERENCE_TEST_SEED = 8053172852482175523
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,126 @@
+"""DenseSim — the single-instance driver around the exact tick.
+
+The port of the JAX package's ``core/dense.DenseSim``: one simulation,
+held as a batch of one lane on the same ring-mode kernel as the batched
+exact storm (ops/tick.py). Event scripts are orchestrated from the host
+(events are few and happen between ticks, reference test_common.go:79-140);
+snapshots are decoded back to ``GlobalSnapshot`` once at the end.
+
+This is the JAX ``DenseSim`` at ``megatick=1``: one cascade tick per
+iteration of ``tick N`` events and of the drain. The JAX default is
+``megatick=8``, which gives the same results and, on a TPU, runs those
+loops through the fused megatick kernel (``kernels/megatick.fused_scan``).
+That kernel has no CUDA counterpart yet (ROADMAP.md, B8), so the port
+offers the megatick-1 form only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+from chandy_lamport_tpu_torch.config import SimConfig
+from chandy_lamport_tpu_torch.core.spec import (
+    Event,
+    GlobalSnapshot,
+    PassTokenEvent,
+    SnapshotEvent,
+    TickEvent,
+)
+from chandy_lamport_tpu_torch.core.state import (
+    DenseState,
+    DenseTopology,
+    decode_errors,
+    decode_snapshot,
+    init_state,
+)
+from chandy_lamport_tpu_torch.ops.tick import TickKernel
+from chandy_lamport_tpu_torch.parallel.batch import resolve_device
+from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
+from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+
+
+class DenseBackendError(RuntimeError):
+    """Raised when the sticky error bitmask is non-zero after a run (the
+    stand-in for the reference's log.Fatal calls)."""
+
+
+class DenseSim:
+    """One dense simulation on the exact scheduler, on the card unless
+    ``device`` names another."""
+
+    def __init__(self, topology: TopologySpec, delay,
+                 config: Optional[SimConfig] = None, device=None):
+        self.device = resolve_device(device)
+        self.config = config or SimConfig()
+        self.topo = DenseTopology(topology)
+        self.delay = delay
+        # the flush must cover the sampler's max delay
+        if delay.max_delay != self.config.max_delay:
+            self.config = dataclasses.replace(self.config,
+                                              max_delay=delay.max_delay)
+        self.kernel = TickKernel(self.topo, self.config, delay, self.device,
+                                 marker_mode="ring")
+        self.state: DenseState = init_state(self.topo, self.config, 1, delay,
+                                            self.device)
+        # host mirror of next_sid (ids are allocated sequentially,
+        # sim.go:107-108) so collection knows which slots this run started
+        self._next_sid = 0
+
+    # -- event execution ---------------------------------------------------
+
+    def process_event(self, event: Event) -> None:
+        if isinstance(event, PassTokenEvent):
+            e = self.topo.edge_index.get((self._node_index(event.src),
+                                          self._node_index(event.dest)))
+            if e is None:
+                raise ValueError(f"no link {event.src} -> {event.dest}")
+            self.state = self.kernel._inject_send(self.state, e,
+                                                  event.tokens)
+        elif isinstance(event, SnapshotEvent):
+            self._next_sid += 1
+            self.state = self.kernel._inject_snapshot(
+                self.state, self._node_index(event.node_id))
+        elif isinstance(event, TickEvent):
+            self.state = self.kernel._run_ticks(self.state, event.n)
+        else:
+            raise TypeError(f"unknown event: {event!r}")
+
+    def run_events(self, events: List[Event]) -> List[GlobalSnapshot]:
+        """Execute a script + drain + flush (reference
+        test_common.go:79-140); returns the started snapshots."""
+        started: List[int] = []
+        for ev in events:
+            if isinstance(ev, SnapshotEvent):
+                started.append(self._next_sid)
+            self.process_event(ev)
+        self.state = self.kernel._drain_and_flush(self.state)
+        self.check_errors()
+        host = self.host_state()
+        return [decode_snapshot(self.topo, host, sid) for sid in started]
+
+    # -- introspection -------------------------------------------------------
+
+    def host_state(self) -> DenseState:
+        """The simulation's state as numpy arrays with the JAX dtypes and
+        no lane axis — the JAX ``DenseSim``'s ``state`` layout."""
+        host = state_to_numpy(self.state, self.delay)
+        return DenseState(*(tuple(w[0] for w in leaf)
+                            if isinstance(leaf, tuple) else leaf[0]
+                            for leaf in host))
+
+    def node_tokens(self):
+        tokens = self.state.tokens[0].tolist()
+        return {nid: tokens[i] for i, nid in enumerate(self.topo.ids)}
+
+    def check_errors(self) -> None:
+        bits = int(self.state.error[0])
+        if bits:
+            raise DenseBackendError(
+                "dense backend error(s): " + "; ".join(decode_errors(bits)))
+
+    def _node_index(self, node_id: str) -> int:
+        idx = self.topo.index.get(node_id)
+        if idx is None:
+            raise ValueError(f"node {node_id} does not exist")
+        return idx

@@ -24,6 +24,11 @@ import numpy as np
 import torch
 
 from chandy_lamport_tpu_torch.config import SimConfig
+from chandy_lamport_tpu_torch.core.spec import (
+    GlobalSnapshot,
+    Message,
+    MsgSnapshot,
+)
 from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
 
 # error bitmask flags
@@ -127,6 +132,8 @@ class DenseTopology:
         self.e = len(edges)
         self.edge_src = np.array([s for s, _ in edges], dtype=np.int32)
         self.edge_dst = np.array([d for _, d in edges], dtype=np.int32)
+        self.edge_index: Dict[Tuple[int, int], int] = {
+            (s, d): i for i, (s, d) in enumerate(edges)}
         out_count = np.bincount(self.edge_src, minlength=self.n)
         self.in_degree = np.bincount(self.edge_dst,
                                      minlength=self.n).astype(np.int32)
@@ -141,6 +148,8 @@ class DenseTopology:
         self.by_dst = np.argsort(self.edge_dst, kind="stable")
         self.dst_bounds = np.concatenate(
             [[0], np.cumsum(np.bincount(self.edge_dst, minlength=self.n))])
+        self.in_edges: List[np.ndarray] = np.split(
+            self.by_dst, self.dst_bounds[1:-1])
 
 
 class DenseState(NamedTuple):
@@ -237,6 +246,36 @@ def init_state(topo: DenseTopology, cfg: SimConfig, batch: int, delay,
         tr_meta=z(0), tr_data=z(0), tr_tick=z(0), tr_count=z(),
         tr_on=full(1), sig=z(dtype=i64), error=z(),
     )
+
+
+def recorded_window(host: DenseState, sid: int, eidx: int) -> List[int]:
+    """The amounts snapshot ``sid`` recorded on edge ``eidx``, in arrival
+    order: the ``[rec_start, rec_end)`` window of the edge's ring log
+    (``rec_end`` falls back to the live ``rec_cnt`` for a still-recording
+    channel). ``host`` is ONE lane's state as numpy arrays."""
+    lcap = host.log_amt.shape[-2]
+    start = int(host.rec_start[sid, eidx])
+    end = (int(host.rec_cnt[eidx]) if host.recording[sid, eidx]
+           else int(host.rec_end[sid, eidx]))
+    return [int(host.log_amt[j % lcap, eidx]) for j in range(start, end)]
+
+
+def decode_snapshot(topo: DenseTopology, host: DenseState,
+                    sid: int) -> GlobalSnapshot:
+    """One lane's state -> GlobalSnapshot, the reference's CollectSnapshot
+    (sim.go:134-173): token map from the frozen balances, messages per
+    node over its inbound edges in src-rank order, each edge's recordings
+    in arrival order (golden-compatible, test_common.go:253-284)."""
+    token_map = {nid: int(host.frozen[sid, i])
+                 for i, nid in enumerate(topo.ids)}
+    messages: List[MsgSnapshot] = []
+    for nidx, nid in enumerate(topo.ids):
+        for eidx in topo.in_edges[nidx]:
+            src = topo.ids[int(topo.edge_src[eidx])]
+            for amt in recorded_window(host, sid, eidx):
+                messages.append(MsgSnapshot(
+                    src, nid, Message(is_marker=False, data=amt)))
+    return GlobalSnapshot(sid, token_map, messages)
 
 
 def decode_error_bits(mask: int) -> List[str]:

@@ -1,10 +1,11 @@
-"""Ring-queue kernels of the sync storm.
+"""Ring-queue kernels of the sync and exact storms.
 
 The port of the JAX package's ``kernels/queue.py`` Pallas ``head_fields``
-(:63) and ``append_rows`` (:157). Each function dispatches on the device
-of its input: a CPU tensor takes the plain PyTorch version beside it, a
-CUDA tensor launches the hand-written kernel of ``csrc/queue.cu`` (or
-raises). Planes are ``[..., E, C]`` with any leading batch axes.
+(:63), ``queue_step`` (:92) and ``append_rows`` (:157). Each function
+dispatches on the device of its input: a CPU tensor takes the plain
+PyTorch version beside it, a CUDA tensor launches the hand-written kernel
+of ``csrc/queue.cu`` (or raises). Planes are ``[..., E, C]`` with any
+leading batch axes.
 
 ``append_rows`` writes its slots IN PLACE into ``q_meta``/``q_data`` (the
 JAX form returns new planes; writing one slot per edge instead of the
@@ -28,17 +29,15 @@ from chandy_lamport_tpu_torch.core.state import (
 from chandy_lamport_tpu_torch.kernels import _build
 
 # launches of each CUDA kernel wrapper (plain versions are not counted)
-LAUNCHES = {"head_fields": 0, "append_rows": 0}
+LAUNCHES = {"head_fields": 0, "queue_step": 0, "append_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
     "clsim_head_fields": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
-    "clsim_append_rows": [_P] * 10 + [_I] * 5 + [_P],
+    "clsim_queue_step": [_P] * 12 + [ctypes.c_longlong, _I, _I, _I, _P],
+    "clsim_append_rows": [_P] * 10 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
-
-# the CUDA append grid puts lanes on blockIdx.y
-_MAX_GRID_Y = 65535
 
 
 def _fn(name: str):
@@ -56,6 +55,27 @@ def head_fields_plain(q_meta, q_data, q_head):
     head_meta = torch.gather(q_meta, -1, at).squeeze(-1)
     head_data = torch.gather(q_data, -1, at).squeeze(-1)
     return meta_rtime(head_meta), meta_marker(head_meta), head_data
+
+
+def queue_step_plain(q_meta, q_data, q_head, q_len, time, src_first, *,
+                     capacity: int):
+    """The exact tick's delivery selection, transcribing the Pallas body
+    (``_queue_step_kernel``): gather the head words, ``elig = len > 0 &
+    rtime <= time`` (``time`` has the leading axes, one per lane), keep
+    the first eligible edge of each source by the exclusive prefix count
+    re-based at the source's first edge, pop it. Returns (tok bool,
+    mk bool, head_data i32, new_head i32, new_len i32)."""
+    at = q_head.to(torch.int64).unsqueeze(-1)
+    head_meta = torch.gather(q_meta, -1, at).squeeze(-1)
+    head_data = torch.gather(q_data, -1, at).squeeze(-1)
+    head_mk = meta_marker(head_meta)
+    elig = (q_len > 0) & (meta_rtime(head_meta) <= time.unsqueeze(-1))
+    elig_i = elig.to(torch.int32)
+    before = torch.cumsum(elig_i, dim=-1, dtype=torch.int32) - elig_i
+    sel = elig & (before == before.index_select(-1, src_first))
+    sel_i = sel.to(torch.int32)
+    return (sel & ~head_mk, sel & head_mk, head_data,
+            (q_head + sel_i) % capacity, q_len - sel_i)
 
 
 def append_rows_plain(q_meta, q_data, q_head, q_len, tok_pushed, active,
@@ -112,6 +132,45 @@ def head_fields(q_meta, q_data, q_head):
     return rtime, marker, data
 
 
+def queue_step(q_meta, q_data, q_head, q_len, time, src_first, src_lo,
+               src_hi, *, capacity: int):
+    """The fused delivery selection of the exact tick (``queue_step_plain``
+    says what it computes). ``src_first`` [E] drives the plain version;
+    the kernel walks each source's edges between ``src_lo`` and
+    ``src_hi`` [N] (the same segments). ``time`` holds one clock per
+    lane."""
+    if q_meta.device.type == "cpu":
+        return queue_step_plain(q_meta, q_data, q_head, q_len, time,
+                                src_first, capacity=capacity)
+    lead = tuple(q_head.shape)
+    dev = q_meta.device
+    if q_meta.shape[-1] != capacity:
+        raise ValueError(f"q_meta has {q_meta.shape[-1]} slots, capacity "
+                         f"is {capacity}")
+    _check({"q_meta": q_meta, "q_data": q_data}, torch.int32,
+           lead + (capacity,), dev)
+    _check({"q_head": q_head, "q_len": q_len}, torch.int32, lead, dev)
+    _check({"time": time}, torch.int32, lead[:-1], dev)
+    n = src_lo.shape[0]
+    _check({"src_lo": src_lo, "src_hi": src_hi}, torch.int32, (n,), dev)
+    e = lead[-1]
+    rows = (q_head.numel() // e) * n if e else 0
+    tok = torch.empty(lead, dtype=torch.bool, device=dev)
+    mk = torch.empty(lead, dtype=torch.bool, device=dev)
+    head_data = torch.empty(lead, dtype=torch.int32, device=dev)
+    new_head = torch.empty(lead, dtype=torch.int32, device=dev)
+    new_len = torch.empty(lead, dtype=torch.int32, device=dev)
+    code = _fn("clsim_queue_step")(
+        q_meta.data_ptr(), q_data.data_ptr(), q_head.data_ptr(),
+        q_len.data_ptr(), time.data_ptr(), src_lo.data_ptr(),
+        src_hi.data_ptr(), tok.data_ptr(), mk.data_ptr(),
+        head_data.data_ptr(), new_head.data_ptr(), new_len.data_ptr(),
+        rows, n, e, capacity, _build.stream_ptr(q_meta))
+    _build.check(code, "clsim_queue_step")
+    LAUNCHES["queue_step"] += 1
+    return tok, mk, head_data, new_head, new_len
+
+
 def append_rows(q_meta, q_data, q_head, q_len, tok_pushed, active,
                 meta_e, rt_e, data_e, *, capacity: int, key_limit: int,
                 flag_queue_overflow: bool = True):
@@ -137,9 +196,6 @@ def append_rows(q_meta, q_data, q_head, q_len, tok_pushed, active,
     _check({"active": active}, torch.bool, lead, dev)
     e = lead[-1]
     b = q_head.numel() // e if e else 0
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"append_rows takes at most {_MAX_GRID_Y} lanes, "
-                         f"got {b}")
     err = torch.zeros(lead[:-1], dtype=torch.int32, device=dev)
     code = _fn("clsim_append_rows")(
         q_meta.data_ptr(), q_data.data_ptr(), q_head.data_ptr(),

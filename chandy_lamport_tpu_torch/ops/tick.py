@@ -1,21 +1,28 @@
-"""The sync-scheduler tick and its storm primitives, batched.
+"""The tick kernels and their storm primitives, batched.
 
-The port of the JAX package's ``ops/tick.TickKernel`` for
-``marker_mode="split"``: the synchronous tick (``_sync_tick``), the bulk
-send / snapshot-initiation injectors of the storm phase, and the drain
-and flush. The JAX kernel is written for one instance and ``vmap``ped;
+The port of the JAX package's ``ops/tick.TickKernel`` in both channel
+representations: ``marker_mode="split"`` carries the sync scheduler (the
+synchronous tick ``_sync_tick`` and the bulk snapshot injector), and
+``marker_mode="ring"`` the bit-exact scheduler (the cascade tick
+``_cascade_tick``, the scalar event injectors, the multi-tick loop and
+the drain). The JAX kernel is written for one instance and ``vmap``ped;
 here every state leaf carries a leading lane axis ``B`` and every
-function works on the whole batch at once.
+function works on the whole batch at once. Where the JAX code branches
+per lane (``lax.cond`` and ``lax.while_loop`` under ``vmap``), the port
+carries a per-lane mask: a lane that takes no branch, or whose loop has
+ended, is left exactly as it was.
 
-The five Pallas kernels the JAX tick reaches go through the port's
-kernel wrappers (``kernels/segment.py``, ``kernels/queue.py``), which run
-the hand-written CUDA kernels on a CUDA state and their plain PyTorch
-versions on a CPU state. Faults, the snapshot supervisor and the flight
-recorder are not ported yet; the tick is the JAX tick with all three off.
+The Pallas kernels the JAX ticks reach go through the port's kernel
+wrappers (``kernels/segment.py``, ``kernels/queue.py``), which run the
+hand-written CUDA kernels on a CUDA state and their plain PyTorch versions
+on a CPU state. Faults, the snapshot supervisor and the flight recorder
+are not ported yet; the ticks are the JAX ticks with all three off.
 
-The JAX state is immutable; here one write is in place: ``_append_rows``
-updates the ring planes of the state it is given (kernels/queue.py), so
-callers hand it a state they own. Everything else builds new tensors.
+The JAX state is immutable; here some writes are in place, so callers
+hand the kernel a state they own: ``_append_rows`` writes the ring planes
+(kernels/queue.py), and the ring-mode handlers write single cells of the
+[B, S, N] / [B, S, E] planes, the rings and the node balances per lane
+instead of rebuilding whole planes once per marker.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from chandy_lamport_tpu_torch.config import SimConfig
 from chandy_lamport_tpu_torch.core.state import (
+    ERR_QUEUE_OVERFLOW,
     ERR_RECORD_OVERFLOW,
     ERR_SNAPSHOT_OVERFLOW,
     ERR_TICK_LIMIT,
@@ -32,14 +40,19 @@ from chandy_lamport_tpu_torch.core.state import (
     ERR_VALUE_OVERFLOW,
     F32_EXACT_LIMIT,
     INT32_MAX,
+    RTIME_PACK_LIMIT,
     DenseState,
     DenseTopology,
     pack_meta,
 )
 from chandy_lamport_tpu_torch.kernels import queue as k_queue
 from chandy_lamport_tpu_torch.kernels import segment as k_segment
+from chandy_lamport_tpu_torch.ops.delay import select_words
 
 _i32 = torch.int32
+# the clock a frozen lane shows the delivery selection: every slot word's
+# rtime (meta >> 1) is >= -2^30, so nothing is eligible at this time
+_FROZEN_TIME = -(2**31)
 
 
 def merge_keymult(max_snapshots: int) -> int:
@@ -113,15 +126,29 @@ def select_lanes(mask, new: DenseState, old: DenseState) -> DenseState:
 
 
 class TickKernel:
-    """The sync tick over a fixed (topology, config, delay sampler), with
-    the topology tables on ``device``. The channel representation is the
-    JAX kernel's ``marker_mode="split"`` (tokens in the rings, markers in
-    the [S, E] pending planes); the ring mode of the exact scheduler is
-    not ported yet."""
+    """The ticks over a fixed (topology, config, delay sampler), with the
+    topology tables on ``device``. ``marker_mode`` is the JAX kernel's:
+    "split" (the sync scheduler: tokens in the rings, markers in the
+    [S, E] pending planes; the sync entry points) or "ring" (the exact
+    scheduler: tokens and markers share the rings in push order; the
+    exact entry points). Of the exact formulations only "cascade" is
+    ported; a ring-mode kernel refuses the others."""
 
-    def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device):
+    def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device,
+                 marker_mode: str = "ring", exact_impl: str = "cascade"):
+        if marker_mode not in ("ring", "split"):
+            raise ValueError(f"unknown marker_mode {marker_mode!r}")
+        if exact_impl not in ("cascade", "wave", "fold"):
+            raise ValueError(f"unknown exact_impl {exact_impl!r}")
+        if marker_mode == "ring" and exact_impl != "cascade":
+            raise NotImplementedError(
+                f"exact_impl={exact_impl!r} is not ported yet (ROADMAP.md, "
+                "section A); the cascade tick is")
         self.topo, self.cfg, self.delay = topo, cfg, delay
         self.device = torch.device(device)
+        # marker-fold iterations run by the cascade tick so far (one per
+        # batched step, whatever the number of lanes it serves)
+        self.fold_steps = 0
         self._keymult = merge_keymult(cfg.max_snapshots)
         self._key_limit = merge_key_limit(cfg.max_snapshots)
 
@@ -143,6 +170,8 @@ class TickKernel:
             [[0], np.cumsum(np.bincount(topo.edge_src, minlength=n))])
         self._src_lo = t(src_bounds[:-1])
         self._src_hi = t(src_bounds[1:])
+        self._edge_table = t(topo.edge_table)          # [N, D], -1 padded
+        self._rows_e = torch.arange(topo.e, dtype=_i32, device=self.device)
         self._slot_ids = torch.arange(cfg.max_snapshots, dtype=_i32,
                                       device=self.device)
         self._rec_dtype = getattr(torch, cfg.record_dtype)
@@ -261,10 +290,13 @@ class TickKernel:
 
     # ---- the synchronous tick ----------------------------------------------
 
-    def _stamp_done(self, s: DenseState) -> DenseState:
-        """Record each snapshot's completion tick, once."""
+    def _stamp_done(self, s: DenseState, active=None) -> DenseState:
+        """Record each snapshot's completion tick, once (on the lanes of
+        ``active`` [B] only, when given)."""
         newly = (s.started & (s.completed >= self.topo.n)
                  & (s.snap_done_time < 0))
+        if active is not None:
+            newly = newly & active.unsqueeze(-1)
         return s._replace(snap_done_time=torch.where(
             newly, s.time.unsqueeze(-1), s.snap_done_time))
 
@@ -341,6 +373,239 @@ class TickKernel:
             completed=s.completed + fire.sum(-1, dtype=_i32),
         ))
 
+    # ---- ring mode: the exact scheduler ------------------------------------
+    # Scalar-event arguments (an edge, a node, an amount) are host ints
+    # shared by every lane, as the JAX runner's program is; per-lane
+    # arguments are [B] tensors with the lane mask ``mask`` / ``active``.
+
+    def _lanes(self, s: DenseState):
+        return torch.arange(s.time.shape[0], device=self.device)
+
+    def _push(self, s: DenseState, e: int, is_marker: bool,
+              data: int) -> DenseState:
+        """Append to edge ``e``'s ring on every lane with one delay draw
+        (node.go:126-130), in place."""
+        C = self.cfg.queue_capacity
+        rtime, dstate = self.delay.draw(s.delay_state, s.time)
+        length = s.q_len[:, e]
+        pos = ((s.q_head[:, e] + length) % C).long()   # both >= 0
+        err = (_flag(length >= C, ERR_QUEUE_OVERFLOW)
+               | _flag((s.tok_pushed[:, e] >= self._key_limit)
+                       | (rtime >= RTIME_PACK_LIMIT), ERR_VALUE_OVERFLOW))
+        lanes = self._lanes(s)
+        s.q_meta[lanes, e, pos] = pack_meta(rtime, int(is_marker))
+        s.q_data[lanes, e, pos] = data
+        s.q_len[:, e] += 1
+        s.tok_pushed[:, e] += 1
+        return s._replace(delay_state=dstate, error=s.error | err)
+
+    def _create_local(self, s: DenseState, sid, node, exclude, mask,
+                      cnt_extra=None) -> DenseState:
+        """CreateLocalSnapshot (node.go:58-84) on the lanes of ``mask``:
+        freeze the balance of ``node`` and record its inbound links except
+        ``exclude`` (-1 for an initiator); ``sid``, ``node``, ``exclude``
+        are [B]. ``cnt_extra`` [B, E] is the cascade's deferred appends so
+        far this tick: windows open at the counter each edge WILL have
+        once they land (the JAX ``_create_local`` docstring)."""
+        lanes = self._lanes(s)
+        sid_l, node_l = sid.long(), node.long()
+        rec_mask = (mask.unsqueeze(-1)
+                    & (self._edge_dst == node.unsqueeze(-1))
+                    & (self._rows_e != exclude.unsqueeze(-1)))   # [B, E]
+        links = self._in_degree[node_l] - (exclude >= 0).to(_i32)
+        cnt = s.rec_cnt if cnt_extra is None else s.rec_cnt + cnt_extra
+        cell = (lanes, sid_l, node_l)
+        s.has_local[cell] = s.has_local[cell] | mask
+        s.frozen[cell] = torch.where(mask, s.tokens[lanes, node_l],
+                                     s.frozen[cell])
+        s.rem[cell] = torch.where(mask, links, s.rem[cell])
+        row = (lanes, sid_l)
+        s.recording[row] = s.recording[row] | rec_mask
+        s.rec_start[row] = torch.where(rec_mask, cnt.to(s.rec_start.dtype),
+                                       s.rec_start[row])
+        return s._replace(min_prot=torch.where(
+            rec_mask, torch.minimum(s.min_prot, cnt), s.min_prot))
+
+    def _broadcast_markers(self, s: DenseState, node, sid,
+                           mask) -> DenseState:
+        """SendToNeighbors (node.go:97-109) on the lanes of ``mask``: a
+        marker for ``sid`` on every outbound link of ``node`` in dest
+        order, one delay draw per real link, enqueued by one batched
+        append. A position-addressable sampler serves the row's draws as
+        a block at their sequential stream positions; the Go-exact stream
+        draws them one by one. Lanes outside ``mask`` draw nothing."""
+        b, e = s.time.shape[0], self.topo.e
+        row = self._edge_table[node.long()]                   # [B, D]
+        go = (row >= 0) & mask.unsqueeze(-1)
+        dstate = s.delay_state
+        if self.delay.position_streams:
+            valid = (row >= 0).to(_i32)
+            off = torch.cumsum(valid, dim=-1, dtype=_i32) - valid
+            rts_k = self.delay.block_receive_times(dstate, s.time, off)
+            dstate = self.delay.advance_draws(dstate,
+                                              go.sum(-1, dtype=_i32))
+        else:
+            rts_k = torch.zeros_like(row)
+            for k in range(row.shape[1]):
+                lane_k = go[:, k]
+                if not bool(lane_k.any()):
+                    continue
+                rt, drawn = self.delay.draw(dstate, s.time)
+                dstate = select_words(lane_k, drawn, dstate)
+                rts_k[:, k] = torch.where(lane_k, rt, 0)
+        # route the row onto its edges; padding and unmasked lanes aim at
+        # a spare column E that is dropped
+        tgt = torch.where(go, row, e).long()
+        active = torch.zeros((b, e + 1), dtype=torch.bool,
+                             device=self.device).scatter_(1, tgt, True)
+        rt_e = torch.zeros((b, e + 1), dtype=_i32,
+                           device=self.device).scatter_(1, tgt, rts_k)
+        s = s._replace(delay_state=dstate)
+        return self._append_rows(
+            s, active[:, :e].contiguous(), rt_e[:, :e].contiguous(), True,
+            sid.unsqueeze(-1).expand(b, e).contiguous())
+
+    def _finalize_check(self, s: DenseState, sid, node, mask) -> DenseState:
+        """finalizeSnapshot + NotifyCompletedSnapshot where no links of
+        (sid, node) remain recording (node.go:165-170), on ``mask``."""
+        lanes = self._lanes(s)
+        cell = (lanes, sid.long(), node.long())
+        done = s.done_local[cell]
+        fire = mask & s.has_local[cell] & (s.rem[cell] == 0) & ~done
+        s.done_local[cell] = done | fire
+        s.completed[lanes, sid.long()] += fire.to(_i32)
+        return s
+
+    def _handle_marker(self, s: DenseState, act, e, sid,
+                       cnt_extra) -> DenseState:
+        """HandleMarker (node.go:149-171) for the marker on edge ``e`` [B]
+        with id ``sid`` [B], on the lanes of ``act``. A first marker for
+        sid at the destination creates the local snapshot and
+        re-broadcasts; a repeat stops recording the edge. Each lane takes
+        only its own branch (the JAX ``lax.cond`` under ``vmap`` computes
+        both and selects), then the finalization check."""
+        lanes = self._lanes(s)
+        dst = self._edge_dst[e]
+        sid_l, dst_l = sid.long(), dst.long()
+        first = act & ~s.has_local[lanes, sid_l, dst_l]
+        rep = act & ~first
+        if bool(first.any()):
+            s = self._create_local(s, sid, dst, e.to(_i32), first,
+                                   cnt_extra)
+            s = self._broadcast_markers(s, dst, sid, first)
+        # repeat: close the window at the live counter where the channel
+        # still records (the JAX ``repeat`` branch)
+        cell = (lanes, sid_l, e)
+        was = rep & s.recording[cell]
+        s.recording[cell] = s.recording[cell] & ~rep
+        s.rem[lanes, sid_l, dst_l] -= was.to(_i32)
+        s.rec_end[cell] = torch.where(
+            was, s.rec_cnt[lanes, e].to(s.rec_end.dtype), s.rec_end[cell])
+        return self._finalize_check(s, sid, dst, act)
+
+    def _select_and_pop(self, s: DenseState, active=None):
+        """Tick-start delivery selection (the JAX fault-free kernel form):
+        every source's first eligible head in dest order, popped up front
+        with its payload captured — the cascade's fact 1. Lanes outside
+        ``active`` see a clock at which nothing is eligible. Returns (s,
+        tok_pend, mk_pend, head_data), all [B, E]."""
+        time = (s.time if active is None
+                else torch.where(active, s.time, _FROZEN_TIME))
+        tok, mk, head_data, new_head, new_len = k_queue.queue_step(
+            s.q_meta, s.q_data, s.q_head, s.q_len, time, self._src_first,
+            self._src_lo, self._src_hi, capacity=self.cfg.queue_capacity)
+        return s._replace(q_head=new_head, q_len=new_len), tok, mk, head_data
+
+    def _credit(self, s: DenseState, mask, amt_e) -> DenseState:
+        """HandleToken's balance half (node.go:175) for the tokens of
+        ``mask`` [B, E]."""
+        return s._replace(tokens=s.tokens + self._sum_by_dst(
+            torch.where(mask, amt_e, 0)))
+
+    def _cascade_tick(self, s: DenseState, active=None) -> DenseState:
+        """One exact tick (sim.go:71-95), bit-identical to the JAX
+        ``_cascade_tick`` (its docstring proves the form): select and pop
+        every source's delivery at once, then fold over the popped
+        markers in source order, crediting before each marker the tokens
+        of lower-ranked sources, and append the recorded tokens once at
+        the end. The fold is the JAX ``while_loop`` under ``vmap``: each
+        step takes every lane's lowest pending marker edge, and a lane
+        with none left is frozen, not run. ``active`` [B] (None = every
+        lane) ticks only those lanes; the others are left as they were."""
+        E = self.topo.e
+        s = s._replace(time=s.time + (1 if active is None
+                                      else active.to(_i32)))
+        s, tok, mk, head_data = self._select_and_pop(s, active)
+        amt_e = torch.where(tok, head_data, 0)
+        app = torch.zeros_like(tok)
+        lanes = self._lanes(s)
+        while bool(mk.any()):
+            self.fold_steps += 1
+            found = mk.any(-1)
+            e = torch.where(mk, self._rows_e, E).amin(-1)
+            e = torch.where(found, e, 0).long()
+            # a frozen lane's chunk bound 0 credits nothing
+            r = torch.where(found, self._edge_src[e], 0)
+            tmask = tok & (self._edge_src < r.unsqueeze(-1))
+            s = self._credit(s, tmask, amt_e)
+            app = app | (tmask & s.recording.any(-2))
+            sid = torch.where(found, head_data[lanes, e], 0)
+            s = self._handle_marker(s, found, e, sid, app.to(_i32))
+            mk = mk & ~(found.unsqueeze(-1)
+                        & (self._rows_e == e.unsqueeze(-1)))
+            tok = tok & ~tmask
+        s = self._credit(s, tok, amt_e)
+        app = app | (tok & s.recording.any(-2))
+        log, cnt, err = log_append_masked(
+            s.log_amt, s.rec_cnt, s.min_prot, app, amt_e, self._rec_dtype,
+            self._rec_limit, self.cfg.max_recorded)
+        s = s._replace(log_amt=log, rec_cnt=cnt, error=s.error | err)
+        return self._stamp_done(s, active)
+
+    def _quiescent(self, s: DenseState):
+        """[B]: every ring is empty, so an exact tick is a pure time
+        increment (the JAX ``_quiescent`` proof; no faults, no
+        supervisor)."""
+        return ~(s.q_len > 0).any(-1)
+
+    def _run_ticks(self, s: DenseState, n: int) -> DenseState:
+        """``n`` exact ticks per lane (the JAX ``_run_ticks`` at megatick
+        1): a lane ticks until its count is done or its rings are empty,
+        and its remaining ticks land as one time increment."""
+        i = torch.zeros_like(s.time)
+        live = (i < n) & ~self._quiescent(s)
+        while bool(live.any()):
+            s = self._cascade_tick(s, None if bool(live.all()) else live)
+            i = i + live.to(_i32)
+            live = (i < n) & ~self._quiescent(s)
+        return s._replace(time=s.time + (n - i))
+
+    def _inject_send(self, s: DenseState, e: int, amount: int) -> DenseState:
+        """PassTokenEvent -> SendTokens (node.go:112-131) on edge ``e`` of
+        every lane: debit at send time, one delay draw, enqueue."""
+        src = int(self.topo.edge_src[e])
+        s = s._replace(error=s.error | _flag(s.tokens[:, src] < amount,
+                                             ERR_TOKEN_UNDERFLOW))
+        s.tokens[:, src] -= amount
+        return self._push(s, e, False, amount)
+
+    def _inject_snapshot(self, s: DenseState, node: int) -> DenseState:
+        """SnapshotEvent -> sim.StartSnapshot (sim.go:105-123) at ``node``
+        on every lane: allocate the next id, create the initiator's local
+        snapshot recording all inbound links, broadcast markers."""
+        S = self.cfg.max_snapshots
+        sid = s.next_sid
+        s = s._replace(next_sid=s.next_sid + 1,
+                       error=s.error | _flag(sid >= S, ERR_SNAPSHOT_OVERFLOW))
+        sid = sid.clamp(0, S - 1)
+        lanes = self._lanes(s)
+        s.started[lanes, sid.long()] = True
+        every = torch.ones_like(s.started[:, 0])
+        node_b = torch.full_like(sid, node)
+        s = self._create_local(s, sid, node_b, torch.full_like(sid, -1),
+                               every)
+        return self._broadcast_markers(s, node_b, sid, every)
+
     # ---- drain ---------------------------------------------------------------
 
     def _pending(self, s: DenseState):
@@ -348,10 +613,11 @@ class TickKernel:
         return (s.started & ~s.snap_failed
                 & (s.completed < self.topo.n)).any(-1)
 
-    def _sync_drain_and_flush(self, s: DenseState) -> DenseState:
+    def _drain_and_flush_with(self, s: DenseState, tick) -> DenseState:
         """Tick each lane until its snapshots complete or it reaches its own
         ``time + max_ticks`` limit, then ``max_delay + 1`` flush ticks on
-        every lane. A lane stops ticking when ITS condition goes false —
+        every lane. ``tick(s, active)`` ticks the lanes of ``active`` [B]
+        (None = all). A lane stops ticking when ITS condition goes false —
         the semantics of the JAX while_loop under vmap — so the lanes'
         clocks end where the JAX run's do."""
         limit = s.time + self.cfg.max_ticks
@@ -359,12 +625,21 @@ class TickKernel:
         b = active.shape[0]
         live = int(active.sum())
         while live:
-            ticked = self._sync_tick(s)
-            s = ticked if live == b else select_lanes(active, ticked, s)
+            s = tick(s, None if live == b else active)
             active = self._pending(s) & (s.time < limit)
             live = int(active.sum())
         s = s._replace(error=s.error | _flag(self._pending(s),
                                              ERR_TICK_LIMIT))
         for _ in range(self.cfg.max_delay + 1):
-            s = self._sync_tick(s)
+            s = tick(s, None)
         return s
+
+    def _sync_tick_lanes(self, s: DenseState, active) -> DenseState:
+        ticked = self._sync_tick(s)
+        return ticked if active is None else select_lanes(active, ticked, s)
+
+    def _sync_drain_and_flush(self, s: DenseState) -> DenseState:
+        return self._drain_and_flush_with(s, self._sync_tick_lanes)
+
+    def _drain_and_flush(self, s: DenseState) -> DenseState:
+        return self._drain_and_flush_with(s, self._cascade_tick)

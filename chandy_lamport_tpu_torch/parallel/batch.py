@@ -1,11 +1,13 @@
 """Batched storm runs: B independent instances advanced together.
 
-The port of the JAX package's ``parallel/batch.BatchedRunner`` for
-``scheduler="sync"``: the state carries the batch as a leading axis (in
+The port of the JAX package's ``parallel/batch.BatchedRunner`` for its
+storm programs, under ``scheduler="sync"`` and ``scheduler="exact"`` (the
+cascade formulation): the state carries the batch as a leading axis (in
 place of ``jax.vmap``), a storm program runs as a Python loop over its
 phases, and the drain ticks each lane until its own condition ends
 (ops/tick.py). Runs on the card unless the caller passes ``device="cpu"``,
-where the kernel wrappers take their plain PyTorch versions.
+where the kernel wrappers take their plain PyTorch versions. Batched event
+scripts (``compile_events``/``run``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,9 +54,12 @@ class BatchedRunner:
 
     def __init__(self, topology: TopologySpec, config: Optional[SimConfig],
                  delay, batch: int, scheduler: str = "sync",
-                 check_every: int = 0, device=None):
-        """scheduler: only "sync" (simultaneous delivery, the production
-        path) is ported; the exact scheduler comes with the golden path.
+                 check_every: int = 0, device=None,
+                 exact_impl: str = "cascade"):
+        """scheduler: "sync" (simultaneous delivery, the production path)
+        or "exact" (the reference's delivery semantics, bit-exact, in the
+        cascade formulation; ``exact_impl`` "wave" and "fold" raise
+        NotImplementedError).
 
         check_every: if > 0, evaluate token conservation every K phases
         and once after the run, setting the sticky ERR_CONSERVATION bit on
@@ -62,9 +67,8 @@ class BatchedRunner:
 
         device: where the state lives and the kernels run; None means the
         card (``resolve_device``)."""
-        if scheduler != "sync":
-            raise NotImplementedError(
-                f"scheduler {scheduler!r} is not ported yet; only 'sync'")
+        if scheduler not in ("sync", "exact"):
+            raise ValueError(f"unknown scheduler {scheduler!r}")
         if check_every < 0:
             raise ValueError("check_every must be >= 0 (0 = off)")
         self.device = resolve_device(device)
@@ -78,7 +82,12 @@ class BatchedRunner:
         self.batch = batch
         self.scheduler = scheduler
         self.check_every = int(check_every)
-        self.kernel = TickKernel(self.topo, self.config, delay, self.device)
+        # sync keeps markers in the split planes; exact needs the unified
+        # ring for push-order delay draws
+        self.kernel = TickKernel(
+            self.topo, self.config, delay, self.device,
+            marker_mode="split" if scheduler == "sync" else "ring",
+            exact_impl=exact_impl)
         self._tokens0_total = int(self.topo.tokens0.sum())
         self._node_ids = torch.arange(self.topo.n, dtype=torch.int32,
                                       device=self.device)
@@ -91,8 +100,15 @@ class BatchedRunner:
     def storm_phase(self, s: DenseState, amounts, snaps) -> DenseState:
         """One storm phase for every lane: bulk sends ``amounts`` [E],
         snapshot initiations at the nodes in ``snaps`` [J] (-1 = none),
-        one tick."""
+        one tick. The exact scheduler starts one snapshot at a time, in
+        schedule order; the program is shared by every lane, so which
+        entries fire is a host fact."""
         s = self.kernel._bulk_send(s, amounts)
+        if self.scheduler == "exact":
+            for node in np.asarray(snaps).tolist():
+                if node >= 0:
+                    s = self.kernel._inject_snapshot(s, node)
+            return self.kernel._cascade_tick(s)
         init_mask = (self._node_ids.unsqueeze(0)
                      == snaps.unsqueeze(-1)).any(0)
         s = self.kernel._bulk_snapshots(s, init_mask)
@@ -104,17 +120,20 @@ class BatchedRunner:
         return s._replace(error=s.error | (delta != 0).to(torch.int32)
                           * ERR_CONSERVATION)
 
-    def _own(self, state: DenseState) -> DenseState:
-        """The state with private ring planes: the storm's appends write
-        them in place (ops/tick.py), and the caller keeps its state."""
-        return state._replace(q_meta=state.q_meta.clone(),
-                              q_data=state.q_data.clone())
+    @staticmethod
+    def _own(state: DenseState) -> DenseState:
+        """A private copy of the state: the ticks write some leaves in
+        place (ops/tick.py), and the caller keeps its state."""
+        return DenseState(*(tuple(w.clone() for w in leaf)
+                            if isinstance(leaf, tuple) else leaf.clone()
+                            for leaf in state))
 
     def _run_storm_phases(self, s: DenseState, program) -> DenseState:
         amounts = torch.as_tensor(np.asarray(program[0]), dtype=torch.int32,
                                   device=self.device)
-        snap = torch.as_tensor(np.asarray(program[1]), dtype=torch.int32,
-                               device=self.device)
+        snap = np.asarray(program[1], dtype=np.int32)
+        if self.scheduler == "sync":
+            snap = torch.as_tensor(snap, device=self.device)
         k = self.check_every
         for ph in range(amounts.shape[0]):
             s = self.storm_phase(s, amounts[ph], snap[ph])
@@ -128,12 +147,18 @@ class BatchedRunner:
         snapshot initiations + one tick per phase), then drain and flush
         unless ``drain=False``. ``state`` is left as it was."""
         s = self._run_storm_phases(self._own(state), program)
-        return self.drain(s) if drain else s
+        return self._drain_owned(s) if drain else s
 
     def drain(self, state: DenseState) -> DenseState:
         """Drain + flush every lane (and the final conservation check when
-        check_every is on): the tail of a storm run in chunks."""
-        s = self.kernel._sync_drain_and_flush(state)
+        check_every is on): the tail of a storm run in chunks. ``state``
+        is left as it was."""
+        return self._drain_owned(self._own(state))
+
+    def _drain_owned(self, s: DenseState) -> DenseState:
+        drain = (self.kernel._drain_and_flush if self.scheduler == "exact"
+                 else self.kernel._sync_drain_and_flush)
+        s = drain(s)
         return self._check_conservation(s) if self.check_every else s
 
     @staticmethod

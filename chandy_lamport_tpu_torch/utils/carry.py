@@ -3,10 +3,12 @@
 ``state_from_numpy`` takes a host state whose leaves are numpy arrays —
 a JAX ``DenseState`` fetched with ``jax.device_get``, or the output of
 ``state_to_numpy`` — and builds the port's ``DenseState`` on ``device``;
-``state_to_numpy`` goes back, restoring each leaf's JAX dtype (uint32
-words are int64 tensors in the port, core/state.py). Field order is the
-same in both packages, so a JAX run can hand its state to the port
-mid-storm and the two can be compared leaf for leaf.
+``state_to_numpy`` goes back, restoring each leaf's JAX dtype. PyTorch has
+no usable unsigned arithmetic, so the port holds uint32 words as int64
+values in [0, 2^32) and uint64 words (the Go-exact stream) as int64 bit
+for bit (core/state.py, ops/delay.py). Field order is the same in both
+packages, so a JAX run can hand its state to the port mid-storm and the
+two can be compared leaf for leaf.
 """
 
 from __future__ import annotations
@@ -17,32 +19,48 @@ import torch
 from chandy_lamport_tpu_torch.core.state import U32_LEAVES, DenseState
 
 
-def _tensor(array, device, dtype=None):
-    # np.array copies: the port never aliases (or writes into) the host
-    # arrays it was given
-    return torch.from_numpy(np.array(array, dtype=dtype)).to(device)
+def _tensor(array, device):
+    """One host leaf as a port tensor: uint32 widens to int64, uint64 is
+    reinterpreted as int64. np.array copies, so the port never aliases
+    (or writes into) the host arrays it was given."""
+    array = np.array(array)
+    if array.dtype == np.uint64:
+        array = array.view(np.int64)
+    elif array.dtype == np.uint32:
+        array = array.astype(np.int64)
+    return torch.from_numpy(array).to(device)
+
+
+def _host(leaf, dtype: str):
+    array = leaf.cpu().numpy()
+    if dtype == "uint64":
+        return array.view(np.uint64)
+    return array.astype(dtype)
 
 
 def state_from_numpy(host_state, device) -> DenseState:
     fields = {}
     for name, leaf in zip(DenseState._fields, host_state):
         if name == "delay_state":
-            fields[name] = tuple(_tensor(w, device, np.int64) for w in leaf)
-        elif name in U32_LEAVES:
-            fields[name] = _tensor(leaf, device, np.int64)
+            fields[name] = tuple(_tensor(w, device) for w in leaf)
         else:
             fields[name] = _tensor(leaf, device)
     return DenseState(**fields)
 
 
-def state_to_numpy(state: DenseState) -> DenseState:
+def state_to_numpy(state: DenseState, delay=None) -> DenseState:
+    """The host state with the JAX dtypes. ``delay`` is the port sampler
+    whose state ``delay_state`` holds (its ``host_dtypes`` name the JAX
+    dtype of each word); without it every word is taken as uint32, as the
+    hash sampler's are."""
     fields = {}
     for name, leaf in zip(DenseState._fields, state):
         if name == "delay_state":
-            fields[name] = tuple(w.cpu().numpy().astype(np.uint32)
-                                 for w in leaf)
+            dtypes = (delay.host_dtypes if delay is not None
+                      else ("uint32",) * len(leaf))
+            fields[name] = tuple(_host(w, d) for w, d in zip(leaf, dtypes))
         elif name in U32_LEAVES:
-            fields[name] = leaf.cpu().numpy().astype(np.uint32)
+            fields[name] = _host(leaf, "uint32")
         else:
             fields[name] = leaf.cpu().numpy()
     return DenseState(**fields)

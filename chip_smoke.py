@@ -6,23 +6,39 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs four phases,
+kernels/csrc`` (one nvcc per source, in parallel), then runs six phases,
 each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
                the build seconds;
-  kernels      each kernel wrapper at the bench's config-4 shapes
-               (sf-1024, B=2048, S=8, C=16) on inputs from a real storm
-               state plus seeded edge cases (ring wrap, full ring, marker
-               at head, partially active rows, overflow rows): the CUDA
-               kernel must equal its plain PyTorch version on the card bit
-               for bit (tolerance: none, integer work), with times;
-  storm        the config-4 sync storm through ``BatchedRunner.run_storm``
-               on the card: zero error bits, every snapshot complete,
-               conservation delta 0, and every kernel launched during the
-               run (launch counts are zeroed just before it);
-  cpu_vs_cuda  a small storm on the card and on the CPU (plain versions):
-               every state leaf identical.
+  kernels      each kernel wrapper at the shapes of each main path that
+               runs it — the bench's config 4 (sf-1024, B=2048, S=8, C=16)
+               for the sync storm, the exact-at-scale cell (er-256, B=4096,
+               S=8, C=24) for the exact storm — on inputs from a real storm
+               state of that path plus seeded edge cases (ring wrap, full
+               ring, marker at head, empty ring with a stale slot, a head
+               due now beside one due next tick, several eligible edges per
+               source, partially active rows, overflow rows, a marker
+               broadcast), and append_rows at 131,072 lanes of ring-10: the
+               CUDA kernel must equal its plain PyTorch version on the card
+               bit for bit (tolerance: none, integer work), with times;
+  storm        main path 1: the config-4 sync storm through
+               ``BatchedRunner.run_storm`` on the card: zero error bits,
+               every snapshot complete, conservation delta 0, and every
+               kernel of the path launched during the run (launch counts
+               are zeroed just before it);
+  exact_storm  main path 2: the exact-at-scale cell through
+               ``BatchedRunner(scheduler="exact").run_storm``, with the
+               same checks;
+  golden       a conformance check, not a main path: the 7 reference
+               goldens (21 snapshots) through the port's
+               ``run_events_file`` on the card, each snapshot equal to its
+               ``.snap`` file (read from chandy_lamport_tpu/data/test_data).
+               The port's golden driver runs megatick 1; the JAX one, at
+               its default megatick 8 on a TPU, runs the fused megatick
+               kernel, which is not ported yet;
+  cpu_vs_cuda  small sync and exact storms on the card and on the CPU
+               (plain versions): every state leaf identical.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -42,6 +58,12 @@ PEAK_OPS_PER_S = 67e12
 
 # bench config 4 (README: ``python bench.py`` defaults)
 NODES, ATTACH, BATCH, PHASES, SNAPSHOTS, DELAY_SEED = 1024, 2, 2048, 32, 8, 17
+# the exact-at-scale cell: ``storm --scheduler exact --graph er --nodes 256
+# --batch 4096 --phases 32 --snapshots 4``
+X_NODES, X_BATCH, X_PHASES, X_SNAPSHOTS = 256, 4096, 32, 4
+# the lane count of append_rows' lane-limit check (ring-10 sync storms run
+# at this batch)
+WIDE_LANES = 131_072
 
 KERNELS = {
     # wrapper: (source, the Pallas function it replaces)
@@ -53,6 +75,8 @@ KERNELS = {
                "chandy_lamport_tpu/kernels/segment.py:72"),
     "head_fields": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
                     "chandy_lamport_tpu/kernels/queue.py:63"),
+    "queue_step": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
+                   "chandy_lamport_tpu/kernels/queue.py:92"),
     "append_rows": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
                     "chandy_lamport_tpu/kernels/queue.py:157"),
 }
@@ -133,9 +157,35 @@ def config4_runner(device):
     return runner, prog
 
 
-def phase_kernels(runner, prog) -> dict:
-    """Every wrapper against its plain version at config-4 shapes; returns
-    the per-kernel measurements for the summary line."""
+def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
+                 snapshots=X_SNAPSHOTS, graph="er"):
+    """The exact-at-scale cell as the bench builds it (defaults), or a
+    smaller exact storm."""
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        scale_free,
+        staggered_snapshots,
+        storm_program,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+
+    spec = (erdos_renyi(nodes, 3.0, seed=3, tokens=phases + 10)
+            if graph == "er" else
+            scale_free(nodes, ATTACH, seed=3, tokens=phases + 10))
+    cfg = SimConfig.for_workload(snapshots=snapshots, record_dtype="int16")
+    runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
+                           scheduler="exact", device=device)
+    prog = storm_program(
+        runner.topo, phases, 1,
+        staggered_snapshots(runner.topo, snapshots, 1, 2,
+                            max_phases=phases))
+    return runner, prog
+
+
+def phase_kernels(runner, prog, xrunner, xprog) -> dict:
+    """Every wrapper against its plain version at the shapes of its path;
+    returns the per-kernel measurements for the summary line."""
     import numpy as np
     import torch
 
@@ -285,16 +335,181 @@ def phase_kernels(runner, prog) -> dict:
                                   key_limit=key_limit),
            lambda: kq.append_rows_plain(*planes_p, *args, capacity=C,
                                         key_limit=key_limit),
-           25 * B * E + 8 * n_active + 4 * B, 6 * B * E)
+           B * E + 32 * n_active + 4 * B, 6 * B * E)
+
+    # -- append_rows past the old 65,535-lane limit: a ring-10 send at
+    # 131,072 lanes, every other lane's ring full
+    wb, we, wc = WIDE_LANES, 10, 16
+    w_meta = rand_int((wb, we, wc), 0, 2**30)
+    w_data = rand_int((wb, we, wc), -99, 99)
+    w_head = rand_int((wb, we), 0, wc)
+    w_len = rand_int((wb, we), 0, wc)
+    w_len[::2, 3] = wc
+    w_rt = rand_int((wb, we), 1, 60)
+    w_args = (w_head, w_len, rand_int((wb, we), 0, 50),
+              torch.ones((wb, we), dtype=torch.bool, device=dev),
+              pack_meta(w_rt, 0), w_rt, rand_int((wb, we), 1, 9))
+    w_k, w_p = (w_meta.clone(), w_data.clone()), (w_meta.clone(),
+                                                  w_data.clone())
+    got = kq.append_rows(*w_k, *w_args, capacity=wc, key_limit=1 << 20)
+    want = kq.append_rows_plain(*w_p, *w_args, capacity=wc,
+                                key_limit=1 << 20)
+    if got[2][0] != 1 or got[2][1] != 0:
+        raise AssertionError("append_rows overflow bits wrong past 65,535 "
+                             "lanes")
+    record("append_rows", f"[{wb},{we},{wc}] planes, every row active",
+           list(got), list(want),
+           lambda: kq.append_rows(*w_k, *w_args, capacity=wc,
+                                  key_limit=1 << 20),
+           lambda: kq.append_rows_plain(*w_p, *w_args, capacity=wc,
+                                        key_limit=1 << 20),
+           33 * wb * we + 4 * wb, 6 * wb * we, extra=True)
+    del w_meta, w_data, w_k, w_p, w_args
+
+    # -- queue_step at the exact-at-scale shapes: a real exact storm 4
+    # phases in, lanes 0-5 rebuilt as the selection edge cases
+    xk = xrunner.kernel
+    xs = xrunner.run_storm(xrunner.init_batch_device(),
+                           (xprog.amounts[:4], xprog.snap[:4]), drain=False)
+    XB, XE, XN = xrunner.batch, xrunner.topo.e, xrunner.topo.n
+    XC = xrunner.config.queue_capacity
+    q_meta, q_data = xs.q_meta.clone(), xs.q_data.clone()
+    q_head, q_len = xs.q_head.clone(), xs.q_len.clone()
+    t = xs.time.clone()
+    q_head[0], q_len[0] = XC - 1, 2                    # ring wrap
+    q_head[1], q_len[1] = 1, XC                        # full ring
+    q_meta[2, :, XC - 1] = pack_meta(1, True)          # marker at head
+    q_head[2], q_len[2] = XC - 1, 1
+    q_len[3] = 0                                       # empty, stale slot
+    q_meta[3] = pack_meta(0, False)
+    rows_e = torch.arange(XE, device=dev)
+    for lane, late in ((4, 1), (5, 0)):
+        # lane 4: heads due at time (even edges) or time + 1 (odd edges);
+        # lane 5: every edge of every source eligible
+        q_len[lane] = 1 + rows_e.to(torch.int32) % 3
+        rt = t[lane] + late * (rows_e % 2).to(torch.int32)
+        q_meta[lane, rows_e, q_head[lane].long()] = pack_meta(
+            rt, (rows_e % 4 == 1).to(torch.int32))
+    sargs = (q_meta, q_data, q_head, q_len, t, xk._src_first, xk._src_lo,
+             xk._src_hi)
+    got = kq.queue_step(*sargs, capacity=XC)
+    want = kq.queue_step_plain(*sargs[:6], capacity=XC)
+    sel = got[0] | got[1]
+    if bool(sel[3].any()) or bool(sel[4, 1::2].any()) or not torch.equal(
+            sel[5].nonzero().flatten(), torch.unique(xk._src_first).long()):
+        raise AssertionError("queue_step edge cases selected wrongly")
+    record("queue_step", f"[{XB},{XE},{XC}] planes, {int(sel.sum())} "
+           "deliveries", list(got), list(want),
+           lambda: kq.queue_step(*sargs, capacity=XC),
+           lambda: kq.queue_step_plain(*sargs[:6], capacity=XC),
+           30 * XB * XE + 4 * XB + 8 * XN, 8 * XB * XE)
+    del q_meta, q_data, sargs
+
+    # -- sum_by_perm, sum_segments and append_rows at the exact path's
+    # shapes, on the same exact-storm state
+    xperm, xlo, xhi = xk._by_dst, xk._dst_lo, xk._dst_hi
+    xdst_long = xk._edge_dst.to(torch.int64)
+    x_tok, _, x_hd, _, _ = kq.queue_step_plain(
+        xs.q_meta, xs.q_data, xs.q_head, xs.q_len, xs.time, xk._src_first,
+        capacity=XC)
+    rank = rand_int((XB,), 0, XN)
+    x_wide = rand_int((64, XE), -2**31, 2**31 - 1)
+    for x, note in (
+            # the credits of one tick's token deliveries, and a fold
+            # step's chunk: the tokens of sources below a per-lane rank
+            (torch.where(x_tok, x_hd, 0), f"[{XB},{XE}] int32 credits"),
+            (torch.where(x_tok & (xk._edge_src < rank[:, None]), x_hd, 0),
+             f"[{XB},{XE}] int32 fold-step chunk"),
+            (x_wide, f"[64,{XE}] int32 full range")):
+        x = x.contiguous()
+        lib_out = torch.zeros(x.shape[:-1] + (XN,), dtype=torch.int32,
+                              device=dev)
+        want = ks.sum_by_perm_plain(x, xperm, xlo, xhi)
+        if not torch.equal(lib_out.clone().index_add_(-1, xdst_long, x),
+                           want):
+            raise AssertionError("index_add_ disagrees with sum_by_perm")
+        r = x.numel() // XE
+        record("sum_by_perm", f"exact: {note}",
+               [ks.sum_by_perm(x, xperm, xlo, xhi)], [want],
+               lambda: ks.sum_by_perm(x, xperm, xlo, xhi),
+               lambda: ks.sum_by_perm_plain(x, xperm, xlo, xhi),
+               4 * x.numel() + 4 * XE + 8 * XN + 4 * r * XN, x.numel(),
+               lambda: lib_out.index_add_(-1, xdst_long, x), extra=True)
+
+    xslo, xshi = xk._src_lo, xk._src_hi
+    xsrc_long = xk._edge_src.to(torch.int64)
+    x_amounts = torch.as_tensor(np.asarray(xprog.amounts[4]), device=dev)
+    lib_out = torch.zeros((XN,), dtype=torch.int32, device=dev)
+    want = ks.sum_segments_plain(x_amounts, xslo, xshi)
+    if not torch.equal(lib_out.clone().index_add_(-1, xsrc_long, x_amounts),
+                       want):
+        raise AssertionError("index_add_ disagrees with sum_segments")
+    record("sum_segments", f"exact: [{XE}] int32 send debits",
+           [ks.sum_segments(x_amounts, xslo, xshi)], [want],
+           lambda: ks.sum_segments(x_amounts, xslo, xshi),
+           lambda: ks.sum_segments_plain(x_amounts, xslo, xshi),
+           4 * XE + 8 * XN + 4 * XN, XE,
+           lambda: lib_out.index_add_(-1, xsrc_long, x_amounts), extra=True)
+
+    # the next phase's token send, then a marker broadcast as
+    # _broadcast_markers builds it: a per-lane node's outbound row, block
+    # receive times, marker bit set, payload = sid; every third lane
+    # outside the broadcast, lane 1's rings full, lane 2 at the push
+    # counter bound
+    x_len = xs.q_len.clone()
+    x_len[1] = XC
+    x_pushed = xs.tok_pushed.clone()
+    x_pushed[2] = xk._key_limit
+    x_active = (x_amounts > 0).expand(XB, -1).contiguous()
+    x_rt, _ = xrunner.delay.draw_many(xs.delay_state, xs.time, XE)
+    node = rand_int((XB,), 0, XN)
+    row = xk._edge_table[node.long()]
+    go = (row >= 0) & (torch.arange(XB, device=dev) % 3 != 0)[:, None]
+    valid = (row >= 0).to(torch.int32)
+    off = torch.cumsum(valid, dim=-1, dtype=torch.int32) - valid
+    rts_k = xrunner.delay.block_receive_times(xs.delay_state, xs.time, off)
+    tgt = torch.where(go, row, XE).long()
+    mk_active = torch.zeros((XB, XE + 1), dtype=torch.bool,
+                            device=dev).scatter_(1, tgt, True)
+    mk_rt = torch.zeros((XB, XE + 1), dtype=torch.int32,
+                        device=dev).scatter_(1, tgt, rts_k)
+    mk_rt = mk_rt[:, :XE].contiguous()
+    sid = rand_int((XB,), 0, xrunner.config.max_snapshots)
+    for note, act, rt, meta, data in (
+            ("token send", x_active, x_rt.contiguous(), pack_meta(x_rt, 0),
+             x_amounts.expand(XB, -1).contiguous()),
+            ("marker broadcast", mk_active[:, :XE].contiguous(), mk_rt,
+             pack_meta(mk_rt, 1), sid[:, None].expand(XB, XE).contiguous())):
+        args = (xs.q_head, x_len, x_pushed, act, meta, rt, data)
+        planes_k = (xs.q_meta.clone(), xs.q_data.clone())
+        planes_p = (xs.q_meta.clone(), xs.q_data.clone())
+        got = kq.append_rows(*planes_k, *args, capacity=XC,
+                             key_limit=xk._key_limit)
+        want = kq.append_rows_plain(*planes_p, *args, capacity=XC,
+                                    key_limit=xk._key_limit)
+        bits = got[2][1:3].tolist()
+        if not (bits[0] & 1 and bits[1] & 32):
+            raise AssertionError(f"append_rows overflow bits missing at the "
+                                 f"exact shapes ({note}): {bits}")
+        n_active = int(act.sum())
+        record("append_rows", f"exact: [{XB},{XE},{XC}] planes, {note}, "
+               f"{n_active} active rows", list(got), list(want),
+               lambda: kq.append_rows(*planes_k, *args, capacity=XC,
+                                      key_limit=xk._key_limit),
+               lambda: kq.append_rows_plain(*planes_p, *args, capacity=XC,
+                                            key_limit=xk._key_limit),
+               XB * XE + 32 * n_active + 4 * XB, 6 * XB * XE, extra=True)
+    del xs, planes_k, planes_p, args
 
     emit({"phase": "kernels", "tolerance": "bit-equal (integer work)",
           "rows": rows})
     return out
 
 
-def phase_storm(runner, prog) -> dict:
-    """The config-4 storm through the port's entry points: a warm run,
-    then the measured run with launch counts zeroed just before it."""
+def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
+    """A storm through the port's entry points: a warm run, then the
+    measured run with launch counts zeroed just before it. Fails unless
+    it is clean and every kernel of ``path_kernels`` launched."""
     import torch
 
     from chandy_lamport_tpu_torch import BatchedRunner
@@ -312,12 +527,14 @@ def phase_storm(runner, prog) -> dict:
     state = runner.init_batch_device()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    folds = runner.kernel.fold_steps
     reset_launch_counts()
     t0 = time.perf_counter()
     final = runner.run_storm(state, prog)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    folds = runner.kernel.fold_steps - folds
     summary = BatchedRunner.summarize(final)
     delta = int(conservation_delta(final, runner.config,
                                    runner.batch * int(
@@ -325,9 +542,10 @@ def phase_storm(runner, prog) -> dict:
     total_ticks = summary["total_ticks"]
     per_lane = total_ticks / runner.batch
     max_ticks = summary["max_time"]
-    emit({"phase": "storm", "graph": "sf", "nodes": runner.topo.n,
-          "edges": runner.topo.e, "batch": runner.batch, "phases": PHASES,
-          "snapshots": SNAPSHOTS, "queue_capacity":
+    emit({"phase": name, "scheduler": runner.scheduler, "graph": graph,
+          "nodes": runner.topo.n, "edges": runner.topo.e,
+          "batch": runner.batch, "phases": len(prog.amounts),
+          "snapshots": snapshots, "queue_capacity":
           runner.config.queue_capacity, "max_recorded":
           runner.config.max_recorded, "record_dtype": "int16",
           "delay": f"hash({DELAY_SEED})", "warm_run_s": warm_s,
@@ -336,14 +554,16 @@ def phase_storm(runner, prog) -> dict:
           "batched_ticks": max_ticks,
           "ms_per_batched_tick": dt / max_ticks * 1e3,
           "node_ticks_per_s": total_ticks * runner.topo.n / dt,
+          "fold_steps": folds,
           "error_bits": summary["error_bits"],
           "snapshots_started": summary["snapshots_started"],
           "snapshots_completed": summary["snapshots_completed"],
           "conservation_delta": delta, "launches": launches,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-    expected = runner.batch * SNAPSHOTS
+    expected = runner.batch * snapshots
     if summary["error_bits"]:
-        raise AssertionError(f"storm error bits {summary['errors_decoded']}")
+        raise AssertionError(f"{name} error bits "
+                             f"{summary['errors_decoded']}")
     if not (summary["snapshots_started"] == summary["snapshots_completed"]
             == expected):
         raise AssertionError(f"snapshots {summary['snapshots_started']} "
@@ -351,14 +571,34 @@ def phase_storm(runner, prog) -> dict:
                              f"completed, {expected} expected")
     if delta != 0:
         raise AssertionError(f"conservation delta {delta}")
-    idle = [k for k, v in launches.items() if v <= 0]
+    idle = [k for k in path_kernels if launches[k] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched by the storm: {idle}")
+        raise AssertionError(f"kernels never launched by {name}: {idle}")
     return launches
 
 
+def phase_golden() -> None:
+    """The 7 reference goldens on the card; every snapshot must equal its
+    .snap file. Not a main path (module docstring), so no launch counts
+    are read here."""
+    from chandy_lamport_tpu_torch.api import run_reference_tests
+
+    t0 = time.perf_counter()
+    results = run_reference_tests(device="cuda")
+    dt = time.perf_counter() - t0
+    failed = {name: why for name, _, why in results if why is not None}
+    emit({"phase": "golden", "main_path": False, "megatick": 1,
+          "cases": len(results),
+          "snapshots": sum(n for _, n, _ in results),
+          "passed": len(results) - len(failed), "failed": failed,
+          "run_s": dt})
+    if failed or len(results) != 7:
+        raise AssertionError(f"goldens failed on the card: {failed}")
+
+
 def phase_cpu_vs_cuda() -> None:
-    """A small storm on the card and on the CPU: identical leaves."""
+    """Small sync and exact storms on the card and on the CPU: identical
+    leaves."""
     import numpy as np
 
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
@@ -370,8 +610,7 @@ def phase_cpu_vs_cuda() -> None:
     from chandy_lamport_tpu_torch.ops.delay import HashDelay
     from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
 
-    finals = []
-    for device in ("cuda", "cpu"):
+    def sync_storm(device):
         runner = BatchedRunner(
             scale_free(64, 2, seed=3, tokens=16),
             SimConfig.for_workload(snapshots=4, split_markers=True,
@@ -379,22 +618,36 @@ def phase_cpu_vs_cuda() -> None:
             HashDelay(DELAY_SEED), 8, device=device)
         prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
             runner.topo, 4, 1, 1, max_phases=6))
-        finals.append(state_to_numpy(
-            runner.run_storm(runner.init_batch_device(), prog)))
-    mismatched = []
-    for name, a, b in zip(finals[0]._fields, *finals):
-        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
-        if any(x.dtype != y.dtype or not np.array_equal(x, y)
-               for x, y in pairs):
-            mismatched.append(name)
-    emit({"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
-          "phases": 6, "snapshots": 4, "leaves": len(finals[0]._fields),
-          "mismatched": mismatched,
-          "error_bits": int(np.bitwise_or.reduce(finals[0].error))})
-    if mismatched:
-        raise AssertionError(f"CUDA and CPU storms differ in {mismatched}")
-    if int(np.bitwise_or.reduce(finals[0].error)):
-        raise AssertionError("small storm raised error bits")
+        return runner, prog
+
+    def exact_storm(device):
+        return exact_runner(device, batch=8, nodes=64, phases=6,
+                            snapshots=4, graph="sf")
+
+    result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
+              "phases": 6, "snapshots": 4}
+    for scheduler, build in (("sync", sync_storm), ("exact", exact_storm)):
+        finals = []
+        for device in ("cuda", "cpu"):
+            runner, prog = build(device)
+            finals.append(state_to_numpy(
+                runner.run_storm(runner.init_batch_device(), prog)))
+        mismatched = []
+        for name, a, b in zip(finals[0]._fields, *finals):
+            pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+            if any(x.dtype != y.dtype or not np.array_equal(x, y)
+                   for x, y in pairs):
+                mismatched.append(name)
+        bits = int(np.bitwise_or.reduce(finals[0].error))
+        result[scheduler] = {"leaves": len(finals[0]._fields),
+                             "mismatched": mismatched, "error_bits": bits}
+        if mismatched:
+            raise AssertionError(f"CUDA and CPU {scheduler} storms differ "
+                                 f"in {mismatched}")
+        if bits:
+            raise AssertionError(f"small {scheduler} storm raised error "
+                                 "bits")
+    emit(result)
 
 
 def main() -> int:
@@ -423,17 +676,30 @@ def main() -> int:
           "nvcc_s": _build.build_seconds})
 
     runner, prog = config4_runner("cuda")
-    rows = phase_kernels(runner, prog)
-    launches = phase_storm(runner, prog)
+    xrunner, xprog = exact_runner("cuda")
+    rows = phase_kernels(runner, prog, xrunner, xprog)
+    # each main path runs with the launch counts zeroed just before it
+    paths = {"sync_storm": phase_storm(
+        "storm", runner, prog, "sf", SNAPSHOTS,
+        ("sum_by_perm", "sum_segments", "spread", "head_fields",
+         "append_rows"))}
     del runner
+    paths["exact_storm"] = phase_storm(
+        "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
+        ("queue_step", "append_rows", "sum_by_perm", "sum_segments"))
+    del xrunner
+    phase_golden()
     phase_cpu_vs_cuda()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "shape": row["shape"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

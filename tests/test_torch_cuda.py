@@ -3,9 +3,10 @@ machine without a GPU).
 
 Each wrapper on CUDA tensors launches its hand-written kernel; it must
 equal the plain PyTorch version on the same inputs bit for bit
-(tolerance: none, integer work), refuse operands it does not take, and
-a small storm on the card must equal the same storm on the CPU. Run on a
-GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+(tolerance: none, integer work), refuse operands it does not take, take
+more lanes than a grid's y axis holds (append_rows), and small sync and
+exact storms on the card must equal the same storms on the CPU. Run on a
+GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -93,6 +94,57 @@ def test_queue_kernels_equal_plain(dev):
     assert int(got[2].max()) > 0          # full rings and tok >= 50 flag
 
 
+def test_queue_step_equals_plain(dev):
+    """Row 6 on the card: the exact tick's selection + pop, with one
+    clock per lane, bit-equal to the plain version."""
+    rng = np.random.default_rng(5)
+    b = 6
+    q_meta = _i32(pack_meta(rng.integers(0, 40, (b, E, C)),
+                            rng.random((b, E, C)) < 0.3), dev)
+    q_data = _i32(rng.integers(-99, 99, (b, E, C)), dev)
+    q_head = _i32(rng.integers(0, C, (b, E)), dev)
+    q_len = _i32(rng.integers(0, C + 1, (b, E)), dev)
+    time = _i32(rng.integers(0, 45, b), dev)
+    src_first = _i32(np.searchsorted(TOPO.edge_src, TOPO.edge_src), dev)
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(TOPO.edge_src,
+                                                        minlength=N))])
+    lo, hi = _i32(bounds[:-1], dev), _i32(bounds[1:], dev)
+    before = launch_counts()["queue_step"]
+    got = kq.queue_step(q_meta, q_data, q_head, q_len, time, src_first, lo,
+                        hi, capacity=C)
+    _equal(got, kq.queue_step_plain(q_meta, q_data, q_head, q_len, time,
+                                    src_first, capacity=C))
+    assert launch_counts()["queue_step"] == before + 1
+    assert bool(got[0].any()) and bool(got[1].any())
+
+
+def test_append_rows_past_65535_lanes(dev):
+    """The append grid folds the lane into its 1-D index: 70,000 lanes of
+    a 10-edge ring, bit-equal to the plain version, overflow flagged on
+    exactly the lanes with a full ring."""
+    b, e, c = 70_000, 10, 16
+    gen = torch.Generator().manual_seed(6)
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    q_meta, q_data = ints((b, e, c), 0, 2**30), ints((b, e, c), -9, 9)
+    q_len = ints((b, e), 0, c)
+    q_len[::3, 7] = c
+    rt = ints((b, e), 1, 60)
+    args = (ints((b, e), 0, c), q_len, ints((b, e), 0, 50),
+            torch.ones((b, e), dtype=torch.bool, device=dev),
+            pack_meta(rt, 0), rt, ints((b, e), 1, 9))
+    got = kq.append_rows(q_meta.clone(), q_data.clone(), *args, capacity=c,
+                         key_limit=1 << 20)
+    want = kq.append_rows_plain(q_meta.clone(), q_data.clone(), *args,
+                                capacity=c, key_limit=1 << 20)
+    _equal(got, want)
+    flagged = (got[2] & 1).nonzero().flatten()
+    assert torch.equal(flagged.cpu(), torch.arange(0, b, 3))
+
+
 def test_wrappers_refuse_bad_operands(dev):
     x = torch.zeros((2, E), dtype=torch.int64, device=dev)
     lo = _i32(TOPO.dst_bounds[:-1], dev)
@@ -122,3 +174,19 @@ def test_small_storm_cuda_equals_cpu(dev):
         for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
             assert x.dtype == y.dtype and np.array_equal(x, y), name
 
+
+
+def test_small_exact_storm_cuda_equals_cpu(dev):
+    finals = []
+    for device in (dev, "cpu"):
+        runner = BatchedRunner(
+            TOPO_SPEC, SimConfig.for_workload(snapshots=3), HashDelay(5), 4,
+            scheduler="exact", device=device)
+        prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=5))
+        finals.append(state_to_numpy(
+            runner.run_storm(runner.init_batch_device(), prog)))
+    for name, a, b in zip(finals[0]._fields, *finals):
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            assert x.dtype == y.dtype and np.array_equal(x, y), name
+    assert int(finals[0].error.max()) == 0

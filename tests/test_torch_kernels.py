@@ -1,12 +1,12 @@
 """The port's kernel wrappers against the JAX package's Pallas kernels.
 
-Rows 1-5 of the port's kernel table — ``sum_by_perm``, ``sum_segments``,
-``spread``, ``head_fields``, ``append_rows`` — on numpy-seeded inputs with
-leading lane axes. The JAX side calls the Pallas function itself in
-interpret mode, ``jax.vmap``ped over the lane axis as the JAX package's
-own tests run it; the port side calls its wrapper on CPU tensors, which
-runs the plain PyTorch version. Tolerance: none (integer work, every
-value and dtype must be equal).
+Rows 1-6 of the port's kernel table — ``sum_by_perm``, ``sum_segments``,
+``spread``, ``head_fields``, ``append_rows``, ``queue_step`` — on
+numpy-seeded inputs with leading lane axes. The JAX side calls the
+Pallas function itself in interpret mode, ``jax.vmap``ped over the lane
+axes as the JAX package's own tests run it; the port side calls its
+wrapper on CPU tensors, which runs the plain PyTorch version. Tolerance:
+none (integer work, every value and dtype must be equal).
 """
 
 import jax
@@ -178,3 +178,65 @@ def test_append_rows_writes_in_place():
                               capacity=C, key_limit=KEY_LIMIT)
     assert out[0] is planes[0] and out[1] is planes[1]
     assert not np.array_equal(planes[0].numpy(), q_meta)
+
+
+def _step_inputs(rng, lead):
+    """Rings for queue_step with one clock per lane, on the ring regimes
+    of ``_rings`` (lanes 0-2) plus, where the batch has the lanes, the
+    selection edge cases: an empty ring whose stale head slot looks
+    eligible (lane 3), heads due exactly now (eligible) beside heads due
+    next tick (not; lane 4), and sources whose every outbound edge is
+    eligible, of which only the first in dest order is popped (lane 5)."""
+    b = int(np.prod(lead))
+    q_meta, q_data, q_head, q_len = _rings(rng, b)
+    time = rng.integers(0, 50, b, dtype=np.int32)
+    if b > 3:
+        q_len[3] = 0
+        q_meta[3] = pack_meta(0, False)
+    for lane, late in ((4, 1), (5, 0)):
+        if lane >= b:
+            continue
+        q_len[lane] = 1 + (np.arange(E) % 3)
+        rt = np.full(E, time[lane], np.int64)
+        rt[1::2] += late
+        mk = np.arange(E) % 4 == 1
+        q_meta[lane, np.arange(E), q_head[lane]] = pack_meta(rt, mk)
+    shape = lead + (E,)
+    return (q_meta.reshape(shape + (C,)), q_data.reshape(shape + (C,)),
+            q_head.reshape(shape), q_len.reshape(shape), time.reshape(lead))
+
+
+@pytest.mark.parametrize("lead", [(3,), (2, 4)])
+def test_queue_step_matches_pallas(lead):
+    """Row 6: the exact tick's fused head read + eligibility + first
+    eligible edge per source + pop, bit-equal to the Pallas kernel in
+    interpret mode (vmapped over every lane axis), dtypes included."""
+    src_first = np.searchsorted(TOPO.edge_src, TOPO.edge_src,
+                                side="left").astype(np.int32)
+    args = _step_inputs(np.random.default_rng(8), lead)
+
+    def one(m, d, h, n, t):
+        return pl_queue.queue_step(m, d, h, n, t, src_first, capacity=C,
+                                   interpret=True)
+
+    fn = one
+    for _ in lead:
+        fn = jax.vmap(fn)
+    ref = fn(*args)
+    got = t_queue.queue_step_plain(*map(_t, args), _t(src_first),
+                                   capacity=C)
+    for r, g in zip(ref, got):
+        _assert_same(r, g)
+    tok, mk, _, new_head, new_len = (g.reshape((-1, E)) for g in got)
+    sel = tok | mk
+    assert bool(mk.any()) and bool(tok.any())
+    flat_head = args[2].reshape((-1, E))
+    assert torch.equal(new_head[1], (_t(flat_head[1]) + sel[1]) % C)
+    assert torch.equal(new_len, _t(args[3].reshape((-1, E))) - sel.int())
+    if sel.shape[0] >= 6:
+        assert not bool(sel[3].any())             # empty rings: nothing
+        # lane 5: exactly one delivery per source, its first edge; lane 4:
+        # the odd (late) edges never deliver
+        firsts = np.unique(src_first)
+        assert sel[5].nonzero().flatten().tolist() == firsts.tolist()
+        assert not bool(sel[4, 1::2].any())
