@@ -3,6 +3,8 @@
 A second package beside the JAX one, which stays the reference: the same
 dense encoding (``core/state.py``), the same sync and exact (cascade)
 ticks (``ops/tick.py``) over an explicit lane axis (``parallel/batch.py``),
+the exact scheduler's fault adversary (``models/faults.py``), snapshot
+supervisor and quarantine,
 the single-instance golden driver (``core/dense.py``, ``api.py``), and the
 Pallas kernels of those paths hand-written in CUDA C++ (``kernels/csrc``).
 It imports neither jax nor chandy_lamport_tpu.

@@ -8,6 +8,15 @@ one warm storm that doubles as the validity check — with the JAX bench's
 doubling retry on queue or record overflow — then ``--repeats`` timed
 storms, and prints one JSON row shaped like the JAX bench's row. Log lines
 go to stderr.
+
+The exact scheduler takes the JAX storm CLI's fault adversary and
+snapshot supervisor flags by their names (``--fault-*``, ``--crash-*``,
+``--marker-fault-*``, ``--snapshot-*``, ``--quarantine``; quarantine is on
+whenever a fault rate is set). With an armed adversary a row counts when
+the conservation delta (fault skew subtracted) is 0, no bit other than
+ERR_SNAPSHOT_TIMEOUT / ERR_FAULT_UNRECOVERED is set, every lane holding
+one of those was quarantined (it stopped before the tick limit), and
+every snapshot of a clean lane completed (the JAX rule, ``cli.py:309-314``).
 """
 
 from __future__ import annotations
@@ -22,11 +31,14 @@ import torch
 
 from chandy_lamport_tpu_torch.config import SimConfig
 from chandy_lamport_tpu_torch.core.state import (
+    ERR_FAULT_UNRECOVERED,
     ERR_QUEUE_OVERFLOW,
     ERR_RECORD_OVERFLOW,
+    ERR_SNAPSHOT_TIMEOUT,
     decode_error_bits,
     decode_errors,
 )
+from chandy_lamport_tpu_torch.models.faults import Faults
 from chandy_lamport_tpu_torch.models.workloads import (
     erdos_renyi,
     ring_topology,
@@ -39,7 +51,13 @@ from chandy_lamport_tpu_torch.parallel.batch import (
     BatchedRunner,
     resolve_device,
 )
-from chandy_lamport_tpu_torch.utils.metrics import instance_footprint_bytes
+from chandy_lamport_tpu_torch.utils.metrics import (
+    conservation_delta,
+    instance_footprint_bytes,
+)
+
+# the casualties an armed adversary is expected to cause (quarantined)
+FAULT_BITS = ERR_SNAPSHOT_TIMEOUT | ERR_FAULT_UNRECOVERED
 
 
 def log(msg: str) -> None:
@@ -87,7 +105,83 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain versions and is no device measurement)")
+    f = p.add_argument_group("fault adversary and snapshot supervisor "
+                             "(--scheduler exact; the JAX storm CLI's flags)")
+    for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
+                       ("--fault-dup", "per-(edge, tick) token duplicate"),
+                       ("--fault-jitter", "per-(edge, tick) front stall"),
+                       ("--fault-crash", "per-(node, window) crash"),
+                       ("--marker-fault-drop", "per-(edge, tick) marker drop"),
+                       ("--marker-fault-dup",
+                        "per-(edge, tick) marker duplicate"),
+                       ("--marker-fault-jitter",
+                        "per-(edge, tick) marker front stall")):
+        f.add_argument(name, type=float, default=0.0, metavar="R",
+                       help=f"{what} probability")
+    f.add_argument("--fault-seed", type=int, default=3,
+                   help="adversary stream seed")
+    f.add_argument("--crash-mode", choices=["pause", "lossy"],
+                   default="pause",
+                   help="pause: memory survives; lossy: restore from the "
+                        "last completed snapshot, or ERR_FAULT_UNRECOVERED")
+    f.add_argument("--crash-len", type=int, default=2,
+                   help="crash window length in ticks")
+    f.add_argument("--crash-period", type=int, default=32,
+                   help="crash window cadence in ticks")
+    f.add_argument("--snapshot-timeout", type=int, default=0, metavar="T",
+                   help="abort and re-initiate a snapshot attempt not "
+                        "complete within T ticks (deadline doubling per "
+                        "retry); 0 = off")
+    f.add_argument("--snapshot-retries", type=int, default=3,
+                   help="re-initiations before ERR_SNAPSHOT_TIMEOUT")
+    f.add_argument("--snapshot-every", type=int, default=0, metavar="K",
+                   help="initiate a snapshot every K ticks (rotating "
+                        "initiator) while slots remain; 0 = off")
+    f.add_argument("--quarantine", action="store_true",
+                   help="freeze a lane once its error bits fire (on "
+                        "whenever a fault rate is set)")
     return p
+
+
+def _faults(args):
+    """The bench's fault program, or None when every rate is 0."""
+    rates = (args.fault_drop, args.fault_dup, args.fault_jitter,
+             args.fault_crash, args.marker_fault_drop, args.marker_fault_dup,
+             args.marker_fault_jitter)
+    if not any(rates):
+        return None
+    return Faults(args.fault_seed, drop_rate=args.fault_drop,
+                  dup_rate=args.fault_dup, jitter_rate=args.fault_jitter,
+                  crash_rate=args.fault_crash, crash_mode=args.crash_mode,
+                  crash_len=args.crash_len, crash_period=args.crash_period,
+                  marker_drop_rate=args.marker_fault_drop,
+                  marker_dup_rate=args.marker_fault_dup,
+                  marker_jitter_rate=args.marker_fault_jitter)
+
+
+def _fault_verdict(final, runner, summary) -> dict:
+    """The armed adversary's validity checks on a finished storm, and the
+    row's fault fields (module docstring)."""
+    err = final.error
+    hit = err != 0
+    clean = ~hit
+    n = runner.topo.n
+    done = final.started & (final.completed >= n)
+    tokens0 = int(runner.topo.tokens0.sum()) * runner.batch
+    delta = int(conservation_delta(final, runner.config, tokens0))
+    checks = {
+        "conservation_delta_zero": delta == 0,
+        "only_fault_bits": not bool((err & ~FAULT_BITS).any()),
+        "casualties_quarantined": runner.quarantine and not bool(
+            (final.time[hit] >= runner.config.max_ticks).any()),
+        "clean_lanes_complete": bool(
+            (done == final.started)[clean].all()),
+    }
+    return {"conservation_delta": delta,
+            "fault_events": summary["fault_events"],
+            "fault_skew": summary["fault_skew"],
+            "quarantined_lanes": int(hit.sum()),
+            "fault_checks": checks}
 
 
 def _sync(device: torch.device) -> None:
@@ -139,15 +233,22 @@ def main(argv=None) -> int:
                                  max_recorded=args.max_recorded,
                                  record_dtype=args.record_dtype,
                                  window_dtype=args.window_dtype,
-                                 split_markers=args.scheduler == "sync")
+                                 split_markers=args.scheduler == "sync",
+                                 snapshot_timeout=args.snapshot_timeout,
+                                 snapshot_retries=args.snapshot_retries,
+                                 snapshot_every=args.snapshot_every)
     if args.capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=args.capacity)
+    faults = _faults(args)
+    quarantine = args.quarantine or faults is not None
+    allowed = FAULT_BITS if faults is not None else 0
 
-    runner = summary = prog = None
+    runner = summary = prog = verdict = None
     for cap_try in range(4):
         runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
                                batch=args.batch, scheduler=args.scheduler,
-                               exact_impl=args.exact_impl, device=device)
+                               exact_impl=args.exact_impl, device=device,
+                               faults=faults, quarantine=quarantine)
         topo = runner.topo
         log(f"graph: {topo.n} nodes, {topo.e} edges, max out-degree "
             f"{topo.d}; queue_capacity={cfg.queue_capacity}")
@@ -171,9 +272,11 @@ def main(argv=None) -> int:
             continue
         log(f"warm run: {time.perf_counter() - t0:.1f}s")
         summary = BatchedRunner.summarize(final)
+        if faults is not None:
+            verdict = _fault_verdict(final, runner, summary)
         del final
         log(f"summary: {summary}")
-        bits = summary["error_bits"]
+        bits = summary["error_bits"] & ~allowed
         if not bits:
             break
         for name, msg in zip(decode_error_bits(bits), decode_errors(bits)):
@@ -189,10 +292,14 @@ def main(argv=None) -> int:
             cfg = dataclasses.replace(cfg, max_recorded=2 * cfg.max_recorded)
         log(f"retrying with queue_capacity={cfg.queue_capacity}, "
             f"max_recorded={cfg.max_recorded}")
-    if summary is None or summary["error_bits"]:
+    if summary is None or summary["error_bits"] & ~allowed:
         log("ERROR: no clean warm run")
         return 1
-    if summary["snapshots_completed"] != summary["snapshots_started"]:
+    if verdict is not None:
+        if not all(verdict["fault_checks"].values()):
+            log(f"ERROR: the faulted run fails its checks: {verdict}")
+            return 1
+    elif summary["snapshots_completed"] != summary["snapshots_started"]:
         log("ERROR: incomplete snapshots")
         return 1
 
@@ -244,6 +351,11 @@ def main(argv=None) -> int:
         "straggler_waste": summary["straggler_waste"],
         "snapshot_lifecycle": summary["snapshot_lifecycle"],
     }
+    if faults is not None:
+        result.update(faults=faults.describe(), quarantine=quarantine,
+                      snapshot_timeout=cfg.snapshot_timeout,
+                      snapshot_retries=cfg.snapshot_retries,
+                      snapshot_every=cfg.snapshot_every, **verdict)
     if device.type != "cuda":
         result["note"] = ("CPU run of the plain PyTorch versions; not a "
                           "device measurement")

@@ -1,12 +1,14 @@
 """Static capacities and knobs of the PyTorch port.
 
 A copy of the JAX package's ``config.py`` cut to what the ported paths
-(the sync and exact batch storms, the golden driver) read. The
-capacities bound every structure the Go reference grows dynamically
-(per-link queues, snapshot slots, recorded-message logs), so the state is
-fixed-shape tensors on the device. The JAX
-config's supervisor, flight-recorder and engine knobs are not ported:
-the port runs without them, as the JAX package does at their defaults.
+(the sync and exact batch storms, the golden driver, the snapshot
+supervisor of the exact scheduler) read. The capacities bound every
+structure the Go reference grows dynamically (per-link queues, snapshot
+slots, recorded-message logs), so the state is fixed-shape tensors on the
+device. The supervisor knobs (``snapshot_timeout``, ``snapshot_retries``,
+``snapshot_every``) mean what they mean in the JAX config; the JAX
+config's flight-recorder and engine knobs are not ported: the port runs
+without them, as the JAX package does at their defaults.
 """
 
 import dataclasses
@@ -31,6 +33,16 @@ class SimConfig:
     max_ticks: int = 100_000       # drain-loop budget
     record_dtype: str = "int32"    # dtype of log_amt[L, E]
     window_dtype: str = "int32"    # dtype of rec_start/rec_end[S, E]
+    # snapshot supervisor: an attempt not complete within snapshot_timeout
+    # ticks of its (re-)initiation is aborted and re-initiated under a new
+    # epoch, the deadline doubling per retry (capped at 16x); after
+    # snapshot_retries failed attempts the slot fails with
+    # ERR_SNAPSHOT_TIMEOUT. 0 = off.
+    snapshot_timeout: int = 0
+    snapshot_retries: int = 3
+    # snapshot daemon: initiate a snapshot every snapshot_every ticks from
+    # a rotating initiator while free slots remain. 0 = off.
+    snapshot_every: int = 0
 
     def __post_init__(self):
         if (self.queue_capacity <= 0 or self.max_snapshots <= 0
@@ -44,6 +56,11 @@ class SimConfig:
                 "ported yet; use window_dtype='int32'")
         if self.window_dtype != "int32":
             raise ValueError("window_dtype must be 'int32' or 'uint16'")
+        if (self.snapshot_timeout < 0 or self.snapshot_retries < 0
+                or self.snapshot_every < 0):
+            raise ValueError(
+                "snapshot_timeout/snapshot_retries/snapshot_every must be "
+                ">= 0 (0 disables the supervisor / daemon)")
 
     @classmethod
     def for_workload(cls, *, snapshots: int, max_delay: int = MAX_DELAY,
@@ -56,7 +73,8 @@ class SimConfig:
         pending delay at a steady send rate, and a head-of-line slack. The
         result is rounded up to a multiple of 8 with a floor of 16; the
         log capacity is 4 slots per snapshot with a floor of 32. Overflow
-        still flags ERR_QUEUE_OVERFLOW / ERR_RECORD_OVERFLOW."""
+        still flags ERR_QUEUE_OVERFLOW / ERR_RECORD_OVERFLOW. Other fields
+        (the supervisor knobs among them) pass through ``overrides``."""
         analytic = ((0 if split_markers else snapshots)
                     + sends_per_edge_per_phase * (max_delay + 1))
         c = max(16, analytic + hol_slack)

@@ -50,7 +50,12 @@ class DenseSim:
     ``device`` names another."""
 
     def __init__(self, topology: TopologySpec, delay,
-                 config: Optional[SimConfig] = None, device=None):
+                 config: Optional[SimConfig] = None, device=None,
+                 faults=None):
+        if faults is not None:
+            raise NotImplementedError(
+                "faults in DenseSim are not ported yet (ROADMAP.md, "
+                "section A); BatchedRunner(scheduler='exact') carries them")
         self.device = resolve_device(device)
         self.config = config or SimConfig()
         self.topo = DenseTopology(topology)

@@ -77,6 +77,11 @@ ERROR_NAMES: Dict[int, Tuple[str, str]] = {
         "a snapshot attempt missed its deadline snapshot_retries times"),
 }
 
+# fault_counts[7] event-class indices (models/faults.py): token drops,
+# duplicates, jitter stalls, crash restarts, and the marker-plane drops,
+# duplicates and jitter stalls
+FC_DROP, FC_DUP, FC_JITTER, FC_CRASH = 0, 1, 2, 3
+FC_MDROP, FC_MDUP, FC_MJITTER = 4, 5, 6
 NUM_FAULT_CLASSES = 7
 
 # largest token amount the sync scheduler's value-range contract admits;
@@ -106,6 +111,23 @@ def meta_rtime(meta):
 def meta_marker(meta):
     """Marker bit of a packed slot word (bool)."""
     return (meta & 1) == 1
+
+
+def pack_marker_data(sid, epoch, max_snapshots: int):
+    """Ring-mode marker payload word under the snapshot supervisor:
+    ``epoch * S + sid``; epoch 0 packs to the bare sid."""
+    return epoch * max_snapshots + sid
+
+
+def marker_data_sid(data, max_snapshots: int):
+    """Snapshot id of a packed marker payload word (floor modulus, as
+    jnp's)."""
+    return data % max_snapshots
+
+
+def marker_data_epoch(data, max_snapshots: int):
+    """Epoch of a packed marker payload word (floor division, as jnp's)."""
+    return torch.div(data, max_snapshots, rounding_mode="floor")
 
 
 class DenseTopology:

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper, with their plain PyTorch versions.
 
 ``segment.py`` (sum_segments, sum_by_perm, spread) and ``queue.py``
-(head_fields, queue_step, append_rows) port the six Pallas kernels the
-JAX package's sync and exact storms reach. Every wrapper runs its plain
-version on a CPU tensor and its CUDA kernel on a CUDA tensor; each CUDA
+(head_fields, queue_step, select_pop, append_rows) port the seven Pallas
+kernels the JAX package's sync, exact and faulted exact storms reach.
+Every wrapper runs its plain version on a CPU tensor and its CUDA kernel
+on a CUDA tensor; each CUDA
 launch adds one to the wrapper's count in ``launch_counts()``.
 """
 

@@ -3,6 +3,7 @@
 // Replaces the Pallas kernels of chandy_lamport_tpu/kernels/queue.py:
 //   head_fields (:63)  -> clsim_head_fields
 //   queue_step (:92)   -> clsim_queue_step
+//   select_pop (:119)  -> clsim_select_pop
 //   append_rows (:157) -> clsim_append_rows
 //
 // The rings are packed planes q_meta/q_data [B, E, C] int32, a slot word
@@ -34,6 +35,18 @@
 //   of gathered slot words in, 1+1+4+4+4 B out = 30 B, about 94 MB ->
 //   about 28 us at 3.35 TB/s; adjacent threads walk adjacent edge ranges,
 //   so loads are only partly coalesced, which the simple design accepts.
+//
+// select_pop: the selection + pop of the faulted exact tick
+//   (_select_pop_kernel, queue.py:111-116), where the fault gates (jitter
+//   stalls, crashed destinations) edit the eligibility mask between the
+//   head read (head_fields) and the selection. The same walk as
+//   queue_step: one thread per (b, source node) over [src_lo, src_hi),
+//   selecting the first eligible edge of the segment, and writing sel,
+//   new_head = (head + sel) % c and new_len = len - sel on every edge of
+//   the segment. Bound at the faulted exact cell (er-256, B=4096, E=768):
+//   per (lane, edge) 4 + 4 + 1 B in and 1 + 4 + 4 B out = 18 B, about
+//   57 MB -> about 17 us at 3.35 TB/s; the loads are partly coalesced, as
+//   in queue_step.
 //
 // append_rows: one thread per (b, e) on a 1-D grid of ceil(E / 256)
 //   blocks per lane (block -> lane = blockIdx.x / blocks-per-lane), so a
@@ -117,6 +130,32 @@ __global__ void queue_step_kernel(const int32_t* __restrict__ q_meta,
   }
 }
 
+__global__ void select_pop_kernel(const int32_t* __restrict__ q_head,
+                                  const int32_t* __restrict__ q_len,
+                                  const uint8_t* __restrict__ elig,
+                                  const int32_t* __restrict__ src_lo,
+                                  const int32_t* __restrict__ src_hi,
+                                  uint8_t* __restrict__ sel,
+                                  int32_t* __restrict__ new_head,
+                                  int32_t* __restrict__ new_len,
+                                  long long rows, int n, int e, int c) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const long long b = i / n;
+  const int node = (int)(i - b * n);
+  bool found = false;
+  for (int k = src_lo[node]; k < src_hi[node]; ++k) {
+    const long long r = b * e + k;
+    const int32_t head = q_head[r];
+    // the first eligible edge of the segment wins
+    const bool s = !found && elig[r];
+    found = found || s;
+    sel[r] = (uint8_t)s;
+    new_head[r] = s ? (head + 1) % c : head;
+    new_len[r] = q_len[r] - (int32_t)s;
+  }
+}
+
 __global__ void append_rows_kernel(int32_t* __restrict__ q_meta,
                                    int32_t* __restrict__ q_data,
                                    const int32_t* __restrict__ q_head,
@@ -180,6 +219,21 @@ int clsim_queue_step(const int32_t* q_meta, const int32_t* q_data,
                         (cudaStream_t)stream>>>(
         q_meta, q_data, q_head, q_len, time, src_lo, src_hi, tok, mk,
         head_data, new_head, new_len, rows, n, e, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+int clsim_select_pop(const int32_t* q_head, const int32_t* q_len,
+                     const uint8_t* elig, const int32_t* src_lo,
+                     const int32_t* src_hi, uint8_t* sel, int32_t* new_head,
+                     int32_t* new_len, long long rows, int n, int e, int c,
+                     void* stream) {
+  if (rows > 0) {
+    const long long blocks = (rows + kThreads - 1) / kThreads;
+    select_pop_kernel<<<(unsigned int)blocks, kThreads, 0,
+                        (cudaStream_t)stream>>>(
+        q_head, q_len, elig, src_lo, src_hi, sel, new_head, new_len, rows,
+        n, e, c);
   }
   return (int)cudaGetLastError();
 }

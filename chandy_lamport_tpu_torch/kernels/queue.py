@@ -1,11 +1,11 @@
-"""Ring-queue kernels of the sync and exact storms.
+"""Ring-queue kernels of the sync, exact and faulted exact storms.
 
 The port of the JAX package's ``kernels/queue.py`` Pallas ``head_fields``
-(:63), ``queue_step`` (:92) and ``append_rows`` (:157). Each function
-dispatches on the device of its input: a CPU tensor takes the plain
-PyTorch version beside it, a CUDA tensor launches the hand-written kernel
-of ``csrc/queue.cu`` (or raises). Planes are ``[..., E, C]`` with any
-leading batch axes.
+(:63), ``queue_step`` (:92), ``select_pop`` (:119) and ``append_rows``
+(:157). Each function dispatches on the device of its input: a CPU
+tensor takes the plain PyTorch version beside it, a CUDA tensor launches
+the hand-written kernel of ``csrc/queue.cu`` (or raises). Planes are
+``[..., E, C]`` with any leading batch axes.
 
 ``append_rows`` writes its slots IN PLACE into ``q_meta``/``q_data`` (the
 JAX form returns new planes; writing one slot per edge instead of the
@@ -29,13 +29,15 @@ from chandy_lamport_tpu_torch.core.state import (
 from chandy_lamport_tpu_torch.kernels import _build
 
 # launches of each CUDA kernel wrapper (plain versions are not counted)
-LAUNCHES = {"head_fields": 0, "queue_step": 0, "append_rows": 0}
+LAUNCHES = {"head_fields": 0, "queue_step": 0, "select_pop": 0,
+            "append_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
     "clsim_head_fields": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     "clsim_queue_step": [_P] * 12 + [ctypes.c_longlong, _I, _I, _I, _P],
+    "clsim_select_pop": [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P],
     "clsim_append_rows": [_P] * 10 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
 
@@ -76,6 +78,19 @@ def queue_step_plain(q_meta, q_data, q_head, q_len, time, src_first, *,
     sel_i = sel.to(torch.int32)
     return (sel & ~head_mk, sel & head_mk, head_data,
             (q_head + sel_i) % capacity, q_len - sel_i)
+
+
+def select_pop_plain(q_head, q_len, elig, src_first, *, capacity: int):
+    """Selection + pop over an externally gated eligibility mask,
+    transcribing the Pallas body (``_select_pop_kernel``): keep the first
+    eligible edge of each source by the exclusive prefix count re-based at
+    the source's first edge, pop it. Returns (sel bool, new_head i32,
+    new_len i32)."""
+    elig_i = elig.to(torch.int32)
+    before = torch.cumsum(elig_i, dim=-1, dtype=torch.int32) - elig_i
+    sel = elig & (before == before.index_select(-1, src_first))
+    sel_i = sel.to(torch.int32)
+    return sel, (q_head + sel_i) % capacity, q_len - sel_i
 
 
 def append_rows_plain(q_meta, q_data, q_head, q_len, tok_pushed, active,
@@ -169,6 +184,36 @@ def queue_step(q_meta, q_data, q_head, q_len, time, src_first, src_lo,
     _build.check(code, "clsim_queue_step")
     LAUNCHES["queue_step"] += 1
     return tok, mk, head_data, new_head, new_len
+
+
+def select_pop(q_head, q_len, elig, src_first, src_lo, src_hi, *,
+               capacity: int):
+    """The selection + pop of the faulted exact tick (``select_pop_plain``
+    says what it computes): ``src_first`` [E] drives the plain version,
+    the kernel walks each source's edges between ``src_lo`` and ``src_hi``
+    [N] (the same segments)."""
+    if q_head.device.type == "cpu":
+        return select_pop_plain(q_head, q_len, elig, src_first,
+                                capacity=capacity)
+    lead = tuple(q_head.shape)
+    dev = q_head.device
+    _check({"q_head": q_head, "q_len": q_len}, torch.int32, lead, dev)
+    _check({"elig": elig}, torch.bool, lead, dev)
+    n = src_lo.shape[0]
+    _check({"src_lo": src_lo, "src_hi": src_hi}, torch.int32, (n,), dev)
+    e = lead[-1]
+    rows = (q_head.numel() // e) * n if e else 0
+    sel = torch.empty(lead, dtype=torch.bool, device=dev)
+    new_head = torch.empty(lead, dtype=torch.int32, device=dev)
+    new_len = torch.empty(lead, dtype=torch.int32, device=dev)
+    code = _fn("clsim_select_pop")(
+        q_head.data_ptr(), q_len.data_ptr(), elig.data_ptr(),
+        src_lo.data_ptr(), src_hi.data_ptr(), sel.data_ptr(),
+        new_head.data_ptr(), new_len.data_ptr(), rows, n, e, capacity,
+        _build.stream_ptr(q_head))
+    _build.check(code, "clsim_select_pop")
+    LAUNCHES["select_pop"] += 1
+    return sel, new_head, new_len
 
 
 def append_rows(q_meta, q_data, q_head, q_len, tok_pushed, active,

@@ -15,8 +15,20 @@ ended, is left exactly as it was.
 The Pallas kernels the JAX ticks reach go through the port's kernel
 wrappers (``kernels/segment.py``, ``kernels/queue.py``), which run the
 hand-written CUDA kernels on a CUDA state and their plain PyTorch versions
-on a CPU state. Faults, the snapshot supervisor and the flight recorder
-are not ported yet; the ticks are the JAX ticks with all three off.
+on a CPU state.
+
+The ring-mode ticks carry the fault adversary (``faults``,
+models/faults.py), the snapshot supervisor (``cfg.snapshot_timeout`` /
+``snapshot_every``) and quarantine (a lane with error bits stops
+ticking), as the JAX ticks do; with all three off they run exactly the
+fault-free code (no hook is called). The sync tick refuses them, and
+the flight recorder is not ported (ROADMAP.md). JAX freezes a lane with
+``lax.cond`` under ``vmap``, which computes both branches and selects;
+since the port
+writes in place, it cannot tick every lane and select afterwards, so the
+lane mask ``active`` reaches every effect instead: restarts and their
+counts, the supervisor's scan, re-initiation and daemon, the gates, the
+duplicate appends, the bulk sends and injections, and every delay draw.
 
 The JAX state is immutable; here some writes are in place, so callers
 hand the kernel a state they own: ``_append_rows`` writes the ring planes
@@ -32,17 +44,29 @@ import torch
 
 from chandy_lamport_tpu_torch.config import SimConfig
 from chandy_lamport_tpu_torch.core.state import (
+    ERR_FAULT_UNRECOVERED,
     ERR_QUEUE_OVERFLOW,
     ERR_RECORD_OVERFLOW,
     ERR_SNAPSHOT_OVERFLOW,
+    ERR_SNAPSHOT_TIMEOUT,
     ERR_TICK_LIMIT,
     ERR_TOKEN_UNDERFLOW,
     ERR_VALUE_OVERFLOW,
     F32_EXACT_LIMIT,
+    FC_CRASH,
+    FC_DROP,
+    FC_DUP,
+    FC_JITTER,
+    FC_MDROP,
+    FC_MDUP,
+    FC_MJITTER,
     INT32_MAX,
     RTIME_PACK_LIMIT,
     DenseState,
     DenseTopology,
+    marker_data_epoch,
+    marker_data_sid,
+    pack_marker_data,
     pack_meta,
 )
 from chandy_lamport_tpu_torch.kernels import queue as k_queue
@@ -132,10 +156,16 @@ class TickKernel:
     [S, E] pending planes; the sync entry points) or "ring" (the exact
     scheduler: tokens and markers share the rings in push order; the
     exact entry points). Of the exact formulations only "cascade" is
-    ported; a ring-mode kernel refuses the others."""
+    ported; a ring-mode kernel refuses the others.
+
+    ``faults`` (models/faults.Faults or None) arms the fault adversary,
+    the config's ``snapshot_timeout``/``snapshot_every`` the snapshot
+    supervisor, and ``quarantine`` freezes a lane once its error bits
+    fire (module docstring); all three are ring-mode only."""
 
     def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device,
-                 marker_mode: str = "ring", exact_impl: str = "cascade"):
+                 marker_mode: str = "ring", exact_impl: str = "cascade",
+                 faults=None, quarantine: bool = False):
         if marker_mode not in ("ring", "split"):
             raise ValueError(f"unknown marker_mode {marker_mode!r}")
         if exact_impl not in ("cascade", "wave", "fold"):
@@ -144,6 +174,15 @@ class TickKernel:
             raise NotImplementedError(
                 f"exact_impl={exact_impl!r} is not ported yet (ROADMAP.md, "
                 "section A); the cascade tick is")
+        self._sup = bool(cfg.snapshot_timeout > 0 or cfg.snapshot_every > 0)
+        if marker_mode == "split" and (faults is not None or self._sup
+                                       or quarantine):
+            raise NotImplementedError(
+                "the sync scheduler under faults, the snapshot supervisor "
+                "or quarantine is not ported yet (ROADMAP.md, section A); "
+                "the exact scheduler carries them")
+        self.faults = faults
+        self.quarantine = bool(quarantine)
         self.topo, self.cfg, self.delay = topo, cfg, delay
         self.device = torch.device(device)
         # marker-fold iterations run by the cascade tick so far (one per
@@ -200,12 +239,14 @@ class TickKernel:
         """Every ring head's (rtime, is_marker, data), [B, E]."""
         return k_queue.head_fields(s.q_meta, s.q_data, s.q_head)
 
-    def _append_rows(self, s: DenseState, active, rt_e, mk_e: bool,
+    def _append_rows(self, s: DenseState, active, rt_e, mk_e,
                      data_e) -> DenseState:
         """One message on every edge where ``active`` [B, E], receive
-        times ``rt_e`` [B, E] already drawn; writes the ring planes of
+        times ``rt_e`` [B, E] already drawn, marker bit ``mk_e`` (a bool
+        for the whole row, or a [B, E] mask); writes the ring planes of
         ``s`` in place (module docstring)."""
-        meta_e = pack_meta(rt_e, int(mk_e))
+        meta_e = pack_meta(rt_e, mk_e.to(_i32) if torch.is_tensor(mk_e)
+                           else int(mk_e))
         q_meta, q_data, err = k_queue.append_rows(
             s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed, active,
             meta_e, rt_e, data_e, capacity=self.cfg.queue_capacity,
@@ -219,25 +260,35 @@ class TickKernel:
     # ---- storm injectors ----------------------------------------------------
 
     def _bulk_push(self, s: DenseState, active, is_marker: bool,
-                   data) -> DenseState:
+                   data, lanes=None) -> DenseState:
         """Enqueue one message on every edge where ``active`` [B, E]; one
-        vectorized delay draw per (lane, edge), inactive draws discarded."""
+        vectorized delay draw per (lane, edge), inactive draws discarded.
+        Lanes outside ``lanes`` [B] (None = all) draw nothing."""
         rts, dstate = self.delay.draw_many(s.delay_state, s.time,
                                            self.topo.e)
+        if lanes is not None:
+            dstate = select_words(lanes, dstate, s.delay_state)
         s = s._replace(delay_state=dstate)
         return self._append_rows(s, active, rts, is_marker, data)
 
-    def _bulk_send(self, s: DenseState, amounts) -> DenseState:
+    def _bulk_send(self, s: DenseState, amounts, lanes=None) -> DenseState:
         """One token message per edge with ``amounts[e] > 0`` ([E], shared
-        by every lane), debiting each sender at send time."""
+        by every lane), debiting each sender at send time, on the lanes of
+        ``lanes`` [B] (None = all)."""
         b = s.time.shape[0]
         debits = self._sum_by_src(amounts)                    # [N]
-        tokens = s.tokens - debits
+        active = (amounts > 0).expand(b, -1)
+        if lanes is None:
+            tokens = s.tokens - debits
+            under = (tokens < 0).any(-1)
+        else:
+            tokens = s.tokens - torch.where(lanes.unsqueeze(-1), debits, 0)
+            under = lanes & (tokens < 0).any(-1)
+            active = active & lanes.unsqueeze(-1)
         s = s._replace(tokens=tokens, error=s.error | _flag(
-            (tokens < 0).any(-1), ERR_TOKEN_UNDERFLOW))
-        active = (amounts > 0).expand(b, -1).contiguous()
-        return self._bulk_push(s, active, False,
-                               amounts.expand(b, -1).contiguous())
+            under, ERR_TOKEN_UNDERFLOW))
+        return self._bulk_push(s, active.contiguous(), False,
+                               amounts.expand(b, -1).contiguous(), lanes)
 
     def _push_markers_split(self, s: DenseState, push_se) -> DenseState:
         """Marker multi-push into the [B, S, E] pending planes; merge keys
@@ -463,7 +514,8 @@ class TickKernel:
         s = s._replace(delay_state=dstate)
         return self._append_rows(
             s, active[:, :e].contiguous(), rt_e[:, :e].contiguous(), True,
-            sid.unsqueeze(-1).expand(b, e).contiguous())
+            self._marker_payload(s, sid).unsqueeze(-1).expand(b, e)
+            .contiguous())
 
     def _finalize_check(self, s: DenseState, sid, node, mask) -> DenseState:
         """finalizeSnapshot + NotifyCompletedSnapshot where no links of
@@ -503,18 +555,36 @@ class TickKernel:
             was, s.rec_cnt[lanes, e].to(s.rec_end.dtype), s.rec_end[cell])
         return self._finalize_check(s, sid, dst, act)
 
-    def _select_and_pop(self, s: DenseState, active=None):
-        """Tick-start delivery selection (the JAX fault-free kernel form):
-        every source's first eligible head in dest order, popped up front
-        with its payload captured — the cascade's fact 1. Lanes outside
-        ``active`` see a clock at which nothing is eligible. Returns (s,
+    def _select_and_pop(self, s: DenseState, active=None, fmasks=None):
+        """Tick-start delivery selection: every source's first eligible
+        head in dest order, popped up front with its payload captured —
+        the cascade's fact 1. Without faults this is the fused
+        ``queue_step``, and lanes outside ``active`` see a clock at which
+        nothing is eligible. With faults (``fmasks`` = this tick's
+        (edge, marker) masks) it splits as the JAX form does: the head
+        read, the jitter and crash gates on the eligibility (lanes outside
+        ``active`` eligible nowhere), then ``select_pop``. Returns (s,
         tok_pend, mk_pend, head_data), all [B, E]."""
-        time = (s.time if active is None
-                else torch.where(active, s.time, _FROZEN_TIME))
-        tok, mk, head_data, new_head, new_len = k_queue.queue_step(
-            s.q_meta, s.q_data, s.q_head, s.q_len, time, self._src_first,
-            self._src_lo, self._src_hi, capacity=self.cfg.queue_capacity)
-        return s._replace(q_head=new_head, q_len=new_len), tok, mk, head_data
+        C = self.cfg.queue_capacity
+        if self.faults is None:
+            time = (s.time if active is None
+                    else torch.where(active, s.time, _FROZEN_TIME))
+            tok, mk, head_data, new_head, new_len = k_queue.queue_step(
+                s.q_meta, s.q_data, s.q_head, s.q_len, time,
+                self._src_first, self._src_lo, self._src_hi, capacity=C)
+            return (s._replace(q_head=new_head, q_len=new_len), tok, mk,
+                    head_data)
+        head_rt, head_mk, head_data = self._head_fields(s)
+        elig = (s.q_len > 0) & (head_rt <= s.time.unsqueeze(-1))
+        if active is not None:
+            elig = elig & active.unsqueeze(-1)
+        (_, _, jit_e, _), (_, _, mjit_e, _) = fmasks
+        s, elig = self._fault_gate_elig(s, elig, jit_e, mjit_e, head_mk)
+        sel, new_head, new_len = k_queue.select_pop(
+            s.q_head, s.q_len, elig, self._src_first, self._src_lo,
+            self._src_hi, capacity=C)
+        return (s._replace(q_head=new_head, q_len=new_len), sel & ~head_mk,
+                sel & head_mk, head_data)
 
     def _credit(self, s: DenseState, mask, amt_e) -> DenseState:
         """HandleToken's balance half (node.go:175) for the tokens of
@@ -531,11 +601,33 @@ class TickKernel:
         the end. The fold is the JAX ``while_loop`` under ``vmap``: each
         step takes every lane's lowest pending marker edge, and a lane
         with none left is frozen, not run. ``active`` [B] (None = every
-        lane) ticks only those lanes; the others are left as they were."""
+        lane) ticks only those lanes; the others are left as they were.
+
+        Under faults and the supervisor (the JAX ``_cascade_tick``
+        :1597-1682): crash restarts and the supervisor step at tick start,
+        the gated selection, the drop/dup split of the popped tokens and
+        markers, the stale-epoch rejection, the fold on the decoded slot
+        ids, and the duplicates re-appended after the fold."""
         E = self.topo.e
         s = s._replace(time=s.time + (1 if active is None
                                       else active.to(_i32)))
-        s, tok, mk, head_data = self._select_and_pop(s, active)
+        fmasks = None
+        if self.faults is not None:
+            # the hash is stateless in (fault_key, time, index), so the
+            # masks hashed once here equal the JAX hooks' re-hashes
+            fmasks = (self._fault_edge_masks(s), self._fault_marker_masks(s))
+            s = self._fault_restart(s, active)
+        if self._sup:
+            s = self._supervise(s, active)
+        s, tok, mk, head_data = self._select_and_pop(s, active, fmasks)
+        if self.faults is not None:
+            (drop_e, dup_e, _, dup_rt), (mdrop_e, mdup_e, _, mdup_rt) = \
+                fmasks
+            s, tok, dup = self._fault_split_tokens(s, tok, head_data,
+                                                   drop_e, dup_e)
+            s, mk, mk_dup = self._fault_split_markers(s, mk, mdrop_e,
+                                                      mdup_e)
+        s, mk, sid_e = self._reject_stale(s, mk, head_data)
         amt_e = torch.where(tok, head_data, 0)
         app = torch.zeros_like(tok)
         lanes = self._lanes(s)
@@ -549,7 +641,7 @@ class TickKernel:
             tmask = tok & (self._edge_src < r.unsqueeze(-1))
             s = self._credit(s, tmask, amt_e)
             app = app | (tmask & s.recording.any(-2))
-            sid = torch.where(found, head_data[lanes, e], 0)
+            sid = torch.where(found, sid_e[lanes, e], 0)
             s = self._handle_marker(s, found, e, sid, app.to(_i32))
             mk = mk & ~(found.unsqueeze(-1)
                         & (self._rows_e == e.unsqueeze(-1)))
@@ -560,25 +652,266 @@ class TickKernel:
             s.log_amt, s.rec_cnt, s.min_prot, app, amt_e, self._rec_dtype,
             self._rec_limit, self.cfg.max_recorded)
         s = s._replace(log_amt=log, rec_cnt=cnt, error=s.error | err)
+        if self.faults is not None:
+            # duplicated tokens and markers re-enter their channel at the
+            # tail with fault-stream receive times (an edge delivered one
+            # or the other), markers keeping their epoch-tagged payload
+            s = self._append_rows(s, dup | mk_dup,
+                                  torch.where(mk_dup, mdup_rt, dup_rt),
+                                  mk_dup, head_data)
         return self._stamp_done(s, active)
 
+    # ---- fault adversary hooks (models/faults.py) ----------------------------
+    # Called only when ``self.faults`` is set. Lanes outside the tick's
+    # ``active`` mask are left exactly as they were: their eligibility is
+    # all False (so nothing is popped, gated, dropped or duplicated there)
+    # and their restarts are masked.
+
+    def _dup_times(self, s: DenseState, words):
+        """Duplicate receive times from the fault stream's words, folded
+        into [time + 1, time + max_delay] (the JAX ``_fault_edge_masks``)."""
+        md = max(self.cfg.max_delay, 1)
+        return s.time.unsqueeze(-1) + 1 + (words % md).to(_i32)
+
+    def _fault_edge_masks(self, s: DenseState):
+        """(drop, dup, jitter) bool [B, E] + dup receive times i32 [B, E]
+        for the current tick (``s.time`` already incremented)."""
+        drop_e, dup_e, jit_e, dupw_e = self.faults.edge_masks(
+            s.fault_key, s.time, self.topo.e)
+        return drop_e, dup_e, jit_e, self._dup_times(s, dupw_e)
+
+    def _fault_marker_masks(self, s: DenseState):
+        """The marker-plane twin of ``_fault_edge_masks``."""
+        md_e, mu_e, mj_e, mw_e = self.faults.marker_masks(
+            s.fault_key, s.time, self.topo.e)
+        return md_e, mu_e, mj_e, self._dup_times(s, mw_e)
+
+    @staticmethod
+    def _count(s: DenseState, cls: int, mask) -> None:
+        """Add the events of ``mask`` [B, E] or [B, N] to
+        ``fault_counts[:, cls]``, in place."""
+        s.fault_counts[:, cls] += mask.sum(-1, dtype=_i32)
+
+    def _fault_split_markers(self, s: DenseState, mk_pend, mdrop_e,
+                             mdup_e):
+        """A dropped marker vanishes on the wire (popped, never handled);
+        a duplicated one is handled and re-appended after the fold.
+        Markers move no tokens, so no skew. Returns (state, surviving
+        markers, dup mask)."""
+        dropped = mk_pend & mdrop_e
+        duped = mk_pend & mdup_e & ~dropped
+        self._count(s, FC_MDROP, dropped)
+        self._count(s, FC_MDUP, duped)
+        return s, mk_pend & ~dropped, duped
+
+    def _fault_gate_elig(self, s: DenseState, elig, jit_e, mjit_e,
+                         marker_front):
+        """Jitter stalls the edge's front this tick (the marker-plane
+        jitter stalls marker fronts on top), and a crashed destination
+        receives nothing (its messages wait). Returns (state with the
+        stalls counted, elig)."""
+        jblocked = elig & jit_e
+        mblocked = elig & marker_front & mjit_e
+        self._count(s, FC_JITTER, jblocked)
+        self._count(s, FC_MJITTER, mblocked)
+        down_n = self.faults.down_nodes(s.fault_key, s.time, self.topo.n)
+        dead = elig & self._spread_dst(down_n)
+        return s, elig & ~(jblocked | mblocked) & ~dead
+
+    def _fault_split_tokens(self, s: DenseState, tok_e, amt_src, drop_e,
+                            dup_e):
+        """Dropped tokens vanish (popped, never credited or recorded);
+        duplicated ones deliver and are re-appended after the fold. The
+        books: ``fault_skew`` += dup amounts - dropped amounts. Returns
+        (state, surviving tokens, dup mask)."""
+        dropped = tok_e & drop_e
+        duped = tok_e & dup_e & ~dropped   # a lost message cannot also fork
+        skew = (torch.where(duped, amt_src, 0).sum(-1, dtype=_i32)
+                - torch.where(dropped, amt_src, 0).sum(-1, dtype=_i32))
+        self._count(s, FC_DROP, dropped)
+        self._count(s, FC_DUP, duped)
+        return (s._replace(fault_skew=s.fault_skew + skew),
+                tok_e & ~dropped, duped)
+
+    def _fault_restart(self, s: DenseState, active=None) -> DenseState:
+        """Crash-window restarts at tick start, on the lanes of
+        ``active``. "pause" only counts them; "lossy" restores the
+        restarting node's balance from the newest completed snapshot's
+        frozen value, or zeroes it and raises ERR_FAULT_UNRECOVERED when
+        none has completed. Every balance change lands in
+        ``fault_skew``."""
+        n = self.topo.n
+        rs_n = self.faults.restarted(s.fault_key, s.time, n)
+        if active is not None:
+            rs_n = rs_n & active.unsqueeze(-1)
+        self._count(s, FC_CRASH, rs_n)
+        if self.faults.crash_mode != "lossy":
+            return s
+        S = self.cfg.max_snapshots
+        done = s.started & (s.completed >= n)
+        sid = torch.where(done, self._slot_ids, -1).amax(-1)        # [B]
+        have = sid >= 0
+        frozen = s.frozen[self._lanes(s), sid.clamp(0, S - 1).long()]
+        restored = torch.where(rs_n, torch.where(have.unsqueeze(-1), frozen,
+                                                 0), s.tokens)
+        return s._replace(
+            tokens=restored,
+            fault_skew=s.fault_skew + (restored - s.tokens).sum(
+                -1, dtype=_i32),
+            error=s.error | _flag(rs_n.any(-1) & ~have,
+                                  ERR_FAULT_UNRECOVERED))
+
+    # ---- snapshot supervisor (cfg.snapshot_timeout / snapshot_every) ------
+    # Called only when the supervisor is armed; ring mode only.
+
+    def _marker_payload(self, s: DenseState, sid):
+        """The ring payload of a marker for slot ``sid`` [B]: (sid, epoch)
+        packed when the supervisor is armed (epoch 0 packs to the bare
+        sid), the bare sid otherwise."""
+        if not self._sup:
+            return sid
+        return pack_marker_data(sid, s.snap_epoch[self._lanes(s),
+                                                  sid.long()],
+                                self.cfg.max_snapshots)
+
+    def _reject_stale(self, s: DenseState, mk_pend, head_data):
+        """Decode (sid, epoch) from the popped markers' payloads and drop
+        the ones whose epoch the supervisor has superseded, counted in
+        ``stale_markers``. Returns (state, surviving markers, sid_e [B, E]);
+        the identity (``sid_e`` = the raw payload) when unsupervised."""
+        if not self._sup:
+            return s, mk_pend, head_data
+        S = self.cfg.max_snapshots
+        sid_e = marker_data_sid(head_data, S)
+        epoch_now = torch.gather(s.snap_epoch, -1, sid_e.clamp(0, S - 1)
+                                 .long())
+        stale = mk_pend & (marker_data_epoch(head_data, S) != epoch_now)
+        return (s._replace(stale_markers=s.stale_markers
+                           + stale.sum(-1, dtype=_i32)),
+                mk_pend & ~stale, sid_e)
+
+    def _sup_scan(self, s: DenseState, active=None):
+        """Timeout scan on the lanes of ``active``: abort every attempt
+        past its deadline (slot released, windows zeroed, epoch bumped),
+        then re-schedule it (deadline doubling per retry, capped at 16x)
+        or fail it with ERR_SNAPSHOT_TIMEOUT. Returns (state, retry mask
+        [B, S])."""
+        cfg = self.cfg
+        timed_out = (s.started & ~s.snap_failed
+                     & (s.completed < self.topo.n) & (s.snap_deadline > 0)
+                     & (s.time.unsqueeze(-1) >= s.snap_deadline))
+        if active is not None:
+            timed_out = timed_out & active.unsqueeze(-1)
+        if not bool(timed_out.any()):
+            # every update below is the identity then
+            return s, timed_out
+        can_retry = timed_out & (s.snap_retries < cfg.snapshot_retries)
+        failed = timed_out & ~can_retry
+        t_b = timed_out.unsqueeze(-1)          # over the N and E axes
+        new_retries = s.snap_retries + can_retry.to(_i32)
+        backoff = (torch.full_like(new_retries, max(cfg.snapshot_timeout, 1))
+                   << new_retries.clamp(max=4))
+        s = s._replace(
+            has_local=s.has_local & ~t_b,
+            done_local=s.done_local & ~t_b,
+            frozen=torch.where(t_b, 0, s.frozen),
+            rem=torch.where(t_b, 0, s.rem),
+            recording=s.recording & ~t_b,
+            rec_start=torch.where(t_b, 0, s.rec_start),
+            rec_end=torch.where(t_b, 0, s.rec_end),
+            completed=torch.where(timed_out, 0, s.completed),
+            m_pending=s.m_pending & ~t_b,
+            snap_epoch=s.snap_epoch + timed_out.to(_i32),
+            snap_retries=new_retries,
+            snap_failed=s.snap_failed | failed,
+            snap_deadline=torch.where(
+                can_retry, s.time.unsqueeze(-1) + backoff,
+                torch.where(failed, 0, s.snap_deadline)),
+            error=s.error | _flag(failed.any(-1), ERR_SNAPSHOT_TIMEOUT))
+        return s, can_retry
+
+    def _sup_reinitiate_ring(self, s: DenseState, retry) -> DenseState:
+        """Re-initiate each retried slot from its remembered initiator,
+        under the bumped epoch: a fresh local snapshot recording all
+        inbound links and a marker broadcast. Each lane takes its retried
+        slots lowest first (its draw order); the loop runs while any lane
+        has one left, a lane with none left is frozen (the JAX
+        ``while_loop`` under ``vmap``)."""
+        S = self.cfg.max_snapshots
+        lanes = self._lanes(s)
+        while bool(retry.any()):
+            go = retry.any(-1)
+            sid = torch.where(retry, self._slot_ids, S).amin(-1)
+            sid = torch.where(go, sid, 0)
+            node = s.snap_initiator[lanes, sid.long()].clamp(
+                0, self.topo.n - 1)
+            s = self._create_local(s, sid, node, torch.full_like(sid, -1),
+                                   go)
+            s = self._broadcast_markers(s, node, sid, go)
+            retry = retry & ~(go.unsqueeze(-1)
+                              & (self._slot_ids == sid.unsqueeze(-1)))
+        return s
+
+    def _sup_daemon(self, s: DenseState, active=None) -> DenseState:
+        """Every ``snapshot_every`` ticks, initiate a snapshot from the
+        rotating initiator ``(time // every) % n`` while free slots remain
+        (per lane: each lane's clock and slots are its own)."""
+        every = self.cfg.snapshot_every
+        fire = ((s.time % every == 0) & (s.time > 0)
+                & (s.next_sid < self.cfg.max_snapshots))
+        if active is not None:
+            fire = fire & active
+        if not bool(fire.any()):
+            return s
+        node = torch.div(s.time, every, rounding_mode="floor") % self.topo.n
+        return self._inject_snapshot(s, node, fire)
+
+    def _supervise(self, s: DenseState, active=None) -> DenseState:
+        """The per-tick supervisor step at tick start (after the time
+        increment and the crash restarts, before the selection): the
+        daemon, then the timeout scan and the re-initiations, whose
+        markers are due after this tick."""
+        if self.cfg.snapshot_every:
+            s = self._sup_daemon(s, active)
+        if self.cfg.snapshot_timeout:
+            s, retry = self._sup_scan(s, active)
+            s = self._sup_reinitiate_ring(s, retry)
+        return s
+
     def _quiescent(self, s: DenseState):
-        """[B]: every ring is empty, so an exact tick is a pure time
-        increment (the JAX ``_quiescent`` proof; no faults, no
-        supervisor)."""
-        return ~(s.q_len > 0).any(-1)
+        """[B]: an exact tick would be a pure time increment (the JAX
+        ``_quiescent`` proof): every ring is empty. A crash-capable
+        adversary or the snapshot daemon voids the proof (never
+        quiescent); with the timeout armed, a lane with a pending
+        snapshot must keep ticking to reach its deadline."""
+        if (self.faults is not None and self.faults.crashes) \
+                or self.cfg.snapshot_every:
+            return torch.zeros_like(s.time, dtype=torch.bool)
+        quiet = ~(s.q_len > 0).any(-1)
+        if self.cfg.snapshot_timeout:
+            quiet = quiet & ~self._pending(s)
+        return quiet
 
     def _run_ticks(self, s: DenseState, n: int) -> DenseState:
         """``n`` exact ticks per lane (the JAX ``_run_ticks`` at megatick
-        1): a lane ticks until its count is done or its rings are empty,
-        and its remaining ticks land as one time increment."""
+        1): a lane ticks until its count is done or it is quiescent, and
+        its remaining ticks land as one time increment. Under quarantine
+        an errored lane halts too and its clock stays where it was
+        poisoned."""
+        def halted(s):
+            h = self._quiescent(s)
+            return h | (s.error != 0) if self.quarantine else h
+
         i = torch.zeros_like(s.time)
-        live = (i < n) & ~self._quiescent(s)
+        live = (i < n) & ~halted(s)
         while bool(live.any()):
             s = self._cascade_tick(s, None if bool(live.all()) else live)
             i = i + live.to(_i32)
-            live = (i < n) & ~self._quiescent(s)
-        return s._replace(time=s.time + (n - i))
+            live = (i < n) & ~halted(s)
+        rest = n - i
+        if self.quarantine:
+            rest = torch.where(s.error != 0, 0, rest)
+        return s._replace(time=s.time + rest)
 
     def _inject_send(self, s: DenseState, e: int, amount: int) -> DenseState:
         """PassTokenEvent -> SendTokens (node.go:112-131) on edge ``e`` of
@@ -589,22 +922,34 @@ class TickKernel:
         s.tokens[:, src] -= amount
         return self._push(s, e, False, amount)
 
-    def _inject_snapshot(self, s: DenseState, node: int) -> DenseState:
+    def _inject_snapshot(self, s: DenseState, node, mask=None) -> DenseState:
         """SnapshotEvent -> sim.StartSnapshot (sim.go:105-123) at ``node``
-        on every lane: allocate the next id, create the initiator's local
-        snapshot recording all inbound links, broadcast markers."""
+        (a host int, or one node per lane [B]) on the lanes of ``mask`` [B]
+        (None = every lane): allocate the next id, create the initiator's
+        local snapshot recording all inbound links, broadcast markers.
+        Under the supervisor, remember the initiator and arm the first
+        attempt's deadline."""
         S = self.cfg.max_snapshots
         sid = s.next_sid
-        s = s._replace(next_sid=s.next_sid + 1,
-                       error=s.error | _flag(sid >= S, ERR_SNAPSHOT_OVERFLOW))
+        go = (torch.ones_like(s.started[:, 0]) if mask is None else mask)
+        s = s._replace(next_sid=s.next_sid + go.to(_i32),
+                       error=s.error | _flag(go & (sid >= S),
+                                             ERR_SNAPSHOT_OVERFLOW))
         sid = sid.clamp(0, S - 1)
         lanes = self._lanes(s)
-        s.started[lanes, sid.long()] = True
-        every = torch.ones_like(s.started[:, 0])
-        node_b = torch.full_like(sid, node)
-        s = self._create_local(s, sid, node_b, torch.full_like(sid, -1),
-                               every)
-        return self._broadcast_markers(s, node_b, sid, every)
+        cell = (lanes, sid.long())
+        s.started[cell] = s.started[cell] | go
+        node_b = (torch.full_like(sid, node) if isinstance(node, int)
+                  else node.to(_i32))
+        if self._sup:
+            s.snap_initiator[cell] = torch.where(go, node_b,
+                                                 s.snap_initiator[cell])
+            if self.cfg.snapshot_timeout:
+                s.snap_deadline[cell] = torch.where(
+                    go, s.time + self.cfg.snapshot_timeout,
+                    s.snap_deadline[cell])
+        s = self._create_local(s, sid, node_b, torch.full_like(sid, -1), go)
+        return self._broadcast_markers(s, node_b, sid, go)
 
     # ---- drain ---------------------------------------------------------------
 
@@ -619,19 +964,33 @@ class TickKernel:
         every lane. ``tick(s, active)`` ticks the lanes of ``active`` [B]
         (None = all). A lane stops ticking when ITS condition goes false —
         the semantics of the JAX while_loop under vmap — so the lanes'
-        clocks end where the JAX run's do."""
+        clocks end where the JAX run's do.
+
+        Under quarantine a lane with error bits stops like a finished one
+        (drain and flush ticks alike) and is not charged ERR_TICK_LIMIT
+        for the ticks it was denied."""
         limit = s.time + self.cfg.max_ticks
-        active = self._pending(s) & (s.time < limit)
+
+        def cond(s):
+            c = self._pending(s) & (s.time < limit)
+            return c & (s.error == 0) if self.quarantine else c
+
+        active = cond(s)
         b = active.shape[0]
         live = int(active.sum())
         while live:
             s = tick(s, None if live == b else active)
-            active = self._pending(s) & (s.time < limit)
+            active = cond(s)
             live = int(active.sum())
-        s = s._replace(error=s.error | _flag(self._pending(s),
-                                             ERR_TICK_LIMIT))
+        blown = self._pending(s)
+        if self.quarantine:
+            blown = blown & (s.error == 0)
+        s = s._replace(error=s.error | _flag(blown, ERR_TICK_LIMIT))
         for _ in range(self.cfg.max_delay + 1):
-            s = tick(s, None)
+            active = (s.error == 0) if self.quarantine else None
+            live = b if active is None else int(active.sum())
+            if live:
+                s = tick(s, None if live == b else active)
         return s
 
     def _sync_tick_lanes(self, s: DenseState, active) -> DenseState:

@@ -6,8 +6,11 @@ cascade formulation): the state carries the batch as a leading axis (in
 place of ``jax.vmap``), a storm program runs as a Python loop over its
 phases, and the drain ticks each lane until its own condition ends
 (ops/tick.py). Runs on the card unless the caller passes ``device="cpu"``,
-where the kernel wrappers take their plain PyTorch versions. Batched event
-scripts (``compile_events``/``run``) are not ported yet.
+where the kernel wrappers take their plain PyTorch versions. The exact
+scheduler also carries the fault adversary (``faults=``), the snapshot
+supervisor (the config's ``snapshot_*`` knobs) and ``quarantine=``.
+Batched event scripts (``compile_events``/``run``), the flight recorder
+(``trace=``) and the sync scheduler under faults are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,11 +58,24 @@ class BatchedRunner:
     def __init__(self, topology: TopologySpec, config: Optional[SimConfig],
                  delay, batch: int, scheduler: str = "sync",
                  check_every: int = 0, device=None,
-                 exact_impl: str = "cascade"):
+                 exact_impl: str = "cascade", faults=None,
+                 quarantine: bool = False, trace=None):
         """scheduler: "sync" (simultaneous delivery, the production path)
         or "exact" (the reference's delivery semantics, bit-exact, in the
         cascade formulation; ``exact_impl`` "wave" and "fold" raise
         NotImplementedError).
+
+        faults: models/faults.Faults, the deterministic fault adversary,
+        armed per lane by the ``fault_key`` ramp of
+        ``Faults.init_batch_state`` (zero a lane's key to disarm it); None
+        calls no hook. Exact scheduler only.
+
+        quarantine: a lane whose sticky error bits fire stops — its storm
+        phases, drain and flush ticks are skipped and its clock stays
+        where it was poisoned; healthy lanes are unaffected. Exact
+        scheduler only.
+
+        trace: the flight recorder is not ported (NotImplementedError).
 
         check_every: if > 0, evaluate token conservation every K phases
         and once after the run, setting the sticky ERR_CONSERVATION bit on
@@ -71,6 +87,10 @@ class BatchedRunner:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if check_every < 0:
             raise ValueError("check_every must be >= 0 (0 = off)")
+        if trace is not None:
+            raise NotImplementedError(
+                "the flight recorder (trace=, utils/tracing.py) is not "
+                "ported yet (ROADMAP.md, section A)")
         self.device = resolve_device(device)
         self.topo = DenseTopology(topology)
         self.config = config or SimConfig()
@@ -87,28 +107,38 @@ class BatchedRunner:
         self.kernel = TickKernel(
             self.topo, self.config, delay, self.device,
             marker_mode="split" if scheduler == "sync" else "ring",
-            exact_impl=exact_impl)
+            exact_impl=exact_impl, faults=faults, quarantine=quarantine)
+        self.faults = faults
+        self.quarantine = bool(quarantine)
         self._tokens0_total = int(self.topo.tokens0.sum())
         self._node_ids = torch.arange(self.topo.n, dtype=torch.int32,
                                       device=self.device)
 
     def init_batch_device(self) -> DenseState:
-        """A fresh batched state, built on the runner's device."""
-        return init_state(self.topo, self.config, self.batch, self.delay,
-                          self.device)
+        """A fresh batched state, built on the runner's device (with the
+        adversary's per-lane keys when faults are armed)."""
+        s = init_state(self.topo, self.config, self.batch, self.delay,
+                       self.device)
+        if self.faults is not None:
+            s = s._replace(fault_key=self.faults.init_batch_state(
+                self.batch, self.device))
+        return s
 
-    def storm_phase(self, s: DenseState, amounts, snaps) -> DenseState:
-        """One storm phase for every lane: bulk sends ``amounts`` [E],
-        snapshot initiations at the nodes in ``snaps`` [J] (-1 = none),
-        one tick. The exact scheduler starts one snapshot at a time, in
-        schedule order; the program is shared by every lane, so which
-        entries fire is a host fact."""
-        s = self.kernel._bulk_send(s, amounts)
+    def storm_phase(self, s: DenseState, amounts, snaps,
+                    lanes=None) -> DenseState:
+        """One storm phase: bulk sends ``amounts`` [E], snapshot
+        initiations at the nodes in ``snaps`` [J] (-1 = none), one tick,
+        on the lanes of ``lanes`` [B] (None = every lane; the exact
+        scheduler's quarantine gate passes the unpoisoned ones). The exact
+        scheduler starts one snapshot at a time, in schedule order; the
+        program is shared by every lane, so which entries fire is a host
+        fact."""
+        s = self.kernel._bulk_send(s, amounts, lanes)
         if self.scheduler == "exact":
             for node in np.asarray(snaps).tolist():
                 if node >= 0:
-                    s = self.kernel._inject_snapshot(s, node)
-            return self.kernel._cascade_tick(s)
+                    s = self.kernel._inject_snapshot(s, node, lanes)
+            return self.kernel._cascade_tick(s, lanes)
         init_mask = (self._node_ids.unsqueeze(0)
                      == snaps.unsqueeze(-1)).any(0)
         s = self.kernel._bulk_snapshots(s, init_mask)
@@ -128,6 +158,20 @@ class BatchedRunner:
                             if isinstance(leaf, tuple) else leaf.clone()
                             for leaf in state))
 
+    def _gated_phase(self, s: DenseState, amounts, snaps) -> DenseState:
+        """A storm phase behind the quarantine gate: a lane with error
+        bits at the phase's start sits the whole phase out, its state
+        (delay stream included) untouched (the JAX ``_quarantine_gate``).
+        Without quarantine, every lane runs the phase."""
+        if not self.quarantine:
+            return self.storm_phase(s, amounts, snaps)
+        ok = s.error == 0
+        live = int(ok.sum())
+        if not live:
+            return s
+        return self.storm_phase(s, amounts, snaps,
+                                None if live == self.batch else ok)
+
     def _run_storm_phases(self, s: DenseState, program) -> DenseState:
         amounts = torch.as_tensor(np.asarray(program[0]), dtype=torch.int32,
                                   device=self.device)
@@ -136,7 +180,7 @@ class BatchedRunner:
             snap = torch.as_tensor(snap, device=self.device)
         k = self.check_every
         for ph in range(amounts.shape[0]):
-            s = self.storm_phase(s, amounts[ph], snap[ph])
+            s = self._gated_phase(s, amounts[ph], snap[ph])
             if k and (ph + 1) % k == 0:
                 s = self._check_conservation(s)
         return self._check_conservation(s) if k else s

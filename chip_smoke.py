@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs six phases,
+kernels/csrc`` (one nvcc per source, in parallel), then runs seven phases,
 each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -14,11 +14,13 @@ each printing one JSON line:
   kernels      each kernel wrapper at the shapes of each main path that
                runs it — the bench's config 4 (sf-1024, B=2048, S=8, C=16)
                for the sync storm, the exact-at-scale cell (er-256, B=4096,
-               S=8, C=24) for the exact storm — on inputs from a real storm
-               state of that path plus seeded edge cases (ring wrap, full
-               ring, marker at head, empty ring with a stale slot, a head
-               due now beside one due next tick, several eligible edges per
-               source, partially active rows, overflow rows, a marker
+               S=8, C=24) for the exact storm and the faulted exact storm —
+               on inputs from a real storm state of that path plus seeded
+               edge cases (ring wrap, full ring, marker at head, empty ring
+               with a stale slot, a head due now beside one due next tick,
+               several eligible edges per source, a source with every or
+               no edge eligible after the fault gates, a lane with nothing
+               eligible, partially active rows, overflow rows, a marker
                broadcast), and append_rows at 131,072 lanes of ring-10: the
                CUDA kernel must equal its plain PyTorch version on the card
                bit for bit (tolerance: none, integer work), with times;
@@ -30,6 +32,15 @@ each printing one JSON line:
   exact_storm  main path 2: the exact-at-scale cell through
                ``BatchedRunner(scheduler="exact").run_storm``, with the
                same checks;
+  fault_storm  main path 3: the same cell under the fault adversary, the
+               snapshot supervisor and quarantine (``Faults(3, ...)``
+               below, ``snapshot_timeout=64``) through
+               ``BatchedRunner(scheduler="exact", faults=..., quarantine=
+               True).run_storm`` (warm run at a smaller batch, timed run at
+               B=4096): every fault class fired, the supervisor retried,
+               conservation delta 0, no bit but ERR_SNAPSHOT_TIMEOUT, every
+               snapshot of every clean lane complete, every kernel of the
+               path launched and queue_step never;
   golden       a conformance check, not a main path: the 7 reference
                goldens (21 snapshots) through the port's
                ``run_events_file`` on the card, each snapshot equal to its
@@ -37,7 +48,9 @@ each printing one JSON line:
                The port's golden driver runs megatick 1; the JAX one, at
                its default megatick 8 on a TPU, runs the fused megatick
                kernel, which is not ported yet;
-  cpu_vs_cuda  small sync and exact storms on the card and on the CPU
+  cpu_vs_cuda  small sync, exact and faulted exact storms (the last with
+               lossy crashes at a fixed window, marker drops and the
+               supervisor with its daemon) on the card and on the CPU
                (plain versions): every state leaf identical.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
@@ -61,6 +74,13 @@ NODES, ATTACH, BATCH, PHASES, SNAPSHOTS, DELAY_SEED = 1024, 2, 2048, 32, 8, 17
 # the exact-at-scale cell: ``storm --scheduler exact --graph er --nodes 256
 # --batch 4096 --phases 32 --snapshots 4``
 X_NODES, X_BATCH, X_PHASES, X_SNAPSHOTS = 256, 4096, 32, 4
+# the faulted exact path: the exact cell under this adversary, with the
+# supervisor's first deadline 64 ticks after each (re-)initiation
+F_TIMEOUT, F_WARM_BATCH = 64, 256
+F_PROGRAM = dict(drop_rate=0.01, dup_rate=0.01, jitter_rate=0.01,
+                 crash_rate=0.01, crash_mode="pause",
+                 marker_drop_rate=0.0002, marker_dup_rate=0.01,
+                 marker_jitter_rate=0.01)
 # the lane count of append_rows' lane-limit check (ring-10 sync storms run
 # at this batch)
 WIDE_LANES = 131_072
@@ -77,6 +97,8 @@ KERNELS = {
                     "chandy_lamport_tpu/kernels/queue.py:63"),
     "queue_step": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
                    "chandy_lamport_tpu/kernels/queue.py:92"),
+    "select_pop": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
+                   "chandy_lamport_tpu/kernels/queue.py:119"),
     "append_rows": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
                     "chandy_lamport_tpu/kernels/queue.py:157"),
 }
@@ -158,9 +180,10 @@ def config4_runner(device):
 
 
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
-                 snapshots=X_SNAPSHOTS, graph="er"):
+                 snapshots=X_SNAPSHOTS, graph="er", faults=None, **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
-    smaller exact storm."""
+    smaller exact storm; with ``faults`` (and supervisor knobs in
+    ``cfg_kw``) the faulted exact storm, quarantined."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -173,9 +196,11 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     spec = (erdos_renyi(nodes, 3.0, seed=3, tokens=phases + 10)
             if graph == "er" else
             scale_free(nodes, ATTACH, seed=3, tokens=phases + 10))
-    cfg = SimConfig.for_workload(snapshots=snapshots, record_dtype="int16")
+    cfg = SimConfig.for_workload(snapshots=snapshots, record_dtype="int16",
+                                 **cfg_kw)
     runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
-                           scheduler="exact", device=device)
+                           scheduler="exact", device=device, faults=faults,
+                           quarantine=faults is not None)
     prog = storm_program(
         runner.topo, phases, 1,
         staggered_snapshots(runner.topo, snapshots, 1, 2,
@@ -183,7 +208,15 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     return runner, prog
 
 
-def phase_kernels(runner, prog, xrunner, xprog) -> dict:
+def fault_runner(device, batch=X_BATCH):
+    """The faulted exact storm of main path 3 (module docstring)."""
+    from chandy_lamport_tpu_torch.models.faults import Faults
+
+    return exact_runner(device, batch, faults=Faults(3, **F_PROGRAM),
+                        snapshot_timeout=F_TIMEOUT)
+
+
+def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
     """Every wrapper against its plain version at the shapes of its path;
     returns the per-kernel measurements for the summary line."""
     import numpy as np
@@ -501,26 +534,91 @@ def phase_kernels(runner, prog, xrunner, xprog) -> dict:
                XB * XE + 32 * n_active + 4 * XB, 6 * XB * XE, extra=True)
     del xs, planes_k, planes_p, args
 
+    # -- the faulted exact path at its shapes: a real faulted storm 6
+    # phases in, the next tick's head read and fault gates as
+    # _select_and_pop takes them
+    from chandy_lamport_tpu_torch import BatchedRunner
+
+    fk = frunner.kernel
+    fs = frunner.run_storm(frunner.init_batch_device(),
+                           (fprog.amounts[:6], fprog.snap[:6]), drain=False)
+    FB, FE, FN = frunner.batch, frunner.topo.e, frunner.topo.n
+    FC = frunner.config.queue_capacity
+    ft = BatchedRunner._own(fs._replace(time=fs.time + 1))
+    del fs
+    record("head_fields", f"faulted exact: [{FB},{FE},{FC}] planes",
+           list(kq.head_fields(ft.q_meta, ft.q_data, ft.q_head)),
+           list(kq.head_fields_plain(ft.q_meta, ft.q_data, ft.q_head)),
+           lambda: kq.head_fields(ft.q_meta, ft.q_data, ft.q_head),
+           lambda: kq.head_fields_plain(ft.q_meta, ft.q_data, ft.q_head),
+           FB * FE * (4 + 8 + 9), 3 * FB * FE, extra=True)
+    # the crash gate's spread: this tick's down nodes, lanes 0-3 random
+    down = fk.faults.down_nodes(ft.fault_key, ft.time, FN)
+    down[:4] = torch.rand((4, FN), generator=gen).to(dev) < 0.3
+    dst_long = fk._edge_dst.to(torch.int64)
+    record("spread", f"faulted exact: [{FB},{FN}] bool -> edge_dst",
+           [ks.spread(down, fk._edge_dst)],
+           [ks.spread_plain(down, fk._edge_dst)],
+           lambda: ks.spread(down, fk._edge_dst),
+           lambda: ks.spread_plain(down, fk._edge_dst),
+           FB * FN + 4 * FE + FB * FE, 0,
+           lambda: torch.index_select(down, -1, dst_long), extra=True)
+    head_rt, head_mk, _ = kq.head_fields_plain(ft.q_meta, ft.q_data,
+                                               ft.q_head)
+    elig = (ft.q_len > 0) & (head_rt <= ft.time[:, None])
+    (_, _, jit_e, _), (_, _, mjit_e, _) = (fk._fault_edge_masks(ft),
+                                           fk._fault_marker_masks(ft))
+    _, elig = fk._fault_gate_elig(ft, elig, jit_e, mjit_e, head_mk)
+    f_head, f_len = ft.q_head.clone(), ft.q_len.clone()
+    del ft
+    # lane 0: every edge eligible; lane 1: nothing eligible; lane 2:
+    # every ring at its wrap; lane 3: sources of even index with no edge
+    # eligible, odd ones with all
+    elig[0] = True
+    elig[1] = False
+    f_head[2] = FC - 1
+    f_len[2] = torch.clamp(f_len[2], min=1)
+    elig[3] = fk._edge_src % 2 == 1
+    sel_args = (f_head, f_len, elig.contiguous(), fk._src_first, fk._src_lo,
+                fk._src_hi)
+    got = kq.select_pop(*sel_args, capacity=FC)
+    want = kq.select_pop_plain(*sel_args[:4], capacity=FC)
+    firsts = torch.unique(fk._src_first).long()
+    if (not torch.equal(got[0][0].nonzero().flatten(), firsts)
+            or bool(got[0][1].any())
+            or bool((got[1][2][got[0][2]] != 0).any())
+            or bool(got[0][3][fk._edge_src % 2 == 0].any())):
+        raise AssertionError("select_pop edge cases selected wrongly")
+    record("select_pop", f"[{FB},{FE}] gated elig after the fault gates, "
+           f"{int(got[0].sum())} selected (faulted exact)",
+           list(got), list(want),
+           lambda: kq.select_pop(*sel_args, capacity=FC),
+           lambda: kq.select_pop_plain(*sel_args[:4], capacity=FC),
+           18 * FB * FE + 8 * FN, 4 * FB * FE)
+    del sel_args, elig, f_head, f_len, down
+
     emit({"phase": "kernels", "tolerance": "bit-equal (integer work)",
           "rows": rows})
     return out
 
 
-def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
-    """A storm through the port's entry points: a warm run, then the
-    measured run with launch counts zeroed just before it. Fails unless
-    it is clean and every kernel of ``path_kernels`` launched."""
+def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
+    """A warm run (of ``warm_runner``/``warm_prog`` when given), then the
+    measured run of ``runner`` on ``prog`` with the launch counts zeroed
+    just before it. Returns (final state, measurements)."""
     import torch
 
-    from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.kernels import (
         launch_counts,
         reset_launch_counts,
     )
-    from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
 
     t0 = time.perf_counter()
-    warm = runner.run_storm(runner.init_batch_device(), prog)
+    if warm_runner is None:
+        warm = runner.run_storm(runner.init_batch_device(), prog)
+    else:
+        warm = warm_runner.run_storm(warm_runner.init_batch_device(),
+                                     warm_prog, drain=False)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     del warm
@@ -535,31 +633,55 @@ def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
     dt = time.perf_counter() - t0
     launches = launch_counts()
     folds = runner.kernel.fold_steps - folds
+    total_ticks = int(final.time.sum())
+    max_ticks = int(final.time.max())
+    return final, {
+        "warm_run_s": warm_s, "run_s": dt, "total_ticks": total_ticks,
+        "ticks_per_lane": total_ticks / runner.batch,
+        "max_lane_ticks": max_ticks, "batched_ticks": max_ticks,
+        "ms_per_batched_tick": dt / max_ticks * 1e3,
+        "node_ticks_per_s": total_ticks * runner.topo.n / dt,
+        "fold_steps": folds, "launches": launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _storm_meta(name, runner, prog, graph, snapshots) -> dict:
+    return {"phase": name, "scheduler": runner.scheduler, "graph": graph,
+            "nodes": runner.topo.n, "edges": runner.topo.e,
+            "batch": runner.batch, "phases": len(prog.amounts),
+            "snapshots": snapshots,
+            "queue_capacity": runner.config.queue_capacity,
+            "max_recorded": runner.config.max_recorded,
+            "record_dtype": "int16", "delay": f"hash({DELAY_SEED})"}
+
+
+def _check_launches(name, launches, path_kernels, idle_kernels=()):
+    idle = [k for k in path_kernels if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by {name}: {idle}")
+    busy = [k for k in idle_kernels if launches[k] != 0]
+    if busy:
+        raise AssertionError(f"{name} launched {busy}, which its path "
+                             "must not run")
+
+
+def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
+    """A storm through the port's entry points: a warm run, then the
+    measured run with launch counts zeroed just before it. Fails unless
+    it is clean and every kernel of ``path_kernels`` launched."""
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
+
+    final, m = _timed_storm(runner, prog)
     summary = BatchedRunner.summarize(final)
     delta = int(conservation_delta(final, runner.config,
                                    runner.batch * int(
                                        runner.topo.tokens0.sum())))
-    total_ticks = summary["total_ticks"]
-    per_lane = total_ticks / runner.batch
-    max_ticks = summary["max_time"]
-    emit({"phase": name, "scheduler": runner.scheduler, "graph": graph,
-          "nodes": runner.topo.n, "edges": runner.topo.e,
-          "batch": runner.batch, "phases": len(prog.amounts),
-          "snapshots": snapshots, "queue_capacity":
-          runner.config.queue_capacity, "max_recorded":
-          runner.config.max_recorded, "record_dtype": "int16",
-          "delay": f"hash({DELAY_SEED})", "warm_run_s": warm_s,
-          "run_s": dt, "total_ticks": total_ticks,
-          "ticks_per_lane": per_lane, "max_lane_ticks": max_ticks,
-          "batched_ticks": max_ticks,
-          "ms_per_batched_tick": dt / max_ticks * 1e3,
-          "node_ticks_per_s": total_ticks * runner.topo.n / dt,
-          "fold_steps": folds,
+    emit({**_storm_meta(name, runner, prog, graph, snapshots), **m,
           "error_bits": summary["error_bits"],
           "snapshots_started": summary["snapshots_started"],
           "snapshots_completed": summary["snapshots_completed"],
-          "conservation_delta": delta, "launches": launches,
-          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+          "conservation_delta": delta})
     expected = runner.batch * snapshots
     if summary["error_bits"]:
         raise AssertionError(f"{name} error bits "
@@ -571,10 +693,62 @@ def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
                              f"completed, {expected} expected")
     if delta != 0:
         raise AssertionError(f"conservation delta {delta}")
-    idle = [k for k in path_kernels if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched by {name}: {idle}")
-    return launches
+    _check_launches(name, m["launches"], path_kernels)
+    return m["launches"]
+
+
+def phase_fault_storm(runner, prog, path_kernels) -> dict:
+    """Main path 3, the faulted exact storm (module docstring): warm run
+    at F_WARM_BATCH lanes over a few phases, timed run at B=4096."""
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
+    from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
+
+    warm_runner, _ = fault_runner("cuda", F_WARM_BATCH)
+    final, m = _timed_storm(runner, prog, warm_runner,
+                            (prog.amounts[:4], prog.snap[:4]))
+    del warm_runner
+    summary = BatchedRunner.summarize(final)
+    delta = int(conservation_delta(final, runner.config,
+                                   runner.batch * int(
+                                       runner.topo.tokens0.sum())))
+    err = final.error
+    clean = err == 0
+    done = final.started & (final.completed >= runner.topo.n)
+    incomplete_clean = int((final.started & ~done)[clean].sum())
+    emit({**_storm_meta("fault_storm", runner, prog, "er", X_SNAPSHOTS),
+          **m, "faults": runner.faults.describe(),
+          "snapshot_timeout": runner.config.snapshot_timeout,
+          "snapshot_retries": runner.config.snapshot_retries,
+          "quarantine": runner.quarantine,
+          "error_bits": summary["error_bits"],
+          "errors_decoded": summary["errors_decoded"],
+          "quarantined_lanes": int((~clean).sum()),
+          "max_clean_lane_ticks": (int(final.time[clean].max())
+                                   if bool(clean.any()) else 0),
+          "snapshots_started": summary["snapshots_started"],
+          "snapshots_completed": summary["snapshots_completed"],
+          "incomplete_on_clean_lanes": incomplete_clean,
+          "fault_events": summary["fault_events"],
+          "fault_skew": summary["fault_skew"],
+          "snapshot_lifecycle": summary["snapshot_lifecycle"],
+          "conservation_delta": delta})
+    fired = summary["fault_events"]
+    if not all(v > 0 for v in fired.values()):
+        raise AssertionError(f"a fault class never fired: {fired}")
+    if summary["snapshot_lifecycle"]["retried"] <= 0:
+        raise AssertionError("the supervisor never retried")
+    if delta != 0:
+        raise AssertionError(f"conservation delta {delta}")
+    if summary["error_bits"] & ~ERR_SNAPSHOT_TIMEOUT:
+        raise AssertionError(f"fault_storm error bits "
+                             f"{summary['errors_decoded']}")
+    if incomplete_clean:
+        raise AssertionError(f"{incomplete_clean} snapshots incomplete on "
+                             "lanes without error bits")
+    _check_launches("fault_storm", m["launches"], path_kernels,
+                    idle_kernels=("queue_step",))
+    return m["launches"]
 
 
 def phase_golden() -> None:
@@ -624,9 +798,23 @@ def phase_cpu_vs_cuda() -> None:
         return exact_runner(device, batch=8, nodes=64, phases=6,
                             snapshots=4, graph="sf")
 
+    def faulted_storm(device):
+        # lossy crashes of half the nodes at tick 70, after the first
+        # snapshots completed (restored from them), rare marker drops, the
+        # supervisor with its daemon every 12 ticks
+        from chandy_lamport_tpu_torch.models.faults import Faults
+
+        return exact_runner(device, batch=8, nodes=64, phases=6,
+                            snapshots=4, graph="sf",
+                            faults=Faults(3, crash_rate=0.5,
+                                          crash_mode="lossy", crash_start=70,
+                                          marker_drop_rate=0.002),
+                            snapshot_timeout=F_TIMEOUT, snapshot_every=12)
+
     result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
               "phases": 6, "snapshots": 4}
-    for scheduler, build in (("sync", sync_storm), ("exact", exact_storm)):
+    for scheduler, build in (("sync", sync_storm), ("exact", exact_storm),
+                             ("faulted_exact", faulted_storm)):
         finals = []
         for device in ("cuda", "cpu"):
             runner, prog = build(device)
@@ -640,7 +828,12 @@ def phase_cpu_vs_cuda() -> None:
                 mismatched.append(name)
         bits = int(np.bitwise_or.reduce(finals[0].error))
         result[scheduler] = {"leaves": len(finals[0]._fields),
-                             "mismatched": mismatched, "error_bits": bits}
+                             "mismatched": mismatched, "error_bits": bits,
+                             "fault_counts": finals[0].fault_counts.sum(
+                                 0).tolist(),
+                             "stale_markers": int(
+                                 finals[0].stale_markers.sum()),
+                             "retried": int(finals[0].snap_retries.sum())}
         if mismatched:
             raise AssertionError(f"CUDA and CPU {scheduler} storms differ "
                                  f"in {mismatched}")
@@ -677,7 +870,8 @@ def main() -> int:
 
     runner, prog = config4_runner("cuda")
     xrunner, xprog = exact_runner("cuda")
-    rows = phase_kernels(runner, prog, xrunner, xprog)
+    frunner, fprog = fault_runner("cuda")
+    rows = phase_kernels(runner, prog, xrunner, xprog, frunner, fprog)
     # each main path runs with the launch counts zeroed just before it
     paths = {"sync_storm": phase_storm(
         "storm", runner, prog, "sf", SNAPSHOTS,
@@ -688,6 +882,10 @@ def main() -> int:
         "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
         ("queue_step", "append_rows", "sum_by_perm", "sum_segments"))
     del xrunner
+    paths["fault_storm"] = phase_fault_storm(
+        frunner, fprog, ("select_pop", "head_fields", "spread",
+                         "append_rows", "sum_by_perm", "sum_segments"))
+    del frunner
     phase_golden()
     phase_cpu_vs_cuda()
 

@@ -4,8 +4,9 @@ machine without a GPU).
 Each wrapper on CUDA tensors launches its hand-written kernel; it must
 equal the plain PyTorch version on the same inputs bit for bit
 (tolerance: none, integer work), refuse operands it does not take, take
-more lanes than a grid's y axis holds (append_rows), and small sync and
-exact storms on the card must equal the same storms on the CPU. Run on a
+more lanes than a grid's y axis holds (append_rows), and small sync,
+exact and faulted exact storms on the card must equal the same storms on
+the CPU. Run on a
 GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -18,12 +19,13 @@ from chandy_lamport_tpu_torch.core.state import DenseTopology, pack_meta
 from chandy_lamport_tpu_torch.kernels import launch_counts
 from chandy_lamport_tpu_torch.kernels import queue as kq
 from chandy_lamport_tpu_torch.kernels import segment as ks
+from chandy_lamport_tpu_torch.models.faults import Faults
 from chandy_lamport_tpu_torch.models.workloads import (
     scale_free,
     staggered_snapshots,
     storm_program,
 )
-from chandy_lamport_tpu_torch.ops.delay import HashDelay
+from chandy_lamport_tpu_torch.ops.delay import FixedDelay, HashDelay
 from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -118,6 +120,30 @@ def test_queue_step_equals_plain(dev):
     assert bool(got[0].any()) and bool(got[1].any())
 
 
+def test_select_pop_equals_plain(dev):
+    """Row 7 on the card: selection + pop over a gated eligibility mask;
+    lane 0 every edge eligible, lane 1 none, lane 2 heads at the wrap."""
+    rng = np.random.default_rng(8)
+    b = 6
+    q_head = rng.integers(0, C, (b, E))
+    q_head[2] = C - 1
+    q_head, q_len = _i32(q_head, dev), _i32(rng.integers(1, C + 1, (b, E)),
+                                            dev)
+    elig = rng.random((b, E)) < 0.4
+    elig[0], elig[1] = True, False
+    elig = torch.as_tensor(elig, device=dev)
+    src_first = _i32(np.searchsorted(TOPO.edge_src, TOPO.edge_src), dev)
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(TOPO.edge_src,
+                                                        minlength=N))])
+    lo, hi = _i32(bounds[:-1], dev), _i32(bounds[1:], dev)
+    before = launch_counts()["select_pop"]
+    got = kq.select_pop(q_head, q_len, elig, src_first, lo, hi, capacity=C)
+    _equal(got, kq.select_pop_plain(q_head, q_len, elig, src_first,
+                                    capacity=C))
+    assert launch_counts()["select_pop"] == before + 1
+    assert not bool(got[0][1].any()) and bool(got[0][0].any())
+
+
 def test_append_rows_past_65535_lanes(dev):
     """The append grid folds the lane into its 1-D index: 70,000 lanes of
     a 10-edge ring, bit-equal to the plain version, overflow flagged on
@@ -190,3 +216,34 @@ def test_small_exact_storm_cuda_equals_cpu(dev):
         for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
             assert x.dtype == y.dtype and np.array_equal(x, y), name
     assert int(finals[0].error.max()) == 0
+
+
+def test_small_faulted_storm_cuda_equals_cpu(dev):
+    """A faulted exact storm with lossy crashes, marker drops, the
+    supervisor and its daemon, quarantined: every leaf equal on the card
+    and the CPU, and the faulted path never ran queue_step."""
+    finals = []
+    for device in (dev, "cpu"):
+        runner = BatchedRunner(
+            TOPO_SPEC, SimConfig.for_workload(snapshots=3,
+                                              snapshot_timeout=40,
+                                              snapshot_every=6),
+            FixedDelay(1), 4, scheduler="exact", device=device,
+            faults=Faults(3, drop_rate=0.05, dup_rate=0.05, jitter_rate=0.05,
+                          crash_rate=0.5, crash_mode="lossy",
+                          crash_start=30, marker_drop_rate=0.01,
+                          marker_dup_rate=0.05, marker_jitter_rate=0.05),
+            quarantine=True)
+        prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=5))
+        before = launch_counts()
+        finals.append(state_to_numpy(
+            runner.run_storm(runner.init_batch_device(), prog)))
+        if device == dev:
+            after = launch_counts()
+            assert after["queue_step"] == before["queue_step"]
+            assert after["select_pop"] > before["select_pop"]
+    for name, a, b in zip(finals[0]._fields, *finals):
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            assert x.dtype == y.dtype and np.array_equal(x, y), name
+    assert int(finals[0].fault_counts.sum()) > 0

@@ -1,7 +1,8 @@
 """The port's kernel wrappers against the JAX package's Pallas kernels.
 
-Rows 1-6 of the port's kernel table — ``sum_by_perm``, ``sum_segments``,
-``spread``, ``head_fields``, ``append_rows``, ``queue_step`` — on
+Rows 1-7 of the port's kernel table — ``sum_by_perm``, ``sum_segments``,
+``spread``, ``head_fields``, ``append_rows``, ``queue_step``,
+``select_pop`` — on
 numpy-seeded inputs with leading lane axes. The JAX side calls the
 Pallas function itself in interpret mode, ``jax.vmap``ped over the lane
 axes as the JAX package's own tests run it; the port side calls its
@@ -240,3 +241,48 @@ def test_queue_step_matches_pallas(lead):
         firsts = np.unique(src_first)
         assert sel[5].nonzero().flatten().tolist() == firsts.tolist()
         assert not bool(sel[4, 1::2].any())
+
+
+def _select_inputs(rng, lead):
+    """Heads, lengths and a gated eligibility mask for select_pop: lane 0
+    wraps (heads at C-1), lane 1 has every edge eligible, lane 2 none,
+    lane 3 every other edge, later lanes random."""
+    b = int(np.prod(lead))
+    q_head = rng.integers(0, C, (b, E), dtype=np.int32)
+    q_len = rng.integers(1, C + 1, (b, E), dtype=np.int32)
+    elig = rng.random((b, E)) < 0.4
+    q_head[0] = C - 1
+    elig[1] = True
+    elig[2] = False
+    elig[3] = np.arange(E) % 2 == 1
+    shape = lead + (E,)
+    return (q_head.reshape(shape), q_len.reshape(shape), elig.reshape(shape))
+
+
+@pytest.mark.parametrize("lead", [(5,), (2, 4)])
+def test_select_pop_matches_pallas(lead):
+    """Row 7: selection + pop over an externally gated eligibility mask
+    (the faulted exact tick), bit-equal to the Pallas kernel in interpret
+    mode (vmapped over every lane axis), dtypes included."""
+    src_first = np.searchsorted(TOPO.edge_src, TOPO.edge_src,
+                                side="left").astype(np.int32)
+    args = _select_inputs(np.random.default_rng(9), lead)
+
+    def one(h, n, el):
+        return pl_queue.select_pop(h, n, el, src_first, capacity=C,
+                                   interpret=True)
+
+    fn = one
+    for _ in lead:
+        fn = jax.vmap(fn)
+    ref = fn(*args)
+    got = t_queue.select_pop_plain(*map(_t, args), _t(src_first),
+                                   capacity=C)
+    for r, g in zip(ref, got):
+        _assert_same(r, g)
+    sel, new_head, new_len = (g.reshape((-1, E)) for g in got)
+    firsts = np.unique(src_first).tolist()
+    assert sel[1].nonzero().flatten().tolist() == firsts   # all eligible
+    assert not bool(sel[2].any())                           # none eligible
+    assert bool((new_head[0][sel[0]] == 0).all())           # wrap to 0
+    assert torch.equal(new_len, _t(args[1].reshape((-1, E))) - sel.int())
