@@ -4,6 +4,7 @@
                                                        (bench.py)
     python -m chandy_lamport_tpu_torch test [--device cpu]
                                                        the 7 reference goldens
+                                                       (DenseSim, megatick 8)
 """
 
 import argparse

@@ -1,6 +1,6 @@
 """Run an event script: the port's front door to the golden path (the JAX
-package's ``api.run_events_file`` with its dense backend, at megatick 1 —
-``core/dense.py`` says why).
+package's ``api.run_events_file`` with its dense backend, ``DenseSim`` at
+its default megatick 8 — the fused megatick kernel on the card).
 
 Bit-exact golden reproduction replays Go's PRNG stream seeded with
 ``REFERENCE_TEST_SEED + 1`` (snapshot_test.go:20) through the exact tick.

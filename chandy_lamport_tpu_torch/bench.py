@@ -7,7 +7,9 @@ nodes, 2048 lanes, 32 phases, 8 snapshots, hash delay, int16 log;
 one warm storm that doubles as the validity check — with the JAX bench's
 doubling retry on queue or record overflow — then ``--repeats`` timed
 storms, and prints one JSON row shaped like the JAX bench's row. Log lines
-go to stderr.
+go to stderr. ``--megatick K`` runs the exact drain and flush in K-tick
+megaticks (the fused megatick kernel on the card; the row stamps
+``megatick``, ``fused_tick`` and ``fused_reason``).
 
 The exact scheduler takes the JAX storm CLI's fault adversary and
 snapshot supervisor flags by their names (``--fault-*``, ``--crash-*``,
@@ -85,6 +87,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--exact-impl", choices=["cascade"], default="cascade",
                    help="bit-exact tick formulation when --scheduler exact "
                         "(wave and fold are not ported yet)")
+    p.add_argument("--megatick", type=int, default=1,
+                   help="K-tick megaticks for the exact drain and flush "
+                        "(the JAX bench's default 1; the fused megatick "
+                        "kernel on the card); bit-identical results")
     p.add_argument("--capacity", type=int, default=0,
                    help="per-edge queue slots; 0 = size to the workload")
     p.add_argument("--max-recorded", type=int, default=0,
@@ -248,7 +254,8 @@ def main(argv=None) -> int:
         runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
                                batch=args.batch, scheduler=args.scheduler,
                                exact_impl=args.exact_impl, device=device,
-                               faults=faults, quarantine=quarantine)
+                               faults=faults, quarantine=quarantine,
+                               megatick=args.megatick)
         topo = runner.topo
         log(f"graph: {topo.n} nodes, {topo.e} edges, max out-degree "
             f"{topo.d}; queue_capacity={cfg.queue_capacity}")
@@ -271,7 +278,7 @@ def main(argv=None) -> int:
             log(f"device OOM; retrying with batch={args.batch}")
             continue
         log(f"warm run: {time.perf_counter() - t0:.1f}s")
-        summary = BatchedRunner.summarize(final)
+        summary = BatchedRunner.summarize(final, runner)
         if faults is not None:
             verdict = _fault_verdict(final, runner, summary)
         del final
@@ -309,11 +316,13 @@ def main(argv=None) -> int:
         state = runner.init_batch_device()
         _sync(device)
         folds = runner.kernel.fold_steps
+        drain_folds = runner.kernel.drain_fold_steps
         t0 = time.perf_counter()
         final = runner.run_storm(state, prog)
         _sync(device)
         dt = time.perf_counter() - t0
         folds = runner.kernel.fold_steps - folds
+        drain_folds = runner.kernel.drain_fold_steps - drain_folds
         total_ticks = int(final.time.sum())
         # the batch ticks together until its slowest lane has drained
         batched_ticks = int(final.time.max())
@@ -323,7 +332,8 @@ def main(argv=None) -> int:
         log(f"run {r}: {dt:.3f}s, {total_ticks} total ticks "
             f"({total_ticks / args.batch:.1f}/lane, {batched_ticks} batched "
             f"ticks at {dt / batched_ticks * 1e3:.2f}ms, {folds} marker-fold "
-            f"steps) -> {node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
+            f"steps on the host, {drain_folds} of them in the drain and "
+            f"flush) -> {node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
     best = max(nt / dt for nt, dt in zip(node_ticks, times))
     if args.profile:
         _profile(runner, prog, device, args.profile)
@@ -346,6 +356,9 @@ def main(argv=None) -> int:
         "record_dtype": cfg.record_dtype,
         "max_recorded": cfg.max_recorded,
         "delay": args.delay,
+        "megatick": summary["megatick"],
+        "fused_tick": summary["fused_tick"],
+        "fused_reason": summary["fused_reason"],
         "error_bits": summary["error_bits"],
         "errors_decoded": summary["errors_decoded"],
         "straggler_waste": summary["straggler_waste"],

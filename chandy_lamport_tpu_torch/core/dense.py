@@ -6,12 +6,12 @@ exact storm (ops/tick.py). Event scripts are orchestrated from the host
 (events are few and happen between ticks, reference test_common.go:79-140);
 snapshots are decoded back to ``GlobalSnapshot`` once at the end.
 
-This is the JAX ``DenseSim`` at ``megatick=1``: one cascade tick per
-iteration of ``tick N`` events and of the drain. The JAX default is
-``megatick=8``, which gives the same results and, on a TPU, runs those
-loops through the fused megatick kernel (``kernels/megatick.fused_scan``).
-That kernel has no CUDA counterpart yet (ROADMAP.md, B8), so the port
-offers the megatick-1 form only.
+``megatick`` defaults to 8, as in the JAX ``DenseSim``: ``tick N``
+events and the drain run in 8-tick megaticks, which on the card go
+through the fused megatick kernel (``kernels/megatick.py``, the CUDA
+counterpart of the JAX ``fused_scan``) and on the CPU through its plain
+form. ``megatick=1`` is the one-tick-per-iteration form; the results are
+the same.
 """
 
 from __future__ import annotations
@@ -51,7 +51,10 @@ class DenseSim:
 
     def __init__(self, topology: TopologySpec, delay,
                  config: Optional[SimConfig] = None, device=None,
-                 faults=None):
+                 faults=None, megatick: int = 8):
+        """``megatick``: the K of the multi-tick loops (module docstring);
+        ``self.fused`` and ``self.fused_reason`` say whether they run
+        through the kernel."""
         if faults is not None:
             raise NotImplementedError(
                 "faults in DenseSim are not ported yet (ROADMAP.md, "
@@ -65,7 +68,9 @@ class DenseSim:
             self.config = dataclasses.replace(self.config,
                                               max_delay=delay.max_delay)
         self.kernel = TickKernel(self.topo, self.config, delay, self.device,
-                                 marker_mode="ring")
+                                 marker_mode="ring", megatick=megatick)
+        self.fused = self.kernel.fused
+        self.fused_reason = self.kernel.fused_reason
         self.state: DenseState = init_state(self.topo, self.config, 1, delay,
                                             self.device)
         # host mirror of next_sid (ids are allocated sequentially,

@@ -1,0 +1,254 @@
+"""The fused megatick: K exact ticks of every lane in one CUDA launch.
+
+The port of the JAX package's ``kernels/megatick.py`` Pallas ``fused_scan``
+(:432, ``pl.pallas_call`` :641, with ``RingStream.commit_and_heads``
+:380) for its fault-free, unsupervised, untraced cascade body — what the
+golden runs (``DenseSim``, megatick 8) and the exact storm's drain and
+flush at megatick K run when no adversary is armed. The faulted and
+supervised arms of the JAX kernel are not ported (ROADMAP.md, A4b); the
+tick kernel refuses them at megatick > 1.
+
+``fused_ticks`` runs ``length`` steps of one of three step bodies on every
+lane (the JAX ``_run_ticks`` megatick and ``_drain_and_flush_with``'s
+fused drain and flush, ``ops/tick.py:2204-2237``, :2549-2624):
+
+  "ticks"  lanes of ``live`` [B] only (a lane not live at launch is left
+           exactly as it was); ``quiet |= halted`` at each step, a quiet
+           step is a bare ``time += 1`` (+ 0 on an errored lane under
+           quarantine), any other step one cascade tick;
+  "drain"  a step ticks while ``pending & time < limit`` [B] (and
+           ``error == 0`` under quarantine), else it is the identity;
+  "flush"  every step ticks (gated on ``error == 0`` under quarantine).
+
+On a CPU state it takes ``fused_ticks_plain``, the same steps through the
+port's PyTorch cascade tick; on a CUDA state it launches
+``csrc/megatick.cu`` (or raises). The kernel writes the state's leaves in
+place, so the caller must own the state it passes.
+
+Layout on the card: a lane's whole state does not fit in a block's shared
+memory (the ER-256 lane holds 0.347 MB), so the JAX resident layout
+(``fused_vmem_bytes``, :163) does not carry over. The kernel keeps the
+tick's small working planes on chip (``fused_smem_bytes``) and the
+``[E, C]`` rings, the ``[L, E]`` log and the ``[S, E]`` windows in device
+memory, read and written in place — the JAX tiled idea (:48-78) without
+its deferred appends. ``ring_append_slots`` (:131) sizes those deferred
+append buffers in JAX; the card appends in place, so it has no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from chandy_lamport_tpu_torch.kernels import _build
+from chandy_lamport_tpu_torch.ops.delay import (
+    FixedDelay,
+    GoExactDelay,
+    HashDelay,
+)
+from chandy_lamport_tpu_torch.ops.gorand import LEN as GO_LEN
+
+# dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_BUDGET = 232_448
+
+MODES = {"ticks": 0, "drain": 1, "flush": 2}
+
+# launches of the CUDA kernel wrapper (the plain version is not counted)
+LAUNCHES = {"fused_scan": 0}
+
+
+def fused_smem_bytes(n: int, e: int, s: int) -> int:
+    """Shared memory of one lane's block, the one reckoning of it (the
+    wrapper passes it to the kernel, which checks its own layout against
+    it): the ``[E]`` vectors q_head, q_len, tok_pushed, rec_cnt, min_prot
+    and the tick's head_data (int32) and tok/mk/app (bool); ``tokens``
+    [N]; the ``[S, N]`` planes frozen, rem (int32), has_local, done_local
+    (bool); ``recording`` [S, E] (bool); completed, snap_done_time
+    (int32), started, snap_failed (bool) [S]; 4 words of control. The
+    rings, the log, the windows and the delay stream stay in device
+    memory."""
+    ints = 6 * e + n + 2 * s * n + 2 * s + 4
+    flags = 3 * e + s * e + 2 * s * n + 2 * s
+    return (4 * ints + flags + 15) // 16 * 16
+
+
+def resolve_fused(*, megatick: int, device: torch.device, smem_bytes: int,
+                  budget: int = SMEM_BUDGET) -> tuple[str, str]:
+    """Where the megatick-K loops of the exact tick run, as ("on"|"off",
+    reason): one tick at a time at megatick 1; the plain form
+    (``fused_ticks_plain``) on the CPU; the kernel on the card. There is
+    no plain form on the card: a lane whose working set exceeds a block's
+    shared memory raises, since that needs a tiled kernel that is not
+    ported (ROADMAP.md, A4c)."""
+    if megatick <= 1:
+        return "off", f"megatick={megatick}: one tick at a time"
+    if device.type == "cpu":
+        return "off", "CPU: the plain form"
+    if smem_bytes > budget:
+        raise NotImplementedError(
+            f"one lane's working set {smem_bytes} B exceeds the {budget} B "
+            "of shared memory a block can have; the tiled fused megatick "
+            "is not ported yet (ROADMAP.md, A4c): run megatick=1")
+    return "on", "fused megatick engaged"
+
+
+# ---- plain version ----------------------------------------------------------
+
+def fused_ticks_plain(tk, s, *, mode: str, length: int, live=None,
+                      limit=None):
+    """The fused steps (module docstring) through the port's PyTorch
+    cascade tick ``tk._cascade_tick`` with per-lane masks: a lane that
+    takes no tick at a step is left as it was (``lax.cond`` under
+    ``vmap``). ``tk`` is the ring-mode ``ops/tick.TickKernel``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    b = s.time.shape[0]
+    quiet = torch.zeros_like(s.error, dtype=torch.bool)
+    for _ in range(length):
+        if mode == "ticks":
+            quiet = quiet | tk._halted(s)
+            bump = live & quiet
+            if tk.quarantine:
+                bump = bump & (s.error == 0)
+            s = s._replace(time=s.time + bump.to(torch.int32))
+            step = live & ~quiet
+        elif mode == "drain":
+            step = tk._drain_cond(s, limit)
+        else:
+            step = (s.error == 0) if tk.quarantine else None
+        count = b if step is None else int(step.sum())
+        if count:
+            s = tk._cascade_tick(s, None if count == b else step)
+    return s
+
+
+# ---- CUDA wrapper -----------------------------------------------------------
+
+# leaves of the state the kernel reads or writes, in ``_Args`` order, with
+# their dtype and per-lane shape ("N", "E", ... resolved per call)
+_LEAVES = (
+    ("time", torch.int32, ()), ("tokens", torch.int32, ("n",)),
+    ("q_meta", torch.int32, ("e", "c")), ("q_data", torch.int32, ("e", "c")),
+    ("q_head", torch.int32, ("e",)), ("q_len", torch.int32, ("e",)),
+    ("tok_pushed", torch.int32, ("e",)), ("started", torch.bool, ("s",)),
+    ("has_local", torch.bool, ("s", "n")), ("frozen", torch.int32, ("s", "n")),
+    ("rem", torch.int32, ("s", "n")), ("done_local", torch.bool, ("s", "n")),
+    ("recording", torch.bool, ("s", "e")), ("rec_cnt", torch.int32, ("e",)),
+    ("min_prot", torch.int32, ("e",)), ("log_amt", None, ("l", "e")),
+    ("rec_start", torch.int32, ("s", "e")),
+    ("rec_end", torch.int32, ("s", "e")),
+    ("completed", torch.int32, ("s",)), ("snap_failed", torch.bool, ("s",)),
+    ("snap_done_time", torch.int32, ("s",)), ("error", torch.int32, ()),
+)
+_TABLES = ("_edge_src", "_edge_dst", "_in_degree", "_src_lo", "_src_hi",
+           "_dst_lo", "_dst_hi", "_by_dst")
+_INTS = ("b", "n", "e", "c", "s", "l", "log16", "rec_limit", "key_limit",
+         "sampler", "max_delay", "fixed_delay", "mode", "length",
+         "quarantine", "smem_bytes")
+
+
+class _Args(ctypes.Structure):
+    """``struct Args`` of ``csrc/megatick.cu``, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name, _, _ in _LEAVES]
+                + [(f"dw{i}", ctypes.c_void_p) for i in range(3)]
+                + [("live", ctypes.c_void_p), ("limit", ctypes.c_void_p)]
+                + [(t.lstrip("_"), ctypes.c_void_p) for t in _TABLES]
+                + [(name, ctypes.c_int) for name in _INTS])
+
+
+def _fn():
+    fn = _build.library("megatick").clsim_fused_ticks
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _sampler(delay, b, dev, words):
+    """(kind, fixed delay, the three state words as tensors or None)."""
+    if isinstance(delay, FixedDelay):
+        return 0, delay.delay, (None, None, None)
+    if isinstance(delay, HashDelay):
+        shapes = ((torch.int64, (b,)),) * 3
+        kind = 1
+    elif isinstance(delay, GoExactDelay):
+        shapes = ((torch.int64, (b, GO_LEN)), (torch.int32, (b,)),
+                  (torch.int32, (b,)))
+        kind = 2
+    else:
+        raise NotImplementedError(f"no fused megatick for the "
+                                  f"{type(delay).__name__} sampler")
+    out = []
+    for w, (dtype, shape) in zip(words, shapes):
+        if w.dtype != dtype or tuple(w.shape) != shape or w.device != dev:
+            raise ValueError(f"delay word: expected {dtype} {shape} on {dev},"
+                             f" got {w.dtype} {tuple(w.shape)} on {w.device}")
+        out.append(w.contiguous())
+    return kind, 0, tuple(out)
+
+
+def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
+    """``length`` fused steps of every lane (module docstring) in one
+    launch on a CUDA state, in place; ``fused_ticks_plain`` on a CPU
+    state. ``tk`` is the fault-free, unsupervised ring-mode
+    ``ops/tick.TickKernel`` whose tables and config the kernel reads.
+    Returns the state (its leaves made contiguous where they were not)."""
+    if s.time.device.type == "cpu":
+        return fused_ticks_plain(tk, s, mode=mode, length=length, live=live,
+                                 limit=limit)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if tk.faults is not None or tk._sup:
+        raise NotImplementedError(
+            "the fused megatick under faults or the snapshot supervisor is "
+            "not ported yet (ROADMAP.md, A4b)")
+    dev = s.time.device
+    cfg, topo = tk.cfg, tk.topo
+    b = s.time.shape[0]
+    dims = {"n": topo.n, "e": topo.e, "c": cfg.queue_capacity,
+            "s": cfg.max_snapshots, "l": cfg.max_recorded}
+    fields, ptrs = {}, {}
+    for name, dtype, shape in _LEAVES:
+        t = getattr(s, name)
+        want = (b,) + tuple(dims[d] for d in shape)
+        dtype = dtype or tk._rec_dtype
+        if t.dtype != dtype or tuple(t.shape) != want or t.device != dev:
+            raise ValueError(f"{name}: expected {dtype} {want} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        fields[name] = t.contiguous()
+        ptrs[name] = fields[name].data_ptr()
+    kind, fixed, words = _sampler(tk.delay, b, dev, s.delay_state)
+    lane_in = {"live": live, "limit": limit}
+    for name, t in lane_in.items():
+        if t is not None:
+            want = torch.bool if name == "live" else torch.int32
+            if t.dtype != want or tuple(t.shape) != (b,) or t.device != dev:
+                raise ValueError(f"{name}: expected {want} ({b},) on {dev}")
+            lane_in[name] = t.contiguous()
+    if (mode == "ticks") != (lane_in["live"] is not None) or (
+            (mode == "drain") != (lane_in["limit"] is not None)):
+        raise ValueError("mode 'ticks' takes live=, 'drain' takes limit=, "
+                         "'flush' takes neither")
+    ints = dict(b=b, log16=int(tk._rec_dtype == torch.int16),
+                rec_limit=tk._rec_limit, key_limit=tk._key_limit,
+                sampler=kind, max_delay=tk.delay.max_delay,
+                fixed_delay=fixed, mode=MODES[mode], length=length,
+                quarantine=int(tk.quarantine),
+                smem_bytes=fused_smem_bytes(topo.n, topo.e,
+                                            cfg.max_snapshots), **dims)
+    args = _Args(
+        *(ptrs[name] for name, _, _ in _LEAVES),
+        *(w.data_ptr() if w is not None else None for w in words),
+        *(t.data_ptr() if t is not None else None
+          for t in (lane_in["live"], lane_in["limit"])),
+        *(getattr(tk, t).data_ptr() for t in _TABLES),
+        *(ints[name] for name in _INTS))
+    code = _fn()(ctypes.byref(args), _build.stream_ptr(s.time))
+    _build.check(code, "clsim_fused_ticks")
+    LAUNCHES["fused_scan"] += 1
+    if words[0] is not None:
+        fields["delay_state"] = words
+    return s._replace(**fields)
+

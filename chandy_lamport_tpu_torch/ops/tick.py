@@ -17,6 +17,13 @@ wrappers (``kernels/segment.py``, ``kernels/queue.py``), which run the
 hand-written CUDA kernels on a CUDA state and their plain PyTorch versions
 on a CPU state.
 
+``megatick`` K > 1 runs the exact multi-tick loop and the drain in
+K-tick megaticks (the JAX ``_run_ticks`` and ``_drain_and_flush_with`` at
+megatick K): through the fused megatick kernel (``kernels/megatick.py``)
+on the card, through its plain form on the CPU; the results equal
+megatick 1 leaf for leaf. Faults and the supervisor are not
+ported at megatick > 1 (ROADMAP.md, A4b).
+
 The ring-mode ticks carry the fault adversary (``faults``,
 models/faults.py), the snapshot supervisor (``cfg.snapshot_timeout`` /
 ``snapshot_every``) and quarantine (a lane with error bits stops
@@ -69,6 +76,7 @@ from chandy_lamport_tpu_torch.core.state import (
     pack_marker_data,
     pack_meta,
 )
+from chandy_lamport_tpu_torch.kernels import megatick as k_megatick
 from chandy_lamport_tpu_torch.kernels import queue as k_queue
 from chandy_lamport_tpu_torch.kernels import segment as k_segment
 from chandy_lamport_tpu_torch.ops.delay import select_words
@@ -161,11 +169,17 @@ class TickKernel:
     ``faults`` (models/faults.Faults or None) arms the fault adversary,
     the config's ``snapshot_timeout``/``snapshot_every`` the snapshot
     supervisor, and ``quarantine`` freezes a lane once its error bits
-    fire (module docstring); all three are ring-mode only."""
+    fire (module docstring); all three are ring-mode only.
+
+    ``megatick`` (K) is the JAX kernel's, for the exact scheduler only:
+    ``kernels/megatick.resolve_fused`` sets ``self.fused`` and
+    ``self.fused_reason`` once here. At K > 1 the megaticks launch the
+    fused kernel on the card (or the constructor raises) and run its
+    plain form on the CPU."""
 
     def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device,
                  marker_mode: str = "ring", exact_impl: str = "cascade",
-                 faults=None, quarantine: bool = False):
+                 faults=None, quarantine: bool = False, megatick: int = 1):
         if marker_mode not in ("ring", "split"):
             raise ValueError(f"unknown marker_mode {marker_mode!r}")
         if exact_impl not in ("cascade", "wave", "fold"):
@@ -181,13 +195,32 @@ class TickKernel:
                 "the sync scheduler under faults, the snapshot supervisor "
                 "or quarantine is not ported yet (ROADMAP.md, section A); "
                 "the exact scheduler carries them")
+        if megatick < 1:
+            raise ValueError(f"megatick must be >= 1, got {megatick}")
+        if megatick > 1 and marker_mode == "split":
+            raise ValueError(
+                f"megatick={megatick}: the megatick is the exact "
+                "scheduler's (as in JAX); the sync scheduler ticks one at "
+                "a time, so run it at megatick=1")
+        if megatick > 1 and (faults is not None or self._sup):
+            raise NotImplementedError(
+                "megatick > 1 under faults or the snapshot supervisor is not "
+                "ported yet (ROADMAP.md, A4b); run them at megatick=1")
         self.faults = faults
         self.quarantine = bool(quarantine)
         self.topo, self.cfg, self.delay = topo, cfg, delay
         self.device = torch.device(device)
-        # marker-fold iterations run by the cascade tick so far (one per
-        # batched step, whatever the number of lanes it serves)
+        self.megatick = int(megatick)
+        self.fused, self.fused_reason = k_megatick.resolve_fused(
+            megatick=self.megatick, device=self.device,
+            smem_bytes=k_megatick.fused_smem_bytes(
+                topo.n, topo.e, cfg.max_snapshots))
+        # marker-fold iterations run by the host loop of the cascade tick
+        # so far (one per batched step, whatever the number of lanes it
+        # serves), and those of them run in drains and flushes; the fused
+        # megatick folds inside its kernel and counts none
         self.fold_steps = 0
+        self.drain_fold_steps = 0
         self._keymult = merge_keymult(cfg.max_snapshots)
         self._key_limit = merge_key_limit(cfg.max_snapshots)
 
@@ -892,22 +925,42 @@ class TickKernel:
             quiet = quiet & ~self._pending(s)
         return quiet
 
-    def _run_ticks(self, s: DenseState, n: int) -> DenseState:
-        """``n`` exact ticks per lane (the JAX ``_run_ticks`` at megatick
-        1): a lane ticks until its count is done or it is quiescent, and
-        its remaining ticks land as one time increment. Under quarantine
-        an errored lane halts too and its clock stays where it was
-        poisoned."""
-        def halted(s):
-            h = self._quiescent(s)
-            return h | (s.error != 0) if self.quarantine else h
+    def _halted(self, s: DenseState):
+        """[B]: the multi-tick loop is over for the lane — quiescent, or
+        errored under quarantine."""
+        h = self._quiescent(s)
+        return h | (s.error != 0) if self.quarantine else h
 
+    def _fused_steps(self, s: DenseState, mode: str, length: int,
+                     live=None, limit=None) -> DenseState:
+        """One megatick of ``length`` steps (``kernels/megatick`` module
+        docstring): the kernel on a CUDA state, its plain form on a CPU
+        one."""
+        return k_megatick.fused_ticks(self, s, mode=mode, length=length,
+                                      live=live, limit=limit)
+
+    def _run_ticks(self, s: DenseState, n: int) -> DenseState:
+        """``n`` exact ticks per lane (the JAX ``_run_ticks``): a lane
+        ticks until its count is done or it is quiescent, and its
+        remaining ticks land as one time increment. Under quarantine an
+        errored lane halts too and its clock stays where it was poisoned.
+        At megatick K > 1 the ``n % K`` remainder runs first as single
+        ticks, then full megaticks while the lane is live, each advancing
+        its count by K (a lane that goes quiet inside one is bumped)."""
+        K = self.megatick
+        single = n % K if K > 1 else n
         i = torch.zeros_like(s.time)
-        live = (i < n) & ~halted(s)
+        live = (i < single) & ~self._halted(s)
         while bool(live.any()):
             s = self._cascade_tick(s, None if bool(live.all()) else live)
             i = i + live.to(_i32)
-            live = (i < n) & ~halted(s)
+            live = (i < single) & ~self._halted(s)
+        if K > 1:
+            live = (i < n) & ~self._halted(s)
+            while bool(live.any()):
+                s = self._fused_steps(s, "ticks", K, live=live)
+                i = i + K * live.to(_i32)
+                live = (i < n) & ~self._halted(s)
         rest = n - i
         if self.quarantine:
             rest = torch.where(s.error != 0, 0, rest)
@@ -958,7 +1011,14 @@ class TickKernel:
         return (s.started & ~s.snap_failed
                 & (s.completed < self.topo.n)).any(-1)
 
-    def _drain_and_flush_with(self, s: DenseState, tick) -> DenseState:
+    def _drain_cond(self, s: DenseState, limit):
+        """[B]: the lane drains on — a snapshot is pending and its clock
+        is below ``limit`` (and no error bit is set, under quarantine)."""
+        c = self._pending(s) & (s.time < limit)
+        return c & (s.error == 0) if self.quarantine else c
+
+    def _drain_and_flush_with(self, s: DenseState, tick,
+                              megatick: int = 1) -> DenseState:
         """Tick each lane until its snapshots complete or it reaches its own
         ``time + max_ticks`` limit, then ``max_delay + 1`` flush ticks on
         every lane. ``tick(s, active)`` ticks the lanes of ``active`` [B]
@@ -968,29 +1028,37 @@ class TickKernel:
 
         Under quarantine a lane with error bits stops like a finished one
         (drain and flush ticks alike) and is not charged ERR_TICK_LIMIT
-        for the ticks it was denied."""
+        for the ticks it was denied.
+
+        At ``megatick`` K > 1 (the exact drain) the drain runs K-step
+        megaticks, each step ticking only while the lane's condition
+        holds, and the flush runs as one fused stretch: a condition-false
+        step is the identity, so the result equals K = 1."""
+        folds = self.fold_steps
         limit = s.time + self.cfg.max_ticks
-
-        def cond(s):
-            c = self._pending(s) & (s.time < limit)
-            return c & (s.error == 0) if self.quarantine else c
-
-        active = cond(s)
+        active = self._drain_cond(s, limit)
         b = active.shape[0]
         live = int(active.sum())
         while live:
-            s = tick(s, None if live == b else active)
-            active = cond(s)
+            if megatick > 1:
+                s = self._fused_steps(s, "drain", megatick, limit=limit)
+            else:
+                s = tick(s, None if live == b else active)
+            active = self._drain_cond(s, limit)
             live = int(active.sum())
         blown = self._pending(s)
         if self.quarantine:
             blown = blown & (s.error == 0)
         s = s._replace(error=s.error | _flag(blown, ERR_TICK_LIMIT))
-        for _ in range(self.cfg.max_delay + 1):
-            active = (s.error == 0) if self.quarantine else None
-            live = b if active is None else int(active.sum())
-            if live:
-                s = tick(s, None if live == b else active)
+        if megatick > 1:
+            s = self._fused_steps(s, "flush", self.cfg.max_delay + 1)
+        else:
+            for _ in range(self.cfg.max_delay + 1):
+                active = (s.error == 0) if self.quarantine else None
+                live = b if active is None else int(active.sum())
+                if live:
+                    s = tick(s, None if live == b else active)
+        self.drain_fold_steps += self.fold_steps - folds
         return s
 
     def _sync_tick_lanes(self, s: DenseState, active) -> DenseState:
@@ -1001,4 +1069,5 @@ class TickKernel:
         return self._drain_and_flush_with(s, self._sync_tick_lanes)
 
     def _drain_and_flush(self, s: DenseState) -> DenseState:
-        return self._drain_and_flush_with(s, self._cascade_tick)
+        return self._drain_and_flush_with(s, self._cascade_tick,
+                                          self.megatick)

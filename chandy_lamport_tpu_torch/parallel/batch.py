@@ -5,7 +5,9 @@ storm programs, under ``scheduler="sync"`` and ``scheduler="exact"`` (the
 cascade formulation): the state carries the batch as a leading axis (in
 place of ``jax.vmap``), a storm program runs as a Python loop over its
 phases, and the drain ticks each lane until its own condition ends
-(ops/tick.py). Runs on the card unless the caller passes ``device="cpu"``,
+(ops/tick.py); at ``megatick`` K > 1 the exact drain and flush run in
+K-tick megaticks through the fused megatick kernel. Runs on the card
+unless the caller passes ``device="cpu"``,
 where the kernel wrappers take their plain PyTorch versions. The exact
 scheduler also carries the fault adversary (``faults=``), the snapshot
 supervisor (the config's ``snapshot_*`` knobs) and ``quarantine=``.
@@ -59,7 +61,7 @@ class BatchedRunner:
                  delay, batch: int, scheduler: str = "sync",
                  check_every: int = 0, device=None,
                  exact_impl: str = "cascade", faults=None,
-                 quarantine: bool = False, trace=None):
+                 quarantine: bool = False, trace=None, megatick: int = 1):
         """scheduler: "sync" (simultaneous delivery, the production path)
         or "exact" (the reference's delivery semantics, bit-exact, in the
         cascade formulation; ``exact_impl`` "wave" and "fold" raise
@@ -76,6 +78,15 @@ class BatchedRunner:
         scheduler only.
 
         trace: the flight recorder is not ported (NotImplementedError).
+
+        megatick: the exact drain and flush run K-tick megaticks (the JAX
+        storm CLI's ``--megatick``; storm phases tick one at a time);
+        bit-identical to 1, the default. On the card they launch the
+        fused megatick kernel, on the CPU they run its plain form;
+        ``self.fused`` and ``self.fused_reason`` say which. Megatick > 1
+        raises ValueError on the sync scheduler (the megatick is the
+        exact scheduler's) and NotImplementedError under faults or the
+        supervisor (ROADMAP.md, A4b).
 
         check_every: if > 0, evaluate token conservation every K phases
         and once after the run, setting the sticky ERR_CONSERVATION bit on
@@ -107,7 +118,11 @@ class BatchedRunner:
         self.kernel = TickKernel(
             self.topo, self.config, delay, self.device,
             marker_mode="split" if scheduler == "sync" else "ring",
-            exact_impl=exact_impl, faults=faults, quarantine=quarantine)
+            exact_impl=exact_impl, faults=faults, quarantine=quarantine,
+            megatick=megatick)
+        self.megatick = self.kernel.megatick
+        self.fused = self.kernel.fused
+        self.fused_reason = self.kernel.fused_reason
         self.faults = faults
         self.quarantine = bool(quarantine)
         self._tokens0_total = int(self.topo.tokens0.sum())
@@ -206,13 +221,16 @@ class BatchedRunner:
         return self._check_conservation(s) if self.check_every else s
 
     @staticmethod
-    def summarize(state: DenseState) -> dict:
+    def summarize(state: DenseState, runner=None) -> dict:
+        """The JAX ``summarize`` counters of a batched state; given the
+        ``runner`` that ran it, also its ``megatick``, ``fused_tick`` (the
+        kernel's ``fused``: "on" or "off") and ``fused_reason``."""
         bits = int(or_reduce(state.error))
         fc = state.fault_counts.sum(0).tolist()
         n = state.has_local.shape[-1]
         k = state.tr_meta.shape[-1]
         count = state.tr_count.to(torch.int64)
-        return {
+        out = {
             "instances": int(state.time.shape[0]),
             "total_ticks": int(state.time.sum()),
             "max_time": int(state.time.max()),
@@ -235,3 +253,7 @@ class BatchedRunner:
                 key: int(v) for key, v in snapshot_lifecycle(
                     state, n).items()},
         }
+        if runner is not None:
+            out.update(megatick=runner.megatick, fused_tick=runner.fused,
+                       fused_reason=runner.fused_reason)
+        return out

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs seven phases,
+kernels/csrc`` (one nvcc per source, in parallel), then runs nine phases,
 each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -24,6 +24,15 @@ each printing one JSON line:
                broadcast), and append_rows at 131,072 lanes of ring-10: the
                CUDA kernel must equal its plain PyTorch version on the card
                bit for bit (tolerance: none, integer work), with times;
+  fused_kernel fused_scan (the fused megatick) at the exact cell's shape —
+               one drain megatick (K=8) from the state after its 32 storm
+               phases — and on small edge cases (ring wrap, capacity-1
+               rings, a single-edge graph, lanes going quiet mid-megatick,
+               a lane not live at launch, an errored lane under quarantine,
+               the fixed, hash and Go-exact samplers, the three step
+               bodies): bit-equal to its plain version, timed per launch;
+               its bound counts the bytes the kernel's design must move,
+               from the megatick's own steps (``fused_plain_and_bytes``);
   storm        main path 1: the config-4 sync storm through
                ``BatchedRunner.run_storm`` on the card: zero error bits,
                every snapshot complete, conservation delta 0, and every
@@ -32,6 +41,13 @@ each printing one JSON line:
   exact_storm  main path 2: the exact-at-scale cell through
                ``BatchedRunner(scheduler="exact").run_storm``, with the
                same checks;
+  fused_storm  main path 4: the same cell at megatick 8
+               (``BatchedRunner(scheduler="exact", megatick=8)``, the JAX
+               storm CLI's default): the storm phases tick one at a time,
+               the drain and flush run through fused_scan. The same checks,
+               fused_scan launched, queue_step launched once per storm
+               phase only, and a final state equal to exact_storm's leaf
+               for leaf;
   fault_storm  main path 3: the same cell under the fault adversary, the
                snapshot supervisor and quarantine (``Faults(3, ...)``
                below, ``snapshot_timeout=64``) through
@@ -41,17 +57,16 @@ each printing one JSON line:
                conservation delta 0, no bit but ERR_SNAPSHOT_TIMEOUT, every
                snapshot of every clean lane complete, every kernel of the
                path launched and queue_step never;
-  golden       a conformance check, not a main path: the 7 reference
-               goldens (21 snapshots) through the port's
-               ``run_events_file`` on the card, each snapshot equal to its
-               ``.snap`` file (read from chandy_lamport_tpu/data/test_data).
-               The port's golden driver runs megatick 1; the JAX one, at
-               its default megatick 8 on a TPU, runs the fused megatick
-               kernel, which is not ported yet;
-  cpu_vs_cuda  small sync, exact and faulted exact storms (the last with
-               lossy crashes at a fixed window, marker drops and the
-               supervisor with its daemon) on the card and on the CPU
-               (plain versions): every state leaf identical.
+  golden       main path 5: the 7 reference goldens (21 snapshots)
+               through the port's ``run_events_file`` on the card
+               (``DenseSim`` at its default megatick 8), each snapshot
+               equal to its ``.snap`` file (read from
+               chandy_lamport_tpu/data/test_data), fused_scan launched in
+               every case;
+  cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
+               (the faulted one with lossy crashes at a fixed window,
+               marker drops and the supervisor with its daemon) on the card
+               and on the CPU (plain versions): every state leaf identical.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -101,7 +116,11 @@ KERNELS = {
                    "chandy_lamport_tpu/kernels/queue.py:119"),
     "append_rows": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
                     "chandy_lamport_tpu/kernels/queue.py:157"),
+    "fused_scan": ("chandy_lamport_tpu_torch/kernels/csrc/megatick.cu",
+                   "chandy_lamport_tpu/kernels/megatick.py:432"),
 }
+# the megatick of main path 4 (the JAX storm CLI's default --megatick)
+MEGATICK = 8
 
 
 def emit(obj) -> None:
@@ -180,10 +199,12 @@ def config4_runner(device):
 
 
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
-                 snapshots=X_SNAPSHOTS, graph="er", faults=None, **cfg_kw):
+                 snapshots=X_SNAPSHOTS, graph="er", faults=None, megatick=1,
+                 **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
     smaller exact storm; with ``faults`` (and supervisor knobs in
-    ``cfg_kw``) the faulted exact storm, quarantined."""
+    ``cfg_kw``) the faulted exact storm, quarantined; ``megatick`` > 1
+    the fused megatick's path."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -200,7 +221,7 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                                  **cfg_kw)
     runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
                            scheduler="exact", device=device, faults=faults,
-                           quarantine=faults is not None)
+                           quarantine=faults is not None, megatick=megatick)
     prog = storm_program(
         runner.topo, phases, 1,
         staggered_snapshots(runner.topo, snapshots, 1, 2,
@@ -602,6 +623,248 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
     return out
 
 
+def _leaves(state) -> list:
+    return [t for leaf in state
+            for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
+
+
+def _mismatched(a, b) -> list:
+    """Names of the leaves where two states differ (value, dtype or
+    shape)."""
+    import torch
+
+    bad = []
+    for name, x, y in zip(a._fields, a, b):
+        pairs = zip(x, y) if isinstance(x, tuple) else [(x, y)]
+        if any(u.dtype != v.dtype or u.shape != v.shape
+               or not torch.equal(u, v) for u, v in pairs):
+            bad.append(name)
+    return bad
+
+
+def time_launch_ms(fn, make_input, reps: int = 5) -> float:
+    """Mean device time of one launch of ``fn(x)`` over ``reps`` fresh
+    inputs (``make_input()``, the kernel writes in place), after one warm
+    launch, by CUDA events. A device sleep queued ahead of each start
+    event keeps the host's launch overhead out of the window."""
+    import torch
+
+    total = 0.0
+    for rep in range(reps + 1):
+        x = make_input()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn(x)
+        end.record()
+        end.synchronize()
+        if rep:
+            total += start.elapsed_time(end)
+        del x
+    return total / reps
+
+
+def loaded_state(runner, rounds: int = 3):
+    """A small state with traffic and snapshots in flight, built by the
+    scalar injectors (every sampler has them): per round a 1-token send
+    on every third edge, a snapshot at node ``round % N`` on every other
+    lane, one tick."""
+    import torch
+
+    tk = runner.kernel
+    s = runner.init_batch_device()
+    lanes = torch.arange(runner.batch, device=s.time.device)
+    for r in range(rounds):
+        for e in range(r % 3, runner.topo.e, 3):
+            s = tk._inject_send(s, e, 1)
+        s = tk._inject_snapshot(s, r % runner.topo.n, (lanes + r) % 2 == 0)
+        s = tk._cascade_tick(s)
+    return s
+
+
+def fused_edge_cases() -> list:
+    """fused_scan against its plain version on small states on the card
+    (``loaded_state``): each sampler, capacity-1 rings (every append
+    overflows), capacity-5 rings under quarantine with lane 2 errored at
+    launch, a single-edge graph;
+    each with the three step bodies ("ticks" for 40 steps with lane 1 not
+    live at launch, so the others go quiet mid-megatick; "drain" against
+    a near and a far limit; "flush")."""
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.models.workloads import scale_free
+    from chandy_lamport_tpu_torch.ops.delay import (
+        FixedDelay,
+        GoExactDelay,
+        HashDelay,
+    )
+    from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+
+    import torch
+
+    sf48 = scale_free(48, 2, seed=9, tokens=30)
+    one = TopologySpec([("A", 9), ("B", 0)], [("A", "B")])
+    wide = SimConfig.for_workload(snapshots=3)
+    cases = (
+        ("sf-48, fixed(2)", sf48, wide, FixedDelay(2), False),
+        ("sf-48, hash(5)", sf48, wide, HashDelay(5), False),
+        ("sf-48, go-exact(11)", sf48, wide, GoExactDelay(11), False),
+        ("sf-48, C=1 (appends overflow and clobber)", sf48, SimConfig(
+            max_snapshots=4, queue_capacity=1, max_recorded=8),
+         HashDelay(3), False),
+        ("sf-48, C=5 ring wrap, quarantine", sf48, SimConfig(
+            max_snapshots=4, queue_capacity=5, max_recorded=8),
+         HashDelay(3), True),
+        ("single edge A->B, hash(2)", one, SimConfig(
+            max_snapshots=2, queue_capacity=4), HashDelay(2), False),
+    )
+    rows = []
+    for note, spec, cfg, delay, quarantine in cases:
+        runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
+                               device="cuda", quarantine=quarantine,
+                               megatick=MEGATICK)
+        tk = runner.kernel
+        s = loaded_state(runner, min(3, cfg.max_snapshots))
+        if quarantine:
+            s.error[2] |= ERR_QUEUE_OVERFLOW
+        live = ~tk._halted(s)
+        live[1] = False
+        for mode, length, kw in (
+                ("ticks", 40, {"live": live}),
+                ("drain", MEGATICK, {"limit": s.time + 7}),
+                ("drain", MEGATICK, {"limit": s.time
+                                     + runner.config.max_ticks}),
+                ("flush", runner.config.max_delay + 1, {})):
+            got = km.fused_ticks(tk, BatchedRunner._own(s), mode=mode,
+                                 length=length, **kw)
+            want = km.fused_ticks_plain(tk, BatchedRunner._own(s),
+                                        mode=mode, length=length, **kw)
+            err = max_abs_err(_leaves(got), _leaves(want))
+            if err or _mismatched(got, want):
+                raise AssertionError(f"fused_scan != plain on {note}, "
+                                     f"{mode}: {_mismatched(got, want)}")
+            if mode == "ticks" and not all(
+                    bool(torch.equal(x[1], y[1]))
+                    for x, y in zip(_leaves(got), _leaves(s))):
+                raise AssertionError("a lane not live at launch changed")
+            rows.append({"case": note, "mode": mode, "steps": length,
+                         "lane_ticks": int((got.time - s.time).sum()),
+                         "error_bits": int(got.error.max()),
+                         "max_abs_err": err})
+    return rows
+
+
+def fused_plain_and_bytes(tk, s0, limit):
+    """The plain version of one drain megatick from ``s0``, step by step
+    (the same steps as one call of length K), timed around its calls on
+    the host clock; and the bytes the kernel's design must move on this
+    input, counted from the steps' own data:
+
+      per lane that drains at the first step (the others return before
+      loading anything): the shared-memory planes read once and written
+      once (``started``/``snap_failed`` only read), ``time``, ``error``,
+      ``limit`` and the hash delay words; the topology tables once;
+      per step: the head rtime of every non-empty edge of a stepping lane,
+      the payload of every popped slot, every appended slot (rtime and
+      payload), and every log and window entry that changed.
+
+    Returns (final plain state, plain ms, bytes, the breakdown)."""
+    import torch
+
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    n, e = tk.topo.n, tk.topo.e
+    S = tk.cfg.max_snapshots
+    if tk.cfg.queue_capacity < 2:
+        raise ValueError("a pop is read off the head's move: needs C >= 2")
+    lanes = int(tk._drain_cond(s0, limit).sum())
+    ints = 5 * e + n + 2 * S * n + 2 * S + 2
+    flags = S * e + 2 * S * n
+    per_lane = (2 * (4 * ints + flags) + 2 * S    # planes in and out
+                + 4 + 3 * 8 + 2 * 8)              # limit, delay words
+    tables = 4 * (3 * e + 5 * n)
+    parts = {"planes_and_words": lanes * per_lane, "tables": tables,
+             "head_reads": 0, "popped_payloads": 0, "appended_slots": 0,
+             "log_writes": 0, "window_writes": 0}
+    log_size = s0.log_amt.element_size()
+    s, plain_ms = BatchedRunner._own(s0), 0.0
+    for _ in range(MEGATICK):
+        step = tk._drain_cond(s, limit)
+        before = {k: getattr(s, k).clone() for k in (
+            "q_len", "q_head", "log_amt", "rec_start", "rec_end")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = km.fused_ticks_plain(tk, s, mode="drain", length=1, limit=limit)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        pops = int((s.q_head != before["q_head"]).sum())
+        parts["head_reads"] += 4 * int(
+            ((before["q_len"] > 0) & step[:, None]).sum())
+        parts["popped_payloads"] += 4 * pops
+        parts["appended_slots"] += 8 * (
+            int((s.q_len - before["q_len"]).sum()) + pops)
+        parts["log_writes"] += log_size * int(
+            (s.log_amt != before["log_amt"]).sum())
+        parts["window_writes"] += 4 * int(
+            (s.rec_start != before["rec_start"]).sum()
+            + (s.rec_end != before["rec_end"]).sum())
+        del before
+    return s, plain_ms, sum(parts.values()), {"draining_lanes": lanes,
+                                              **parts}
+
+
+def phase_fused_kernel(runner, prog) -> dict:
+    """fused_scan at the exact cell's shape: one drain megatick (K=8)
+    from the state after the cell's 32 storm phases, against its plain
+    version on the same input; then the edge cases. Returns the
+    measurements for the summary line."""
+    import torch
+
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    tk, own = runner.kernel, BatchedRunner._own
+    s0 = runner.run_storm(runner.init_batch_device(), prog, drain=False)
+    limit = s0.time + runner.config.max_ticks
+
+    def drain(x):
+        return km.fused_ticks(tk, x, mode="drain", length=MEGATICK,
+                              limit=limit)
+
+    got = drain(own(s0))
+    torch.cuda.synchronize()
+    want, plain_ms, nbytes, moved = fused_plain_and_bytes(tk, s0, limit)
+    err = max_abs_err(_leaves(got), _leaves(want))
+    bad = _mismatched(got, want)
+    if err or bad:
+        raise AssertionError(f"fused_scan != plain at the exact cell's "
+                             f"drain megatick: {bad}")
+    lane_ticks = int((got.time - s0.time).sum())
+    ms = time_launch_ms(drain, lambda: own(s0))
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves(s0))
+    del got, want
+    edge = fused_edge_cases()
+    E = runner.topo.e
+    row = {"shape": f"[{runner.batch}] lanes of er-{runner.topo.n} "
+                    f"(E={E}, C={runner.config.queue_capacity}), one drain "
+                    f"megatick K={MEGATICK} after {X_PHASES} phases, "
+                    f"{lane_ticks} lane-ticks",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "plain_timing": "K one-step calls, host clock",
+           "library_ms": None, "state_bytes": state_bytes,
+           "bytes_moved": moved,
+           # the bytes of fused_plain_and_bytes; ~8 integer operations
+           # per edge of every lane-tick taken
+           **bound(nbytes, 8 * E * lane_ticks)}
+    emit({"phase": "fused_kernel", "tolerance": "bit-equal (integer work)",
+          "storm_shape": row, "edge_cases": edge})
+    return row
+
+
 def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
     """A warm run (of ``warm_runner``/``warm_prog`` when given), then the
     measured run of ``runner`` on ``prog`` with the launch counts zeroed
@@ -626,6 +889,7 @@ def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     folds = runner.kernel.fold_steps
+    drain_folds = runner.kernel.drain_fold_steps
     reset_launch_counts()
     t0 = time.perf_counter()
     final = runner.run_storm(state, prog)
@@ -633,6 +897,7 @@ def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
     dt = time.perf_counter() - t0
     launches = launch_counts()
     folds = runner.kernel.fold_steps - folds
+    drain_folds = runner.kernel.drain_fold_steps - drain_folds
     total_ticks = int(final.time.sum())
     max_ticks = int(final.time.max())
     return final, {
@@ -641,12 +906,15 @@ def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
         "max_lane_ticks": max_ticks, "batched_ticks": max_ticks,
         "ms_per_batched_tick": dt / max_ticks * 1e3,
         "node_ticks_per_s": total_ticks * runner.topo.n / dt,
-        "fold_steps": folds, "launches": launches,
+        "fold_steps": folds, "drain_fold_steps": drain_folds,
+        "launches": launches,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
 def _storm_meta(name, runner, prog, graph, snapshots) -> dict:
-    return {"phase": name, "scheduler": runner.scheduler, "graph": graph,
+    return {"phase": name, "scheduler": runner.scheduler,
+            "megatick": runner.megatick, "fused_tick": runner.fused,
+            "fused_reason": runner.fused_reason, "graph": graph,
             "nodes": runner.topo.n, "edges": runner.topo.e,
             "batch": runner.batch, "phases": len(prog.amounts),
             "snapshots": snapshots,
@@ -665,10 +933,11 @@ def _check_launches(name, launches, path_kernels, idle_kernels=()):
                              "must not run")
 
 
-def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
+def phase_storm(name, runner, prog, graph, snapshots, path_kernels):
     """A storm through the port's entry points: a warm run, then the
     measured run with launch counts zeroed just before it. Fails unless
-    it is clean and every kernel of ``path_kernels`` launched."""
+    it is clean and every kernel of ``path_kernels`` launched. Returns
+    (final state, measurements)."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
 
@@ -694,7 +963,7 @@ def phase_storm(name, runner, prog, graph, snapshots, path_kernels) -> dict:
     if delta != 0:
         raise AssertionError(f"conservation delta {delta}")
     _check_launches(name, m["launches"], path_kernels)
-    return m["launches"]
+    return final, m
 
 
 def phase_fault_storm(runner, prog, path_kernels) -> dict:
@@ -751,28 +1020,54 @@ def phase_fault_storm(runner, prog, path_kernels) -> dict:
     return m["launches"]
 
 
-def phase_golden() -> None:
-    """The 7 reference goldens on the card; every snapshot must equal its
-    .snap file. Not a main path (module docstring), so no launch counts
-    are read here."""
-    from chandy_lamport_tpu_torch.api import run_reference_tests
+def phase_golden() -> dict:
+    """Main path 5: the 7 reference goldens on the card through
+    ``check_reference_case`` (``run_events_file``, ``DenseSim`` at its
+    default megatick 8); every snapshot must equal its .snap file and
+    every case must launch fused_scan. Launch counts are zeroed just
+    before the first case and read after each."""
+    from chandy_lamport_tpu_torch.api import check_reference_case
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.utils.goldens import REFERENCE_TESTS
 
+    failed, per_case, snapshots, megaticks = {}, {}, 0, set()
+    reset_launch_counts()
     t0 = time.perf_counter()
-    results = run_reference_tests(device="cuda")
+    for top, events, snaps in REFERENCE_TESTS:
+        name = events.removesuffix(".events")
+        before = launch_counts()["fused_scan"]
+        try:
+            sim = check_reference_case(top, events, snaps, device="cuda")
+            megaticks.add((sim.kernel.megatick, sim.fused))
+        except (AssertionError, ValueError, OSError, RuntimeError) as exc:
+            failed[name] = str(exc)
+        per_case[name] = launch_counts()["fused_scan"] - before
+        snapshots += len(snaps)
     dt = time.perf_counter() - t0
-    failed = {name: why for name, _, why in results if why is not None}
-    emit({"phase": "golden", "main_path": False, "megatick": 1,
-          "cases": len(results),
-          "snapshots": sum(n for _, n, _ in results),
-          "passed": len(results) - len(failed), "failed": failed,
-          "run_s": dt})
-    if failed or len(results) != 7:
+    launches = launch_counts()
+    emit({"phase": "golden", "main_path": True,
+          "megatick_fused": sorted(megaticks), "cases": len(per_case),
+          "snapshots": snapshots, "passed": len(per_case) - len(failed),
+          "failed": failed, "fused_scan_by_case": per_case,
+          "launches": launches, "run_s": dt})
+    if failed or len(per_case) != 7 or snapshots != 21:
         raise AssertionError(f"goldens failed on the card: {failed}")
+    if megaticks != {(MEGATICK, "on")}:
+        raise AssertionError(f"goldens not run at the fused megatick 8: "
+                             f"{megaticks}")
+    idle = [name for name, n in per_case.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"goldens that never launched fused_scan: "
+                             f"{idle}")
+    return launches
 
 
 def phase_cpu_vs_cuda() -> None:
-    """Small sync and exact storms on the card and on the CPU: identical
-    leaves."""
+    """Small sync, exact, faulted exact and megatick-8 exact storms on
+    the card and on the CPU: identical leaves."""
     import numpy as np
 
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
@@ -798,6 +1093,10 @@ def phase_cpu_vs_cuda() -> None:
         return exact_runner(device, batch=8, nodes=64, phases=6,
                             snapshots=4, graph="sf")
 
+    def fused_storm(device):
+        return exact_runner(device, batch=8, nodes=64, phases=6,
+                            snapshots=4, graph="sf", megatick=MEGATICK)
+
     def faulted_storm(device):
         # lossy crashes of half the nodes at tick 70, after the first
         # snapshots completed (restored from them), rare marker drops, the
@@ -814,7 +1113,8 @@ def phase_cpu_vs_cuda() -> None:
     result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
               "phases": 6, "snapshots": 4}
     for scheduler, build in (("sync", sync_storm), ("exact", exact_storm),
-                             ("faulted_exact", faulted_storm)):
+                             ("faulted_exact", faulted_storm),
+                             ("exact_megatick8", fused_storm)):
         finals = []
         for device in ("cuda", "cpu"):
             runner, prog = build(device)
@@ -871,22 +1171,42 @@ def main() -> int:
     runner, prog = config4_runner("cuda")
     xrunner, xprog = exact_runner("cuda")
     frunner, fprog = fault_runner("cuda")
+    mrunner, mprog = exact_runner("cuda", megatick=MEGATICK)
     rows = phase_kernels(runner, prog, xrunner, xprog, frunner, fprog)
+    rows["fused_scan"] = phase_fused_kernel(mrunner, mprog)
     # each main path runs with the launch counts zeroed just before it
-    paths = {"sync_storm": phase_storm(
-        "storm", runner, prog, "sf", SNAPSHOTS,
-        ("sum_by_perm", "sum_segments", "spread", "head_fields",
-         "append_rows"))}
+    _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
+                       ("sum_by_perm", "sum_segments", "spread",
+                        "head_fields", "append_rows"))
+    paths = {"sync_storm": m["launches"]}
     del runner
-    paths["exact_storm"] = phase_storm(
+    exact_final, m = phase_storm(
         "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
         ("queue_step", "append_rows", "sum_by_perm", "sum_segments"))
+    paths["exact_storm"] = m["launches"]
     del xrunner
+    fused_final, m = phase_storm(
+        "fused_storm", mrunner, mprog, "er", X_SNAPSHOTS,
+        ("fused_scan", "queue_step", "append_rows", "sum_by_perm",
+         "sum_segments"))
+    paths["fused_storm"] = m["launches"]
+    bad = _mismatched(fused_final, exact_final)
+    emit({"phase": "fused_storm_vs_exact_storm",
+          "leaves": len(exact_final._fields), "mismatched": bad,
+          "queue_step_launches": m["launches"]["queue_step"],
+          "storm_phases": X_PHASES})
+    if bad:
+        raise AssertionError(f"megatick-8 storm differs from megatick 1 in "
+                             f"{bad}")
+    if m["launches"]["queue_step"] != X_PHASES:
+        raise AssertionError("fused_storm ran queue_step outside its storm "
+                             "phases")
+    del mrunner, exact_final, fused_final
     paths["fault_storm"] = phase_fault_storm(
         frunner, fprog, ("select_pop", "head_fields", "spread",
                          "append_rows", "sum_by_perm", "sum_segments"))
     del frunner
-    phase_golden()
+    paths["golden"] = phase_golden()
     phase_cpu_vs_cuda()
 
     kernels = []

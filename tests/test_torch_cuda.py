@@ -6,7 +6,9 @@ equal the plain PyTorch version on the same inputs bit for bit
 (tolerance: none, integer work), refuse operands it does not take, take
 more lanes than a grid's y axis holds (append_rows), and small sync,
 exact and faulted exact storms on the card must equal the same storms on
-the CPU. Run on a
+the CPU; the fused megatick (row 8) must equal its plain form on every
+step body, sampler and ring edge case, and an exact storm at megatick 8
+must equal megatick 1. Run on a
 GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -247,3 +249,145 @@ def test_small_faulted_storm_cuda_equals_cpu(dev):
         for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
             assert x.dtype == y.dtype and np.array_equal(x, y), name
     assert int(finals[0].fault_counts.sum()) > 0
+
+
+# ---- the fused megatick (row 8) ---------------------------------------------
+
+def _own(s):
+    return BatchedRunner._own(s)
+
+
+def _leaves_equal(a, b):
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    for name, x, y in zip(a._fields, a, b):
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            assert u.dtype == v.dtype and np.array_equal(u, v), name
+
+
+def _loaded(dev, spec, cfg, delay, quarantine=False):
+    """A megatick-8 exact runner on the card and a small state with
+    traffic and snapshots in flight, built by the scalar injectors (every
+    sampler has them): per round a 1-token send on every third edge, a
+    snapshot at node ``round % N`` on every other lane, one tick."""
+    runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
+                           device=dev, quarantine=quarantine, megatick=8)
+    tk = runner.kernel
+    s = runner.init_batch_device()
+    lanes = torch.arange(4, device=dev)
+    for r in range(min(3, cfg.max_snapshots)):
+        for e in range(r % 3, runner.topo.e, 3):
+            s = tk._inject_send(s, e, 1)
+        s = tk._inject_snapshot(s, r % runner.topo.n, (lanes + r) % 2 == 0)
+        s = tk._cascade_tick(s)
+    return runner, s
+
+
+def _fused_equals_plain(runner, s, mode, length, **lanes):
+    """The kernel and its plain version from the same state: every leaf
+    equal, one launch."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    tk = runner.kernel
+    before = launch_counts()["fused_scan"]
+    got = km.fused_ticks(tk, _own(s), mode=mode, length=length, **lanes)
+    assert launch_counts()["fused_scan"] == before + 1
+    want = km.fused_ticks_plain(tk, _own(s), mode=mode, length=length,
+                                **lanes)
+    _leaves_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("delay", ["fixed", "hash", "go"])
+def test_fused_megatick_equals_plain(dev, delay):
+    """Row 8 on the card: the three step bodies from a loaded state,
+    bit-equal to the plain form, under each sampler. Lane 1 is not live
+    at the "ticks" launch (left exactly as it was); 40 steps outlast the
+    traffic, so the other lanes go quiet mid-megatick and are bumped."""
+    from chandy_lamport_tpu_torch.ops.delay import GoExactDelay
+
+    sampler = {"fixed": FixedDelay(2), "hash": HashDelay(5),
+               "go": GoExactDelay(11)}[delay]
+    runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(snapshots=3),
+                        sampler)
+    assert runner.fused == "on"
+    live = ~runner.kernel._halted(s)
+    live[1] = False
+    got = _fused_equals_plain(runner, s, "ticks", 40, live=live)
+    flat = [(x, y) for a, b in zip(got, s)
+            for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)])]
+    assert all(torch.equal(x[1], y[1]) for x, y in flat)   # lane 1 as it was
+    assert int(got.q_len[0].sum()) == 0        # lane 0 drained and bumped
+    limit = s.time + 7                          # the limit stops the drain
+    _fused_equals_plain(runner, s, "drain", 8, limit=limit)
+    _fused_equals_plain(runner, s, "drain", 8,
+                        limit=s.time + runner.config.max_ticks)
+    _fused_equals_plain(runner, s, "flush", runner.config.max_delay + 1)
+
+
+def test_fused_megatick_ring_edge_cases(dev):
+    """Capacity-1 rings (every append wraps and overflows; the clobber
+    and the error bits match); ring wraps at C=5 under quarantine with
+    one lane errored at launch; a single-edge graph."""
+    from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
+    from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+
+    for cap, quarantine in ((1, False), (5, True)):
+        runner, s = _loaded(dev, TOPO_SPEC, SimConfig(
+            max_snapshots=4, queue_capacity=cap, max_recorded=8),
+            HashDelay(3), quarantine=quarantine)
+        if quarantine:
+            s.error[2] |= ERR_QUEUE_OVERFLOW
+        live = ~runner.kernel._halted(s)
+        got = _fused_equals_plain(runner, s, "ticks", 16, live=live)
+        if quarantine:                      # frozen, not bumped
+            assert int(got.time[2]) == int(s.time[2])
+        else:
+            assert int(got.error.max()) & ERR_QUEUE_OVERFLOW
+        _fused_equals_plain(runner, s, "flush", 6)
+        _fused_equals_plain(runner, s, "drain", 8,
+                            limit=s.time + runner.config.max_ticks)
+    one = TopologySpec([("A", 9), ("B", 0)], [("A", "B")])
+    runner, s = _loaded(dev, one, SimConfig(max_snapshots=2,
+                                            queue_capacity=4), HashDelay(2))
+    _fused_equals_plain(runner, s, "ticks", 8, live=~runner.kernel._halted(s))
+    _fused_equals_plain(runner, s, "flush", 6)
+
+
+def test_fused_smem_reckoning_checked_by_kernel(dev, monkeypatch):
+    """The kernel lays its planes out itself and refuses a launch whose
+    shared-memory share (``fused_smem_bytes``, passed in) is short of
+    that layout."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(snapshots=3),
+                        HashDelay(5))
+    reckoned = km.fused_smem_bytes
+    monkeypatch.setattr(km, "fused_smem_bytes",
+                        lambda n, e, k: reckoned(n, e, k) - 16)
+    with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
+        km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
+
+
+def test_megatick_storm_and_goldens_on_the_card(dev):
+    """An exact storm at megatick 8 on the card equals megatick 1 on the
+    card and on the CPU, launching fused_scan; the goldens at megatick 8
+    pass through the kernel."""
+    from chandy_lamport_tpu_torch.api import run_reference_tests
+
+    finals = []
+    for device, k in ((dev, 8), (dev, 1), ("cpu", 8)):
+        runner = BatchedRunner(TOPO_SPEC, SimConfig.for_workload(snapshots=3),
+                               HashDelay(5), 4, scheduler="exact",
+                               device=device, megatick=k)
+        prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=5))
+        before = launch_counts()["fused_scan"]
+        finals.append(runner.run_storm(runner.init_batch_device(), prog))
+        assert (launch_counts()["fused_scan"] > before) == (
+            device == dev and k == 8)
+    _leaves_equal(finals[0], finals[1])
+    _leaves_equal(finals[0], finals[2])
+    before = launch_counts()["fused_scan"]
+    results = run_reference_tests(dev)
+    assert all(why is None for _, _, why in results), results
+    assert launch_counts()["fused_scan"] > before
