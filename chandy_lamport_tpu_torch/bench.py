@@ -222,7 +222,7 @@ def _profile(runner, prog, device, path: str) -> None:
         "device_busy_share": busy_us / 1e6 / wall,
         "kernels": [{"name": key[:120], "calls": n, "device_ms": us / 1e3,
                      "share": us / busy_us if busy_us else 0.0}
-                    for us, n, key in kernels[:25]]}))
+                    for us, n, key in kernels]}))
 
 
 def main(argv=None) -> int:

@@ -102,9 +102,11 @@ def check(code: int, kernel: str) -> None:
                            f"cudaError {code}")
 
 
-def stream_ptr(tensor) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on the tensor's device."""
+def stream_ptr(tensor) -> int:
+    """PyTorch's current CUDA stream on the tensor's device, as the raw
+    ``cudaStream_t`` (the call PyTorch's own generated kernels launch
+    with; ``torch.cuda.current_stream`` builds a Stream object each time,
+    several microseconds of host time per launch)."""
     import torch
 
-    return ctypes.c_void_p(
-        torch.cuda.current_stream(tensor.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())

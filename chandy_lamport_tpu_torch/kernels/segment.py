@@ -7,11 +7,19 @@ PyTorch version beside it, a CUDA tensor launches the hand-written kernel
 of ``csrc/segment.cu`` (or raises). Operands may carry leading batch axes;
 all work is along the trailing axis. Outputs follow the JAX dtypes: sums
 are int32 (a bool input is summed as int32), a spread keeps its dtype.
+
+The segment sums take one of two CUDA paths, chosen by ``segment_plan``
+(the source note of ``csrc/segment.cu`` gives the design): "staged" keeps
+the index tables and two groups of rows in a block's shared memory,
+"tiled" takes the shapes that do not fit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -20,22 +28,86 @@ from chandy_lamport_tpu_torch.kernels import _build
 # launches of each CUDA kernel wrapper (plain versions are not counted)
 LAUNCHES = {"sum_segments": 0, "sum_by_perm": 0, "spread": 0}
 
+# shared memory one block may use on an H100 (227 KB)
+SMEM_BUDGET = 232_448
+# bytes of x one staged group aims at, and rows one thread sums at once
+# (csrc/segment.cu's kRowChunk)
+GROUP_BYTES = 16_384
+ROW_CHUNK = 4
+# int32 entries of perm a tiled block stages (48 KB); a longer slice, one
+# hub, is read from device memory
+TILED_PERM_CAP = 12_288
+PATHS = {"staged": 0, "tiled": 1}
+
 _P = ctypes.c_void_p
-# (x, perm, lo, hi, out, rows, e, n, stream) and (x, idx, out, rows, n, e,
-# stream); the u8 and i32 entry points differ only in x's element type
-_SEGMENT_ARGS = [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
-_SPREAD_ARGS = [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+_I = ctypes.c_int
+# (x, perm, lo, hi, out, rows, e, n, path, rows_per_group, smem_bytes,
+# stream) and (x, idx, out, rows, n, e, stream); the u8 and i32 entry
+# points differ only in x's element type
+_SEGMENT_ARGS = [_P] * 5 + [ctypes.c_longlong] + [_I] * 5 + [_P]
+_SPREAD_ARGS = [_P] * 3 + [ctypes.c_longlong, _I, _I, _P]
 _SIGS = {"clsim_segment_sum_i32": _SEGMENT_ARGS,
          "clsim_segment_sum_u8": _SEGMENT_ARGS,
          "clsim_spread_i32": _SPREAD_ARGS,
          "clsim_spread_u8": _SPREAD_ARGS}
 
 
+@functools.cache
 def _fn(name: str):
+    """The entry point ``name``, bound once: its argument types are set
+    when it is first loaded, not on every call."""
     fn = getattr(_build.library("segment"), name)
     fn.argtypes = _SIGS[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+class SegmentPlan(NamedTuple):
+    path: str             # "staged" or "tiled"
+    rows_per_group: int   # rows of x one staged group copies (tiled: 1)
+    smem_bytes: int       # dynamic shared memory of one block
+
+
+def _align16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def staged_smem_bytes(e: int, n: int, k: int, elem_size: int,
+                      has_perm: bool) -> int:
+    """Shared memory of a staged block, the one reckoning of it (the
+    kernel checks its own layout against it): perm (when given), lo and
+    hi as int32, and two buffers of k rows each; each with the 15 bytes of
+    slack that align a copy starting anywhere."""
+    return ((_align16(4 * e + 15) if has_perm else 0)
+            + 2 * _align16(4 * n + 15) + 2 * _align16(k * e * elem_size + 15))
+
+
+@functools.lru_cache(maxsize=256)
+def segment_plan(rows: int, e: int, n: int, elem_size: int,
+                 has_perm: bool) -> SegmentPlan:
+    """How the CUDA kernel sums ``rows`` rows of ``e`` elements into ``n``
+    segments: "staged" with groups of ~GROUP_BYTES of x, at least
+    ROW_CHUNK rows and a multiple of it (fewer rows when the tables leave
+    less room, never more than ``rows``), when the block's layout fits
+    SMEM_BUDGET; "tiled" otherwise, staging up to TILED_PERM_CAP entries
+    of perm. Fewer rows than ROW_CHUNK without perm (the send debits, one
+    row) are tiled too: no rows share the staged tables, and the tiled
+    grid spreads the nodes over blocks where a staged group is one
+    block."""
+    if rows < ROW_CHUNK and not has_perm:
+        return SegmentPlan("tiled", 1, 0)
+    k = max(1, min(rows, max(ROW_CHUNK,
+                             GROUP_BYTES // max(e * elem_size, 1))))
+    if k > ROW_CHUNK:
+        k -= k % ROW_CHUNK
+    while k > 1 and staged_smem_bytes(e, n, k, elem_size,
+                                      has_perm) > SMEM_BUDGET:
+        k -= ROW_CHUNK if k > ROW_CHUNK else 1
+    smem = staged_smem_bytes(e, n, k, elem_size, has_perm)
+    if smem <= SMEM_BUDGET:
+        return SegmentPlan("staged", k, smem)
+    return SegmentPlan("tiled", 1,
+                       4 * min(e, TILED_PERM_CAP) if has_perm else 0)
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -77,20 +149,24 @@ def _check_operand(x, name, dtypes):
 
 def _segment_sum_cuda(x, perm, lo, hi, counter):
     _check_operand(x, counter, (torch.int32, torch.bool))
-    for t, name in ((lo, "lo"), (hi, "hi")) + (
-            ((perm, "perm"),) if perm is not None else ()):
-        _check_index(t, name, x.device)
+    device = x.device
+    _check_index(lo, "lo", device)
+    _check_index(hi, "hi", device)
+    if perm is not None:
+        _check_index(perm, "perm", device)
     e, n = x.shape[-1], lo.shape[0]
     if hi.shape != lo.shape or (perm is not None and perm.shape[0] != e):
         raise ValueError("segment bounds / permutation shape mismatch")
-    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.int32,
-                      device=x.device)
-    rows = x.numel() // e if e else 0
+    out = x.new_empty(x.shape[:-1] + (n,), dtype=torch.int32)
+    rows = math.prod(x.shape[:-1])
+    plan = segment_plan(rows, e, n, x.element_size(), perm is not None)
     name = ("clsim_segment_sum_u8" if x.dtype == torch.bool
             else "clsim_segment_sum_i32")
     code = _fn(name)(x.data_ptr(), perm.data_ptr() if perm is not None
                      else None, lo.data_ptr(), hi.data_ptr(),
-                     out.data_ptr(), rows, e, n, _build.stream_ptr(x))
+                     out.data_ptr(), rows, e, n, PATHS[plan.path],
+                     plan.rows_per_group, plan.smem_bytes,
+                     _build.stream_ptr(x))
     _build.check(code, name)
     LAUNCHES[counter] += 1
     return out

@@ -23,7 +23,17 @@ each printing one JSON line:
                eligible, partially active rows, overflow rows, a marker
                broadcast), and append_rows at 131,072 lanes of ring-10: the
                CUDA kernel must equal its plain PyTorch version on the card
-               bit for bit (tolerance: none, integer work), with times;
+               bit for bit (tolerance: none, integer work), with times.
+               The segment sums (sum_by_perm at the sync arrivals and
+               credits shapes, both main rows, and at the exact credits;
+               sum_segments at the send debits) also get ``device_ms``
+               (torch.profiler's kernel time per call) and ``host_us``
+               (the wrapper's host time per call), each beside
+               index_add_'s, and are held to their plain versions on
+               edge cases (``segment_edge_cases``: the tiled path, the
+               switch at the shared-memory limit, empty segments, a
+               2,000-edge segment, R = 0, unaligned rows and tables, the
+               int32 wrap);
   fused_kernel fused_scan (the fused megatick) at the exact cell's shape —
                one drain megatick (K=8) from the state after its 32 storm
                phases — and on small edge cases (ring wrap, capacity-1
@@ -69,7 +79,9 @@ each printing one JSON line:
                and on the CPU (plain versions): every state leaf identical.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
-``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
+``{"kernels": [...]}`` summary (the segment sums' entries add the device
+and host times and a ``shapes`` list of every timed shape), and last
+``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
 """
@@ -121,6 +133,9 @@ KERNELS = {
 }
 # the megatick of main path 4 (the JAX storm CLI's default --megatick)
 MEGATICK = 8
+# what split_times adds to a row
+SPLIT_KEYS = ("device_ms", "host_us", "library_device_ms",
+              "library_host_us")
 
 
 def emit(obj) -> None:
@@ -142,6 +157,59 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time of one call: the CUDA kernels that torch.profiler saw
+    over ``reps`` calls after a warm one, summed over their names and
+    divided by ``reps`` (None when it saw none); and those names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", 0)
+            by_name[evt.key[:60]] = by_name.get(evt.key[:60], 0) + us
+    total_us = sum(by_name.values())
+    return (total_us / 1e3 / reps if total_us > 0 else None), sorted(by_name)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time of one call: the wall time of ``reps`` calls enqueued
+    back to back after a warm one, the device not waited for inside the
+    window (so a call bound by its wrapper shows here, a slow kernel in
+    ``device_ms``)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def split_times(kernel_fn, library_fn) -> dict:
+    """Device ms and host us per call of a kernel wrapper and of its
+    library yardstick."""
+    k_ms, k_names = device_ms(kernel_fn)
+    times = {"device_ms": k_ms, "device_kernels": k_names,
+             "host_us": host_us(kernel_fn)}
+    if library_fn is not None:
+        l_ms, l_names = device_ms(library_fn)
+        times.update(library_device_ms=l_ms, library_kernels=l_names,
+                     library_host_us=host_us(library_fn))
+    return times
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -167,6 +235,101 @@ def max_abs_err(got, want) -> int:
         diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
         err = max(err, int(diff.max()) if diff.numel() else 0)
     return err
+
+
+def csr_by_dst(dst, n, dev):
+    """(perm, lo, hi) of a by-destination CSR over edges whose heads are
+    ``dst`` (numpy), laid out as DenseTopology's by_dst / dst_bounds, as
+    views of one int32 tensor [perm | bounds]: lo starts 4E bytes in and
+    hi 4 bytes after it, so the tables' starts are not 16-byte aligned."""
+    import numpy as np
+    import torch
+
+    e = len(dst)
+    both = torch.as_tensor(np.concatenate([
+        np.argsort(dst, kind="stable"),
+        [0], np.cumsum(np.bincount(dst, minlength=n))]).astype(np.int32),
+        device=dev)
+    return both[:e], both[e:e + n], both[e + 1:]
+
+
+def segment_edge_cases(dev) -> list:
+    """sum_by_perm and sum_segments (the same bounds, no perm) against
+    their plain versions, bit for bit, on the shapes and inputs the main
+    paths do not reach: the tiled path (an E past the staged limit, and a
+    20,000-edge hub whose perm slice is past what a tiled block stages),
+    the switch at exactly the shared-memory limit, nodes
+    with no in-edges, a segment longer than 1,024, R = 0, and odd
+    E with unaligned row starts on a view whose first row is not 16-byte
+    aligned; the tables are unaligned views too (``csr_by_dst``), and
+    int32 inputs span the full range, so the sums wrap."""
+    import numpy as np
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import segment as ks
+
+    rng = np.random.default_rng(11)
+
+    def ints(shape):
+        return torch.as_tensor(rng.integers(-2**31, 2**31 - 1, shape,
+                                            dtype=np.int32), device=dev)
+
+    def flags(shape):
+        return torch.as_tensor(rng.random(shape) < 0.4, device=dev)
+
+    hub = rng.integers(0, 300, 70_000)
+    hub[rng.choice(70_000, 20_000, replace=False)] = 7
+    long_seg = rng.integers(0, 1024, 3063)
+    long_seg[:2000] = 5
+    big_b, big_i = flags((65, 3063)), ints((65, 3063))
+    cases = (
+        # (note, x, edge heads, N, the paths sum_by_perm and sum_segments
+        # must plan: the staged limit is lower with perm in shared memory)
+        ("tiled: [16,40000] int32, N=5000", ints((16, 40_000)),
+         rng.integers(0, 5000, 40_000), 5000, ("tiled", "tiled")),
+        ("[6,70000] bool, a 20,000-edge hub", flags((6, 70_000)),
+         hub, 300, ("tiled", "staged")),
+        ("at the limit: [4,29040] int32, N=8 (no perm: 232,448 B)",
+         ints((4, 29_040)), rng.integers(0, 8, 29_040), 8,
+         ("tiled", "staged")),
+        ("past the limit: [4,29041] int32, N=8", ints((4, 29_041)),
+         rng.integers(0, 8, 29_041), 8, ("tiled", "tiled")),
+        ("no in-edges on odd nodes: [64,3063] bool", flags((64, 3063)),
+         2 * rng.integers(0, 512, 3063), 1024, ("staged", "staged")),
+        ("a 2,000-edge segment: [32,3063] int32", ints((32, 3063)),
+         long_seg, 1024, ("staged", "staged")),
+        ("R = 0: [0,3063] bool", flags((0, 3063)),
+         rng.integers(0, 1024, 3063), 1024, ("staged", "tiled")),
+        ("odd E, a view at +3063 B: [64,3063] bool", big_b[1:],
+         rng.integers(0, 1024, 3063), 1024, ("staged", "staged")),
+        ("odd E, a view at +12252 B: [64,3063] int32", big_i[1:],
+         rng.integers(0, 1024, 3063), 1024, ("staged", "staged")),
+    )
+    rows = []
+    for note, x, dst, n, paths in cases:
+        perm, lo, hi = csr_by_dst(dst, n, dev)
+        for (name, has_perm), path in zip((("sum_by_perm", True),
+                                           ("sum_segments", False)), paths):
+            plan = ks.segment_plan(x.shape[0], x.shape[-1], n,
+                                   x.element_size(), has_perm)
+            if plan.path != path:
+                raise AssertionError(f"{name} on {note} planned {plan}, "
+                                     f"not the {path} path")
+            if has_perm:
+                got = ks.sum_by_perm(x, perm, lo, hi)
+                want = ks.sum_by_perm_plain(x, perm, lo, hi)
+            else:
+                got = ks.sum_segments(x, lo, hi)
+                want = ks.sum_segments_plain(x, lo, hi)
+            err = max_abs_err([got], [want])
+            if err:
+                raise AssertionError(f"{name} != plain on {note}: max "
+                                     f"|diff| {err}")
+            rows.append({"kernel": name, "case": note, "path": plan.path,
+                         "rows_per_group": plan.rows_per_group,
+                         "smem_bytes": plan.smem_bytes,
+                         "max_abs_err": err})
+    return rows
 
 
 def nvidia_smi() -> str:
@@ -237,7 +400,7 @@ def fault_runner(device, batch=X_BATCH):
                         snapshot_timeout=F_TIMEOUT)
 
 
-def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
+def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> tuple:
     """Every wrapper against its plain version at the shapes of its path;
     returns the per-kernel measurements for the summary line."""
     import numpy as np
@@ -266,7 +429,10 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
     rows, out = {}, {}
 
     def record(name, shape_note, got, want, kernel_fn, plain_fn, nbytes,
-               ops, library_fn=None, extra=False):
+               ops, library_fn=None, extra=False, split=False):
+        """One row of ``name``; ``extra`` rows stay out of the summary,
+        ``split`` adds the device time per call (profiler) and the host
+        time per call of the kernel and of the library call."""
         err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError(f"{name} ({shape_note}): kernel != plain, "
@@ -274,10 +440,12 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
         row = {"shape": shape_note, "max_abs_err": err,
                "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
                "library_ms": time_ms(library_fn) if library_fn else None,
-               **bound(nbytes, ops)}
+               **bound(nbytes, ops), "main": not extra}
+        if split:
+            row.update(split_times(kernel_fn, library_fn))
         rows.setdefault(name, []).append(row)
         if not extra:
-            out[name] = row
+            out.setdefault(name, []).append(row)
 
     # -- sum_by_perm: token credits [B, E] i32 and arrivals [B, S, E] bool
     perm, lo, hi = kern._by_dst, kern._dst_lo, kern._dst_hi
@@ -289,7 +457,7 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
     arrivals_in[:4] = torch.rand((4, S, E), generator=gen).to(dev) < 0.5
     wide = rand_int((64, E), -2**31, 2**31 - 1)   # exercises the 2^32 wrap
     for x, note, main in ((arrivals_in, f"[{B},{S},{E}] bool", True),
-                          (credits_in, f"[{B},{E}] int32", False),
+                          (credits_in, f"[{B},{E}] int32", True),
                           (wide, f"[64,{E}] int32 full range", False)):
         x_i = x.to(torch.int32)
         lib_out = torch.zeros(x.shape[:-1] + (N,), dtype=torch.int32,
@@ -305,7 +473,7 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
                lambda: ks.sum_by_perm_plain(x, perm, lo, hi),
                x.numel() * x.element_size() + 4 * E + 8 * N + 4 * r * N,
                x.numel(), lambda: lib_out.index_add_(-1, dst_long, x_i),
-               extra=not main)
+               extra=not main, split=True)
 
     # -- sum_segments: the per-phase send debits, one [E] row
     slo, shi = kern._src_lo, kern._src_hi
@@ -324,7 +492,10 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
                lambda: ks.sum_segments(x, slo, shi),
                lambda: ks.sum_segments_plain(x, slo, shi),
                4 * x.numel() + 8 * N + 4 * r * N, x.numel(),
-               lambda: lib_out.index_add_(-1, src_long, x), extra=not main)
+               lambda: lib_out.index_add_(-1, src_long, x), extra=not main,
+               split=True)
+
+    segment_edges = segment_edge_cases(dev)
 
     # -- spread: created flags [B, S, N] bool onto in/out edges, and int32
     flags = s.has_local.clone()
@@ -488,7 +659,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
                lambda: ks.sum_by_perm(x, xperm, xlo, xhi),
                lambda: ks.sum_by_perm_plain(x, xperm, xlo, xhi),
                4 * x.numel() + 4 * XE + 8 * XN + 4 * r * XN, x.numel(),
-               lambda: lib_out.index_add_(-1, xdst_long, x), extra=True)
+               lambda: lib_out.index_add_(-1, xdst_long, x), extra=True,
+               split=True)
 
     xslo, xshi = xk._src_lo, xk._src_hi
     xsrc_long = xk._edge_src.to(torch.int64)
@@ -503,7 +675,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
            lambda: ks.sum_segments(x_amounts, xslo, xshi),
            lambda: ks.sum_segments_plain(x_amounts, xslo, xshi),
            4 * XE + 8 * XN + 4 * XN, XE,
-           lambda: lib_out.index_add_(-1, xsrc_long, x_amounts), extra=True)
+           lambda: lib_out.index_add_(-1, xsrc_long, x_amounts), extra=True,
+           split=True)
 
     # the next phase's token send, then a marker broadcast as
     # _broadcast_markers builds it: a per-lane node's outbound row, block
@@ -619,8 +792,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> dict:
     del sel_args, elig, f_head, f_len, down
 
     emit({"phase": "kernels", "tolerance": "bit-equal (integer work)",
-          "rows": rows})
-    return out
+          "rows": rows, "segment_edge_cases": segment_edges})
+    return out, rows
 
 
 def _leaves(state) -> list:
@@ -1172,8 +1345,9 @@ def main() -> int:
     xrunner, xprog = exact_runner("cuda")
     frunner, fprog = fault_runner("cuda")
     mrunner, mprog = exact_runner("cuda", megatick=MEGATICK)
-    rows = phase_kernels(runner, prog, xrunner, xprog, frunner, fprog)
-    rows["fused_scan"] = phase_fused_kernel(mrunner, mprog)
+    rows, all_rows = phase_kernels(runner, prog, xrunner, xprog, frunner,
+                                   fprog)
+    rows["fused_scan"] = [phase_fused_kernel(mrunner, mprog)]
     # each main path runs with the launch counts zeroed just before it
     _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
                        ("sum_by_perm", "sum_segments", "spread",
@@ -1211,16 +1385,25 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        row = rows[name]
+        row = rows[name][0]
         by_path = {path: counts[name] for path, counts in paths.items()}
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": row["shape"],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        # the segment sums: device and host time per call at every shape
+        # of their paths, beside index_add_'s
+        timed = [r for r in all_rows.get(name, ()) if "device_ms" in r]
+        if timed:
+            entry.update({key: row[key] for key in SPLIT_KEYS})
+            entry["shapes"] = [{key: r[key] for key in (
+                "shape", "main", "ms", "bound_ms", "library_ms",
+                *SPLIT_KEYS)} for r in timed]
+        kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

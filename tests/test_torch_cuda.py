@@ -8,9 +8,14 @@ more lanes than a grid's y axis holds (append_rows), and small sync,
 exact and faulted exact storms on the card must equal the same storms on
 the CPU; the fused megatick (row 8) must equal its plain form on every
 step body, sampler and ring edge case, and an exact storm at megatick 8
-must equal megatick 1. Run on a
+must equal megatick 1. The segment sums (rows 1-2) take two paths, staged
+and tiled (``segment_plan``); each, on both dtypes, with and without
+perm, must equal the plain version, and every C entry point must load.
+Run on a
 GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -73,6 +78,105 @@ def test_segment_kernels_equal_plain(dev, dtype):
     after = launch_counts()
     assert all(after[k] == before[k] + 1
                for k in ("sum_by_perm", "sum_segments", "spread"))
+
+
+def _csr(heads, n, dev):
+    """(perm, lo, hi) of the by-head CSR of ``heads`` (numpy), as views of
+    one tensor [perm | bounds], so lo and hi do not start 16-byte
+    aligned."""
+    e = len(heads)
+    both = _i32(np.concatenate([np.argsort(heads, kind="stable"), [0],
+                                np.cumsum(np.bincount(heads, minlength=n))]),
+                dev)
+    return both[:e], both[e:e + n], both[e + 1:]
+
+
+# (E, N, leading axes, hub in-edges) of a shape each segment path takes:
+# config 4's width, and rows too wide for two to share a block's shared
+# memory (the hub's tile reads perm from device memory, the others stage
+# their slices)
+SEGMENT_SHAPES = {"staged": (3063, 1024, (5, 3), 2000),
+                  "tiled": (120_000, 4096, (2, 3), 20_000)}
+
+
+@pytest.mark.parametrize("has_perm", [True, False], ids=["perm", "no_perm"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bool])
+@pytest.mark.parametrize("path", ["staged", "tiled"])
+def test_segment_sum_paths_equal_plain(dev, path, dtype, has_perm):
+    """Each CUDA path of the segment sums, each dtype, with perm
+    (sum_by_perm) and without (sum_segments): bit-equal to the plain
+    version on bounds where odd nodes have no edges and one segment is
+    longer than 1,024, with full-range int32 (the sums wrap), on a view
+    whose rows start off 16-byte alignment, with unaligned tables."""
+    e, n, lead, hub = SEGMENT_SHAPES[path]
+    rng = np.random.default_rng(21)
+    heads = 2 * rng.integers(0, n // 2, e)
+    heads[rng.choice(e, hub, replace=False)] = 4
+    perm, lo, hi = _csr(heads, n, dev)
+    shape = (lead[0] + 1,) + lead[1:] + (e,)
+    base = (torch.as_tensor(rng.random(shape) < 0.4, device=dev)
+            if dtype == torch.bool
+            else _i32(rng.integers(-2**31, 2**31 - 1, shape), dev))
+    x = base[1:]
+    plan = ks.segment_plan(x.numel() // e, e, n, x.element_size(), has_perm)
+    assert plan.path == path
+    counter = "sum_by_perm" if has_perm else "sum_segments"
+    before = launch_counts()[counter]
+    if has_perm:
+        got = ks.sum_by_perm(x, perm, lo, hi)
+        want = ks.sum_by_perm_plain(x, perm, lo, hi)
+    else:
+        got, want = ks.sum_segments(x, lo, hi), ks.sum_segments_plain(x, lo,
+                                                                      hi)
+    _equal([got], [want])
+    assert launch_counts()[counter] == before + 1
+
+
+def test_segment_sum_without_rows_or_edges(dev):
+    """R = 0 gives an empty result; E = 0 (every segment empty) gives
+    zeros, where the plain version's cumsum has no column to pad."""
+    perm = _i32(TOPO.by_dst, dev)
+    lo, hi = _i32(TOPO.dst_bounds[:-1], dev), _i32(TOPO.dst_bounds[1:], dev)
+    none = _i32(np.zeros(5), dev)
+    zeros = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+    for dtype in (torch.int32, torch.bool):
+        x0 = torch.zeros((0, E), dtype=dtype, device=dev)
+        assert ks.sum_by_perm(x0, perm, lo, hi).shape == (0, N)
+        assert ks.sum_segments(x0, lo, hi).shape == (0, N)
+        xe = torch.ones((3, 0), dtype=dtype, device=dev)
+        assert torch.equal(ks.sum_segments(xe, none, none), zeros)
+        assert torch.equal(ks.sum_by_perm(xe, _i32(np.zeros(0), dev), none,
+                                          none), zeros)
+
+
+def test_segment_plan_checked_by_kernel(dev, monkeypatch):
+    """The staged kernel lays its shared memory out itself and refuses a
+    launch whose share (``segment_plan``'s, passed in) is short of that
+    layout."""
+    x = torch.zeros((4, E), dtype=torch.int32, device=dev)
+    perm = _i32(TOPO.by_dst, dev)
+    lo, hi = _i32(TOPO.dst_bounds[:-1], dev), _i32(TOPO.dst_bounds[1:], dev)
+    plan = ks.segment_plan(4, E, N, 4, True)
+    assert plan.path == "staged"
+    monkeypatch.setattr(ks, "segment_plan", lambda *a: plan._replace(
+        smem_bytes=plan.smem_bytes - 16))
+    with pytest.raises(RuntimeError, match="clsim_segment_sum_i32"):
+        ks.sum_by_perm(x, perm, lo, hi)
+
+
+def test_every_entry_point_loads(dev):
+    """Every C entry point of the three libraries is exported (ctypes
+    finds only symbols with external linkage) and bound once."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    for name, sig in ks._SIGS.items():
+        fn = ks._fn(name)
+        assert tuple(fn.argtypes) == tuple(sig)
+        assert fn.restype is ctypes.c_int
+        assert ks._fn(name) is fn
+    for name, sig in kq._SIGS.items():
+        assert tuple(kq._fn(name).argtypes) == tuple(sig)
+    assert km._fn().restype is ctypes.c_int
 
 
 def test_queue_kernels_equal_plain(dev):

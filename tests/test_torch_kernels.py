@@ -7,10 +7,17 @@ numpy-seeded inputs with leading lane axes. The JAX side calls the
 Pallas function itself in interpret mode, ``jax.vmap``ped over the lane
 axes as the JAX package's own tests run it; the port side calls its
 wrapper on CPU tensors, which runs the plain PyTorch version. Tolerance:
-none (integer work, every value and dtype must be equal).
+none (integer work, every value and dtype must be equal). The segment
+sums also run on bounds with empty segments, with one segment longer
+than 1,024 edges, and with no rows (where the Pallas call refuses a
+zero-size grid, the oracle is its kernel body, ``_bounded_sums``, on the
+whole array); int32 inputs span the full range, so the sums wrap. The
+segment kernels' planner (``segment_plan``) is pinned at the main paths'
+shapes and at the switch between its staged and tiled paths.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -45,45 +52,143 @@ def _assert_same(jax_out, torch_out):
     np.testing.assert_array_equal(a, b)
 
 
-def _segment_input(rng, lead, dtype):
+def _segment_input(rng, lead, dtype, e=E):
     if dtype == "bool":
-        return rng.random(lead + (E,)) < 0.4
+        return rng.random(lead + (e,)) < 0.4
     # full int32 range: the JAX cumsum wraps, the port's sums must too
-    return rng.integers(-2**31, 2**31 - 1, lead + (E,), dtype=np.int32)
+    return rng.integers(-2**31, 2**31 - 1, lead + (e,), dtype=np.int32)
 
 
-def _bounds(direction):
-    if direction == "dst":
-        return (TOPO.by_dst.astype(np.int32),
-                TOPO.dst_bounds[:-1].astype(np.int32),
-                TOPO.dst_bounds[1:].astype(np.int32))
-    src = np.concatenate([[0], np.cumsum(np.bincount(TOPO.edge_src,
-                                                     minlength=N))])
-    return None, src[:-1].astype(np.int32), src[1:].astype(np.int32)
+# edges of the "hub" bounds; 1,030 of them meet node 3
+HUB_E = 1100
+
+
+def _heads(direction, case):
+    """The per-edge node (dst or src) of the bounds ``case``: the sf-24
+    topology; its edges moved onto even nodes, so odd nodes have empty
+    segments; or HUB_E edges with one segment longer than 1,024."""
+    if case == "sf":
+        return TOPO.edge_dst if direction == "dst" else TOPO.edge_src
+    rng = np.random.default_rng(9 if direction == "dst" else 10)
+    if case == "empty":
+        heads = 2 * rng.integers(0, N // 2, E)
+    else:
+        heads = rng.integers(0, N, HUB_E)
+        heads[rng.choice(HUB_E, 1030, replace=False)] = 3
+    return heads if direction == "dst" else np.sort(heads)
+
+
+def _bounds(direction, case="sf"):
+    """(perm, lo, hi): by destination (perm = a stable sort by dst, as
+    ``DenseTopology.by_dst``), or by source (no perm: edges src-sorted)."""
+    heads = _heads(direction, case)
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(heads,
+                                                        minlength=N))])
+    perm = (np.argsort(heads, kind="stable").astype(np.int32)
+            if direction == "dst" else None)
+    return perm, bounds[:-1].astype(np.int32), bounds[1:].astype(np.int32)
+
+
+def _pallas_or_body(call, body, x):
+    """The Pallas function vmapped over the lane axis; with no rows, where
+    the Pallas call refuses a zero-size grid, its kernel body on the whole
+    array."""
+    if x.shape[0] == 0:
+        return body(pl_segment._cast(jnp.asarray(x)))
+    return jax.vmap(call)(x)
+
+
+# (leading axes, bounds case); the first two ids are the original cases
+SEGMENT_CASES = pytest.mark.parametrize(
+    "lead,case", [((3,), "sf"), ((2, 4), "sf"), ((3,), "empty"),
+                  ((2, 3), "hub"), ((0,), "sf")],
+    ids=["lead0", "lead1", "empty", "hub", "rows0"])
 
 
 @pytest.mark.parametrize("dtype", ["int32", "bool"])
-@pytest.mark.parametrize("lead", [(3,), (2, 4)])
-def test_sum_by_perm_matches_pallas(dtype, lead):
+@SEGMENT_CASES
+def test_sum_by_perm_matches_pallas(dtype, lead, case):
     """Row 1: token credits ([B, E] int32) and marker arrivals
     ([B, S, E] bool) per destination node."""
-    x = _segment_input(np.random.default_rng(1), lead, dtype)
-    perm, lo, hi = _bounds("dst")
-    ref = jax.vmap(lambda v: pl_segment.sum_by_perm(
-        v, perm, lo, hi, interpret=True))(x)
+    perm, lo, hi = _bounds("dst", case)
+    x = _segment_input(np.random.default_rng(1), lead, dtype, len(perm))
+    ref = _pallas_or_body(
+        lambda v: pl_segment.sum_by_perm(v, perm, lo, hi, interpret=True),
+        lambda v: pl_segment._bounded_sums(jnp.take(v, perm, axis=-1), lo,
+                                           hi), x)
     _assert_same(ref, t_segment.sum_by_perm(_t(x), _t(perm), _t(lo),
                                             _t(hi)))
 
 
 @pytest.mark.parametrize("dtype", ["int32", "bool"])
-@pytest.mark.parametrize("lead", [(3,), (2, 4)])
-def test_sum_segments_matches_pallas(dtype, lead):
+@SEGMENT_CASES
+def test_sum_segments_matches_pallas(dtype, lead, case):
     """Row 2: per-source sums over the src-sorted edges (send debits)."""
-    x = _segment_input(np.random.default_rng(2), lead, dtype)
-    _, lo, hi = _bounds("src")
-    ref = jax.vmap(lambda v: pl_segment.sum_segments(
-        v, lo, hi, interpret=True))(x)
+    _, lo, hi = _bounds("src", case)
+    x = _segment_input(np.random.default_rng(2), lead, dtype, int(hi[-1]))
+    ref = _pallas_or_body(
+        lambda v: pl_segment.sum_segments(v, lo, hi, interpret=True),
+        lambda v: pl_segment._bounded_sums(v, lo, hi), x)
     _assert_same(ref, t_segment.sum_segments(_t(x), _t(lo), _t(hi)))
+
+
+# (rows, E, N, element bytes, perm given) -> (path, rows per group, smem)
+PLANS = {
+    # the main paths: sync arrivals and credits (sf-1024, B=2048, S=8),
+    # exact credits (er-256, B=4096), the send debits of both
+    "sync_arrivals": ((16384, 3063, 1024, 1, True), ("staged", 4, 45040)),
+    "sync_credits": ((2048, 3063, 1024, 4, True), ("staged", 4, 118544)),
+    "exact_credits": ((4096, 768, 256, 4, True), ("staged", 4, 29776)),
+    "sync_debits": ((1, 3063, 1024, 4, False), ("tiled", 1, 0)),
+    "exact_debits": ((1, 768, 256, 4, False), ("tiled", 1, 0)),
+    # the switch at exactly the shared-memory budget, and one edge past
+    "at_limit": ((64, 29040, 8, 4, False), ("staged", 1, 232448)),
+    "past_limit": ((64, 29041, 8, 4, False), ("tiled", 1, 0)),
+    "past_limit_perm": ((64, 29041, 8, 4, True), ("tiled", 1, 49152)),
+    # wide rows: staged while one row and the tables fit, else tiled
+    "wide_rows": ((4, 65536, 8, 1, False), ("staged", 1, 131200)),
+    "wide_rows_perm": ((3, 65536, 8, 1, True), ("tiled", 1, 4 * 12288)),
+    "no_rows": ((0, 3063, 1024, 1, True), ("staged", 1, 26672)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_segment_plan_pinned(name):
+    """The path, rows per group and shared-memory bytes the CUDA segment
+    kernel gets at each pinned shape."""
+    args, want = PLANS[name]
+    plan = t_segment.segment_plan(*args)
+    assert tuple(plan) == want
+    if plan.path == "staged":
+        assert plan.smem_bytes == t_segment.staged_smem_bytes(
+            args[1], args[2], plan.rows_per_group, args[3], args[4])
+    assert plan.smem_bytes <= t_segment.SMEM_BUDGET
+
+
+def test_segment_plan_fits_every_shape():
+    """Over seeded shapes: a staged plan fits the budget with its rows per
+    group (a multiple of ROW_CHUNK past ROW_CHUNK, at most the rows);
+    a shape is tiled only when one row does not fit, or when it has fewer
+    rows than ROW_CHUNK and no perm."""
+    rng = np.random.default_rng(12)
+    for _ in range(400):
+        rows = int(rng.integers(0, 5000))
+        e = int(rng.choice([0, 1, 7, 768, 3063, 29048, 40000, 70000])
+                + rng.integers(0, 50))
+        n = int(rng.choice([1, 8, 256, 1024, 5000, 60000]))
+        size, has_perm = int(rng.choice([1, 4])), bool(rng.random() < 0.5)
+        plan = t_segment.segment_plan(rows, e, n, size, has_perm)
+        k = plan.rows_per_group
+        assert plan.smem_bytes <= t_segment.SMEM_BUDGET
+        if plan.path == "staged":
+            assert 1 <= k <= max(rows, 1)
+            assert k <= t_segment.ROW_CHUNK or k % t_segment.ROW_CHUNK == 0
+            assert plan.smem_bytes == t_segment.staged_smem_bytes(
+                e, n, k, size, has_perm)
+        else:
+            assert (rows < t_segment.ROW_CHUNK and not has_perm) or \
+                t_segment.staged_smem_bytes(e, n, 1, size, has_perm) \
+                > t_segment.SMEM_BUDGET
 
 
 def test_sum_segments_unbatched_debits():
