@@ -19,6 +19,9 @@ the conservation delta (fault skew subtracted) is 0, no bit other than
 ERR_SNAPSHOT_TIMEOUT / ERR_FAULT_UNRECOVERED is set, every lane holding
 one of those was quarantined (it stopped before the tick limit), and
 every snapshot of a clean lane completed (the JAX rule, ``cli.py:309-314``).
+They combine with ``--megatick K``: the faulted, supervised drain and
+flush then run through the fused megatick too (the row's ``fused_tick``
+says "on" on the card).
 """
 
 from __future__ import annotations

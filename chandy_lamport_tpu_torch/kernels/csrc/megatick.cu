@@ -1,13 +1,14 @@
 // The fused megatick for Hopper (sm_90a): K exact ticks of every lane in one
-// launch.
+// launch, with the fault adversary and the snapshot supervisor inside the
+// step.
 //
 // Replaces the Pallas kernel of chandy_lamport_tpu/kernels/megatick.py:
 //   fused_scan (:432, pallas_call :641, with RingStream.commit_and_heads
 //   :380) -> clsim_fused_ticks
-// for its fault-free, unsupervised, untraced body: each step is a quiet
-// bump, the identity, or one cascade tick (ops/tick._cascade_tick with
-// faults=None and no supervisor), as kernels/megatick.py's module
-// docstring sets out for the modes "ticks", "drain" and "flush".
+// for its untraced body: each step is a quiet bump, the identity, or one
+// cascade tick (ops/tick._cascade_tick, with the fault hooks and the
+// supervisor when armed), as kernels/megatick.py's module docstring sets
+// out for the modes "ticks", "drain" and "flush".
 //
 // Design. One block per lane; the K steps loop inside the block, as the
 // Pallas kernel's lax.scan runs inside one grid step. A lane's state does
@@ -15,19 +16,46 @@
 // so the TPU's resident carry does not carry over. The block keeps the
 // tick's small working planes in shared memory (carve: the [E]
 // vectors, tokens, the [S, N] planes, recording, the [S] vectors; 48,480
-// B at ER-256) and reads and writes the [E, C] rings, the [L, E] log and
-// the [S, E] windows in device memory in place. The JAX tiled layout
-// defers each tick's ring appends into buffers and replays them in one
-// block pass (RingStream) because a TPU kernel addresses VMEM by whole
-// blocks; a CUDA thread writes its one slot directly, in program order, so
-// no deferred pass is needed and an overflowing append clobbers exactly as
-// the eager path does.
+// B at ER-256, 50,448 B with the fault arm) and reads and writes the
+// [E, C] rings, the [L, E] log and the [S, E] windows in device memory in
+// place. The JAX tiled layout defers each tick's ring appends into
+// buffers and replays them in one block pass (RingStream) because a TPU
+// kernel addresses VMEM by whole blocks; a CUDA thread writes its one slot
+// directly, in program order, so no deferred pass is needed and an
+// overflowing append clobbers exactly as the eager path does.
 //
-// Per tick:
-//   1. selection + pop, one thread per source node walking its edges in
+// The fault arm. The JAX kernel takes the adversary's next K ticks as
+// planes ([K, 8, E] and [K, 2, N] per lane, TickKernel._fault_planes);
+// at ER-256 B=4096 and K=8 the edge plane alone would be 805 MB. The
+// fault hash is stateless in (key, time, index) (models/faults.py), so
+// this kernel hashes each step's masks at the step's own clock instead,
+// which is what the planes hold: the megatick's gates are monotone, so a
+// step that ticks is always at time t0 + 1 + j. Each armed class is one
+// lowbias32 per edge on top of one shared per (edge, step); rate 0
+// hashes nothing, rate >= 1 fires on every armed lane, a key of 0 disarms
+// its lane (Faults._rate_mask). clsim_fault_planes fills the JAX planes
+// from these same device functions for the chip check.
+//
+// Per tick (ops/tick._cascade_tick's order):
+//   0. with the adversary: the step's edge flags (drop, dup, jitter and
+//      their marker twins) and each node's down flag into shared memory,
+//      all threads; a node whose crash window ended at t restarts
+//      (counted; "lossy" restores it from the newest completed slot's
+//      frozen balance, or zeroes it with ERR_FAULT_UNRECOVERED), every
+//      balance change into fault_skew;
+//   1. with the supervisor, in warp 0: the daemon's injection, the
+//      timeout scan (abort: rows cleared, epoch bumped; retry with
+//      backoff timeout << min(retries, 4), or fail with
+//      ERR_SNAPSHOT_TIMEOUT), then each retried slot's re-initiation,
+//      lowest first; markers carry epoch * S + sid;
+//   2. selection + pop, one thread per source node walking its edges in
 //      dest order (queue_step's walk): the first edge with len > 0 and
-//      rtime <= time is popped, its payload kept in head_data;
-//   2. the marker fold, sequential, in warp 0: popped markers in ascending
+//      rtime <= time (and, under faults, not stalled by jitter or the
+//      marker jitter, whose stalls are counted, and not bound for a down
+//      node) is popped, its payload kept in head_data; then the drop /
+//      dup split of the popped token or marker and, under the
+//      supervisor, the stale-epoch rejection;
+//   3. the marker fold, sequential, in warp 0: popped markers in ascending
 //      edge order; before each, the tokens of the sources ranked below it
 //      are credited (warp-parallel, atomicAdd in shared memory) and marked
 //      for the log when their channel records at that moment; credits run
@@ -38,32 +66,46 @@
 //      out-edge in dest order, one delay draw each (thread 0 holds the
 //      sampler); a repeat closes the channel's window. Then the
 //      finalization check;
-//   3. the remaining credits (all threads), the log append with the
-//      record-dtype limit and the overflow bits, and the completion stamp.
+//   4. the remaining credits (all threads), the log append with the
+//      record-dtype limit and the overflow bits, the duplicated tokens and
+//      markers re-appended at their ring's tail (after the fold's
+//      broadcasts; receive time t + 1 + word % max_delay from the fault
+//      stream), and the completion stamp.
 // The small planes are loaded into shared memory at launch and written
 // back once at exit: one round trip per launch, not per tick.
 //
-// Bound: the bytes this design must move over 3.35 TB/s. Per lane that
-// ticks, the shared-memory planes once in and once out (42 KB at ER-256);
-// per tick, the head rtime of every non-empty edge, the payload of every
-// popped slot, every appended slot, and the log and window entries the
-// tick writes; the delay words once in and out. chip_smoke.py counts these
-// from the run's own data (one ER-256 B=4096 drain megatick, K=8); they
-// come to a few hundred MB, well under the 1.42 GB of the whole state,
-// since the rings, log and windows are touched only at their heads and
-// appends. The kernel runs far above that bound: the fold is a sequential
-// chain of dependent shared-memory operations in one warp per lane, bound
-// by latency, not bytes; 48 KB of shared memory per block leaves room for
-// four lanes per SM.
+// Bound: the bytes this design must move over 3.35 TB/s, or the hash's
+// integer operations over the scalar rate, whichever is larger. Per lane
+// that ticks, the shared-memory planes once in and once out (42 KB at
+// ER-256); per tick, the head rtime of every non-empty edge (every one
+// under faults, whose jitter stalls are counted on all of them), the
+// payload of every popped slot, every appended slot, and the log and
+// window entries the tick writes; the delay words once in and out.
+// chip_smoke.py counts these from the run's own data (one ER-256 B=4096
+// drain megatick, K=8, fault-free and faulted). The kernel runs far above
+// that bound: the fold is a sequential chain of dependent shared-memory
+// operations in one warp per lane, bound by latency, not bytes; ~50 KB of
+// shared memory per block leaves room for four lanes per SM.
 //
 // Modulus: CUDA's % truncates toward zero; every modulus here has
 // non-negative operands (head in [0, C), len >= 0, counters >= 0, the
-// unsigned hash), so it agrees with PyTorch's floor. uint32 words arrive
-// as int64 in [0, 2^32) and uint64 words as int64 bit patterns; the
-// kernel converts at the boundary and computes natively.
+// unsigned hash), so it agrees with PyTorch's floor. The clock's floor
+// division and modulus (crash windows, marker payloads) go through
+// floor_div / floor_mod, which divide non-negative operands only. Signed
+// sums that may wrap (time + 1, deadlines, fault_skew) are taken in
+// uint32, as int32 tensors wrap. uint32 words arrive as int64 in [0,
+// 2^32) and uint64 words as int64 bit patterns; the kernel converts at
+// the boundary and computes natively.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// kernels/megatick._Program: the rate classes of Faults.kernel_program in
+// core/state.FC_* order
+struct ClsimFaultRates {
+  uint32_t thresh[7];
+  int arm[7];  // 0: never (nothing hashed); 1: word < thresh; 2: always
+};
 
 // kernels/megatick._Args, field for field (at global scope: the C entry
 // point takes it, so it must have external linkage)
@@ -75,7 +117,7 @@ struct ClsimMegatickArgs {
   int32_t* q_head;        // [B, E]
   int32_t* q_len;
   int32_t* tok_pushed;
-  const uint8_t* started; // [B, S]
+  uint8_t* started;       // [B, S]
   uint8_t* has_local;     // [B, S, N]
   int32_t* frozen;
   int32_t* rem;
@@ -87,9 +129,18 @@ struct ClsimMegatickArgs {
   int32_t* rec_start;     // [B, S, E]
   int32_t* rec_end;
   int32_t* completed;     // [B, S]
-  const uint8_t* snap_failed;
+  uint8_t* snap_failed;
   int32_t* snap_done_time;
   int32_t* error;         // [B]
+  const int64_t* fault_key;  // [B] uint32 words
+  int32_t* fault_skew;       // [B]
+  int32_t* fault_counts;     // [B, 7]
+  int32_t* snap_epoch;       // [B, S]
+  int32_t* snap_deadline;
+  int32_t* snap_retries;
+  int32_t* snap_initiator;
+  int32_t* next_sid;         // [B]
+  int32_t* stale_markers;    // [B]
   void* dw0;              // hash: key; Go: vec [B, 607] (uint64 bits)
   void* dw1;              // hash: counter; Go: tap (int32)
   void* dw2;              // hash: epoch; Go: feed (int32)
@@ -108,6 +159,12 @@ struct ClsimMegatickArgs {
   int sampler, max_delay, fixed_delay;
   int mode, length, quarantine;
   int smem_bytes;  // kernels/megatick.fused_smem_bytes: the block's share
+  int faulted;     // the adversary is armed
+  int ext;         // the fault arm is compiled in: kernels/megatick.fault_arm
+  int crash_kind, crash_lossy, crash_len, crash_period, crash_start;
+  int dup_mod;     // max(cfg.max_delay, 1): duplicates' delay range
+  int snapshot_timeout, snapshot_retries, snapshot_every;
+  ClsimFaultRates rates;
 };
 
 namespace {
@@ -115,20 +172,38 @@ namespace {
 using Args = ClsimMegatickArgs;
 
 constexpr int kThreads = 256;
-constexpr int kErrQueueOverflow = 1;     // core/state.ERR_QUEUE_OVERFLOW
-constexpr int kErrRecordOverflow = 4;    // core/state.ERR_RECORD_OVERFLOW
-constexpr int kErrValueOverflow = 32;    // core/state.ERR_VALUE_OVERFLOW
-constexpr int kRtimePackLimit = 1 << 30; // core/state.RTIME_PACK_LIMIT
-constexpr int kGoLen = 607;              // ops/gorand.LEN
+constexpr int kErrQueueOverflow = 1;       // core/state.ERR_QUEUE_OVERFLOW
+constexpr int kErrRecordOverflow = 4;      // core/state.ERR_RECORD_OVERFLOW
+constexpr int kErrValueOverflow = 32;      // core/state.ERR_VALUE_OVERFLOW
+constexpr int kErrFaultUnrecovered = 128;  // ERR_FAULT_UNRECOVERED
+constexpr int kErrSnapshotTimeout = 256;   // ERR_SNAPSHOT_TIMEOUT
+constexpr int kRtimePackLimit = 1 << 30;   // core/state.RTIME_PACK_LIMIT
+constexpr int kGoLen = 607;                // ops/gorand.LEN
+constexpr int kClasses = 7;                // core/state.NUM_FAULT_CLASSES
 enum { kTicks = 0, kDrain = 1, kFlush = 2 };
 enum { kFixed = 0, kHash = 1, kGoExact = 2 };
+// fault_counts columns (core/state.FC_*)
+enum { kFcDrop = 0, kFcDup, kFcJitter, kFcCrash, kFcMDrop, kFcMDup,
+       kFcMJitter };
+// hash domains (models/faults._CLS_*)
+enum { kClsDrop = 1, kClsDup, kClsJitter, kClsCrash, kClsDupDelay,
+       kClsMDrop, kClsMDup, kClsMJitter, kClsMDupDelay };
+// the step's per-edge fault flags
+enum : uint8_t { kFDrop = 1, kFDup = 2, kFJit = 4, kFMDrop = 8, kFMDup = 16,
+                 kFMJit = 32 };
+// the duplicate kind of a popped message
+enum : uint8_t { kDupNone = 0, kDupToken = 1, kDupMarker = 2 };
 
 // one lane's planes in shared memory, and the bytes they take
 struct Lane {
   int32_t *q_head, *q_len, *tok_pushed, *rec_cnt, *min_prot, *head_data;
   int32_t *tokens, *frozen, *rem, *completed, *done_time, *err, *ctl;
+  // the fault arm (faulted or supervised lanes only)
+  int32_t *epoch, *deadline, *retries, *initiator, *counts, *next_sid,
+      *skew, *stale;
   uint8_t *tok, *mk, *app, *recording, *has_local, *done_local, *started,
       *failed;
+  uint8_t *eflags, *dupk, *down, *retry;
   long long bytes;
 };
 
@@ -141,9 +216,11 @@ __host__ __device__ __forceinline__ T* take(uintptr_t& p, long long count) {
   return out;
 }
 
-// Lays the planes out from ``base``; the host calls it at base 0 only to
-// read ``bytes`` and check the caller's reckoning against it.
-__host__ __device__ Lane carve(uintptr_t base, int n, int e, int s) {
+// Lays the planes out from ``base`` (``ext``: the fault arm's planes
+// too); the host calls it at base 0 only to read ``bytes`` and check the
+// caller's reckoning against it.
+__host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
+                               bool ext) {
   Lane w;
   uintptr_t p = base;
   const long long sn = (long long)s * n, se = (long long)s * e;
@@ -160,6 +237,15 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s) {
   w.done_time = take<int32_t>(p, s);
   w.err = take<int32_t>(p, 1);
   w.ctl = take<int32_t>(p, 3);
+  const long long ext_s = ext ? s : 0;
+  w.epoch = take<int32_t>(p, ext_s);
+  w.deadline = take<int32_t>(p, ext_s);
+  w.retries = take<int32_t>(p, ext_s);
+  w.initiator = take<int32_t>(p, ext_s);
+  w.counts = take<int32_t>(p, ext ? kClasses : 0);
+  w.next_sid = take<int32_t>(p, ext ? 1 : 0);
+  w.skew = take<int32_t>(p, ext ? 1 : 0);
+  w.stale = take<int32_t>(p, ext ? 1 : 0);
   w.tok = take<uint8_t>(p, e);
   w.mk = take<uint8_t>(p, e);
   w.app = take<uint8_t>(p, e);
@@ -168,17 +254,115 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s) {
   w.done_local = take<uint8_t>(p, sn);
   w.started = take<uint8_t>(p, s);
   w.failed = take<uint8_t>(p, s);
+  w.eflags = take<uint8_t>(p, ext ? e : 0);
+  w.dupk = take<uint8_t>(p, ext ? e : 0);
+  w.down = take<uint8_t>(p, ext ? n : 0);
+  w.retry = take<uint8_t>(p, ext_s);
   w.bytes = (long long)(p - base);
   return w;
 }
 
-__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
+__host__ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   return x ^ (x >> 16);
 }
+
+// floor division and modulus of the clock by a positive ``d``, as
+// PyTorch's and jnp's // and %, dividing non-negative operands only
+__device__ __forceinline__ int32_t floor_div(int32_t x, int32_t d) {
+  return x >= 0 ? x / d : -1 - (-(x + 1)) / d;
+}
+
+__device__ __forceinline__ int32_t floor_mod(int32_t x, int32_t d) {
+  return (int32_t)((long long)x - (long long)floor_div(x, d) * d);
+}
+
+// int32 + int32 with the two's-complement wrap of an int32 tensor
+__device__ __forceinline__ int32_t wrap_add(int32_t x, int32_t y) {
+  return (int32_t)((uint32_t)x + (uint32_t)y);
+}
+
+// ---- the fault hash (models/faults.py) -----------------------------------
+
+// the lane's adversary: its key and the program's constants
+struct Fault {
+  uint32_t key;
+  ClsimFaultRates rates;
+  int crash_kind, crash_len, crash_period, crash_start;
+};
+
+// the time half of _word: lowbias32(uint32(time) * 2654435769)
+__device__ __forceinline__ uint32_t time_mix(int32_t time) {
+  return lowbias32((uint32_t)time * 2654435769u);
+}
+
+// the index half of _word, shared by every class at one (time, index)
+__device__ __forceinline__ uint32_t index_mix(uint32_t tmix, uint32_t idx) {
+  return lowbias32(idx ^ tmix);
+}
+
+__device__ __forceinline__ uint32_t class_word(uint32_t key, int cls,
+                                               uint32_t imix) {
+  return lowbias32(imix ^ key ^ ((uint32_t)cls * 0x9E3779B9u));
+}
+
+// Faults._rate_mask at one (time, index): ``imix`` is index_mix of them
+__device__ __forceinline__ bool fires(const Fault& f, int fc, int cls,
+                                      uint32_t imix) {
+  const int arm = f.rates.arm[fc];
+  if (arm == 0 || f.key == 0u) return false;
+  if (arm == 2) return true;
+  return class_word(f.key, cls, imix) < f.rates.thresh[fc];
+}
+
+// Faults.down_nodes: node ``v`` down at ``time``
+__device__ __forceinline__ bool down_at(const Fault& f, int32_t time,
+                                        int v) {
+  if (f.crash_kind == 0) return false;
+  if (f.crash_kind == 2) {   // the one crash_start window, gate at time 0
+    if (time < f.crash_start ||
+        (long long)time >= (long long)f.crash_start + f.crash_len)
+      return false;
+    return fires(f, kFcCrash, kClsCrash, index_mix(time_mix(0), v));
+  }
+  if (floor_mod(time, f.crash_period) >= f.crash_len) return false;
+  const int32_t window = floor_div(time, f.crash_period);
+  return fires(f, kFcCrash, kClsCrash, index_mix(time_mix(window), v));
+}
+
+// Faults.restarted: down at time - 1, up at time, time >= 1
+__device__ __forceinline__ bool restarted_at(const Fault& f, int32_t time,
+                                             int v, bool now) {
+  return time >= 1 && !now && down_at(f, wrap_add(time, -1), v);
+}
+
+// the step's fault flags of edge ``idx`` (kF* bits)
+__device__ __forceinline__ uint8_t edge_flags(const Fault& f, uint32_t tmix,
+                                              uint32_t idx) {
+  const uint32_t imix = index_mix(tmix, idx);
+  uint8_t fl = 0;
+  if (fires(f, kFcDrop, kClsDrop, imix)) fl |= kFDrop;
+  if (fires(f, kFcDup, kClsDup, imix)) fl |= kFDup;
+  if (fires(f, kFcJitter, kClsJitter, imix)) fl |= kFJit;
+  if (fires(f, kFcMDrop, kClsMDrop, imix)) fl |= kFMDrop;
+  if (fires(f, kFcMDup, kClsMDup, imix)) fl |= kFMDup;
+  if (fires(f, kFcMJitter, kClsMJitter, imix)) fl |= kFMJit;
+  return fl;
+}
+
+// a duplicate's receive time: t + 1 + word % dup_mod (TickKernel._dup_times)
+__device__ __forceinline__ int32_t dup_time(const Fault& f, int32_t t,
+                                            bool marker, uint32_t tmix,
+                                            uint32_t idx, int dup_mod) {
+  const uint32_t w = class_word(f.key, marker ? kClsMDupDelay : kClsDupDelay,
+                                index_mix(tmix, idx));
+  return (int32_t)((uint32_t)t + 1u + w % (uint32_t)dup_mod);
+}
+
+// ---- the delay sampler ---------------------------------------------------
 
 // The lane's delay stream, held by thread 0 (ops/delay.py): FixedDelay,
 // HashDelay (a counter hash; the epoch advances when the counter wraps,
@@ -200,7 +384,7 @@ struct Sampler {
 
   // the receive time of one message sent at ``time``
   __device__ int32_t draw(int32_t time) {
-    if (kind == kFixed) return time + fixed;
+    if (kind == kFixed) return wrap_add(time, fixed);
     uint32_t d;
     if (kind == kHash) {
       d = lowbias32(lowbias32(ctr) ^ key ^ lowbias32(epoch)) %
@@ -218,9 +402,11 @@ struct Sampler {
         d = (uint32_t)v % n;
       }
     }
-    return time + 1 + (int32_t)d;
+    return wrap_add(time, 1 + (int32_t)d);
   }
 };
+
+// ---- the tick's pieces ----------------------------------------------------
 
 __device__ __forceinline__ bool recorded(const Lane& w, int s, int e, int f) {
   bool any = false;
@@ -236,6 +422,155 @@ __device__ __forceinline__ void credit(const Args& a, const Lane& w, int f) {
   w.app[f] = recorded(w, a.s, a.e, f);
 }
 
+// a started, unfailed snapshot has not reached every node (_pending)
+__device__ __forceinline__ bool pending(const Lane& w, int s, int n) {
+  bool any = false;
+  for (int k = 0; k < s; ++k)
+    any = any || (w.started[k] && !w.failed[k] && w.completed[k] < n);
+  return any;
+}
+
+// one message at the tail of edge g's ring, in place (append_rows for
+// one row): the overflow bits, the slot, the counters
+__device__ __forceinline__ void append(const Args& a, const Lane& w,
+                                       long long be, int g, int32_t rt,
+                                       bool marker, int32_t data) {
+  const int32_t len = w.q_len[g];
+  int bits = 0;
+  if (len >= a.c) bits |= kErrQueueOverflow;
+  if (w.tok_pushed[g] >= a.key_limit || rt >= kRtimePackLimit)
+    bits |= kErrValueOverflow;
+  if (bits) atomicOr(w.err, bits);
+  const long long slot = (be + g) * a.c + (w.q_head[g] + len) % a.c;
+  a.q_meta[slot] = (int32_t)((uint32_t)rt * 2u + (marker ? 1u : 0u));
+  a.q_data[slot] = data;
+  w.q_len[g] = len + 1;
+  w.tok_pushed[g] += 1;
+}
+
+// a marker's ring payload: epoch * S + sid under the supervisor
+// (TickKernel._marker_payload), the bare sid otherwise
+__device__ __forceinline__ int32_t payload(const Lane& w, int sid, int s,
+                                           bool sup) {
+  return sup ? (int32_t)((uint32_t)w.epoch[sid] * (uint32_t)s + sid) : sid;
+}
+
+// CreateLocalSnapshot (node.go:58-84) of an initiator: slot ``sid`` at
+// ``node``, by the 32 lanes of warp 0, recording every in-link from the
+// counter it has now and freezing the balance (the supervisor's
+// injections; the fold's first receipts write theirs out in place)
+__device__ __forceinline__ void initiate(const Args& a, const Lane& w,
+                                         long long bs, int sid, int node,
+                                         int ln) {
+  for (int j = a.dst_lo[node] + ln; j < a.dst_hi[node]; j += 32) {
+    const int f = a.by_dst[j];
+    const int32_t cnt = w.rec_cnt[f];
+    w.recording[sid * a.e + f] = 1;
+    a.rec_start[(bs + sid) * a.e + f] = cnt;
+    if (cnt < w.min_prot[f]) w.min_prot[f] = cnt;
+  }
+  if (ln == 0) {
+    const int cell = sid * a.n + node;
+    w.has_local[cell] = 1;
+    w.frozen[cell] = w.tokens[node];
+    w.rem[cell] = a.in_degree[node];
+  }
+}
+
+// SendToNeighbors (node.go:97-109), thread 0: one marker per out-link of
+// ``node`` in dest order, one delay draw each, appended in place
+__device__ __forceinline__ void broadcast(const Args& a, const Lane& w,
+                                          Sampler& smp, long long be,
+                                          int node, int32_t data, int32_t t) {
+  for (int g = a.src_lo[node]; g < a.src_hi[node]; ++g)
+    append(a, w, be, g, smp.draw(t), true, data);
+}
+
+// The supervisor's step at tick start, in warp 0 (TickKernel._supervise):
+// the daemon, then the timeout scan and the re-initiations. Draws stay in
+// thread 0 (lane 0), in the plain form's order.
+__device__ __forceinline__ void supervise(const Args& a, const Lane& w,
+                                          Sampler& smp, long long be,
+                                          long long bs, int32_t t, int ln) {
+  const int S = a.s, n = a.n, e = a.e;
+  const int every = a.snapshot_every, timeout = a.snapshot_timeout;
+  if (every > 0 && t > 0 && t % every == 0) {    // t > 0: % on positives
+    const int sid = *w.next_sid;
+    __syncwarp();
+    if (sid < S) {                  // _sup_daemon -> _inject_snapshot
+      const int node = (t / every) % n;
+      if (ln == 0) {
+        *w.next_sid = sid + 1;
+        w.started[sid] = 1;
+        w.initiator[sid] = node;
+        if (timeout > 0) w.deadline[sid] = wrap_add(t, timeout);
+      }
+      initiate(a, w, bs, sid, node, ln);
+      __syncwarp();
+      if (ln == 0) broadcast(a, w, smp, be, node, payload(w, sid, S, true), t);
+      __syncwarp();
+    }
+  }
+  if (timeout <= 0) return;
+  if (ln == 0) {                    // _sup_scan's [S] vectors
+    bool failed_any = false;
+    const int32_t unit = timeout > 1 ? timeout : 1;
+    for (int k = 0; k < S; ++k) {
+      w.retry[k] = 0;
+      if (!(w.started[k] && !w.failed[k] && w.completed[k] < n &&
+            w.deadline[k] > 0 && t >= w.deadline[k]))
+        continue;
+      const bool can = w.retries[k] < a.snapshot_retries;
+      const int32_t tries = w.retries[k] + (can ? 1 : 0);
+      w.retries[k] = tries;
+      w.epoch[k] += 1;
+      w.completed[k] = 0;
+      if (can) {
+        const int32_t backoff =
+            (int32_t)((uint32_t)unit << (tries < 4 ? tries : 4));
+        w.deadline[k] = wrap_add(t, backoff);
+        w.retry[k] = 1;
+      } else {
+        w.failed[k] = 1;
+        w.deadline[k] = 0;
+        w.retry[k] = 2;
+        failed_any = true;
+      }
+    }
+    if (failed_any) atomicOr(w.err, kErrSnapshotTimeout);
+  }
+  __syncwarp();
+  for (int k = 0; k < S; ++k) {     // aborted slots: cut state cleared
+    if (!w.retry[k]) continue;
+    for (int v = ln; v < n; v += 32) {
+      const int cell = k * n + v;
+      w.has_local[cell] = 0;
+      w.done_local[cell] = 0;
+      w.frozen[cell] = 0;
+      w.rem[cell] = 0;
+    }
+    for (int f = ln; f < e; f += 32) {
+      w.recording[k * e + f] = 0;
+      a.rec_start[(bs + k) * e + f] = 0;
+      a.rec_end[(bs + k) * e + f] = 0;
+    }
+  }
+  __syncwarp();
+  for (int k = 0; k < S; ++k) {     // _sup_reinitiate_ring, lowest first
+    if (w.retry[k] != 1) continue;
+    int node = w.initiator[k];
+    node = node < 0 ? 0 : (node >= n ? n - 1 : node);
+    initiate(a, w, bs, k, node, ln);
+    __syncwarp();
+    if (ln == 0) broadcast(a, w, smp, be, node, payload(w, k, S, true), t);
+    __syncwarp();
+  }
+}
+
+// kExt: the fault arm (the adversary or the supervisor armed) is compiled
+// in; the fault-free instantiation carries none of it, so its registers
+// and occupancy are the fault-free kernel's own.
+template <bool kExt>
 __global__ void __launch_bounds__(kThreads)
 fused_ticks_kernel(const Args a) {
   extern __shared__ __align__(16) char smem[];
@@ -243,6 +578,13 @@ fused_ticks_kernel(const Args a) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n = a.n, e = a.e, S = a.s, C = a.c, L = a.l;
   const long long be = b * e, bn = b * n, bs = b * S;
+  const bool faulted = kExt && a.faulted != 0;
+  const bool sup =
+      kExt && (a.snapshot_timeout > 0 || a.snapshot_every > 0);
+  const bool ext = kExt;
+  // TickKernel._quiescent: never under crashes or the daemon
+  const bool never_quiet =
+      kExt && (a.crash_kind != 0 || a.snapshot_every > 0);
   int32_t time = a.time[b];
 
   // A lane that takes no step of this launch is left exactly as it was,
@@ -254,14 +596,14 @@ fused_ticks_kernel(const Args a) {
   } else if (a.quarantine && a.error[b] != 0) {
     return;
   } else if (a.mode == kDrain) {
-    bool pending = false;
+    bool pend = false;
     for (int k = 0; k < S; ++k)
-      pending = pending || (a.started[bs + k] && !a.snap_failed[bs + k] &&
-                            a.completed[bs + k] < n);
-    if (!pending || time >= a.limit[b]) return;
+      pend = pend || (a.started[bs + k] && !a.snap_failed[bs + k] &&
+                      a.completed[bs + k] < n);
+    if (!pend || time >= a.limit[b]) return;
   }
 
-  const Lane w = carve(reinterpret_cast<uintptr_t>(smem), n, e, S);
+  const Lane w = carve(reinterpret_cast<uintptr_t>(smem), n, e, S, ext);
   for (int f = tid; f < e; f += nt) {
     w.q_head[f] = a.q_head[be + f];
     w.q_len[f] = a.q_len[be + f];
@@ -283,11 +625,25 @@ fused_ticks_kernel(const Args a) {
     w.done_time[k] = a.snap_done_time[bs + k];
     w.started[k] = a.started[bs + k];
     w.failed[k] = a.snap_failed[bs + k];
+    if (ext) {
+      w.epoch[k] = a.snap_epoch[bs + k];
+      w.deadline[k] = a.snap_deadline[bs + k];
+      w.retries[k] = a.snap_retries[bs + k];
+      w.initiator[k] = a.snap_initiator[bs + k];
+    }
   }
+  if (ext)
+    for (int k = tid; k < kClasses; k += nt)
+      w.counts[k] = a.fault_counts[b * kClasses + k];
   Sampler smp{a.sampler, a.max_delay, a.fixed_delay, 0u, 0u, 0u, nullptr,
               0, 0};
   if (tid == 0) {
     *w.err = a.error[b];
+    if (ext) {
+      *w.next_sid = a.next_sid[b];
+      *w.skew = a.fault_skew[b];
+      *w.stale = a.stale_markers[b];
+    }
     if (a.sampler == kHash) {
       smp.key = (uint32_t)static_cast<const int64_t*>(a.dw0)[b];
       smp.ctr = (uint32_t)static_cast<const int64_t*>(a.dw1)[b];
@@ -298,6 +654,8 @@ fused_ticks_kernel(const Args a) {
       smp.feed = static_cast<const int32_t*>(a.dw2)[b];
     }
   }
+  const Fault flt{faulted ? (uint32_t)a.fault_key[b] : 0u, a.rates,
+                  a.crash_kind, a.crash_len, a.crash_period, a.crash_start};
   __syncthreads();
 
   // every thread tracks the lane's clock and quiet flag identically
@@ -307,52 +665,147 @@ fused_ticks_kernel(const Args a) {
       int busy = 0;
       for (int f = tid; f < e; f += nt) busy |= w.q_len[f] > 0;
       busy = __syncthreads_or(busy);         // also the step's barrier
+      bool quiescent = !busy && !never_quiet;
+      if (quiescent && sup && a.snapshot_timeout > 0)
+        quiescent = !pending(w, S, n);
       const bool poisoned = a.quarantine && *w.err != 0;
-      quiet = quiet || !busy || poisoned;
+      quiet = quiet || quiescent || poisoned;
       if (quiet) {                            // bump: a pure time increment
-        if (!poisoned) time += 1;
+        if (!poisoned) time = wrap_add(time, 1);
         continue;
       }
     } else {
       __syncthreads();
       if (a.quarantine && *w.err != 0) continue;
       if (a.mode == kDrain) {
-        bool pending = false;
-        for (int k = 0; k < S; ++k)
-          pending = pending ||
-                    (w.started[k] && !w.failed[k] && w.completed[k] < n);
-        if (!pending || time >= a.limit[b]) continue;
+        if (!pending(w, S, n) || time >= a.limit[b]) continue;
       }
     }
-    const int32_t t = ++time;
+    const int32_t t = time = wrap_add(time, 1);
+    const uint32_t tmix = faulted ? time_mix(t) : 0u;
+    // every thread has taken the step's decision from err and the [S]
+    // vectors before the restarts or the supervisor may change them
+    if (ext) __syncthreads();
 
-    // 1. selection + pop: each source's first eligible head in dest order
-    for (int v = tid; v < n; v += nt) {
-      bool found = false;
-      for (int f = a.src_lo[v]; f < a.src_hi[v]; ++f) {
-        const int32_t len = w.q_len[f];
-        int32_t meta = 0;
-        bool sel = false;
-        if (!found && len > 0) {
-          const int32_t h = w.q_head[f];
-          const long long slot = (be + f) * C + h;
-          meta = a.q_meta[slot];
-          sel = (meta >> 1) <= t;             // arithmetic, as jnp's
-          if (sel) {
-            found = true;
-            w.head_data[f] = a.q_data[slot];
-            w.q_head[f] = (h + 1) % C;
-            w.q_len[f] = len - 1;
-          }
-        }
-        w.tok[f] = sel && !(meta & 1);
-        w.mk[f] = sel && (meta & 1);
-        w.app[f] = 0;
+    // 0. the step's fault flags and the crash restarts
+    if (faulted) {
+      for (int f = tid; f < e; f += nt) w.eflags[f] = edge_flags(flt, tmix, f);
+      int restarts = 0, unrecovered = 0;
+      uint32_t skew = 0;
+      int done_sid = -1;                      // newest completed slot
+      if (a.crash_lossy)
+        for (int k = S - 1; k >= 0 && done_sid < 0; --k)
+          if (w.started[k] && w.completed[k] >= n) done_sid = k;
+      for (int v = tid; v < n; v += nt) {
+        const bool now = down_at(flt, t, v);
+        w.down[v] = now;
+        if (!restarted_at(flt, t, v, now)) continue;
+        restarts += 1;
+        if (!a.crash_lossy) continue;
+        const int32_t restored = done_sid >= 0 ? w.frozen[done_sid * n + v] : 0;
+        skew += (uint32_t)restored - (uint32_t)w.tokens[v];
+        w.tokens[v] = restored;
+        if (done_sid < 0) unrecovered = 1;
       }
+      if (restarts) {
+        atomicAdd(&w.counts[kFcCrash], restarts);
+        atomicAdd(w.skew, (int32_t)skew);
+      }
+      if (unrecovered) atomicOr(w.err, kErrFaultUnrecovered);
+      __syncthreads();
+    }
+
+    // 1. the supervisor
+    if (sup) {
+      if (tid < 32) supervise(a, w, smp, be, bs, t, tid);
+      __syncthreads();
+    }
+
+    // 2. selection + pop: each source's first eligible head in dest order,
+    // behind the fault gates; the drop / dup split and the stale check
+    {
+      int c_jit = 0, c_mjit = 0, c_drop = 0, c_dup = 0, c_mdrop = 0,
+          c_mdup = 0, c_stale = 0;
+      uint32_t skew = 0;
+      for (int v = tid; v < n; v += nt) {
+        bool found = false;
+        for (int f = a.src_lo[v]; f < a.src_hi[v]; ++f) {
+          const int32_t len = w.q_len[f];
+          const uint8_t fl = faulted ? w.eflags[f] : 0;
+          int32_t meta = 0;
+          bool sel = false;
+          // under faults every non-empty head is read: its stalls count
+          if ((faulted || !found) && len > 0) {
+            const int32_t h = w.q_head[f];
+            const long long slot = (be + f) * C + h;
+            const int32_t m = a.q_meta[slot];
+            bool elig = (m >> 1) <= t;          // arithmetic, as jnp's
+            if (elig && faulted) {
+              const bool jit = fl & kFJit;
+              const bool mjit = (m & 1) && (fl & kFMJit);
+              c_jit += jit;
+              c_mjit += mjit;
+              elig = !jit && !mjit && !w.down[a.edge_dst[f]];
+            }
+            if (elig && !found) {
+              found = sel = true;
+              meta = m;
+              w.head_data[f] = a.q_data[slot];
+              w.q_head[f] = (h + 1) % C;
+              w.q_len[f] = len - 1;
+            }
+          }
+          bool tok = sel && !(meta & 1);
+          bool mk = sel && (meta & 1);
+          uint8_t dup = kDupNone;
+          if (tok && faulted) {                 // _fault_split_tokens
+            const uint32_t amt = (uint32_t)w.head_data[f];
+            if (fl & kFDrop) {
+              tok = false;
+              c_drop += 1;
+              skew -= amt;
+            } else if (fl & kFDup) {
+              dup = kDupToken;
+              c_dup += 1;
+              skew += amt;
+            }
+          }
+          if (mk && faulted) {                  // _fault_split_markers
+            if (fl & kFMDrop) {
+              mk = false;
+              c_mdrop += 1;
+            } else if (fl & kFMDup) {
+              dup = kDupMarker;
+              c_mdup += 1;
+            }
+          }
+          if (mk && sup) {                      // _reject_stale
+            const int32_t p = w.head_data[f];
+            if (floor_div(p, S) != w.epoch[floor_mod(p, S)]) {
+              mk = false;
+              c_stale += 1;
+            }
+          }
+          w.tok[f] = tok;
+          w.mk[f] = mk;
+          w.app[f] = 0;
+          if (ext) w.dupk[f] = dup;
+        }
+      }
+      if (faulted) {
+        if (c_jit) atomicAdd(&w.counts[kFcJitter], c_jit);
+        if (c_mjit) atomicAdd(&w.counts[kFcMJitter], c_mjit);
+        if (c_drop) atomicAdd(&w.counts[kFcDrop], c_drop);
+        if (c_dup) atomicAdd(&w.counts[kFcDup], c_dup);
+        if (c_mdrop) atomicAdd(&w.counts[kFcMDrop], c_mdrop);
+        if (c_mdup) atomicAdd(&w.counts[kFcMDup], c_mdup);
+        if (c_drop || c_dup) atomicAdd(w.skew, (int32_t)skew);
+      }
+      if (c_stale) atomicAdd(w.stale, c_stale);
     }
     __syncthreads();
 
-    // 2. the marker fold, in warp 0
+    // 3. the marker fold, in warp 0
     if (tid < 32) {
       const int ln = tid;
       int done = 0;                           // edges [0, done) credited
@@ -377,13 +830,21 @@ fused_ticks_kernel(const Args a) {
         // HandleMarker (node.go:149-171) for the marker on edge m
         const int d = a.edge_dst[m];
         int sid = w.head_data[m];
-        sid = sid < 0 ? 0 : (sid >= S ? S - 1 : sid);
+        if (sup) {
+          sid = floor_mod(sid, S);            // the decoded slot id
+        } else {
+          sid = sid < 0 ? 0 : (sid >= S ? S - 1 : sid);
+        }
         const int cell = sid * n + d;
         const bool first = !w.has_local[cell];
         __syncwarp();
         if (first) {
-          // CreateLocalSnapshot (node.go:58-84): record every in-link but
-          // m from the counter it will have after this tick's appends
+          // CreateLocalSnapshot: every in-link but m, from the counter it
+          // will have after this tick's appends; then SendToNeighbors.
+          // Written out here rather than through initiate / broadcast (the
+          // supervisor's): through them the fault-free instantiation
+          // took 80 registers and spilled, against 64 written out (ptxas
+          // -v, sm_90a), and its drain megatick ran 26 % slower
           for (int j = a.dst_lo[d] + ln; j < a.dst_hi[d]; j += 32) {
             const int f = a.by_dst[j];
             if (f == m) continue;
@@ -396,8 +857,7 @@ fused_ticks_kernel(const Args a) {
             w.has_local[cell] = 1;
             w.frozen[cell] = w.tokens[d];
             w.rem[cell] = a.in_degree[d] - 1;
-            // SendToNeighbors (node.go:97-109): one marker per out-link
-            // in dest order, one delay draw each, appended in place
+            const int32_t data = payload(w, sid, S, sup);
             for (int g = a.src_lo[d]; g < a.src_hi[d]; ++g) {
               const int32_t rt = smp.draw(t);
               const int32_t len = w.q_len[g];
@@ -408,7 +868,7 @@ fused_ticks_kernel(const Args a) {
               if (bits) atomicOr(w.err, bits);
               const long long slot = (be + g) * C + (w.q_head[g] + len) % C;
               a.q_meta[slot] = (int32_t)((uint32_t)rt * 2u + 1u);
-              a.q_data[slot] = sid;
+              a.q_data[slot] = data;
               w.q_len[g] = len + 1;
               w.tok_pushed[g] += 1;
             }
@@ -434,23 +894,30 @@ fused_ticks_kernel(const Args a) {
     }
     __syncthreads();
 
-    // 3. the remaining credits, then the log append and the stamp
+    // 4. the remaining credits, then the log append, the duplicates'
+    // re-appends (after the fold's broadcasts) and the stamp
     for (int f = w.ctl[0] + tid; f < e; f += nt) credit(a, w, f);
     __syncthreads();
     for (int f = tid; f < e; f += nt) {
-      if (!w.app[f]) continue;
-      const int32_t cnt = w.rec_cnt[f];
-      const int32_t amt = w.head_data[f];
-      int bits = 0;
-      if (cnt + 1 - w.min_prot[f] > L) bits |= kErrRecordOverflow;
-      if (amt > a.rec_limit) bits |= kErrValueOverflow;
-      if (bits) atomicOr(w.err, bits);
-      const long long at = (b * L + cnt % L) * e + f;
-      if (a.log16)
-        static_cast<int16_t*>(a.log_amt)[at] = (int16_t)amt;
-      else
-        static_cast<int32_t*>(a.log_amt)[at] = amt;
-      w.rec_cnt[f] = cnt + 1;
+      if (w.app[f]) {
+        const int32_t cnt = w.rec_cnt[f];
+        const int32_t amt = w.head_data[f];
+        int bits = 0;
+        if (cnt + 1 - w.min_prot[f] > L) bits |= kErrRecordOverflow;
+        if (amt > a.rec_limit) bits |= kErrValueOverflow;
+        if (bits) atomicOr(w.err, bits);
+        const long long at = (b * L + cnt % L) * e + f;
+        if (a.log16)
+          static_cast<int16_t*>(a.log_amt)[at] = (int16_t)amt;
+        else
+          static_cast<int32_t*>(a.log_amt)[at] = amt;
+        w.rec_cnt[f] = cnt + 1;
+      }
+      if (faulted && w.dupk[f]) {
+        const bool marker = w.dupk[f] == kDupMarker;
+        append(a, w, be, f, dup_time(flt, t, marker, tmix, f, a.dup_mod),
+               marker, w.head_data[f]);
+      }
     }
     for (int k = tid; k < S; k += nt)
       if (w.started[k] && w.completed[k] >= n && w.done_time[k] < 0)
@@ -477,10 +944,26 @@ fused_ticks_kernel(const Args a) {
   for (int k = tid; k < S; k += nt) {
     a.completed[bs + k] = w.completed[k];
     a.snap_done_time[bs + k] = w.done_time[k];
+    if (sup) {
+      a.started[bs + k] = w.started[k];
+      a.snap_failed[bs + k] = w.failed[k];
+      a.snap_epoch[bs + k] = w.epoch[k];
+      a.snap_deadline[bs + k] = w.deadline[k];
+      a.snap_retries[bs + k] = w.retries[k];
+      a.snap_initiator[bs + k] = w.initiator[k];
+    }
   }
+  if (faulted)
+    for (int k = tid; k < kClasses; k += nt)
+      a.fault_counts[b * kClasses + k] = w.counts[k];
   if (tid == 0) {
     a.time[b] = time;
     a.error[b] = *w.err;
+    if (faulted) a.fault_skew[b] = *w.skew;
+    if (sup) {
+      a.next_sid[b] = *w.next_sid;
+      a.stale_markers[b] = *w.stale;
+    }
     if (a.sampler == kHash) {
       static_cast<int64_t*>(a.dw1)[b] = (int64_t)smp.ctr;
       static_cast<int64_t*>(a.dw2)[b] = (int64_t)smp.epoch;
@@ -491,23 +974,69 @@ fused_ticks_kernel(const Args a) {
   }
 }
 
+// Faults.fault_planes from the device hash above: block (lane, step),
+// threads over edges and nodes; row j is tick time time[b] + 1 + j
+__global__ void __launch_bounds__(kThreads)
+fault_planes_kernel(const int64_t* key, const int32_t* time, int32_t* edge,
+                    int32_t* node, int k, int e, int n, Fault f,
+                    int dup_mod) {
+  const long long b = blockIdx.x / k;
+  const int j = blockIdx.x % k;
+  f.key = (uint32_t)key[b];
+  const int32_t t = wrap_add(time[b], 1 + j);
+  const uint32_t tmix = time_mix(t);
+  int32_t* ep = edge + (long long)blockIdx.x * 8 * e;
+  int32_t* np = node + (long long)blockIdx.x * 2 * n;
+  for (int x = threadIdx.x; x < e; x += blockDim.x) {
+    const uint8_t fl = edge_flags(f, tmix, x);
+    ep[0 * e + x] = (fl & kFDrop) != 0;
+    ep[1 * e + x] = (fl & kFDup) != 0;
+    ep[2 * e + x] = (fl & kFJit) != 0;
+    ep[3 * e + x] = dup_time(f, t, false, tmix, x, dup_mod);
+    ep[4 * e + x] = (fl & kFMDrop) != 0;
+    ep[5 * e + x] = (fl & kFMDup) != 0;
+    ep[6 * e + x] = (fl & kFMJit) != 0;
+    ep[7 * e + x] = dup_time(f, t, true, tmix, x, dup_mod);
+  }
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    const bool now = down_at(f, t, v);
+    np[v] = now;
+    np[n + v] = restarted_at(f, t, v, now);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int clsim_fused_ticks(const Args* a, void* stream) {
   const long long smem = a->smem_bytes;
-  if (carve(0, a->n, a->e, a->s).bytes > smem || smem > 232448)
+  const bool ext = a->ext != 0;
+  if (carve(0, a->n, a->e, a->s, ext).bytes > smem || smem > 232448)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t st = cudaFuncSetAttribute(
-        fused_ticks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (st != cudaSuccess) return (int)st;
-  }
+  void (*kernel)(const Args) =
+      ext ? fused_ticks_kernel<true> : fused_ticks_kernel<false>;
+  // raised for every share: the default limit counts static bytes too
+  const cudaError_t st = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (st != cudaSuccess) return (int)st;
   if (a->b > 0 && a->length > 0)
-    fused_ticks_kernel<<<(unsigned int)a->b, kThreads, (size_t)smem,
-                         (cudaStream_t)stream>>>(*a);
+    kernel<<<(unsigned int)a->b, kThreads, (size_t)smem,
+             (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+int clsim_fault_planes(const int64_t* key, const int32_t* time,
+                       int32_t* edge, int32_t* node, int b, int k, int e,
+                       int n, int crash_kind, int crash_len, int crash_period,
+                       int crash_start, int dup_mod,
+                       const ClsimFaultRates* rates, void* stream) {
+  if (crash_period < 1 || dup_mod < 1) return (int)cudaErrorInvalidValue;
+  const Fault f{0u, *rates, crash_kind, crash_len, crash_period, crash_start};
+  if ((long long)b * k > 0)
+    fault_planes_kernel<<<(unsigned int)((long long)b * k), kThreads, 0,
+                          (cudaStream_t)stream>>>(key, time, edge, node, k, e,
+                                                  n, f, dup_mod);
   return (int)cudaGetLastError();
 }
 

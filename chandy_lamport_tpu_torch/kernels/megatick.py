@@ -2,11 +2,17 @@
 
 The port of the JAX package's ``kernels/megatick.py`` Pallas ``fused_scan``
 (:432, ``pl.pallas_call`` :641, with ``RingStream.commit_and_heads``
-:380) for its fault-free, unsupervised, untraced cascade body — what the
-golden runs (``DenseSim``, megatick 8) and the exact storm's drain and
-flush at megatick K run when no adversary is armed. The faulted and
-supervised arms of the JAX kernel are not ported (ROADMAP.md, A4b); the
-tick kernel refuses them at megatick > 1.
+:380) for its untraced cascade body — what the golden runs
+(``DenseSim``, megatick 8) and the exact storm's drain and flush at
+megatick K run — with its fault arm: the adversary
+(``models/faults.Faults``) and the snapshot supervisor run inside the
+step. The JAX kernel streams the adversary's next K ticks in as
+``edge_plane`` [K, 8, E] / ``aux_plane`` [K, 2, N] (``_fault_planes``,
+``ops/tick.py:854``); the hash is stateless in (key, time, index), so the
+CUDA kernel hashes each step's masks in place instead
+(``Faults.kernel_program`` gives it the thresholds), and
+``fault_hash_planes`` fills the JAX planes from that same device hash for
+the chip check against ``Faults.fault_planes``.
 
 ``fused_ticks`` runs ``length`` steps of one of three step bodies on every
 lane (the JAX ``_run_ticks`` megatick and ``_drain_and_flush_with``'s
@@ -39,6 +45,7 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,18 +66,35 @@ MODES = {"ticks": 0, "drain": 1, "flush": 2}
 LAUNCHES = {"fused_scan": 0}
 
 
-def fused_smem_bytes(n: int, e: int, s: int) -> int:
+def fault_arm(tk) -> bool:
+    """Whether ``tk``'s fused megatick runs the fault arm: the adversary
+    or the snapshot supervisor armed (the kernel's ``ext`` instantiation,
+    and its larger share of shared memory)."""
+    return tk.faults is not None or tk._sup
+
+
+def fused_smem_bytes(n: int, e: int, s: int, *,
+                     fault_arm: bool = False) -> int:
     """Shared memory of one lane's block, the one reckoning of it (the
     wrapper passes it to the kernel, which checks its own layout against
     it): the ``[E]`` vectors q_head, q_len, tok_pushed, rec_cnt, min_prot
     and the tick's head_data (int32) and tok/mk/app (bool); ``tokens``
     [N]; the ``[S, N]`` planes frozen, rem (int32), has_local, done_local
     (bool); ``recording`` [S, E] (bool); completed, snap_done_time
-    (int32), started, snap_failed (bool) [S]; 4 words of control. The
+    (int32), started, snap_failed (bool) [S]; 4 words of control.
+    ``fault_arm`` (``fault_arm(tk)``: the adversary or the supervisor
+    armed) adds the
+    supervisor's ``[S]`` vectors snap_epoch, snap_deadline, snap_retries,
+    snap_initiator, the 7 fault counts, next_sid, fault_skew and
+    stale_markers (int32); the step's fault flags and duplicate kind per
+    edge, the down flag per node and a retry flag per slot (bytes). The
     rings, the log, the windows and the delay stream stay in device
     memory."""
     ints = 6 * e + n + 2 * s * n + 2 * s + 4
     flags = 3 * e + s * e + 2 * s * n + 2 * s
+    if fault_arm:
+        ints += 4 * s + 10
+        flags += 2 * e + n + s
     return (4 * ints + flags + 15) // 16 * 16
 
 
@@ -141,12 +165,33 @@ _LEAVES = (
     ("rec_end", torch.int32, ("s", "e")),
     ("completed", torch.int32, ("s",)), ("snap_failed", torch.bool, ("s",)),
     ("snap_done_time", torch.int32, ("s",)), ("error", torch.int32, ()),
+    ("fault_key", torch.int64, ()), ("fault_skew", torch.int32, ()),
+    ("fault_counts", torch.int32, ("fc",)),
+    ("snap_epoch", torch.int32, ("s",)),
+    ("snap_deadline", torch.int32, ("s",)),
+    ("snap_retries", torch.int32, ("s",)),
+    ("snap_initiator", torch.int32, ("s",)), ("next_sid", torch.int32, ()),
+    ("stale_markers", torch.int32, ()),
 )
 _TABLES = ("_edge_src", "_edge_dst", "_in_degree", "_src_lo", "_src_hi",
            "_dst_lo", "_dst_hi", "_by_dst")
 _INTS = ("b", "n", "e", "c", "s", "l", "log16", "rec_limit", "key_limit",
          "sampler", "max_delay", "fixed_delay", "mode", "length",
-         "quarantine", "smem_bytes")
+         "quarantine", "smem_bytes", "faulted", "ext", "crash_kind",
+         "crash_lossy", "crash_len", "crash_period", "crash_start", "dup_mod",
+         "snapshot_timeout", "snapshot_retries", "snapshot_every")
+_CLASSES = 7   # core/state.NUM_FAULT_CLASSES, in FC_* order
+# the crash schedule's ints when no adversary is armed
+_NO_CRASH = dict(crash_kind=0, crash_lossy=0, crash_len=0, crash_period=1,
+                 crash_start=0)
+
+
+class _Program(ctypes.Structure):
+    """``struct ClsimFaultRates`` of ``csrc/megatick.cu``: the rate
+    classes of ``Faults.kernel_program``."""
+
+    _fields_ = [("thresh", ctypes.c_uint32 * _CLASSES),
+                ("arm", ctypes.c_int * _CLASSES)]
 
 
 class _Args(ctypes.Structure):
@@ -156,14 +201,36 @@ class _Args(ctypes.Structure):
                 + [(f"dw{i}", ctypes.c_void_p) for i in range(3)]
                 + [("live", ctypes.c_void_p), ("limit", ctypes.c_void_p)]
                 + [(t.lstrip("_"), ctypes.c_void_p) for t in _TABLES]
-                + [(name, ctypes.c_int) for name in _INTS])
+                + [(name, ctypes.c_int) for name in _INTS]
+                + [("rates", _Program)])
 
 
-def _fn():
-    fn = _build.library("megatick").clsim_fused_ticks
-    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+_SIGS = {
+    "clsim_fused_ticks": [ctypes.POINTER(_Args), ctypes.c_void_p],
+    # key, time, edge plane, node plane; b, k, e, n, crash kind, len,
+    # period, start, dup_mod; the rates; the stream
+    "clsim_fault_planes": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    + [ctypes.POINTER(_Program), ctypes.c_void_p],
+}
+
+
+@functools.cache
+def _fn(name: str):
+    fn = getattr(_build.library("megatick"), name)
+    fn.argtypes = _SIGS[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _program(faults) -> tuple:
+    """(the crash schedule's ints, the rate classes) of ``faults``
+    (``Faults.kernel_program``); nothing armed when it is None."""
+    if faults is None:
+        return dict(_NO_CRASH), _Program()
+    prog = faults.kernel_program()
+    rates = _Program((ctypes.c_uint32 * _CLASSES)(*prog.pop("thresh")),
+                     (ctypes.c_int * _CLASSES)(*prog.pop("arm")))
+    return prog, rates
 
 
 def _sampler(delay, b, dev, words):
@@ -192,23 +259,19 @@ def _sampler(delay, b, dev, words):
 def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     """``length`` fused steps of every lane (module docstring) in one
     launch on a CUDA state, in place; ``fused_ticks_plain`` on a CPU
-    state. ``tk`` is the fault-free, unsupervised ring-mode
-    ``ops/tick.TickKernel`` whose tables and config the kernel reads.
-    Returns the state (its leaves made contiguous where they were not)."""
+    state. ``tk`` is the ring-mode ``ops/tick.TickKernel`` whose tables,
+    config, adversary and supervisor the kernel reads. Returns the state
+    (its leaves made contiguous where they were not)."""
     if s.time.device.type == "cpu":
         return fused_ticks_plain(tk, s, mode=mode, length=length, live=live,
                                  limit=limit)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if tk.faults is not None or tk._sup:
-        raise NotImplementedError(
-            "the fused megatick under faults or the snapshot supervisor is "
-            "not ported yet (ROADMAP.md, A4b)")
     dev = s.time.device
     cfg, topo = tk.cfg, tk.topo
     b = s.time.shape[0]
     dims = {"n": topo.n, "e": topo.e, "c": cfg.queue_capacity,
-            "s": cfg.max_snapshots, "l": cfg.max_recorded}
+            "s": cfg.max_snapshots, "l": cfg.max_recorded, "fc": _CLASSES}
     fields, ptrs = {}, {}
     for name, dtype, shape in _LEAVES:
         t = getattr(s, name)
@@ -231,24 +294,63 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
             (mode == "drain") != (lane_in["limit"] is not None)):
         raise ValueError("mode 'ticks' takes live=, 'drain' takes limit=, "
                          "'flush' takes neither")
+    crash, rates = _program(tk.faults)
+    ext = fault_arm(tk)
     ints = dict(b=b, log16=int(tk._rec_dtype == torch.int16),
                 rec_limit=tk._rec_limit, key_limit=tk._key_limit,
                 sampler=kind, max_delay=tk.delay.max_delay,
                 fixed_delay=fixed, mode=MODES[mode], length=length,
                 quarantine=int(tk.quarantine),
-                smem_bytes=fused_smem_bytes(topo.n, topo.e,
-                                            cfg.max_snapshots), **dims)
+                smem_bytes=fused_smem_bytes(
+                    topo.n, topo.e, cfg.max_snapshots, fault_arm=ext),
+                faulted=int(tk.faults is not None), ext=int(ext), **crash,
+                dup_mod=max(cfg.max_delay, 1),
+                snapshot_timeout=cfg.snapshot_timeout,
+                snapshot_retries=cfg.snapshot_retries,
+                snapshot_every=cfg.snapshot_every, **dims)
     args = _Args(
         *(ptrs[name] for name, _, _ in _LEAVES),
         *(w.data_ptr() if w is not None else None for w in words),
         *(t.data_ptr() if t is not None else None
           for t in (lane_in["live"], lane_in["limit"])),
         *(getattr(tk, t).data_ptr() for t in _TABLES),
-        *(ints[name] for name in _INTS))
-    code = _fn()(ctypes.byref(args), _build.stream_ptr(s.time))
+        *(ints[name] for name in _INTS), rates)
+    code = _fn("clsim_fused_ticks")(ctypes.byref(args),
+                                    _build.stream_ptr(s.time))
     _build.check(code, "clsim_fused_ticks")
     LAUNCHES["fused_scan"] += 1
     if words[0] is not None:
         fields["delay_state"] = words
     return s._replace(**fields)
 
+
+def fault_hash_planes(faults, key, time, *, steps: int, num_edges: int,
+                      num_nodes: int, max_delay: int):
+    """``faults.fault_planes`` (the JAX ``_fault_planes`` layout: [B, K, 8,
+    E] and [B, K, 2, N] int32, row j at tick time ``time + 1 + j``) filled
+    on the card by the fused megatick's own device hash, one thread per
+    (lane, step, edge or node): the check that the hash the kernel runs
+    inside its step equals the plain masks. ``key`` [B] int64 uint32
+    words, ``time`` [B] int32, both on the card."""
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError("fault_hash_planes runs the CUDA hash; it needs "
+                         "tensors on the card")
+    b = key.shape[0]
+    if (key.dtype != torch.int64 or time.dtype != torch.int32
+            or tuple(time.shape) != (b,) or time.device != dev):
+        raise ValueError("key: int64 [B] and time: int32 [B] on one card")
+    key, time = key.contiguous(), time.contiguous()
+    edge = torch.empty((b, steps, 8, num_edges), dtype=torch.int32,
+                       device=dev)
+    node = torch.empty((b, steps, 2, num_nodes), dtype=torch.int32,
+                       device=dev)
+    crash, rates = _program(faults)
+    code = _fn("clsim_fault_planes")(
+        key.data_ptr(), time.data_ptr(), edge.data_ptr(), node.data_ptr(),
+        b, steps, num_edges, num_nodes, crash["crash_kind"],
+        crash["crash_len"], crash["crash_period"], crash["crash_start"],
+        max(int(max_delay), 1), ctypes.byref(rates),
+        _build.stream_ptr(key))
+    _build.check(code, "clsim_fault_planes")
+    return edge, node

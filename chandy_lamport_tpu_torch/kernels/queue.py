@@ -16,6 +16,7 @@ so the caller must own the planes it passes.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,6 +43,7 @@ _SIGS = {
 }
 
 
+@functools.cache
 def _fn(name: str):
     fn = getattr(_build.library("queue"), name)
     fn.argtypes = _SIGS[name]

@@ -186,3 +186,68 @@ class Faults:
         prev = self.down_nodes(key, time - 1, num_nodes)
         now = self.down_nodes(key, time, num_nodes)
         return prev & ~now & (time >= 1).unsqueeze(-1)
+
+    # -- the fused megatick's view of the program -------------------------------
+
+    def fault_planes(self, key, time, steps: int, num_edges: int,
+                     num_nodes: int, max_delay: int):
+        """The next ``steps`` ticks' program as the JAX ``_fault_planes``
+        (``ops/tick.py:854``) lays it out, per lane: an edge plane [B, K,
+        8, E] int32 with rows (drop, dup, jit, dup_rt, mdrop, mdup, mjit,
+        mdup_rt) and a node plane [B, K, 2, N] int32 with rows (down_n,
+        rs_n); row j is tick time ``time + 1 + j`` (int32, wrapping), and
+        a receive time is ``t + 1 + word % max(max_delay, 1)``. The tick
+        path never builds these: the fused kernel hashes the same words
+        in place. They serve the tests and the chip check of that
+        hash."""
+        md = max(int(max_delay), 1)
+        i32 = torch.int32
+        eps, nps = [], []
+        for j in range(steps):
+            t = time + (1 + j)
+            tt = t.unsqueeze(-1)
+            drop, dup, jit, dupw = self.edge_masks(key, t, num_edges)
+            mdrop, mdup, mjit, mw = self.marker_masks(key, t, num_edges)
+            eps.append(torch.stack([
+                drop.to(i32), dup.to(i32), jit.to(i32),
+                tt + 1 + (dupw % md).to(i32),
+                mdrop.to(i32), mdup.to(i32), mjit.to(i32),
+                tt + 1 + (mw % md).to(i32)], dim=-2))
+            nps.append(torch.stack([
+                self.down_nodes(key, t, num_nodes).to(i32),
+                self.restarted(key, t, num_nodes).to(i32)], dim=-2))
+        return torch.stack(eps, dim=1), torch.stack(nps, dim=1)
+
+    def kernel_program(self) -> dict:
+        """The program as ``csrc/megatick.cu`` takes it: per class in
+        ``core/state.FC_*`` order (drop, dup, jitter, crash, marker drop,
+        dup, jitter) a uint32 threshold and an arm flag, derived as
+        ``_rate_mask`` derives them (0: the class never fires and nothing
+        is hashed; 1: it fires where the word is below the threshold; 2:
+        rate >= 1, it fires on every armed lane), the crash gate's rate
+        being ``crash_rate or 1.0`` in the ``crash_start`` window mode;
+        and the crash schedule: ``crash_kind`` 0 (no crashes), 1 (hashed
+        periodic windows) or 2 (the one ``crash_start`` window)."""
+        crash_rate = self.crash_rate
+        if self.crash_start is not None:
+            crash_rate = crash_rate or 1.0
+        arms, thresh = [], []
+        for rate in (self.drop_rate, self.dup_rate, self.jitter_rate,
+                     crash_rate, self.marker_drop_rate,
+                     self.marker_dup_rate, self.marker_jitter_rate):
+            if rate <= 0.0:
+                arms.append(0)
+                thresh.append(0)
+            elif rate >= 1.0:
+                arms.append(2)
+                thresh.append(0)
+            else:
+                arms.append(1)
+                thresh.append(min(int(rate * 2.0**32), 2**32 - 1))
+        kind = (0 if not self.crashes
+                else 2 if self.crash_start is not None else 1)
+        return {"arm": arms, "thresh": thresh, "crash_kind": kind,
+                "crash_lossy": int(self.crash_mode == "lossy"),
+                "crash_len": self.crash_len,
+                "crash_period": self.crash_period,
+                "crash_start": self.crash_start or 0}

@@ -21,8 +21,9 @@ on a CPU state.
 K-tick megaticks (the JAX ``_run_ticks`` and ``_drain_and_flush_with`` at
 megatick K): through the fused megatick kernel (``kernels/megatick.py``)
 on the card, through its plain form on the CPU; the results equal
-megatick 1 leaf for leaf. Faults and the supervisor are not
-ported at megatick > 1 (ROADMAP.md, A4b).
+megatick 1 leaf for leaf, under the fault adversary and the snapshot
+supervisor too (the kernel hashes the fault masks and runs the
+supervisor inside the step).
 
 The ring-mode ticks carry the fault adversary (``faults``,
 models/faults.py), the snapshot supervisor (``cfg.snapshot_timeout`` /
@@ -202,10 +203,6 @@ class TickKernel:
                 f"megatick={megatick}: the megatick is the exact "
                 "scheduler's (as in JAX); the sync scheduler ticks one at "
                 "a time, so run it at megatick=1")
-        if megatick > 1 and (faults is not None or self._sup):
-            raise NotImplementedError(
-                "megatick > 1 under faults or the snapshot supervisor is not "
-                "ported yet (ROADMAP.md, A4b); run them at megatick=1")
         self.faults = faults
         self.quarantine = bool(quarantine)
         self.topo, self.cfg, self.delay = topo, cfg, delay
@@ -214,7 +211,8 @@ class TickKernel:
         self.fused, self.fused_reason = k_megatick.resolve_fused(
             megatick=self.megatick, device=self.device,
             smem_bytes=k_megatick.fused_smem_bytes(
-                topo.n, topo.e, cfg.max_snapshots))
+                topo.n, topo.e, cfg.max_snapshots,
+                fault_arm=k_megatick.fault_arm(self)))
         # marker-fold iterations run by the host loop of the cascade tick
         # so far (one per batched step, whatever the number of lanes it
         # serves), and those of them run in drains and flushes; the fused

@@ -83,10 +83,10 @@ class BatchedRunner:
         storm CLI's ``--megatick``; storm phases tick one at a time);
         bit-identical to 1, the default. On the card they launch the
         fused megatick kernel, on the CPU they run its plain form;
-        ``self.fused`` and ``self.fused_reason`` say which. Megatick > 1
-        raises ValueError on the sync scheduler (the megatick is the
-        exact scheduler's) and NotImplementedError under faults or the
-        supervisor (ROADMAP.md, A4b).
+        ``self.fused`` and ``self.fused_reason`` say which, under faults
+        and the supervisor as without them. Megatick > 1 raises
+        ValueError on the sync scheduler (the megatick is the exact
+        scheduler's).
 
         check_every: if > 0, evaluate token conservation every K phases
         and once after the run, setting the sticky ERR_CONSERVATION bit on

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs nine phases,
+kernels/csrc`` (one nvcc per source, in parallel), then runs ten phases,
 each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -36,13 +36,25 @@ each printing one JSON line:
                int32 wrap);
   fused_kernel fused_scan (the fused megatick) at the exact cell's shape —
                one drain megatick (K=8) from the state after its 32 storm
-               phases — and on small edge cases (ring wrap, capacity-1
-               rings, a single-edge graph, lanes going quiet mid-megatick,
-               a lane not live at launch, an errored lane under quarantine,
-               the fixed, hash and Go-exact samplers, the three step
-               bodies): bit-equal to its plain version, timed per launch;
-               its bound counts the bytes the kernel's design must move,
-               from the megatick's own steps (``fused_plain_and_bytes``);
+               phases, fault-free and faulted (the fault_storm cell's
+               adversary and supervisor) — and on small edge cases (ring
+               wrap, capacity-1 rings, a single-edge graph, lanes going
+               quiet mid-megatick, a lane not live at launch, an errored
+               lane under quarantine, the fixed, hash and Go-exact
+               samplers, the three step bodies; and the fault arm's: a
+               disarmed lane (key 0), classes at rate 0 and 1, retries,
+               crashes that never let a lane go quiet, lossy restarts with
+               and without a completed snapshot, the daemon, the timeout
+               alone, ERR_SNAPSHOT_TIMEOUT set mid-megatick under
+               quarantine, duplicates re-appended into full rings, a clock
+               wrapping past 2^31 - 1): bit-equal to its plain version,
+               timed per launch; its bound counts the bytes the kernel's
+               design must move and the fault hash's integer operations,
+               from the megatick's own steps (``fused_plain_and_bytes``).
+               The fault-hash check: ``fault_hash_planes`` (the kernel's
+               device hash writing the JAX ``_fault_planes`` layout) equals
+               ``Faults.fault_planes`` at tick times 0, 1, 31, 32, 2^20 and
+               2^31 - 1 (and on past the int32 wrap);
   storm        main path 1: the config-4 sync storm through
                ``BatchedRunner.run_storm`` on the card: zero error bits,
                every snapshot complete, conservation delta 0, and every
@@ -67,6 +79,14 @@ each printing one JSON line:
                conservation delta 0, no bit but ERR_SNAPSHOT_TIMEOUT, every
                snapshot of every clean lane complete, every kernel of the
                path launched and queue_step never;
+  fault_fused_storm main path 6: the same faulted cell at megatick 8
+               (``BatchedRunner(..., faults=..., quarantine=True,
+               megatick=8)``, the JAX storm CLI's default): the phases tick
+               one at a time, the drain and flush run through fused_scan
+               with the adversary and the supervisor inside. fault_storm's
+               checks, and its final state equal to fault_storm's leaf for
+               leaf, fused_scan launched, queue_step never, and no host
+               fold step in the drain and flush;
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -75,26 +95,42 @@ each printing one JSON line:
                every case;
   cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
                (the faulted one with lossy crashes at a fixed window,
-               marker drops and the supervisor with its daemon) on the card
-               and on the CPU (plain versions): every state leaf identical.
+               marker drops and the supervisor with its daemon, at
+               megatick 1 and 8) on the card and on the CPU (plain
+               versions): every state leaf identical.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
-and host times and a ``shapes`` list of every timed shape), and last
+and host times and a ``shapes`` list of every timed shape; fused_scan's
+a ``shapes`` list of its fault-free and faulted drain megaticks), and last
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
+
+    python3 chip_smoke.py --drain-timing fault-free|faulted \
+        [--package-root DIR]
+
+times one drain megatick (K=8) of the exact or the faulted exact cell
+and prints one JSON line, nothing else; ``--package-root`` imports the
+package from another checkout (a parent commit unpacked into a
+gitignored directory), so parent and change are timed in turns in one
+call.
 """
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and float32 outside the
-# tensor cores as the rate of scalar integer operations
+# H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and the rate of 32-bit
+# integer operations, which is all the kernels of the port do: 132 SMs x 64
+# per SM per clock (add, compare, logic, shift and multiply-add alike; the
+# CUDA C++ guide's throughput table, compute capability 9.0) x the 1.98 GHz
+# boost clock
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = 132 * 64 * 1.98e9
 
 # bench config 4 (README: ``python bench.py`` defaults)
 NODES, ATTACH, BATCH, PHASES, SNAPSHOTS, DELAY_SEED = 1024, 2, 2048, 32, 8, 17
@@ -133,6 +169,8 @@ KERNELS = {
 }
 # the megatick of main path 4 (the JAX storm CLI's default --megatick)
 MEGATICK = 8
+# launches averaged by --drain-timing
+DRAIN_LAUNCHES = 10
 # what split_times adds to a row
 SPLIT_KEYS = ("device_ms", "host_us", "library_device_ms",
               "library_host_us")
@@ -214,7 +252,7 @@ def split_times(kernel_fn, library_fn) -> dict:
 
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the scalar rate."""
+    memory rate and operations over the 32-bit integer rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -392,12 +430,12 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     return runner, prog
 
 
-def fault_runner(device, batch=X_BATCH):
-    """The faulted exact storm of main path 3 (module docstring)."""
+def fault_runner(device, batch=X_BATCH, megatick=1):
+    """The faulted exact storm of main paths 3 and 6 (module docstring)."""
     from chandy_lamport_tpu_torch.models.faults import Faults
 
     return exact_runner(device, batch, faults=Faults(3, **F_PROGRAM),
-                        snapshot_timeout=F_TIMEOUT)
+                        megatick=megatick, snapshot_timeout=F_TIMEOUT)
 
 
 def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> tuple:
@@ -857,18 +895,69 @@ def loaded_state(runner, rounds: int = 3):
     return s
 
 
+def _fault_edge_checks(name, s, got, steps, live) -> None:
+    """What a faulted edge case must show beyond bit-equality, on the
+    kernel's result ``got`` of ``steps`` "ticks" steps from ``s`` on the
+    lanes of ``live`` (``fused_edge_cases``)."""
+    from chandy_lamport_tpu_torch.core.state import (
+        ERR_FAULT_UNRECOVERED,
+        ERR_QUEUE_OVERFLOW,
+        ERR_SNAPSHOT_TIMEOUT,
+        FC_CRASH,
+        FC_DUP,
+        FC_MDUP,
+    )
+
+    fired = got.fault_counts - s.fault_counts
+    ok = {
+        "disarmed": bool((fired[3] == 0).all()) and bool(fired[0].any()),
+        "retried": int((got.snap_retries - s.snap_retries).sum()) > 0,
+        "never_quiet": bool((got.q_len.sum(-1) == 0).all())
+        and bool((fired[:, FC_CRASH] > 0)[live].all()),
+        "restored": int(fired[:, FC_CRASH].sum()) > 0
+        and not bool((got.error & ERR_FAULT_UNRECOVERED).any()),
+        "unrecovered": bool((got.error & ERR_FAULT_UNRECOVERED).any()),
+        "daemon": bool((got.next_sid > s.next_sid)[live].all()),
+        "quiet": bool((got.q_len.sum(-1) == 0).any()),
+        "timeout": bool(((got.error & ERR_SNAPSHOT_TIMEOUT != 0)
+                         & (s.error == 0)
+                         & (got.time < s.time + steps)).any()),
+        "overflow": bool((got.error & ERR_QUEUE_OVERFLOW).any())
+        and int(fired[:, FC_DUP].sum() + fired[:, FC_MDUP].sum()) > 0,
+        "wrap": bool((got.time < 0).any() & (s.time > 0).all()),
+    }[name]
+    if not ok:
+        raise AssertionError(f"fused_scan edge case {name!r} did not show "
+                             "what it is for")
+
+
 def fused_edge_cases() -> list:
     """fused_scan against its plain version on small states on the card
-    (``loaded_state``): each sampler, capacity-1 rings (every append
-    overflows), capacity-5 rings under quarantine with lane 2 errored at
-    launch, a single-edge graph;
-    each with the three step bodies ("ticks" for 40 steps with lane 1 not
-    live at launch, so the others go quiet mid-megatick; "drain" against
-    a near and a far limit; "flush")."""
+    (``loaded_state``), each through the three step bodies ("ticks" with
+    lane 1 not live at launch, so the others go quiet mid-megatick where
+    they can; "drain" against a near and a far limit; "flush"). Fault-free:
+    each sampler, capacity-1 rings (every append overflows), capacity-5
+    rings under quarantine with lane 2 errored at launch, a single-edge
+    graph. Faulted (``_fault_edge_checks`` holds each to what it is for):
+    token faults with lane 3 disarmed (key 0) and every other class at
+    rate 0 (nothing hashed); marker faults under the timeout (retries);
+    every class with pause crashes; pause crashes from a fresh state,
+    whose empty rings must not make it quiet (it ticks, and restarts);
+    lossy crash windows mid-megatick after and before a snapshot
+    completes; the daemon; the timeout alone (quiet once nothing is
+    pending); marker drop at rate 1.0 with one retry, so
+    ERR_SNAPSHOT_TIMEOUT fires mid-megatick and the lane stops there;
+    token and marker duplicates at rate 1.0 into capacity-2 rings (the
+    re-appends overflow and clobber after the fold's broadcasts); and a
+    clock taken past 2^31 - 1 under periodic crashes."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
     from chandy_lamport_tpu_torch.kernels import megatick as km
-    from chandy_lamport_tpu_torch.models.workloads import scale_free
+    from chandy_lamport_tpu_torch.models.faults import Faults
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        scale_free,
+    )
     from chandy_lamport_tpu_torch.ops.delay import (
         FixedDelay,
         GoExactDelay,
@@ -879,34 +968,92 @@ def fused_edge_cases() -> list:
     import torch
 
     sf48 = scale_free(48, 2, seed=9, tokens=30)
+    ring8 = ring_topology(8, tokens=100)
     one = TopologySpec([("A", 9), ("B", 0)], [("A", "B")])
-    wide = SimConfig.for_workload(snapshots=3)
+
+    def wide(**kw):
+        return SimConfig.for_workload(snapshots=3, **kw)
+
+    every = dict(drop_rate=0.05, dup_rate=0.05, jitter_rate=0.05,
+                 marker_drop_rate=0.05, marker_dup_rate=0.05,
+                 marker_jitter_rate=0.05)
+    # loaded_state leaves every lane at time 3; crash windows are set
+    # against that clock
     cases = (
-        ("sf-48, fixed(2)", sf48, wide, FixedDelay(2), False),
-        ("sf-48, hash(5)", sf48, wide, HashDelay(5), False),
-        ("sf-48, go-exact(11)", sf48, wide, GoExactDelay(11), False),
+        # (note, graph, config, sampler, adversary, quarantine, check)
+        ("sf-48, fixed(2)", sf48, wide(), FixedDelay(2), None, False, None),
+        ("sf-48, hash(5)", sf48, wide(), HashDelay(5), None, False, None),
+        ("sf-48, go-exact(11)", sf48, wide(), GoExactDelay(11), None, False,
+         None),
         ("sf-48, C=1 (appends overflow and clobber)", sf48, SimConfig(
             max_snapshots=4, queue_capacity=1, max_recorded=8),
-         HashDelay(3), False),
+         HashDelay(3), None, False, None),
         ("sf-48, C=5 ring wrap, quarantine", sf48, SimConfig(
             max_snapshots=4, queue_capacity=5, max_recorded=8),
-         HashDelay(3), True),
+         HashDelay(3), None, True, None),
         ("single edge A->B, hash(2)", one, SimConfig(
-            max_snapshots=2, queue_capacity=4), HashDelay(2), False),
+            max_snapshots=2, queue_capacity=4), HashDelay(2), None, False,
+         None),
+        ("faulted: token faults 0.1, lane 3 disarmed (key 0), other "
+         "classes at rate 0", sf48, wide(), HashDelay(5),
+         Faults(3, drop_rate=0.1, dup_rate=0.1, jitter_rate=0.1), True,
+         "disarmed"),
+        ("faulted: marker faults, timeout 6, go-exact(11)", sf48,
+         wide(snapshot_timeout=6, snapshot_retries=6), GoExactDelay(11),
+         Faults(3, marker_drop_rate=0.3, marker_dup_rate=0.2,
+                marker_jitter_rate=0.2), True, "retried"),
+        ("faulted: every class 0.05, pause crashes 0.3", sf48,
+         wide(snapshot_timeout=8), HashDelay(7),
+         Faults(5, crash_rate=0.3, crash_period=4, crash_len=1, **every),
+         True, None),
+        ("faulted: pause crashes 0.3 from a fresh state (never quiet)",
+         sf48, wide(), HashDelay(7),
+         Faults(5, crash_rate=0.3, crash_period=4, crash_len=1), True,
+         "never_quiet"),
+        ("faulted: ring-8, lossy crash window at 17, restored", ring8,
+         wide(), FixedDelay(1), Faults(3, crash_rate=1.0, crash_mode="lossy",
+                                       crash_start=17, crash_len=2),
+         True, "restored"),
+        ("faulted: ring-8, lossy crash window at 4, nothing complete",
+         ring8, wide(), FixedDelay(1),
+         Faults(3, crash_rate=1.0, crash_mode="lossy", crash_start=4,
+                crash_len=2), True, "unrecovered"),
+        ("supervised: daemon every 3, timeout 12", sf48,
+         SimConfig.for_workload(snapshots=8, snapshot_every=3,
+                                snapshot_timeout=12), HashDelay(5), None,
+         True, "daemon"),
+        ("supervised: timeout 30 alone", sf48, wide(snapshot_timeout=30),
+         HashDelay(5), None, True, "quiet"),
+        ("faulted: marker drop 1.0, timeout 3, one retry", sf48,
+         wide(snapshot_timeout=3, snapshot_retries=1), HashDelay(5),
+         Faults(3, marker_drop_rate=1.0), True, "timeout"),
+        ("faulted: C=2, token and marker dup 1.0", sf48, SimConfig(
+            max_snapshots=4, queue_capacity=2, max_recorded=8),
+         HashDelay(3), Faults(3, dup_rate=1.0, marker_dup_rate=1.0), False,
+         "overflow"),
+        ("faulted: clock past 2^31 - 1, periodic crashes", sf48, wide(),
+         HashDelay(5), Faults(3, crash_rate=0.5, crash_period=3,
+                              crash_len=1, jitter_rate=0.2), False, "wrap"),
     )
     rows = []
-    for note, spec, cfg, delay, quarantine in cases:
+    for note, spec, cfg, delay, faults, quarantine, check in cases:
         runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
-                               device="cuda", quarantine=quarantine,
-                               megatick=MEGATICK)
+                               device="cuda", faults=faults,
+                               quarantine=quarantine, megatick=MEGATICK)
         tk = runner.kernel
-        s = loaded_state(runner, min(3, cfg.max_snapshots))
-        if quarantine:
+        s = (runner.init_batch_device() if check == "never_quiet"
+             else loaded_state(runner, min(3, cfg.max_snapshots)))
+        if quarantine and faults is None and check is None:
             s.error[2] |= ERR_QUEUE_OVERFLOW
+        if check == "disarmed":
+            s.fault_key[3] = 0
+        if check == "wrap":
+            s = s._replace(time=s.time + (2**31 - 8 - int(s.time.max())))
         live = ~tk._halted(s)
         live[1] = False
+        ticks = 40 if faults is None else 24
         for mode, length, kw in (
-                ("ticks", 40, {"live": live}),
+                ("ticks", ticks, {"live": live}),
                 ("drain", MEGATICK, {"limit": s.time + 7}),
                 ("drain", MEGATICK, {"limit": s.time
                                      + runner.config.max_ticks}),
@@ -923,52 +1070,83 @@ def fused_edge_cases() -> list:
                     bool(torch.equal(x[1], y[1]))
                     for x, y in zip(_leaves(got), _leaves(s))):
                 raise AssertionError("a lane not live at launch changed")
+            if mode == "ticks" and check is not None:
+                _fault_edge_checks(check, s, got, length, live)
             rows.append({"case": note, "mode": mode, "steps": length,
                          "lane_ticks": int((got.time - s.time).sum()),
                          "error_bits": int(got.error.max()),
+                         "fault_events": int((got.fault_counts
+                                              - s.fault_counts).sum()),
                          "max_abs_err": err})
     return rows
+
+
+# integer operations of one lowbias32 (three xor-shifts, two multiplies)
+LOWBIAS_OPS = 8
 
 
 def fused_plain_and_bytes(tk, s0, limit):
     """The plain version of one drain megatick from ``s0``, step by step
     (the same steps as one call of length K), timed around its calls on
-    the host clock; and the bytes the kernel's design must move on this
-    input, counted from the steps' own data:
+    the host clock; and the bytes the kernel's design must move and the
+    integer operations it must do on this input, counted from the steps'
+    own data:
 
       per lane that drains at the first step (the others return before
       loading anything): the shared-memory planes read once and written
       once (``started``/``snap_failed`` only read), ``time``, ``error``,
-      ``limit`` and the hash delay words; the topology tables once;
+      ``limit`` and the hash delay words; with the fault arm also the
+      supervisor's [S] vectors, the fault counts and scalars, and the
+      lane's fault key; the topology tables once;
       per step: the head rtime of every non-empty edge of a stepping lane,
       the payload of every popped slot, every appended slot (rtime and
       payload), and every log and window entry that changed.
 
-    Returns (final plain state, plain ms, bytes, the breakdown)."""
+    Operations: ~8 per edge of every lane-tick taken (the tick's own
+    integer work); with the adversary, per lane-tick, one lowbias32 per
+    edge shared by its classes plus one and a compare per armed edge
+    class, two crash gates per node (now and a tick before: three
+    lowbias32 each, and the floor division) when crashes are armed, and
+    one lowbias32 per duplicate's receive time.
+
+    Returns (final plain state, plain ms, bytes, operations, the
+    breakdown)."""
     import torch
 
     from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.core.state import FC_DUP, FC_MDUP
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
     n, e = tk.topo.n, tk.topo.e
     S = tk.cfg.max_snapshots
     if tk.cfg.queue_capacity < 2:
         raise ValueError("a pop is read off the head's move: needs C >= 2")
+    ext = km.fault_arm(tk)
     lanes = int(tk._drain_cond(s0, limit).sum())
-    ints = 5 * e + n + 2 * S * n + 2 * S + 2
+    ints = 5 * e + n + 2 * S * n + 2 * S + 2 + (4 * S + 10 if ext else 0)
     flags = S * e + 2 * S * n
     per_lane = (2 * (4 * ints + flags) + 2 * S    # planes in and out
-                + 4 + 3 * 8 + 2 * 8)              # limit, delay words
+                + 4 + 3 * 8 + 2 * 8               # limit, delay words
+                + (8 if tk.faults is not None else 0))   # the fault key
     tables = 4 * (3 * e + 5 * n)
     parts = {"planes_and_words": lanes * per_lane, "tables": tables,
              "head_reads": 0, "popped_payloads": 0, "appended_slots": 0,
              "log_writes": 0, "window_writes": 0}
+    edge_ops = node_ops = 0
+    if tk.faults is not None:
+        prog = tk.faults.kernel_program()
+        armed = sum(1 for k in (0, 1, 2, 4, 5, 6) if prog["arm"][k] == 1)
+        edge_ops = e * (LOWBIAS_OPS + 1 + armed * (LOWBIAS_OPS + 3))
+        if prog["crash_kind"]:
+            node_ops = n * 2 * (3 * LOWBIAS_OPS + 8)
     log_size = s0.log_amt.element_size()
-    s, plain_ms = BatchedRunner._own(s0), 0.0
+    s, plain_ms, lane_ticks, dups = BatchedRunner._own(s0), 0.0, 0, 0
     for _ in range(MEGATICK):
         step = tk._drain_cond(s, limit)
+        lane_ticks += int(step.sum())
         before = {k: getattr(s, k).clone() for k in (
-            "q_len", "q_head", "log_amt", "rec_start", "rec_end")}
+            "q_len", "q_head", "log_amt", "rec_start", "rec_end",
+            "fault_counts")}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = km.fused_ticks_plain(tk, s, mode="drain", length=1, limit=limit)
@@ -985,57 +1163,152 @@ def fused_plain_and_bytes(tk, s0, limit):
         parts["window_writes"] += 4 * int(
             (s.rec_start != before["rec_start"]).sum()
             + (s.rec_end != before["rec_end"]).sum())
+        fired = s.fault_counts - before["fault_counts"]
+        dups += int(fired[:, FC_DUP].sum() + fired[:, FC_MDUP].sum())
         del before
-    return s, plain_ms, sum(parts.values()), {"draining_lanes": lanes,
-                                              **parts}
+    ops = {"tick": 8 * e * lane_ticks, "fault_hash_edges":
+           edge_ops * lane_ticks, "fault_hash_nodes": node_ops * lane_ticks,
+           "dup_times": (LOWBIAS_OPS + 3) * dups}
+    return (s, plain_ms, sum(parts.values()), sum(ops.values()),
+            {"draining_lanes": lanes, "lane_ticks": lane_ticks, **parts,
+             "ops": ops})
 
 
-def phase_fused_kernel(runner, prog) -> dict:
-    """fused_scan at the exact cell's shape: one drain megatick (K=8)
-    from the state after the cell's 32 storm phases, against its plain
-    version on the same input; then the edge cases. Returns the
-    measurements for the summary line."""
-    import torch
-
-    from chandy_lamport_tpu_torch import BatchedRunner
+def drain_setup(runner, prog):
+    """The state after ``runner``'s storm phases (not drained), its drain
+    limit, and one drain megatick (K=8) of a state through fused_ticks
+    (in place: pass a copy)."""
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
-    tk, own = runner.kernel, BatchedRunner._own
     s0 = runner.run_storm(runner.init_batch_device(), prog, drain=False)
     limit = s0.time + runner.config.max_ticks
 
     def drain(x):
-        return km.fused_ticks(tk, x, mode="drain", length=MEGATICK,
-                              limit=limit)
+        return km.fused_ticks(runner.kernel, x, mode="drain",
+                              length=MEGATICK, limit=limit)
 
+    return s0, limit, drain
+
+
+def drain_megatick_row(runner, prog, label) -> dict:
+    """One drain megatick (K=8) of ``runner``'s cell from the state after
+    its storm phases: the kernel bit-equal to its plain version on the
+    same input, timed per launch, beside its bound."""
+    import torch
+
+    from chandy_lamport_tpu_torch import BatchedRunner
+
+    tk, own = runner.kernel, BatchedRunner._own
+    s0, limit, drain = drain_setup(runner, prog)
     got = drain(own(s0))
     torch.cuda.synchronize()
-    want, plain_ms, nbytes, moved = fused_plain_and_bytes(tk, s0, limit)
+    want, plain_ms, nbytes, ops, moved = fused_plain_and_bytes(tk, s0, limit)
     err = max_abs_err(_leaves(got), _leaves(want))
     bad = _mismatched(got, want)
     if err or bad:
-        raise AssertionError(f"fused_scan != plain at the exact cell's "
-                             f"drain megatick: {bad}")
+        raise AssertionError(f"fused_scan != plain at the {label} drain "
+                             f"megatick: {bad}")
     lane_ticks = int((got.time - s0.time).sum())
+    fired = int((got.fault_counts - s0.fault_counts).sum())
     ms = time_launch_ms(drain, lambda: own(s0))
     state_bytes = sum(t.numel() * t.element_size() for t in _leaves(s0))
-    del got, want
-    edge = fused_edge_cases()
+    del got, want, s0
     E = runner.topo.e
-    row = {"shape": f"[{runner.batch}] lanes of er-{runner.topo.n} "
-                    f"(E={E}, C={runner.config.queue_capacity}), one drain "
-                    f"megatick K={MEGATICK} after {X_PHASES} phases, "
-                    f"{lane_ticks} lane-ticks",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "plain_timing": "K one-step calls, host clock",
-           "library_ms": None, "state_bytes": state_bytes,
-           "bytes_moved": moved,
-           # the bytes of fused_plain_and_bytes; ~8 integer operations
-           # per edge of every lane-tick taken
-           **bound(nbytes, 8 * E * lane_ticks)}
+    return {"shape": f"[{runner.batch}] lanes of er-{runner.topo.n} "
+                     f"(E={E}, C={runner.config.queue_capacity}), one "
+                     f"{label} drain megatick K={MEGATICK} after "
+                     f"{len(prog.amounts)} phases, {lane_ticks} lane-ticks"
+                     + (f", {fired} fault events" if fired else ""),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_timing": "K one-step calls, host clock",
+            "library_ms": None, "state_bytes": state_bytes,
+            "bytes_moved": moved, **bound(nbytes, ops)}
+
+
+def fault_hash_check() -> list:
+    """``fault_hash_planes`` (the fused megatick's device hash, writing
+    the JAX ``_fault_planes`` layout) against ``Faults.fault_planes`` on
+    the card, bit for bit, at the exact cell's widths (E=768, N=256) over
+    8 ticks from lanes whose first row is tick time 0, 1, 31, 32, 2^20
+    and 2^31 - 1 (its later rows wrap past the int32 range), plus a lane
+    with key 0 (disarmed) and one with key 2^32 - 1; for the fault_storm
+    cell's program, every class at 0.3 with periodic crashes, every class
+    at 1.0, every class at 0 (nothing hashed) and a lossy crash_start
+    window whose crash rate 0 gates at 1.0."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.models.faults import Faults
+
+    first = [0, 1, 31, 32, 2**20, 2**31 - 1, 31, 2**31 - 1]
+    base = torch.tensor([t - 1 for t in first], dtype=torch.int32,
+                        device="cuda")
+    every = ("drop_rate", "dup_rate", "jitter_rate", "crash_rate",
+             "marker_drop_rate", "marker_dup_rate", "marker_jitter_rate")
+    programs = (
+        ("the fault_storm cell's program", F_PROGRAM),
+        ("every class 0.3, periodic crashes (period 8, length 3)",
+         dict({k: 0.3 for k in every}, crash_period=8, crash_len=3)),
+        ("every class 1.0", {k: 1.0 for k in every}),
+        ("every class 0", {}),
+        ("lossy crash_start=31 window, crash_rate 0, drop 0.01",
+         dict(crash_start=31, crash_len=2, crash_mode="lossy",
+              drop_rate=0.01)))
+    rows = []
+    for note, kw in programs:
+        faults = Faults(3, **kw)
+        key = faults.init_batch_state(len(first), "cuda")
+        key[6] = 0
+        key[7] = 2**32 - 1
+        shape = dict(steps=MEGATICK, num_edges=768, num_nodes=256,
+                     max_delay=5)
+        got = km.fault_hash_planes(faults, key, base, **shape)
+        want = faults.fault_planes(key, base, MEGATICK, 768, 256, 5)
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"the device fault hash != plain on {note}")
+        rows.append({"program": note, "first_rows": first,
+                     "fired_edge_flags": int(want[0][:, :, [0, 1, 2, 4, 5, 6]]
+                                             .sum()),
+                     "down_and_restarts": int(want[1].sum()),
+                     "max_abs_err": err})
+    return rows
+
+
+def drain_timing(cell: str) -> int:
+    """``--drain-timing fault-free|faulted``: one drain megatick (K=8) of
+    that exact cell from the state after its storm phases, timed over
+    ``DRAIN_LAUNCHES`` launches on fresh copies (``time_launch_ms``), and
+    printed as one JSON line with the card's name and power limit."""
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    make = fault_runner if cell == "faulted" else exact_runner
+    runner, prog = make("cuda", megatick=MEGATICK)
+    s0, _, drain = drain_setup(runner, prog)
+    ms = time_launch_ms(drain, lambda: BatchedRunner._own(s0),
+                        reps=DRAIN_LAUNCHES)
+    emit({"phase": "drain_timing", "cell": cell,
+          "package": os.path.dirname(km.__file__),
+          "launches": DRAIN_LAUNCHES, "ms_per_drain_megatick": ms,
+          "nvidia_smi": nvidia_smi()})
+    return 0
+
+
+def phase_fused_kernel(runner, prog, frunner, fprog) -> list:
+    """fused_scan at the exact cell's shape: one drain megatick (K=8)
+    from the state after the cell's 32 storm phases, and the same for the
+    faulted cell, each against its plain version on the same input; then
+    the edge cases and the fault-hash check. Returns the two rows for the
+    summary line."""
+    rows = [drain_megatick_row(runner, prog, "fault-free"),
+            drain_megatick_row(frunner, fprog, "faulted")]
+    edge = fused_edge_cases()
+    hashes = fault_hash_check()
     emit({"phase": "fused_kernel", "tolerance": "bit-equal (integer work)",
-          "storm_shape": row, "edge_cases": edge})
-    return row
+          "storm_shape": rows[0], "faulted_storm_shape": rows[1],
+          "edge_cases": edge, "fault_hash": hashes})
+    return rows
 
 
 def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
@@ -1139,14 +1412,15 @@ def phase_storm(name, runner, prog, graph, snapshots, path_kernels):
     return final, m
 
 
-def phase_fault_storm(runner, prog, path_kernels) -> dict:
-    """Main path 3, the faulted exact storm (module docstring): warm run
-    at F_WARM_BATCH lanes over a few phases, timed run at B=4096."""
+def phase_fault_storm(name, runner, prog, path_kernels):
+    """Main paths 3 and 6, the faulted exact storm at megatick 1 and 8
+    (module docstring): warm run at F_WARM_BATCH lanes over a few phases,
+    timed run at B=4096. Returns (final state, measurements)."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
     from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
 
-    warm_runner, _ = fault_runner("cuda", F_WARM_BATCH)
+    warm_runner, _ = fault_runner("cuda", F_WARM_BATCH, runner.megatick)
     final, m = _timed_storm(runner, prog, warm_runner,
                             (prog.amounts[:4], prog.snap[:4]))
     del warm_runner
@@ -1158,7 +1432,7 @@ def phase_fault_storm(runner, prog, path_kernels) -> dict:
     clean = err == 0
     done = final.started & (final.completed >= runner.topo.n)
     incomplete_clean = int((final.started & ~done)[clean].sum())
-    emit({**_storm_meta("fault_storm", runner, prog, "er", X_SNAPSHOTS),
+    emit({**_storm_meta(name, runner, prog, "er", X_SNAPSHOTS),
           **m, "faults": runner.faults.describe(),
           "snapshot_timeout": runner.config.snapshot_timeout,
           "snapshot_retries": runner.config.snapshot_retries,
@@ -1183,14 +1457,14 @@ def phase_fault_storm(runner, prog, path_kernels) -> dict:
     if delta != 0:
         raise AssertionError(f"conservation delta {delta}")
     if summary["error_bits"] & ~ERR_SNAPSHOT_TIMEOUT:
-        raise AssertionError(f"fault_storm error bits "
+        raise AssertionError(f"{name} error bits "
                              f"{summary['errors_decoded']}")
     if incomplete_clean:
         raise AssertionError(f"{incomplete_clean} snapshots incomplete on "
                              "lanes without error bits")
-    _check_launches("fault_storm", m["launches"], path_kernels,
+    _check_launches(name, m["launches"], path_kernels,
                     idle_kernels=("queue_step",))
-    return m["launches"]
+    return final, m
 
 
 def phase_golden() -> dict:
@@ -1239,8 +1513,10 @@ def phase_golden() -> dict:
 
 
 def phase_cpu_vs_cuda() -> None:
-    """Small sync, exact, faulted exact and megatick-8 exact storms on
-    the card and on the CPU: identical leaves."""
+    """Small sync, exact, faulted exact (megatick 1 and 8) and megatick-8
+    exact storms on the card and on the CPU: identical leaves."""
+    import functools
+
     import numpy as np
 
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
@@ -1270,7 +1546,7 @@ def phase_cpu_vs_cuda() -> None:
         return exact_runner(device, batch=8, nodes=64, phases=6,
                             snapshots=4, graph="sf", megatick=MEGATICK)
 
-    def faulted_storm(device):
+    def faulted_storm(device, megatick=1):
         # lossy crashes of half the nodes at tick 70, after the first
         # snapshots completed (restored from them), rare marker drops, the
         # supervisor with its daemon every 12 ticks
@@ -1281,12 +1557,15 @@ def phase_cpu_vs_cuda() -> None:
                             faults=Faults(3, crash_rate=0.5,
                                           crash_mode="lossy", crash_start=70,
                                           marker_drop_rate=0.002),
-                            snapshot_timeout=F_TIMEOUT, snapshot_every=12)
+                            megatick=megatick, snapshot_timeout=F_TIMEOUT,
+                            snapshot_every=12)
 
     result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
               "phases": 6, "snapshots": 4}
     for scheduler, build in (("sync", sync_storm), ("exact", exact_storm),
                              ("faulted_exact", faulted_storm),
+                             ("faulted_exact_megatick8", functools.partial(
+                                 faulted_storm, megatick=MEGATICK)),
                              ("exact_megatick8", fused_storm)):
         finals = []
         for device in ("cuda", "cpu"):
@@ -1316,7 +1595,19 @@ def phase_cpu_vs_cuda() -> None:
     emit(result)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--drain-timing", choices=("fault-free", "faulted"),
+                    help="only time one drain megatick of that exact cell")
+    ap.add_argument("--package-root",
+                    help="with --drain-timing: import the package from "
+                         "this checkout (a parent commit unpacked beside "
+                         "this one)")
+    args = ap.parse_args(argv)
+    if args.package_root:
+        if not args.drain_timing:
+            ap.error("--package-root goes with --drain-timing")
+        sys.path.insert(0, os.path.abspath(args.package_root))
     import torch
 
     if not torch.cuda.is_available():
@@ -1330,6 +1621,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    if args.drain_timing:
+        return drain_timing(args.drain_timing)
     smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.library("segment")
@@ -1345,9 +1638,11 @@ def main() -> int:
     xrunner, xprog = exact_runner("cuda")
     frunner, fprog = fault_runner("cuda")
     mrunner, mprog = exact_runner("cuda", megatick=MEGATICK)
+    f8runner, f8prog = fault_runner("cuda", megatick=MEGATICK)
     rows, all_rows = phase_kernels(runner, prog, xrunner, xprog, frunner,
                                    fprog)
-    rows["fused_scan"] = [phase_fused_kernel(mrunner, mprog)]
+    rows["fused_scan"] = phase_fused_kernel(mrunner, mprog, f8runner,
+                                            f8prog)
     # each main path runs with the launch counts zeroed just before it
     _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
                        ("sum_by_perm", "sum_segments", "spread",
@@ -1376,10 +1671,29 @@ def main() -> int:
         raise AssertionError("fused_storm ran queue_step outside its storm "
                              "phases")
     del mrunner, exact_final, fused_final
-    paths["fault_storm"] = phase_fault_storm(
-        frunner, fprog, ("select_pop", "head_fields", "spread",
-                         "append_rows", "sum_by_perm", "sum_segments"))
+    fault_kernels = ("select_pop", "head_fields", "spread", "append_rows",
+                     "sum_by_perm", "sum_segments")
+    fault_final, m = phase_fault_storm("fault_storm", frunner, fprog,
+                                       fault_kernels)
+    paths["fault_storm"] = m["launches"]
     del frunner
+    fused_final, m = phase_fault_storm("fault_fused_storm", f8runner,
+                                       f8prog, ("fused_scan",)
+                                       + fault_kernels)
+    paths["fault_fused_storm"] = m["launches"]
+    bad = _mismatched(fused_final, fault_final)
+    emit({"phase": "fault_fused_storm_vs_fault_storm",
+          "leaves": len(fault_final._fields), "mismatched": bad,
+          "fused_scan_launches": m["launches"]["fused_scan"],
+          "drain_fold_steps": m["drain_fold_steps"],
+          "fold_steps": m["fold_steps"]})
+    if bad:
+        raise AssertionError(f"the megatick-8 faulted storm differs from "
+                             f"megatick 1 in {bad}")
+    if m["drain_fold_steps"] != 0:
+        raise AssertionError("fault_fused_storm folded on the host in its "
+                             "drain or flush")
+    del f8runner, fault_final, fused_final
     paths["golden"] = phase_golden()
     phase_cpu_vs_cuda()
 
@@ -1396,8 +1710,13 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         # the segment sums: device and host time per call at every shape
-        # of their paths, beside index_add_'s
+        # of their paths, beside index_add_'s; fused_scan: its fault-free
+        # and faulted drain megatick
         timed = [r for r in all_rows.get(name, ()) if "device_ms" in r]
+        if name == "fused_scan":
+            entry["shapes"] = [{key: r[key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for r in rows[name]]
         if timed:
             entry.update({key: row[key] for key in SPLIT_KEYS})
             entry["shapes"] = [{key: r[key] for key in (

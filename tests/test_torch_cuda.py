@@ -8,7 +8,9 @@ more lanes than a grid's y axis holds (append_rows), and small sync,
 exact and faulted exact storms on the card must equal the same storms on
 the CPU; the fused megatick (row 8) must equal its plain form on every
 step body, sampler and ring edge case, and an exact storm at megatick 8
-must equal megatick 1. The segment sums (rows 1-2) take two paths, staged
+must equal megatick 1, with the fault arm too (the adversary and the
+supervisor inside the kernel; its device fault hash equals the plain
+planes). The segment sums (rows 1-2) take two paths, staged
 and tiled (``segment_plan``); each, on both dtypes, with and without
 perm, must equal the plain version, and every C entry point must load.
 Run on a
@@ -174,9 +176,12 @@ def test_every_entry_point_loads(dev):
         assert tuple(fn.argtypes) == tuple(sig)
         assert fn.restype is ctypes.c_int
         assert ks._fn(name) is fn
-    for name, sig in kq._SIGS.items():
-        assert tuple(kq._fn(name).argtypes) == tuple(sig)
-    assert km._fn().restype is ctypes.c_int
+    for book in (kq, km):
+        for name, sig in book._SIGS.items():
+            fn = book._fn(name)
+            assert tuple(fn.argtypes) == tuple(sig)
+            assert fn.restype is ctypes.c_int
+            assert book._fn(name) is fn
 
 
 def test_queue_kernels_equal_plain(dev):
@@ -368,13 +373,15 @@ def _leaves_equal(a, b):
             assert u.dtype == v.dtype and np.array_equal(u, v), name
 
 
-def _loaded(dev, spec, cfg, delay, quarantine=False):
-    """A megatick-8 exact runner on the card and a small state with
-    traffic and snapshots in flight, built by the scalar injectors (every
-    sampler has them): per round a 1-token send on every third edge, a
-    snapshot at node ``round % N`` on every other lane, one tick."""
+def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None):
+    """A megatick-8 exact runner on the card (with ``faults`` armed, if
+    given) and a small state with traffic and snapshots in flight, built
+    by the scalar injectors (every sampler has them): per round a 1-token
+    send on every third edge, a snapshot at node ``round % N`` on every
+    other lane, one tick."""
     runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
-                           device=dev, quarantine=quarantine, megatick=8)
+                           device=dev, quarantine=quarantine, megatick=8,
+                           faults=faults)
     tk = runner.kernel
     s = runner.init_batch_device()
     lanes = torch.arange(4, device=dev)
@@ -467,9 +474,107 @@ def test_fused_smem_reckoning_checked_by_kernel(dev, monkeypatch):
                         HashDelay(5))
     reckoned = km.fused_smem_bytes
     monkeypatch.setattr(km, "fused_smem_bytes",
-                        lambda n, e, k: reckoned(n, e, k) - 16)
+                        lambda n, e, k, fault_arm=False:
+                        reckoned(n, e, k, fault_arm=fault_arm) - 16)
     with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
         km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
+    # the fault arm's planes count too: the fault-free share is short
+    runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(snapshots=3),
+                        HashDelay(5), faults=Faults(3, drop_rate=0.1))
+    monkeypatch.setattr(km, "fused_smem_bytes",
+                        lambda n, e, k, fault_arm=False: reckoned(n, e, k))
+    with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
+        km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
+
+
+FAULT_ARMS = {
+    "token faults": (dict(drop_rate=0.1, dup_rate=0.1, jitter_rate=0.1),
+                     {}),
+    "marker faults, timeout": (dict(marker_drop_rate=0.3,
+                                    marker_dup_rate=0.2,
+                                    marker_jitter_rate=0.2),
+                               dict(snapshot_timeout=6,
+                                    snapshot_retries=6)),
+    "pause crashes, every class": (dict(
+        crash_rate=0.3, crash_period=4, crash_len=1, drop_rate=0.05,
+        dup_rate=0.05, jitter_rate=0.05, marker_drop_rate=0.05,
+        marker_dup_rate=0.05, marker_jitter_rate=0.05),
+        dict(snapshot_timeout=8)),
+    "lossy crash window, daemon": (dict(crash_rate=0.5, crash_mode="lossy",
+                                        crash_start=9, crash_len=2),
+                                   dict(snapshot_every=3,
+                                        snapshot_timeout=12)),
+    "marker drop 1.0, one retry": (dict(marker_drop_rate=1.0),
+                                   dict(snapshot_timeout=3,
+                                        snapshot_retries=1)),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(FAULT_ARMS))
+def test_fused_megatick_fault_arm_equals_plain(dev, arm):
+    """Row 8's fault arm on the card: the adversary and the supervisor
+    inside the step, under quarantine, through the three step bodies from
+    a loaded state, bit-equal to the plain form (fault books, supervisor
+    vectors, stale markers, error bits and the sampler included)."""
+    fkw, sup = FAULT_ARMS[arm]
+    runner, s = _loaded(dev, TOPO_SPEC,
+                        SimConfig.for_workload(snapshots=8, **sup),
+                        HashDelay(5), quarantine=True,
+                        faults=Faults(3, **fkw))
+    assert runner.fused == "on"
+    live = ~runner.kernel._halted(s)
+    live[1] = False
+    _fused_equals_plain(runner, s, "ticks", 24, live=live)
+    _fused_equals_plain(runner, s, "drain", 8, limit=s.time + 7)
+    _fused_equals_plain(runner, s, "drain", 8,
+                        limit=s.time + runner.config.max_ticks)
+    _fused_equals_plain(runner, s, "flush", runner.config.max_delay + 1)
+
+
+def test_fault_hash_planes_equal_plain(dev):
+    """The kernel's device fault hash writes the JAX ``_fault_planes``
+    layout equal to ``Faults.fault_planes``: rows from tick times 0, 1,
+    31, 32, 2^20 and 2^31 - 1 on (past the int32 wrap), a disarmed lane,
+    periodic and crash_start schedules, rates 0, 0.3 and 1."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    base = torch.tensor([-1, 0, 30, 31, 2**20 - 1, 2**31 - 2, 5, 7],
+                        dtype=torch.int32, device=dev)
+    for rate in (0.0, 0.3, 1.0):
+        for kw in (dict(drop_rate=rate, dup_rate=rate, jitter_rate=rate,
+                        crash_rate=rate, marker_drop_rate=rate,
+                        marker_dup_rate=rate, marker_jitter_rate=rate),
+                   dict(crash_rate=rate, crash_start=1, crash_len=3,
+                        crash_mode="lossy", drop_rate=rate / 2)):
+            faults = Faults(7, **kw)
+            key = faults.init_batch_state(8, dev)
+            key[6] = 0
+            key[7] = 2**32 - 1
+            got = km.fault_hash_planes(faults, key, base, steps=3,
+                                       num_edges=E, num_nodes=N,
+                                       max_delay=5)
+            _equal(got, faults.fault_planes(key, base, 3, E, N, 5))
+
+
+def test_faulted_megatick_storm_on_the_card(dev):
+    """A faulted, supervised storm at megatick 8 on the card launches
+    fused_scan and equals megatick 1 on the card and on the CPU."""
+    fkw, sup = FAULT_ARMS["pause crashes, every class"]
+    finals = []
+    for device, k in ((dev, 8), (dev, 1), ("cpu", 8)):
+        runner = BatchedRunner(TOPO_SPEC, SimConfig.for_workload(
+            snapshots=3, **sup), HashDelay(5), 4, scheduler="exact",
+            device=device, megatick=k, faults=Faults(3, **fkw),
+            quarantine=True)
+        prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=5))
+        before = launch_counts()["fused_scan"]
+        finals.append(runner.run_storm(runner.init_batch_device(), prog))
+        assert (launch_counts()["fused_scan"] > before) == (
+            device == dev and k == 8)
+    _leaves_equal(finals[0], finals[1])
+    _leaves_equal(finals[0], finals[2])
+    assert int(finals[0].fault_counts.sum()) > 0
 
 
 def test_megatick_storm_and_goldens_on_the_card(dev):

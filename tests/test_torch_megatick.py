@@ -237,20 +237,29 @@ def test_resolution_on_names_every_unmet_requirement():
 
 
 @pytest.mark.parametrize("arm", ["faults", "timeout", "every"])
-def test_megatick_refuses_faults_and_supervisor(arm):
-    """Megatick > 1 with the adversary or the supervisor raises
-    NotImplementedError naming ROADMAP A4b (never the megatick-1 form
-    under a megatick-8 label); megatick 1 still takes them."""
+def test_megatick_runs_faults_and_supervisor(arm):
+    """Megatick > 1 with the adversary or the supervisor builds and runs
+    (the fused megatick carries them) and ends where megatick 1 does;
+    the sync scheduler still refuses megatick > 1 with ValueError."""
     spec = workloads.ring_topology(4)
-    kw = {"faults": dict(faults=Faults(3, drop_rate=0.1)),
+    kw = {"faults": dict(faults=Faults(3, drop_rate=0.1, crash_rate=0.2,
+                                       crash_mode="lossy"),
+                         quarantine=True),
           "timeout": dict(config=SimConfig(snapshot_timeout=20)),
           "every": dict(config=SimConfig(snapshot_every=5))}[arm]
     cfg = kw.pop("config", SimConfig())
-    with pytest.raises(NotImplementedError, match="A4b"):
-        BatchedRunner(spec, cfg, HashDelay(1), 2, scheduler="exact",
-                      device="cpu", megatick=8, **kw)
-    BatchedRunner(spec, cfg, HashDelay(1), 2, scheduler="exact",
-                  device="cpu", megatick=1, **kw)
+    finals = []
+    for megatick in (8, 1):
+        runner = BatchedRunner(spec, cfg, HashDelay(1), 2, scheduler="exact",
+                               device="cpu", megatick=megatick, **kw)
+        assert runner.megatick == megatick
+        prog = workloads.storm_program(runner.topo, 6, 1,
+                                       workloads.staggered_snapshots(
+                                           runner.topo, 1, 1, 2,
+                                           max_phases=6))
+        finals.append(state_to_numpy(runner.run_storm(
+            runner.init_batch_device(), prog), runner.delay))
+    _assert_leaves_equal(*finals)
     # the sync scheduler has no megatick (the JAX one ignores it): it
     # refuses K > 1 rather than run K = 1 under a K = 8 label
     with pytest.raises(ValueError, match="exact scheduler"):
