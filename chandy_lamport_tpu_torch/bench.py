@@ -3,7 +3,8 @@
 ``python -m chandy_lamport_tpu_torch storm`` takes the JAX bench's flags
 and defaults (the bench's config 4: the sync scheduler on scale-free 1024
 nodes, 2048 lanes, 32 phases, 8 snapshots, hash delay, int16 log;
-``--scheduler exact`` runs the bit-exact cascade tick instead), runs
+``--scheduler exact`` runs the bit-exact tick instead, in the cascade
+form or, with ``--exact-impl wave``, the wave form), runs
 one warm storm that doubles as the validity check — with the JAX bench's
 doubling retry on queue or record overflow — then ``--repeats`` timed
 storms, and prints one JSON row shaped like the JAX bench's row. Log lines
@@ -87,9 +88,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler", choices=["sync", "exact"], default="sync",
                    help="sync = simultaneous delivery (the production "
                         "path); exact = the reference's sequential fold")
-    p.add_argument("--exact-impl", choices=["cascade"], default="cascade",
+    p.add_argument("--exact-impl", choices=["cascade", "wave"],
+                   default="cascade",
                    help="bit-exact tick formulation when --scheduler exact "
-                        "(wave and fold are not ported yet)")
+                        "(ops/tick.TickKernel): 'wave' serves every "
+                        "destination's next marker in one host step; "
+                        "bit-identical, and it needs --delay hash (fold is "
+                        "not ported yet)")
     p.add_argument("--megatick", type=int, default=1,
                    help="K-tick megaticks for the exact drain and flush "
                         "(the JAX bench's default 1; the fused megatick "
@@ -229,7 +234,13 @@ def _profile(runner, prog, device, path: str) -> None:
 
 
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if (args.scheduler == "exact" and args.exact_impl == "wave"
+            and args.delay != "hash"):
+        parser.error("--exact-impl wave serves the delay draws by stream "
+                     "position, which needs a position-addressable sampler:"
+                     " use --delay hash")
     device = resolve_device(args.device)
     tokens = args.phases + 10
     if args.graph == "ring":
@@ -315,6 +326,7 @@ def main(argv=None) -> int:
 
     topo = runner.topo
     times, node_ticks = [], []
+    steps = "waves" if args.exact_impl == "wave" else "marker folds"
     for r in range(args.repeats):
         state = runner.init_batch_device()
         _sync(device)
@@ -334,8 +346,8 @@ def main(argv=None) -> int:
         node_ticks.append(total_ticks * topo.n)
         log(f"run {r}: {dt:.3f}s, {total_ticks} total ticks "
             f"({total_ticks / args.batch:.1f}/lane, {batched_ticks} batched "
-            f"ticks at {dt / batched_ticks * 1e3:.2f}ms, {folds} marker-fold "
-            f"steps on the host, {drain_folds} of them in the drain and "
+            f"ticks at {dt / batched_ticks * 1e3:.2f}ms, {folds} host fold "
+            f"steps ({steps}), {drain_folds} of them in the drain and "
             f"flush) -> {node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
     best = max(nt / dt for nt, dt in zip(node_ticks, times))
     if args.profile:

@@ -51,10 +51,13 @@ class DenseSim:
 
     def __init__(self, topology: TopologySpec, delay,
                  config: Optional[SimConfig] = None, device=None,
-                 faults=None, megatick: int = 8):
+                 faults=None, megatick: int = 8,
+                 exact_impl: str = "cascade"):
         """``megatick``: the K of the multi-tick loops (module docstring);
         ``self.fused`` and ``self.fused_reason`` say whether they run
-        through the kernel."""
+        through the kernel. ``exact_impl``: the exact tick's formulation,
+        "cascade" or "wave" (``ops/tick.TickKernel``; the wave refuses the
+        Go-exact sampler)."""
         if faults is not None:
             raise NotImplementedError(
                 "faults in DenseSim are not ported yet (ROADMAP.md, "
@@ -68,7 +71,8 @@ class DenseSim:
             self.config = dataclasses.replace(self.config,
                                               max_delay=delay.max_delay)
         self.kernel = TickKernel(self.topo, self.config, delay, self.device,
-                                 marker_mode="ring", megatick=megatick)
+                                 marker_mode="ring", megatick=megatick,
+                                 exact_impl=exact_impl)
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
         self.state: DenseState = init_state(self.topo, self.config, 1, delay,

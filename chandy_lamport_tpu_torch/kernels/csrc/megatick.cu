@@ -161,6 +161,7 @@ struct ClsimMegatickArgs {
   int smem_bytes;  // kernels/megatick.fused_smem_bytes: the block's share
   int faulted;     // the adversary is armed
   int ext;         // the fault arm is compiled in: kernels/megatick.fault_arm
+  int wave;        // the wave step body: kernels/megatick.wave_arm
   int crash_kind, crash_lossy, crash_len, crash_period, crash_start;
   int dup_mod;     // max(cfg.max_delay, 1): duplicates' delay range
   int snapshot_timeout, snapshot_retries, snapshot_every;
@@ -180,6 +181,13 @@ constexpr int kErrSnapshotTimeout = 256;   // ERR_SNAPSHOT_TIMEOUT
 constexpr int kRtimePackLimit = 1 << 30;   // core/state.RTIME_PACK_LIMIT
 constexpr int kGoLen = 607;                // ops/gorand.LEN
 constexpr int kClasses = 7;                // core/state.NUM_FAULT_CLASSES
+constexpr int kWarps = kThreads / 32;
+// the wave arm's control words: the warps' draw sums and depths, then the
+// sampler's tick-start key, counter and epoch
+constexpr int kWaveCtl = 24;
+enum { kCtlSums = 0, kCtlDepths = kWarps, kCtlKey = 2 * kWarps, kCtlCtr,
+       kCtlEpoch };
+static_assert(kCtlEpoch < kWaveCtl, "the wave's control words");
 enum { kTicks = 0, kDrain = 1, kFlush = 2 };
 enum { kFixed = 0, kHash = 1, kGoExact = 2 };
 // fault_counts columns (core/state.FC_*)
@@ -201,9 +209,13 @@ struct Lane {
   // the fault arm (faulted or supervised lanes only)
   int32_t *epoch, *deadline, *retries, *initiator, *counts, *next_sid,
       *skew, *stale;
+  // the wave arm: each edge's draw base, the control words, each edge's
+  // wave number and first-receipt flag
+  int32_t *base, *wctl;
+  int16_t* wnum;
   uint8_t *tok, *mk, *app, *recording, *has_local, *done_local, *started,
       *failed;
-  uint8_t *eflags, *dupk, *down, *retry;
+  uint8_t *eflags, *dupk, *down, *retry, *first;
   long long bytes;
 };
 
@@ -217,10 +229,11 @@ __host__ __device__ __forceinline__ T* take(uintptr_t& p, long long count) {
 }
 
 // Lays the planes out from ``base`` (``ext``: the fault arm's planes
-// too); the host calls it at base 0 only to read ``bytes`` and check the
-// caller's reckoning against it.
+// too; ``wave``: the wave arm's, which take no byte otherwise); the host
+// calls it at base 0 only to read ``bytes`` and check the caller's
+// reckoning against it.
 __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
-                               bool ext) {
+                               bool ext, bool wave) {
   Lane w;
   uintptr_t p = base;
   const long long sn = (long long)s * n, se = (long long)s * e;
@@ -246,6 +259,9 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.next_sid = take<int32_t>(p, ext ? 1 : 0);
   w.skew = take<int32_t>(p, ext ? 1 : 0);
   w.stale = take<int32_t>(p, ext ? 1 : 0);
+  w.base = take<int32_t>(p, wave ? e : 0);
+  w.wctl = take<int32_t>(p, wave ? kWaveCtl : 0);
+  w.wnum = take<int16_t>(p, wave ? e : 0);
   w.tok = take<uint8_t>(p, e);
   w.mk = take<uint8_t>(p, e);
   w.app = take<uint8_t>(p, e);
@@ -258,6 +274,7 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.dupk = take<uint8_t>(p, ext ? e : 0);
   w.down = take<uint8_t>(p, ext ? n : 0);
   w.retry = take<uint8_t>(p, ext_s);
+  w.first = take<uint8_t>(p, wave ? e : 0);
   w.bytes = (long long)(p - base);
   return w;
 }
@@ -404,7 +421,30 @@ struct Sampler {
     }
     return wrap_add(time, 1 + (int32_t)d);
   }
+
+  // the stream after ``count`` more draws (HashDelay.advance_draws)
+  __device__ void advance(uint32_t count) {
+    if (kind != kHash) return;
+    const uint32_t next = ctr + count;
+    if (next < ctr) epoch += 1u;
+    ctr = next;
+  }
 };
+
+// The receive time of the draw at stream position ``off`` past the
+// tick-start state (key, ctr0, epoch0) of a position-addressable sampler
+// (FixedDelay, or HashDelay.block_receive_times: a position past the
+// counter's wrap takes the next epoch, as the sequential draw does)
+__device__ __forceinline__ int32_t draw_at(const Args& a, uint32_t key,
+                                           uint32_t ctr0, uint32_t epoch0,
+                                           uint32_t off, int32_t time) {
+  if (a.sampler == kFixed) return wrap_add(time, a.fixed_delay);
+  const uint32_t pos = ctr0 + off;
+  const uint32_t ep = epoch0 + (pos < ctr0 ? 1u : 0u);
+  const uint32_t d = lowbias32(lowbias32(pos) ^ key ^ lowbias32(ep)) %
+                     (uint32_t)a.max_delay;
+  return wrap_add(time, 1 + (int32_t)d);
+}
 
 // ---- the tick's pieces ----------------------------------------------------
 
@@ -567,10 +607,155 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
   }
 }
 
+// a popped marker's slot id: the payload decoded under the supervisor,
+// the bare sid clamped into [0, S) otherwise (the cascade fold's rule)
+__device__ __forceinline__ int marker_sid(int32_t data, int s, bool sup) {
+  if (sup) return floor_mod(data, s);
+  return data < 0 ? 0 : (data >= s ? s - 1 : data);
+}
+
+// Step 3 of the wave arm (ops/tick._wave_tick), all threads. The
+// tick-start schedule, one thread per node: each popped marker's wave
+// (its rank among the node's markers in edge order) and whether it is a
+// first receipt (no local snapshot for (sid, node), and no earlier marker
+// of this tick for them: bit 1 of has_local marks the cells seen and is
+// cleared again); a block scan of the first receipts' draws (the node's
+// out-degree) in edge order gives each its draw base, and thread 0
+// advances the sampler past the tick's draws. Then wave k = 0, 1, ...:
+// each node's k-th marker, one thread each. Nodes touch disjoint in-edges,
+// out-edges and (sid, node) cells, so only ``completed`` and the error
+// word take atomics. The thread credits the node's tokens of lower edge
+// rank (marked for the log where the channel records), then handles the
+// marker as the fold does, drawing the broadcast at base + ordinal. The
+// tokens left are credited in step 4 (``ctl[0]`` = 0).
+__device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
+                                          Sampler& smp, long long be,
+                                          long long bs, int32_t t, int tid,
+                                          int nt, bool sup) {
+  const int n = a.n, e = a.e, S = a.s;
+  int depth = 0;
+  for (int v = tid; v < n; v += nt) {
+    int rank = 0;
+    for (int j = a.dst_lo[v]; j < a.dst_hi[v]; ++j) {
+      const int f = a.by_dst[j];
+      if (!w.mk[f]) continue;
+      const int cell = marker_sid(w.head_data[f], S, sup) * n + v;
+      w.first[f] = w.has_local[cell] == 0;
+      w.has_local[cell] |= 2;
+      w.wnum[f] = (int16_t)rank++;
+    }
+    for (int j = a.dst_lo[v]; rank > 0 && j < a.dst_hi[v]; ++j) {
+      const int f = a.by_dst[j];
+      if (w.mk[f])
+        w.has_local[marker_sid(w.head_data[f], S, sup) * n + v] &= 1;
+    }
+    depth = rank > depth ? rank : depth;
+  }
+  __syncthreads();
+  // the draw bases: each thread scans a contiguous chunk of edges
+  const int chunk = (e + nt - 1) / nt;
+  const int lo = tid * chunk < e ? tid * chunk : e;
+  const int hi = lo + chunk < e ? lo + chunk : e;
+  uint32_t mine = 0;
+  for (int f = lo; f < hi; ++f)
+    if (w.mk[f] && w.first[f])
+      mine += a.src_hi[a.edge_dst[f]] - a.src_lo[a.edge_dst[f]];
+  const int lane = tid & 31, warp = tid >> 5;
+  uint32_t incl = mine;
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  depth = __reduce_max_sync(0xffffffffu, depth);
+  if (lane == 31) {
+    w.wctl[kCtlSums + warp] = (int32_t)incl;
+    w.wctl[kCtlDepths + warp] = depth;
+  }
+  if (tid == 0) {
+    w.wctl[kCtlKey] = (int32_t)smp.key;
+    w.wctl[kCtlCtr] = (int32_t)smp.ctr;
+    w.wctl[kCtlEpoch] = (int32_t)smp.epoch;
+  }
+  __syncthreads();
+  uint32_t off = incl - mine, total = 0;
+  for (int k = 0; k < nt / 32; ++k) {
+    const uint32_t x = (uint32_t)w.wctl[kCtlSums + k];
+    if (k < warp) off += x;
+    total += x;
+    depth = w.wctl[kCtlDepths + k] > depth ? w.wctl[kCtlDepths + k] : depth;
+  }
+  for (int f = lo; f < hi; ++f) {
+    w.base[f] = (int32_t)off;
+    if (w.mk[f] && w.first[f])
+      off += a.src_hi[a.edge_dst[f]] - a.src_lo[a.edge_dst[f]];
+  }
+  const uint32_t key = (uint32_t)w.wctl[kCtlKey];
+  const uint32_t ctr0 = (uint32_t)w.wctl[kCtlCtr];
+  const uint32_t epoch0 = (uint32_t)w.wctl[kCtlEpoch];
+  if (tid == 0) {
+    smp.advance(total);
+    w.ctl[0] = 0;                      // step 4 credits every token left
+  }
+  __syncthreads();
+
+  for (int k = 0; k < depth; ++k) {
+    for (int f = tid; f < e; f += nt) {
+      if (!w.mk[f] || w.wnum[f] != k) continue;
+      const int d = a.edge_dst[f];
+      // the node's tokens of lower edge rank (by_dst keeps edge order
+      // within a node)
+      for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
+        const int g = a.by_dst[j];
+        if (g >= f) break;
+        if (!w.tok[g]) continue;
+        w.tokens[d] += w.head_data[g];
+        w.app[g] = recorded(w, S, e, g);
+        w.tok[g] = 0;
+      }
+      // HandleMarker (node.go:149-171)
+      const int sid = marker_sid(w.head_data[f], S, sup);
+      const int cell = sid * n + d;
+      if (w.first[f]) {
+        for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
+          const int g = a.by_dst[j];
+          if (g == f) continue;
+          const int32_t cnt = w.rec_cnt[g] + (int32_t)w.app[g];
+          w.recording[sid * e + g] = 1;
+          a.rec_start[(bs + sid) * e + g] = cnt;
+          if (cnt < w.min_prot[g]) w.min_prot[g] = cnt;
+        }
+        w.has_local[cell] = 1;
+        w.frozen[cell] = w.tokens[d];
+        w.rem[cell] = a.in_degree[d] - 1;
+        const int32_t data = payload(w, sid, S, sup);
+        const int g0 = a.src_lo[d];
+        const uint32_t base = (uint32_t)w.base[f];
+        for (int g = g0; g < a.src_hi[d]; ++g)
+          append(a, w, be, g,
+                 draw_at(a, key, ctr0, epoch0, base + (uint32_t)(g - g0), t),
+                 true, data);
+      } else {
+        const int rc = sid * e + f;
+        if (w.recording[rc]) {
+          w.recording[rc] = 0;
+          w.rem[cell] -= 1;
+          a.rec_end[(bs + sid) * e + f] = w.rec_cnt[f];
+        }
+      }
+      if (w.has_local[cell] && w.rem[cell] == 0 && !w.done_local[cell]) {
+        w.done_local[cell] = 1;
+        atomicAdd(&w.completed[sid], 1);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // kExt: the fault arm (the adversary or the supervisor armed) is compiled
 // in; the fault-free instantiation carries none of it, so its registers
-// and occupancy are the fault-free kernel's own.
-template <bool kExt>
+// and occupancy are the fault-free kernel's own. kWave: the wave step body
+// (wave_step) in place of the cascade's marker fold in warp 0.
+template <bool kExt, bool kWave>
 __global__ void __launch_bounds__(kThreads)
 fused_ticks_kernel(const Args a) {
   extern __shared__ __align__(16) char smem[];
@@ -603,7 +788,7 @@ fused_ticks_kernel(const Args a) {
     if (!pend || time >= a.limit[b]) return;
   }
 
-  const Lane w = carve(reinterpret_cast<uintptr_t>(smem), n, e, S, ext);
+  const Lane w = carve(reinterpret_cast<uintptr_t>(smem), n, e, S, ext, kWave);
   for (int f = tid; f < e; f += nt) {
     w.q_head[f] = a.q_head[be + f];
     w.q_len[f] = a.q_len[be + f];
@@ -805,8 +990,10 @@ fused_ticks_kernel(const Args a) {
     }
     __syncthreads();
 
-    // 3. the marker fold, in warp 0
-    if (tid < 32) {
+    // 3. the marker fold, in warp 0 (the wave arm: the waves)
+    if constexpr (kWave) {
+      wave_step(a, w, smp, be, bs, t, tid, nt, sup);
+    } else if (tid < 32) {
       const int ln = tid;
       int done = 0;                           // edges [0, done) credited
       int from = 0;
@@ -1011,11 +1198,15 @@ extern "C" {
 
 int clsim_fused_ticks(const Args* a, void* stream) {
   const long long smem = a->smem_bytes;
-  const bool ext = a->ext != 0;
-  if (carve(0, a->n, a->e, a->s, ext).bytes > smem || smem > 232448)
+  const bool ext = a->ext != 0, wave = a->wave != 0;
+  if (carve(0, a->n, a->e, a->s, ext, wave).bytes > smem || smem > 232448 ||
+      (wave && a->sampler == kGoExact))
     return (int)cudaErrorInvalidValue;
   void (*kernel)(const Args) =
-      ext ? fused_ticks_kernel<true> : fused_ticks_kernel<false>;
+      wave ? (ext ? fused_ticks_kernel<true, true>
+                  : fused_ticks_kernel<false, true>)
+           : (ext ? fused_ticks_kernel<true, false>
+                  : fused_ticks_kernel<false, false>);
   // raised for every share: the default limit counts static bytes too
   const cudaError_t st = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -73,8 +73,15 @@ def fault_arm(tk) -> bool:
     return tk.faults is not None or tk._sup
 
 
+def wave_arm(tk) -> bool:
+    """Whether ``tk``'s fused megatick runs the wave step body
+    (``exact_impl="wave"``) in place of the cascade's marker fold: the
+    kernel's ``kWave`` instantiations, and their share of shared memory."""
+    return tk.exact_impl == "wave"
+
+
 def fused_smem_bytes(n: int, e: int, s: int, *,
-                     fault_arm: bool = False) -> int:
+                     fault_arm: bool = False, wave: bool = False) -> int:
     """Shared memory of one lane's block, the one reckoning of it (the
     wrapper passes it to the kernel, which checks its own layout against
     it): the ``[E]`` vectors q_head, q_len, tok_pushed, rec_cnt, min_prot
@@ -87,14 +94,19 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     supervisor's ``[S]`` vectors snap_epoch, snap_deadline, snap_retries,
     snap_initiator, the 7 fault counts, next_sid, fault_skew and
     stale_markers (int32); the step's fault flags and duplicate kind per
-    edge, the down flag per node and a retry flag per slot (bytes). The
-    rings, the log, the windows and the delay stream stay in device
-    memory."""
+    edge, the down flag per node and a retry flag per slot (bytes).
+    ``wave`` (``wave_arm(tk)``) adds the wave schedule: each edge's draw
+    base (int32), its wave number (int16) and first-receipt flag (byte),
+    and 24 words of control. The rings, the log, the windows and the
+    delay stream stay in device memory."""
     ints = 6 * e + n + 2 * s * n + 2 * s + 4
     flags = 3 * e + s * e + 2 * s * n + 2 * s
     if fault_arm:
         ints += 4 * s + 10
         flags += 2 * e + n + s
+    if wave:
+        ints += e + 24
+        flags += 3 * e          # the int16 wave number and the flag
     return (4 * ints + flags + 15) // 16 * 16
 
 
@@ -123,9 +135,10 @@ def resolve_fused(*, megatick: int, device: torch.device, smem_bytes: int,
 def fused_ticks_plain(tk, s, *, mode: str, length: int, live=None,
                       limit=None):
     """The fused steps (module docstring) through the port's PyTorch
-    cascade tick ``tk._cascade_tick`` with per-lane masks: a lane that
-    takes no tick at a step is left as it was (``lax.cond`` under
-    ``vmap``). ``tk`` is the ring-mode ``ops/tick.TickKernel``."""
+    exact tick ``tk._exact_tick`` (the cascade or the wave) with per-lane
+    masks: a lane that takes no tick at a step is left as it was
+    (``lax.cond`` under ``vmap``). ``tk`` is the ring-mode
+    ``ops/tick.TickKernel``."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     b = s.time.shape[0]
@@ -144,7 +157,7 @@ def fused_ticks_plain(tk, s, *, mode: str, length: int, live=None,
             step = (s.error == 0) if tk.quarantine else None
         count = b if step is None else int(step.sum())
         if count:
-            s = tk._cascade_tick(s, None if count == b else step)
+            s = tk._exact_tick(s, None if count == b else step)
     return s
 
 
@@ -177,7 +190,7 @@ _TABLES = ("_edge_src", "_edge_dst", "_in_degree", "_src_lo", "_src_hi",
            "_dst_lo", "_dst_hi", "_by_dst")
 _INTS = ("b", "n", "e", "c", "s", "l", "log16", "rec_limit", "key_limit",
          "sampler", "max_delay", "fixed_delay", "mode", "length",
-         "quarantine", "smem_bytes", "faulted", "ext", "crash_kind",
+         "quarantine", "smem_bytes", "faulted", "ext", "wave", "crash_kind",
          "crash_lossy", "crash_len", "crash_period", "crash_start", "dup_mod",
          "snapshot_timeout", "snapshot_retries", "snapshot_every")
 _CLASSES = 7   # core/state.NUM_FAULT_CLASSES, in FC_* order
@@ -295,15 +308,17 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
         raise ValueError("mode 'ticks' takes live=, 'drain' takes limit=, "
                          "'flush' takes neither")
     crash, rates = _program(tk.faults)
-    ext = fault_arm(tk)
+    ext, wave = fault_arm(tk), wave_arm(tk)
     ints = dict(b=b, log16=int(tk._rec_dtype == torch.int16),
                 rec_limit=tk._rec_limit, key_limit=tk._key_limit,
                 sampler=kind, max_delay=tk.delay.max_delay,
                 fixed_delay=fixed, mode=MODES[mode], length=length,
                 quarantine=int(tk.quarantine),
                 smem_bytes=fused_smem_bytes(
-                    topo.n, topo.e, cfg.max_snapshots, fault_arm=ext),
-                faulted=int(tk.faults is not None), ext=int(ext), **crash,
+                    topo.n, topo.e, cfg.max_snapshots, fault_arm=ext,
+                    wave=wave),
+                faulted=int(tk.faults is not None), ext=int(ext),
+                wave=int(wave), **crash,
                 dup_mod=max(cfg.max_delay, 1),
                 snapshot_timeout=cfg.snapshot_timeout,
                 snapshot_retries=cfg.snapshot_retries,

@@ -4,10 +4,11 @@ The port of the JAX package's ``ops/tick.TickKernel`` in both channel
 representations: ``marker_mode="split"`` carries the sync scheduler (the
 synchronous tick ``_sync_tick`` and the bulk snapshot injector), and
 ``marker_mode="ring"`` the bit-exact scheduler (the cascade tick
-``_cascade_tick``, the scalar event injectors, the multi-tick loop and
-the drain). The JAX kernel is written for one instance and ``vmap``ped;
-here every state leaf carries a leading lane axis ``B`` and every
-function works on the whole batch at once. Where the JAX code branches
+``_cascade_tick`` and the wave tick ``_wave_tick``, the scalar event
+injectors, the multi-tick loop and the drain). The JAX kernel is
+written for one instance and ``vmap``ped; here every state leaf carries
+a leading lane axis ``B`` and every function works on the whole batch
+at once. Where the JAX code branches
 per lane (``lax.cond`` and ``lax.while_loop`` under ``vmap``), the port
 carries a per-lane mask: a lane that takes no branch, or whose loop has
 ended, is left exactly as it was.
@@ -164,8 +165,10 @@ class TickKernel:
     "split" (the sync scheduler: tokens in the rings, markers in the
     [S, E] pending planes; the sync entry points) or "ring" (the exact
     scheduler: tokens and markers share the rings in push order; the
-    exact entry points). Of the exact formulations only "cascade" is
-    ported; a ring-mode kernel refuses the others.
+    exact entry points). Of the exact formulations ``exact_impl``
+    "cascade" and "wave" are ported (``self._exact_tick`` is the one
+    chosen); a ring-mode kernel refuses "fold" (ROADMAP.md, A5b), and
+    "wave" with a sampler whose draws are order-dependent (ValueError).
 
     ``faults`` (models/faults.Faults or None) arms the fault adversary,
     the config's ``snapshot_timeout``/``snapshot_every`` the snapshot
@@ -185,10 +188,20 @@ class TickKernel:
             raise ValueError(f"unknown marker_mode {marker_mode!r}")
         if exact_impl not in ("cascade", "wave", "fold"):
             raise ValueError(f"unknown exact_impl {exact_impl!r}")
-        if marker_mode == "ring" and exact_impl != "cascade":
+        if marker_mode == "ring" and exact_impl == "fold":
             raise NotImplementedError(
-                f"exact_impl={exact_impl!r} is not ported yet (ROADMAP.md, "
-                "section A); the cascade tick is")
+                "exact_impl='fold' (the reference-literal fold) is not "
+                "ported yet (ROADMAP.md, A5b); 'cascade' and 'wave' are")
+        # only the ring representation runs the exact tick: a split-mode
+        # kernel is not refused over a formulation it never executes
+        if (marker_mode == "ring" and exact_impl == "wave"
+                and not delay.position_streams):
+            raise ValueError(
+                "exact_impl='wave' serves the tick's delay draws at their "
+                "fold-order stream positions, which needs a "
+                "position-addressable sampler; "
+                f"{type(delay).__name__} draws are order-dependent: use "
+                "FixedDelay or HashDelay (or exact_impl='cascade')")
         self._sup = bool(cfg.snapshot_timeout > 0 or cfg.snapshot_every > 0)
         if marker_mode == "split" and (faults is not None or self._sup
                                        or quarantine):
@@ -208,15 +221,20 @@ class TickKernel:
         self.topo, self.cfg, self.delay = topo, cfg, delay
         self.device = torch.device(device)
         self.megatick = int(megatick)
+        self.exact_impl = exact_impl
+        self._exact_tick = (self._wave_tick if exact_impl == "wave"
+                            else self._cascade_tick)
         self.fused, self.fused_reason = k_megatick.resolve_fused(
             megatick=self.megatick, device=self.device,
             smem_bytes=k_megatick.fused_smem_bytes(
                 topo.n, topo.e, cfg.max_snapshots,
-                fault_arm=k_megatick.fault_arm(self)))
-        # marker-fold iterations run by the host loop of the cascade tick
-        # so far (one per batched step, whatever the number of lanes it
-        # serves), and those of them run in drains and flushes; the fused
-        # megatick folds inside its kernel and counts none
+                fault_arm=k_megatick.fault_arm(self),
+                wave=k_megatick.wave_arm(self)))
+        # sequential host steps of the exact tick so far (the cascade's
+        # marker-fold steps, the wave's waves: one per batched step,
+        # whatever the number of lanes it serves), and those of them run
+        # in drains and flushes; the fused megatick steps inside its
+        # kernel and counts none
         self.fold_steps = 0
         self.drain_fold_steps = 0
         self._keymult = merge_keymult(cfg.max_snapshots)
@@ -241,6 +259,17 @@ class TickKernel:
         self._src_lo = t(src_bounds[:-1])
         self._src_hi = t(src_bounds[1:])
         self._edge_table = t(topo.edge_table)          # [N, D], -1 padded
+        # the wave tick's schedule tables (the JAX ops/tick.py:504-517):
+        # the inverse of the by_dst permutation, each by_dst position's
+        # segment start, each edge's ordinal among its source's out-edges,
+        # and each edge's destination out-degree (its broadcast's draws)
+        self._inv_by_dst = t(np.argsort(topo.by_dst, kind="stable"))
+        self._pos_seg_start = t(
+            topo.dst_bounds[:-1][topo.edge_dst[topo.by_dst]])
+        self._edge_ord_in_src = t(np.arange(topo.e)
+                                  - src_bounds[:-1][topo.edge_src])
+        self._outdeg_dst_e = t((src_bounds[1:] - src_bounds[:-1])
+                               [topo.edge_dst])
         self._rows_e = torch.arange(topo.e, dtype=_i32, device=self.device)
         self._slot_ids = torch.arange(cfg.max_snapshots, dtype=_i32,
                                       device=self.device)
@@ -265,6 +294,16 @@ class TickKernel:
     def _spread_src(self, x_n):
         """[..., N] -> [..., E]: a node flag on its outbound edges."""
         return k_segment.spread(x_n, self._edge_src)
+
+    def _seg_excl(self, x_e):
+        """Per-destination exclusive running sums of an ``[..., E]`` int32
+        operand in edge order, in edge order: the operand permuted into
+        by_dst order, one cumsum rebased at each segment's start, and
+        permuted back (the JAX ``_seg_excl`` with its two takes)."""
+        x_d = x_e.index_select(-1, self._by_dst)
+        cs0 = torch.cumsum(x_d, dim=-1, dtype=_i32) - x_d
+        return (cs0 - cs0.index_select(-1, self._pos_seg_start)
+                ).index_select(-1, self._inv_by_dst)
 
     def _head_fields(self, s: DenseState):
         """Every ring head's (rtime, is_marker, data), [B, E]."""
@@ -640,25 +679,7 @@ class TickKernel:
         markers, the stale-epoch rejection, the fold on the decoded slot
         ids, and the duplicates re-appended after the fold."""
         E = self.topo.e
-        s = s._replace(time=s.time + (1 if active is None
-                                      else active.to(_i32)))
-        fmasks = None
-        if self.faults is not None:
-            # the hash is stateless in (fault_key, time, index), so the
-            # masks hashed once here equal the JAX hooks' re-hashes
-            fmasks = (self._fault_edge_masks(s), self._fault_marker_masks(s))
-            s = self._fault_restart(s, active)
-        if self._sup:
-            s = self._supervise(s, active)
-        s, tok, mk, head_data = self._select_and_pop(s, active, fmasks)
-        if self.faults is not None:
-            (drop_e, dup_e, _, dup_rt), (mdrop_e, mdup_e, _, mdup_rt) = \
-                fmasks
-            s, tok, dup = self._fault_split_tokens(s, tok, head_data,
-                                                   drop_e, dup_e)
-            s, mk, mk_dup = self._fault_split_markers(s, mk, mdrop_e,
-                                                      mdup_e)
-        s, mk, sid_e = self._reject_stale(s, mk, head_data)
+        s, tok, mk, head_data, sid_e, dups = self._tick_open(s, active)
         amt_e = torch.where(tok, head_data, 0)
         app = torch.zeros_like(tok)
         lanes = self._lanes(s)
@@ -677,20 +698,174 @@ class TickKernel:
             mk = mk & ~(found.unsqueeze(-1)
                         & (self._rows_e == e.unsqueeze(-1)))
             tok = tok & ~tmask
+        return self._tick_close(s, tok, app, amt_e, head_data, dups, active)
+
+    def _tick_open(self, s: DenseState, active):
+        """The exact tick up to its markers, shared by the cascade and the
+        wave: the time increment, the crash restarts and the supervisor
+        step, the selection and pop, the drop/dup split and the
+        stale-epoch rejection. Returns (s, tok, mk, head_data, sid_e,
+        dups): the surviving popped tokens and markers [B, E], the
+        payloads, the markers' slot ids, and the duplicates to re-append
+        (masks and receive times; None without faults)."""
+        s = s._replace(time=s.time + (1 if active is None
+                                      else active.to(_i32)))
+        fmasks = dups = None
+        if self.faults is not None:
+            # the hash is stateless in (fault_key, time, index), so the
+            # masks hashed once here equal the JAX hooks' re-hashes
+            fmasks = (self._fault_edge_masks(s), self._fault_marker_masks(s))
+            s = self._fault_restart(s, active)
+        if self._sup:
+            s = self._supervise(s, active)
+        s, tok, mk, head_data = self._select_and_pop(s, active, fmasks)
+        if self.faults is not None:
+            (drop_e, dup_e, _, dup_rt), (mdrop_e, mdup_e, _, mdup_rt) = \
+                fmasks
+            s, tok, dup = self._fault_split_tokens(s, tok, head_data,
+                                                   drop_e, dup_e)
+            s, mk, mk_dup = self._fault_split_markers(s, mk, mdrop_e,
+                                                      mdup_e)
+            dups = (dup, mk_dup, dup_rt, mdup_rt)
+        s, mk, sid_e = self._reject_stale(s, mk, head_data)
+        return s, tok, mk, head_data, sid_e, dups
+
+    def _tick_close(self, s: DenseState, tok, app, amt_e, head_data, dups,
+                    active) -> DenseState:
+        """The exact tick after its markers: the tokens left credited and
+        marked for the log where their channel records, the log append,
+        the duplicates re-appended and the completion stamp."""
         s = self._credit(s, tok, amt_e)
         app = app | (tok & s.recording.any(-2))
         log, cnt, err = log_append_masked(
             s.log_amt, s.rec_cnt, s.min_prot, app, amt_e, self._rec_dtype,
             self._rec_limit, self.cfg.max_recorded)
         s = s._replace(log_amt=log, rec_cnt=cnt, error=s.error | err)
-        if self.faults is not None:
+        if dups is not None:
             # duplicated tokens and markers re-enter their channel at the
             # tail with fault-stream receive times (an edge delivered one
             # or the other), markers keeping their epoch-tagged payload
+            dup, mk_dup, dup_rt, mdup_rt = dups
             s = self._append_rows(s, dup | mk_dup,
                                   torch.where(mk_dup, mdup_rt, dup_rt),
                                   mk_dup, head_data)
         return self._stamp_done(s, active)
+
+    def _wave_tick(self, s: DenseState, active=None) -> DenseState:
+        """One exact tick in the wave form, bit-identical to
+        ``_cascade_tick`` for a position-addressable sampler (the JAX
+        ``_wave_tick`` docstring proves it): markers bound for distinct
+        destinations touch disjoint cells, edges and ring rows, so each
+        host step (a wave) serves every destination's next pending
+        marker at once, in edge order within a destination. The only
+        coupling across destinations is the sampler's draw order, and
+        every broadcast's stream position is a tick-start fact: a popped
+        marker is a first receipt iff (sid, dst) has no local snapshot
+        and no earlier marker of this tick for the same (sid, dst); its
+        draws start at the exclusive sum of the first receipts'
+        out-degrees in edge order. The stream is advanced past the whole
+        tick once and the waves read their draws by position.
+
+        Each wave credits, per destination, the tokens of lower edge rank
+        than its marker; a lane with no marker left is left as it was.
+        The fault hooks and the supervisor are the cascade's. One
+        difference from the JAX wave: a re-broadcast marker carries the
+        epoch-tagged payload (``_marker_payload``), as the cascade's does;
+        the JAX wave sends the bare sid, which after a supervisor retry
+        (epoch > 0) its receivers reject as stale."""
+        S, E = self.cfg.max_snapshots, self.topo.e
+        s, tok, mk, head_data, sid_e, dups = self._tick_open(s, active)
+        amt_e = torch.where(tok, head_data, 0)
+        slots = self._slot_ids[:, None]                           # [S, 1]
+
+        # the tick-start schedule: first receipts, their draw bases in
+        # edge order, and each marker's wave (its rank among its
+        # destination's markers); a popped marker's sid is in [0, S)
+        sid_c = sid_e.clamp(0, S - 1).long().unsqueeze(-2)        # [B,1,E]
+        pend_se = mk.unsqueeze(-2) & (slots == sid_e.unsqueeze(-2))
+        earlier_same = torch.gather(self._seg_excl(pend_se.to(_i32)), -2,
+                                    sid_c).squeeze(-2)
+        had = torch.gather(self._spread_dst(s.has_local), -2,
+                           sid_c).squeeze(-2)
+        first = mk & ~had & (earlier_same == 0)
+        draws = torch.where(first, self._outdeg_dst_e, 0)
+        base = torch.cumsum(draws, dim=-1, dtype=_i32) - draws
+        dstate0, time = s.delay_state, s.time
+        s = s._replace(delay_state=self.delay.advance_draws(
+            dstate0, draws.sum(-1, dtype=_i32)))
+        wnum = self._seg_excl(mk.to(_i32))
+        app = torch.zeros_like(tok)
+        k = 0
+        while True:
+            wm = mk & (wnum == k)
+            go = wm.any(-1)
+            if not bool(go.any()):
+                break
+            self.fold_steps += 1
+            # the wave marker's facts per destination (at most one marker
+            # per destination per wave) in one stacked segment sum: its
+            # count, sid, edge, first flag and draw base
+            per_dst = self._sum_by_dst(torch.stack(
+                [wm.to(_i32), torch.where(wm, sid_e, 0),
+                 torch.where(wm, self._rows_e, 0), (wm & first).to(_i32),
+                 torch.where(wm, base, 0)], dim=-2))              # [B,5,N]
+            wdst, wsid_n = per_dst[:, 0] > 0, per_dst[:, 1]
+            wfirst_n = per_dst[:, 3] > 0
+            # the marker's own edge; E where the destination has none
+            wrank_n = torch.where(wdst, per_dst[:, 2], E)
+            at_dst = self._spread_dst(torch.stack(
+                [wrank_n, wsid_n, wfirst_n.to(_i32)], dim=-2))    # [B,3,E]
+            # the tokens ranked below their destination's wave marker
+            tmask = (tok & (self._rows_e < at_dst[:, 0])
+                     & go.unsqueeze(-1))
+            s = self._credit(s, tmask, amt_e)
+            app = app | (tmask & s.recording.any(-2))
+            tok = tok & ~tmask
+            # a repeat closes its own channel where it still records (a
+            # duplicated repeat may find it closed); a first receipt
+            # creates the local snapshot, windows opening at the counter
+            # each in-edge will have once this tick's appends land
+            rep_se = ((slots == sid_e.unsqueeze(-2))
+                      & (wm & ~first).unsqueeze(-2))              # [B,S,E]
+            rep_live = rep_se & s.recording
+            rep_sn = self._sum_by_dst(rep_live)                   # [B,S,N]
+            first_sn = ((slots == wsid_n.unsqueeze(-2))
+                        & wfirst_n.unsqueeze(-2))                 # [B,S,N]
+            open_e = (at_dst[:, 2] > 0) & (self._rows_e != at_dst[:, 0])
+            open_se = ((slots == at_dst[:, 1].unsqueeze(-2))
+                       & open_e.unsqueeze(-2))                    # [B,S,E]
+            cnt_open = s.rec_cnt + app.to(_i32)
+            s = s._replace(
+                recording=(s.recording | open_se) & ~rep_se,
+                rec_end=torch.where(rep_live, s.rec_cnt.unsqueeze(-2).to(
+                    s.rec_end.dtype), s.rec_end),
+                rec_start=torch.where(open_se, cnt_open.unsqueeze(-2).to(
+                    s.rec_start.dtype), s.rec_start),
+                min_prot=torch.where(open_e, torch.minimum(s.min_prot,
+                                                           cnt_open),
+                                     s.min_prot),
+                has_local=s.has_local | first_sn,
+                frozen=torch.where(first_sn, s.tokens.unsqueeze(-2),
+                                   s.frozen),
+                rem=torch.where(first_sn, self._in_degree - 1,
+                                s.rem - rep_sn))
+            # SendToNeighbors from every first receipt: one marker per
+            # out-edge, drawn at its base + the edge's ordinal
+            at_src = self._spread_src(torch.stack(
+                [wfirst_n.to(_i32), wsid_n, per_dst[:, 4]], dim=-2))
+            rt_g = self.delay.block_receive_times(
+                dstate0, time, at_src[:, 2] + self._edge_ord_in_src)
+            s = self._append_rows(
+                s, (at_src[:, 0] > 0).contiguous(), rt_g.contiguous(), True,
+                self._marker_payload(s, at_src[:, 1]).contiguous())
+            # finalize after every receipt (node.go:165-170)
+            fire = ((slots == wsid_n.unsqueeze(-2)) & wdst.unsqueeze(-2)
+                    & s.has_local & (s.rem == 0) & ~s.done_local)
+            s = s._replace(done_local=s.done_local | fire,
+                           completed=s.completed + fire.sum(-1, dtype=_i32))
+            mk = mk & ~wm
+            k += 1
+        return self._tick_close(s, tok, app, amt_e, head_data, dups, active)
 
     # ---- fault adversary hooks (models/faults.py) ----------------------------
     # Called only when ``self.faults`` is set. Lanes outside the tick's
@@ -796,13 +971,14 @@ class TickKernel:
     # Called only when the supervisor is armed; ring mode only.
 
     def _marker_payload(self, s: DenseState, sid):
-        """The ring payload of a marker for slot ``sid`` [B]: (sid, epoch)
-        packed when the supervisor is armed (epoch 0 packs to the bare
-        sid), the bare sid otherwise."""
+        """The ring payload of a marker for slot ``sid`` ([B], or [B, K]
+        slots per lane): (sid, epoch) packed when the supervisor is armed
+        (epoch 0 packs to the bare sid), the bare sid otherwise."""
         if not self._sup:
             return sid
-        return pack_marker_data(sid, s.snap_epoch[self._lanes(s),
-                                                  sid.long()],
+        epoch = torch.gather(s.snap_epoch, -1,
+                             sid.long().reshape(sid.shape[0], -1))
+        return pack_marker_data(sid, epoch.reshape(sid.shape),
                                 self.cfg.max_snapshots)
 
     def _reject_stale(self, s: DenseState, mk_pend, head_data):
@@ -950,7 +1126,7 @@ class TickKernel:
         i = torch.zeros_like(s.time)
         live = (i < single) & ~self._halted(s)
         while bool(live.any()):
-            s = self._cascade_tick(s, None if bool(live.all()) else live)
+            s = self._exact_tick(s, None if bool(live.all()) else live)
             i = i + live.to(_i32)
             live = (i < single) & ~self._halted(s)
         if K > 1:
@@ -1067,5 +1243,5 @@ class TickKernel:
         return self._drain_and_flush_with(s, self._sync_tick_lanes)
 
     def _drain_and_flush(self, s: DenseState) -> DenseState:
-        return self._drain_and_flush_with(s, self._cascade_tick,
+        return self._drain_and_flush_with(s, self._exact_tick,
                                           self.megatick)

@@ -2,10 +2,10 @@
 
 The port of the JAX package's ``parallel/batch.BatchedRunner`` for its
 storm programs, under ``scheduler="sync"`` and ``scheduler="exact"`` (the
-cascade formulation): the state carries the batch as a leading axis (in
-place of ``jax.vmap``), a storm program runs as a Python loop over its
-phases, and the drain ticks each lane until its own condition ends
-(ops/tick.py); at ``megatick`` K > 1 the exact drain and flush run in
+cascade and the wave formulations): the state carries the batch as a
+leading axis (in place of ``jax.vmap``), a storm program runs as a
+Python loop over its phases, and the drain ticks each lane until its own
+condition ends (ops/tick.py); at ``megatick`` K > 1 the exact drain and flush run in
 K-tick megaticks through the fused megatick kernel. Runs on the card
 unless the caller passes ``device="cpu"``,
 where the kernel wrappers take their plain PyTorch versions. The exact
@@ -63,9 +63,14 @@ class BatchedRunner:
                  exact_impl: str = "cascade", faults=None,
                  quarantine: bool = False, trace=None, megatick: int = 1):
         """scheduler: "sync" (simultaneous delivery, the production path)
-        or "exact" (the reference's delivery semantics, bit-exact, in the
-        cascade formulation; ``exact_impl`` "wave" and "fold" raise
-        NotImplementedError).
+        or "exact" (the reference's delivery semantics, bit-exact).
+
+        exact_impl: the exact tick's formulation, "cascade" (one host step
+        per batched marker delivery) or "wave" (one host step per wave:
+        every destination's next marker at once; needs a
+        position-addressable sampler, HashDelay or FixedDelay, else
+        ValueError); bit-identical to each other, at any megatick.
+        "fold" raises NotImplementedError (ROADMAP.md, A5b).
 
         faults: models/faults.Faults, the deterministic fault adversary,
         armed per lane by the ``fault_key`` ramp of
@@ -153,7 +158,7 @@ class BatchedRunner:
             for node in np.asarray(snaps).tolist():
                 if node >= 0:
                     s = self.kernel._inject_snapshot(s, node, lanes)
-            return self.kernel._cascade_tick(s, lanes)
+            return self.kernel._exact_tick(s, lanes)
         init_mask = (self._node_ids.unsqueeze(0)
                      == snaps.unsqueeze(-1)).any(0)
         s = self.kernel._bulk_snapshots(s, init_mask)

@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs ten phases,
-each printing one JSON line:
+kernels/csrc`` (one nvcc per source, in parallel), then runs thirteen
+phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
                the build seconds;
@@ -33,7 +33,8 @@ each printing one JSON line:
                edge cases (``segment_edge_cases``: the tiled path, the
                switch at the shared-memory limit, empty segments, a
                2,000-edge segment, R = 0, unaligned rows and tables, the
-               int32 wrap);
+               int32 wrap); the wave tick's shapes too (sum_by_perm of its
+               stacked [B, 5, E] per-wave facts, spread of its node flags);
   fused_kernel fused_scan (the fused megatick) at the exact cell's shape —
                one drain megatick (K=8) from the state after its 32 storm
                phases, fault-free and faulted (the fault_storm cell's
@@ -47,10 +48,16 @@ each printing one JSON line:
                and without a completed snapshot, the daemon, the timeout
                alone, ERR_SNAPSHOT_TIMEOUT set mid-megatick under
                quarantine, duplicates re-appended into full rings, a clock
-               wrapping past 2^31 - 1): bit-equal to its plain version,
+               wrapping past 2^31 - 1), each again through the wave step
+               body where the sampler is position-addressable, with the
+               wave's own (a marker pile-up with a same-tick repeat on a
+               complete digraph, hash counters wrapping inside a tick):
+               bit-equal to its plain version,
                timed per launch; its bound counts the bytes the kernel's
                design must move and the fault hash's integer operations,
                from the megatick's own steps (``fused_plain_and_bytes``).
+               The wave step body's drain megaticks (fault-free and
+               faulted) are timed and bound the same way.
                The fault-hash check: ``fault_hash_planes`` (the kernel's
                device hash writing the JAX ``_fault_planes`` layout) equals
                ``Faults.fault_planes`` at tick times 0, 1, 31, 32, 2^20 and
@@ -70,6 +77,13 @@ each printing one JSON line:
                fused_scan launched, queue_step launched once per storm
                phase only, and a final state equal to exact_storm's leaf
                for leaf;
+  wave_storm   main path 7: the exact cell with ``exact_impl="wave"`` at
+               megatick 1 (one host step per wave): exact_storm's checks,
+               spread launched, its final state equal to exact_storm's
+               leaf for leaf, and its host steps beside the cascade's;
+  wave_fused_storm main path 8: the same at megatick 8 (the drain and
+               flush through fused_scan's wave arm): fused_storm's checks
+               and its final state equal to fused_storm's;
   fault_storm  main path 3: the same cell under the fault adversary, the
                snapshot supervisor and quarantine (``Faults(3, ...)``
                below, ``snapshot_timeout=64``) through
@@ -87,6 +101,10 @@ each printing one JSON line:
                checks, and its final state equal to fault_storm's leaf for
                leaf, fused_scan launched, queue_step never, and no host
                fold step in the drain and flush;
+  fault_wave_fused_storm main path 9: the faulted cell with the wave at
+               megatick 8 (fused_scan's faulted wave arm in the drain):
+               fault_fused_storm's checks and its final state equal to
+               fault_fused_storm's;
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -96,21 +114,24 @@ each printing one JSON line:
   cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
                (the faulted one with lossy crashes at a fixed window,
                marker drops and the supervisor with its daemon, at
-               megatick 1 and 8) on the card and on the CPU (plain
-               versions): every state leaf identical.
+               megatick 1 and 8), and the wave's at megatick 8, faulted
+               and not, on the card and on the CPU (plain versions):
+               every state leaf identical.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
 and host times and a ``shapes`` list of every timed shape; fused_scan's
-a ``shapes`` list of its fault-free and faulted drain megaticks), and last
+a ``shapes`` list of its fault-free and faulted drain megaticks, cascade
+and wave; spread's a ``shapes`` list of its timed shapes), and last
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
 
-    python3 chip_smoke.py --drain-timing fault-free|faulted \
+    python3 chip_smoke.py --drain-timing fault-free|faulted|wave|wave-faulted \
         [--package-root DIR]
 
 times one drain megatick (K=8) of the exact or the faulted exact cell
+(the wave step body for ``wave`` and ``wave-faulted``)
 and prints one JSON line, nothing else; ``--package-root`` imports the
 package from another checkout (a parent commit unpacked into a
 gitignored directory), so parent and change are timed in turns in one
@@ -401,11 +422,11 @@ def config4_runner(device):
 
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                  snapshots=X_SNAPSHOTS, graph="er", faults=None, megatick=1,
-                 **cfg_kw):
+                 exact_impl="cascade", **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
     smaller exact storm; with ``faults`` (and supervisor knobs in
     ``cfg_kw``) the faulted exact storm, quarantined; ``megatick`` > 1
-    the fused megatick's path."""
+    the fused megatick's path; ``exact_impl`` the tick's form."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -422,7 +443,8 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                                  **cfg_kw)
     runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
                            scheduler="exact", device=device, faults=faults,
-                           quarantine=faults is not None, megatick=megatick)
+                           quarantine=faults is not None, megatick=megatick,
+                           exact_impl=exact_impl)
     prog = storm_program(
         runner.topo, phases, 1,
         staggered_snapshots(runner.topo, snapshots, 1, 2,
@@ -430,15 +452,18 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     return runner, prog
 
 
-def fault_runner(device, batch=X_BATCH, megatick=1):
-    """The faulted exact storm of main paths 3 and 6 (module docstring)."""
+def fault_runner(device, batch=X_BATCH, megatick=1, exact_impl="cascade"):
+    """The faulted exact storm of main paths 3, 6 and 9 (module
+    docstring)."""
     from chandy_lamport_tpu_torch.models.faults import Faults
 
     return exact_runner(device, batch, faults=Faults(3, **F_PROGRAM),
-                        megatick=megatick, snapshot_timeout=F_TIMEOUT)
+                        megatick=megatick, exact_impl=exact_impl,
+                        snapshot_timeout=F_TIMEOUT)
 
 
-def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> tuple:
+def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
+                  wrunner) -> tuple:
     """Every wrapper against its plain version at the shapes of its path;
     returns the per-kernel measurements for the summary line."""
     import numpy as np
@@ -672,7 +697,7 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> tuple:
     # shapes, on the same exact-storm state
     xperm, xlo, xhi = xk._by_dst, xk._dst_lo, xk._dst_hi
     xdst_long = xk._edge_dst.to(torch.int64)
-    x_tok, _, x_hd, _, _ = kq.queue_step_plain(
+    x_tok, x_mk, x_hd, _, _ = kq.queue_step_plain(
         xs.q_meta, xs.q_data, xs.q_head, xs.q_len, xs.time, xk._src_first,
         capacity=XC)
     rank = rand_int((XB,), 0, XN)
@@ -699,6 +724,60 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog) -> tuple:
                4 * x.numel() + 4 * XE + 8 * XN + 4 * r * XN, x.numel(),
                lambda: lib_out.index_add_(-1, xdst_long, x), extra=True,
                split=True)
+
+    # the wave tick's shapes on the same state (ops/tick._wave_tick): the
+    # first wave's stacked per-destination facts [B, 5, E] int32, the
+    # node facts spread to in-edges [B, 3, N] int32, and the tick-start
+    # spread of has_local [B, S, N] bool
+    wk = wrunner.kernel
+    XS = xrunner.config.max_snapshots
+    sid_c = x_hd.clamp(0, XS - 1).long().unsqueeze(-2)
+    slots = torch.arange(XS, device=dev)[:, None]
+    pend = (x_mk.unsqueeze(-2) & (slots == x_hd.unsqueeze(-2))).to(
+        torch.int32)
+    had = torch.gather(ks.spread_plain(xs.has_local, wk._edge_dst), -2,
+                       sid_c).squeeze(-2)
+    first = x_mk & ~had & (torch.gather(wk._seg_excl(pend), -2,
+                                        sid_c).squeeze(-2) == 0)
+    draws = torch.where(first, wk._outdeg_dst_e, 0)
+    wm = x_mk & (wk._seg_excl(x_mk.to(torch.int32)) == 0)
+    facts = torch.stack([wm.to(torch.int32), torch.where(wm, x_hd, 0),
+                         torch.where(wm, wk._rows_e, 0),
+                         (wm & first).to(torch.int32),
+                         torch.where(wm, torch.cumsum(draws, -1,
+                                                      dtype=torch.int32)
+                                     - draws, 0)], dim=-2).contiguous()
+    lib_out = torch.zeros((XB, 5, XN), dtype=torch.int32, device=dev)
+    want = ks.sum_by_perm_plain(facts, xperm, xlo, xhi)
+    if not torch.equal(lib_out.clone().index_add_(-1, xdst_long, facts),
+                       want):
+        raise AssertionError("index_add_ disagrees with sum_by_perm")
+    record("sum_by_perm", f"exact/wave: [{XB},5,{XE}] int32 wave facts",
+           [ks.sum_by_perm(facts, xperm, xlo, xhi)], [want],
+           lambda: ks.sum_by_perm(facts, xperm, xlo, xhi),
+           lambda: ks.sum_by_perm_plain(facts, xperm, xlo, xhi),
+           4 * facts.numel() + 4 * XE + 8 * XN + 4 * 5 * XB * XN,
+           facts.numel(), lambda: lib_out.index_add_(-1, xdst_long, facts),
+           extra=True, split=True)
+    node_facts = want[:, :3].contiguous()
+    for x, idx, note in (
+            (node_facts, wk._edge_dst,
+             f"exact/wave: [{XB},3,{XN}] int32 wave node facts -> "
+             "edge_dst"),
+            (node_facts, wk._edge_src,
+             f"exact/wave: [{XB},3,{XN}] int32 wave node facts -> "
+             "edge_src"),
+            (xs.has_local, wk._edge_dst,
+             f"exact/wave: [{XB},{XS},{XN}] bool has_local -> edge_dst")):
+        r = x.numel() // XN
+        idx_long = idx.to(torch.int64)
+        record("spread", note, [ks.spread(x, idx)],
+               [ks.spread_plain(x, idx)], lambda: ks.spread(x, idx),
+               lambda: ks.spread_plain(x, idx),
+               x.numel() * x.element_size() + 4 * XE
+               + r * XE * x.element_size(), 0,
+               lambda: torch.index_select(x, -1, idx_long), extra=True)
+    del pend, had, facts, node_facts, want, lib_out
 
     xslo, xshi = xk._src_lo, xk._src_hi
     xsrc_long = xk._edge_src.to(torch.int64)
@@ -891,14 +970,15 @@ def loaded_state(runner, rounds: int = 3):
         for e in range(r % 3, runner.topo.e, 3):
             s = tk._inject_send(s, e, 1)
         s = tk._inject_snapshot(s, r % runner.topo.n, (lanes + r) % 2 == 0)
-        s = tk._cascade_tick(s)
+        s = tk._exact_tick(s)
     return s
 
 
-def _fault_edge_checks(name, s, got, steps, live) -> None:
-    """What a faulted edge case must show beyond bit-equality, on the
-    kernel's result ``got`` of ``steps`` "ticks" steps from ``s`` on the
-    lanes of ``live`` (``fused_edge_cases``)."""
+def _edge_checks(name, s, got, steps, live, seen) -> None:
+    """What an edge case must show beyond bit-equality, on the kernel's
+    result ``got`` of ``steps`` "ticks" steps from ``s`` on the lanes of
+    ``live`` (``fused_edge_cases``); ``seen``: a wave kernel's watch
+    (``_watch_waves``), None for the cascade."""
     from chandy_lamport_tpu_torch.core.state import (
         ERR_FAULT_UNRECOVERED,
         ERR_QUEUE_OVERFLOW,
@@ -925,6 +1005,10 @@ def _fault_edge_checks(name, s, got, steps, live) -> None:
         "overflow": bool((got.error & ERR_QUEUE_OVERFLOW).any())
         and int(fired[:, FC_DUP].sum() + fired[:, FC_MDUP].sum()) > 0,
         "wrap": bool((got.time < 0).any() & (s.time > 0).all()),
+        "pileup": seen is None or (seen["depth"] >= 1
+                                   and seen["repeat"] >= 1),
+        "counter_wrap": len(got.delay_state) == 3 and bool(
+            (got.delay_state[2] > s.delay_state[2]).any()),
     }[name]
     if not ok:
         raise AssertionError(f"fused_scan edge case {name!r} did not show "
@@ -938,7 +1022,7 @@ def fused_edge_cases() -> list:
     they can; "drain" against a near and a far limit; "flush"). Fault-free:
     each sampler, capacity-1 rings (every append overflows), capacity-5
     rings under quarantine with lane 2 errored at launch, a single-edge
-    graph. Faulted (``_fault_edge_checks`` holds each to what it is for):
+    graph. Faulted (``_edge_checks`` holds each to what it is for):
     token faults with lane 3 disarmed (key 0) and every other class at
     rate 0 (nothing hashed); marker faults under the timeout (retries);
     every class with pause crashes; pause crashes from a fresh state,
@@ -948,11 +1032,14 @@ def fused_edge_cases() -> list:
     pending); marker drop at rate 1.0 with one retry, so
     ERR_SNAPSHOT_TIMEOUT fires mid-megatick and the lane stops there;
     token and marker duplicates at rate 1.0 into capacity-2 rings (the
-    re-appends overflow and clobber after the fold's broadcasts); and a
-    clock taken past 2^31 - 1 under periodic crashes."""
-    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
-    from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
-    from chandy_lamport_tpu_torch.kernels import megatick as km
+    re-appends overflow and clobber after the fold's broadcasts); a
+    clock taken past 2^31 - 1 under periodic crashes; a complete 8-node
+    digraph where every node snapshots (a tick delivers several markers
+    to one node, two of one sid among them: the plain run is watched for
+    both); and hash counters 3 draws below 2^32, so that a tick's draws
+    straddle the wrap. Each case runs through the cascade and, where the
+    sampler is position-addressable, through the wave step body."""
+    from chandy_lamport_tpu_torch import SimConfig
     from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
         ring_topology,
@@ -965,11 +1052,12 @@ def fused_edge_cases() -> list:
     )
     from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
 
-    import torch
-
     sf48 = scale_free(48, 2, seed=9, tokens=30)
     ring8 = ring_topology(8, tokens=100)
     one = TopologySpec([("A", 9), ("B", 0)], [("A", "B")])
+    names = [f"N{i}" for i in range(8)]
+    k8 = TopologySpec([(v, 50) for v in names],
+                      sorted((a, b) for a in names for b in names if a != b))
 
     def wide(**kw):
         return SimConfig.for_workload(snapshots=3, **kw)
@@ -1034,51 +1122,96 @@ def fused_edge_cases() -> list:
         ("faulted: clock past 2^31 - 1, periodic crashes", sf48, wide(),
          HashDelay(5), Faults(3, crash_rate=0.5, crash_period=3,
                               crash_len=1, jitter_rate=0.2), False, "wrap"),
+        ("pile-up: complete 8-node digraph, 8 snapshots", k8,
+         SimConfig.for_workload(snapshots=8), HashDelay(3), None, False,
+         "pileup"),
+        ("hash counters 3 draws below 2^32", sf48, wide(), HashDelay(5),
+         None, False, "counter_wrap"),
     )
     rows = []
     for note, spec, cfg, delay, faults, quarantine, check in cases:
-        runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
-                               device="cuda", faults=faults,
-                               quarantine=quarantine, megatick=MEGATICK)
-        tk = runner.kernel
-        s = (runner.init_batch_device() if check == "never_quiet"
-             else loaded_state(runner, min(3, cfg.max_snapshots)))
-        if quarantine and faults is None and check is None:
-            s.error[2] |= ERR_QUEUE_OVERFLOW
-        if check == "disarmed":
-            s.fault_key[3] = 0
-        if check == "wrap":
-            s = s._replace(time=s.time + (2**31 - 8 - int(s.time.max())))
-        live = ~tk._halted(s)
-        live[1] = False
-        ticks = 40 if faults is None else 24
-        for mode, length, kw in (
-                ("ticks", ticks, {"live": live}),
-                ("drain", MEGATICK, {"limit": s.time + 7}),
-                ("drain", MEGATICK, {"limit": s.time
-                                     + runner.config.max_ticks}),
-                ("flush", runner.config.max_delay + 1, {})):
-            got = km.fused_ticks(tk, BatchedRunner._own(s), mode=mode,
-                                 length=length, **kw)
-            want = km.fused_ticks_plain(tk, BatchedRunner._own(s),
-                                        mode=mode, length=length, **kw)
-            err = max_abs_err(_leaves(got), _leaves(want))
-            if err or _mismatched(got, want):
-                raise AssertionError(f"fused_scan != plain on {note}, "
-                                     f"{mode}: {_mismatched(got, want)}")
-            if mode == "ticks" and not all(
-                    bool(torch.equal(x[1], y[1]))
-                    for x, y in zip(_leaves(got), _leaves(s))):
-                raise AssertionError("a lane not live at launch changed")
-            if mode == "ticks" and check is not None:
-                _fault_edge_checks(check, s, got, length, live)
-            rows.append({"case": note, "mode": mode, "steps": length,
-                         "lane_ticks": int((got.time - s.time).sum()),
-                         "error_bits": int(got.error.max()),
-                         "fault_events": int((got.fault_counts
-                                              - s.fault_counts).sum()),
-                         "max_abs_err": err})
+        for impl in (("cascade", "wave") if delay.position_streams
+                     else ("cascade",)):
+            rows += _fused_edge_case(note, spec, cfg, delay, faults,
+                                     quarantine, check, impl)
     return rows
+
+
+def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
+                     impl) -> list:
+    """One case of ``fused_edge_cases`` through the ``impl`` step body."""
+    import torch
+
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
+                           device="cuda", faults=faults,
+                           quarantine=quarantine, megatick=MEGATICK,
+                           exact_impl=impl)
+    tk = runner.kernel
+    s = (runner.init_batch_device() if check == "never_quiet"
+         else loaded_state(runner, min(3, cfg.max_snapshots)))
+    if quarantine and faults is None and check is None:
+        s.error[2] |= ERR_QUEUE_OVERFLOW
+    if check == "disarmed":
+        s.fault_key[3] = 0
+    if check == "wrap":
+        s = s._replace(time=s.time + (2**31 - 8 - int(s.time.max())))
+    if check == "counter_wrap":
+        key, _, epoch = s.delay_state
+        s = s._replace(delay_state=(key, key * 0 + 2**32 - 3, epoch))
+    seen = _watch_waves(tk) if impl == "wave" else None
+    live = ~tk._halted(s)
+    live[1] = False
+    ticks = 40 if faults is None else 24
+    rows = []
+    for mode, length, kw in (
+            ("ticks", ticks, {"live": live}),
+            ("drain", MEGATICK, {"limit": s.time + 7}),
+            ("drain", MEGATICK, {"limit": s.time
+                                 + runner.config.max_ticks}),
+            ("flush", runner.config.max_delay + 1, {})):
+        got = km.fused_ticks(tk, BatchedRunner._own(s), mode=mode,
+                             length=length, **kw)
+        want = km.fused_ticks_plain(tk, BatchedRunner._own(s),
+                                    mode=mode, length=length, **kw)
+        err = max_abs_err(_leaves(got), _leaves(want))
+        if err or _mismatched(got, want):
+            raise AssertionError(f"fused_scan ({impl}) != plain on {note}, "
+                                 f"{mode}: {_mismatched(got, want)}")
+        if mode == "ticks" and not all(
+                bool(torch.equal(x[1], y[1]))
+                for x, y in zip(_leaves(got), _leaves(s))):
+            raise AssertionError("a lane not live at launch changed")
+        if mode == "ticks" and check is not None:
+            _edge_checks(check, s, got, length, live, seen)
+        rows.append({"case": note, "impl": impl, "mode": mode,
+                     "steps": length,
+                     "lane_ticks": int((got.time - s.time).sum()),
+                     "error_bits": int(got.error.max()),
+                     "fault_events": int((got.fault_counts
+                                          - s.fault_counts).sum()),
+                     "max_abs_err": err})
+    return rows
+
+
+def _watch_waves(tk) -> dict:
+    """Watch a wave kernel's plain runs: the most earlier markers a
+    popped marker had at its node in one tick, of any sid ("depth": the
+    wave it is in) and of its own ("repeat": a same-tick repeat)."""
+    seen = {"depth": 0, "repeat": 0}
+    seg_excl = tk._seg_excl
+
+    def watched(x):
+        out = seg_excl(x)
+        key = "depth" if x.dim() == 2 else "repeat"
+        seen[key] = max(seen[key], int((out * x).max()))
+        return out
+
+    tk._seg_excl = watched
+    return seen
 
 
 # integer operations of one lowbias32 (three xor-shifts, two multiplies)
@@ -1276,15 +1409,17 @@ def fault_hash_check() -> list:
 
 
 def drain_timing(cell: str) -> int:
-    """``--drain-timing fault-free|faulted``: one drain megatick (K=8) of
-    that exact cell from the state after its storm phases, timed over
+    """``--drain-timing fault-free|faulted|wave|wave-faulted``: one drain
+    megatick (K=8) of that exact cell (through the wave step body for the
+    wave cells) from the state after its storm phases, timed over
     ``DRAIN_LAUNCHES`` launches on fresh copies (``time_launch_ms``), and
     printed as one JSON line with the card's name and power limit."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
-    make = fault_runner if cell == "faulted" else exact_runner
-    runner, prog = make("cuda", megatick=MEGATICK)
+    make = fault_runner if cell.endswith("faulted") else exact_runner
+    kw = {"exact_impl": "wave"} if cell.startswith("wave") else {}
+    runner, prog = make("cuda", megatick=MEGATICK, **kw)
     s0, _, drain = drain_setup(runner, prog)
     ms = time_launch_ms(drain, lambda: BatchedRunner._own(s0),
                         reps=DRAIN_LAUNCHES)
@@ -1295,18 +1430,22 @@ def drain_timing(cell: str) -> int:
     return 0
 
 
-def phase_fused_kernel(runner, prog, frunner, fprog) -> list:
+def phase_fused_kernel(runner, prog, frunner, fprog, wrunner,
+                       fwrunner) -> list:
     """fused_scan at the exact cell's shape: one drain megatick (K=8)
     from the state after the cell's 32 storm phases, and the same for the
-    faulted cell, each against its plain version on the same input; then
-    the edge cases and the fault-hash check. Returns the two rows for the
-    summary line."""
+    faulted cell, each through the cascade and the wave step body and
+    against its plain version on the same input; then the edge cases and
+    the fault-hash check. Returns the four rows for the summary line."""
     rows = [drain_megatick_row(runner, prog, "fault-free"),
-            drain_megatick_row(frunner, fprog, "faulted")]
+            drain_megatick_row(frunner, fprog, "faulted"),
+            drain_megatick_row(wrunner, prog, "wave fault-free"),
+            drain_megatick_row(fwrunner, fprog, "wave faulted")]
     edge = fused_edge_cases()
     hashes = fault_hash_check()
     emit({"phase": "fused_kernel", "tolerance": "bit-equal (integer work)",
           "storm_shape": rows[0], "faulted_storm_shape": rows[1],
+          "wave_storm_shape": rows[2], "wave_faulted_storm_shape": rows[3],
           "edge_cases": edge, "fault_hash": hashes})
     return rows
 
@@ -1359,6 +1498,7 @@ def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
 
 def _storm_meta(name, runner, prog, graph, snapshots) -> dict:
     return {"phase": name, "scheduler": runner.scheduler,
+            "exact_impl": runner.kernel.exact_impl,
             "megatick": runner.megatick, "fused_tick": runner.fused,
             "fused_reason": runner.fused_reason, "graph": graph,
             "nodes": runner.topo.n, "edges": runner.topo.e,
@@ -1413,14 +1553,15 @@ def phase_storm(name, runner, prog, graph, snapshots, path_kernels):
 
 
 def phase_fault_storm(name, runner, prog, path_kernels):
-    """Main paths 3 and 6, the faulted exact storm at megatick 1 and 8
+    """Main paths 3, 6 and 9, the faulted exact storm at megatick 1 and 8
     (module docstring): warm run at F_WARM_BATCH lanes over a few phases,
     timed run at B=4096. Returns (final state, measurements)."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
     from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
 
-    warm_runner, _ = fault_runner("cuda", F_WARM_BATCH, runner.megatick)
+    warm_runner, _ = fault_runner("cuda", F_WARM_BATCH, runner.megatick,
+                                  runner.kernel.exact_impl)
     final, m = _timed_storm(runner, prog, warm_runner,
                             (prog.amounts[:4], prog.snap[:4]))
     del warm_runner
@@ -1465,6 +1606,22 @@ def phase_fault_storm(name, runner, prog, path_kernels):
     _check_launches(name, m["launches"], path_kernels,
                     idle_kernels=("queue_step",))
     return final, m
+
+
+def _twin_check(name, final, m, twin_name, twin, twin_m) -> None:
+    """A wave storm against its cascade twin: every leaf equal; one line
+    with the host steps of both (the wave's waves against the cascade's
+    marker folds) and their walls."""
+    bad = _mismatched(final, twin)
+    emit({"phase": f"{name}_vs_{twin_name}", "leaves": len(twin._fields),
+          "mismatched": bad,
+          "host_steps": {"wave": m["fold_steps"],
+                         "cascade": twin_m["fold_steps"]},
+          "drain_host_steps": {"wave": m["drain_fold_steps"],
+                               "cascade": twin_m["drain_fold_steps"]},
+          "run_s": {"wave": m["run_s"], "cascade": twin_m["run_s"]}})
+    if bad:
+        raise AssertionError(f"{name} differs from {twin_name} in {bad}")
 
 
 def phase_golden() -> dict:
@@ -1513,8 +1670,9 @@ def phase_golden() -> dict:
 
 
 def phase_cpu_vs_cuda() -> None:
-    """Small sync, exact, faulted exact (megatick 1 and 8) and megatick-8
-    exact storms on the card and on the CPU: identical leaves."""
+    """Small sync, exact, faulted exact (megatick 1 and 8), megatick-8
+    exact storms and the wave's at megatick 8 (faulted and not) on the
+    card and on the CPU: identical leaves."""
     import functools
 
     import numpy as np
@@ -1542,11 +1700,12 @@ def phase_cpu_vs_cuda() -> None:
         return exact_runner(device, batch=8, nodes=64, phases=6,
                             snapshots=4, graph="sf")
 
-    def fused_storm(device):
+    def fused_storm(device, exact_impl="cascade"):
         return exact_runner(device, batch=8, nodes=64, phases=6,
-                            snapshots=4, graph="sf", megatick=MEGATICK)
+                            snapshots=4, graph="sf", megatick=MEGATICK,
+                            exact_impl=exact_impl)
 
-    def faulted_storm(device, megatick=1):
+    def faulted_storm(device, megatick=1, exact_impl="cascade"):
         # lossy crashes of half the nodes at tick 70, after the first
         # snapshots completed (restored from them), rare marker drops, the
         # supervisor with its daemon every 12 ticks
@@ -1557,8 +1716,8 @@ def phase_cpu_vs_cuda() -> None:
                             faults=Faults(3, crash_rate=0.5,
                                           crash_mode="lossy", crash_start=70,
                                           marker_drop_rate=0.002),
-                            megatick=megatick, snapshot_timeout=F_TIMEOUT,
-                            snapshot_every=12)
+                            megatick=megatick, exact_impl=exact_impl,
+                            snapshot_timeout=F_TIMEOUT, snapshot_every=12)
 
     result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
               "phases": 6, "snapshots": 4}
@@ -1566,7 +1725,13 @@ def phase_cpu_vs_cuda() -> None:
                              ("faulted_exact", faulted_storm),
                              ("faulted_exact_megatick8", functools.partial(
                                  faulted_storm, megatick=MEGATICK)),
-                             ("exact_megatick8", fused_storm)):
+                             ("exact_megatick8", fused_storm),
+                             ("exact_wave_megatick8", functools.partial(
+                                 fused_storm, exact_impl="wave")),
+                             ("faulted_exact_wave_megatick8",
+                              functools.partial(faulted_storm,
+                                                megatick=MEGATICK,
+                                                exact_impl="wave"))):
         finals = []
         for device in ("cuda", "cpu"):
             runner, prog = build(device)
@@ -1597,7 +1762,8 @@ def phase_cpu_vs_cuda() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--drain-timing", choices=("fault-free", "faulted"),
+    ap.add_argument("--drain-timing",
+                    choices=("fault-free", "faulted", "wave", "wave-faulted"),
                     help="only time one drain megatick of that exact cell")
     ap.add_argument("--package-root",
                     help="with --drain-timing: import the package from "
@@ -1639,20 +1805,23 @@ def main(argv=None) -> int:
     frunner, fprog = fault_runner("cuda")
     mrunner, mprog = exact_runner("cuda", megatick=MEGATICK)
     f8runner, f8prog = fault_runner("cuda", megatick=MEGATICK)
+    wrunner, _ = exact_runner("cuda", exact_impl="wave")
+    w8runner, _ = exact_runner("cuda", megatick=MEGATICK, exact_impl="wave")
+    fw8runner, _ = fault_runner("cuda", megatick=MEGATICK, exact_impl="wave")
     rows, all_rows = phase_kernels(runner, prog, xrunner, xprog, frunner,
-                                   fprog)
+                                   fprog, wrunner)
     rows["fused_scan"] = phase_fused_kernel(mrunner, mprog, f8runner,
-                                            f8prog)
+                                            f8prog, w8runner, fw8runner)
     # each main path runs with the launch counts zeroed just before it
     _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
                        ("sum_by_perm", "sum_segments", "spread",
                         "head_fields", "append_rows"))
     paths = {"sync_storm": m["launches"]}
     del runner
-    exact_final, m = phase_storm(
+    exact_final, exact_m = phase_storm(
         "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
         ("queue_step", "append_rows", "sum_by_perm", "sum_segments"))
-    paths["exact_storm"] = m["launches"]
+    paths["exact_storm"] = exact_m["launches"]
     del xrunner
     fused_final, m = phase_storm(
         "fused_storm", mrunner, mprog, "er", X_SNAPSHOTS,
@@ -1670,7 +1839,24 @@ def main(argv=None) -> int:
     if m["launches"]["queue_step"] != X_PHASES:
         raise AssertionError("fused_storm ran queue_step outside its storm "
                              "phases")
-    del mrunner, exact_final, fused_final
+    del mrunner
+    # the wave twins of the two: each held to its cascade twin
+    exact_kernels = ("queue_step", "append_rows", "sum_by_perm",
+                     "sum_segments", "spread")
+    for name, wr, twin, twin_name, twin_m, kernels in (
+            ("wave_storm", wrunner, exact_final, "exact_storm", exact_m,
+             exact_kernels),
+            ("wave_fused_storm", w8runner, fused_final, "fused_storm",
+             m, ("fused_scan",) + exact_kernels)):
+        final, wm = phase_storm(name, wr, xprog, "er", X_SNAPSHOTS, kernels)
+        paths[name] = wm["launches"]
+        _twin_check(name, final, wm, twin_name, twin, twin_m)
+        if name == "wave_fused_storm" and wm["launches"]["queue_step"] \
+                != X_PHASES:
+            raise AssertionError("wave_fused_storm ran queue_step outside "
+                                 "its storm phases")
+        del final
+    del wrunner, w8runner, exact_final, fused_final
     fault_kernels = ("select_pop", "head_fields", "spread", "append_rows",
                      "sum_by_perm", "sum_segments")
     fault_final, m = phase_fault_storm("fault_storm", frunner, fprog,
@@ -1693,7 +1879,17 @@ def main(argv=None) -> int:
     if m["drain_fold_steps"] != 0:
         raise AssertionError("fault_fused_storm folded on the host in its "
                              "drain or flush")
-    del f8runner, fault_final, fused_final
+    del f8runner, fault_final
+    final, wm = phase_fault_storm("fault_wave_fused_storm", fw8runner,
+                                  f8prog, ("fused_scan", "spread")
+                                  + fault_kernels)
+    paths["fault_wave_fused_storm"] = wm["launches"]
+    _twin_check("fault_wave_fused_storm", final, wm, "fault_fused_storm",
+                fused_final, m)
+    if wm["drain_fold_steps"] != 0:
+        raise AssertionError("fault_wave_fused_storm stepped on the host in "
+                             "its drain or flush")
+    del fw8runner, final, fused_final
     paths["golden"] = phase_golden()
     phase_cpu_vs_cuda()
 
@@ -1713,6 +1909,10 @@ def main(argv=None) -> int:
         # of their paths, beside index_add_'s; fused_scan: its fault-free
         # and faulted drain megatick
         timed = [r for r in all_rows.get(name, ()) if "device_ms" in r]
+        if name == "spread":
+            entry["shapes"] = [{key: r[key] for key in (
+                "shape", "main", "ms", "plain_ms", "bound_ms",
+                "library_ms")} for r in all_rows[name]]
         if name == "fused_scan":
             entry["shapes"] = [{key: r[key] for key in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}

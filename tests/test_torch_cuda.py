@@ -10,11 +10,12 @@ the CPU; the fused megatick (row 8) must equal its plain form on every
 step body, sampler and ring edge case, and an exact storm at megatick 8
 must equal megatick 1, with the fault arm too (the adversary and the
 supervisor inside the kernel; its device fault hash equals the plain
-planes). The segment sums (rows 1-2) take two paths, staged
-and tiled (``segment_plan``); each, on both dtypes, with and without
-perm, must equal the plain version, and every C entry point must load.
-Run on a
-GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+planes), and with the wave step body (``exact_impl="wave"``, fault-free
+and faulted) on its edge cases: a marker pile-up, a broadcast into a
+full ring, a hash counter wrapping inside a tick. The segment sums
+(rows 1-2) take two paths, staged and tiled (``segment_plan``); each, on
+both dtypes, with and without perm, must equal the plain version, and
+every C entry point must load. Run on a GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
 import ctypes
@@ -373,15 +374,17 @@ def _leaves_equal(a, b):
             assert u.dtype == v.dtype and np.array_equal(u, v), name
 
 
-def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None):
+def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None,
+            exact_impl="cascade"):
     """A megatick-8 exact runner on the card (with ``faults`` armed, if
-    given) and a small state with traffic and snapshots in flight, built
-    by the scalar injectors (every sampler has them): per round a 1-token
-    send on every third edge, a snapshot at node ``round % N`` on every
-    other lane, one tick."""
+    given; the wave step body for ``exact_impl="wave"``) and a small state
+    with traffic and snapshots in flight, built by the scalar injectors
+    (every sampler has them): per round a 1-token send on every third
+    edge, a snapshot at node ``round % N`` on every other lane, one
+    tick."""
     runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
                            device=dev, quarantine=quarantine, megatick=8,
-                           faults=faults)
+                           faults=faults, exact_impl=exact_impl)
     tk = runner.kernel
     s = runner.init_batch_device()
     lanes = torch.arange(4, device=dev)
@@ -389,7 +392,7 @@ def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None):
         for e in range(r % 3, runner.topo.e, 3):
             s = tk._inject_send(s, e, 1)
         s = tk._inject_snapshot(s, r % runner.topo.n, (lanes + r) % 2 == 0)
-        s = tk._cascade_tick(s)
+        s = tk._exact_tick(s)
     return runner, s
 
 
@@ -474,17 +477,20 @@ def test_fused_smem_reckoning_checked_by_kernel(dev, monkeypatch):
                         HashDelay(5))
     reckoned = km.fused_smem_bytes
     monkeypatch.setattr(km, "fused_smem_bytes",
-                        lambda n, e, k, fault_arm=False:
-                        reckoned(n, e, k, fault_arm=fault_arm) - 16)
+                        lambda n, e, k, **arms: reckoned(n, e, k, **arms)
+                        - 16)
     with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
         km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
-    # the fault arm's planes count too: the fault-free share is short
-    runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(snapshots=3),
-                        HashDelay(5), faults=Faults(3, drop_rate=0.1))
-    monkeypatch.setattr(km, "fused_smem_bytes",
-                        lambda n, e, k, fault_arm=False: reckoned(n, e, k))
-    with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
-        km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
+    # the fault arm's and the wave arm's planes count too: the share
+    # without them is short
+    for kw in (dict(faults=Faults(3, drop_rate=0.1)),
+               dict(exact_impl="wave")):
+        runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(
+            snapshots=3), HashDelay(5), **kw)
+        monkeypatch.setattr(km, "fused_smem_bytes",
+                            lambda n, e, k, **arms: reckoned(n, e, k))
+        with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
+            km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
 
 
 FAULT_ARMS = {
@@ -600,3 +606,94 @@ def test_megatick_storm_and_goldens_on_the_card(dev):
     results = run_reference_tests(dev)
     assert all(why is None for _, _, why in results), results
     assert launch_counts()["fused_scan"] > before
+
+
+# ---- the wave step body of the fused megatick (row 8's wave arm) ----------
+
+def _complete(n, tokens):
+    from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+
+    names = [f"N{i}" for i in range(n)]
+    return TopologySpec([(v, tokens) for v in names],
+                        sorted((a, b) for a in names for b in names
+                               if a != b))
+
+
+WAVE_ARMS = {
+    # (graph, config, sampler, adversary, quarantine)
+    "fixed": (TOPO_SPEC, dict(snapshots=3), FixedDelay(2), None, False),
+    "hash": (TOPO_SPEC, dict(snapshots=3), HashDelay(5), None, False),
+    "pile-up: complete 8-node digraph, 8 snapshots": (
+        _complete(8, 50), dict(snapshots=8), HashDelay(3), None, False),
+    "full rings: C=2": (TOPO_SPEC, dict(snapshots=3, queue_capacity=2),
+                        HashDelay(3), None, False),
+    "marker faults, timeout": (TOPO_SPEC, dict(
+        snapshots=8, snapshot_timeout=6, snapshot_retries=6), HashDelay(5),
+        Faults(3, **FAULT_ARMS["marker faults, timeout"][0]), True),
+    "pause crashes, every class": (TOPO_SPEC, dict(
+        snapshots=8, snapshot_timeout=8), HashDelay(5),
+        Faults(3, **FAULT_ARMS["pause crashes, every class"][0]), True),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(WAVE_ARMS))
+def test_fused_megatick_wave_arm_equals_plain(dev, arm):
+    """Row 8's wave arm on the card: the three step bodies from a loaded
+    state, bit-equal to the plain form (the port's wave tick), with lane 1
+    not live at the "ticks" launch; the hash counters stand 3 draws below
+    2^32 in a second pass, so a tick's draws straddle the wrap."""
+    from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
+
+    spec, cfg, delay, faults, quarantine = WAVE_ARMS[arm]
+    runner, s = _loaded(dev, spec, SimConfig.for_workload(**cfg), delay,
+                        quarantine=quarantine, faults=faults,
+                        exact_impl="wave")
+    assert runner.fused == "on"
+    starts = [s]
+    if isinstance(delay, HashDelay):
+        key, _, epoch = s.delay_state
+        starts.append(s._replace(delay_state=(key, key * 0 + 2**32 - 3,
+                                              epoch)))
+    ticked = []
+    for s in starts:
+        live = ~runner.kernel._halted(s)
+        live[1] = False
+        ticked.append(_fused_equals_plain(runner, s, "ticks", 24, live=live))
+        _fused_equals_plain(runner, s, "drain", 8, limit=s.time + 7)
+        _fused_equals_plain(runner, s, "drain", 8,
+                            limit=s.time + runner.config.max_ticks)
+        _fused_equals_plain(runner, s, "flush", runner.config.max_delay + 1)
+    if arm.startswith("full rings"):
+        assert int(ticked[0].error.max()) & ERR_QUEUE_OVERFLOW
+    if len(starts) == 2:                     # the counters wrapped
+        assert bool((ticked[1].delay_state[2]
+                     > starts[1].delay_state[2]).any())
+
+
+@pytest.mark.parametrize("faulted", [False, True], ids=["fault_free",
+                                                        "faulted"])
+def test_wave_storm_on_the_card(dev, faulted):
+    """A wave storm at megatick 8 on the card launches fused_scan, and at
+    megatick 1 the segment kernels (spread too); both equal the cascade
+    at megatick 1 on the card and the wave on the CPU."""
+    fkw, sup = FAULT_ARMS["pause crashes, every class"]
+    finals = []
+    for device, impl, k in ((dev, "wave", 8), (dev, "wave", 1),
+                            (dev, "cascade", 1), ("cpu", "wave", 8)):
+        runner = BatchedRunner(
+            TOPO_SPEC, SimConfig.for_workload(snapshots=3,
+                                              **(sup if faulted else {})),
+            HashDelay(5), 4, scheduler="exact", device=device, megatick=k,
+            exact_impl=impl, faults=Faults(3, **fkw) if faulted else None,
+            quarantine=faulted)
+        prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=5))
+        before = launch_counts()
+        finals.append(runner.run_storm(runner.init_batch_device(), prog))
+        after = launch_counts()
+        assert (after["fused_scan"] > before["fused_scan"]) == (
+            device == dev and k == 8)
+        if device == dev and impl == "wave" and k == 1:
+            assert after["spread"] > before["spread"]
+    for other in finals[1:]:
+        _leaves_equal(finals[0], other)

@@ -9,7 +9,7 @@ device="cpu")`` run the same small storms (sf-32, er-16, ring-8; B=4, S=4,
 sampler's stream position and the error word included — must be equal in
 value and dtype. Tolerance: none. Also: the mid-storm carry from JAX into
 the port, the multi-tick loop, the capacity-overflow regimes, and the
-refusal of the formulations that are not ported.
+refusal of the formulation that is not ported (the fold).
 """
 
 import functools
@@ -145,9 +145,10 @@ def test_exact_error_regimes_match_jax(overrides, bit):
     assert int((got.error & bit).count_nonzero()) > 0
 
 
-@pytest.mark.parametrize("impl", ["wave", "fold"])
+@pytest.mark.parametrize("impl", ["fold"])
 def test_unported_exact_formulations_raise(impl):
-    """(d) The wave and fold formulations are refused by name."""
+    """(d) The fold formulation is refused by name (the wave is ported:
+    tests/test_torch_wave.py)."""
     spec = workloads.ring_topology(4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchedRunner(spec, SimConfig(), HashDelay(1), 2, scheduler="exact",
