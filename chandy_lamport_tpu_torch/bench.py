@@ -10,7 +10,10 @@ doubling retry on queue or record overflow — then ``--repeats`` timed
 storms, and prints one JSON row shaped like the JAX bench's row. Log lines
 go to stderr. ``--megatick K`` runs the exact drain and flush in K-tick
 megaticks (the fused megatick kernel on the card; the row stamps
-``megatick``, ``fused_tick`` and ``fused_reason``).
+``megatick``, ``fused_tick`` and ``fused_reason``, and the layout the
+card takes, ``fused_tile`` and ``fused_tile_reason``: tiled into device
+memory for a lane whose working set passes a block's shared memory, such
+as config 5's SF-8k).
 
 The exact scheduler takes the JAX storm CLI's fault adversary and
 snapshot supervisor flags by their names (``--fault-*``, ``--crash-*``,
@@ -374,6 +377,8 @@ def main(argv=None) -> int:
         "megatick": summary["megatick"],
         "fused_tick": summary["fused_tick"],
         "fused_reason": summary["fused_reason"],
+        "fused_tile": summary["fused_tile"],
+        "fused_tile_reason": summary["fused_tile_reason"],
         "error_bits": summary["error_bits"],
         "errors_decoded": summary["errors_decoded"],
         "straggler_waste": summary["straggler_waste"],

@@ -24,6 +24,16 @@
 // directly, in program order, so no deferred pass is needed and an
 // overflowing append clobbers exactly as the eager path does.
 //
+// The tiled layout (JAX fused_tile, ROADMAP B2). The TPU tiles because the
+// rings overflow VMEM; here the rings already live in device memory, and
+// what overflows is the working set carve lays out (1,720,352 B for the
+// SF-8k lane at S=8 through the wave, against 232,448 B of shared memory a
+// block). The kTiled instantiations carve the same planes from the lane's
+// stride of a device-memory workspace (smem_bytes each, allocated by the
+// wrapper) and run the same bodies: loaded at launch, written back at
+// exit, nothing read that the launch did not write. Their bytes pass
+// through L1 and L2 instead of shared memory: correct first, and slower.
+//
 // The fault arm. The JAX kernel takes the adversary's next K ticks as
 // planes ([K, 8, E] and [K, 2, N] per lane, TickKernel._fault_planes);
 // at ER-256 B=4096 and K=8 the edge plane alone would be 805 MB. The
@@ -159,6 +169,7 @@ struct ClsimMegatickArgs {
   int sampler, max_delay, fixed_delay;
   int mode, length, quarantine;
   int smem_bytes;  // kernels/megatick.fused_smem_bytes: the block's share
+                   // (resident), the lane's workspace stride (tiled)
   int faulted;     // the adversary is armed
   int ext;         // the fault arm is compiled in: kernels/megatick.fault_arm
   int wave;        // the wave step body: kernels/megatick.wave_arm
@@ -166,6 +177,14 @@ struct ClsimMegatickArgs {
   int dup_mod;     // max(cfg.max_delay, 1): duplicates' delay range
   int snapshot_timeout, snapshot_retries, snapshot_every;
   ClsimFaultRates rates;
+  // the tiled layout (kernels/megatick.resolve_fused): the lanes'
+  // planes in ``workspace``, [B] strides of smem_bytes. Last, so that the
+  // resident instantiations, which never read them, see every other field
+  // where they did before (ptxas gave the faulted wave arm 2 registers
+  // more with them in the middle)
+  char* workspace;
+  long long workspace_bytes;
+  int tiled;
 };
 
 namespace {
@@ -202,7 +221,8 @@ enum : uint8_t { kFDrop = 1, kFDup = 2, kFJit = 4, kFMDrop = 8, kFMDup = 16,
 // the duplicate kind of a popped message
 enum : uint8_t { kDupNone = 0, kDupToken = 1, kDupMarker = 2 };
 
-// one lane's planes in shared memory, and the bytes they take
+// one lane's planes (in shared memory, or in the workspace when tiled),
+// and the bytes they take
 struct Lane {
   int32_t *q_head, *q_len, *tok_pushed, *rec_cnt, *min_prot, *head_data;
   int32_t *tokens, *frozen, *rem, *completed, *done_time, *err, *ctl;
@@ -754,8 +774,14 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
 // kExt: the fault arm (the adversary or the supervisor armed) is compiled
 // in; the fault-free instantiation carries none of it, so its registers
 // and occupancy are the fault-free kernel's own. kWave: the wave step body
-// (wave_step) in place of the cascade's marker fold in warp 0.
-template <bool kExt, bool kWave>
+// (wave_step) in place of the cascade's marker fold in warp 0. kTiled: the
+// lane's planes are carved from its stride of the device-memory workspace
+// instead of shared memory; the bodies are the same code, every access
+// goes through the Lane's pointers (generic: shared or global), and the
+// block's barriers order global writes for the block as they do shared
+// ones. A compile-time parameter, so the resident instantiations keep
+// their shared-memory addressing and registers.
+template <bool kExt, bool kWave, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_ticks_kernel(const Args a) {
   extern __shared__ __align__(16) char smem[];
@@ -788,7 +814,12 @@ fused_ticks_kernel(const Args a) {
     if (!pend || time >= a.limit[b]) return;
   }
 
-  const Lane w = carve(reinterpret_cast<uintptr_t>(smem), n, e, S, ext, kWave);
+  uintptr_t lane_base;
+  if constexpr (kTiled)
+    lane_base = reinterpret_cast<uintptr_t>(a.workspace + b * a.smem_bytes);
+  else
+    lane_base = reinterpret_cast<uintptr_t>(smem);
+  const Lane w = carve(lane_base, n, e, S, ext, kWave);
   for (int f = tid; f < e; f += nt) {
     w.q_head[f] = a.q_head[be + f];
     w.q_len[f] = a.q_len[be + f];
@@ -1197,23 +1228,42 @@ fault_planes_kernel(const int64_t* key, const int32_t* time, int32_t* edge,
 extern "C" {
 
 int clsim_fused_ticks(const Args* a, void* stream) {
-  const long long smem = a->smem_bytes;
-  const bool ext = a->ext != 0, wave = a->wave != 0;
-  if (carve(0, a->n, a->e, a->s, ext, wave).bytes > smem || smem > 232448 ||
+  const long long share = a->smem_bytes;
+  const bool ext = a->ext != 0, wave = a->wave != 0, tiled = a->tiled != 0;
+  if (carve(0, a->n, a->e, a->s, ext, wave).bytes > share || share % 16 ||
       (wave && a->sampler == kGoExact))
     return (int)cudaErrorInvalidValue;
-  void (*kernel)(const Args) =
-      wave ? (ext ? fused_ticks_kernel<true, true>
-                  : fused_ticks_kernel<false, true>)
-           : (ext ? fused_ticks_kernel<true, false>
-                  : fused_ticks_kernel<false, false>);
-  // raised for every share: the default limit counts static bytes too
-  const cudaError_t st = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the resident share must fit a block; the tiled layout, the workspace
+  if (tiled ? (a->workspace == nullptr ||
+               a->workspace_bytes < (long long)a->b * share)
+            : share > 232448)
+    return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const Args);
+  static const Kernel kernels[8] = {
+      fused_ticks_kernel<false, false, false>,
+      fused_ticks_kernel<true, false, false>,
+      fused_ticks_kernel<false, true, false>,
+      fused_ticks_kernel<true, true, false>,
+      fused_ticks_kernel<false, false, true>,
+      fused_ticks_kernel<true, false, true>,
+      fused_ticks_kernel<false, true, true>,
+      fused_ticks_kernel<true, true, true>};
+  const Kernel kernel = kernels[(ext ? 1 : 0) + (wave ? 2 : 0) +
+                                (tiled ? 4 : 0)];
+  const size_t smem = tiled ? 0 : (size_t)share;
+  // resident: raised for every share (the default limit counts static
+  // bytes too); tiled: no shared memory, so the SM's L1 takes the most
+  // room for the workspace's lines
+  const cudaError_t st =
+      tiled ? cudaFuncSetAttribute(
+                  kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                  (int)cudaSharedmemCarveoutMaxL1)
+            : cudaFuncSetAttribute(
+                  kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  (int)smem);
   if (st != cudaSuccess) return (int)st;
   if (a->b > 0 && a->length > 0)
-    kernel<<<(unsigned int)a->b, kThreads, (size_t)smem,
-             (cudaStream_t)stream>>>(*a);
+    kernel<<<(unsigned int)a->b, kThreads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -34,12 +34,31 @@ place, so the caller must own the state it passes.
 Layout on the card: a lane's whole state does not fit in a block's shared
 memory (the ER-256 lane holds 0.347 MB), so the JAX resident layout
 (``fused_vmem_bytes``, :163) does not carry over. The kernel keeps the
-tick's small working planes on chip (``fused_smem_bytes``) and the
 ``[E, C]`` rings, the ``[L, E]`` log and the ``[S, E]`` windows in device
-memory, read and written in place — the JAX tiled idea (:48-78) without
-its deferred appends. ``ring_append_slots`` (:131) sizes those deferred
-append buffers in JAX; the card appends in place, so it has no
-counterpart here.
+memory, read and written in place (the JAX tiled idea, :48-78, without
+its deferred appends: ``ring_append_slots``, :131, has no counterpart
+here), and lays the tick's working planes (``fused_smem_bytes``: the
+``[E]`` vectors, the ``[S, N]`` planes, ``recording`` [S, E]) out in one
+of two layouts, chosen from the lane's working set alone by
+``resolve_fused`` (the JAX ``fused_tile="auto"``, :263; the JAX knob's
+"off" splits the megatick into single ticks, which the card has no plain
+form for, and its "on" would only force the slower layout on a lane that
+fits, so the port has no knob):
+
+  resident  the planes in the block's shared memory (up to
+            ``SMEM_BUDGET``; ER-256: 48,480 B, SF-1k at S=8: 214,864 B
+            through the wave);
+  tiled     the planes in a device-memory workspace, one
+            ``fused_smem_bytes`` stride per lane (``fused_workspace``,
+            kept on the ``TickKernel``), for lanes past a block's share
+            (config 5, SF-8k at S=8: 1,720,352 B through the wave). The
+            step bodies are the same code; on the card the TPU's problem,
+            rings past VMEM, is already solved, and what overflows is the
+            working set, so that is what this layout moves off chip.
+
+Every plane is loaded from the state at launch and written back at exit
+in both layouts; no launch reads what an earlier one left in the
+workspace.
 """
 
 from __future__ import annotations
@@ -47,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from chandy_lamport_tpu_torch.kernels import _build
@@ -62,8 +82,13 @@ SMEM_BUDGET = 232_448
 
 MODES = {"ticks": 0, "drain": 1, "flush": 2}
 
-# launches of the CUDA kernel wrapper (the plain version is not counted)
-LAUNCHES = {"fused_scan": 0}
+# launches of the CUDA kernel wrapper (the plain version is not counted);
+# "fused_scan_tiled" counts the launches of the tiled layout again
+LAUNCHES = {"fused_scan": 0, "fused_scan_tiled": 0}
+
+# the wave arm keeps a marker's rank among its node's markers of a tick in
+# int16: a node may have at most this many in-edges
+WAVE_MAX_IN_DEGREE = 32_768
 
 
 def fault_arm(tk) -> bool:
@@ -82,23 +107,24 @@ def wave_arm(tk) -> bool:
 
 def fused_smem_bytes(n: int, e: int, s: int, *,
                      fault_arm: bool = False, wave: bool = False) -> int:
-    """Shared memory of one lane's block, the one reckoning of it (the
-    wrapper passes it to the kernel, which checks its own layout against
-    it): the ``[E]`` vectors q_head, q_len, tok_pushed, rec_cnt, min_prot
-    and the tick's head_data (int32) and tok/mk/app (bool); ``tokens``
-    [N]; the ``[S, N]`` planes frozen, rem (int32), has_local, done_local
-    (bool); ``recording`` [S, E] (bool); completed, snap_done_time
-    (int32), started, snap_failed (bool) [S]; 4 words of control.
-    ``fault_arm`` (``fault_arm(tk)``: the adversary or the supervisor
-    armed) adds the
-    supervisor's ``[S]`` vectors snap_epoch, snap_deadline, snap_retries,
+    """One lane's working set, the one reckoning of it: the block's share
+    of shared memory in the resident layout, the lane's stride in the
+    workspace in the tiled one (the wrapper passes it to the kernel, which
+    checks its own layout against it). It holds the ``[E]`` vectors
+    q_head, q_len, tok_pushed, rec_cnt, min_prot and the tick's head_data
+    (int32) and tok/mk/app (bool); ``tokens`` [N]; the ``[S, N]`` planes
+    frozen, rem (int32), has_local, done_local (bool); ``recording`` [S,
+    E] (bool); completed, snap_done_time (int32), started, snap_failed
+    (bool) [S]; 4 words of control. ``fault_arm`` (``fault_arm(tk)``: the
+    adversary or the supervisor armed) adds the supervisor's ``[S]``
+    vectors snap_epoch, snap_deadline, snap_retries,
     snap_initiator, the 7 fault counts, next_sid, fault_skew and
     stale_markers (int32); the step's fault flags and duplicate kind per
     edge, the down flag per node and a retry flag per slot (bytes).
     ``wave`` (``wave_arm(tk)``) adds the wave schedule: each edge's draw
     base (int32), its wave number (int16) and first-receipt flag (byte),
     and 24 words of control. The rings, the log, the windows and the
-    delay stream stay in device memory."""
+    delay stream stay in device memory. Rounded up to 16 B."""
     ints = 6 * e + n + 2 * s * n + 2 * s + 4
     flags = 3 * e + s * e + 2 * s * n + 2 * s
     if fault_arm:
@@ -111,23 +137,46 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
 
 
 def resolve_fused(*, megatick: int, device: torch.device, smem_bytes: int,
-                  budget: int = SMEM_BUDGET) -> tuple[str, str]:
-    """Where the megatick-K loops of the exact tick run, as ("on"|"off",
-    reason): one tick at a time at megatick 1; the plain form
-    (``fused_ticks_plain``) on the CPU; the kernel on the card. There is
-    no plain form on the card: a lane whose working set exceeds a block's
-    shared memory raises, since that needs a tiled kernel that is not
-    ported (ROADMAP.md, A4c)."""
+                  budget: int = SMEM_BUDGET) -> tuple[str, str, str, str]:
+    """Where the megatick-K loops of the exact tick run, and in which
+    layout, as (fused, reason, tile, tile reason), each "on"|"off": one
+    tick at a time at megatick 1; the plain form (``fused_ticks_plain``)
+    on the CPU; the kernel on the card, which has no plain form: it
+    launches the kernel or raises. The kernel tiles (the JAX
+    ``resolve_fused_tile`` under "auto", ``kernels/megatick.py:263``)
+    exactly when the lane's working set ``smem_bytes`` exceeds the
+    ``budget`` of a block's shared memory: at the budget it stays
+    resident, one byte over it tiles."""
     if megatick <= 1:
-        return "off", f"megatick={megatick}: one tick at a time"
-    if device.type == "cpu":
-        return "off", "CPU: the plain form"
+        fused, why = "off", f"megatick={megatick}: one tick at a time"
+    elif device.type == "cpu":
+        fused, why = "off", "CPU: the plain form"
+    else:
+        fused, why = "on", "fused megatick engaged"
+    if fused != "on":
+        return fused, why, "off", "fused megatick off: no kernel to tile"
     if smem_bytes > budget:
-        raise NotImplementedError(
-            f"one lane's working set {smem_bytes} B exceeds the {budget} B "
-            "of shared memory a block can have; the tiled fused megatick "
-            "is not ported yet (ROADMAP.md, A4c): run megatick=1")
-    return "on", "fused megatick engaged"
+        return fused, why, "on", (
+            f"working set {smem_bytes} B exceeds the {budget} B of shared "
+            "memory a block can have: the planes lie in a device-memory "
+            "workspace")
+    return fused, why, "off", (
+        f"working set {smem_bytes} B fits the {budget} B of shared memory "
+        "a block can have: resident")
+
+
+def check_wave_degree(in_degree) -> None:
+    """Refuse a graph for the wave arm of the kernel when a node has more
+    in-edges than the kernel's int16 wave numbers count
+    (``WAVE_MAX_IN_DEGREE``), naming the first such node."""
+    in_degree = np.asarray(in_degree)
+    over = np.flatnonzero(in_degree > WAVE_MAX_IN_DEGREE)
+    if over.size:
+        raise ValueError(
+            f"node {over[0]} has {in_degree[over[0]]} in-edges; the "
+            "fused megatick's wave arm numbers a node's markers of a tick "
+            f"in int16, so at most {WAVE_MAX_IN_DEGREE}: use "
+            "exact_impl='cascade' or megatick=1")
 
 
 # ---- plain version ----------------------------------------------------------
@@ -215,7 +264,9 @@ class _Args(ctypes.Structure):
                 + [("live", ctypes.c_void_p), ("limit", ctypes.c_void_p)]
                 + [(t.lstrip("_"), ctypes.c_void_p) for t in _TABLES]
                 + [(name, ctypes.c_int) for name in _INTS]
-                + [("rates", _Program)])
+                + [("rates", _Program), ("workspace", ctypes.c_void_p),
+                   ("workspace_bytes", ctypes.c_longlong),
+                   ("tiled", ctypes.c_int)])
 
 
 _SIGS = {
@@ -269,12 +320,27 @@ def _sampler(delay, b, dev, words):
     return kind, 0, tuple(out)
 
 
+def fused_workspace(tk, nbytes: int, dev: torch.device) -> torch.Tensor:
+    """The tiled layout's workspace of ``tk`` (``tk.fused_workspace``):
+    at least ``nbytes`` bytes on ``dev``, allocated when the one kept is
+    missing, smaller or elsewhere, and kept on the kernel so that it
+    outlives the launches queued on it. Its contents are never read
+    before the launch writes them."""
+    ws = tk.fused_workspace
+    if ws is None or ws.numel() < nbytes or ws.device != dev:
+        tk.fused_workspace = ws = None    # free the old one first
+        ws = tk.fused_workspace = torch.empty(nbytes, dtype=torch.uint8,
+                                              device=dev)
+    return ws
+
+
 def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     """``length`` fused steps of every lane (module docstring) in one
     launch on a CUDA state, in place; ``fused_ticks_plain`` on a CPU
     state. ``tk`` is the ring-mode ``ops/tick.TickKernel`` whose tables,
-    config, adversary and supervisor the kernel reads. Returns the state
-    (its leaves made contiguous where they were not)."""
+    config, adversary, supervisor and layout (``tk.fused_tile``) the
+    kernel reads. Returns the state (its leaves made contiguous where they
+    were not)."""
     if s.time.device.type == "cpu":
         return fused_ticks_plain(tk, s, mode=mode, length=length, live=live,
                                  limit=limit)
@@ -309,14 +375,18 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
                          "'flush' takes neither")
     crash, rates = _program(tk.faults)
     ext, wave = fault_arm(tk), wave_arm(tk)
+    share = fused_smem_bytes(topo.n, topo.e, cfg.max_snapshots,
+                             fault_arm=ext, wave=wave)
+    tiled = tk.fused_tile == "on"
+    if share >= 2**31:
+        raise ValueError(f"one lane's working set {share} B passes the "
+                         "kernel's int32 stride")
+    ws = fused_workspace(tk, b * share, dev) if tiled else None
     ints = dict(b=b, log16=int(tk._rec_dtype == torch.int16),
                 rec_limit=tk._rec_limit, key_limit=tk._key_limit,
                 sampler=kind, max_delay=tk.delay.max_delay,
                 fixed_delay=fixed, mode=MODES[mode], length=length,
-                quarantine=int(tk.quarantine),
-                smem_bytes=fused_smem_bytes(
-                    topo.n, topo.e, cfg.max_snapshots, fault_arm=ext,
-                    wave=wave),
+                quarantine=int(tk.quarantine), smem_bytes=share,
                 faulted=int(tk.faults is not None), ext=int(ext),
                 wave=int(wave), **crash,
                 dup_mod=max(cfg.max_delay, 1),
@@ -329,11 +399,14 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
         *(t.data_ptr() if t is not None else None
           for t in (lane_in["live"], lane_in["limit"])),
         *(getattr(tk, t).data_ptr() for t in _TABLES),
-        *(ints[name] for name in _INTS), rates)
+        *(ints[name] for name in _INTS), rates,
+        ws.data_ptr() if tiled else None, ws.numel() if tiled else 0,
+        int(tiled))
     code = _fn("clsim_fused_ticks")(ctypes.byref(args),
                                     _build.stream_ptr(s.time))
     _build.check(code, "clsim_fused_ticks")
     LAUNCHES["fused_scan"] += 1
+    LAUNCHES["fused_scan_tiled"] += int(tiled)
     if words[0] is not None:
         fields["delay_state"] = words
     return s._replace(**fields)

@@ -176,10 +176,14 @@ class TickKernel:
     fire (module docstring); all three are ring-mode only.
 
     ``megatick`` (K) is the JAX kernel's, for the exact scheduler only:
-    ``kernels/megatick.resolve_fused`` sets ``self.fused`` and
-    ``self.fused_reason`` once here. At K > 1 the megaticks launch the
-    fused kernel on the card (or the constructor raises) and run its
-    plain form on the CPU."""
+    ``kernels/megatick.resolve_fused`` sets ``self.fused``,
+    ``self.fused_reason`` and the layout of the fused megatick on the
+    card, ``self.fused_tile`` and ``self.fused_tile_reason``, once here,
+    before any table moves to the device. At K > 1 the megaticks launch
+    the fused kernel on the card, resident in shared memory or, for a
+    lane past a block's share, tiled into a device-memory workspace
+    (``self.fused_workspace``), or the constructor raises; on the CPU they
+    run its plain form."""
 
     def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device,
                  marker_mode: str = "ring", exact_impl: str = "cascade",
@@ -224,12 +228,16 @@ class TickKernel:
         self.exact_impl = exact_impl
         self._exact_tick = (self._wave_tick if exact_impl == "wave"
                             else self._cascade_tick)
-        self.fused, self.fused_reason = k_megatick.resolve_fused(
+        (self.fused, self.fused_reason, self.fused_tile,
+         self.fused_tile_reason) = k_megatick.resolve_fused(
             megatick=self.megatick, device=self.device,
             smem_bytes=k_megatick.fused_smem_bytes(
                 topo.n, topo.e, cfg.max_snapshots,
                 fault_arm=k_megatick.fault_arm(self),
                 wave=k_megatick.wave_arm(self)))
+        if self.fused == "on" and k_megatick.wave_arm(self):
+            k_megatick.check_wave_degree(topo.in_degree)
+        self.fused_workspace = None     # the tiled layout's, at first launch
         # sequential host steps of the exact tick so far (the cascade's
         # marker-fold steps, the wave's waves: one per batched step,
         # whatever the number of lanes it serves), and those of them run

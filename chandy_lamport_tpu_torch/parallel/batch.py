@@ -134,6 +134,16 @@ class BatchedRunner:
         self._node_ids = torch.arange(self.topo.n, dtype=torch.int32,
                                       device=self.device)
 
+    @property
+    def fused_tile(self) -> str:
+        """The fused megatick's layout on the card, the kernel's: "on"
+        tiled into device memory, "off" resident or no kernel."""
+        return self.kernel.fused_tile
+
+    @property
+    def fused_tile_reason(self) -> str:
+        return self.kernel.fused_tile_reason
+
     def init_batch_device(self) -> DenseState:
         """A fresh batched state, built on the runner's device (with the
         adversary's per-lane keys when faults are armed)."""
@@ -229,7 +239,9 @@ class BatchedRunner:
     def summarize(state: DenseState, runner=None) -> dict:
         """The JAX ``summarize`` counters of a batched state; given the
         ``runner`` that ran it, also its ``megatick``, ``fused_tick`` (the
-        kernel's ``fused``: "on" or "off") and ``fused_reason``."""
+        kernel's ``fused``: "on" or "off"), ``fused_reason``,
+        ``fused_tile`` (the layout: "on" tiled, "off" resident) and
+        ``fused_tile_reason``."""
         bits = int(or_reduce(state.error))
         fc = state.fault_counts.sum(0).tolist()
         n = state.has_local.shape[-1]
@@ -260,5 +272,7 @@ class BatchedRunner:
         }
         if runner is not None:
             out.update(megatick=runner.megatick, fused_tick=runner.fused,
-                       fused_reason=runner.fused_reason)
+                       fused_reason=runner.fused_reason,
+                       fused_tile=runner.fused_tile,
+                       fused_tile_reason=runner.fused_tile_reason)
         return out

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs thirteen
+kernels/csrc`` (one nvcc per source, in parallel), then runs seventeen
 phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -57,11 +57,19 @@ phases, each printing one JSON line:
                design must move and the fault hash's integer operations,
                from the megatick's own steps (``fused_plain_and_bytes``).
                The wave step body's drain megaticks (fault-free and
-               faulted) are timed and bound the same way.
+               faulted) are timed and bound the same way, and each of the
+               four drain megaticks again in the tiled layout (forced,
+               ``force_tiled``: the working planes in a device-memory
+               workspace) on the same input, bit-equal to
+               the same plain result (``tiled_over_resident``).
                The fault-hash check: ``fault_hash_planes`` (the kernel's
                device hash writing the JAX ``_fault_planes`` layout) equals
                ``Faults.fault_planes`` at tick times 0, 1, 31, 32, 2^20 and
                2^31 - 1 (and on past the int32 wrap);
+  tiled_edge_cases the edge cases of fused_kernel through the tiled
+               layout (forced, ``force_tiled``), bit-equal to the plain
+               version, all four tiled instantiations (cascade and wave,
+               with and without the fault arm) among them;
   storm        main path 1: the config-4 sync storm through
                ``BatchedRunner.run_storm`` on the card: zero error bits,
                every snapshot complete, conservation delta 0, and every
@@ -105,6 +113,25 @@ phases, each printing one JSON line:
                megatick 8 (fused_scan's faulted wave arm in the drain):
                fault_fused_storm's checks and its final state equal to
                fault_fused_storm's;
+  tiled_vs_resident fused_storm, wave_fused_storm, fault_fused_storm and
+               fault_wave_fused_storm rerun in the tiled layout (forced):
+               every fused_scan launch tiled, each final state equal to
+               its resident twin's leaf for leaf;
+  sf2048_tiled_cascade_storm an oversized cascade lane: SF-2048 at S=8
+               (B=256, 16 phases, 1 snapshot) at megatick 8, tiled by
+               "auto", fault-free and under fault_storm's adversary less
+               its marker drops (no supervisor): clean, and equal to the
+               same storm at megatick 1 leaf for leaf;
+  config5_wave_fused_storm main path 10: config 5 (SF-8k, N=8,192,
+               E=24,572, B=512, 16 phases, 8 snapshots; the JAX
+               measurement plan's exact wave row) at megatick 8, its lane
+               (1,720,352 B) tiled by "auto": error bits 0, every snapshot
+               complete, conservation delta 0, fused_scan launched in the
+               tiled layout, equal to the same storm at megatick 1 leaf
+               for leaf; its wall, node-ticks/s, host waves, tiled
+               launches and workspace bytes; then one of its drain
+               megaticks against the plain version, timed, beside its
+               bound;
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -122,16 +149,18 @@ Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
 and host times and a ``shapes`` list of every timed shape; fused_scan's
 a ``shapes`` list of its fault-free and faulted drain megaticks, cascade
-and wave; spread's a ``shapes`` list of its timed shapes), and last
+and wave, resident and tiled, and config 5's, and ``launches_tiled``;
+spread's a ``shapes`` list of its timed shapes), and last
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
 
-    python3 chip_smoke.py --drain-timing fault-free|faulted|wave|wave-faulted \
-        [--package-root DIR]
+    python3 chip_smoke.py --drain-timing \
+        fault-free|faulted|wave|wave-faulted|config5-wave [--package-root DIR]
 
 times one drain megatick (K=8) of the exact or the faulted exact cell
-(the wave step body for ``wave`` and ``wave-faulted``)
+(the wave step body for ``wave`` and ``wave-faulted``; config 5's tiled
+wave lane for ``config5-wave``)
 and prints one JSON line, nothing else; ``--package-root`` imports the
 package from another checkout (a parent commit unpacked into a
 gitignored directory), so parent and change are timed in turns in one
@@ -165,6 +194,20 @@ F_PROGRAM = dict(drop_rate=0.01, dup_rate=0.01, jitter_rate=0.01,
                  crash_rate=0.01, crash_mode="pause",
                  marker_drop_rate=0.0002, marker_dup_rate=0.01,
                  marker_jitter_rate=0.01)
+# config 5 (BASELINE.md's SF-8k rung) as the JAX measurement plan's exact
+# wave row (tools/r5_measure.py:334-338: ``--graph sf --nodes 8192 --batch
+# 512 --phases 16 --snapshots 8 --scheduler exact --exact-impl wave``) at
+# the JAX storm CLI's default megatick 8: its lane (1,720,352 B) tiles
+C5_NODES, C5_BATCH, C5_PHASES, C5_SNAPSHOTS = 8192, 512, 16, 8
+# the oversized cascade lane: SF-2048 at S=8 (386,960 B, 401,472 B
+# faulted), at a batch and depth where its megatick-1 twin ends in about
+# half a minute: its host fold steps follow the markers a lane pops, so
+# one snapshot (S stays at for_workload's floor of 8), and the faulted
+# cell's adversary without marker drops and the supervisor, whose 64-tick
+# timeout on this graph exhausted the retries of 113 of 256 lanes and
+# took the twin to 69,192 fold steps (231 s on the H100) at 2 snapshots
+T_NODES, T_BATCH, T_PHASES, T_SNAPSHOTS = 2048, 256, 16, 1
+T_PROGRAM = dict(F_PROGRAM, marker_drop_rate=0.0)
 # the lane count of append_rows' lane-limit check (ring-10 sync storms run
 # at this batch)
 WIDE_LANES = 131_072
@@ -422,11 +465,13 @@ def config4_runner(device):
 
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                  snapshots=X_SNAPSHOTS, graph="er", faults=None, megatick=1,
-                 exact_impl="cascade", **cfg_kw):
+                 exact_impl="cascade", tiled=False, **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
     smaller exact storm; with ``faults`` (and supervisor knobs in
     ``cfg_kw``) the faulted exact storm, quarantined; ``megatick`` > 1
-    the fused megatick's path; ``exact_impl`` the tick's form."""
+    the fused megatick's path (in the tiled layout whatever the lane's
+    size with ``tiled``: ``force_tiled``); ``exact_impl`` the tick's
+    form."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -445,6 +490,8 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                            scheduler="exact", device=device, faults=faults,
                            quarantine=faults is not None, megatick=megatick,
                            exact_impl=exact_impl)
+    if tiled:
+        force_tiled(runner)
     prog = storm_program(
         runner.topo, phases, 1,
         staggered_snapshots(runner.topo, snapshots, 1, 2,
@@ -452,14 +499,35 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     return runner, prog
 
 
-def fault_runner(device, batch=X_BATCH, megatick=1, exact_impl="cascade"):
+def force_tiled(runner) -> None:
+    """Put ``runner``'s fused megatick in the tiled layout whatever its
+    lane's size: the port picks the layout from the working set alone, so
+    on a lane that fits a block this is how the tiled arm is held against
+    the resident one (``fused_ticks`` reads the kernel's
+    ``fused_tile``)."""
+    tk = runner.kernel
+    if tk.fused != "on":
+        raise AssertionError(f"no fused megatick to tile: {tk.fused_reason}")
+    tk.fused_tile = "on"
+    tk.fused_tile_reason = "forced: held against the resident layout"
+
+
+def fault_runner(device, batch=X_BATCH, megatick=1, exact_impl="cascade",
+                 tiled=False):
     """The faulted exact storm of main paths 3, 6 and 9 (module
     docstring)."""
     from chandy_lamport_tpu_torch.models.faults import Faults
 
     return exact_runner(device, batch, faults=Faults(3, **F_PROGRAM),
                         megatick=megatick, exact_impl=exact_impl,
-                        snapshot_timeout=F_TIMEOUT)
+                        tiled=tiled, snapshot_timeout=F_TIMEOUT)
+
+
+def config5_runner(device, megatick=MEGATICK):
+    """Config 5's exact wave storm (``C5_*``), tiled by "auto" on the
+    card at megatick > 1."""
+    return exact_runner(device, C5_BATCH, C5_NODES, C5_PHASES, C5_SNAPSHOTS,
+                        graph="sf", megatick=megatick, exact_impl="wave")
 
 
 def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
@@ -1015,8 +1083,9 @@ def _edge_checks(name, s, got, steps, live, seen) -> None:
                              "what it is for")
 
 
-def fused_edge_cases() -> list:
+def fused_edge_cases(tiled: bool = False) -> list:
     """fused_scan against its plain version on small states on the card
+    (every case resident, or with ``tiled`` forced tiled)
     (``loaded_state``), each through the three step bodies ("ticks" with
     lane 1 not live at launch, so the others go quiet mid-megatick where
     they can; "drain" against a near and a far limit; "flush"). Fault-free:
@@ -1133,13 +1202,14 @@ def fused_edge_cases() -> list:
         for impl in (("cascade", "wave") if delay.position_streams
                      else ("cascade",)):
             rows += _fused_edge_case(note, spec, cfg, delay, faults,
-                                     quarantine, check, impl)
+                                     quarantine, check, impl, tiled)
     return rows
 
 
 def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
-                     impl) -> list:
-    """One case of ``fused_edge_cases`` through the ``impl`` step body."""
+                     impl, tiled) -> list:
+    """One case of ``fused_edge_cases`` through the ``impl`` step body,
+    forced tiled with ``tiled``."""
     import torch
 
     from chandy_lamport_tpu_torch import BatchedRunner
@@ -1151,6 +1221,8 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
                            quarantine=quarantine, megatick=MEGATICK,
                            exact_impl=impl)
     tk = runner.kernel
+    if tiled:
+        force_tiled(runner)
     s = (runner.init_batch_device() if check == "never_quiet"
          else loaded_state(runner, min(3, cfg.max_snapshots)))
     if quarantine and faults is None and check is None:
@@ -1188,6 +1260,8 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
         if mode == "ticks" and check is not None:
             _edge_checks(check, s, got, length, live, seen)
         rows.append({"case": note, "impl": impl, "mode": mode,
+                     "layout": _layout(runner),
+                     "fault_arm": km.fault_arm(tk),
                      "steps": length,
                      "lane_ticks": int((got.time - s.time).sum()),
                      "error_bits": int(got.error.max()),
@@ -1323,13 +1397,25 @@ def drain_setup(runner, prog):
     return s0, limit, drain
 
 
-def drain_megatick_row(runner, prog, label) -> dict:
+def _layout(runner) -> str:
+    """The fused megatick's layout of ``runner``: "tiled" or
+    "resident"."""
+    return "tiled" if runner.fused_tile == "on" else "resident"
+
+
+def drain_megatick_rows(runner, prog, label, graph="er",
+                        tiled=None) -> list:
     """One drain megatick (K=8) of ``runner``'s cell from the state after
     its storm phases: the kernel bit-equal to its plain version on the
-    same input, timed per launch, beside its bound."""
+    same input, timed per launch, beside its bound; with ``tiled`` (the
+    same cell's runner, forced tiled) a second row, the tiled
+    layout on the same input, held to the same plain result and timed
+    the same way. The bound counts the work's bytes, whatever layout runs
+    it."""
     import torch
 
     from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.kernels import megatick as km
 
     tk, own = runner.kernel, BatchedRunner._own
     s0, limit, drain = drain_setup(runner, prog)
@@ -1345,17 +1431,39 @@ def drain_megatick_row(runner, prog, label) -> dict:
     fired = int((got.fault_counts - s0.fault_counts).sum())
     ms = time_launch_ms(drain, lambda: own(s0))
     state_bytes = sum(t.numel() * t.element_size() for t in _leaves(s0))
-    del got, want, s0
+    del got
     E = runner.topo.e
-    return {"shape": f"[{runner.batch}] lanes of er-{runner.topo.n} "
-                     f"(E={E}, C={runner.config.queue_capacity}), one "
-                     f"{label} drain megatick K={MEGATICK} after "
-                     f"{len(prog.amounts)} phases, {lane_ticks} lane-ticks"
-                     + (f", {fired} fault events" if fired else ""),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "plain_timing": "K one-step calls, host clock",
-            "library_ms": None, "state_bytes": state_bytes,
-            "bytes_moved": moved, **bound(nbytes, ops)}
+    row = {"shape": f"[{runner.batch}] lanes of {graph}-{runner.topo.n} "
+                    f"(E={E}, C={runner.config.queue_capacity}), one "
+                    f"{label} drain megatick K={MEGATICK} after "
+                    f"{len(prog.amounts)} phases, {lane_ticks} lane-ticks"
+                    + (f", {fired} fault events" if fired else ""),
+           "layout": _layout(runner), "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms,
+           "plain_timing": "K one-step calls, host clock",
+           "library_ms": None, "state_bytes": state_bytes,
+           "bytes_moved": moved, **bound(nbytes, ops)}
+    if _layout(runner) == "tiled":
+        row["workspace_bytes"] = tk.fused_workspace.numel()
+    rows = [row]
+    if tiled is not None:
+        def tiled_drain(x):
+            return km.fused_ticks(tiled.kernel, x, mode="drain",
+                                  length=MEGATICK, limit=limit)
+
+        got = tiled_drain(own(s0))
+        err = max_abs_err(_leaves(got), _leaves(want))
+        bad = _mismatched(got, want)
+        if err or bad or tiled.fused_tile != "on":
+            raise AssertionError(f"tiled fused_scan != plain at the {label} "
+                                 f"drain megatick: {bad}")
+        del got
+        tiled_ms = time_launch_ms(tiled_drain, lambda: own(s0))
+        rows.append({**row, "layout": "tiled", "max_abs_err": err,
+                     "ms": tiled_ms, "tiled_over_resident": tiled_ms / ms,
+                     "workspace_bytes": tiled.kernel.fused_workspace.numel()})
+    del want, s0
+    return rows
 
 
 def fault_hash_check() -> list:
@@ -1409,51 +1517,82 @@ def fault_hash_check() -> list:
 
 
 def drain_timing(cell: str) -> int:
-    """``--drain-timing fault-free|faulted|wave|wave-faulted``: one drain
-    megatick (K=8) of that exact cell (through the wave step body for the
-    wave cells) from the state after its storm phases, timed over
+    """``--drain-timing fault-free|faulted|wave|wave-faulted|config5-wave``:
+    one drain megatick (K=8) of that exact cell (through the wave step
+    body for the wave cells; config 5's tiled wave lane for
+    ``config5-wave``) from the state after its storm phases, timed over
     ``DRAIN_LAUNCHES`` launches on fresh copies (``time_launch_ms``), and
     printed as one JSON line with the card's name and power limit."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
-    make = fault_runner if cell.endswith("faulted") else exact_runner
-    kw = {"exact_impl": "wave"} if cell.startswith("wave") else {}
-    runner, prog = make("cuda", megatick=MEGATICK, **kw)
+    if cell == "config5-wave":
+        runner, prog = config5_runner("cuda")
+    else:
+        make = fault_runner if cell.endswith("faulted") else exact_runner
+        kw = {"exact_impl": "wave"} if cell.startswith("wave") else {}
+        runner, prog = make("cuda", megatick=MEGATICK, **kw)
     s0, _, drain = drain_setup(runner, prog)
     ms = time_launch_ms(drain, lambda: BatchedRunner._own(s0),
                         reps=DRAIN_LAUNCHES)
     emit({"phase": "drain_timing", "cell": cell,
           "package": os.path.dirname(km.__file__),
           "launches": DRAIN_LAUNCHES, "ms_per_drain_megatick": ms,
+          "layout": getattr(runner, "fused_tile", "off"),
           "nvidia_smi": nvidia_smi()})
     return 0
 
 
-def phase_fused_kernel(runner, prog, frunner, fprog, wrunner,
-                       fwrunner) -> list:
+def phase_fused_kernel(runners, prog, fprog) -> list:
     """fused_scan at the exact cell's shape: one drain megatick (K=8)
     from the state after the cell's 32 storm phases, and the same for the
-    faulted cell, each through the cascade and the wave step body and
-    against its plain version on the same input; then the edge cases and
-    the fault-hash check. Returns the four rows for the summary line."""
-    rows = [drain_megatick_row(runner, prog, "fault-free"),
-            drain_megatick_row(frunner, fprog, "faulted"),
-            drain_megatick_row(wrunner, prog, "wave fault-free"),
-            drain_megatick_row(fwrunner, fprog, "wave faulted")]
+    faulted cell, each through the cascade and the wave step body, in the
+    resident layout and again tiled (forced) on the same
+    input, against its plain version; then the edge cases and the
+    fault-hash check. ``runners``: label -> (resident runner, tiled
+    runner), fault-free and faulted, cascade and wave. Returns the eight
+    rows for the summary line."""
+    rows = []
+    for label, (resident, tiled) in runners.items():
+        rows += drain_megatick_rows(
+            resident, fprog if label.endswith("faulted") else prog, label,
+            tiled=tiled)
     edge = fused_edge_cases()
     hashes = fault_hash_check()
     emit({"phase": "fused_kernel", "tolerance": "bit-equal (integer work)",
-          "storm_shape": rows[0], "faulted_storm_shape": rows[1],
-          "wave_storm_shape": rows[2], "wave_faulted_storm_shape": rows[3],
+          "storm_shape": rows[0], "storm_shape_tiled": rows[1],
+          "faulted_storm_shape": rows[2],
+          "faulted_storm_shape_tiled": rows[3],
+          "wave_storm_shape": rows[4], "wave_storm_shape_tiled": rows[5],
+          "wave_faulted_storm_shape": rows[6],
+          "wave_faulted_storm_shape_tiled": rows[7],
           "edge_cases": edge, "fault_hash": hashes})
     return rows
 
 
-def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
-    """A warm run (of ``warm_runner``/``warm_prog`` when given), then the
-    measured run of ``runner`` on ``prog`` with the launch counts zeroed
-    just before it. Returns (final state, measurements)."""
+def phase_tiled_edge_cases() -> None:
+    """``fused_edge_cases`` through the tiled layout (forced):
+    every case bit-equal to its plain version, and all four tiled
+    instantiations (cascade and wave, with and without the fault arm)
+    among them."""
+    t0 = time.perf_counter()
+    rows = fused_edge_cases(tiled=True)
+    arms = {(r["impl"], r["fault_arm"]) for r in rows
+            if r["layout"] == "tiled"}
+    emit({"phase": "tiled_edge_cases", "tolerance": "bit-equal (integer "
+          "work)", "cases": len(rows), "instantiations": sorted(arms),
+          "run_s": time.perf_counter() - t0, "edge_cases": rows})
+    if len(arms) != 4 or any(r["layout"] != "tiled" for r in rows):
+        raise AssertionError(f"tiled edge cases ran {sorted(arms)}")
+
+
+def _timed_storm(runner, prog, warm_runner=None, warm_prog=None,
+                 warm=True):
+    """A warm run (of ``warm_runner``/``warm_prog`` when given; none when
+    ``warm`` is false: the kernels it needs are built and loaded by an
+    earlier phase), then the measured run of ``runner`` on ``prog`` with
+    the launch counts zeroed just before it. Returns (final state,
+    measurements)."""
     import torch
 
     from chandy_lamport_tpu_torch.kernels import (
@@ -1462,14 +1601,13 @@ def _timed_storm(runner, prog, warm_runner=None, warm_prog=None):
     )
 
     t0 = time.perf_counter()
-    if warm_runner is None:
-        warm = runner.run_storm(runner.init_batch_device(), prog)
-    else:
-        warm = warm_runner.run_storm(warm_runner.init_batch_device(),
-                                     warm_prog, drain=False)
+    if warm and warm_runner is None:
+        runner.run_storm(runner.init_batch_device(), prog)
+    elif warm:
+        warm_runner.run_storm(warm_runner.init_batch_device(), warm_prog,
+                              drain=False)
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    del warm
+    warm_s = time.perf_counter() - t0 if warm else None
     state = runner.init_batch_device()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1500,7 +1638,9 @@ def _storm_meta(name, runner, prog, graph, snapshots) -> dict:
     return {"phase": name, "scheduler": runner.scheduler,
             "exact_impl": runner.kernel.exact_impl,
             "megatick": runner.megatick, "fused_tick": runner.fused,
-            "fused_reason": runner.fused_reason, "graph": graph,
+            "fused_reason": runner.fused_reason,
+            "fused_tile": runner.fused_tile,
+            "fused_tile_reason": runner.fused_tile_reason, "graph": graph,
             "nodes": runner.topo.n, "edges": runner.topo.e,
             "batch": runner.batch, "phases": len(prog.amounts),
             "snapshots": snapshots,
@@ -1519,35 +1659,56 @@ def _check_launches(name, launches, path_kernels, idle_kernels=()):
                              "must not run")
 
 
+def _storm_verdict(runner, final, snapshots, faulted) -> tuple:
+    """The validity checks of a storm's final state: conservation delta
+    0; no error bit (under the adversary: none but ERR_SNAPSHOT_TIMEOUT,
+    on quarantined lanes); every snapshot of every clean lane complete
+    (without the adversary: every lane's ``snapshots``). Returns (the
+    fields for the phase's line, the checks that failed)."""
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
+    from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
+
+    summary = BatchedRunner.summarize(final)
+    delta = int(conservation_delta(final, runner.config, runner.batch * int(
+        runner.topo.tokens0.sum())))
+    clean = final.error == 0
+    done = final.started & (final.completed >= runner.topo.n)
+    incomplete = int((final.started & ~done)[clean].sum())
+    out = {key: summary[key] for key in (
+        "error_bits", "errors_decoded", "snapshots_started",
+        "snapshots_completed", "fault_events", "fault_skew",
+        "snapshot_lifecycle")}
+    out.update(conservation_delta=delta,
+               quarantined_lanes=int((~clean).sum()),
+               incomplete_on_clean_lanes=incomplete)
+    bad = []
+    if delta:
+        bad.append(f"conservation delta {delta}")
+    if summary["error_bits"] & ~(ERR_SNAPSHOT_TIMEOUT if faulted else 0):
+        bad.append(f"error bits {summary['errors_decoded']}")
+    if incomplete:
+        bad.append(f"{incomplete} snapshots incomplete on lanes without "
+                   "error bits")
+    expected = runner.batch * snapshots
+    if not faulted and not (summary["snapshots_started"]
+                            == summary["snapshots_completed"] == expected):
+        bad.append(f"snapshots {summary['snapshots_started']} started, "
+                   f"{summary['snapshots_completed']} completed, "
+                   f"{expected} expected")
+    return out, bad
+
+
 def phase_storm(name, runner, prog, graph, snapshots, path_kernels):
     """A storm through the port's entry points: a warm run, then the
     measured run with launch counts zeroed just before it. Fails unless
     it is clean and every kernel of ``path_kernels`` launched. Returns
     (final state, measurements)."""
-    from chandy_lamport_tpu_torch import BatchedRunner
-    from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
-
     final, m = _timed_storm(runner, prog)
-    summary = BatchedRunner.summarize(final)
-    delta = int(conservation_delta(final, runner.config,
-                                   runner.batch * int(
-                                       runner.topo.tokens0.sum())))
-    emit({**_storm_meta(name, runner, prog, graph, snapshots), **m,
-          "error_bits": summary["error_bits"],
-          "snapshots_started": summary["snapshots_started"],
-          "snapshots_completed": summary["snapshots_completed"],
-          "conservation_delta": delta})
-    expected = runner.batch * snapshots
-    if summary["error_bits"]:
-        raise AssertionError(f"{name} error bits "
-                             f"{summary['errors_decoded']}")
-    if not (summary["snapshots_started"] == summary["snapshots_completed"]
-            == expected):
-        raise AssertionError(f"snapshots {summary['snapshots_started']} "
-                             f"started, {summary['snapshots_completed']} "
-                             f"completed, {expected} expected")
-    if delta != 0:
-        raise AssertionError(f"conservation delta {delta}")
+    out, bad = _storm_verdict(runner, final, snapshots, False)
+    emit({**_storm_meta(name, runner, prog, graph, snapshots), **m, **out})
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
     _check_launches(name, m["launches"], path_kernels)
     return final, m
 
@@ -1556,53 +1717,27 @@ def phase_fault_storm(name, runner, prog, path_kernels):
     """Main paths 3, 6 and 9, the faulted exact storm at megatick 1 and 8
     (module docstring): warm run at F_WARM_BATCH lanes over a few phases,
     timed run at B=4096. Returns (final state, measurements)."""
-    from chandy_lamport_tpu_torch import BatchedRunner
-    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
-    from chandy_lamport_tpu_torch.utils.metrics import conservation_delta
-
     warm_runner, _ = fault_runner("cuda", F_WARM_BATCH, runner.megatick,
                                   runner.kernel.exact_impl)
     final, m = _timed_storm(runner, prog, warm_runner,
                             (prog.amounts[:4], prog.snap[:4]))
     del warm_runner
-    summary = BatchedRunner.summarize(final)
-    delta = int(conservation_delta(final, runner.config,
-                                   runner.batch * int(
-                                       runner.topo.tokens0.sum())))
-    err = final.error
-    clean = err == 0
-    done = final.started & (final.completed >= runner.topo.n)
-    incomplete_clean = int((final.started & ~done)[clean].sum())
+    out, bad = _storm_verdict(runner, final, X_SNAPSHOTS, True)
+    clean = final.error == 0
     emit({**_storm_meta(name, runner, prog, "er", X_SNAPSHOTS),
           **m, "faults": runner.faults.describe(),
           "snapshot_timeout": runner.config.snapshot_timeout,
           "snapshot_retries": runner.config.snapshot_retries,
           "quarantine": runner.quarantine,
-          "error_bits": summary["error_bits"],
-          "errors_decoded": summary["errors_decoded"],
-          "quarantined_lanes": int((~clean).sum()),
           "max_clean_lane_ticks": (int(final.time[clean].max())
-                                   if bool(clean.any()) else 0),
-          "snapshots_started": summary["snapshots_started"],
-          "snapshots_completed": summary["snapshots_completed"],
-          "incomplete_on_clean_lanes": incomplete_clean,
-          "fault_events": summary["fault_events"],
-          "fault_skew": summary["fault_skew"],
-          "snapshot_lifecycle": summary["snapshot_lifecycle"],
-          "conservation_delta": delta})
-    fired = summary["fault_events"]
+                                   if bool(clean.any()) else 0), **out})
+    fired = out["fault_events"]
     if not all(v > 0 for v in fired.values()):
-        raise AssertionError(f"a fault class never fired: {fired}")
-    if summary["snapshot_lifecycle"]["retried"] <= 0:
-        raise AssertionError("the supervisor never retried")
-    if delta != 0:
-        raise AssertionError(f"conservation delta {delta}")
-    if summary["error_bits"] & ~ERR_SNAPSHOT_TIMEOUT:
-        raise AssertionError(f"{name} error bits "
-                             f"{summary['errors_decoded']}")
-    if incomplete_clean:
-        raise AssertionError(f"{incomplete_clean} snapshots incomplete on "
-                             "lanes without error bits")
+        bad.append(f"a fault class never fired: {fired}")
+    if out["snapshot_lifecycle"]["retried"] <= 0:
+        bad.append("the supervisor never retried")
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
     _check_launches(name, m["launches"], path_kernels,
                     idle_kernels=("queue_step",))
     return final, m
@@ -1622,6 +1757,113 @@ def _twin_check(name, final, m, twin_name, twin, twin_m) -> None:
           "run_s": {"wave": m["run_s"], "cascade": twin_m["run_s"]}})
     if bad:
         raise AssertionError(f"{name} differs from {twin_name} in {bad}")
+
+
+def phase_tiled_vs_resident(storms) -> dict:
+    """The ER-256 B=4096 storms of main paths 4, 8, 6 and 9 rerun in the
+    tiled layout (forced): every fused launch tiled, and each
+    final state leaf-equal to its resident twin's. ``storms``: name ->
+    (tiled runner, program, the resident final state, its measurements).
+    Returns the launch counts of each run, by path name."""
+    paths, out = {}, {}
+    for name, (runner, prog, twin, twin_m) in storms.items():
+        final, m = _timed_storm(runner, prog, warm=False)
+        bad = _mismatched(final, twin)
+        del final
+        fused = m["launches"]["fused_scan"]
+        tiled = m["launches"]["fused_scan_tiled"]
+        out[name] = {"mismatched": bad, "fused_tile": runner.fused_tile,
+                     "fused_scan_tiled": tiled, "fused_scan": fused,
+                     "run_s": {"tiled": m["run_s"],
+                               "resident": twin_m["run_s"]},
+                     "host_steps": m["fold_steps"],
+                     "workspace_bytes":
+                         runner.kernel.fused_workspace.numel()}
+        paths[f"tiled_{name}"] = m["launches"]
+        if bad or runner.fused_tile != "on" or not 0 < tiled == fused:
+            raise AssertionError(f"tiled {name}: {out[name]}")
+    emit({"phase": "tiled_vs_resident", "storms": out})
+    return paths
+
+
+def phase_sf2048_tiled_cascade_storm() -> dict:
+    """The oversized cascade lane: SF-2048 at S=8 (``T_*``), megatick 8,
+    tiled by "auto", fault-free and under ``T_PROGRAM``: each clean and
+    leaf-equal to the same storm at megatick 1. Returns the megatick-8
+    runs' launch counts, by path."""
+    from chandy_lamport_tpu_torch.models.faults import Faults
+
+    paths, out = {}, {}
+    for arm, kw in (("fault_free", {}),
+                    ("faulted", dict(faults=Faults(3, **T_PROGRAM)))):
+        runs = {}
+        for k in (MEGATICK, 1):
+            runner, prog = exact_runner("cuda", T_BATCH, T_NODES, T_PHASES,
+                                        T_SNAPSHOTS, graph="sf", megatick=k,
+                                        **kw)
+            final, m = _timed_storm(runner, prog, warm=False)
+            runs[k] = (runner, final, m)
+        runner, final, m = runs[MEGATICK]
+        _, twin, twin_m = runs[1]
+        bad = _mismatched(final, twin)
+        checks, failed = _storm_verdict(runner, final, T_SNAPSHOTS,
+                                        "faults" in kw)
+        del runs, twin
+        out[arm] = {**_storm_meta(arm, runner, prog, "sf", T_SNAPSHOTS),
+                    **m, **checks, "mismatched": bad,
+                    "workspace_bytes": runner.kernel.fused_workspace.numel(),
+                    "megatick1_twin": {key: twin_m[key] for key in (
+                        "run_s", "fold_steps", "drain_fold_steps",
+                        "node_ticks_per_s")}}
+        paths[f"sf2048_tiled_cascade_{arm}"] = m["launches"]
+        del final
+        if failed or bad or runner.fused_tile != "on" or \
+                m["launches"]["fused_scan_tiled"] <= 0:
+            emit({"phase": "sf2048_tiled_cascade_storm", **out})
+            raise AssertionError(f"sf2048_tiled_cascade_storm {arm}: tiled "
+                                 f"{runner.fused_tile}, launches "
+                                 f"{m['launches']}, mismatched {bad}, "
+                                 f"{failed}")
+    emit({"phase": "sf2048_tiled_cascade_storm", **out})
+    return paths
+
+
+def phase_config5_wave_fused_storm() -> tuple:
+    """Main path 10: config 5's exact wave storm at megatick 8 (``C5_*``,
+    ``config5_runner``), its lane tiled by "auto": clean, every snapshot
+    complete, every kernel of its path launched (fused_scan in the tiled
+    layout), and leaf-equal to the same storm at megatick 1; then one of
+    its drain megaticks against the plain version, timed, beside its
+    bound. Returns (the launch counts, the drain megatick's rows)."""
+    name = "config5_wave_fused_storm"
+    runner, prog = config5_runner("cuda")
+    if runner.fused_tile != "on":
+        raise AssertionError(f"{name} did not tile: "
+                             f"{runner.fused_tile_reason}")
+    final, m = _timed_storm(runner, prog, warm=False)
+    checks, failed = _storm_verdict(runner, final, C5_SNAPSHOTS, False)
+    workspace = runner.kernel.fused_workspace.numel()
+    twin_runner, _ = config5_runner("cuda", megatick=1)
+    twin, twin_m = _timed_storm(twin_runner, prog, warm=False)
+    bad = _mismatched(final, twin)
+    del final, twin, twin_runner
+    rows = drain_megatick_rows(runner, prog, "wave fault-free", graph="sf")
+    emit({**_storm_meta(name, runner, prog, "sf", C5_SNAPSHOTS), **m,
+          **checks, "main_path": True, "workspace_bytes": workspace,
+          "host_waves": m["fold_steps"],
+          "fused_scan_tiled_launches": m["launches"]["fused_scan_tiled"],
+          "megatick1_twin": {"mismatched": bad, **{
+              key: twin_m[key] for key in ("run_s", "fold_steps",
+                                           "drain_fold_steps",
+                                           "node_ticks_per_s")}},
+          "drain_megatick": rows[0]})
+    if failed or bad:
+        raise AssertionError(f"{name}: {failed}, differs from megatick 1 "
+                             f"in {bad}")
+    _check_launches(name, m["launches"], (
+        "fused_scan", "fused_scan_tiled", "queue_step", "append_rows",
+        "sum_by_perm", "sum_segments", "spread"))
+    return m["launches"], rows
 
 
 def phase_golden() -> dict:
@@ -1763,7 +2005,8 @@ def phase_cpu_vs_cuda() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--drain-timing",
-                    choices=("fault-free", "faulted", "wave", "wave-faulted"),
+                    choices=("fault-free", "faulted", "wave", "wave-faulted",
+                             "config5-wave"),
                     help="only time one drain megatick of that exact cell")
     ap.add_argument("--package-root",
                     help="with --drain-timing: import the package from "
@@ -1808,16 +2051,34 @@ def main(argv=None) -> int:
     wrunner, _ = exact_runner("cuda", exact_impl="wave")
     w8runner, _ = exact_runner("cuda", megatick=MEGATICK, exact_impl="wave")
     fw8runner, _ = fault_runner("cuda", megatick=MEGATICK, exact_impl="wave")
+    # the same megatick-8 cells in the tiled layout
+    tiled = {"fused_storm": exact_runner("cuda", megatick=MEGATICK,
+                                         tiled=True)[0],
+             "wave_fused_storm": exact_runner(
+                 "cuda", megatick=MEGATICK, exact_impl="wave",
+                 tiled=True)[0],
+             "fault_fused_storm": fault_runner("cuda", megatick=MEGATICK,
+                                               tiled=True)[0],
+             "fault_wave_fused_storm": fault_runner(
+                 "cuda", megatick=MEGATICK, exact_impl="wave",
+                 tiled=True)[0]}
     rows, all_rows = phase_kernels(runner, prog, xrunner, xprog, frunner,
                                    fprog, wrunner)
-    rows["fused_scan"] = phase_fused_kernel(mrunner, mprog, f8runner,
-                                            f8prog, w8runner, fw8runner)
+    rows["fused_scan"] = phase_fused_kernel(
+        {"fault-free": (mrunner, tiled["fused_storm"]),
+         "faulted": (f8runner, tiled["fault_fused_storm"]),
+         "wave fault-free": (w8runner, tiled["wave_fused_storm"]),
+         "wave faulted": (fw8runner, tiled["fault_wave_fused_storm"])},
+        mprog, f8prog)
+    phase_tiled_edge_cases()
     # each main path runs with the launch counts zeroed just before it
     _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
                        ("sum_by_perm", "sum_segments", "spread",
                         "head_fields", "append_rows"))
     paths = {"sync_storm": m["launches"]}
     del runner
+    # the resident megatick-8 storms' finals, for their tiled twins
+    resident = {}
     exact_final, exact_m = phase_storm(
         "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
         ("queue_step", "append_rows", "sum_by_perm", "sum_segments"))
@@ -1828,6 +2089,7 @@ def main(argv=None) -> int:
         ("fused_scan", "queue_step", "append_rows", "sum_by_perm",
          "sum_segments"))
     paths["fused_storm"] = m["launches"]
+    resident["fused_storm"] = (mprog, fused_final, m)
     bad = _mismatched(fused_final, exact_final)
     emit({"phase": "fused_storm_vs_exact_storm",
           "leaves": len(exact_final._fields), "mismatched": bad,
@@ -1851,10 +2113,11 @@ def main(argv=None) -> int:
         final, wm = phase_storm(name, wr, xprog, "er", X_SNAPSHOTS, kernels)
         paths[name] = wm["launches"]
         _twin_check(name, final, wm, twin_name, twin, twin_m)
-        if name == "wave_fused_storm" and wm["launches"]["queue_step"] \
-                != X_PHASES:
-            raise AssertionError("wave_fused_storm ran queue_step outside "
-                                 "its storm phases")
+        if name == "wave_fused_storm":
+            if wm["launches"]["queue_step"] != X_PHASES:
+                raise AssertionError("wave_fused_storm ran queue_step "
+                                     "outside its storm phases")
+            resident[name] = (xprog, final, wm)
         del final
     del wrunner, w8runner, exact_final, fused_final
     fault_kernels = ("select_pop", "head_fields", "spread", "append_rows",
@@ -1867,6 +2130,7 @@ def main(argv=None) -> int:
                                        f8prog, ("fused_scan",)
                                        + fault_kernels)
     paths["fault_fused_storm"] = m["launches"]
+    resident["fault_fused_storm"] = (f8prog, fused_final, m)
     bad = _mismatched(fused_final, fault_final)
     emit({"phase": "fault_fused_storm_vs_fault_storm",
           "leaves": len(fault_final._fields), "mismatched": bad,
@@ -1889,7 +2153,16 @@ def main(argv=None) -> int:
     if wm["drain_fold_steps"] != 0:
         raise AssertionError("fault_wave_fused_storm stepped on the host in "
                              "its drain or flush")
+    resident["fault_wave_fused_storm"] = (f8prog, final, wm)
     del fw8runner, final, fused_final
+    paths.update(phase_tiled_vs_resident(
+        {name: (tiled[name], p, final, m)
+         for name, (p, final, m) in resident.items()}))
+    del resident, tiled
+    paths.update(phase_sf2048_tiled_cascade_storm())
+    paths["config5_wave_fused_storm"], c5_rows = \
+        phase_config5_wave_fused_storm()
+    rows["fused_scan"] += c5_rows
     paths["golden"] = phase_golden()
     phase_cpu_vs_cuda()
 
@@ -1915,8 +2188,10 @@ def main(argv=None) -> int:
                 "library_ms")} for r in all_rows[name]]
         if name == "fused_scan":
             entry["shapes"] = [{key: r[key] for key in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                "shape", "layout", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for r in rows[name]]
+            entry["launches_tiled"] = sum(
+                counts["fused_scan_tiled"] for counts in paths.values())
         if timed:
             entry.update({key: row[key] for key in SPLIT_KEYS})
             entry["shapes"] = [{key: r[key] for key in (

@@ -12,7 +12,12 @@ must equal megatick 1, with the fault arm too (the adversary and the
 supervisor inside the kernel; its device fault hash equals the plain
 planes), and with the wave step body (``exact_impl="wave"``, fault-free
 and faulted) on its edge cases: a marker pile-up, a broadcast into a
-full ring, a hash counter wrapping inside a tick. The segment sums
+full ring, a hash counter wrapping inside a tick; and in the tiled
+layout (the planes in a device-memory workspace): all
+four instantiations on a forced-tiled ER-64 lane equal the plain form
+and the resident layout, an SF-2048 storm past a block's shared memory
+tiles and equals megatick 1, and a workspace left full of 0xFF is never
+read. The segment sums
 (rows 1-2) take two paths, staged and tiled (``segment_plan``); each, on
 both dtypes, with and without perm, must equal the plain version, and
 every C entry point must load. Run on a GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -375,9 +380,12 @@ def _leaves_equal(a, b):
 
 
 def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None,
-            exact_impl="cascade"):
+            exact_impl="cascade", tiled=False):
     """A megatick-8 exact runner on the card (with ``faults`` armed, if
-    given; the wave step body for ``exact_impl="wave"``) and a small state
+    given; the wave step body for ``exact_impl="wave"``; with ``tiled``
+    the tiled layout forced on a lane that fits a block: the port picks
+    the layout from the working set alone, and ``fused_ticks`` reads the
+    kernel's ``fused_tile``) and a small state
     with traffic and snapshots in flight, built by the scalar injectors
     (every sampler has them): per round a 1-token send on every third
     edge, a snapshot at node ``round % N`` on every other lane, one
@@ -386,6 +394,8 @@ def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None,
                            device=dev, quarantine=quarantine, megatick=8,
                            faults=faults, exact_impl=exact_impl)
     tk = runner.kernel
+    if tiled:
+        tk.fused_tile = "on"
     s = runner.init_batch_device()
     lanes = torch.arange(4, device=dev)
     for r in range(min(3, cfg.max_snapshots)):
@@ -402,9 +412,12 @@ def _fused_equals_plain(runner, s, mode, length, **lanes):
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
     tk = runner.kernel
-    before = launch_counts()["fused_scan"]
+    before = launch_counts()
     got = km.fused_ticks(tk, _own(s), mode=mode, length=length, **lanes)
-    assert launch_counts()["fused_scan"] == before + 1
+    after = launch_counts()
+    assert after["fused_scan"] == before["fused_scan"] + 1
+    assert after["fused_scan_tiled"] == before["fused_scan_tiled"] + (
+        tk.fused_tile == "on")
     want = km.fused_ticks_plain(tk, _own(s), mode=mode, length=length,
                                 **lanes)
     _leaves_equal(got, want)
@@ -697,3 +710,102 @@ def test_wave_storm_on_the_card(dev, faulted):
             assert after["spread"] > before["spread"]
     for other in finals[1:]:
         _leaves_equal(finals[0], other)
+
+
+# ---- the tiled layout of the fused megatick --------------------------------
+
+TILED_ARMS = {
+    # the four tiled instantiations: (exact_impl, adversary, supervisor)
+    "cascade": ("cascade", None, {}),
+    "cascade, faulted": ("cascade", FAULT_ARMS["pause crashes, every "
+                                               "class"][0],
+                         dict(snapshot_timeout=8)),
+    "wave": ("wave", None, {}),
+    "wave, faulted": ("wave", FAULT_ARMS["pause crashes, every class"][0],
+                      dict(snapshot_timeout=8)),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(TILED_ARMS))
+def test_forced_tiled_er64_equals_plain_and_resident(dev, arm):
+    """The tiled layout forced on an ER-64 lane that fits a block: the
+    three step bodies from a loaded state equal the plain form and the
+    resident layout leaf for leaf, each launch counted as tiled."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+
+    impl, fkw, sup = TILED_ARMS[arm]
+    spec = erdos_renyi(64, 3.0, seed=3, tokens=40)
+    cfg = SimConfig.for_workload(snapshots=8, **sup)
+    faults = Faults(3, **fkw) if fkw else None
+    runner, s = _loaded(dev, spec, cfg, HashDelay(5), quarantine=bool(fkw),
+                        faults=faults, exact_impl=impl, tiled=True)
+    resident, _ = _loaded(dev, spec, cfg, HashDelay(5), quarantine=bool(fkw),
+                          faults=faults, exact_impl=impl)
+    assert (runner.fused_tile, resident.fused_tile) == ("on", "off")
+    live = ~runner.kernel._halted(s)
+    live[1] = False
+    for mode, length, kw in (("ticks", 24, {"live": live}),
+                             ("drain", 8, {"limit": s.time + 7}),
+                             ("flush", runner.config.max_delay + 1, {})):
+        got = _fused_equals_plain(runner, s, mode, length, **kw)
+        _leaves_equal(got, km.fused_ticks(resident.kernel, _own(s),
+                                          mode=mode, length=length, **kw))
+
+
+def test_tiled_sf2048_storm_equals_megatick_1(dev):
+    """An SF-2048 lane at S=8 (386,960 B, past a block's shared memory)
+    tiles under "auto": a 4-lane storm at megatick 8 launches the tiled
+    arm and equals megatick 1 on the card; one drain megatick from its
+    phases equals the plain form."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    spec = scale_free(2048, 2, seed=3, tokens=16)
+    finals = []
+    for k in (8, 1):
+        # 2 snapshots keep S at for_workload's floor of 8 and the
+        # megatick-1 twin's host fold steps few
+        runner = BatchedRunner(spec, SimConfig.for_workload(snapshots=2),
+                               HashDelay(5), 4, scheduler="exact",
+                               device=dev, megatick=k)
+        prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
+            runner.topo, 2, 1, 1, max_phases=6))
+        before = launch_counts()["fused_scan_tiled"]
+        finals.append(runner.run_storm(runner.init_batch_device(), prog))
+        assert (launch_counts()["fused_scan_tiled"] > before) == (k == 8)
+        if k == 8:
+            assert runner.fused_tile == "on"
+            s = runner.run_storm(runner.init_batch_device(), prog,
+                                 drain=False)
+            _fused_equals_plain(runner, s, "drain", 8,
+                                limit=s.time + runner.config.max_ticks)
+            assert km.fused_smem_bytes(runner.topo.n, runner.topo.e, 8) \
+                > km.SMEM_BUDGET
+    _leaves_equal(finals[0], finals[1])
+    assert int(finals[0].error.max()) == 0
+
+
+def test_tiled_workspace_left_dirty_is_never_read(dev):
+    """Two launches on a workspace filled with 0xFF end where two launches
+    on a zeroed one do: every plane is loaded before it is read."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    for impl, fkw in (("cascade", None), ("wave", TILED_ARMS["wave, "
+                                                             "faulted"][1])):
+        runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(
+            snapshots=8, snapshot_timeout=8), HashDelay(5),
+            quarantine=True, faults=Faults(3, **fkw) if fkw else None,
+            exact_impl=impl, tiled=True)
+        tk = runner.kernel
+        ends = []
+        for fill in (0x00, 0xFF):
+            x = _own(s)
+            for _ in range(2):
+                share = km.fused_smem_bytes(
+                    runner.topo.n, runner.topo.e, 8,
+                    fault_arm=km.fault_arm(tk), wave=km.wave_arm(tk))
+                km.fused_workspace(tk, 4 * share, x.time.device).fill_(fill)
+                x = km.fused_ticks(tk, x, mode="ticks", length=8,
+                                   live=~tk._halted(x))
+            ends.append(x)
+        _leaves_equal(*ends)

@@ -3,10 +3,12 @@ for leaf, on the CPU.
 
 The JAX side runs ``fused_tick="on"`` with ``kernel_engine="pallas"``: its
 ``fused_scan`` kernel in interpret mode, as ``tests/test_megatick_fused.py``
-runs it. The port side runs the same steps through ``fused_ticks_plain``
+runs it, in its resident layout and, for the 10-node differentials, also in
+its tiled one (``fused_tile="on"``, the ``[E, C]`` rings streamed in 5-edge
+blocks, as ``tests/test_megatick_tiled.py`` runs it). The port side runs the same steps through ``fused_ticks_plain``
 (on the CPU the megaticks take the plain form: "CPU: the plain form"; the
-CUDA kernel is held to that plain form on the card, tests/test_torch_cuda.py
-and chip_smoke.py). Every ``DenseState`` leaf — rings, windows, log, the
+CUDA kernel, in both of its layouts, is held to that plain form only on the
+card, by tests/test_torch_cuda.py and chip_smoke.py). Every ``DenseState`` leaf — rings, windows, log, the
 delay stream's position, error bits — must be equal in value and dtype.
 Tolerance: none (integer state). Each JAX interpret-mode compile is shared
 by the cases of a module-scoped fixture.
@@ -24,6 +26,7 @@ from chandy_lamport_tpu.core.dense import DenseSim as JaxDenseSim
 from chandy_lamport_tpu.core.state import DenseTopology as JaxTopology
 from chandy_lamport_tpu.core.state import init_state as jax_init_state
 from chandy_lamport_tpu.models import workloads as jax_workloads
+from chandy_lamport_tpu.models.faults import JaxFaults
 from chandy_lamport_tpu.models.delay import GoExactDelay as HostGoExact
 from chandy_lamport_tpu.ops.delay_jax import HashJaxDelay
 from chandy_lamport_tpu.ops.tick import TickKernel as JaxTickKernel
@@ -82,28 +85,46 @@ def _unlane(state, delay):
                         else leaf[0] for leaf in host))
 
 
-@pytest.fixture(scope="module")
-def pair10():
-    """The JAX fused kernel of tests/test_megatick_fused.py (K=4, cascade,
-    pallas, fused on, 5-edge blocks) on the strongly connected 10-node
-    graph with HashDelay(7), the port's K=4 tick kernel on the same graph,
-    and a loaded state: 2 tokens on every third edge, one snapshot."""
+def _pair10(layout, extra=None, impl="cascade", fkw=None):
+    """The JAX fused kernel of tests/test_megatick_fused.py (K=4, pallas,
+    fused on, 5-edge blocks; ``layout`` "tiled" adds ``fused_tile="on"``)
+    on the strongly connected 10-node graph with HashDelay(7) (with the
+    supervisor knobs ``extra``, the ``impl`` tick and the adversary
+    ``fkw``, quarantined), the port's K=4 tick kernel on the same graph,
+    and a loaded state: 2 tokens on every third edge, one snapshot at node
+    0, whose broadcast appends markers across every 5-edge ring-block
+    seam of the tiled layout."""
     spec = random_strongly_connected(random.Random(11), 10)
     topo = JaxTopology(spec)
-    jcfg = JaxSimConfig(**CFG10)
+    jcfg = JaxSimConfig(**CFG10, **(extra or {}))
     jdelay = HashJaxDelay(seed=7)
-    fused = JaxTickKernel(topo, jcfg, jdelay, exact_impl="cascade",
+    jfaults = JaxFaults(seed=3, **fkw) if fkw else None
+    tile = {"fused_tile": "on"} if layout == "tiled" else {}
+    fused = JaxTickKernel(topo, jcfg, jdelay, exact_impl=impl,
                           megatick=K, kernel_engine="pallas",
-                          fused_tick="on", fused_block_edges=5)
+                          fused_tick="on", fused_block_edges=5,
+                          faults=jfaults, quarantine=fkw is not None, **tile)
     assert fused.fused == "on"
-    s = jax_init_state(topo, jcfg, jdelay.init_state())
+    assert fused.fused_tile == ("on" if tile else "off")
+    s = jax_init_state(topo, jcfg, jdelay.init_state(),
+                       fault_key=int(jfaults.init_state()) if fkw else 0)
     for e in range(0, topo.e, 3):
         s = fused.inject_send(s, np.int32(e), np.int32(2))
     s = fused.inject_snapshot(s, np.int32(0))
     delay = HashDelay(7)
     port = TickKernel(DenseTopology(TopologySpec(spec.nodes, spec.links)),
-                      SimConfig(**CFG10), delay, "cpu", megatick=K)
+                      SimConfig(**CFG10, **(extra or {})), delay, "cpu",
+                      megatick=K, exact_impl=impl,
+                      faults=Faults(3, **fkw) if fkw else None,
+                      quarantine=fkw is not None)
     return fused, port, delay, jax.device_get(s)
+
+
+@pytest.fixture(scope="module", params=["resident", "tiled"])
+def pair10(request):
+    """``_pair10`` in each JAX layout: the cascade with markers crossing
+    the ring-block seams."""
+    return _pair10(request.param)
 
 
 @pytest.mark.parametrize("n", [7, 9, 40], ids=["rem3", "rem1", "quiescent"])
@@ -128,6 +149,31 @@ def test_drain_and_flush_matches_jax_fused(pair10):
     _assert_leaves_equal(want, _unlane(got, delay))
     assert int(np.asarray(want.completed)[0]) == 10
     assert int(want.error) == 0
+
+
+ARMS10 = {
+    # name: (supervisor knobs, exact_impl, adversary)
+    "cascade, supervised": (dict(snapshot_timeout=5, snapshot_retries=2),
+                            "cascade", None),
+    "wave, faulted": (None, "wave", dict(drop_rate=0.25, dup_rate=0.25)),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(ARMS10))
+def test_arms_match_jax_tiled(arm):
+    """The supervised cascade and the faulted wave against the JAX tiled
+    fused megatick (its resident layout is held equal to the tiled one by
+    tests/test_megatick_tiled.py): ``_run_ticks`` for 9 ticks (a remainder
+    of 1, then megaticks), and the drain and flush, leaves equal."""
+    extra, impl, fkw = ARMS10[arm]
+    fused, port, delay, s = _pair10("tiled", extra, impl, fkw)
+    want = jax.device_get(fused.run_ticks(s, np.int32(9)))
+    _assert_leaves_equal(want, _unlane(port._run_ticks(_lane(s), 9), delay))
+    want = jax.device_get(fused.drain_and_flush(s))
+    _assert_leaves_equal(want, _unlane(port._drain_and_flush(_lane(s)),
+                                       delay))
+    if fkw:
+        assert int(np.asarray(want.fault_counts).sum()) > 0
 
 
 @pytest.fixture(scope="module")
@@ -212,26 +258,28 @@ def test_all_goldens_through_the_default():
 
 
 def test_resolution_on_names_every_unmet_requirement():
-    """The card launches the kernel or refuses, naming what it lacks: a
-    lane over a block's shared memory raises NotImplementedError (ROADMAP
-    A4c, the tiled kernel), whatever else holds; there is no plain form
-    on the card. Megatick 1 and the CPU resolve "off" with their
-    reasons."""
+    """The card launches the kernel, in the layout its lane's working set
+    allows, and names why: a lane that fits a block's shared memory stays
+    resident, one past it takes the tiled layout (a device-memory
+    workspace), as the JAX ``fused_tile="auto"`` does; there is no plain
+    form on the card and no refusal. Megatick 1 and the CPU resolve "off"
+    with their reasons, and so does their layout."""
     cuda = torch.device("cuda")
-    assert km.resolve_fused(megatick=8, device=cuda, smem_bytes=48_480) == (
-        "on", "fused megatick engaged")
-    with pytest.raises(NotImplementedError) as info:
-        km.resolve_fused(megatick=8, device=cuda,
-                         smem_bytes=km.SMEM_BUDGET + 16)
-    for word in (str(km.SMEM_BUDGET + 16), "shared memory", "A4c",
-                 "megatick=1"):
-        assert word in str(info.value), word
-    state, why = km.resolve_fused(megatick=1, device=cuda,
-                                  smem_bytes=km.SMEM_BUDGET + 16)
-    assert state == "off" and "megatick=1" in why
+    fused, why, tile, tile_why = km.resolve_fused(megatick=8, device=cuda,
+                                                  smem_bytes=48_480)
+    assert (fused, why, tile) == ("on", "fused megatick engaged", "off")
+    assert "48480" in tile_why and "resident" in tile_why
+    fused, _, tile, why = km.resolve_fused(megatick=8, device=cuda,
+                                           smem_bytes=km.SMEM_BUDGET + 16)
+    assert (fused, tile) == ("on", "on")
+    for word in (str(km.SMEM_BUDGET + 16), "shared memory", "workspace"):
+        assert word in why, word
+    state, why, tile, _ = km.resolve_fused(megatick=1, device=cuda,
+                                           smem_bytes=km.SMEM_BUDGET + 16)
+    assert state == "off" and "megatick=1" in why and tile == "off"
     assert km.resolve_fused(megatick=8, device=torch.device("cpu"),
-                            smem_bytes=km.SMEM_BUDGET + 16) == (
-        "off", "CPU: the plain form")
+                            smem_bytes=km.SMEM_BUDGET + 16)[:3] == (
+        "off", "CPU: the plain form", "off")
     # the ER-256 lane's working set fits a block (48,480 B)
     assert km.fused_smem_bytes(256, 768, 8) == 48_480
 
@@ -269,10 +317,20 @@ def test_megatick_runs_faults_and_supervisor(arm):
 
 def test_card_megatick_launches_or_raises():
     """A tick kernel for the card at megatick > 1 whose lane does not fit
-    a block's shared memory raises at construction (ROADMAP A4c) instead
-    of taking the plain form on the card."""
+    a block's shared memory resolves to the tiled layout, never to the
+    plain form: on a machine with a card it is built tiled, and without
+    one its construction raises instead of running on the CPU."""
     topo = DenseTopology(workloads.ring_topology(2000))
-    assert km.fused_smem_bytes(topo.n, topo.e, 16) > km.SMEM_BUDGET
-    with pytest.raises(NotImplementedError, match="A4c"):
-        TickKernel(topo, SimConfig(max_snapshots=16), HashDelay(1), "cuda",
-                   megatick=8)
+    smem = km.fused_smem_bytes(topo.n, topo.e, 16)
+    assert smem > km.SMEM_BUDGET
+    fused, _, tile, why = km.resolve_fused(
+        megatick=8, device=torch.device("cuda"), smem_bytes=smem)
+    assert (fused, tile) == ("on", "on") and "workspace" in why
+    if torch.cuda.is_available():
+        tk = TickKernel(topo, SimConfig(max_snapshots=16), HashDelay(1),
+                        "cuda", megatick=8)
+        assert (tk.fused, tk.fused_tile) == ("on", "on")
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            TickKernel(topo, SimConfig(max_snapshots=16), HashDelay(1),
+                       "cuda", megatick=8)
