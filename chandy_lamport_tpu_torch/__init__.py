@@ -5,8 +5,10 @@ dense encoding (``core/state.py``), the same sync and exact (cascade)
 ticks (``ops/tick.py``) over an explicit lane axis (``parallel/batch.py``),
 the exact scheduler's fault adversary (``models/faults.py``), snapshot
 supervisor and quarantine,
-the single-instance golden driver (``core/dense.py``, ``api.py``), and the
-Pallas kernels of those paths hand-written in CUDA C++ (``kernels/csrc``).
+the single-instance golden runner (``core/dense.py``, ``api.py``),
+compiled event scripts and the streaming job engine
+(``BatchedRunner.run``, ``run_stream``), and the Pallas kernels of those
+paths hand-written in CUDA C++ (``kernels/csrc``).
 It imports neither jax nor chandy_lamport_tpu.
 
 Entry points run on the card unless the caller passes ``device="cpu"``::
@@ -17,8 +19,10 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
 
     snaps, sim = run_events_file("x.top", "x.events")   # Go-exact delays
 
-The bench: ``python -m chandy_lamport_tpu_torch storm``; the 7 reference
-goldens: ``python -m chandy_lamport_tpu_torch test``.
+The bench: ``python -m chandy_lamport_tpu_torch storm`` (``--stream`` for
+the streaming row); a job stream: ``python -m chandy_lamport_tpu_torch
+stream``; the 7 reference goldens: ``python -m chandy_lamport_tpu_torch
+test``.
 """
 
 from chandy_lamport_tpu_torch.api import run_events_file

@@ -1,14 +1,20 @@
 """Command line of the port.
 
     python -m chandy_lamport_tpu_torch storm [flags]   the storm bench
-                                                       (bench.py)
+                                                       (bench.py; --stream
+                                                       for the stream row)
+    python -m chandy_lamport_tpu_torch stream [flags]  a streaming run: a
+                                                       job queue over B
+                                                       lane slots
     python -m chandy_lamport_tpu_torch test [--device cpu]
                                                        the 7 reference goldens
                                                        (DenseSim, megatick 8)
 """
 
 import argparse
+import json
 import sys
+import time
 
 import torch
 
@@ -37,11 +43,144 @@ def golden_test(argv) -> int:
     return 1 if failures else 0
 
 
-COMMANDS = {"storm": storm_main, "test": golden_test}
+def _stream_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's ``stream`` flags (``cli.py:753-855``) less the memo
+    plane, checkpoints, the flight recorder, guards and telemetry, plus
+    ``--device``."""
+    pq = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
+                                      "stream")
+    pq.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
+    pq.add_argument("--nodes", type=int, default=256)
+    pq.add_argument("--batch", type=int, default=64,
+                    help="lane slots B (device batch width)")
+    pq.add_argument("--jobs", type=int, default=0,
+                    help="queued jobs J (0 = 3x batch)")
+    pq.add_argument("--base-phases", type=int, default=4,
+                    help="heavy-tailed job lengths: Pareto(base, alpha) "
+                         "phases per job (models/workloads.stream_jobs)")
+    pq.add_argument("--tail-alpha", type=float, default=1.1)
+    pq.add_argument("--max-phases", type=int, default=32)
+    pq.add_argument("--dup-rate", type=float, default=0.0, metavar="R",
+                    help="fraction of the queue that repeats a Zipf-drawn "
+                         "library job byte for byte (stream_jobs)")
+    pq.add_argument("--prefix-overlap", type=float, default=0.0,
+                    metavar="R",
+                    help="fraction of the queue that extends a shared base "
+                         "job with a unique tail (stream_jobs)")
+    pq.add_argument("--snapshots", type=int, default=8)
+    pq.add_argument("--scheduler", choices=["sync", "exact"], default="sync")
+    pq.add_argument("--kernel-engine", choices=["auto", "xla", "pallas"],
+                    default="auto",
+                    help="the JAX tick-kernel engine knob; the port has one "
+                         "engine (its CUDA kernels on the card, their plain "
+                         "versions on the CPU), so every choice runs it")
+    pq.add_argument("--fused-tick", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="the JAX one-kernel megatick knob; this command "
+                         "runs megatick 1, where no megatick is fused, so "
+                         "every choice runs the same")
+    pq.add_argument("--seed", type=int, default=0)
+    pq.add_argument("--delay", choices=["uniform", "hash"], default="hash",
+                    help="'uniform' is not ported yet")
+    pq.add_argument("--admission", choices=["stream", "gang"],
+                    default="stream",
+                    help="'stream' refills a slot the moment its job "
+                         "retires; 'gang' waits for every slot to idle "
+                         "(the static-batching baseline)")
+    pq.add_argument("--stretch", type=int, default=4,
+                    help="script phases advanced per stream step")
+    pq.add_argument("--drain-chunk", type=int, default=32,
+                    help="drain ticks per stream step for draining lanes")
+    pq.add_argument("--fault-drop", type=float, default=0.0, metavar="R",
+                    help="fault adversary: per-(edge, tick) token-drop "
+                         "probability, armed per job (--scheduler exact; "
+                         "the sync scheduler refuses faults)")
+    pq.add_argument("--fault-dup", type=float, default=0.0, metavar="R")
+    pq.add_argument("--fault-jitter", type=float, default=0.0, metavar="R")
+    pq.add_argument("--fault-seed", type=int, default=None,
+                    help="adversary stream seed (default: --seed)")
+    pq.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "plain versions)")
+    return pq
+
+
+def stream_run(argv) -> int:
+    """The JAX CLI's ``stream`` (``cli.py:317-439``) on the port: pack a
+    ``stream_jobs`` queue, drive it through ``run_stream`` and print one
+    JSON row (``summarize_stream``'s counters, the wall time, jobs/s and
+    the errored jobs). Exit 1 when a job erred without an adversary."""
+    from chandy_lamport_tpu_torch.config import SimConfig
+    from chandy_lamport_tpu_torch.models.faults import Faults
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        ring_topology,
+        scale_free,
+        stream_jobs,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
+    from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+
+    args = _stream_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    tokens = args.max_phases + 10
+    spec = {"ring": lambda: ring_topology(args.nodes, tokens=tokens),
+            "er": lambda: erdos_renyi(args.nodes, 3.0, args.seed,
+                                      tokens=tokens),
+            "sf": lambda: scale_free(args.nodes, 2, args.seed,
+                                     tokens=tokens)}[args.graph]()
+    cfg = SimConfig.for_workload(snapshots=args.snapshots,
+                                 split_markers=args.scheduler == "sync")
+    faults = None
+    if any((args.fault_drop, args.fault_dup, args.fault_jitter)):
+        faults = Faults(
+            args.fault_seed if args.fault_seed is not None else args.seed,
+            drop_rate=args.fault_drop, dup_rate=args.fault_dup,
+            jitter_rate=args.fault_jitter)
+    runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, args.seed),
+                           batch=args.batch, scheduler=args.scheduler,
+                           device=device, faults=faults,
+                           quarantine=faults is not None)
+    jcount = args.jobs or 3 * args.batch
+    jobs = stream_jobs(spec, jcount, seed=args.seed,
+                       base_phases=args.base_phases,
+                       tail_alpha=args.tail_alpha,
+                       max_phases=args.max_phases, dup_rate=args.dup_rate,
+                       prefix_overlap=args.prefix_overlap)
+    pool = runner.pack_jobs(jobs)
+    t0 = time.perf_counter()
+    state, stream = runner.run_stream(
+        pool, stretch=args.stretch, drain_chunk=args.drain_chunk,
+        admission=args.admission)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    done = int(stream.jobs_done)
+    results = runner.stream_results(stream)
+    row = runner.summarize_stream(stream)
+    row.update({"graph": args.graph, "nodes": runner.topo.n,
+                "batch": args.batch, "jobs": jcount,
+                "admission": args.admission, "scheduler": args.scheduler,
+                "memo": "off", "dup_rate": args.dup_rate,
+                "prefix_overlap": args.prefix_overlap,
+                "wall_seconds": round(wall, 3),
+                "jobs_per_sec": round(done / wall, 2) if wall > 0 else 0.0,
+                "effective_jobs_per_sec":
+                    round(len(results) / wall, 2) if wall > 0 else 0.0})
+    errored = [r for r in results if r["error"]]
+    row["jobs_errored"] = len(errored)
+    if errored:
+        row["job_errors"] = {r["job"]: r["errors_decoded"]
+                             for r in errored[:16]}
+    print(json.dumps(row))
+    return 0 if (faults is not None or not errored) else 1
+
+
+COMMANDS = {"storm": storm_main, "stream": stream_run, "test": golden_test}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
     if not args or args[0] not in COMMANDS:
-        sys.exit("usage: python -m chandy_lamport_tpu_torch {storm,test} "
-                 "[flags] (see <command> --help)")
+        sys.exit("usage: python -m chandy_lamport_tpu_torch "
+                 "{storm,stream,test} [flags] (see <command> --help)")
     sys.exit(COMMANDS[args[0]](args[1:]))

@@ -26,6 +26,19 @@ every snapshot of a clean lane completed (the JAX rule, ``cli.py:309-314``).
 They combine with ``--megatick K``: the faulted, supervised drain and
 flush then run through the fused megatick too (the row's ``fused_tick``
 says "on" on the card).
+
+``--stream`` measures the streaming job engine instead (the JAX bench's
+``--stream`` row, ``bench.py:871``): a heavy-tailed queue of ``--jobs``
+jobs (``stream_jobs(seed=17, base_phases=4, tail_alpha=1.1,
+max_phases=max(--phases, 8))``) driven through the ``--batch`` lane slots
+by ``BatchedRunner.run_stream``, once with continuous admission and once
+with gang admission (the static-batching baseline on the same engine).
+One warm drive of each doubles as the check that every job retired with
+no error bit; then ``--repeats`` timed drives of each, and one row:
+``stream_jobs_per_sec``, ``jobs_per_sec_gang``, ``speedup_vs_static``,
+occupancy, refills and steps of both, and the host fold steps of the
+exact tick. At ``--megatick`` K > 1 on the exact scheduler the drain
+slices and flush passes run through the fused megatick kernel.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from chandy_lamport_tpu_torch.models.workloads import (
     scale_free,
     staggered_snapshots,
     storm_program,
+    stream_jobs,
 )
 from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
 from chandy_lamport_tpu_torch.parallel.batch import (
@@ -122,6 +136,27 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain versions and is no device measurement)")
+    q = p.add_argument_group("the streaming job engine (the JAX bench's "
+                             "--stream row)")
+    q.add_argument("--stream", action="store_true",
+                   help="measure BatchedRunner.run_stream instead of the "
+                        "storm: a heavy-tailed queue of --jobs jobs through "
+                        "--batch lane slots, jobs/s with the gang-admission "
+                        "(static-batching) baseline in the same row")
+    q.add_argument("--jobs", type=int, default=0,
+                   help="--stream: queue length (0 = 3x --batch)")
+    q.add_argument("--stretch", type=int, default=4,
+                   help="--stream: script substeps per stream step")
+    q.add_argument("--drain-chunk", type=int, default=32,
+                   help="--stream: drain ticks per stream step")
+    q.add_argument("--dup-rate", type=float, default=0.0, metavar="R",
+                   help="--stream: fraction of the queue that repeats a "
+                        "Zipf-drawn library job byte for byte "
+                        "(models/workloads.stream_jobs dup_rate)")
+    q.add_argument("--prefix-overlap", type=float, default=0.0, metavar="R",
+                   help="--stream: fraction of the queue that extends a "
+                        "Zipf-drawn library job with a distinguishing tail "
+                        "(stream_jobs prefix_overlap; excludes --dup-rate)")
     f = p.add_argument_group("fault adversary and snapshot supervisor "
                              "(--scheduler exact; the JAX storm CLI's flags)")
     for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
@@ -206,20 +241,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _profile(runner, prog, device, path: str) -> None:
-    """One extra storm under torch.profiler (not among the timed runs):
-    the trace goes to ``path``; the device time of each kernel, their sum
-    and the busy share of the run's wall time go to stderr as JSON."""
+def _profile(run, device, path: str) -> None:
+    """One extra run (``run()``: a storm or a stream drive, not among the
+    timed runs) under torch.profiler: the trace goes to ``path``; the
+    device time of each kernel, their sum and the busy share of the run's
+    wall time go to stderr as JSON."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    state = runner.init_batch_device()
     _sync(device)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        runner.run_storm(state, prog)
+        run()
         _sync(device)
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(path)
@@ -234,6 +269,124 @@ def _profile(runner, prog, device, path: str) -> None:
         "kernels": [{"name": key[:120], "calls": n, "device_ms": us / 1e3,
                      "share": us / busy_us if busy_us else 0.0}
                     for us, n, key in kernels]}))
+
+
+def job_rows(runner, stream) -> list:
+    """A stream's per-job rows without ``admit_step``, the one field that
+    depends on the admission mode."""
+    return [{k: v for k, v in row.items() if k != "admit_step"}
+            for row in runner.stream_results(stream)]
+
+
+def run_stream_worker(args, device, spec, cfg) -> int:
+    """``--stream`` (module docstring): the JAX bench's stream row on the
+    port. Returns the exit code."""
+    runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
+                           batch=args.batch, scheduler=args.scheduler,
+                           exact_impl=args.exact_impl, device=device,
+                           megatick=args.megatick)
+    jcount = args.jobs or 3 * args.batch
+    jobs = stream_jobs(spec, jcount, seed=17, base_phases=4, tail_alpha=1.1,
+                       max_phases=max(args.phases, 8),
+                       dup_rate=args.dup_rate,
+                       prefix_overlap=args.prefix_overlap)
+    pool = runner.pack_jobs(jobs)
+    per = instance_footprint_bytes(runner.topo.n, runner.topo.e, cfg)
+    log(f"stream: {jcount} jobs over {args.batch} slots, pooled phase "
+        f"table {pool.do_tick.shape[0]} rows, stretch={args.stretch}, "
+        f"drain_chunk={args.drain_chunk}, dup_rate={args.dup_rate}, "
+        f"prefix_overlap={args.prefix_overlap}; graph {runner.topo.n} "
+        f"nodes, {runner.topo.e} edges; lane state "
+        f"{per * args.batch / 1e9:.2f} GB")
+    kern = runner.kernel
+
+    def drive(admission):
+        folds, drain_folds = kern.fold_steps, kern.drain_fold_steps
+        _sync(device)
+        t0 = time.perf_counter()
+        state, stream = runner.run_stream(
+            pool, stretch=args.stretch, drain_chunk=args.drain_chunk,
+            admission=admission)
+        _sync(device)
+        return (time.perf_counter() - t0, state, stream,
+                kern.fold_steps - folds, kern.drain_fold_steps - drain_folds)
+
+    t0 = time.perf_counter()
+    _, _, stream_w, _, _ = drive("stream")
+    _, _, gang_w, _, _ = drive("gang")
+    log(f"warm drives (stream, gang): {time.perf_counter() - t0:.1f}s")
+    for name, stream in (("stream", stream_w), ("gang", gang_w)):
+        bad = [r for r in runner.stream_results(stream) if r["error"]]
+        if bad:
+            log(f"ERROR: {len(bad)} jobs of the {name} drive retired with "
+                f"error bits (first: {bad[0]}): results invalid")
+            return 1
+        if runner.summarize_stream(stream)["jobs_done"] != jcount:
+            log(f"ERROR: the {name} drive did not retire every job")
+            return 1
+    if job_rows(runner, stream_w) != job_rows(runner, gang_w):
+        log("ERROR: stream and gang admission gave different job rows")
+        return 1
+    best, summaries, folds = {}, {}, {}
+    for admission in ("stream", "gang"):
+        times = []
+        for r in range(args.repeats):
+            dt, _, stream, f, df = drive(admission)
+            times.append(dt)
+            log(f"{admission} run {r}: {dt:.3f}s -> {jcount / dt:.1f} "
+                f"jobs/s, {f} host fold steps ({df} in the drain slices "
+                f"and flushes)")
+        best[admission] = jcount / min(times)
+        summaries[admission] = runner.summarize_stream(stream)
+        folds[admission] = (f, df)
+    if args.profile:
+        _profile(lambda: runner.run_stream(
+            pool, stretch=args.stretch, drain_chunk=args.drain_chunk),
+            device, args.profile)
+    ss, sg = summaries["stream"], summaries["gang"]
+    result = {
+        "metric": "stream_jobs_per_sec",
+        "value": best["stream"],
+        "unit": "jobs/s",
+        "jobs_per_sec_gang": best["gang"],
+        "speedup_vs_static": best["stream"] / best["gang"],
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device_kind": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "scheduler": (args.scheduler if args.scheduler == "sync"
+                      else f"exact/{args.exact_impl}"),
+        "megatick": runner.megatick,
+        "fused_tick": runner.fused,
+        "fused_reason": runner.fused_reason,
+        "fused_tile": runner.fused_tile,
+        "graph": args.graph,
+        "nodes": args.nodes,
+        "batch": args.batch,
+        "jobs": jcount,
+        "stretch": args.stretch,
+        "drain_chunk": args.drain_chunk,
+        "repeats": args.repeats,
+        "delay": args.delay,
+        "occupancy": ss["occupancy"],
+        "occupancy_gang": sg["occupancy"],
+        "refills": ss["refills"],
+        "refills_gang": sg["refills"],
+        "straggler_wasted_steps": ss["straggler_wasted_steps"],
+        "straggler_wasted_steps_gang": sg["straggler_wasted_steps"],
+        "stream_steps": ss["steps"],
+        "gang_steps": sg["steps"],
+        "host_fold_steps": folds["stream"][0],
+        "host_fold_steps_gang": folds["gang"][0],
+        "drain_host_fold_steps": folds["stream"][1],
+        "drain_host_fold_steps_gang": folds["gang"][1],
+        "dup_rate": args.dup_rate,
+        "prefix_overlap": args.prefix_overlap,
+    }
+    if device.type != "cuda":
+        result["note"] = ("CPU run of the plain PyTorch versions; not a "
+                          "device measurement")
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -263,6 +416,11 @@ def main(argv=None) -> int:
     if args.capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=args.capacity)
     faults = _faults(args)
+    if args.stream:
+        if faults is not None or args.quarantine:
+            parser.error("--stream runs the JAX bench's stream row, which "
+                         "arms no adversary")
+        return run_stream_worker(args, device, spec, cfg)
     quarantine = args.quarantine or faults is not None
     allowed = FAULT_BITS if faults is not None else 0
 
@@ -354,7 +512,8 @@ def main(argv=None) -> int:
             f"flush) -> {node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
     best = max(nt / dt for nt, dt in zip(node_ticks, times))
     if args.profile:
-        _profile(runner, prog, device, args.profile)
+        state = runner.init_batch_device()
+        _profile(lambda: runner.run_storm(state, prog), device, args.profile)
     result = {
         "metric": "node_ticks_per_sec_per_chip",
         "value": best,

@@ -154,7 +154,8 @@ struct ClsimMegatickArgs {
   void* dw0;              // hash: key; Go: vec [B, 607] (uint64 bits)
   void* dw1;              // hash: counter; Go: tap (int32)
   void* dw2;              // hash: epoch; Go: feed (int32)
-  const uint8_t* live;    // [B], mode "ticks"
+  const uint8_t* live;    // [B] lane gate: required in mode "ticks",
+                          // optional (null = every lane) otherwise
   const int32_t* limit;   // [B], mode "drain"
   const int32_t* edge_src;   // [E], edges sorted by (src, dst)
   const int32_t* edge_dst;
@@ -799,19 +800,21 @@ fused_ticks_kernel(const Args a) {
   int32_t time = a.time[b];
 
   // A lane that takes no step of this launch is left exactly as it was,
-  // and returns before it loads anything: not live at launch ("ticks"),
-  // errored under quarantine (sticky), or not draining at the first step
-  // (a condition-false drain step is the identity, so it stays false).
-  if (a.mode == kTicks) {
-    if (!a.live[b]) return;
-  } else if (a.quarantine && a.error[b] != 0) {
-    return;
-  } else if (a.mode == kDrain) {
-    bool pend = false;
-    for (int k = 0; k < S; ++k)
-      pend = pend || (a.started[bs + k] && !a.snap_failed[bs + k] &&
-                      a.completed[bs + k] < n);
-    if (!pend || time >= a.limit[b]) return;
+  // and returns before it loads anything: not live at launch (any mode:
+  // the streaming engine gates its drain slice and flush per lane, and
+  // the gate holds for the whole launch), errored under quarantine
+  // (sticky), or not draining at the first step (a condition-false drain
+  // step is the identity, so it stays false).
+  if (a.live != nullptr && !a.live[b]) return;
+  if (a.mode != kTicks) {
+    if (a.quarantine && a.error[b] != 0) return;
+    if (a.mode == kDrain) {
+      bool pend = false;
+      for (int k = 0; k < S; ++k)
+        pend = pend || (a.started[bs + k] && !a.snap_failed[bs + k] &&
+                        a.completed[bs + k] < n);
+      if (!pend || time >= a.limit[b]) return;
+    }
   }
 
   uintptr_t lane_base;

@@ -18,13 +18,19 @@ the chip check against ``Faults.fault_planes``.
 lane (the JAX ``_run_ticks`` megatick and ``_drain_and_flush_with``'s
 fused drain and flush, ``ops/tick.py:2204-2237``, :2549-2624):
 
-  "ticks"  lanes of ``live`` [B] only (a lane not live at launch is left
-           exactly as it was); ``quiet |= halted`` at each step, a quiet
-           step is a bare ``time += 1`` (+ 0 on an errored lane under
-           quarantine), any other step one cascade tick;
+  "ticks"  ``quiet |= halted`` at each step, a quiet step is a bare
+           ``time += 1`` (+ 0 on an errored lane under quarantine), any
+           other step one cascade tick;
   "drain"  a step ticks while ``pending & time < limit`` [B] (and
            ``error == 0`` under quarantine), else it is the identity;
   "flush"  every step ticks (gated on ``error == 0`` under quarantine).
+
+``live`` [B] gates the lanes in every mode (required for "ticks"; for
+"drain" and "flush" None means every lane): a lane not live at launch is
+left exactly as it was. The streaming engine's drain slice passes its
+lanes in the drain stage, with each job's absolute ``limit``, and its
+flush its lanes in the flush stage (the JAX ``_fused_stream_drain`` and
+``_fused_flush`` under ``lax.cond``, ``ops/tick.py:2606-2672``).
 
 On a CPU state it takes ``fused_ticks_plain``, the same steps through the
 port's PyTorch cascade tick; on a CUDA state it launches
@@ -179,6 +185,18 @@ def check_wave_degree(in_degree) -> None:
             "exact_impl='cascade' or megatick=1")
 
 
+def _check_gates(mode: str, live, limit) -> None:
+    """Refuse a mode without the lane inputs it takes: "ticks" needs
+    ``live``, "drain" needs ``limit`` and no other mode takes it;
+    ``live`` is optional for "drain" and "flush"."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if (mode == "ticks" and live is None) or (
+            (mode == "drain") != (limit is not None)):
+        raise ValueError("mode 'ticks' takes live=, 'drain' takes limit=; "
+                         "live= is optional for 'drain' and 'flush'")
+
+
 # ---- plain version ----------------------------------------------------------
 
 def fused_ticks_plain(tk, s, *, mode: str, length: int, live=None,
@@ -188,8 +206,7 @@ def fused_ticks_plain(tk, s, *, mode: str, length: int, live=None,
     masks: a lane that takes no tick at a step is left as it was
     (``lax.cond`` under ``vmap``). ``tk`` is the ring-mode
     ``ops/tick.TickKernel``."""
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
+    _check_gates(mode, live, limit)
     b = s.time.shape[0]
     quiet = torch.zeros_like(s.error, dtype=torch.bool)
     for _ in range(length):
@@ -204,6 +221,8 @@ def fused_ticks_plain(tk, s, *, mode: str, length: int, live=None,
             step = tk._drain_cond(s, limit)
         else:
             step = (s.error == 0) if tk.quarantine else None
+        if mode != "ticks" and live is not None:
+            step = live if step is None else step & live
         count = b if step is None else int(step.sum())
         if count:
             s = tk._exact_tick(s, None if count == b else step)
@@ -344,8 +363,7 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     if s.time.device.type == "cpu":
         return fused_ticks_plain(tk, s, mode=mode, length=length, live=live,
                                  limit=limit)
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
+    _check_gates(mode, live, limit)
     dev = s.time.device
     cfg, topo = tk.cfg, tk.topo
     b = s.time.shape[0]
@@ -369,10 +387,6 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
             if t.dtype != want or tuple(t.shape) != (b,) or t.device != dev:
                 raise ValueError(f"{name}: expected {want} ({b},) on {dev}")
             lane_in[name] = t.contiguous()
-    if (mode == "ticks") != (lane_in["live"] is not None) or (
-            (mode == "drain") != (lane_in["limit"] is not None)):
-        raise ValueError("mode 'ticks' takes live=, 'drain' takes limit=, "
-                         "'flush' takes neither")
     crash, rates = _program(tk.faults)
     ext, wave = fault_arm(tk), wave_arm(tk)
     share = fused_smem_bytes(topo.n, topo.e, cfg.max_snapshots,

@@ -1,6 +1,7 @@
-"""Synthetic topologies and storm traffic programs (copied from the JAX
-package's ``models/workloads.py``; numpy and ``random`` only, so both
-packages build byte-identical graphs and programs from the same seeds).
+"""Synthetic topologies, storm traffic programs and streamed job mixes
+(copied from the JAX package's ``models/workloads.py``; numpy and
+``random`` only, so both packages build byte-identical graphs, programs
+and job lists from the same seeds).
 
 Every generator embeds a Hamiltonian ring, so every graph is strongly
 connected and every snapshot can complete.
@@ -13,6 +14,12 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from chandy_lamport_tpu_torch.core.spec import (
+    Event,
+    PassTokenEvent,
+    SnapshotEvent,
+    TickEvent,
+)
 from chandy_lamport_tpu_torch.core.state import DenseTopology
 from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
 
@@ -65,6 +72,95 @@ def scale_free(n: int, attach: int, seed: int,
                 degree[j] += 1
                 targets.append(j)
     return TopologySpec(nodes, sorted(links))
+
+
+def stream_jobs(spec: TopologySpec, count: int, seed: int,
+                base_phases: int = 4, tail_alpha: float = 1.1,
+                max_phases: int = 64, amount: int = 1,
+                snapshots_per_job: int = 1,
+                dup_rate: float = 0.0,
+                prefix_overlap: float = 0.0) -> List[List[Event]]:
+    """A heavy-tailed job mix for the streaming engine
+    (parallel/batch.run_stream), event for event the JAX
+    ``stream_jobs``: ``count`` event-list jobs whose phase counts follow
+    a Pareto(``tail_alpha``) tail over ``base_phases`` (clamped to
+    ``max_phases``). Each phase sends ``amount`` tokens over one link
+    (rotating through the link list with a per-job offset) and ticks
+    once; each job initiates ``snapshots_per_job`` snapshots, the first
+    at phase 1 and the rest spread, from a per-job rotating initiator.
+    Deterministic in ``seed``.
+
+    ``dup_rate``: the fraction of the jobs that are byte-identical
+    repeats of a Zipf-drawn job of a library of ``max(1, round(count *
+    (1 - dup_rate)))`` unique ones, shuffled in among them.
+    ``prefix_overlap``: every job copies a Zipf-drawn base of a library
+    of ``max(1, round(count * (1 - prefix_overlap)))`` and appends one
+    unique closing tail (a one-token send over its own link and a tick
+    run whose length encodes the job index), so jobs drawing the same
+    base share every phase but the last. The two shapes exclude each
+    other; both are traffic shapes, valid with the memo plane off."""
+    if count < 1:
+        raise ValueError("count must be >= 1")
+    if not 0.0 <= dup_rate < 1.0:
+        raise ValueError("dup_rate must be in [0, 1)")
+    if not 0.0 <= prefix_overlap < 1.0:
+        raise ValueError("prefix_overlap must be in [0, 1)")
+    if prefix_overlap:
+        if dup_rate:
+            raise ValueError(
+                "prefix_overlap and dup_rate are mutually exclusive "
+                "traffic shapes — arm one")
+        nbase = max(1, round(count * (1.0 - prefix_overlap)))
+        library = stream_jobs(spec, nbase, seed, base_phases=base_phases,
+                              tail_alpha=tail_alpha, max_phases=max_phases,
+                              amount=amount,
+                              snapshots_per_job=snapshots_per_job)
+        rng = random.Random(seed + 0x9EF1)
+        weights = [1.0 / (k + 1) for k in range(nbase)]
+        picks = rng.choices(range(nbase), weights=weights, k=count)
+        links = list(spec.links)
+        out: List[List[Event]] = []
+        for i, k in enumerate(picks):
+            src, dest = links[i % len(links)]
+            out.append(list(library[k])
+                       + [PassTokenEvent(src=src, dest=dest,
+                                         tokens=amount),
+                          TickEvent(1 + i // len(links))])
+        return out
+    if dup_rate:
+        nuniq = max(1, round(count * (1.0 - dup_rate)))
+        library = stream_jobs(spec, nuniq, seed, base_phases=base_phases,
+                              tail_alpha=tail_alpha, max_phases=max_phases,
+                              amount=amount,
+                              snapshots_per_job=snapshots_per_job)
+        rng = random.Random(seed + 0x5EED)
+        weights = [1.0 / (k + 1) for k in range(nuniq)]
+        picks = rng.choices(range(nuniq), weights=weights, k=count - nuniq)
+        mix = list(library) + [library[k] for k in picks]
+        rng.shuffle(mix)
+        return mix
+    rng = random.Random(seed)
+    links = list(spec.links)
+    node_ids = [nid for nid, _ in spec.nodes]
+    jobs: List[List[Event]] = []
+    for j in range(count):
+        phases = min(max_phases,
+                     max(1, int(base_phases * rng.paretovariate(tail_alpha))))
+        snap_at = {min(1, phases - 1)}
+        for k in range(1, snapshots_per_job):
+            snap_at.add((k * phases) // snapshots_per_job)
+        ev: List[Event] = []
+        snaps_fired = 0
+        for p in range(phases):
+            src, dest = links[(j * 7 + p) % len(links)]
+            ev.append(PassTokenEvent(src=src, dest=dest, tokens=amount))
+            if p in snap_at:
+                ev.append(SnapshotEvent(
+                    node_id=node_ids[(j + snaps_fired) % len(node_ids)]))
+                snaps_fired += 1
+            ev.append(TickEvent(1))
+        jobs.append(ev)
+    return jobs
 
 
 class StormProgram(NamedTuple):

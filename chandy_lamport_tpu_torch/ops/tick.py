@@ -222,6 +222,7 @@ class TickKernel:
                 "a time, so run it at megatick=1")
         self.faults = faults
         self.quarantine = bool(quarantine)
+        self.marker_mode = marker_mode
         self.topo, self.cfg, self.delay = topo, cfg, delay
         self.device = torch.device(device)
         self.megatick = int(megatick)
@@ -510,23 +511,64 @@ class TickKernel:
     def _lanes(self, s: DenseState):
         return torch.arange(s.time.shape[0], device=self.device)
 
-    def _push(self, s: DenseState, e: int, is_marker: bool,
-              data: int) -> DenseState:
-        """Append to edge ``e``'s ring on every lane with one delay draw
-        (node.go:126-130), in place."""
+    def _lane_ints(self, s: DenseState, x):
+        """A host int or a [B] tensor as an int32 [B] tensor, one value
+        per lane (a script's op argument or tick count)."""
+        if torch.is_tensor(x):
+            return x.to(device=self.device, dtype=_i32).expand(
+                s.time.shape[0])
+        return torch.full_like(s.time, int(x))
+
+    def _push(self, s: DenseState, e, is_marker: bool, data,
+              mask=None) -> DenseState:
+        """Append to edge ``e``'s ring with one delay draw (node.go:126-130,
+        node.go:104-108), in place: ``e`` and ``data`` are host ints shared
+        by every lane or [B] tensors, one per lane. A lane outside ``mask``
+        [B] (None = every lane) draws nothing and is left as it was (the
+        JAX ``lax.switch`` under ``vmap`` selects each lane's branch)."""
         C = self.cfg.queue_capacity
-        rtime, dstate = self.delay.draw(s.delay_state, s.time)
-        length = s.q_len[:, e]
-        pos = ((s.q_head[:, e] + length) % C).long()   # both >= 0
-        err = (_flag(length >= C, ERR_QUEUE_OVERFLOW)
-               | _flag((s.tok_pushed[:, e] >= self._key_limit)
-                       | (rtime >= RTIME_PACK_LIMIT), ERR_VALUE_OVERFLOW))
         lanes = self._lanes(s)
-        s.q_meta[lanes, e, pos] = pack_meta(rtime, int(is_marker))
-        s.q_data[lanes, e, pos] = data
-        s.q_len[:, e] += 1
-        s.tok_pushed[:, e] += 1
-        return s._replace(delay_state=dstate, error=s.error | err)
+        e_l = self._lane_ints(s, e).long()
+        data = self._lane_ints(s, data)
+        rtime, dstate = self.delay.draw(s.delay_state, s.time)
+        if mask is not None:
+            dstate = select_words(mask, dstate, s.delay_state)
+        length = s.q_len[lanes, e_l]
+        pos = ((s.q_head[lanes, e_l] + length) % C).long()  # both >= 0
+        bad = (_flag(length >= C, ERR_QUEUE_OVERFLOW)
+               | _flag((s.tok_pushed[lanes, e_l] >= self._key_limit)
+                       | (rtime >= RTIME_PACK_LIMIT), ERR_VALUE_OVERFLOW))
+        meta = pack_meta(rtime, int(is_marker))
+        step = 1
+        if mask is not None:
+            bad = torch.where(mask, bad, 0)
+            slot = (lanes, e_l, pos)
+            meta = torch.where(mask, meta, s.q_meta[slot])
+            data = torch.where(mask, data, s.q_data[slot])
+            step = mask.to(_i32)
+        s.q_meta[lanes, e_l, pos] = meta
+        s.q_data[lanes, e_l, pos] = data
+        s.q_len[lanes, e_l] += step
+        s.tok_pushed[lanes, e_l] += step
+        return s._replace(delay_state=dstate, error=s.error | bad)
+
+    def _push_marker_split(self, s: DenseState, e, sid, mask) -> DenseState:
+        """The split-mode scalar marker enqueue (the JAX ``_push_marker``'s
+        split arm) on edge ``e`` [B] for slot ``sid`` [B], on the lanes of
+        ``mask``: one delay draw into the [S, E] pending planes, its merge
+        key from the edge's token and marker counts. Lanes outside
+        ``mask`` draw nothing."""
+        lanes = self._lanes(s)
+        rtime, drawn = self.delay.draw(s.delay_state, s.time)
+        e_l, sid_l = e.long(), sid.long()
+        cell = (lanes, sid_l, e_l)
+        key = s.tok_pushed[lanes, e_l] * self._keymult + s.mk_cnt[lanes, e_l]
+        s.m_pending[cell] = s.m_pending[cell] | mask
+        s.m_rtime[cell] = torch.where(mask, rtime.to(_i32), s.m_rtime[cell])
+        s.m_key[cell] = torch.where(mask, key, s.m_key[cell])
+        s.mk_cnt[lanes, e_l] += mask.to(_i32)
+        return s._replace(delay_state=select_words(mask, drawn,
+                                                   s.delay_state))
 
     def _create_local(self, s: DenseState, sid, node, exclude, mask,
                       cnt_extra=None) -> DenseState:
@@ -559,10 +601,21 @@ class TickKernel:
                            mask) -> DenseState:
         """SendToNeighbors (node.go:97-109) on the lanes of ``mask``: a
         marker for ``sid`` on every outbound link of ``node`` in dest
-        order, one delay draw per real link, enqueued by one batched
-        append. A position-addressable sampler serves the row's draws as
-        a block at their sequential stream positions; the Go-exact stream
-        draws them one by one. Lanes outside ``mask`` draw nothing."""
+        order, one delay draw per real link. In ring mode the row is
+        enqueued by one batched append: a position-addressable sampler
+        serves its draws as a block at their sequential stream positions,
+        the Go-exact stream draws them one by one. In split mode (the sync
+        scheduler) each link takes one scalar push into the pending planes,
+        in dest order (the JAX ``fori_loop`` of ``_push_marker``). Lanes
+        outside ``mask`` draw nothing."""
+        if self.marker_mode == "split":
+            row = self._edge_table[node.long()]               # [B, D]
+            for k in range(row.shape[1]):
+                go = mask & (row[:, k] >= 0)
+                if bool(go.any()):
+                    s = self._push_marker_split(s, row[:, k].clamp(min=0),
+                                                sid, go)
+            return s
         b, e = s.time.shape[0], self.topo.e
         row = self._edge_table[node.long()]                   # [B, D]
         go = (row >= 0) & mask.unsqueeze(-1)
@@ -1121,15 +1174,19 @@ class TickKernel:
         return k_megatick.fused_ticks(self, s, mode=mode, length=length,
                                       live=live, limit=limit)
 
-    def _run_ticks(self, s: DenseState, n: int) -> DenseState:
-        """``n`` exact ticks per lane (the JAX ``_run_ticks``): a lane
-        ticks until its count is done or it is quiescent, and its
-        remaining ticks land as one time increment. Under quarantine an
-        errored lane halts too and its clock stays where it was poisoned.
-        At megatick K > 1 the ``n % K`` remainder runs first as single
-        ticks, then full megaticks while the lane is live, each advancing
-        its count by K (a lane that goes quiet inside one is bumped)."""
+    def _run_ticks(self, s: DenseState, n) -> DenseState:
+        """``n`` exact ticks per lane (the JAX ``_run_ticks``): ``n`` is a
+        host int shared by every lane or a [B] tensor of counts, one per
+        lane (a stream's lanes sit at different script phases; 0 leaves a
+        lane as it was). A lane ticks until its count is done or it is
+        quiescent, and its remaining ticks land as one time increment.
+        Under quarantine an errored lane halts too and its clock stays
+        where it was poisoned. At megatick K > 1 each lane's ``n % K``
+        remainder runs first as single ticks, then full megaticks while
+        the lane is live, each advancing its count by K (a lane that goes
+        quiet inside one is bumped); a one-tick count is never fused."""
         K = self.megatick
+        n = self._lane_ints(s, n)
         single = n % K if K > 1 else n
         i = torch.zeros_like(s.time)
         live = (i < single) & ~self._halted(s)
@@ -1148,14 +1205,36 @@ class TickKernel:
             rest = torch.where(s.error != 0, 0, rest)
         return s._replace(time=s.time + rest)
 
-    def _inject_send(self, s: DenseState, e: int, amount: int) -> DenseState:
-        """PassTokenEvent -> SendTokens (node.go:112-131) on edge ``e`` of
-        every lane: debit at send time, one delay draw, enqueue."""
-        src = int(self.topo.edge_src[e])
-        s = s._replace(error=s.error | _flag(s.tokens[:, src] < amount,
-                                             ERR_TOKEN_UNDERFLOW))
-        s.tokens[:, src] -= amount
-        return self._push(s, e, False, amount)
+    def _sync_run_ticks(self, s: DenseState, n) -> DenseState:
+        """``n`` sync ticks per lane (a host int or [B] counts): the sync
+        tick draws (S, E) delays every tick, so it is never a pure time
+        increment and there is no fast-forward (the JAX runner's
+        ``fori_loop`` of ``_sync_tick``, per lane under ``vmap``)."""
+        n = self._lane_ints(s, n)
+        top = int(n.max()) if n.numel() else 0
+        for k in range(top):
+            live = n > k
+            s = self._sync_tick_lanes(s, None if bool(live.all()) else live)
+        return s
+
+    def _inject_send(self, s: DenseState, e, amount,
+                     mask=None) -> DenseState:
+        """PassTokenEvent -> SendTokens (node.go:112-131) on edge ``e``:
+        debit at send time, one delay draw, enqueue. ``e`` and ``amount``
+        are host ints shared by every lane or [B] tensors, one per lane (a
+        batched script's op); lanes outside ``mask`` [B] (None = every
+        lane) are left as they were."""
+        lanes = self._lanes(s)
+        src = self._edge_src[self._lane_ints(s, e).long()].long()
+        amount = self._lane_ints(s, amount)
+        have = s.tokens[lanes, src]
+        under = have < amount
+        if mask is not None:
+            under = under & mask
+            amount = torch.where(mask, amount, 0)
+        s = s._replace(error=s.error | _flag(under, ERR_TOKEN_UNDERFLOW))
+        s.tokens[lanes, src] = have - amount
+        return self._push(s, e, False, amount, mask)
 
     def _inject_snapshot(self, s: DenseState, node, mask=None) -> DenseState:
         """SnapshotEvent -> sim.StartSnapshot (sim.go:105-123) at ``node``
@@ -1253,3 +1332,120 @@ class TickKernel:
     def _drain_and_flush(self, s: DenseState) -> DenseState:
         return self._drain_and_flush_with(s, self._exact_tick,
                                           self.megatick)
+
+    # ---- the streaming engine's drain slice and flush pass -------------------
+    # (parallel/batch.BatchedRunner.run_stream: each lane is in its own
+    # stage, so both passes are gated per lane)
+
+    def _stream_more(self, s: DenseState, in_drain, limit):
+        """[B]: a lane of the drain slice ticks on — in its drain stage
+        (``in_drain``), a snapshot pending and its clock below its job's
+        absolute ``limit`` (and no error bit, under quarantine)."""
+        return in_drain & self._drain_cond(s, limit)
+
+    def _single_tick(self, s: DenseState, active=None) -> DenseState:
+        """One tick of this kernel's scheduler on the lanes of ``active``
+        (None = every lane): the exact tick in ring mode, the sync tick in
+        split mode."""
+        if self.marker_mode == "ring":
+            return self._exact_tick(s, active)
+        return self._sync_tick_lanes(s, active)
+
+    def _stream_drain(self, s: DenseState, in_drain, limit,
+                      chunk: int) -> DenseState:
+        """The stream's drain slice (the JAX ``lane_pass`` stage 2):
+        ``chunk`` conditional drain ticks on the lanes of ``in_drain``
+        [B], each against its own job's absolute ``limit`` [B]. On the
+        exact scheduler at megatick K > 1 it is the JAX
+        ``_fused_stream_drain`` (B4): ``chunk // K`` megaticks of the fused
+        kernel's "drain" body gated by ``live=in_drain`` (on the card a
+        lane not in its drain returns before it loads anything; on the CPU
+        the plain form), then the ``chunk % K`` remainder as single ticks;
+        otherwise ``chunk`` single ticks. A condition-false step is the
+        identity, so the slice ends once no lane's condition holds."""
+        fused = self.marker_mode == "ring" and self.megatick > 1
+        nmega, rem = divmod(int(chunk), self.megatick) if fused \
+            else (0, int(chunk))
+        for _ in range(nmega):
+            if not bool(self._stream_more(s, in_drain, limit).any()):
+                return s
+            s = self._fused_steps(s, "drain", self.megatick, live=in_drain,
+                                  limit=limit)
+        b = s.time.shape[0]
+        for _ in range(rem):
+            more = self._stream_more(s, in_drain, limit)
+            live = int(more.sum())
+            if not live:
+                break
+            s = self._single_tick(s, None if live == b else more)
+        return s
+
+    def _stream_flush(self, s: DenseState, live) -> DenseState:
+        """The stream's flush pass on the lanes of ``live`` [B] (stage 3):
+        ``max_delay + 1`` ticks, each gated on ``error == 0`` under
+        quarantine (the JAX ``lax.cond(stage == 3, flush, ...)`` under
+        ``vmap``). On the exact scheduler at megatick K > 1 one launch of
+        the fused kernel's "flush" body with the lane gate (the JAX
+        ``_fused_flush``); otherwise single ticks."""
+        if self.marker_mode == "ring" and self.megatick > 1:
+            return self._fused_steps(s, "flush", self.cfg.max_delay + 1,
+                                     live=live)
+        b = s.time.shape[0]
+        for _ in range(self.cfg.max_delay + 1):
+            step = live & (s.error == 0) if self.quarantine else live
+            count = int(step.sum())
+            if count:
+                s = self._single_tick(s, None if count == b else step)
+        return s
+
+
+# ---- streaming-engine primitives (parallel/batch.run_stream) ---------------
+# The streaming engine retires finished lanes and admits queued jobs into
+# their slots: ``harvest_lane_summaries`` reads every per-job result field
+# of a batched state as [B] values (scattered into the results ring before
+# the slot is recycled), and ``reset_lanes`` puts a fresh ``init_state``
+# into the masked lanes, so that an admitted job starts from exactly the
+# state a static run's fresh batch gives it.
+
+
+def harvest_lane_summaries(state: DenseState, num_nodes: int) -> dict:
+    """Per-lane job summary fields (the JAX ``harvest_lane_summaries``):
+    the final token balances [B, N] and, each [B], the clock, the error
+    bits, the snapshots started, completed on every node and failed by
+    the supervisor, the fault skew and the fault events of every class."""
+    complete = state.started & (state.completed >= num_nodes)
+    return {
+        "tokens": state.tokens,
+        "time": state.time,
+        "error": state.error,
+        "snap_started": state.started.sum(-1, dtype=_i32),
+        "snap_completed": complete.sum(-1, dtype=_i32),
+        "snap_failed": state.snap_failed.sum(-1, dtype=_i32),
+        "fault_skew": state.fault_skew,
+        "fault_events": state.fault_counts.sum(-1, dtype=_i32),
+    }
+
+
+# leaves reset_lanes leaves as they were: the per-job stream identities
+# (the admission overwrites them from the job pool), the lane bookkeeping
+# and the flight recorder's ring (a lane artifact that spans admissions)
+_RESET_KEEP = ("delay_state", "fault_key", "job_id", "prog_cursor",
+               "admit_tick", "tr_meta", "tr_data", "tr_tick", "tr_count",
+               "tr_on")
+
+
+def reset_lanes(state: DenseState, mask, template: DenseState) -> DenseState:
+    """Put a fresh state into every lane where ``mask`` [B] holds (the JAX
+    ``reset_lanes``): each leaf becomes ``where(mask, template, old)``
+    against ``template``, one lane of the port's ``init_state`` (a
+    ``DenseState`` with a leading axis of 1, on the state's device), so a
+    recycled slot equals a lane of a fresh batch. The leaves of
+    ``_RESET_KEEP`` are left untouched. Returns new tensors: the result
+    shares no storage with ``template``."""
+    def mix(old, tpl):
+        m = mask.reshape(mask.shape + (1,) * (old.dim() - 1))
+        return torch.where(m, tpl, old)
+
+    return state._replace(**{
+        name: mix(getattr(state, name), getattr(template, name))
+        for name in DenseState._fields if name not in _RESET_KEEP})

@@ -1,4 +1,5 @@
-"""Carry a batched state between the JAX package and the port.
+"""Carry a batched state, a job pool and a stream carry between the JAX
+package and the port.
 
 ``state_from_numpy`` takes a host state whose leaves are numpy arrays —
 a JAX ``DenseState`` fetched with ``jax.device_get``, or the output of
@@ -8,7 +9,10 @@ no usable unsigned arithmetic, so the port holds uint32 words as int64
 values in [0, 2^32) and uint64 words (the Go-exact stream) as int64 bit
 for bit (core/state.py, ops/delay.py). Field order is the same in both
 packages, so a JAX run can hand its state to the port mid-storm and the
-two can be compared leaf for leaf.
+two can be compared leaf for leaf. ``pool_from_numpy``/``pool_to_numpy``
+and ``stream_from_numpy``/``stream_to_numpy`` do the same for the
+streaming engine's ``JobPool`` and ``StreamState`` (JAX dtypes: int32
+tables, uint32 fault keys, uint8 digests, the sampler's words).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from chandy_lamport_tpu_torch.core.state import U32_LEAVES, DenseState
+from chandy_lamport_tpu_torch.parallel.batch import JobPool, StreamState
 
 
 def _tensor(array, device):
@@ -64,3 +69,48 @@ def state_to_numpy(state: DenseState, delay=None) -> DenseState:
         else:
             fields[name] = leaf.cpu().numpy()
     return DenseState(**fields)
+
+
+def pool_from_numpy(host_pool, device) -> JobPool:
+    """A host ``JobPool`` (numpy leaves, e.g. a JAX pool through
+    ``jax.device_get``) as the port's, on ``device``. The memo plane's
+    ``prefix_digest`` is not carried (None)."""
+    fields = {}
+    for name in JobPool._fields:
+        leaf = getattr(host_pool, name)
+        if name == "delay_state":
+            fields[name] = tuple(_tensor(w, device) for w in leaf)
+        elif name == "prefix_digest":
+            fields[name] = None
+        else:
+            fields[name] = _tensor(leaf, device)
+    return JobPool(**fields)
+
+
+def pool_to_numpy(pool: JobPool, delay=None) -> JobPool:
+    """The host pool with the JAX dtypes (``delay``: the port sampler
+    whose words ``delay_state`` holds, as in ``state_to_numpy``)."""
+    fields = {}
+    for name in JobPool._fields:
+        leaf = getattr(pool, name)
+        if name == "delay_state":
+            dtypes = (delay.host_dtypes if delay is not None
+                      else ("uint32",) * len(leaf))
+            fields[name] = tuple(_host(w, d) for w, d in zip(leaf, dtypes))
+        elif name == "prefix_digest":
+            fields[name] = None
+        elif name == "fault_key":
+            fields[name] = _host(leaf, "uint32")
+        else:
+            fields[name] = leaf.cpu().numpy()
+    return JobPool(**fields)
+
+
+def stream_from_numpy(host_stream, device) -> StreamState:
+    """A host ``StreamState`` (numpy int32 leaves) as the port's."""
+    return StreamState(*(_tensor(x, device) for x in host_stream))
+
+
+def stream_to_numpy(stream: StreamState) -> StreamState:
+    """The stream carry as numpy int32 leaves (the JAX layout)."""
+    return StreamState(*(x.cpu().numpy().astype(np.int32) for x in stream))

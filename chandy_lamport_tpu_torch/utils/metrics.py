@@ -5,7 +5,7 @@ device (sums of int32 leaves come back as int64, exact)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -100,6 +100,45 @@ def straggler_waste(state: DenseState):
     mx = t.max()
     return torch.where(mx > 0, 1.0 - t.mean() / torch.clamp(mx, min=1.0),
                        torch.zeros_like(mx))
+
+
+def stream_counters(stream) -> Dict[str, Any]:
+    """Host-side scalars of a ``StreamState`` (the JAX
+    ``stream_counters``): jobs admitted and harvested, refills
+    (admissions into a recycled slot), occupancy (live lane-steps over
+    charged ones) and the straggler-wasted lane-steps, beside the memo,
+    prefix and serving books (zeros: those planes are not ported)."""
+    total = int(stream.lane_steps_total)
+    live = int(stream.lane_steps_live)
+    done = int(stream.jobs_done)
+    hits = int(stream.cache_hits)
+    coalesced = int(stream.coalesced_jobs)
+    served = done + hits + coalesced
+    forked = int(stream.forked_jobs)
+    depth = int(stream.fork_depth_sum)
+    return {
+        "steps": int(stream.steps),
+        "jobs_admitted": int(stream.next_job),
+        "jobs_done": done,
+        "refills": int(stream.refills),
+        "occupancy": round(live / total, 4) if total else 0.0,
+        "lane_steps_live": live,
+        "lane_steps_total": total,
+        "straggler_wasted_steps": total - live,
+        "cache_hits": hits,
+        "coalesced_jobs": coalesced,
+        "ff_skipped_ticks": int(stream.ff_skipped_ticks),
+        "shadow_checks": int(stream.shadow_checks),
+        "memo_hit_rate": (round((hits + coalesced) / served, 4)
+                          if served else 0.0),
+        "prefix_hits": int(stream.prefix_hits),
+        "forked_jobs": forked,
+        "fork_depth_sum": depth,
+        "fork_depth_mean": round(depth / forked, 4) if forked else 0.0,
+        "deadline_misses": int(stream.deadline_misses),
+        "tenant_served": [int(x) for x in stream.tenant_served.tolist()],
+        "tenant_quota": [int(x) for x in stream.tenant_quota.tolist()],
+    }
 
 
 def instance_footprint_bytes(num_nodes: int, num_edges: int,

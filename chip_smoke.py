@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs seventeen
+kernels/csrc`` (one nvcc per source, in parallel), then runs twenty-two
 phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -132,6 +132,39 @@ phases, each printing one JSON line:
                launches and workspace bytes; then one of its drain
                megaticks against the plain version, timed, beside its
                bound;
+  stream_kernel fused_scan's lane gate on the streaming engine's own
+               inputs: the streaming cell (below) driven until its queue
+               runs dry, then the first step that runs both a drain slice
+               and a flush is captured (lanes in the script, the drain,
+               the flush and idle); its gated drain megatick (``live`` =
+               the lanes in their drain, each job's absolute limit) and
+               its gated flush, resident and again through a forced-tiled
+               runner, bit-equal to the plain version; the drain
+               megatick timed per launch beside its bound;
+  stream_exact main path 11: the streaming cell, the JAX bench's
+               ``--stream`` row on the exact cell at full width (ER-256,
+               B=4096, J=12,288 jobs of ``stream_jobs(seed=17,
+               base_phases=4, tail_alpha=1.1, max_phases=32)``, S=8,
+               stretch 4, drain chunk 32) through ``run_stream`` at
+               megatick 8 (its drain slices and flushes in fused_scan):
+               every job retires with error 0; stream and gang admission
+               give equal job rows; every row equals its megatick-1
+               twin's; 64 sampled jobs each equal the same job run alone
+               through ``run``; fused_scan, queue_step, append_rows and
+               sum_by_perm launched, sum_segments and select_pop never;
+               wall, jobs/s, steps, occupancy, host fold steps and
+               launches of each drive, and ``speedup_vs_static``;
+  stream_wave  the same through the wave (B=1,024, J=3,072): stream
+               against gang, its megatick-1 twin and 16 sampled static
+               runs;
+  stream_fault the wave stream under fault_storm's adversary armed on
+               every third job, with its supervisor and quarantine
+               (B=512, J=1,536): no bit but ERR_SNAPSHOT_TIMEOUT, stream
+               against gang, its megatick-1 twin and 16 sampled static
+               runs;
+  stream_sync  the sync scheduler's stream on config 4's graph (SF-1k,
+               B=512, J=1,536), stream against gang and 16 sampled static
+               runs (the sync scheduler has no megatick);
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -208,6 +241,21 @@ C5_NODES, C5_BATCH, C5_PHASES, C5_SNAPSHOTS = 8192, 512, 16, 8
 # took the twin to 69,192 fold steps (231 s on the H100) at 2 snapshots
 T_NODES, T_BATCH, T_PHASES, T_SNAPSHOTS = 2048, 256, 16, 1
 T_PROGRAM = dict(F_PROGRAM, marker_drop_rate=0.0)
+# the streaming cell: the JAX bench's ``--stream`` row (bench.py:871; its
+# recipe :541-547, :904-907) on the exact cell, ``storm --stream --graph er
+# --nodes 256 --batch 4096 --scheduler exact --megatick 8``: J = 3 x B jobs
+# of ``stream_jobs(seed=17, base_phases=4, tail_alpha=1.1, max_phases=32)``,
+# 8 snapshot slots, stretch 4, drain chunk 32; 64 of its jobs are held to
+# the same job run alone
+ST_PHASES, ST_SNAPSHOTS, ST_STRETCH, ST_CHUNK = 32, 8, 4, 32
+ST_SAMPLED = 64
+# the wave and the faulted streams at a quarter and an eighth of the
+# batch (J = 3 x B), 16 sampled jobs each; the sync stream on config 4's
+# graph (SF-1k) at B=512, J=1,536
+STW_BATCH, STF_BATCH, SS_BATCH, SMALL_SAMPLED = 1024, 512, 512, 16
+# the steps after the queue runs dry in which the kernel check looks for
+# one that runs both a drain slice and a flush
+ST_CAPTURE_STEPS = 8
 # the lane count of append_rows' lane-limit check (ring-10 sync storms run
 # at this batch)
 WIDE_LANES = 131_072
@@ -1292,8 +1340,10 @@ def _watch_waves(tk) -> dict:
 LOWBIAS_OPS = 8
 
 
-def fused_plain_and_bytes(tk, s0, limit):
-    """The plain version of one drain megatick from ``s0``, step by step
+def fused_plain_and_bytes(tk, s0, limit, live=None):
+    """The plain version of one drain megatick from ``s0`` (gated by
+    ``live`` [B] when given: the streaming engine's drain slice), step by
+    step
     (the same steps as one call of length K), timed around its calls on
     the host clock; and the bytes the kernel's design must move and the
     integer operations it must do on this input, counted from the steps'
@@ -1329,13 +1379,18 @@ def fused_plain_and_bytes(tk, s0, limit):
     if tk.cfg.queue_capacity < 2:
         raise ValueError("a pop is read off the head's move: needs C >= 2")
     ext = km.fault_arm(tk)
-    lanes = int(tk._drain_cond(s0, limit).sum())
+
+    def cond(s):
+        c = tk._drain_cond(s, limit)
+        return c if live is None else c & live
+
+    lanes = int(cond(s0).sum())
     ints = 5 * e + n + 2 * S * n + 2 * S + 2 + (4 * S + 10 if ext else 0)
     flags = S * e + 2 * S * n
     per_lane = (2 * (4 * ints + flags) + 2 * S    # planes in and out
                 + 4 + 3 * 8 + 2 * 8               # limit, delay words
                 + (8 if tk.faults is not None else 0))   # the fault key
-    tables = 4 * (3 * e + 5 * n)
+    tables = 4 * (3 * e + 5 * n) + (0 if live is None else live.numel())
     parts = {"planes_and_words": lanes * per_lane, "tables": tables,
              "head_reads": 0, "popped_payloads": 0, "appended_slots": 0,
              "log_writes": 0, "window_writes": 0}
@@ -1349,14 +1404,15 @@ def fused_plain_and_bytes(tk, s0, limit):
     log_size = s0.log_amt.element_size()
     s, plain_ms, lane_ticks, dups = BatchedRunner._own(s0), 0.0, 0, 0
     for _ in range(MEGATICK):
-        step = tk._drain_cond(s, limit)
+        step = cond(s)
         lane_ticks += int(step.sum())
         before = {k: getattr(s, k).clone() for k in (
             "q_len", "q_head", "log_amt", "rec_start", "rec_end",
             "fault_counts")}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s = km.fused_ticks_plain(tk, s, mode="drain", length=1, limit=limit)
+        s = km.fused_ticks_plain(tk, s, mode="drain", length=1, live=live,
+                                 limit=limit)
         torch.cuda.synchronize()
         plain_ms += (time.perf_counter() - t0) * 1e3
         pops = int((s.q_head != before["q_head"]).sum())
@@ -1866,6 +1922,369 @@ def phase_config5_wave_fused_storm() -> tuple:
     return m["launches"], rows
 
 
+# ---- the streaming job engine (run_stream) -----------------------------------
+
+def stream_runner(device, batch=X_BATCH, megatick=MEGATICK,
+                  exact_impl="cascade", faulted=False, tiled=False):
+    """The streaming cell's runner (``ST_*``: the bench's ER-256 with 8
+    snapshot slots) and its topology spec; ``faulted``: fault_storm's
+    adversary and supervisor, quarantined."""
+    from chandy_lamport_tpu_torch.models.faults import Faults
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+
+    kw = (dict(faults=Faults(3, **F_PROGRAM), snapshot_timeout=F_TIMEOUT)
+          if faulted else {})
+    runner, _ = exact_runner(device, batch, X_NODES, ST_PHASES,
+                             ST_SNAPSHOTS, megatick=megatick,
+                             exact_impl=exact_impl, tiled=tiled, **kw)
+    return runner, erdos_renyi(X_NODES, 3.0, seed=3, tokens=ST_PHASES + 10)
+
+
+def stream_queue(runner, spec, faulted=False):
+    """The bench's job queue for ``runner`` (J = 3 x B) and its pool; the
+    adversary armed on every third job when ``faulted``."""
+    from chandy_lamport_tpu_torch.models.workloads import stream_jobs
+
+    jcount = 3 * runner.batch
+    jobs = stream_jobs(spec, jcount, seed=DELAY_SEED, base_phases=4,
+                       tail_alpha=1.1, max_phases=max(ST_PHASES, 8))
+    armed = [j % 3 == 0 for j in range(jcount)] if faulted else None
+    return jobs, runner.pack_jobs(jobs, fault_armed=armed)
+
+
+def drive_stream(runner, pool, admission="stream") -> tuple:
+    """One ``run_stream`` drive with the launch counts zeroed just before
+    it. Returns (state, stream, measurements)."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    kern = runner.kernel
+    folds, drain_folds = kern.fold_steps, kern.drain_fold_steps
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, stream = runner.run_stream(pool, stretch=ST_STRETCH,
+                                      drain_chunk=ST_CHUNK,
+                                      admission=admission)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    summary = runner.summarize_stream(stream)
+    return state, stream, {
+        "run_s": dt, "jobs_per_s": pool.num_jobs / dt,
+        "steps": summary["steps"], "occupancy": summary["occupancy"],
+        "refills": summary["refills"], "jobs_done": summary["jobs_done"],
+        "host_fold_steps": kern.fold_steps - folds,
+        "drain_host_fold_steps": kern.drain_fold_steps - drain_folds,
+        "launches": launch_counts()}
+
+
+def static_oracle(make_solo, pool, jobs, rows, sampled) -> list:
+    """The jobs of ``sampled``, each alone through ``run`` on a one-lane
+    runner (``make_solo()``) with its pool row's delay stream and fault
+    key: the job ids whose summary differs from its stream row."""
+    from chandy_lamport_tpu_torch.ops.tick import harvest_lane_summaries
+    from chandy_lamport_tpu_torch.parallel.batch import compile_events
+
+    solo = make_solo()
+    by_job = {r["job"]: r for r in rows}
+    bad = []
+    for j in sampled:
+        s = solo.init_batch_device()
+        s = s._replace(delay_state=tuple(w[j:j + 1]
+                                         for w in pool.delay_state),
+                       fault_key=pool.fault_key[j:j + 1])
+        out = solo.run(s, compile_events(solo.topo, jobs[j]))
+        h = harvest_lane_summaries(out, solo.topo.n)
+        row = by_job[j]
+        got = (row["time"], row["error"], row["tokens"],
+               row["snapshots_started"], row["snapshots_completed"],
+               row["snapshots_failed"], row["fault_skew"],
+               row["fault_events"])
+        want = (int(h["time"][0]), int(h["error"][0]),
+                h["tokens"][0].tolist(), int(h["snap_started"][0]),
+                int(h["snap_completed"][0]), int(h["snap_failed"][0]),
+                int(h["fault_skew"][0]), int(h["fault_events"][0]))
+        if got != want:
+            bad.append(j)
+    return bad
+
+
+def _sample(jcount: int, k: int) -> list:
+    """``k`` job ids spread over the queue, the last one included (the
+    heavy tail retires last), from a fixed seed."""
+    import numpy as np
+
+    picks = np.random.default_rng(5).choice(jcount - 1, k - 1,
+                                            replace=False)
+    return sorted(int(j) for j in picks) + [jcount - 1]
+
+
+def capture_stream_passes(runner, pool) -> tuple:
+    """Drive the stream until its queue has run dry, then capture the
+    inputs of the drain slice (the state, ``in_drain``, the limits) and
+    of the flush pass (the state, the stage-3 mask) of the first later
+    step that runs both: a mid-stream state whose lanes are in the script
+    (the tail's long jobs), the drain, the flush, or idle (retired, with
+    nothing left to admit). Returns (the captures, the step's number)."""
+    from chandy_lamport_tpu_torch import BatchedRunner
+
+    tk, own = runner.kernel, BatchedRunner._own
+    drain, flush = tk._stream_drain, tk._stream_flush
+    seen = {}
+
+    def spy_drain(s, in_drain, limit, chunk):
+        seen["drain"] = (own(s), in_drain.clone(), limit.clone(),
+                         runner._stage_of(s, pool))
+        return drain(s, in_drain, limit, chunk)
+
+    def spy_flush(s, live):
+        seen["flush"] = (own(s), live.clone(), runner._stage_of(s, pool))
+        return flush(s, live)
+
+    s, st = runner.init_batch_device(), runner.init_stream(pool)
+    while int(st.next_job) < pool.num_jobs:
+        s, st = runner._stream_step(s, st, pool, ST_STRETCH, ST_CHUNK, False)
+    for _ in range(ST_CAPTURE_STEPS):
+        seen.clear()
+        tk._stream_drain, tk._stream_flush = spy_drain, spy_flush
+        try:
+            s, st = runner._stream_step(s, st, pool, ST_STRETCH, ST_CHUNK,
+                                        False)
+        finally:
+            del tk._stream_drain, tk._stream_flush
+        if len(seen) == 2:
+            return dict(seen), int(st.steps)
+    raise AssertionError("no stream step ran both a drain slice and a "
+                         f"flush in the {ST_CAPTURE_STEPS} steps after the "
+                         "queue ran dry")
+
+
+def phase_stream_kernel() -> list:
+    """fused_scan's lane gate on the stream's own inputs: a mid-stream
+    state of the streaming cell (B=4096, ``capture_stream_passes``: lanes
+    in the script, the drain, the flush and idle), its
+    gated drain megatick (``live`` = the lanes in their drain, per-job
+    limits) and its gated flush, each launched resident and again through
+    a forced-tiled runner, bit-equal to ``fused_ticks_plain``; the
+    resident drain megatick timed per launch beside its bound. Returns
+    the drain megatick's row for the summary line."""
+    import torch
+
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    runner, spec = stream_runner("cuda")
+    tiled, _ = stream_runner("cuda", tiled=True)
+    _, pool = stream_queue(runner, spec)
+    seen, step = capture_stream_passes(runner, pool)
+    own, tk = BatchedRunner._own, runner.kernel
+    s0, in_drain, limit, stage = seen["drain"]
+    f0, flush_live, fstage = seen["flush"]
+
+    def stages(st):
+        return {name: int((st == k).sum()) for k, name in (
+            (0, "idle_or_retired"), (1, "script"), (2, "drain"),
+            (3, "flush"))}
+
+    def drain(t, x):
+        return km.fused_ticks(t, x, mode="drain", length=MEGATICK,
+                              live=in_drain, limit=limit)
+
+    def flush(t, x):
+        return km.fused_ticks(t, x, mode="flush",
+                              length=runner.config.max_delay + 1,
+                              live=flush_live)
+
+    want, plain_ms, nbytes, ops, moved = fused_plain_and_bytes(
+        tk, s0, limit, live=in_drain)
+    t0 = time.perf_counter()
+    want_flush = km.fused_ticks_plain(tk, own(f0), mode="flush",
+                                      length=runner.config.max_delay + 1,
+                                      live=flush_live)
+    torch.cuda.synchronize()
+    plain_flush_ms = (time.perf_counter() - t0) * 1e3
+    checks = {}
+    for layout, r in (("resident", runner), ("tiled", tiled)):
+        got = drain(r.kernel, own(s0))
+        got_flush = flush(r.kernel, own(f0))
+        torch.cuda.synchronize()
+        checks[layout] = {
+            "drain_mismatched": _mismatched(got, want),
+            "drain_max_abs_err": max_abs_err(_leaves(got), _leaves(want)),
+            "flush_mismatched": _mismatched(got_flush, want_flush),
+            "flush_max_abs_err": max_abs_err(_leaves(got_flush),
+                                             _leaves(want_flush)),
+            "layout": _layout(r)}
+        del got, got_flush
+    ms = time_launch_ms(lambda x: drain(tk, x), lambda: own(s0))
+    tiled_ms = time_launch_ms(lambda x: drain(tiled.kernel, x),
+                              lambda: own(s0))
+    flush_ms = time_launch_ms(lambda x: flush(tk, x), lambda: own(f0))
+    lane_ticks = int((want.time - s0.time).sum())
+    row = {"shape": f"[{runner.batch}] lanes of er-{runner.topo.n} "
+                    f"(E={runner.topo.e}, C={runner.config.queue_capacity})"
+                    f", the gated drain megatick K={MEGATICK} of stream "
+                    f"step {step}, {int(in_drain.sum())} lanes"
+                    f" in their drain, {lane_ticks} lane-ticks",
+           "layout": "resident", "max_abs_err":
+               checks["resident"]["drain_max_abs_err"], "ms": ms,
+           "plain_ms": plain_ms,
+           "plain_timing": "K one-step calls, host clock",
+           "library_ms": None, "bytes_moved": moved, **bound(nbytes, ops)}
+    emit({"phase": "stream_kernel", "tolerance": "bit-equal (integer work)",
+          "drain_stages": stages(stage), "flush_stages": stages(fstage),
+          "flush_lanes": int(flush_live.sum()), "checks": checks,
+          "drain_megatick": row, "tiled_drain_ms": tiled_ms,
+          "tiled_over_resident": tiled_ms / ms, "flush_ms": flush_ms,
+          "plain_flush_ms": plain_flush_ms})
+    mixed = stages(stage)
+    bad = [k for k, v in checks.items()
+           if v["drain_mismatched"] or v["flush_mismatched"]]
+    if bad or checks["tiled"]["layout"] != "tiled":
+        raise AssertionError(f"the gated drain or flush != plain: {checks}")
+    if min(mixed["script"], mixed["drain"], mixed["idle_or_retired"]) <= 0 \
+            or int(flush_live.sum()) <= 0 or lane_ticks <= 0:
+        raise AssertionError(f"the captured state does not mix the stages: "
+                             f"{mixed}, {int(flush_live.sum())} flushing")
+    del seen, s0, f0, want, want_flush
+    return [row]
+
+
+def _stream_line(name, runner, pool, m) -> dict:
+    return {"phase": name, "scheduler": runner.scheduler,
+            "exact_impl": runner.kernel.exact_impl,
+            "megatick": runner.megatick, "fused_tick": runner.fused,
+            "fused_tile": runner.fused_tile, "nodes": runner.topo.n,
+            "edges": runner.topo.e, "batch": runner.batch,
+            "jobs": pool.num_jobs, "stretch": ST_STRETCH,
+            "drain_chunk": ST_CHUNK,
+            "queue_capacity": runner.config.queue_capacity,
+            "max_snapshots": runner.config.max_snapshots,
+            "delay": f"hash({DELAY_SEED})", **m}
+
+
+def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
+                 faulted=False, twin=True) -> dict:
+    """A streaming run through ``run_stream`` (``make(megatick)`` builds
+    the runner and its spec): the stream drive with the launch counts
+    zeroed just before it (the main path's), then the gang drive,
+    (``twin``) the same stream at megatick 1, and ``sampled`` jobs
+    alone through ``run``. Every job retires (with error 0, unless
+    ``faulted``: then no bit but ERR_SNAPSHOT_TIMEOUT), stream and
+    gang give equal job rows, every row equals its megatick-1 twin's and
+    every sampled job its static run; every kernel of ``path_kernels``
+    launched in the stream drive, none of ``idle_kernels``. Returns the
+    stream drive's launch counts."""
+    from chandy_lamport_tpu_torch import bench
+    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
+
+    runner, spec = make(MEGATICK)
+    jobs, pool = stream_queue(runner, spec, faulted)
+    jcount = pool.num_jobs
+    _, stream, m = drive_stream(runner, pool)
+    rows = runner.stream_results(stream)
+    line = _stream_line(name, runner, pool, m)
+    bad = []
+    errored = [r for r in rows if r["error"]]
+    if len(rows) != jcount or m["jobs_done"] != jcount:
+        bad.append(f"{jcount - len(rows)} jobs never retired")
+    if faulted:
+        stray = [r["job"] for r in errored
+                 if r["error"] & ~ERR_SNAPSHOT_TIMEOUT]
+        if stray:
+            bad.append(f"jobs with bits beyond ERR_SNAPSHOT_TIMEOUT: "
+                       f"{stray[:8]}")
+        line["jobs_errored"] = len(errored)
+        line["fault_events"] = sum(r["fault_events"] for r in rows)
+    elif errored:
+        bad.append(f"{len(errored)} jobs retired with error bits "
+                   f"(first {errored[0]})")
+    _, gstream, gm = drive_stream(runner, pool, "gang")
+    same = bench.job_rows(runner, gstream) == bench.job_rows(runner, stream)
+    line["gang"] = {**{k: v for k, v in gm.items() if k != "launches"},
+                    "rows_equal": same}
+    line["speedup_vs_static"] = gm["run_s"] / m["run_s"]
+    if not same:
+        bad.append("stream and gang admission gave different job rows")
+    del gstream, runner
+    if twin:
+        twin_runner, _ = make(1)
+        _, tstream, tm = drive_stream(twin_runner, pool)
+        same = twin_runner.stream_results(tstream) == rows
+        line["megatick1_twin"] = {
+            **{k: v for k, v in tm.items() if k != "launches"},
+            "rows_equal": same}
+        if not same:
+            bad.append("rows differ from the megatick-1 twin's")
+        del tstream, twin_runner
+    picks = _sample(jcount, sampled)
+    t0 = time.perf_counter()
+    oracle = static_oracle(lambda: make(MEGATICK, batch=1)[0], pool, jobs,
+                           rows, picks)
+    line["static_oracle"] = {"sampled": len(picks), "mismatched": oracle,
+                             "run_s": time.perf_counter() - t0}
+    if oracle:
+        bad.append(f"sampled jobs differ from their static runs: {oracle}")
+    emit(line)
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
+    _check_launches(name, m["launches"], path_kernels, idle_kernels)
+    return m["launches"]
+
+
+def sync_stream_runner(batch=SS_BATCH):
+    """The sync stream: config 4's graph (SF-1k) and config (S=8, split
+    markers, int16 log), hash delay 17, at ``batch`` lanes; and its
+    topology spec."""
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.workloads import scale_free
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+
+    spec = scale_free(NODES, ATTACH, seed=3, tokens=ST_PHASES + 10)
+    cfg = SimConfig.for_workload(snapshots=SNAPSHOTS, split_markers=True,
+                                 record_dtype="int16")
+    return BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
+                         device="cuda"), spec
+
+
+def phase_streams() -> tuple:
+    """The stream phases: the kernel check, then main path 11
+    (stream_exact, the streaming cell at full width), stream_wave,
+    stream_fault and stream_sync. Returns (the launch counts by path,
+    the gated drain megatick's summary row)."""
+    rows = phase_stream_kernel()
+    exact_kernels = ("fused_scan", "queue_step", "append_rows",
+                     "sum_by_perm")
+    paths = {"stream_exact": phase_stream(
+        "stream_exact", lambda k, batch=X_BATCH: stream_runner(
+            "cuda", batch, k), ST_SAMPLED, exact_kernels,
+        idle_kernels=("sum_segments", "select_pop"))}
+    paths["stream_wave"] = phase_stream(
+        "stream_wave", lambda k, batch=STW_BATCH: stream_runner(
+            "cuda", batch, k, exact_impl="wave"), SMALL_SAMPLED,
+        exact_kernels + ("spread",), idle_kernels=("sum_segments",))
+    # through the wave: the faulted cascade's megatick-1 twin folds ~35k
+    # host steps at this batch (117 s on the H100), the wave's a few
+    # hundred; the two forms give the same bits
+    paths["stream_fault"] = phase_stream(
+        "stream_fault", lambda k, batch=STF_BATCH: stream_runner(
+            "cuda", batch, k, exact_impl="wave", faulted=True),
+        SMALL_SAMPLED, ("fused_scan", "select_pop", "head_fields",
+                        "append_rows", "sum_by_perm", "spread"),
+        idle_kernels=("queue_step",), faulted=True)
+    # the sync scheduler ticks one at a time: no megatick, so no twin
+    paths["stream_sync"] = phase_stream(
+        "stream_sync", lambda k, batch=SS_BATCH: sync_stream_runner(batch),
+        SMALL_SAMPLED,
+        ("head_fields", "sum_by_perm", "spread"),
+        idle_kernels=("fused_scan", "queue_step"), twin=False)
+    return paths, rows
+
+
 def phase_golden() -> dict:
     """Main path 5: the 7 reference goldens on the card through
     ``check_reference_case`` (``run_events_file``, ``DenseSim`` at its
@@ -2163,6 +2582,9 @@ def main(argv=None) -> int:
     paths["config5_wave_fused_storm"], c5_rows = \
         phase_config5_wave_fused_storm()
     rows["fused_scan"] += c5_rows
+    stream_paths, stream_rows = phase_streams()
+    paths.update(stream_paths)
+    rows["fused_scan"] += stream_rows
     paths["golden"] = phase_golden()
     phase_cpu_vs_cuda()
 

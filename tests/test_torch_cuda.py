@@ -17,7 +17,12 @@ layout (the planes in a device-memory workspace): all
 four instantiations on a forced-tiled ER-64 lane equal the plain form
 and the resident layout, an SF-2048 storm past a block's shared memory
 tiles and equals megatick 1, and a workspace left full of 0xFF is never
-read. The segment sums
+read; and the lane gate of its drain and flush (the streaming engine's):
+on every arm, resident and tiled, a gated drain (per-lane limits) and a
+gated flush equal the plain form and leave the lanes outside the gate
+as they were, and small streams (sync; exact at megatick 8, cascade and
+wave, faulted, gang) on the card equal the same streams on the CPU. The
+segment sums
 (rows 1-2) take two paths, staged and tiled (``segment_plan``); each, on
 both dtypes, with and without perm, must equal the plain version, and
 every C entry point must load. Run on a GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -809,3 +814,81 @@ def test_tiled_workspace_left_dirty_is_never_read(dev):
                                    live=~tk._halted(x))
             ends.append(x)
         _leaves_equal(*ends)
+
+
+# ---- the streaming engine's gated drain and flush (row 8, B4) ----------------
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("arm", sorted(TILED_ARMS))
+def test_fused_stream_gate_equals_plain(dev, arm, tiled):
+    """``live`` in the "drain" and "flush" modes: from a loaded state on
+    every arm, a gated drain with per-lane limits (one already reached)
+    and a gated flush equal the plain form leaf for leaf; the lanes
+    outside the gate are left exactly as they were."""
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+
+    impl, fkw, sup = TILED_ARMS[arm]
+    spec = erdos_renyi(64, 3.0, seed=3, tokens=40)
+    cfg = SimConfig.for_workload(snapshots=8, **sup)
+    runner, s = _loaded(dev, spec, cfg, HashDelay(5), quarantine=bool(fkw),
+                        faults=Faults(3, **fkw) if fkw else None,
+                        exact_impl=impl, tiled=tiled)
+    live = torch.tensor([True, False, True, True], device=dev)
+    limit = s.time + torch.tensor([40, 40, 0, 40], dtype=torch.int32,
+                                  device=dev)
+    for mode, length, kw in (
+            ("drain", 8, {"limit": limit}),
+            ("flush", runner.config.max_delay + 1, {})):
+        got = _fused_equals_plain(runner, s, mode, length, live=live, **kw)
+        flat = [(x, y) for a, b in zip(got, s)
+                for x, y in (zip(a, b) if isinstance(a, tuple)
+                             else [(a, b)])]
+        assert all(torch.equal(x[1], y[1]) for x, y in flat)
+        assert int(got.time[0]) > int(s.time[0])
+
+
+@pytest.mark.parametrize("case", ["sync", "cascade", "wave", "faulted",
+                                  "gang"])
+def test_small_stream_cuda_equals_cpu(dev, case):
+    """A small ``run_stream`` on the card equals the same stream on the
+    CPU in every result row and every leaf of the final state; on the
+    exact scheduler at megatick 8 its drain slices and flushes launch
+    ``fused_scan``."""
+    from chandy_lamport_tpu_torch.kernels import reset_launch_counts
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        stream_jobs,
+    )
+    from chandy_lamport_tpu_torch.utils.carry import stream_to_numpy
+
+    spec = erdos_renyi(24, 3.0, seed=3, tokens=30)
+    sync = case == "sync"
+    faulted = case == "faulted"
+    cfg = SimConfig.for_workload(snapshots=2, split_markers=sync,
+                                 snapshot_timeout=16 if faulted else 0)
+    kw = dict(scheduler="sync") if sync else dict(
+        scheduler="exact", megatick=8, quarantine=faulted,
+        exact_impl="wave" if case == "wave" else "cascade",
+        faults=Faults(3, drop_rate=0.05, dup_rate=0.05, jitter_rate=0.05,
+                      crash_rate=0.05, marker_drop_rate=0.05)
+        if faulted else None)
+    jobs = stream_jobs(spec, 16, seed=4, max_phases=12)
+    armed = [j % 3 == 0 for j in range(16)] if faulted else None
+    admission = "gang" if case == "gang" else "stream"
+    out = {}
+    for where in ("cpu", dev):
+        runner = BatchedRunner(spec, cfg, HashDelay(7), 5, device=where,
+                               **kw)
+        pool = runner.pack_jobs(jobs, fault_armed=armed)
+        reset_launch_counts()
+        state, stream = runner.run_stream(pool, drain_chunk=12,
+                                          admission=admission)
+        out[str(where)] = (runner.stream_results(stream), state, stream,
+                           launch_counts()["fused_scan"])
+    rows, state, stream, _ = out["cpu"]
+    rows_c, state_c, stream_c, launched = out[str(dev)]
+    assert rows_c == rows and len(rows) == 16
+    _leaves_equal(state_c, state)
+    for x, y in zip(stream_to_numpy(stream_c), stream_to_numpy(stream)):
+        assert np.array_equal(x, y)
+    assert (launched > 0) != sync
