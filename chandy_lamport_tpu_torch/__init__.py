@@ -7,8 +7,9 @@ the exact scheduler's fault adversary (``models/faults.py``), snapshot
 supervisor and quarantine,
 the single-instance golden runner (``core/dense.py``, ``api.py``),
 compiled event scripts and the streaming job engine
-(``BatchedRunner.run``, ``run_stream``), and the Pallas kernels of those
-paths hand-written in CUDA C++ (``kernels/csrc``).
+(``BatchedRunner.run``, ``run_stream``), the flight recorder
+(``utils/tracing.py``, ``trace=``), and the Pallas kernels of those paths
+hand-written in CUDA C++ (``kernels/csrc``).
 It imports neither jax nor chandy_lamport_tpu.
 
 Entry points run on the card unless the caller passes ``device="cpu"``::
@@ -22,7 +23,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
 The bench: ``python -m chandy_lamport_tpu_torch storm`` (``--stream`` for
 the streaming row); a job stream: ``python -m chandy_lamport_tpu_torch
 stream``; the 7 reference goldens: ``python -m chandy_lamport_tpu_torch
-test``.
+test``; a fixture's timeline: ``python -m chandy_lamport_tpu_torch trace
+TOP EVENTS``.
 """
 
 from chandy_lamport_tpu_torch.api import run_events_file

@@ -9,6 +9,10 @@
     python -m chandy_lamport_tpu_torch test [--device cpu]
                                                        the 7 reference goldens
                                                        (DenseSim, megatick 8)
+    python -m chandy_lamport_tpu_torch trace TOP EVENTS [--perfetto P]
+                     [--telemetry P] [--device D]      a fixture with the
+                                                       flight recorder armed:
+                                                       its timeline
 """
 
 import argparse
@@ -43,10 +47,57 @@ def golden_test(argv) -> int:
     return 1 if failures else 0
 
 
+def trace_run(argv) -> int:
+    """The JAX CLI's ``trace`` (``cli.py:117-146``): run a fixture pair
+    through ``run_events_file(..., trace=True)`` (``DenseSim`` at megatick
+    8 with the flight recorder armed; on the card the fused megatick's
+    recorder arm), print the decoded timeline on stdout and ``# R events
+    recorded, D dropped`` on stderr; optionally write it as Perfetto
+    trace-event JSON and as telemetry JSONL."""
+    from chandy_lamport_tpu_torch.api import run_events_file
+    from chandy_lamport_tpu_torch.config import REFERENCE_TEST_SEED
+    from chandy_lamport_tpu_torch.utils.tracing import TelemetryWriter
+
+    p = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
+                                     "trace")
+    p.add_argument("topology")
+    p.add_argument("events")
+    p.add_argument("--seed", type=int, default=REFERENCE_TEST_SEED + 1)
+    p.add_argument("--perfetto", metavar="PATH",
+                   help="write Chrome/Perfetto trace-event JSON")
+    p.add_argument("--telemetry", metavar="PATH",
+                   help="write the decoded events as schema-versioned JSONL")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card)")
+    args = p.parse_args(argv)
+    snaps, sim = run_events_file(args.topology, args.events, seed=args.seed,
+                                 device=resolve_device(args.device),
+                                 trace=True)
+    recorded, dropped = sim.trace.counts()
+    if args.perfetto:
+        with open(args.perfetto, "w") as f:
+            json.dump(sim.trace.perfetto(), f)
+        print(f"wrote perfetto trace: {args.perfetto}", file=sys.stderr)
+    if args.telemetry:
+        with TelemetryWriter(args.telemetry) as tw:
+            tw.write("trace_run", {
+                "topology": args.topology, "events": args.events,
+                "seed": args.seed, "snapshots": len(snaps),
+                "trace_events": recorded, "trace_dropped": dropped})
+            for ev in sim.trace.events:
+                tw.write("event", {"tick": ev.tick, "event": ev.kind_name,
+                                   "actor": ev.actor,
+                                   "payload": ev.payload})
+        print(f"wrote telemetry: {args.telemetry}", file=sys.stderr)
+    print(sim.trace.pretty())
+    print(f"# {recorded} events recorded, {dropped} dropped",
+          file=sys.stderr)
+    return 0
+
+
 def _stream_parser() -> argparse.ArgumentParser:
     """The JAX CLI's ``stream`` flags (``cli.py:753-855``) less the memo
-    plane, checkpoints, the flight recorder, guards and telemetry, plus
-    ``--device``."""
+    plane, checkpoints, guards and telemetry, plus ``--device``."""
     pq = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
                                       "stream")
     pq.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
@@ -99,6 +150,13 @@ def _stream_parser() -> argparse.ArgumentParser:
     pq.add_argument("--fault-jitter", type=float, default=0.0, metavar="R")
     pq.add_argument("--fault-seed", type=int, default=None,
                     help="adversary stream seed (default: --seed)")
+    pq.add_argument("--trace", action="store_true",
+                    help="arm the flight recorder (lane admits and harvests "
+                         "land in the per-lane rings); adds trace_events/"
+                         "trace_dropped to the row")
+    pq.add_argument("--trace-capacity", type=int, default=0, metavar="K",
+                    help="ring slots per lane (0 = Trace's default when "
+                         "--trace is set); implies --trace when > 0")
     pq.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain versions)")
@@ -120,6 +178,7 @@ def stream_run(argv) -> int:
     )
     from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
     from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+    from chandy_lamport_tpu_torch.utils.tracing import Trace, trace_counts
 
     args = _stream_parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -137,10 +196,12 @@ def stream_run(argv) -> int:
             args.fault_seed if args.fault_seed is not None else args.seed,
             drop_rate=args.fault_drop, dup_rate=args.fault_dup,
             jitter_rate=args.fault_jitter)
+    trace = (Trace(capacity=args.trace_capacity)
+             if args.trace or args.trace_capacity else None)
     runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, args.seed),
                            batch=args.batch, scheduler=args.scheduler,
                            device=device, faults=faults,
-                           quarantine=faults is not None)
+                           quarantine=faults is not None, trace=trace)
     jcount = args.jobs or 3 * args.batch
     jobs = stream_jobs(spec, jcount, seed=args.seed,
                        base_phases=args.base_phases,
@@ -172,15 +233,18 @@ def stream_run(argv) -> int:
     if errored:
         row["job_errors"] = {r["job"]: r["errors_decoded"]
                              for r in errored[:16]}
+    if trace is not None:
+        row["trace_events"], row["trace_dropped"] = trace_counts(state)
     print(json.dumps(row))
     return 0 if (faults is not None or not errored) else 1
 
 
-COMMANDS = {"storm": storm_main, "stream": stream_run, "test": golden_test}
+COMMANDS = {"storm": storm_main, "stream": stream_run, "test": golden_test,
+            "trace": trace_run}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
     if not args or args[0] not in COMMANDS:
         sys.exit("usage: python -m chandy_lamport_tpu_torch "
-                 "{storm,stream,test} [flags] (see <command> --help)")
+                 "{storm,stream,test,trace} [flags] (see <command> --help)")
     sys.exit(COMMANDS[args[0]](args[1:]))

@@ -28,28 +28,34 @@ from chandy_lamport_tpu_torch.utils.goldens import (
     REFERENCE_TESTS,
     fixture_path,
 )
+from chandy_lamport_tpu_torch.utils.tracing import Trace
 
 
 def run_events_file(top_path: str, events_path: str,
-                    seed: int = REFERENCE_TEST_SEED + 1,
-                    device=None) -> Tuple[List[GlobalSnapshot], DenseSim]:
+                    seed: int = REFERENCE_TEST_SEED + 1, device=None,
+                    trace: bool = False) -> Tuple[List[GlobalSnapshot],
+                                                  DenseSim]:
     """Parse fixture files and run them to completion with the Go-exact
     delays — the ``runTest`` equivalent (snapshot_test.go:11-44) minus the
     assertions. Returns (snapshots, sim). ``device=None`` means the card;
-    without CUDA, pass ``device="cpu"``."""
+    without CUDA, pass ``device="cpu"``. ``trace=True`` arms the flight
+    recorder (``Trace()``, its default capacity): ``sim.trace.pretty()``
+    is then the run's timeline (the JAX ``run_events_file(...,
+    trace=True)`` on its dense backend)."""
     sim = DenseSim(read_topology_file(top_path), GoExactDelay(seed),
-                   device=device)
+                   device=device, trace=Trace() if trace else None)
     return sim.run_events(read_events_file(events_path)), sim
 
 
 def check_reference_case(top: str, events: str, snaps: List[str],
-                         device=None) -> DenseSim:
+                         device=None, trace: bool = False) -> DenseSim:
     """One reference golden case (a ``REFERENCE_TESTS`` row) through
-    ``run_events_file``: raises unless the token check passes and every
-    snapshot equals its ``.snap`` file under the reference comparator.
-    Returns the finished simulation."""
+    ``run_events_file`` (``trace``: with the flight recorder armed):
+    raises unless the token check passes and every snapshot equals its
+    ``.snap`` file under the reference comparator. Returns the finished
+    simulation."""
     actual, sim = run_events_file(fixture_path(top), fixture_path(events),
-                                  device=device)
+                                  device=device, trace=trace)
     if len(actual) != len(snaps):
         raise AssertionError(f"{len(actual)} snapshots, expected "
                              f"{len(snaps)}")

@@ -39,6 +39,16 @@ no error bit; then ``--repeats`` timed drives of each, and one row:
 occupancy, refills and steps of both, and the host fold steps of the
 exact tick. At ``--megatick`` K > 1 on the exact scheduler the drain
 slices and flush passes run through the fused megatick kernel.
+
+``--trace`` (or ``--trace-capacity K``) arms the flight recorder
+(utils/tracing.py) for the measured runs, as the JAX bench's ``--trace``
+does: the storm row gains ``trace_capacity``, ``trace_events``,
+``trace_dropped`` and ``trace_overhead_pct``, the traced rate against one
+untraced storm of the same arguments run after it (negative values are
+noise, not a speedup), with ``untraced_node_ticks_per_sec``; the stream
+row gains the first three (the rings of the last stream drive). At
+megatick K > 1 on the card the traced drain runs the fused megatick's
+recorder arm.
 """
 
 from __future__ import annotations
@@ -78,6 +88,7 @@ from chandy_lamport_tpu_torch.utils.metrics import (
     conservation_delta,
     instance_footprint_bytes,
 )
+from chandy_lamport_tpu_torch.utils.tracing import Trace, trace_counts
 
 # the casualties an armed adversary is expected to cause (quarantined)
 FAULT_BITS = ERR_SNAPSHOT_TIMEOUT | ERR_FAULT_UNRECOVERED
@@ -136,6 +147,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain versions and is no device measurement)")
+    p.add_argument("--trace", action="store_true",
+                   help="arm the flight recorder (utils/tracing.py) during "
+                        "the measurement; the row gains trace_capacity/"
+                        "trace_events/trace_dropped and, for the storm, a "
+                        "trace_overhead_pct against one untraced storm of "
+                        "the same arguments")
+    p.add_argument("--trace-capacity", type=int, default=0, metavar="K",
+                   help="ring slots per lane (0 = Trace's default when "
+                        "--trace is set); implies --trace when > 0")
     q = p.add_argument_group("the streaming job engine (the JAX bench's "
                              "--stream row)")
     q.add_argument("--stream", action="store_true",
@@ -278,13 +298,22 @@ def job_rows(runner, stream) -> list:
             for row in runner.stream_results(stream)]
 
 
+def _trace(args):
+    """The bench's flight recorder, or None without ``--trace`` /
+    ``--trace-capacity``."""
+    if args.trace or args.trace_capacity:
+        return Trace(capacity=args.trace_capacity)
+    return None
+
+
 def run_stream_worker(args, device, spec, cfg) -> int:
     """``--stream`` (module docstring): the JAX bench's stream row on the
     port. Returns the exit code."""
+    trace = _trace(args)
     runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
                            batch=args.batch, scheduler=args.scheduler,
                            exact_impl=args.exact_impl, device=device,
-                           megatick=args.megatick)
+                           megatick=args.megatick, trace=trace)
     jcount = args.jobs or 3 * args.batch
     jobs = stream_jobs(spec, jcount, seed=17, base_phases=4, tail_alpha=1.1,
                        max_phases=max(args.phases, 8),
@@ -327,11 +356,11 @@ def run_stream_worker(args, device, spec, cfg) -> int:
     if job_rows(runner, stream_w) != job_rows(runner, gang_w):
         log("ERROR: stream and gang admission gave different job rows")
         return 1
-    best, summaries, folds = {}, {}, {}
+    best, summaries, folds, finals = {}, {}, {}, {}
     for admission in ("stream", "gang"):
         times = []
         for r in range(args.repeats):
-            dt, _, stream, f, df = drive(admission)
+            dt, finals[admission], stream, f, df = drive(admission)
             times.append(dt)
             log(f"{admission} run {r}: {dt:.3f}s -> {jcount / dt:.1f} "
                 f"jobs/s, {f} host fold steps ({df} in the drain slices "
@@ -382,11 +411,37 @@ def run_stream_worker(args, device, spec, cfg) -> int:
         "dup_rate": args.dup_rate,
         "prefix_overlap": args.prefix_overlap,
     }
+    if trace is not None:
+        recorded, dropped = trace_counts(finals["stream"])
+        result.update(trace_capacity=runner.config.trace_capacity,
+                      trace_events=recorded, trace_dropped=dropped)
     if device.type != "cuda":
         result["note"] = ("CPU run of the plain PyTorch versions; not a "
                           "device measurement")
     print(json.dumps(result), flush=True)
     return 0
+
+
+def _trace_overhead(base, prog, device, best, capacity, summary) -> dict:
+    """The traced row's fields (the JAX bench's): one warm and one timed
+    storm of ``base``, the untraced runner of the same arguments, and the
+    traced best rate ``best`` against it."""
+    base.run_storm(base.init_batch_device(), prog)
+    state = base.init_batch_device()
+    _sync(device)
+    t0 = time.perf_counter()
+    final = base.run_storm(state, prog)
+    _sync(device)
+    rate = int(final.time.sum()) * base.topo.n / (time.perf_counter() - t0)
+    del state, final
+    out = {"trace_capacity": capacity,
+           "trace_events": summary["trace_events"],
+           "trace_dropped": summary["trace_dropped"],
+           "trace_overhead_pct": (rate / best - 1.0) * 100,
+           "untraced_node_ticks_per_sec": rate}
+    log(f"trace overhead: {out['trace_overhead_pct']:.1f}% (untraced "
+        f"{rate / 1e6:.3f}M vs traced {best / 1e6:.3f}M node-ticks/s)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -423,14 +478,18 @@ def main(argv=None) -> int:
         return run_stream_worker(args, device, spec, cfg)
     quarantine = args.quarantine or faults is not None
     allowed = FAULT_BITS if faults is not None else 0
+    trace = _trace(args)
+
+    def make_runner(cfg, trace):
+        return BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
+                             batch=args.batch, scheduler=args.scheduler,
+                             exact_impl=args.exact_impl, device=device,
+                             faults=faults, quarantine=quarantine,
+                             megatick=args.megatick, trace=trace)
 
     runner = summary = prog = verdict = None
     for cap_try in range(4):
-        runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
-                               batch=args.batch, scheduler=args.scheduler,
-                               exact_impl=args.exact_impl, device=device,
-                               faults=faults, quarantine=quarantine,
-                               megatick=args.megatick)
+        runner = make_runner(cfg, trace)
         topo = runner.topo
         log(f"graph: {topo.n} nodes, {topo.e} edges, max out-degree "
             f"{topo.d}; queue_capacity={cfg.queue_capacity}")
@@ -511,6 +570,12 @@ def main(argv=None) -> int:
             f"steps ({steps}), {drain_folds} of them in the drain and "
             f"flush) -> {node_ticks[-1] / dt / 1e6:.3f}M node-ticks/s")
     best = max(nt / dt for nt, dt in zip(node_ticks, times))
+    trace_extra = {}
+    if trace is not None:
+        trace_extra = _trace_overhead(
+            make_runner(dataclasses.replace(runner.config,
+                                            trace_capacity=0), None),
+            prog, device, best, runner.config.trace_capacity, summary)
     if args.profile:
         state = runner.init_batch_device()
         _profile(lambda: runner.run_storm(state, prog), device, args.profile)
@@ -548,6 +613,7 @@ def main(argv=None) -> int:
                       snapshot_timeout=cfg.snapshot_timeout,
                       snapshot_retries=cfg.snapshot_retries,
                       snapshot_every=cfg.snapshot_every, **verdict)
+    result.update(trace_extra)
     if device.type != "cuda":
         result["note"] = ("CPU run of the plain PyTorch versions; not a "
                           "device measurement")

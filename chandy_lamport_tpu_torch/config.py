@@ -2,13 +2,15 @@
 
 A copy of the JAX package's ``config.py`` cut to what the ported paths
 (the sync and exact batch storms, the golden driver, the snapshot
-supervisor of the exact scheduler) read. The capacities bound every
+supervisor of the exact scheduler, the flight recorder) read. The
+capacities bound every
 structure the Go reference grows dynamically (per-link queues, snapshot
 slots, recorded-message logs), so the state is fixed-shape tensors on the
 device. The supervisor knobs (``snapshot_timeout``, ``snapshot_retries``,
-``snapshot_every``) mean what they mean in the JAX config; the JAX
-config's flight-recorder and engine knobs are not ported: the port runs
-without them, as the JAX package does at their defaults.
+``snapshot_every``) and the flight recorder's ``trace_capacity`` mean
+what they mean in the JAX config; the JAX config's engine knobs are not
+ported: the port runs without them, as the JAX package does at their
+defaults.
 """
 
 import dataclasses
@@ -43,6 +45,13 @@ class SimConfig:
     # snapshot daemon: initiate a snapshot every snapshot_every ticks from
     # a rotating initiator while free slots remain. 0 = off.
     snapshot_every: int = 0
+    # flight recorder (utils/tracing.py): K slots of the per-lane event
+    # ring (tr_meta / tr_data / tr_tick [K] plus a count). 0 gives
+    # zero-size planes and no recorder site runs; the runners bump it to
+    # Trace.DEFAULT_CAPACITY when a trace is armed with the knob left at
+    # 0. The ring wraps: the oldest events are overwritten and the loss is
+    # the dropped count max(0, tr_count - K).
+    trace_capacity: int = 0
 
     def __post_init__(self):
         if (self.queue_capacity <= 0 or self.max_snapshots <= 0
@@ -61,6 +70,10 @@ class SimConfig:
             raise ValueError(
                 "snapshot_timeout/snapshot_retries/snapshot_every must be "
                 ">= 0 (0 disables the supervisor / daemon)")
+        if self.trace_capacity < 0:
+            raise ValueError(
+                "trace_capacity must be >= 0 (0 disables the flight "
+                "recorder)")
 
     @classmethod
     def for_workload(cls, *, snapshots: int, max_delay: int = MAX_DELAY,

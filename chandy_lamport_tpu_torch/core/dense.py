@@ -12,6 +12,11 @@ through the fused megatick kernel (``kernels/megatick.py``, the CUDA
 counterpart of the JAX ``fused_scan``) and on the CPU through its plain
 form. ``megatick=1`` is the one-tick-per-iteration form; the results are
 the same.
+
+``trace`` (utils/tracing.Trace) arms the flight recorder: ``sim.trace``
+is then a ``DenseTraceView`` of the lane's ring (the JAX
+``DenseTraceView``), whose ``pretty()`` is the reference Logger's
+timeline, as the parity backend's ``EpochTrace.pretty()`` prints it.
 """
 
 from __future__ import annotations
@@ -38,11 +43,42 @@ from chandy_lamport_tpu_torch.ops.tick import TickKernel
 from chandy_lamport_tpu_torch.parallel.batch import resolve_device
 from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
 from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+from chandy_lamport_tpu_torch.utils.tracing import (
+    armed_config,
+    decode_trace,
+    trace_counts,
+    trace_pretty,
+    trace_to_perfetto,
+)
 
 
 class DenseBackendError(RuntimeError):
     """Raised when the sticky error bitmask is non-zero after a run (the
     stand-in for the reference's log.Fatal calls)."""
+
+
+class DenseTraceView:
+    """The host view of a ``DenseSim``'s flight-recorder ring (the JAX
+    ``DenseTraceView``): ``events`` decodes it (``decode_trace``),
+    ``counts()`` gives (recorded, dropped), ``pretty()`` the reference
+    Logger's epoch format and ``perfetto()`` Chrome/Perfetto trace-event
+    JSON."""
+
+    def __init__(self, sim: "DenseSim"):
+        self._sim = sim
+
+    @property
+    def events(self):
+        return decode_trace(self._sim.state, lane=0)
+
+    def counts(self):
+        return trace_counts(self._sim.state)
+
+    def pretty(self) -> str:
+        return trace_pretty(self.events, self._sim.topo)
+
+    def perfetto(self) -> dict:
+        return trace_to_perfetto(self.events, self._sim.topo)
 
 
 class DenseSim:
@@ -52,12 +88,14 @@ class DenseSim:
     def __init__(self, topology: TopologySpec, delay,
                  config: Optional[SimConfig] = None, device=None,
                  faults=None, megatick: int = 8,
-                 exact_impl: str = "cascade"):
+                 exact_impl: str = "cascade", trace=None):
         """``megatick``: the K of the multi-tick loops (module docstring);
         ``self.fused`` and ``self.fused_reason`` say whether they run
         through the kernel. ``exact_impl``: the exact tick's formulation,
         "cascade" or "wave" (``ops/tick.TickKernel``; the wave refuses the
-        Go-exact sampler)."""
+        Go-exact sampler). ``trace``: utils/tracing.Trace or None, the
+        flight recorder; ``self.trace`` is its ``DenseTraceView`` when
+        armed, else None."""
         if faults is not None:
             raise NotImplementedError(
                 "faults in DenseSim are not ported yet (ROADMAP.md, "
@@ -70,11 +108,13 @@ class DenseSim:
         if delay.max_delay != self.config.max_delay:
             self.config = dataclasses.replace(self.config,
                                               max_delay=delay.max_delay)
+        self.config = armed_config(self.config, trace)
         self.kernel = TickKernel(self.topo, self.config, delay, self.device,
                                  marker_mode="ring", megatick=megatick,
-                                 exact_impl=exact_impl)
+                                 exact_impl=exact_impl, trace=trace)
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
+        self.trace = DenseTraceView(self) if self.kernel._trace_on else None
         self.state: DenseState = init_state(self.topo, self.config, 1, delay,
                                             self.device)
         # host mirror of next_sid (ids are allocated sequentially,

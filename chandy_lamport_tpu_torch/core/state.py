@@ -176,8 +176,8 @@ class DenseTopology:
 
 class DenseState(NamedTuple):
     """The batched carry. Shapes: B lanes, N nodes, E edges, C queue slots,
-    S snapshot slots, L log slots, K = 0 trace slots (the flight recorder
-    is not ported; the planes keep the JAX layout).
+    S snapshot slots, L log slots, K trace slots (``cfg.trace_capacity``:
+    the flight recorder's ring, utils/tracing.py; 0 when it is off).
     Comments give the per-lane dtype and shape; every leaf has a leading
     B axis (the JAX ``DenseState`` docstring explains each field)."""
 
@@ -237,6 +237,7 @@ def init_state(topo: DenseTopology, cfg: SimConfig, batch: int, delay,
     (parallel/batch.py:747-782)."""
     n, e, b = topo.n, topo.e, batch
     c, s, m = cfg.queue_capacity, cfg.max_snapshots, cfg.max_recorded
+    k = cfg.trace_capacity
     i32, i64, bl = torch.int32, torch.int64, torch.bool
 
     def z(*shape, dtype=i32):
@@ -265,7 +266,7 @@ def init_state(topo: DenseTopology, cfg: SimConfig, batch: int, delay,
         snap_initiator=full(-1, s), snap_failed=z(s, dtype=bl),
         snap_done_time=full(-1, s), stale_markers=z(),
         job_id=full(-1), prog_cursor=z(), admit_tick=z(),
-        tr_meta=z(0), tr_data=z(0), tr_tick=z(0), tr_count=z(),
+        tr_meta=z(k), tr_data=z(k), tr_tick=z(k), tr_count=z(),
         tr_on=full(1), sig=z(dtype=i64), error=z(),
     )
 

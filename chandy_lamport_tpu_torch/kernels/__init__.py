@@ -7,7 +7,8 @@ kernels of the JAX package.
 Every wrapper runs its plain version on a CPU tensor and its CUDA kernel
 on a CUDA tensor; each CUDA
 launch adds one to the wrapper's count in ``launch_counts()`` (a launch
-of fused_scan's tiled layout also to ``fused_scan_tiled``).
+of fused_scan's tiled layout also to ``fused_scan_tiled``, one of its
+recorder arm to ``fused_scan_traced``).
 """
 
 from chandy_lamport_tpu_torch.kernels import megatick, queue, segment

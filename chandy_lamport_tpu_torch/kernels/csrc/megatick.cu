@@ -5,10 +5,11 @@
 // Replaces the Pallas kernel of chandy_lamport_tpu/kernels/megatick.py:
 //   fused_scan (:432, pallas_call :641, with RingStream.commit_and_heads
 //   :380) -> clsim_fused_ticks
-// for its untraced body: each step is a quiet bump, the identity, or one
-// cascade tick (ops/tick._cascade_tick, with the fault hooks and the
-// supervisor when armed), as kernels/megatick.py's module docstring sets
-// out for the modes "ticks", "drain" and "flush".
+// with its recorder arm: each step is a quiet bump, the identity, or one
+// cascade or wave tick (ops/tick._cascade_tick / _wave_tick, with the fault
+// hooks and the supervisor when armed, and the flight recorder's sites
+// when traced), as kernels/megatick.py's module docstring sets out for the
+// modes "ticks", "drain" and "flush".
 //
 // Design. One block per lane; the K steps loop inside the block, as the
 // Pallas kernel's lax.scan runs inside one grid step. A lane's state does
@@ -83,6 +84,26 @@
 //      stream), and the completion stamp.
 // The small planes are loaded into shared memory at launch and written
 // back once at exit: one round trip per launch, not per tick.
+//
+// The recorder arm (kTrace; utils/tracing.py). The JAX kernel traces the
+// stock tick, recorder sites included, so its ring is part of the carry.
+// Here the ring [B, K] stays in device memory and each event is written
+// once, where it happens; the lane's count is a control word of the
+// carve. Every step appends its events in the order of the port's plain
+// tick (the JAX order): the crash restarts, the supervisor's
+// startSnapshot, markers sent, aborts, retries and failures, the jitter
+// stalls and the drop / dup splits, one class after another; in the
+// cascade, before each marker the receipts of the sources ranked below it
+// (edge order), its marker-recv, its broadcast's marker-sends (dest
+// order) and its endSnapshot; in the wave, each wave's receipts, then its
+// marker-recvs, marker-sends and endSnapshots ([S, N], slot major); then
+// the tokens left. A multi-event append ranks its events in flattened row
+// order, by a warp ballot in warp 0's fold and a block scan elsewhere;
+// event r of m goes to slot (count + r) % K, and only the last K of one
+// append are written, so no two threads write one slot (the plain
+// version's rule too). A lane with tr_on == 0, and a quiet bump, append
+// nothing. The untraced instantiations carry none of it: their carve,
+// share and registers are those of the kernel without the recorder.
 //
 // Bound: the bytes this design must move over 3.35 TB/s, or the hash's
 // integer operations over the scalar rate, whichever is larger. Per lane
@@ -186,6 +207,15 @@ struct ClsimMegatickArgs {
   char* workspace;
   long long workspace_bytes;
   int tiled;
+  // the flight recorder (TickKernel._trace_on), last for the same
+  // reason: the ring [B, K], each lane's count and arm flag [B]
+  int32_t* tr_meta;
+  int32_t* tr_data;
+  int32_t* tr_tick;
+  int32_t* tr_count;
+  const int32_t* tr_on;
+  int tr_k;
+  int traced;
 };
 
 namespace {
@@ -221,6 +251,13 @@ enum : uint8_t { kFDrop = 1, kFDup = 2, kFJit = 4, kFMDrop = 8, kFMDup = 16,
                  kFMJit = 32 };
 // the duplicate kind of a popped message
 enum : uint8_t { kDupNone = 0, kDupToken = 1, kDupMarker = 2 };
+// utils/tracing.EV_* kinds
+enum { kEvRecv = 1, kEvMSend = 2, kEvMRecv = 3, kEvSnapStart = 4,
+       kEvSnapEnd = 5, kEvSupAbort = 6, kEvSupRetry = 7, kEvSupFail = 8,
+       kEvFault = 9 };
+// the recorder's control words: the lane's count, then the block scan's
+// warp sums
+constexpr int kTraceCtl = 1 + kWarps;
 
 // one lane's planes (in shared memory, or in the workspace when tiled),
 // and the bytes they take
@@ -233,6 +270,10 @@ struct Lane {
   // the wave arm: each edge's draw base, the control words, each edge's
   // wave number and first-receipt flag
   int32_t *base, *wctl;
+  // the recorder arm: its control words, one word per edge (the step's
+  // fault events as bits; a wave's marker-send payloads, sid + 1) and,
+  // with the wave, each node's marker count of the tick
+  int32_t *tctl, *tev, *tnode;
   int16_t* wnum;
   uint8_t *tok, *mk, *app, *recording, *has_local, *done_local, *started,
       *failed;
@@ -250,11 +291,11 @@ __host__ __device__ __forceinline__ T* take(uintptr_t& p, long long count) {
 }
 
 // Lays the planes out from ``base`` (``ext``: the fault arm's planes
-// too; ``wave``: the wave arm's, which take no byte otherwise); the host
-// calls it at base 0 only to read ``bytes`` and check the caller's
-// reckoning against it.
+// too; ``wave``: the wave arm's and ``trace``: the recorder's, which take
+// no byte otherwise); the host calls it at base 0 only to read ``bytes``
+// and check the caller's reckoning against it.
 __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
-                               bool ext, bool wave) {
+                               bool ext, bool wave, bool trace) {
   Lane w;
   uintptr_t p = base;
   const long long sn = (long long)s * n, se = (long long)s * e;
@@ -282,6 +323,9 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.stale = take<int32_t>(p, ext ? 1 : 0);
   w.base = take<int32_t>(p, wave ? e : 0);
   w.wctl = take<int32_t>(p, wave ? kWaveCtl : 0);
+  w.tctl = take<int32_t>(p, trace ? kTraceCtl : 0);
+  w.tev = take<int32_t>(p, trace ? e : 0);
+  w.tnode = take<int32_t>(p, trace && wave ? n : 0);
   w.wnum = take<int16_t>(p, wave ? e : 0);
   w.tok = take<uint8_t>(p, e);
   w.mk = take<uint8_t>(p, e);
@@ -467,6 +511,120 @@ __device__ __forceinline__ int32_t draw_at(const Args& a, uint32_t key,
   return wrap_add(time, 1 + (int32_t)d);
 }
 
+// ---- the flight recorder (kTrace) ----------------------------------------
+
+// one lane's ring in device memory, [K] each, and whether it records
+struct Ring {
+  int32_t *meta, *data, *tick;
+  int k;
+  bool on;
+};
+
+// utils/tracing.pack_event: actor << 5 | kind, as int32 arithmetic wraps
+__device__ __forceinline__ int32_t pack_event(int actor, int kind) {
+  return (int32_t)((uint32_t)actor * 32u + (uint32_t)kind);
+}
+
+__device__ __forceinline__ void put_event(const Ring& r, int32_t count,
+                                          int32_t meta, int32_t data,
+                                          int32_t t) {
+  const int slot = (int)floor_mod(count, r.k);
+  r.meta[slot] = meta;
+  r.data[slot] = data;
+  r.tick[slot] = t;
+}
+
+// one event, by one thread (utils/tracing.trace_append_one)
+__device__ __forceinline__ void record(const Ring& r, const Lane& w,
+                                       int actor, int kind, int32_t data,
+                                       int32_t t) {
+  if (!r.on) return;
+  const int32_t c = w.tctl[0];
+  put_event(r, c, pack_event(actor, kind), data, t);
+  w.tctl[0] = wrap_add(c, 1);
+}
+
+// The ranked append of every i in [0, count) with pred(i), in order, by
+// the whole block (utils/tracing.trace_append_many): each thread takes a
+// contiguous chunk, a block scan of the chunks' counts gives each event
+// its rank, and only the last K events are written. ``ev(i, actor,
+// payload)`` fills in event i. Every thread of the block calls it.
+template <class Pred, class Ev>
+__device__ __forceinline__ void block_record(const Ring& r, const Lane& w,
+                                             int count, int32_t t, int kind,
+                                             Pred pred, Ev ev) {
+  if (!r.on) return;                    // the lane's: uniform in the block
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int chunk = (count + nt - 1) / nt;
+  const int lo = tid * chunk < count ? tid * chunk : count;
+  const int hi = lo + chunk < count ? lo + chunk : count;
+  int mine = 0;
+  for (int i = lo; i < hi; ++i) mine += pred(i) ? 1 : 0;
+  const int lane = tid & 31, warp = tid >> 5;
+  int incl = mine;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (lane == 31) w.tctl[1 + warp] = incl;
+  __syncthreads();
+  int off = incl - mine, total = 0;
+  for (int k = 0; k < nt / 32; ++k) {
+    const int x = w.tctl[1 + k];
+    if (k < warp) off += x;
+    total += x;
+  }
+  const int32_t c = w.tctl[0];
+  __syncthreads();                      // every thread has read the words
+  if (total == 0) return;               // uniform
+  for (int i = lo; i < hi; ++i) {
+    if (!pred(i)) continue;
+    if (off >= total - r.k) {
+      int actor;
+      int32_t data;
+      ev(i, actor, data);
+      put_event(r, wrap_add(c, off), pack_event(actor, kind), data, t);
+    }
+    ++off;
+  }
+  if (tid == 0) w.tctl[0] = wrap_add(c, total);
+  __syncthreads();
+}
+
+// The same by the 32 lanes of one warp over [lo, hi) (warp 0's fold): a
+// ballot counts the events, a second ballot ranks and writes the last K.
+template <class Pred, class Ev>
+__device__ __forceinline__ void warp_record(const Ring& r, const Lane& w,
+                                            int lo, int hi, int ln,
+                                            int32_t t, int kind, Pred pred,
+                                            Ev ev) {
+  if (!r.on) return;
+  int total = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + ln;
+    total += __popc(__ballot_sync(0xffffffffu, i < hi && pred(i)));
+  }
+  if (total == 0) return;               // uniform in the warp
+  const int32_t c = w.tctl[0];
+  int rank = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + ln;
+    const bool p = i < hi && pred(i);
+    const unsigned hit = __ballot_sync(0xffffffffu, p);
+    const int mine = rank + __popc(hit & ((1u << ln) - 1u));
+    if (p && mine >= total - r.k) {
+      int actor;
+      int32_t data;
+      ev(i, actor, data);
+      put_event(r, wrap_add(c, mine), pack_event(actor, kind), data, t);
+    }
+    rank += __popc(hit);
+  }
+  __syncwarp();
+  if (ln == 0) w.tctl[0] = wrap_add(c, total);
+  __syncwarp();
+}
+
 // ---- the tick's pieces ----------------------------------------------------
 
 __device__ __forceinline__ bool recorded(const Lane& w, int s, int e, int f) {
@@ -539,20 +697,28 @@ __device__ __forceinline__ void initiate(const Args& a, const Lane& w,
 }
 
 // SendToNeighbors (node.go:97-109), thread 0: one marker per out-link of
-// ``node`` in dest order, one delay draw each, appended in place
+// ``node`` in dest order, one delay draw each, appended in place (traced:
+// a marker-send each, with the raw ``sid``)
+template <bool kTrace>
 __device__ __forceinline__ void broadcast(const Args& a, const Lane& w,
-                                          Sampler& smp, long long be,
-                                          int node, int32_t data, int32_t t) {
-  for (int g = a.src_lo[node]; g < a.src_hi[node]; ++g)
+                                          const Ring& ring, Sampler& smp,
+                                          long long be, int node, int sid,
+                                          int32_t data, int32_t t) {
+  for (int g = a.src_lo[node]; g < a.src_hi[node]; ++g) {
     append(a, w, be, g, smp.draw(t), true, data);
+    if constexpr (kTrace) record(ring, w, g, kEvMSend, sid, t);
+  }
 }
 
 // The supervisor's step at tick start, in warp 0 (TickKernel._supervise):
 // the daemon, then the timeout scan and the re-initiations. Draws stay in
-// thread 0 (lane 0), in the plain form's order.
+// thread 0 (lane 0), in the plain form's order, and so do the recorder's
+// events.
+template <bool kTrace>
 __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
-                                          Sampler& smp, long long be,
-                                          long long bs, int32_t t, int ln) {
+                                          const Ring& ring, Sampler& smp,
+                                          long long be, long long bs,
+                                          int32_t t, int ln) {
   const int S = a.s, n = a.n, e = a.e;
   const int every = a.snapshot_every, timeout = a.snapshot_timeout;
   if (every > 0 && t > 0 && t % every == 0) {    // t > 0: % on positives
@@ -565,10 +731,13 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
         w.started[sid] = 1;
         w.initiator[sid] = node;
         if (timeout > 0) w.deadline[sid] = wrap_add(t, timeout);
+        if constexpr (kTrace) record(ring, w, node, kEvSnapStart, sid, t);
       }
       initiate(a, w, bs, sid, node, ln);
       __syncwarp();
-      if (ln == 0) broadcast(a, w, smp, be, node, payload(w, sid, S, true), t);
+      if (ln == 0)
+        broadcast<kTrace>(a, w, ring, smp, be, node, sid,
+                          payload(w, sid, S, true), t);
       __syncwarp();
     }
   }
@@ -599,6 +768,17 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
       }
     }
     if (failed_any) atomicOr(w.err, kErrSnapshotTimeout);
+    if constexpr (kTrace) {   // aborts, then retries, then failures
+      for (int kind = kEvSupAbort; kind <= kEvSupFail; ++kind)
+        for (int k = 0; k < S; ++k) {
+          const int code = w.retry[k];
+          if (code == 0 || (kind == kEvSupRetry && code != 1) ||
+              (kind == kEvSupFail && code != 2))
+            continue;
+          const int v = w.initiator[k];
+          record(ring, w, v < 0 ? 0 : (v >= n ? n - 1 : v), kind, k, t);
+        }
+    }
   }
   __syncwarp();
   for (int k = 0; k < S; ++k) {     // aborted slots: cut state cleared
@@ -623,7 +803,9 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
     node = node < 0 ? 0 : (node >= n ? n - 1 : node);
     initiate(a, w, bs, k, node, ln);
     __syncwarp();
-    if (ln == 0) broadcast(a, w, smp, be, node, payload(w, k, S, true), t);
+    if (ln == 0)
+      broadcast<kTrace>(a, w, ring, smp, be, node, k,
+                        payload(w, k, S, true), t);
     __syncwarp();
   }
 }
@@ -648,11 +830,21 @@ __device__ __forceinline__ int marker_sid(int32_t data, int s, bool sup) {
 // word take atomics. The thread credits the node's tokens of lower edge
 // rank (marked for the log where the channel records), then handles the
 // marker as the fold does, drawing the broadcast at base + ordinal. The
-// tokens left are credited in step 4 (``ctl[0]`` = 0).
+// tokens left are credited in step 4 (``ctl[0]`` = 0). Traced, each wave
+// leaves its events marked (a credited token 2 in ``tok``, a marker-send's
+// sid + 1 in ``tev``, a completed cell 3 in ``done_local``) and records
+// them after the wave, in the plain wave's order, then clears the marks.
+// The plain wave also credits, in wave k, every token left at a node with
+// no k-th marker (a node that has had its last: ``tnode``, its marker
+// count, is k); here step 4 credits those, so wave k records their
+// receipts and marks them 3 (recorded, credit pending): the credits
+// commute, the record's order is the plain wave's.
+template <bool kTrace>
 __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
-                                          Sampler& smp, long long be,
-                                          long long bs, int32_t t, int tid,
-                                          int nt, bool sup) {
+                                          const Ring& ring, Sampler& smp,
+                                          long long be, long long bs,
+                                          int32_t t, int tid, int nt,
+                                          bool sup) {
   const int n = a.n, e = a.e, S = a.s;
   int depth = 0;
   for (int v = tid; v < n; v += nt) {
@@ -670,6 +862,7 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
       if (w.mk[f])
         w.has_local[marker_sid(w.head_data[f], S, sup) * n + v] &= 1;
     }
+    if constexpr (kTrace) w.tnode[v] = rank;
     depth = rank > depth ? rank : depth;
   }
   __syncthreads();
@@ -731,7 +924,7 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
         if (!w.tok[g]) continue;
         w.tokens[d] += w.head_data[g];
         w.app[g] = recorded(w, S, e, g);
-        w.tok[g] = 0;
+        w.tok[g] = kTrace ? 2 : 0;
       }
       // HandleMarker (node.go:149-171)
       const int sid = marker_sid(w.head_data[f], S, sup);
@@ -751,10 +944,12 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
         const int32_t data = payload(w, sid, S, sup);
         const int g0 = a.src_lo[d];
         const uint32_t base = (uint32_t)w.base[f];
-        for (int g = g0; g < a.src_hi[d]; ++g)
+        for (int g = g0; g < a.src_hi[d]; ++g) {
           append(a, w, be, g,
                  draw_at(a, key, ctr0, epoch0, base + (uint32_t)(g - g0), t),
                  true, data);
+          if constexpr (kTrace) w.tev[g] = sid + 1;
+        }
       } else {
         const int rc = sid * e + f;
         if (w.recording[rc]) {
@@ -764,11 +959,49 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
         }
       }
       if (w.has_local[cell] && w.rem[cell] == 0 && !w.done_local[cell]) {
-        w.done_local[cell] = 1;
+        w.done_local[cell] = kTrace ? 3 : 1;
         atomicAdd(&w.completed[sid], 1);
       }
     }
     __syncthreads();
+    if constexpr (kTrace) {
+      block_record(ring, w, e, t, kEvRecv,
+                   [&](int g) {
+                     return w.tok[g] == 2 ||
+                            (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k);
+                   },
+                   [&](int g, int& actor, int32_t& data) {
+                     actor = g;
+                     data = w.head_data[g];
+                   });
+      block_record(ring, w, e, t, kEvMRecv,
+                   [&](int f) { return w.mk[f] && w.wnum[f] == k; },
+                   [&](int f, int& actor, int32_t& data) {
+                     actor = f;
+                     data = marker_sid(w.head_data[f], S, sup);
+                   });
+      block_record(ring, w, e, t, kEvMSend,
+                   [&](int g) { return w.tev[g] != 0; },
+                   [&](int g, int& actor, int32_t& data) {
+                     actor = g;
+                     data = w.tev[g] - 1;
+                   });
+      block_record(ring, w, S * n, t, kEvSnapEnd,
+                   [&](int i) { return (w.done_local[i] & 2) != 0; },
+                   [&](int i, int& actor, int32_t& data) {
+                     actor = i % n;
+                     data = i / n;
+                   });
+      for (int g = tid; g < e; g += nt) {
+        if (w.tok[g] == 2)
+          w.tok[g] = 0;
+        else if (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k)
+          w.tok[g] = 3;
+        w.tev[g] = 0;
+      }
+      for (int i = tid; i < S * n; i += nt) w.done_local[i] &= 1;
+      __syncthreads();
+    }
   }
 }
 
@@ -781,8 +1014,9 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
 // goes through the Lane's pointers (generic: shared or global), and the
 // block's barriers order global writes for the block as they do shared
 // ones. A compile-time parameter, so the resident instantiations keep
-// their shared-memory addressing and registers.
-template <bool kExt, bool kWave, bool kTiled>
+// their shared-memory addressing and registers. kTrace: the recorder arm
+// (the module comment); the untraced instantiations compile none of it.
+template <bool kExt, bool kWave, bool kTiled, bool kTrace>
 __global__ void __launch_bounds__(kThreads)
 fused_ticks_kernel(const Args a) {
   extern __shared__ __align__(16) char smem[];
@@ -822,7 +1056,14 @@ fused_ticks_kernel(const Args a) {
     lane_base = reinterpret_cast<uintptr_t>(a.workspace + b * a.smem_bytes);
   else
     lane_base = reinterpret_cast<uintptr_t>(smem);
-  const Lane w = carve(lane_base, n, e, S, ext, kWave);
+  const Lane w = carve(lane_base, n, e, S, ext, kWave, kTrace);
+  Ring ring{nullptr, nullptr, nullptr, 1, false};
+  if constexpr (kTrace) {
+    const long long bk = b * a.tr_k;
+    ring = Ring{a.tr_meta + bk, a.tr_data + bk, a.tr_tick + bk, a.tr_k,
+                a.tr_on[b] > 0};
+    if (tid == 0) w.tctl[0] = a.tr_count[b];
+  }
   for (int f = tid; f < e; f += nt) {
     w.q_head[f] = a.q_head[be + f];
     w.q_len[f] = a.q_len[be + f];
@@ -932,11 +1173,18 @@ fused_ticks_kernel(const Args a) {
       }
       if (unrecovered) atomicOr(w.err, kErrFaultUnrecovered);
       __syncthreads();
+      if constexpr (kTrace)   // the restarts, node by node
+        block_record(ring, w, n, t, kEvFault,
+                     [&](int v) { return restarted_at(flt, t, v, w.down[v]); },
+                     [&](int v, int& actor, int32_t& data) {
+                       actor = v;
+                       data = kFcCrash;
+                     });
     }
 
     // 1. the supervisor
     if (sup) {
-      if (tid < 32) supervise(a, w, smp, be, bs, t, tid);
+      if (tid < 32) supervise<kTrace>(a, w, ring, smp, be, bs, t, tid);
       __syncthreads();
     }
 
@@ -953,6 +1201,7 @@ fused_ticks_kernel(const Args a) {
           const uint8_t fl = faulted ? w.eflags[f] : 0;
           int32_t meta = 0;
           bool sel = false;
+          int evbits = 0;   // traced: the edge's fault events, kFc* bits
           // under faults every non-empty head is read: its stalls count
           if ((faulted || !found) && len > 0) {
             const int32_t h = w.q_head[f];
@@ -964,6 +1213,9 @@ fused_ticks_kernel(const Args a) {
               const bool mjit = (m & 1) && (fl & kFMJit);
               c_jit += jit;
               c_mjit += mjit;
+              if constexpr (kTrace)
+                evbits |= (jit ? 1 << kFcJitter : 0) |
+                          (mjit ? 1 << kFcMJitter : 0);
               elig = !jit && !mjit && !w.down[a.edge_dst[f]];
             }
             if (elig && !found) {
@@ -983,19 +1235,23 @@ fused_ticks_kernel(const Args a) {
               tok = false;
               c_drop += 1;
               skew -= amt;
+              if constexpr (kTrace) evbits |= 1 << kFcDrop;
             } else if (fl & kFDup) {
               dup = kDupToken;
               c_dup += 1;
               skew += amt;
+              if constexpr (kTrace) evbits |= 1 << kFcDup;
             }
           }
           if (mk && faulted) {                  // _fault_split_markers
             if (fl & kFMDrop) {
               mk = false;
               c_mdrop += 1;
+              if constexpr (kTrace) evbits |= 1 << kFcMDrop;
             } else if (fl & kFMDup) {
               dup = kDupMarker;
               c_mdup += 1;
+              if constexpr (kTrace) evbits |= 1 << kFcMDup;
             }
           }
           if (mk && sup) {                      // _reject_stale
@@ -1009,6 +1265,9 @@ fused_ticks_kernel(const Args a) {
           w.mk[f] = mk;
           w.app[f] = 0;
           if (ext) w.dupk[f] = dup;
+          // every edge is written here each step, so ``tev`` needs no
+          // clearing at launch (a tiled workspace is left dirty)
+          if constexpr (kTrace) w.tev[f] = evbits;
         }
       }
       if (faulted) {
@@ -1023,10 +1282,29 @@ fused_ticks_kernel(const Args a) {
       if (c_stale) atomicAdd(w.stale, c_stale);
     }
     __syncthreads();
+    if constexpr (kTrace) {
+      if (faulted) {
+        // TickKernel's order: the jitter stalls (tokens, then markers),
+        // the token drops and duplicates, the marker drops and duplicates
+        const int order[6] = {kFcJitter, kFcMJitter, kFcDrop, kFcDup,
+                              kFcMDrop, kFcMDup};
+        for (int j = 0; j < 6; ++j) {
+          const int fc = order[j];
+          block_record(ring, w, e, t, kEvFault,
+                       [&](int f) { return ((w.tev[f] >> fc) & 1) != 0; },
+                       [&](int f, int& actor, int32_t& data) {
+                         actor = f;
+                         data = fc;
+                       });
+        }
+        for (int f = tid; f < e; f += nt) w.tev[f] = 0;  // for the wave
+        __syncthreads();
+      }
+    }
 
     // 3. the marker fold, in warp 0 (the wave arm: the waves)
     if constexpr (kWave) {
-      wave_step(a, w, smp, be, bs, t, tid, nt, sup);
+      wave_step<kTrace>(a, w, ring, smp, be, bs, t, tid, nt, sup);
     } else if (tid < 32) {
       const int ln = tid;
       int done = 0;                           // edges [0, done) credited
@@ -1045,6 +1323,13 @@ fused_ticks_kernel(const Args a) {
         // credit the tokens of the sources ranked below m's source
         const int upto = a.src_lo[a.edge_src[m]];
         for (int f = done + ln; f < upto; f += 32) credit(a, w, f);
+        if constexpr (kTrace)   // their receipts, before the marker's
+          warp_record(ring, w, done, upto, ln, t, kEvRecv,
+                      [&](int f) { return w.tok[f] != 0; },
+                      [&](int f, int& actor, int32_t& data) {
+                        actor = f;
+                        data = w.head_data[f];
+                      });
         if (upto > done) done = upto;
         __syncwarp();
 
@@ -1058,6 +1343,8 @@ fused_ticks_kernel(const Args a) {
         }
         const int cell = sid * n + d;
         const bool first = !w.has_local[cell];
+        if constexpr (kTrace)
+          if (ln == 0) record(ring, w, m, kEvMRecv, sid, t);
         __syncwarp();
         if (first) {
           // CreateLocalSnapshot: every in-link but m, from the counter it
@@ -1092,6 +1379,7 @@ fused_ticks_kernel(const Args a) {
               a.q_data[slot] = data;
               w.q_len[g] = len + 1;
               w.tok_pushed[g] += 1;
+              if constexpr (kTrace) record(ring, w, g, kEvMSend, sid, t);
             }
           }
         } else if (ln == 0) {
@@ -1107,6 +1395,7 @@ fused_ticks_kernel(const Args a) {
             !w.done_local[cell]) {           // finalizeSnapshot
           w.done_local[cell] = 1;
           w.completed[sid] += 1;
+          if constexpr (kTrace) record(ring, w, d, kEvSnapEnd, sid, t);
         }
         __syncwarp();
         from = m + 1;
@@ -1119,6 +1408,13 @@ fused_ticks_kernel(const Args a) {
     // re-appends (after the fold's broadcasts) and the stamp
     for (int f = w.ctl[0] + tid; f < e; f += nt) credit(a, w, f);
     __syncthreads();
+    if constexpr (kTrace)
+      block_record(ring, w, e, t, kEvRecv,
+                   [&](int f) { return f >= w.ctl[0] && w.tok[f] == 1; },
+                   [&](int f, int& actor, int32_t& data) {
+                     actor = f;
+                     data = w.head_data[f];
+                   });
     for (int f = tid; f < e; f += nt) {
       if (w.app[f]) {
         const int32_t cnt = w.rec_cnt[f];
@@ -1180,6 +1476,7 @@ fused_ticks_kernel(const Args a) {
   if (tid == 0) {
     a.time[b] = time;
     a.error[b] = *w.err;
+    if constexpr (kTrace) a.tr_count[b] = w.tctl[0];
     if (faulted) a.fault_skew[b] = *w.skew;
     if (sup) {
       a.next_sid[b] = *w.next_sid;
@@ -1233,8 +1530,14 @@ extern "C" {
 int clsim_fused_ticks(const Args* a, void* stream) {
   const long long share = a->smem_bytes;
   const bool ext = a->ext != 0, wave = a->wave != 0, tiled = a->tiled != 0;
-  if (carve(0, a->n, a->e, a->s, ext, wave).bytes > share || share % 16 ||
-      (wave && a->sampler == kGoExact))
+  const bool traced = a->traced != 0;
+  if (carve(0, a->n, a->e, a->s, ext, wave, traced).bytes > share ||
+      share % 16 || (wave && a->sampler == kGoExact))
+    return (int)cudaErrorInvalidValue;
+  // the ring: K slots a lane, and its count and arm flag
+  if (traced && (a->tr_k < 1 || a->tr_meta == nullptr ||
+                 a->tr_data == nullptr || a->tr_tick == nullptr ||
+                 a->tr_count == nullptr || a->tr_on == nullptr))
     return (int)cudaErrorInvalidValue;
   // the resident share must fit a block; the tiled layout, the workspace
   if (tiled ? (a->workspace == nullptr ||
@@ -1242,17 +1545,25 @@ int clsim_fused_ticks(const Args* a, void* stream) {
             : share > 232448)
     return (int)cudaErrorInvalidValue;
   using Kernel = void (*)(const Args);
-  static const Kernel kernels[8] = {
-      fused_ticks_kernel<false, false, false>,
-      fused_ticks_kernel<true, false, false>,
-      fused_ticks_kernel<false, true, false>,
-      fused_ticks_kernel<true, true, false>,
-      fused_ticks_kernel<false, false, true>,
-      fused_ticks_kernel<true, false, true>,
-      fused_ticks_kernel<false, true, true>,
-      fused_ticks_kernel<true, true, true>};
+  static const Kernel kernels[16] = {
+      fused_ticks_kernel<false, false, false, false>,
+      fused_ticks_kernel<true, false, false, false>,
+      fused_ticks_kernel<false, true, false, false>,
+      fused_ticks_kernel<true, true, false, false>,
+      fused_ticks_kernel<false, false, true, false>,
+      fused_ticks_kernel<true, false, true, false>,
+      fused_ticks_kernel<false, true, true, false>,
+      fused_ticks_kernel<true, true, true, false>,
+      fused_ticks_kernel<false, false, false, true>,
+      fused_ticks_kernel<true, false, false, true>,
+      fused_ticks_kernel<false, true, false, true>,
+      fused_ticks_kernel<true, true, false, true>,
+      fused_ticks_kernel<false, false, true, true>,
+      fused_ticks_kernel<true, false, true, true>,
+      fused_ticks_kernel<false, true, true, true>,
+      fused_ticks_kernel<true, true, true, true>};
   const Kernel kernel = kernels[(ext ? 1 : 0) + (wave ? 2 : 0) +
-                                (tiled ? 4 : 0)];
+                                (tiled ? 4 : 0) + (traced ? 8 : 0)];
   const size_t smem = tiled ? 0 : (size_t)share;
   // resident: raised for every share (the default limit counts static
   // bytes too); tiled: no shared memory, so the SM's L1 takes the most

@@ -2,11 +2,13 @@
 
 The port of the JAX package's ``kernels/megatick.py`` Pallas ``fused_scan``
 (:432, ``pl.pallas_call`` :641, with ``RingStream.commit_and_heads``
-:380) for its untraced cascade body — what the golden runs
+:380): the cascade and wave step bodies — what the golden runs
 (``DenseSim``, megatick 8) and the exact storm's drain and flush at
-megatick K run — with its fault arm: the adversary
-(``models/faults.Faults``) and the snapshot supervisor run inside the
-step. The JAX kernel streams the adversary's next K ticks in as
+megatick K run — with its recorder arm (the flight recorder's sites inside
+the step, run when ``TickKernel._trace_on``: the JAX kernel traces the
+stock tick, recorder included, ``kernels/megatick.py:83-84``) and its
+fault arm: the adversary (``models/faults.Faults``) and the snapshot
+supervisor run inside the step. The JAX kernel streams the adversary's next K ticks in as
 ``edge_plane`` [K, 8, E] / ``aux_plane`` [K, 2, N] (``_fault_planes``,
 ``ops/tick.py:854``); the hash is stateless in (key, time, index), so the
 CUDA kernel hashes each step's masks in place instead
@@ -89,8 +91,9 @@ SMEM_BUDGET = 232_448
 MODES = {"ticks": 0, "drain": 1, "flush": 2}
 
 # launches of the CUDA kernel wrapper (the plain version is not counted);
-# "fused_scan_tiled" counts the launches of the tiled layout again
-LAUNCHES = {"fused_scan": 0, "fused_scan_tiled": 0}
+# "fused_scan_tiled" counts the launches of the tiled layout again, and
+# "fused_scan_traced" those of the recorder arm
+LAUNCHES = {"fused_scan": 0, "fused_scan_tiled": 0, "fused_scan_traced": 0}
 
 # the wave arm keeps a marker's rank among its node's markers of a tick in
 # int16: a node may have at most this many in-edges
@@ -112,7 +115,8 @@ def wave_arm(tk) -> bool:
 
 
 def fused_smem_bytes(n: int, e: int, s: int, *,
-                     fault_arm: bool = False, wave: bool = False) -> int:
+                     fault_arm: bool = False, wave: bool = False,
+                     trace: bool = False) -> int:
     """One lane's working set, the one reckoning of it: the block's share
     of shared memory in the resident layout, the lane's stride in the
     workspace in the tiled one (the wrapper passes it to the kernel, which
@@ -129,8 +133,12 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     edge, the down flag per node and a retry flag per slot (bytes).
     ``wave`` (``wave_arm(tk)``) adds the wave schedule: each edge's draw
     base (int32), its wave number (int16) and first-receipt flag (byte),
-    and 24 words of control. The rings, the log, the windows and the
-    delay stream stay in device memory. Rounded up to 16 B."""
+    and 24 words of control. ``trace`` (``tk._trace_on``) adds the
+    recorder's word per edge and its 9 control words (the lane's count
+    and the block scan's 8 warp sums), and with ``wave`` a word per node
+    (its marker count of the tick). The rings, the log, the windows,
+    the trace ring and the delay stream stay in device memory. Rounded up
+    to 16 B."""
     ints = 6 * e + n + 2 * s * n + 2 * s + 4
     flags = 3 * e + s * e + 2 * s * n + 2 * s
     if fault_arm:
@@ -139,6 +147,8 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     if wave:
         ints += e + 24
         flags += 3 * e          # the int16 wave number and the flag
+    if trace:
+        ints += e + 9 + (n if wave else 0)
     return (4 * ints + flags + 15) // 16 * 16
 
 
@@ -261,6 +271,8 @@ _INTS = ("b", "n", "e", "c", "s", "l", "log16", "rec_limit", "key_limit",
          "quarantine", "smem_bytes", "faulted", "ext", "wave", "crash_kind",
          "crash_lossy", "crash_len", "crash_period", "crash_start", "dup_mod",
          "snapshot_timeout", "snapshot_retries", "snapshot_every")
+# the flight recorder's leaves, in ``_Args`` order (traced launches only)
+_RING = ("tr_meta", "tr_data", "tr_tick", "tr_count", "tr_on")
 _CLASSES = 7   # core/state.NUM_FAULT_CLASSES, in FC_* order
 # the crash schedule's ints when no adversary is armed
 _NO_CRASH = dict(crash_kind=0, crash_lossy=0, crash_len=0, crash_period=1,
@@ -285,7 +297,9 @@ class _Args(ctypes.Structure):
                 + [(name, ctypes.c_int) for name in _INTS]
                 + [("rates", _Program), ("workspace", ctypes.c_void_p),
                    ("workspace_bytes", ctypes.c_longlong),
-                   ("tiled", ctypes.c_int)])
+                   ("tiled", ctypes.c_int)]
+                + [(name, ctypes.c_void_p) for name in _RING]
+                + [("tr_k", ctypes.c_int), ("traced", ctypes.c_int)])
 
 
 _SIGS = {
@@ -357,9 +371,10 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     """``length`` fused steps of every lane (module docstring) in one
     launch on a CUDA state, in place; ``fused_ticks_plain`` on a CPU
     state. ``tk`` is the ring-mode ``ops/tick.TickKernel`` whose tables,
-    config, adversary, supervisor and layout (``tk.fused_tile``) the
-    kernel reads. Returns the state (its leaves made contiguous where they
-    were not)."""
+    config, adversary, supervisor, flight recorder and layout
+    (``tk.fused_tile``) the kernel reads; a traced kernel launches the
+    traced instantiation, which writes the state's ring. Returns the state
+    (its leaves made contiguous where they were not)."""
     if s.time.device.type == "cpu":
         return fused_ticks_plain(tk, s, mode=mode, length=length, live=live,
                                  limit=limit)
@@ -388,9 +403,18 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
                 raise ValueError(f"{name}: expected {want} ({b},) on {dev}")
             lane_in[name] = t.contiguous()
     crash, rates = _program(tk.faults)
-    ext, wave = fault_arm(tk), wave_arm(tk)
+    ext, wave, traced = fault_arm(tk), wave_arm(tk), tk._trace_on
     share = fused_smem_bytes(topo.n, topo.e, cfg.max_snapshots,
-                             fault_arm=ext, wave=wave)
+                             fault_arm=ext, wave=wave, trace=traced)
+    k = cfg.trace_capacity if traced else 0
+    for name in _RING if traced else ():
+        t = getattr(s, name)
+        want = (b, k) if name in _RING[:3] else (b,)
+        if (t.dtype != torch.int32 or tuple(t.shape) != want
+                or t.device != dev):
+            raise ValueError(f"{name}: expected int32 {want} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        fields[name] = t.contiguous()
     tiled = tk.fused_tile == "on"
     if share >= 2**31:
         raise ValueError(f"one lane's working set {share} B passes the "
@@ -415,12 +439,15 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
         *(getattr(tk, t).data_ptr() for t in _TABLES),
         *(ints[name] for name in _INTS), rates,
         ws.data_ptr() if tiled else None, ws.numel() if tiled else 0,
-        int(tiled))
+        int(tiled),
+        *(fields[name].data_ptr() if traced else None for name in _RING),
+        k, int(traced))
     code = _fn("clsim_fused_ticks")(ctypes.byref(args),
                                     _build.stream_ptr(s.time))
     _build.check(code, "clsim_fused_ticks")
     LAUNCHES["fused_scan"] += 1
     LAUNCHES["fused_scan_tiled"] += int(tiled)
+    LAUNCHES["fused_scan_traced"] += int(traced)
     if words[0] is not None:
         fields["delay_state"] = words
     return s._replace(**fields)

@@ -26,15 +26,19 @@ megatick 1 leaf for leaf, under the fault adversary and the snapshot
 supervisor too (the kernel hashes the fault masks and runs the
 supervisor inside the step).
 
+``trace`` (utils/tracing.Trace) arms the flight recorder: every recorder
+site of the JAX ticks on a ported tick form appends its events to the
+lane's ring, in the JAX order (``utils/tracing.py``); with ``trace=None``
+or ``cfg.trace_capacity == 0`` no site runs.
+
 The ring-mode ticks carry the fault adversary (``faults``,
 models/faults.py), the snapshot supervisor (``cfg.snapshot_timeout`` /
 ``snapshot_every``) and quarantine (a lane with error bits stops
 ticking), as the JAX ticks do; with all three off they run exactly the
-fault-free code (no hook is called). The sync tick refuses them, and
-the flight recorder is not ported (ROADMAP.md). JAX freezes a lane with
-``lax.cond`` under ``vmap``, which computes both branches and selects;
-since the port
-writes in place, it cannot tick every lane and select afterwards, so the
+fault-free code (no hook is called). The sync tick refuses them. JAX
+freezes a lane with ``lax.cond`` under ``vmap``, which computes both
+branches and selects; since the port writes in place, it cannot tick
+every lane and select afterwards, so the
 lane mask ``active`` reaches every effect instead: restarts and their
 counts, the supervisor's scan, re-initiation and daemon, the gates, the
 duplicate appends, the bulk sends and injections, and every delay draw.
@@ -82,6 +86,20 @@ from chandy_lamport_tpu_torch.kernels import megatick as k_megatick
 from chandy_lamport_tpu_torch.kernels import queue as k_queue
 from chandy_lamport_tpu_torch.kernels import segment as k_segment
 from chandy_lamport_tpu_torch.ops.delay import select_words
+from chandy_lamport_tpu_torch.utils.tracing import (
+    EV_FAULT,
+    EV_MRECV,
+    EV_MSEND,
+    EV_RECV,
+    EV_SEND,
+    EV_SNAP_END,
+    EV_SNAP_START,
+    EV_SUP_ABORT,
+    EV_SUP_FAIL,
+    EV_SUP_RETRY,
+    trace_append_many,
+    trace_append_one,
+)
 
 _i32 = torch.int32
 # the clock a frozen lane shows the delivery selection: every slot word's
@@ -173,7 +191,9 @@ class TickKernel:
     ``faults`` (models/faults.Faults or None) arms the fault adversary,
     the config's ``snapshot_timeout``/``snapshot_every`` the snapshot
     supervisor, and ``quarantine`` freezes a lane once its error bits
-    fire (module docstring); all three are ring-mode only.
+    fire (module docstring); all three are ring-mode only. ``trace``
+    (utils/tracing.Trace or None) arms the flight recorder when the
+    config gives the ring slots (``cfg.trace_capacity > 0``).
 
     ``megatick`` (K) is the JAX kernel's, for the exact scheduler only:
     ``kernels/megatick.resolve_fused`` sets ``self.fused``,
@@ -187,7 +207,8 @@ class TickKernel:
 
     def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device,
                  marker_mode: str = "ring", exact_impl: str = "cascade",
-                 faults=None, quarantine: bool = False, megatick: int = 1):
+                 faults=None, quarantine: bool = False, megatick: int = 1,
+                 trace=None):
         if marker_mode not in ("ring", "split"):
             raise ValueError(f"unknown marker_mode {marker_mode!r}")
         if exact_impl not in ("cascade", "wave", "fold"):
@@ -229,13 +250,16 @@ class TickKernel:
         self.exact_impl = exact_impl
         self._exact_tick = (self._wave_tick if exact_impl == "wave"
                             else self._cascade_tick)
+        # no recorder site runs unless armed AND the ring has slots
+        self._trace_on = trace is not None and cfg.trace_capacity > 0
         (self.fused, self.fused_reason, self.fused_tile,
          self.fused_tile_reason) = k_megatick.resolve_fused(
             megatick=self.megatick, device=self.device,
             smem_bytes=k_megatick.fused_smem_bytes(
                 topo.n, topo.e, cfg.max_snapshots,
                 fault_arm=k_megatick.fault_arm(self),
-                wave=k_megatick.wave_arm(self)))
+                wave=k_megatick.wave_arm(self),
+                trace=self._trace_on))
         if self.fused == "on" and k_megatick.wave_arm(self):
             k_megatick.check_wave_degree(topo.in_degree)
         self.fused_workspace = None     # the tiled layout's, at first launch
@@ -280,6 +304,7 @@ class TickKernel:
         self._outdeg_dst_e = t((src_bounds[1:] - src_bounds[:-1])
                                [topo.edge_dst])
         self._rows_e = torch.arange(topo.e, dtype=_i32, device=self.device)
+        self._node_ids = torch.arange(n, dtype=_i32, device=self.device)
         self._slot_ids = torch.arange(cfg.max_snapshots, dtype=_i32,
                                       device=self.device)
         self._rec_dtype = getattr(torch, cfg.record_dtype)
@@ -366,6 +391,8 @@ class TickKernel:
             active = active & lanes.unsqueeze(-1)
         s = s._replace(tokens=tokens, error=s.error | _flag(
             under, ERR_TOKEN_UNDERFLOW))
+        if self._trace_on:
+            s = trace_append_many(s, active, EV_SEND, self._rows_e, amounts)
         return self._bulk_push(s, active.contiguous(), False,
                                amounts.expand(b, -1).contiguous(), lanes)
 
@@ -380,13 +407,17 @@ class TickKernel:
         k_e = push_i.sum(-2, dtype=_i32)
         key_se = (s.tok_pushed * self._keymult + s.mk_cnt).unsqueeze(-2) \
             + off_se
-        return s._replace(
+        s = s._replace(
             m_pending=s.m_pending | push_se,
             m_rtime=torch.where(push_se, rts_se, s.m_rtime),
             m_key=torch.where(push_se, key_se, s.m_key),
             mk_cnt=s.mk_cnt + k_e,
             delay_state=dstate,
         )
+        if self._trace_on:
+            s = trace_append_many(s, push_se, EV_MSEND, self._rows_e,
+                                  self._slot_ids[:, None])
+        return s
 
     def _create_and_broadcast(self, s: DenseState, created) -> DenseState:
         """CreateLocalSnapshot + marker broadcast for every True (lane,
@@ -416,6 +447,9 @@ class TickKernel:
             error=s.error | _flag(s.next_sid + count > S,
                                   ERR_SNAPSHOT_OVERFLOW),
         )
+        if self._trace_on:
+            s = trace_append_many(s, init_mask.expand(sid_n.shape),
+                                  EV_SNAP_START, self._node_ids, sid_n)
         return self._create_and_broadcast(s, created)
 
     # ---- the synchronous tick ----------------------------------------------
@@ -470,6 +504,9 @@ class TickKernel:
                   | (credit >= F32_EXACT_LIMIT).any(-1))
         s = s._replace(tokens=s.tokens + credit,
                        error=s.error | _flag(toobig, ERR_VALUE_OVERFLOW))
+        if self._trace_on:
+            # all tokens before all markers is this tick's real order
+            s = trace_append_many(s, tok_e, EV_RECV, self._rows_e, amt_e)
         log, cnt, err_bits = log_append(
             s.log_amt, s.rec_cnt, s.min_prot, s.recording, tok_e, amt_e,
             self._rec_dtype, self._rec_limit, self.cfg.max_recorded)
@@ -478,6 +515,11 @@ class TickKernel:
         # marker deliveries, every slot at once (HandleMarker)
         mk_se = m_is_front & mk_e.unsqueeze(-2)                     # [B,S,E]
         s = s._replace(m_pending=s.m_pending & ~mk_se)
+        if self._trace_on:
+            # the consumed front's plane index is the snapshot id
+            sid_e = torch.where(mk_se, self._slot_ids[:, None], 0).sum(
+                -2, dtype=_i32)
+            s = trace_append_many(s, mk_e, EV_MRECV, self._rows_e, sid_e)
         arrivals = self._sum_by_dst(mk_se)                          # [B,S,N]
         had = s.has_local
         created = (arrivals > 0) & ~had
@@ -498,6 +540,8 @@ class TickKernel:
 
         # finalize (node.go:165-170)
         fire = s.has_local & (s.rem == 0) & ~s.done_local
+        if self._trace_on:
+            s = self._trace_snap_ends(s, fire)
         return self._stamp_done(s._replace(
             done_local=s.done_local | fire,
             completed=s.completed + fire.sum(-1, dtype=_i32),
@@ -558,6 +602,8 @@ class TickKernel:
         ``mask``: one delay draw into the [S, E] pending planes, its merge
         key from the edge's token and marker counts. Lanes outside
         ``mask`` draw nothing."""
+        if self._trace_on:
+            s = trace_append_one(s, mask, EV_MSEND, e, sid)
         lanes = self._lanes(s)
         rtime, drawn = self.delay.draw(s.delay_state, s.time)
         e_l, sid_l = e.long(), sid.long()
@@ -643,10 +689,15 @@ class TickKernel:
         rt_e = torch.zeros((b, e + 1), dtype=_i32,
                            device=self.device).scatter_(1, tgt, rts_k)
         s = s._replace(delay_state=dstate)
-        return self._append_rows(
+        s = self._append_rows(
             s, active[:, :e].contiguous(), rt_e[:, :e].contiguous(), True,
             self._marker_payload(s, sid).unsqueeze(-1).expand(b, e)
             .contiguous())
+        if self._trace_on:
+            # the row's edges in dest order; the trace carries the raw sid
+            s = trace_append_many(s, active[:, :e], EV_MSEND, self._rows_e,
+                                  sid.unsqueeze(-1))
+        return s
 
     def _finalize_check(self, s: DenseState, sid, node, mask) -> DenseState:
         """finalizeSnapshot + NotifyCompletedSnapshot where no links of
@@ -655,6 +706,8 @@ class TickKernel:
         cell = (lanes, sid.long(), node.long())
         done = s.done_local[cell]
         fire = mask & s.has_local[cell] & (s.rem[cell] == 0) & ~done
+        if self._trace_on:
+            s = trace_append_one(s, fire, EV_SNAP_END, node, sid)
         s.done_local[cell] = done | fire
         s.completed[lanes, sid.long()] += fire.to(_i32)
         return s
@@ -667,6 +720,9 @@ class TickKernel:
         re-broadcasts; a repeat stops recording the edge. Each lane takes
         only its own branch (the JAX ``lax.cond`` under ``vmap`` computes
         both and selects), then the finalization check."""
+        if self._trace_on:
+            # the receipt before its handling (node.go:141)
+            s = trace_append_one(s, act, EV_MRECV, e, sid)
         lanes = self._lanes(s)
         dst = self._edge_dst[e]
         sid_l, dst_l = sid.long(), dst.long()
@@ -753,6 +809,9 @@ class TickKernel:
             r = torch.where(found, self._edge_src[e], 0)
             tmask = tok & (self._edge_src < r.unsqueeze(-1))
             s = self._credit(s, tmask, amt_e)
+            if self._trace_on:
+                # the chunk's receipts in edge order, before its marker
+                s = trace_append_many(s, tmask, EV_RECV, self._rows_e, amt_e)
             app = app | (tmask & s.recording.any(-2))
             sid = torch.where(found, sid_e[lanes, e], 0)
             s = self._handle_marker(s, found, e, sid, app.to(_i32))
@@ -797,6 +856,8 @@ class TickKernel:
         marked for the log where their channel records, the log append,
         the duplicates re-appended and the completion stamp."""
         s = self._credit(s, tok, amt_e)
+        if self._trace_on:
+            s = trace_append_many(s, tok, EV_RECV, self._rows_e, amt_e)
         app = app | (tok & s.recording.any(-2))
         log, cnt, err = log_append_masked(
             s.log_amt, s.rec_cnt, s.min_prot, app, amt_e, self._rec_dtype,
@@ -880,6 +941,11 @@ class TickKernel:
             tmask = (tok & (self._rows_e < at_dst[:, 0])
                      & go.unsqueeze(-1))
             s = self._credit(s, tmask, amt_e)
+            if self._trace_on:
+                # the wave's receipts, then its markers, each in edge
+                # order (a tick's events in wave order, not the fold's)
+                s = trace_append_many(s, tmask, EV_RECV, self._rows_e, amt_e)
+                s = trace_append_many(s, wm, EV_MRECV, self._rows_e, sid_e)
             app = app | (tmask & s.recording.any(-2))
             tok = tok & ~tmask
             # a repeat closes its own channel where it still records (a
@@ -919,9 +985,14 @@ class TickKernel:
             s = self._append_rows(
                 s, (at_src[:, 0] > 0).contiguous(), rt_g.contiguous(), True,
                 self._marker_payload(s, at_src[:, 1]).contiguous())
+            if self._trace_on:
+                s = trace_append_many(s, at_src[:, 0] > 0, EV_MSEND,
+                                      self._rows_e, at_src[:, 1])
             # finalize after every receipt (node.go:165-170)
             fire = ((slots == wsid_n.unsqueeze(-2)) & wdst.unsqueeze(-2)
                     & s.has_local & (s.rem == 0) & ~s.done_local)
+            if self._trace_on:
+                s = self._trace_snap_ends(s, fire)
             s = s._replace(done_local=s.done_local | fire,
                            completed=s.completed + fire.sum(-1, dtype=_i32))
             mk = mk & ~wm
@@ -953,6 +1024,16 @@ class TickKernel:
             s.fault_key, s.time, self.topo.e)
         return md_e, mu_e, mj_e, self._dup_times(s, mw_e)
 
+    def _trace_faults(self, s: DenseState, mask, cls: int) -> DenseState:
+        """One fault event of class ``cls`` per edge of ``mask`` [B, E]."""
+        return trace_append_many(s, mask, EV_FAULT, self._rows_e, cls)
+
+    def _trace_snap_ends(self, s: DenseState, fire) -> DenseState:
+        """One endSnapshot per (slot, node) of ``fire`` [B, S, N], slot
+        major."""
+        return trace_append_many(s, fire, EV_SNAP_END, self._node_ids,
+                                 self._slot_ids[:, None])
+
     @staticmethod
     def _count(s: DenseState, cls: int, mask) -> None:
         """Add the events of ``mask`` [B, E] or [B, N] to
@@ -969,6 +1050,9 @@ class TickKernel:
         duped = mk_pend & mdup_e & ~dropped
         self._count(s, FC_MDROP, dropped)
         self._count(s, FC_MDUP, duped)
+        if self._trace_on:
+            s = self._trace_faults(s, dropped, FC_MDROP)
+            s = self._trace_faults(s, duped, FC_MDUP)
         return s, mk_pend & ~dropped, duped
 
     def _fault_gate_elig(self, s: DenseState, elig, jit_e, mjit_e,
@@ -981,6 +1065,9 @@ class TickKernel:
         mblocked = elig & marker_front & mjit_e
         self._count(s, FC_JITTER, jblocked)
         self._count(s, FC_MJITTER, mblocked)
+        if self._trace_on:
+            s = self._trace_faults(s, jblocked, FC_JITTER)
+            s = self._trace_faults(s, mblocked, FC_MJITTER)
         down_n = self.faults.down_nodes(s.fault_key, s.time, self.topo.n)
         dead = elig & self._spread_dst(down_n)
         return s, elig & ~(jblocked | mblocked) & ~dead
@@ -997,6 +1084,9 @@ class TickKernel:
                 - torch.where(dropped, amt_src, 0).sum(-1, dtype=_i32))
         self._count(s, FC_DROP, dropped)
         self._count(s, FC_DUP, duped)
+        if self._trace_on:
+            s = self._trace_faults(s, dropped, FC_DROP)
+            s = self._trace_faults(s, duped, FC_DUP)
         return (s._replace(fault_skew=s.fault_skew + skew),
                 tok_e & ~dropped, duped)
 
@@ -1012,6 +1102,10 @@ class TickKernel:
         if active is not None:
             rs_n = rs_n & active.unsqueeze(-1)
         self._count(s, FC_CRASH, rs_n)
+        if self._trace_on:
+            # the one fault event whose actor is a node
+            s = trace_append_many(s, rs_n, EV_FAULT, self._node_ids,
+                                  FC_CRASH)
         if self.faults.crash_mode != "lossy":
             return s
         S = self.cfg.max_snapshots
@@ -1096,6 +1190,14 @@ class TickKernel:
                 can_retry, s.time.unsqueeze(-1) + backoff,
                 torch.where(failed, 0, s.snap_deadline)),
             error=s.error | _flag(failed.any(-1), ERR_SNAPSHOT_TIMEOUT))
+        if self._trace_on:
+            # the decisions in decision order: every timed-out attempt
+            # aborts, then retries or fails
+            init_n = s.snap_initiator.clamp(0, self.topo.n - 1)
+            for kind, m in ((EV_SUP_ABORT, timed_out),
+                            (EV_SUP_RETRY, can_retry),
+                            (EV_SUP_FAIL, failed)):
+                s = trace_append_many(s, m, kind, init_n, self._slot_ids)
         return s, can_retry
 
     def _sup_reinitiate_ring(self, s: DenseState, retry) -> DenseState:
@@ -1224,6 +1326,10 @@ class TickKernel:
         are host ints shared by every lane or [B] tensors, one per lane (a
         batched script's op); lanes outside ``mask`` [B] (None = every
         lane) are left as they were."""
+        if self._trace_on:
+            s = trace_append_one(s, True if mask is None else mask, EV_SEND,
+                                 self._lane_ints(s, e),
+                                 self._lane_ints(s, amount))
         lanes = self._lanes(s)
         src = self._edge_src[self._lane_ints(s, e).long()].long()
         amount = self._lane_ints(s, amount)
@@ -1255,6 +1361,8 @@ class TickKernel:
         s.started[cell] = s.started[cell] | go
         node_b = (torch.full_like(sid, node) if isinstance(node, int)
                   else node.to(_i32))
+        if self._trace_on:
+            s = trace_append_one(s, go, EV_SNAP_START, node_b, sid)
         if self._sup:
             s.snap_initiator[cell] = torch.where(go, node_b,
                                                  s.snap_initiator[cell])
@@ -1323,8 +1431,15 @@ class TickKernel:
         return s
 
     def _sync_tick_lanes(self, s: DenseState, active) -> DenseState:
-        ticked = self._sync_tick(s)
-        return ticked if active is None else select_lanes(active, ticked, s)
+        """The sync tick on the lanes of ``active`` [B] (None = all): every
+        lane ticks and the others are selected back. The recorder writes
+        its ring in place, so an inactive lane's is disarmed for the tick
+        (its ``tr_on`` is selected back with the rest)."""
+        if active is None:
+            return self._sync_tick(s)
+        ticked = self._sync_tick(s._replace(
+            tr_on=torch.where(active, s.tr_on, 0)))
+        return select_lanes(active, ticked, s)
 
     def _sync_drain_and_flush(self, s: DenseState) -> DenseState:
         return self._drain_and_flush_with(s, self._sync_tick_lanes)

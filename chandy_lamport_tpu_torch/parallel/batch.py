@@ -22,9 +22,10 @@ megatick kernel. Runs on the card unless the caller passes
 ``device="cpu"``, where the kernel wrappers take their plain PyTorch
 versions. The exact scheduler also carries the fault adversary
 (``faults=``), the snapshot supervisor (the config's ``snapshot_*`` knobs)
-and ``quarantine=``. Not ported yet (ROADMAP.md): the flight recorder
-(``trace=``), the sync scheduler under faults, the stream's memo plane
-(A9b) and its checkpoints (A8).
+and ``quarantine=``, and every scheduler the flight recorder
+(``trace=``, utils/tracing.py). Not ported yet (ROADMAP.md): the sync
+scheduler under faults, the stream's memo plane (A9b) and its checkpoints
+(A8).
 """
 
 from __future__ import annotations
@@ -62,6 +63,13 @@ from chandy_lamport_tpu_torch.utils.metrics import (
     snapshot_lifecycle,
     straggler_waste,
     stream_counters,
+)
+from chandy_lamport_tpu_torch.utils.tracing import (
+    EV_LANE_ADMIT,
+    EV_LANE_HARVEST,
+    armed_config,
+    trace_append_lanes,
+    trace_counts,
 )
 
 OP_NOP, OP_SEND, OP_SNAPSHOT = 0, 1, 2
@@ -256,7 +264,12 @@ class BatchedRunner:
         where it was poisoned; healthy lanes are unaffected. Exact
         scheduler only.
 
-        trace: the flight recorder is not ported (NotImplementedError).
+        trace: utils/tracing.Trace arms the flight recorder: every tick
+        form (and, at megatick K > 1 on the card, the fused megatick's
+        recorder arm) appends the reference Logger's events to each lane's
+        ring, and the streaming engine its lane admits and harvests. A
+        config that leaves ``trace_capacity`` at 0 is bumped to the
+        trace's capacity here. None runs no recorder site.
 
         megatick: the exact drain and flush run K-tick megaticks (the JAX
         storm CLI's ``--megatick``; storm phases tick one at a time);
@@ -277,13 +290,10 @@ class BatchedRunner:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if check_every < 0:
             raise ValueError("check_every must be >= 0 (0 = off)")
-        if trace is not None:
-            raise NotImplementedError(
-                "the flight recorder (trace=, utils/tracing.py) is not "
-                "ported yet (ROADMAP.md, section A)")
         self.device = resolve_device(device)
         self.topo = DenseTopology(topology)
-        self.config = config or SimConfig()
+        self.config = armed_config(config or SimConfig(), trace)
+        self.trace = trace
         # the flush must cover the sampler's max delay
         if delay.max_delay != self.config.max_delay:
             self.config = dataclasses.replace(self.config,
@@ -298,7 +308,7 @@ class BatchedRunner:
             self.topo, self.config, delay, self.device,
             marker_mode="split" if scheduler == "sync" else "ring",
             exact_impl=exact_impl, faults=faults, quarantine=quarantine,
-            megatick=megatick)
+            megatick=megatick, trace=trace)
         self.megatick = self.kernel.megatick
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
@@ -676,6 +686,10 @@ class BatchedRunner:
         # step retiring more lanes than R slots keeps its newest R
         keep = fin & (rank >= nfin - rcap)
         widx = torch.where(keep, (st.res_count + rank) % rcap, rcap).long()
+        if self.kernel._trace_on:
+            # before the reset: the ring spans the lane's jobs
+            # (_RESET_KEEP), so the harvest survives it
+            s = trace_append_lanes(s, fin, EV_LANE_HARVEST, jid)
 
         def put(ring, vals):
             spare = torch.cat([ring, ring[:1]])
@@ -725,6 +739,8 @@ class BatchedRunner:
                                     torch.where(reset, 0, s.prog_cursor)),
             admit_tick=torch.where(admit, st.steps,
                                    torch.where(reset, 0, s.admit_tick)))
+        if self.kernel._trace_on:
+            s = trace_append_lanes(s, admit, EV_LANE_ADMIT, new_jid)
         st = st._replace(
             next_job=st.next_job + admit.sum(dtype=_i32),
             refills=st.refills + (admit & fin).sum(dtype=_i32))
@@ -755,8 +771,9 @@ class BatchedRunner:
         raises after ``max_steps``. ``state`` and ``stream`` (default: a
         fresh batch and ``init_stream(pool, results_capacity)``) are left
         as they were: the run owns its copies, which the kernels write in
-        place. Checkpoints (A8), the flight recorder (A3b) and the memo
-        plane (A9b) are not ported."""
+        place. With the flight recorder armed, each lane's ring records
+        its jobs' ticks and their admits and harvests. Checkpoints (A8)
+        and the memo plane (A9b) are not ported."""
         if admission not in ("stream", "gang"):
             raise ValueError(f"unknown admission mode {admission!r}")
         if stretch < 1 or drain_chunk < 1:
@@ -809,8 +826,7 @@ class BatchedRunner:
         bits = int(or_reduce(state.error))
         fc = state.fault_counts.sum(0).tolist()
         n = state.has_local.shape[-1]
-        k = state.tr_meta.shape[-1]
-        count = state.tr_count.to(torch.int64)
+        recorded, dropped = trace_counts(state)
         out = {
             "instances": int(state.time.shape[0]),
             "total_ticks": int(state.time.sum()),
@@ -828,8 +844,8 @@ class BatchedRunner:
                              "marker_drops": fc[4], "marker_dups": fc[5],
                              "marker_jitters": fc[6]},
             "fault_skew": int(state.fault_skew.sum()),
-            "trace_events": int(torch.clamp(count, max=k).sum()),
-            "trace_dropped": int(torch.clamp(count - k, min=0).sum()),
+            "trace_events": recorded,
+            "trace_dropped": dropped,
             "snapshot_lifecycle": {
                 key: int(v) for key, v in snapshot_lifecycle(
                     state, n).items()},

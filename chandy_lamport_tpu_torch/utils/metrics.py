@@ -144,8 +144,9 @@ def stream_counters(stream) -> Dict[str, Any]:
 def instance_footprint_bytes(num_nodes: int, num_edges: int,
                              cfg: SimConfig) -> int:
     """Per-instance device bytes of a DenseState excluding the delay
-    state (the JAX formula at trace capacity K = 0): 8·E·C + (24 + rec·L)·E
-    + 4·N + S·(22 + 10·N + (10+2·win)·E) + 12."""
+    state (the JAX formula): 8·E·C + (24 + rec·L)·E + 4·N + S·(22 + 10·N
+    + (10+2·win)·E) + 12·K + 12, K the flight recorder's
+    ``trace_capacity`` (three int32 planes of K slots)."""
     n, e = num_nodes, num_edges
     c, s, m = cfg.queue_capacity, cfg.max_snapshots, cfg.max_recorded
     rec = np.dtype(cfg.record_dtype).itemsize
@@ -157,7 +158,7 @@ def instance_footprint_bytes(num_nodes: int, num_edges: int,
                  + e * (1 + win * 2) + e * (1 + 4 + 4)
                  + 5 * 4 + 1)
     scalars = 4 * 3 + 4 * 10 + s * 4 + 4 * 3 + 4
-    trace = 8                      # tr_count / tr_on
+    trace = 12 * cfg.trace_capacity + 8   # the ring, tr_count / tr_on
     return queues + nodes + rec_log + snaps + scalars + trace
 
 

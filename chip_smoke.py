@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs twenty-two
+kernels/csrc`` (one nvcc per source, in parallel), then runs thirty
 phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -67,9 +67,23 @@ phases, each printing one JSON line:
                ``Faults.fault_planes`` at tick times 0, 1, 31, 32, 2^20 and
                2^31 - 1 (and on past the int32 wrap);
   tiled_edge_cases the edge cases of fused_kernel through the tiled
-               layout (forced, ``force_tiled``), bit-equal to the plain
-               version, all four tiled instantiations (cascade and wave,
+               layout (forced, ``force_tiled``), launched beside the
+               resident ones against the same plain runs, bit-equal to
+               the plain version, all four tiled instantiations (cascade and wave,
                with and without the fault arm) among them;
+  trace_kernel fused_scan's recorder arm (the flight recorder inside the
+               step, the kernel's ``kTrace`` instantiations) on the four
+               drain megaticks of fused_kernel, traced at the default
+               capacity (4,096 slots a lane), resident and tiled: bit-equal
+               to the traced plain version (the ring included), timed per
+               launch beside the untraced arm's time in this run and
+               beside its bound (the untraced one plus 12 B an event
+               written);
+  trace_edge_cases fused_kernel's edge cases traced at 4,096 slots and at
+               8 (a step's events pass the ring, which wraps inside one
+               append), each launched resident and tiled against one
+               plain run: every leaf equal, all eight traced
+               instantiations among them;
   storm        main path 1: the config-4 sync storm through
                ``BatchedRunner.run_storm`` on the card: zero error bits,
                every snapshot complete, conservation delta 0, and every
@@ -117,6 +131,15 @@ phases, each printing one JSON line:
                fault_wave_fused_storm rerun in the tiled layout (forced):
                every fused_scan launch tiled, each final state equal to
                its resident twin's leaf for leaf;
+  trace_fused_storm, trace_wave_fused_storm, trace_fault_wave_fused_storm
+               main paths 12-14: fused_storm, wave_fused_storm and
+               fault_wave_fused_storm with the flight recorder armed
+               (``trace=Trace()``, 4,096 slots a lane): clean, the
+               recorder arm launched, every leaf equal to the traced
+               megatick-1 twin, every leaf but the ring equal to the
+               untraced run of this call; ``trace_events``,
+               ``trace_dropped``, ``trace_overhead_pct`` (the wall against
+               the untraced run's) and the ring's events by kind;
   sf2048_tiled_cascade_storm an oversized cascade lane: SF-2048 at S=8
                (B=256, 16 phases, 1 snapshot) at megatick 8, tiled by
                "auto", fault-free and under fault_storm's adversary less
@@ -132,6 +155,9 @@ phases, each printing one JSON line:
                launches and workspace bytes; then one of its drain
                megaticks against the plain version, timed, beside its
                bound;
+  trace_config5_wave_fused_storm main path 15: config 5 traced: clean,
+               the tiled recorder arm launched, every leaf but the ring
+               equal to config5_wave_fused_storm's;
   stream_kernel fused_scan's lane gate on the streaming engine's own
                inputs: the streaming cell (below) driven until its queue
                runs dry, then the first step that runs both a drain slice
@@ -149,7 +175,10 @@ phases, each printing one JSON line:
                megatick 8 (its drain slices and flushes in fused_scan):
                every job retires with error 0; stream and gang admission
                give equal job rows; every row equals its megatick-1
-               twin's; 64 sampled jobs each equal the same job run alone
+               twin's (the same queue through the wave at megatick 1),
+               and a queue of 8,192 jobs of at most 8 phases at the
+               same width gives the same rows through the cascade at
+               megatick 8 and megatick 1; 64 sampled jobs each equal the same job run alone
                through ``run``; fused_scan, queue_step, append_rows and
                sum_by_perm launched, sum_segments and select_pop never;
                wall, jobs/s, steps, occupancy, host fold steps and
@@ -165,12 +194,22 @@ phases, each printing one JSON line:
   stream_sync  the sync scheduler's stream on config 4's graph (SF-1k,
                B=512, J=1,536), stream against gang and 16 sampled static
                runs (the sync scheduler has no megatick);
+  trace_stream main path 16: stream_wave traced: every row equal to the
+               untraced stream's, the recorder arm launched in its drain
+               slices and flushes, its lane admits and harvests in the
+               rings (a lane whose ring did not wrap holds one harvest per
+               admit);
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
                equal to its ``.snap`` file (read from
                chandy_lamport_tpu/data/test_data), fused_scan launched in
                every case;
+  trace_golden main path 17: the 7 goldens traced (``run_events_file(...,
+               trace=True)``, megatick 8): every snapshot equal to its
+               .snap file, the recorder arm launched in every case, the
+               timeline (``sim.trace.pretty()``) and the ring equal to the
+               card's megatick-1 traced run;
   cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
                (the faulted one with lossy crashes at a fixed window,
                marker drops and the supervisor with its daemon, at
@@ -182,18 +221,22 @@ Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
 and host times and a ``shapes`` list of every timed shape; fused_scan's
 a ``shapes`` list of its fault-free and faulted drain megaticks, cascade
-and wave, resident and tiled, and config 5's, and ``launches_tiled``;
+and wave, resident and tiled, untraced and traced, and config 5's,
+``launches_tiled``, ``launches_traced`` (by path too) and
+``traced_arms``, each traced drain megatick beside the untraced one;
 spread's a ``shapes`` list of its timed shapes), and last
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
 
     python3 chip_smoke.py --drain-timing \
-        fault-free|faulted|wave|wave-faulted|config5-wave [--package-root DIR]
+        fault-free|faulted|wave|wave-faulted|config5-wave[-traced] \
+        [--package-root DIR]
 
 times one drain megatick (K=8) of the exact or the faulted exact cell
 (the wave step body for ``wave`` and ``wave-faulted``; config 5's tiled
-wave lane for ``config5-wave``)
+wave lane for ``config5-wave``; ``-traced``: the recorder arm, the flight
+recorder armed at 4,096 slots)
 and prints one JSON line, nothing else; ``--package-root`` imports the
 package from another checkout (a parent commit unpacked into a
 gitignored directory), so parent and change are timed in turns in one
@@ -253,6 +296,10 @@ ST_SAMPLED = 64
 # batch (J = 3 x B), 16 sampled jobs each; the sync stream on config 4's
 # graph (SF-1k) at B=512, J=1,536
 STW_BATCH, STF_BATCH, SS_BATCH, SMALL_SAMPLED = 1024, 512, 512, 16
+# the streaming cell's cascade twin at megatick 1, cut in depth: J = 2 x B
+# jobs of at most 8 phases at the cell's width and batch (the whole
+# queue's cascade twin folds 30,954 host steps, 94-101 s on the H100)
+ST_TWIN_JOBS_PER_LANE, ST_TWIN_MAX_PHASES = 2, 8
 # the steps after the queue runs dry in which the kernel check looks for
 # one that runs both a drain slice and a flush
 ST_CAPTURE_STEPS = 8
@@ -513,13 +560,13 @@ def config4_runner(device):
 
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                  snapshots=X_SNAPSHOTS, graph="er", faults=None, megatick=1,
-                 exact_impl="cascade", tiled=False, **cfg_kw):
+                 exact_impl="cascade", tiled=False, trace=None, **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
     smaller exact storm; with ``faults`` (and supervisor knobs in
     ``cfg_kw``) the faulted exact storm, quarantined; ``megatick`` > 1
     the fused megatick's path (in the tiled layout whatever the lane's
     size with ``tiled``: ``force_tiled``); ``exact_impl`` the tick's
-    form."""
+    form; ``trace`` (utils/tracing.Trace) arms the flight recorder."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -537,7 +584,7 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
                            scheduler="exact", device=device, faults=faults,
                            quarantine=faults is not None, megatick=megatick,
-                           exact_impl=exact_impl)
+                           exact_impl=exact_impl, trace=trace)
     if tiled:
         force_tiled(runner)
     prog = storm_program(
@@ -561,21 +608,22 @@ def force_tiled(runner) -> None:
 
 
 def fault_runner(device, batch=X_BATCH, megatick=1, exact_impl="cascade",
-                 tiled=False):
+                 tiled=False, trace=None):
     """The faulted exact storm of main paths 3, 6 and 9 (module
     docstring)."""
     from chandy_lamport_tpu_torch.models.faults import Faults
 
     return exact_runner(device, batch, faults=Faults(3, **F_PROGRAM),
                         megatick=megatick, exact_impl=exact_impl,
-                        tiled=tiled, snapshot_timeout=F_TIMEOUT)
+                        tiled=tiled, trace=trace, snapshot_timeout=F_TIMEOUT)
 
 
-def config5_runner(device, megatick=MEGATICK):
+def config5_runner(device, megatick=MEGATICK, trace=None):
     """Config 5's exact wave storm (``C5_*``), tiled by "auto" on the
     card at megatick > 1."""
     return exact_runner(device, C5_BATCH, C5_NODES, C5_PHASES, C5_SNAPSHOTS,
-                        graph="sf", megatick=megatick, exact_impl="wave")
+                        graph="sf", megatick=megatick, exact_impl="wave",
+                        trace=trace)
 
 
 def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
@@ -1131,9 +1179,11 @@ def _edge_checks(name, s, got, steps, live, seen) -> None:
                              "what it is for")
 
 
-def fused_edge_cases(tiled: bool = False) -> list:
-    """fused_scan against its plain version on small states on the card
-    (every case resident, or with ``tiled`` forced tiled)
+def fused_edge_cases(layouts=("resident",), capacity=None) -> list:
+    """fused_scan against its plain version on small states on the card,
+    in each of ``layouts`` ("resident", "tiled": forced tiled) against one
+    plain run; with ``capacity`` the flight recorder armed with that many
+    ring slots (the recorder arm, its ring held to the plain one's)
     (``loaded_state``), each through the three step bodies ("ticks" with
     lane 1 not live at launch, so the others go quiet mid-megatick where
     they can; "drain" against a near and a far limit; "flush"). Fault-free:
@@ -1250,27 +1300,33 @@ def fused_edge_cases(tiled: bool = False) -> list:
         for impl in (("cascade", "wave") if delay.position_streams
                      else ("cascade",)):
             rows += _fused_edge_case(note, spec, cfg, delay, faults,
-                                     quarantine, check, impl, tiled)
+                                     quarantine, check, impl, layouts,
+                                     capacity)
     return rows
 
 
 def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
-                     impl, tiled) -> list:
+                     impl, layouts, capacity) -> list:
     """One case of ``fused_edge_cases`` through the ``impl`` step body,
-    forced tiled with ``tiled``."""
+    in each of ``layouts``, traced with ``capacity`` slots when given."""
     import torch
 
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.core.state import ERR_QUEUE_OVERFLOW
     from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
 
-    runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
-                           device="cuda", faults=faults,
-                           quarantine=quarantine, megatick=MEGATICK,
-                           exact_impl=impl)
+    runners = {}
+    for layout in layouts:
+        runners[layout] = BatchedRunner(
+            spec, cfg, delay, 4, scheduler="exact", device="cuda",
+            faults=faults, quarantine=quarantine, megatick=MEGATICK,
+            exact_impl=impl,
+            trace=None if capacity is None else Trace(capacity))
+        if layout == "tiled":
+            force_tiled(runners[layout])
+    runner = runners[layouts[0]]
     tk = runner.kernel
-    if tiled:
-        force_tiled(runner)
     s = (runner.init_batch_device() if check == "never_quiet"
          else loaded_state(runner, min(3, cfg.max_snapshots)))
     if quarantine and faults is None and check is None:
@@ -1293,29 +1349,37 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
             ("drain", MEGATICK, {"limit": s.time
                                  + runner.config.max_ticks}),
             ("flush", runner.config.max_delay + 1, {})):
-        got = km.fused_ticks(tk, BatchedRunner._own(s), mode=mode,
-                             length=length, **kw)
         want = km.fused_ticks_plain(tk, BatchedRunner._own(s),
                                     mode=mode, length=length, **kw)
-        err = max_abs_err(_leaves(got), _leaves(want))
-        if err or _mismatched(got, want):
-            raise AssertionError(f"fused_scan ({impl}) != plain on {note}, "
-                                 f"{mode}: {_mismatched(got, want)}")
-        if mode == "ticks" and not all(
-                bool(torch.equal(x[1], y[1]))
-                for x, y in zip(_leaves(got), _leaves(s))):
-            raise AssertionError("a lane not live at launch changed")
-        if mode == "ticks" and check is not None:
-            _edge_checks(check, s, got, length, live, seen)
-        rows.append({"case": note, "impl": impl, "mode": mode,
-                     "layout": _layout(runner),
-                     "fault_arm": km.fault_arm(tk),
-                     "steps": length,
-                     "lane_ticks": int((got.time - s.time).sum()),
-                     "error_bits": int(got.error.max()),
-                     "fault_events": int((got.fault_counts
-                                          - s.fault_counts).sum()),
-                     "max_abs_err": err})
+        for r in runners.values():
+            got = km.fused_ticks(r.kernel, BatchedRunner._own(s), mode=mode,
+                                 length=length, **kw)
+            err = max_abs_err(_leaves(got), _leaves(want))
+            if err or _mismatched(got, want):
+                raise AssertionError(
+                    f"fused_scan ({impl}, {_layout(r)}, capacity "
+                    f"{capacity}) != plain on {note}, {mode}: "
+                    f"{_mismatched(got, want)}")
+            if mode == "ticks" and not all(
+                    bool(torch.equal(x[1], y[1]))
+                    for x, y in zip(_leaves(got), _leaves(s))):
+                raise AssertionError("a lane not live at launch changed")
+            if mode == "ticks" and check is not None:
+                _edge_checks(check, s, got, length, live, seen)
+            events = got.tr_count - s.tr_count
+            rows.append({"case": note, "impl": impl, "mode": mode,
+                         "layout": _layout(r),
+                         "fault_arm": km.fault_arm(r.kernel),
+                         "traced": r.kernel._trace_on,
+                         "steps": length,
+                         "lane_ticks": int((got.time - s.time).sum()),
+                         "error_bits": int(got.error.max()),
+                         "fault_events": int((got.fault_counts
+                                              - s.fault_counts).sum()),
+                         "trace_events": int(events.sum()),
+                         "max_lane_events": int(events.max()),
+                         "max_abs_err": err})
+            del got
     return rows
 
 
@@ -1357,7 +1421,11 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
       lane's fault key; the topology tables once;
       per step: the head rtime of every non-empty edge of a stepping lane,
       the payload of every popped slot, every appended slot (rtime and
-      payload), and every log and window entry that changed.
+      payload), and every log and window entry that changed;
+      with the flight recorder armed (the recorder arm): 12 B per event
+      written to the ring (its meta, payload and tick words; an append
+      of more than K events writes its last K) and, per lane that
+      drains, its count read and written and its arm flag read.
 
     Operations: ~8 per edge of every lane-tick taken (the tick's own
     integer work); with the adversary, per lane-tick, one lowbias32 per
@@ -1391,9 +1459,12 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
                 + 4 + 3 * 8 + 2 * 8               # limit, delay words
                 + (8 if tk.faults is not None else 0))   # the fault key
     tables = 4 * (3 * e + 5 * n) + (0 if live is None else live.numel())
+    traced = tk._trace_on
+    if traced:
+        per_lane += 12
     parts = {"planes_and_words": lanes * per_lane, "tables": tables,
              "head_reads": 0, "popped_payloads": 0, "appended_slots": 0,
-             "log_writes": 0, "window_writes": 0}
+             "log_writes": 0, "window_writes": 0, "trace_events": 0}
     edge_ops = node_ops = 0
     if tk.faults is not None:
         prog = tk.faults.kernel_program()
@@ -1408,7 +1479,7 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
         lane_ticks += int(step.sum())
         before = {k: getattr(s, k).clone() for k in (
             "q_len", "q_head", "log_amt", "rec_start", "rec_end",
-            "fault_counts")}
+            "fault_counts", "tr_count")}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = km.fused_ticks_plain(tk, s, mode="drain", length=1, live=live,
@@ -1428,6 +1499,10 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
             + (s.rec_end != before["rec_end"]).sum())
         fired = s.fault_counts - before["fault_counts"]
         dups += int(fired[:, FC_DUP].sum() + fired[:, FC_MDUP].sum())
+        if traced:
+            parts["trace_events"] += 12 * int(torch.clamp(
+                s.tr_count - before["tr_count"],
+                max=tk.cfg.trace_capacity).sum())
         del before
     ops = {"tick": 8 * e * lane_ticks, "fault_hash_edges":
            edge_ops * lane_ticks, "fault_hash_nodes": node_ops * lane_ticks,
@@ -1485,6 +1560,7 @@ def drain_megatick_rows(runner, prog, label, graph="er",
                              f"megatick: {bad}")
     lane_ticks = int((got.time - s0.time).sum())
     fired = int((got.fault_counts - s0.fault_counts).sum())
+    events = int((got.tr_count - s0.tr_count).sum())
     ms = time_launch_ms(drain, lambda: own(s0))
     state_bytes = sum(t.numel() * t.element_size() for t in _leaves(s0))
     del got
@@ -1494,11 +1570,13 @@ def drain_megatick_rows(runner, prog, label, graph="er",
                     f"{label} drain megatick K={MEGATICK} after "
                     f"{len(prog.amounts)} phases, {lane_ticks} lane-ticks"
                     + (f", {fired} fault events" if fired else ""),
-           "layout": _layout(runner), "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms,
+           "layout": _layout(runner), "traced": tk._trace_on,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "plain_timing": "K one-step calls, host clock",
            "library_ms": None, "state_bytes": state_bytes,
            "bytes_moved": moved, **bound(nbytes, ops)}
+    if tk._trace_on:
+        row["trace_events"] = events
     if _layout(runner) == "tiled":
         row["workspace_bytes"] = tk.fused_workspace.numel()
     rows = [row]
@@ -1572,21 +1650,33 @@ def fault_hash_check() -> list:
     return rows
 
 
+DRAIN_CELLS = ("fault-free", "faulted", "wave", "wave-faulted",
+               "config5-wave")
+
+
 def drain_timing(cell: str) -> int:
-    """``--drain-timing fault-free|faulted|wave|wave-faulted|config5-wave``:
-    one drain megatick (K=8) of that exact cell (through the wave step
-    body for the wave cells; config 5's tiled wave lane for
-    ``config5-wave``) from the state after its storm phases, timed over
+    """``--drain-timing CELL``: one drain megatick (K=8) of that exact
+    cell (``DRAIN_CELLS``: through the wave step body for the wave cells;
+    config 5's tiled wave lane for ``config5-wave``; with the suffix
+    ``-traced`` the flight recorder armed at its default capacity, the
+    recorder arm) from the state after its storm phases, timed over
     ``DRAIN_LAUNCHES`` launches on fresh copies (``time_launch_ms``), and
     printed as one JSON line with the card's name and power limit."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
-    if cell == "config5-wave":
-        runner, prog = config5_runner("cuda")
+    base = cell.removesuffix("-traced")
+    kw = {}
+    if base != cell:
+        from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+        kw["trace"] = Trace()
+    if base == "config5-wave":
+        runner, prog = config5_runner("cuda", **kw)
     else:
-        make = fault_runner if cell.endswith("faulted") else exact_runner
-        kw = {"exact_impl": "wave"} if cell.startswith("wave") else {}
+        make = fault_runner if base.endswith("faulted") else exact_runner
+        if base.startswith("wave"):
+            kw["exact_impl"] = "wave"
         runner, prog = make("cuda", megatick=MEGATICK, **kw)
     s0, _, drain = drain_setup(runner, prog)
     ms = time_launch_ms(drain, lambda: BatchedRunner._own(s0),
@@ -1595,6 +1685,8 @@ def drain_timing(cell: str) -> int:
           "package": os.path.dirname(km.__file__),
           "launches": DRAIN_LAUNCHES, "ms_per_drain_megatick": ms,
           "layout": getattr(runner, "fused_tile", "off"),
+          # a parent checkout (``--package-root``) may predate the recorder
+          "traced": getattr(runner.kernel, "_trace_on", False),
           "nvidia_smi": nvidia_smi()})
     return 0
 
@@ -1604,16 +1696,20 @@ def phase_fused_kernel(runners, prog, fprog) -> list:
     from the state after the cell's 32 storm phases, and the same for the
     faulted cell, each through the cascade and the wave step body, in the
     resident layout and again tiled (forced) on the same
-    input, against its plain version; then the edge cases and the
-    fault-hash check. ``runners``: label -> (resident runner, tiled
-    runner), fault-free and faulted, cascade and wave. Returns the eight
-    rows for the summary line."""
+    input, against its plain version; then the edge cases, each launched
+    resident and tiled against one plain run, and the fault-hash check.
+    ``runners``: label -> (resident runner, tiled runner), fault-free and
+    faulted, cascade and wave. Returns (the eight rows for the summary
+    line, the tiled edge cases: ``phase_tiled_edge_cases``)."""
     rows = []
     for label, (resident, tiled) in runners.items():
         rows += drain_megatick_rows(
             resident, fprog if label.endswith("faulted") else prog, label,
             tiled=tiled)
-    edge = fused_edge_cases()
+    t0 = time.perf_counter()
+    both = fused_edge_cases(("resident", "tiled"))
+    edge_s = time.perf_counter() - t0
+    edge = [r for r in both if r["layout"] == "resident"]
     hashes = fault_hash_check()
     emit({"phase": "fused_kernel", "tolerance": "bit-equal (integer work)",
           "storm_shape": rows[0], "storm_shape_tiled": rows[1],
@@ -1623,21 +1719,22 @@ def phase_fused_kernel(runners, prog, fprog) -> list:
           "wave_faulted_storm_shape": rows[6],
           "wave_faulted_storm_shape_tiled": rows[7],
           "edge_cases": edge, "fault_hash": hashes})
-    return rows
+    return rows, ([r for r in both if r["layout"] == "tiled"], edge_s)
 
 
-def phase_tiled_edge_cases() -> None:
-    """``fused_edge_cases`` through the tiled layout (forced):
-    every case bit-equal to its plain version, and all four tiled
-    instantiations (cascade and wave, with and without the fault arm)
-    among them."""
-    t0 = time.perf_counter()
-    rows = fused_edge_cases(tiled=True)
+def phase_tiled_edge_cases(tiled_cases) -> None:
+    """``fused_edge_cases`` through the tiled layout (forced), run beside
+    the resident launches of ``phase_fused_kernel`` against the same
+    plain runs (``tiled_cases``: the tiled rows and the seconds both
+    layouts took): every case bit-equal to its plain version, and all
+    four tiled instantiations (cascade and wave, with and without the
+    fault arm) among them."""
+    rows, run_s = tiled_cases
     arms = {(r["impl"], r["fault_arm"]) for r in rows
             if r["layout"] == "tiled"}
     emit({"phase": "tiled_edge_cases", "tolerance": "bit-equal (integer "
           "work)", "cases": len(rows), "instantiations": sorted(arms),
-          "run_s": time.perf_counter() - t0, "edge_cases": rows})
+          "run_s_both_layouts": run_s, "edge_cases": rows})
     if len(arms) != 4 or any(r["layout"] != "tiled" for r in rows):
         raise AssertionError(f"tiled edge cases ran {sorted(arms)}")
 
@@ -1756,11 +1853,14 @@ def _storm_verdict(runner, final, snapshots, faulted) -> tuple:
 
 
 def phase_storm(name, runner, prog, graph, snapshots, path_kernels):
-    """A storm through the port's entry points: a warm run, then the
-    measured run with launch counts zeroed just before it. Fails unless
-    it is clean and every kernel of ``path_kernels`` launched. Returns
-    (final state, measurements)."""
-    final, m = _timed_storm(runner, prog)
+    """A storm through the port's entry points: a warm run of its first
+    4 phases (the kernels are built and loaded by then; it warms the
+    allocator at the batch's sizes), then the measured run with launch
+    counts zeroed just before it. Fails unless it is clean and every
+    kernel of ``path_kernels`` launched. Returns (final state,
+    measurements)."""
+    final, m = _timed_storm(runner, prog, runner,
+                            (prog.amounts[:4], prog.snap[:4]))
     out, bad = _storm_verdict(runner, final, snapshots, False)
     emit({**_storm_meta(name, runner, prog, graph, snapshots), **m, **out})
     if bad:
@@ -1890,7 +1990,8 @@ def phase_config5_wave_fused_storm() -> tuple:
     complete, every kernel of its path launched (fused_scan in the tiled
     layout), and leaf-equal to the same storm at megatick 1; then one of
     its drain megaticks against the plain version, timed, beside its
-    bound. Returns (the launch counts, the drain megatick's rows)."""
+    bound. Returns (the launch counts, the drain megatick's rows, the
+    final state and its measurements)."""
     name = "config5_wave_fused_storm"
     runner, prog = config5_runner("cuda")
     if runner.fused_tile != "on":
@@ -1902,7 +2003,7 @@ def phase_config5_wave_fused_storm() -> tuple:
     twin_runner, _ = config5_runner("cuda", megatick=1)
     twin, twin_m = _timed_storm(twin_runner, prog, warm=False)
     bad = _mismatched(final, twin)
-    del final, twin, twin_runner
+    del twin, twin_runner
     rows = drain_megatick_rows(runner, prog, "wave fault-free", graph="sf")
     emit({**_storm_meta(name, runner, prog, "sf", C5_SNAPSHOTS), **m,
           **checks, "main_path": True, "workspace_bytes": workspace,
@@ -1919,13 +2020,14 @@ def phase_config5_wave_fused_storm() -> tuple:
     _check_launches(name, m["launches"], (
         "fused_scan", "fused_scan_tiled", "queue_step", "append_rows",
         "sum_by_perm", "sum_segments", "spread"))
-    return m["launches"], rows
+    return m["launches"], rows, final, m
 
 
 # ---- the streaming job engine (run_stream) -----------------------------------
 
 def stream_runner(device, batch=X_BATCH, megatick=MEGATICK,
-                  exact_impl="cascade", faulted=False, tiled=False):
+                  exact_impl="cascade", faulted=False, tiled=False,
+                  trace=None):
     """The streaming cell's runner (``ST_*``: the bench's ER-256 with 8
     snapshot slots) and its topology spec; ``faulted``: fault_storm's
     adversary and supervisor, quarantined."""
@@ -1936,18 +2038,21 @@ def stream_runner(device, batch=X_BATCH, megatick=MEGATICK,
           if faulted else {})
     runner, _ = exact_runner(device, batch, X_NODES, ST_PHASES,
                              ST_SNAPSHOTS, megatick=megatick,
-                             exact_impl=exact_impl, tiled=tiled, **kw)
+                             exact_impl=exact_impl, tiled=tiled,
+                             trace=trace, **kw)
     return runner, erdos_renyi(X_NODES, 3.0, seed=3, tokens=ST_PHASES + 10)
 
 
-def stream_queue(runner, spec, faulted=False):
-    """The bench's job queue for ``runner`` (J = 3 x B) and its pool; the
-    adversary armed on every third job when ``faulted``."""
+def stream_queue(runner, spec, faulted=False, per_lane=3,
+                 max_phases=ST_PHASES):
+    """The bench's job queue for ``runner`` (J = ``per_lane`` x B jobs of
+    at most ``max_phases`` phases) and its pool; the adversary armed on
+    every third job when ``faulted``."""
     from chandy_lamport_tpu_torch.models.workloads import stream_jobs
 
-    jcount = 3 * runner.batch
+    jcount = per_lane * runner.batch
     jobs = stream_jobs(spec, jcount, seed=DELAY_SEED, base_phases=4,
-                       tail_alpha=1.1, max_phases=max(ST_PHASES, 8))
+                       tail_alpha=1.1, max_phases=max(max_phases, 8))
     armed = [j % 3 == 0 for j in range(jcount)] if faulted else None
     return jobs, runner.pack_jobs(jobs, fault_armed=armed)
 
@@ -2167,18 +2272,44 @@ def _stream_line(name, runner, pool, m) -> dict:
             "delay": f"hash({DELAY_SEED})", **m}
 
 
+def _cascade_twin(make) -> dict:
+    """The cascade's megatick-1 twin at reduced depth: a queue of
+    ``ST_TWIN_JOBS_PER_LANE`` x B jobs of at most ``ST_TWIN_MAX_PHASES``
+    phases at the cell's width and batch, through ``make(MEGATICK)`` and
+    ``make(1)``; their per-job rows (``admit_step`` included) must be
+    equal."""
+    runner, spec = make(MEGATICK)
+    _, pool = stream_queue(runner, spec, per_lane=ST_TWIN_JOBS_PER_LANE,
+                           max_phases=ST_TWIN_MAX_PHASES)
+    stream, m = drive_stream(runner, pool)[1:]
+    rows = runner.stream_results(stream)
+    del runner, stream
+    twin_runner, _ = make(1)
+    tstream, tm = drive_stream(twin_runner, pool)[1:]
+    line = {"jobs": pool.num_jobs, "max_phases": ST_TWIN_MAX_PHASES,
+            "exact_impl": twin_runner.kernel.exact_impl,
+            "megatick8": {k: v for k, v in m.items() if k != "launches"},
+            **{k: v for k, v in tm.items() if k != "launches"},
+            "rows_equal": twin_runner.stream_results(tstream) == rows}
+    return line
+
+
 def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
-                 faulted=False, twin=True) -> dict:
+                 faulted=False, twin=None, cascade_twin=False) -> dict:
     """A streaming run through ``run_stream`` (``make(megatick)`` builds
     the runner and its spec): the stream drive with the launch counts
-    zeroed just before it (the main path's), then the gang drive,
-    (``twin``) the same stream at megatick 1, and ``sampled`` jobs
-    alone through ``run``. Every job retires (with error 0, unless
-    ``faulted``: then no bit but ERR_SNAPSHOT_TIMEOUT), stream and
-    gang give equal job rows, every row equals its megatick-1 twin's and
-    every sampled job its static run; every kernel of ``path_kernels``
-    launched in the stream drive, none of ``idle_kernels``. Returns the
-    stream drive's launch counts."""
+    zeroed just before it (the main path's), then the gang drive, the
+    same queue at megatick 1 through the wave (``twin()`` builds that
+    runner, None for none: the wave folds a few hundred host steps where
+    the cascade folds tens of thousands, and the two give the same bits),
+    with ``cascade_twin`` the cascade's own megatick-1 twin at reduced
+    depth (``_cascade_twin``), and ``sampled`` jobs alone through ``run``.
+    Every job retires (with error 0, unless ``faulted``: then no bit but
+    ERR_SNAPSHOT_TIMEOUT), stream and gang give equal job rows, every row
+    (``admit_step`` included) equals its megatick-1 twin's and every
+    sampled job its static run; every kernel of ``path_kernels`` launched
+    in the stream drive, none of ``idle_kernels``. Returns the stream
+    drive's launch counts."""
     from chandy_lamport_tpu_torch import bench
     from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
 
@@ -2211,16 +2342,20 @@ def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
     if not same:
         bad.append("stream and gang admission gave different job rows")
     del gstream, runner
-    if twin:
-        twin_runner, _ = make(1)
+    if twin is not None:
+        twin_runner = twin()
         _, tstream, tm = drive_stream(twin_runner, pool)
         same = twin_runner.stream_results(tstream) == rows
         line["megatick1_twin"] = {
             **{k: v for k, v in tm.items() if k != "launches"},
-            "rows_equal": same}
+            "exact_impl": twin_runner.kernel.exact_impl, "rows_equal": same}
         if not same:
             bad.append("rows differ from the megatick-1 twin's")
         del tstream, twin_runner
+    if cascade_twin:
+        line["cascade_megatick1_twin"] = _cascade_twin(make)
+        if not line["cascade_megatick1_twin"]["rows_equal"]:
+            bad.append("rows differ from the cascade's megatick-1 twin's")
     picks = _sample(jcount, sampled)
     t0 = time.perf_counter()
     oracle = static_oracle(lambda: make(MEGATICK, batch=1)[0], pool, jobs,
@@ -2259,29 +2394,38 @@ def phase_streams() -> tuple:
     rows = phase_stream_kernel()
     exact_kernels = ("fused_scan", "queue_step", "append_rows",
                      "sum_by_perm")
+    # the whole queues' megatick-1 twins run through the wave: the
+    # cascade's twin of the streaming cell folded 30,954 host steps (94-101
+    # s on the H100), the faulted cascade's ~35k at B=512 (117 s); the
+    # wave folds a few hundred, and the two forms give the same bits. The
+    # cascade's own twin runs a shorter queue at the cell's width.
     paths = {"stream_exact": phase_stream(
         "stream_exact", lambda k, batch=X_BATCH: stream_runner(
             "cuda", batch, k), ST_SAMPLED, exact_kernels,
-        idle_kernels=("sum_segments", "select_pop"))}
+        idle_kernels=("sum_segments", "select_pop"),
+        twin=lambda: stream_runner("cuda", X_BATCH, 1,
+                                   exact_impl="wave")[0],
+        cascade_twin=True)}
     paths["stream_wave"] = phase_stream(
         "stream_wave", lambda k, batch=STW_BATCH: stream_runner(
             "cuda", batch, k, exact_impl="wave"), SMALL_SAMPLED,
-        exact_kernels + ("spread",), idle_kernels=("sum_segments",))
-    # through the wave: the faulted cascade's megatick-1 twin folds ~35k
-    # host steps at this batch (117 s on the H100), the wave's a few
-    # hundred; the two forms give the same bits
+        exact_kernels + ("spread",), idle_kernels=("sum_segments",),
+        twin=lambda: stream_runner("cuda", STW_BATCH, 1,
+                                   exact_impl="wave")[0])
     paths["stream_fault"] = phase_stream(
         "stream_fault", lambda k, batch=STF_BATCH: stream_runner(
             "cuda", batch, k, exact_impl="wave", faulted=True),
         SMALL_SAMPLED, ("fused_scan", "select_pop", "head_fields",
                         "append_rows", "sum_by_perm", "spread"),
-        idle_kernels=("queue_step",), faulted=True)
+        idle_kernels=("queue_step",), faulted=True,
+        twin=lambda: stream_runner("cuda", STF_BATCH, 1, exact_impl="wave",
+                                   faulted=True)[0])
     # the sync scheduler ticks one at a time: no megatick, so no twin
     paths["stream_sync"] = phase_stream(
         "stream_sync", lambda k, batch=SS_BATCH: sync_stream_runner(batch),
         SMALL_SAMPLED,
         ("head_fields", "sum_by_perm", "spread"),
-        idle_kernels=("fused_scan", "queue_step"), twin=False)
+        idle_kernels=("fused_scan", "queue_step"))
     return paths, rows
 
 
@@ -2421,12 +2565,303 @@ def phase_cpu_vs_cuda() -> None:
     emit(result)
 
 
+# ---- the flight recorder (the recorder arm of fused_scan) --------------------
+
+# the tiny ring of the traced edge cases: a step's events pass it, so the
+# ring wraps inside one append
+TRACE_SMALL = 8
+# the ring leaves, which an untraced run keeps at zero slots
+RING = ("tr_meta", "tr_data", "tr_tick", "tr_count", "tr_on")
+
+
+def phase_trace_edge_cases() -> None:
+    """``fused_edge_cases`` with the recorder armed, at the default
+    capacity (4,096 slots) and at ``TRACE_SMALL``, each case launched
+    resident and tiled (forced) against one plain run: every leaf equal,
+    the ring included; all eight traced instantiations among them, and
+    at the small capacity lanes that record more than it in a launch."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    t0 = time.perf_counter()
+    rows = []
+    for capacity in (Trace.DEFAULT_CAPACITY, TRACE_SMALL):
+        for r in fused_edge_cases(("resident", "tiled"), capacity):
+            rows.append({**r, "capacity": capacity})
+    arms = {(r["impl"], r["fault_arm"], r["layout"]) for r in rows}
+    wrapped = sum(r["max_lane_events"] > TRACE_SMALL for r in rows
+                  if r["capacity"] == TRACE_SMALL)
+    emit({"phase": "trace_edge_cases", "tolerance": "bit-equal (integer "
+          "work)", "cases": len(rows), "instantiations": sorted(arms),
+          "small_capacity_rows_past_the_ring": wrapped,
+          "trace_events": sum(r["trace_events"] for r in rows),
+          "run_s": time.perf_counter() - t0, "edge_cases": rows})
+    if len(arms) != 8 or not all(r["traced"] for r in rows) or not wrapped:
+        raise AssertionError(f"traced edge cases ran {sorted(arms)}, "
+                             f"{wrapped} rows past the small ring")
+
+
+def phase_trace_kernel(untraced_rows) -> list:
+    """The recorder arm at the exact cell's shape: the four drain
+    megaticks of ``phase_fused_kernel`` (cascade and wave, fault-free and
+    faulted, from the state after the 32 storm phases) traced at the
+    default capacity, resident and tiled (forced), each bit-equal to the
+    traced plain version, timed per launch beside its bound (the untraced
+    bound plus the ring's bytes) and beside the untraced arm's time on
+    the same cell in this run (``untraced_rows``, in the same order).
+    Returns the eight rows for the summary line."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    rows = []
+    for label, make, impl in (("fault-free", exact_runner, "cascade"),
+                              ("faulted", fault_runner, "cascade"),
+                              ("wave fault-free", exact_runner, "wave"),
+                              ("wave faulted", fault_runner, "wave")):
+        resident, prog = make("cuda", megatick=MEGATICK, exact_impl=impl,
+                              trace=Trace())
+        tiled, _ = make("cuda", megatick=MEGATICK, exact_impl=impl,
+                        tiled=True, trace=Trace())
+        rows += drain_megatick_rows(resident, prog, label + " traced",
+                                    tiled=tiled)
+        del resident, tiled
+    for row, base in zip(rows, untraced_rows):
+        row["untraced_ms"] = base["ms"]
+        row["traced_over_untraced"] = row["ms"] / base["ms"]
+    emit({"phase": "trace_kernel", "tolerance": "bit-equal (integer work)",
+          "capacity": Trace.DEFAULT_CAPACITY, "drain_megaticks": rows})
+    return rows
+
+
+def phase_trace_golden() -> dict:
+    """The 7 goldens traced at megatick 8 on the card (``run_events_file(
+    ..., trace=True)`` through ``check_reference_case``: every snapshot
+    equal to its .snap file), each launching the recorder arm, their
+    timelines (``sim.trace.pretty()``) and rings equal to the card's
+    megatick-1 traced plain path. Returns the launch counts."""
+    from chandy_lamport_tpu_torch.api import check_reference_case
+    from chandy_lamport_tpu_torch.core.dense import DenseSim
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import GoExactDelay
+    from chandy_lamport_tpu_torch.utils.fixtures import (
+        read_events_file,
+        read_topology_file,
+    )
+    from chandy_lamport_tpu_torch.utils.goldens import (
+        REFERENCE_TESTS,
+        fixture_path,
+    )
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    # The counts are read after the 7 megatick-8 runs and before any
+    # megatick-1 twin runs: the twins launch the per-tick kernels.
+    sims, failed = {}, {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for top, events, snaps in REFERENCE_TESTS:
+        name = events.removesuffix(".events")
+        before = launch_counts()["fused_scan_traced"]
+        try:
+            sim = check_reference_case(top, events, snaps, device="cuda",
+                                       trace=True)
+        except (AssertionError, ValueError, OSError, RuntimeError) as exc:
+            failed[name] = str(exc)
+            continue
+        sims[name] = (top, events, sim,
+                      launch_counts()["fused_scan_traced"] - before)
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    cases = {}
+    for name, (top, events, sim, launched) in sims.items():
+        twin = DenseSim(read_topology_file(fixture_path(top)),
+                        GoExactDelay(sim.delay.seed), device="cuda",
+                        megatick=1, trace=Trace())
+        twin.run_events(read_events_file(fixture_path(events)))
+        ring_bad = [n for n in RING if not bool(
+            (getattr(sim.state, n) == getattr(twin.state, n)).all())]
+        recorded, dropped = sim.trace.counts()
+        cases[name] = {"fused_scan_traced": launched,
+                       "events": recorded, "dropped": dropped,
+                       "pretty_equal": sim.trace.pretty()
+                       == twin.trace.pretty(),
+                       "ring_mismatched": ring_bad}
+        if launched <= 0 or ring_bad or not cases[name]["pretty_equal"]:
+            failed[name] = str(cases[name])
+    emit({"phase": "trace_golden", "main_path": True,
+          "cases": cases, "failed": failed, "launches": launches,
+          "run_s": run_s})
+    if failed or len(cases) != 7:
+        raise AssertionError(f"traced goldens failed on the card: {failed}")
+    return launches
+
+
+def _held_kinds(state):
+    """The kind of every event each lane's ring holds, [B, K], -1 in the
+    slots not yet written (a wrapped ring holds its newest K)."""
+    import torch
+
+    k = state.tr_meta.shape[-1]
+    held = torch.arange(k, device=state.tr_meta.device) < \
+        state.tr_count.unsqueeze(-1)
+    return torch.where(held, state.tr_meta & 31, -1)
+
+
+def _ring_counts(state) -> dict:
+    """The recorded events of every lane's ring by kind, and the lanes
+    whose ring wrapped."""
+    from chandy_lamport_tpu_torch.utils.tracing import EVENT_KIND_NAMES
+
+    k = state.tr_meta.shape[-1]
+    kinds = _held_kinds(state)
+    return {"by_kind": {name: int((kinds == i).sum())
+                        for i, name in enumerate(EVENT_KIND_NAMES)
+                        if bool((kinds == i).any())},
+            "wrapped_lanes": int((state.tr_count > k).sum())}
+
+
+def _trace_storm_line(name, runner, prog, graph, snapshots, final, m,
+                      untraced, untraced_m, twin=None, twin_m=None) -> dict:
+    """A traced storm against its twins: every leaf of its traced
+    megatick-1 twin (when given), every leaf but the ring of the untraced
+    run; its books, rings and its overhead against the untraced run."""
+    from chandy_lamport_tpu_torch import BatchedRunner
+
+    summary = BatchedRunner.summarize(final)
+    line = {**_storm_meta(name, runner, prog, graph, snapshots), **m,
+            "trace_capacity": runner.config.trace_capacity,
+            "trace_events": summary["trace_events"],
+            "trace_dropped": summary["trace_dropped"],
+            "trace_overhead_pct": (m["run_s"] / untraced_m["run_s"] - 1)
+            * 100, "untraced_run_s": untraced_m["run_s"],
+            "ring": _ring_counts(final),
+            "untraced_mismatched": [n for n in _mismatched(final, untraced)
+                                    if n not in RING]}
+    if twin is not None:
+        line["megatick1_twin"] = {
+            "mismatched": _mismatched(final, twin),
+            **{key: twin_m[key] for key in ("run_s", "fold_steps",
+                                            "drain_fold_steps")}}
+    return line
+
+
+def phase_trace_storms(resident) -> dict:
+    """The traced storms of the exact cell (ER-256, B=4096) at megatick 8,
+    the flight recorder at its default capacity: the cascade, the wave
+    and the faulted wave (``resident``: the untraced megatick-8 runs of
+    this call, name -> (program, final, measurements)). Each, with the
+    launch counts zeroed just before it, launches the recorder arm, is
+    clean, equals its traced megatick-1 twin on every leaf and the
+    untraced run on every leaf but the ring. Returns the launch counts by
+    path."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    paths = {}
+    for name, base, make, impl, faulted in (
+            ("trace_fused_storm", "fused_storm", exact_runner, "cascade",
+             False),
+            ("trace_wave_fused_storm", "wave_fused_storm", exact_runner,
+             "wave", False),
+            ("trace_fault_wave_fused_storm", "fault_wave_fused_storm",
+             fault_runner, "wave", True)):
+        prog, untraced, untraced_m = resident[base]
+        runner, _ = make("cuda", megatick=MEGATICK, exact_impl=impl,
+                         trace=Trace())
+        final, m = _timed_storm(runner, prog, warm=False)
+        twin_runner, _ = make("cuda", megatick=1, exact_impl=impl,
+                              trace=Trace())
+        twin, twin_m = _timed_storm(twin_runner, prog, warm=False)
+        line = _trace_storm_line(name, runner, prog, "er", X_SNAPSHOTS,
+                                 final, m, untraced, untraced_m, twin,
+                                 twin_m)
+        _, bad = _storm_verdict(runner, final, X_SNAPSHOTS, faulted)
+        emit({**line, "main_path": True, "checks_failed": bad})
+        del final, twin, twin_runner
+        if bad or line["untraced_mismatched"] or \
+                line["megatick1_twin"]["mismatched"]:
+            raise AssertionError(f"{name}: {bad}, {line}")
+        _check_launches(name, m["launches"], (
+            "fused_scan", "fused_scan_traced", "append_rows",
+            "sum_by_perm"))
+        paths[name] = m["launches"]
+    return paths
+
+
+def phase_trace_config5(untraced, untraced_m) -> dict:
+    """Config 5 (``C5_*``, tiled by "auto") traced at megatick 8: clean,
+    the tiled recorder arm launched, equal to the untraced run of this
+    call (``untraced``) on every leaf but the ring. Returns its launch
+    counts."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    name = "trace_config5_wave_fused_storm"
+    runner, prog = config5_runner("cuda", trace=Trace())
+    final, m = _timed_storm(runner, prog, warm=False)
+    line = _trace_storm_line(name, runner, prog, "sf", C5_SNAPSHOTS, final,
+                             m, untraced, untraced_m)
+    _, bad = _storm_verdict(runner, final, C5_SNAPSHOTS, False)
+    emit({**line, "main_path": True, "checks_failed": bad,
+          "workspace_bytes": runner.kernel.fused_workspace.numel()})
+    if bad or line["untraced_mismatched"] or runner.fused_tile != "on":
+        raise AssertionError(f"{name}: {bad}, {line}")
+    _check_launches(name, m["launches"], (
+        "fused_scan", "fused_scan_tiled", "fused_scan_traced"))
+    return m["launches"]
+
+
+def phase_trace_stream() -> dict:
+    """The wave stream (``STW_BATCH`` lanes, J = 3 x B) traced at the
+    default capacity, with the launch counts zeroed just before it: every
+    job's row equal to the untraced stream's, the recorder arm launched
+    in its drain slices and flushes, its admits and harvests in the
+    rings (a lane whose ring did not wrap holds one harvest per admit).
+    Returns its launch counts."""
+    from chandy_lamport_tpu_torch.utils.tracing import (
+        EV_LANE_ADMIT,
+        EV_LANE_HARVEST,
+        Trace,
+    )
+
+    runner, spec = stream_runner("cuda", STW_BATCH, exact_impl="wave",
+                                 trace=Trace())
+    _, pool = stream_queue(runner, spec)
+    state, stream, m = drive_stream(runner, pool)
+    rows = runner.stream_results(stream)
+    plain_runner, _ = stream_runner("cuda", STW_BATCH, exact_impl="wave")
+    _, ustream, um = drive_stream(plain_runner, pool)
+    same = plain_runner.stream_results(ustream) == rows
+    k = state.tr_meta.shape[-1]
+    kinds = _held_kinds(state)
+    whole = state.tr_count <= k
+    admits = (kinds == EV_LANE_ADMIT).sum(-1)
+    harvests = (kinds == EV_LANE_HARVEST).sum(-1)
+    balanced = bool((admits == harvests)[whole].all())
+    line = {**_stream_line("trace_stream", runner, pool, m),
+            "trace_capacity": k, "rows_equal_untraced": same,
+            "untraced_run_s": um["run_s"],
+            "trace_overhead_pct": (m["run_s"] / um["run_s"] - 1) * 100,
+            "ring": _ring_counts(state),
+            "admits_held": int(admits.sum()),
+            "harvests_held": int(harvests.sum()),
+            "unwrapped_lanes": int(whole.sum()),
+            "unwrapped_admits_equal_harvests": balanced}
+    emit(line)
+    if not same or not balanced or len(rows) != pool.num_jobs or \
+            line["admits_held"] <= 0:
+        raise AssertionError(f"trace_stream: rows equal {same}, admits "
+                             f"balanced {balanced}, {line['ring']}")
+    _check_launches("trace_stream", m["launches"],
+                    ("fused_scan", "fused_scan_traced", "spread"))
+    return m["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--drain-timing",
-                    choices=("fault-free", "faulted", "wave", "wave-faulted",
-                             "config5-wave"),
-                    help="only time one drain megatick of that exact cell")
+                    choices=DRAIN_CELLS + tuple(f"{c}-traced"
+                                                for c in DRAIN_CELLS),
+                    help="only time one drain megatick of that exact cell "
+                         "(-traced: with the flight recorder armed)")
     ap.add_argument("--package-root",
                     help="with --drain-timing: import the package from "
                          "this checkout (a parent commit unpacked beside "
@@ -2483,13 +2918,15 @@ def main(argv=None) -> int:
                  tiled=True)[0]}
     rows, all_rows = phase_kernels(runner, prog, xrunner, xprog, frunner,
                                    fprog, wrunner)
-    rows["fused_scan"] = phase_fused_kernel(
+    rows["fused_scan"], tiled_cases = phase_fused_kernel(
         {"fault-free": (mrunner, tiled["fused_storm"]),
          "faulted": (f8runner, tiled["fault_fused_storm"]),
          "wave fault-free": (w8runner, tiled["wave_fused_storm"]),
          "wave faulted": (fw8runner, tiled["fault_wave_fused_storm"])},
         mprog, f8prog)
-    phase_tiled_edge_cases()
+    phase_tiled_edge_cases(tiled_cases)
+    rows["fused_scan"] += phase_trace_kernel(rows["fused_scan"][:8])
+    phase_trace_edge_cases()
     # each main path runs with the launch counts zeroed just before it
     _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
                        ("sum_by_perm", "sum_segments", "spread",
@@ -2577,15 +3014,21 @@ def main(argv=None) -> int:
     paths.update(phase_tiled_vs_resident(
         {name: (tiled[name], p, final, m)
          for name, (p, final, m) in resident.items()}))
+    paths.update(phase_trace_storms(resident))
     del resident, tiled
     paths.update(phase_sf2048_tiled_cascade_storm())
-    paths["config5_wave_fused_storm"], c5_rows = \
+    paths["config5_wave_fused_storm"], c5_rows, c5_final, c5_m = \
         phase_config5_wave_fused_storm()
     rows["fused_scan"] += c5_rows
+    paths["trace_config5_wave_fused_storm"] = phase_trace_config5(c5_final,
+                                                                  c5_m)
+    del c5_final
     stream_paths, stream_rows = phase_streams()
     paths.update(stream_paths)
     rows["fused_scan"] += stream_rows
+    paths["trace_stream"] = phase_trace_stream()
     paths["golden"] = phase_golden()
+    paths["trace_golden"] = phase_trace_golden()
     phase_cpu_vs_cuda()
 
     kernels = []
@@ -2609,11 +3052,25 @@ def main(argv=None) -> int:
                 "shape", "main", "ms", "plain_ms", "bound_ms",
                 "library_ms")} for r in all_rows[name]]
         if name == "fused_scan":
-            entry["shapes"] = [{key: r[key] for key in (
-                "shape", "layout", "ms", "plain_ms", "bound_ms", "bound_by")}
+            entry["shapes"] = [{**{key: r[key] for key in (
+                "shape", "layout", "ms", "plain_ms", "bound_ms",
+                "bound_by")}, "traced": r.get("traced", False)}
                 for r in rows[name]]
-            entry["launches_tiled"] = sum(
-                counts["fused_scan_tiled"] for counts in paths.values())
+            for arm in ("tiled", "traced"):
+                entry[f"launches_{arm}"] = sum(
+                    counts[f"fused_scan_{arm}"] for counts in paths.values())
+            # the recorder arm: the traced drain megaticks beside the
+            # untraced ones, and its launches by path
+            entry["traced_arms"] = [
+                {key: r[key] for key in (
+                    "shape", "layout", "ms", "untraced_ms",
+                    "traced_over_untraced", "bound_ms", "bound_by",
+                    "plain_ms", "max_abs_err")}
+                for r in rows[name] if "traced_over_untraced" in r]
+            entry["launches_traced_by_path"] = {
+                path: counts["fused_scan_traced"]
+                for path, counts in paths.items()
+                if counts["fused_scan_traced"]}
         if timed:
             entry.update({key: row[key] for key in SPLIT_KEYS})
             entry["shapes"] = [{key: r[key] for key in (

@@ -21,7 +21,13 @@ read; and the lane gate of its drain and flush (the streaming engine's):
 on every arm, resident and tiled, a gated drain (per-lane limits) and a
 gated flush equal the plain form and leave the lanes outside the gate
 as they were, and small streams (sync; exact at megatick 8, cascade and
-wave, faulted, gang) on the card equal the same streams on the CPU. The
+wave, faulted, gang) on the card equal the same streams on the CPU; and
+its recorder arm (the flight recorder inside the step, the ``kTrace``
+instantiations): on every arm, resident and tiled, at a capacity above
+and below a step's events (the ring wrapping inside one append), with a
+lane disarmed (``tr_on = 0``) and on a dirty tiled workspace, it equals
+the plain form on every leaf, the ring included, and small traced storms
+and streams on the card equal the CPU's. The
 segment sums
 (rows 1-2) take two paths, staged and tiled (``segment_plan``); each, on
 both dtypes, with and without perm, must equal the plain version, and
@@ -385,7 +391,7 @@ def _leaves_equal(a, b):
 
 
 def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None,
-            exact_impl="cascade", tiled=False):
+            exact_impl="cascade", tiled=False, trace=None):
     """A megatick-8 exact runner on the card (with ``faults`` armed, if
     given; the wave step body for ``exact_impl="wave"``; with ``tiled``
     the tiled layout forced on a lane that fits a block: the port picks
@@ -394,10 +400,10 @@ def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None,
     with traffic and snapshots in flight, built by the scalar injectors
     (every sampler has them): per round a 1-token send on every third
     edge, a snapshot at node ``round % N`` on every other lane, one
-    tick."""
+    tick. ``trace``: a utils/tracing.Trace to arm the recorder."""
     runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
                            device=dev, quarantine=quarantine, megatick=8,
-                           faults=faults, exact_impl=exact_impl)
+                           faults=faults, exact_impl=exact_impl, trace=trace)
     tk = runner.kernel
     if tiled:
         tk.fused_tile = "on"
@@ -423,6 +429,8 @@ def _fused_equals_plain(runner, s, mode, length, **lanes):
     assert after["fused_scan"] == before["fused_scan"] + 1
     assert after["fused_scan_tiled"] == before["fused_scan_tiled"] + (
         tk.fused_tile == "on")
+    assert after["fused_scan_traced"] == before["fused_scan_traced"] + (
+        tk._trace_on)
     want = km.fused_ticks_plain(tk, _own(s), mode=mode, length=length,
                                 **lanes)
     _leaves_equal(got, want)
@@ -892,3 +900,134 @@ def test_small_stream_cuda_equals_cpu(dev, case):
     for x, y in zip(stream_to_numpy(stream_c), stream_to_numpy(stream)):
         assert np.array_equal(x, y)
     assert (launched > 0) != sync
+
+
+# ---- the recorder arm of the fused megatick (the flight recorder) ----------
+
+@pytest.mark.parametrize("capacity", [4096, 8])
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("arm", sorted(TILED_ARMS))
+def test_traced_megatick_equals_plain(dev, arm, tiled, capacity):
+    """The traced instantiations on every arm, resident and tiled: the
+    three step bodies from a loaded state equal the plain form on every
+    leaf, the ring and its count included; at capacity 8 a step's events
+    pass the ring, which wraps inside one append; lane 1 is not live at
+    the "ticks" launch and its ring is left as it was."""
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    impl, fkw, sup = TILED_ARMS[arm]
+    runner, s = _loaded(dev, erdos_renyi(64, 3.0, seed=3, tokens=40),
+                        SimConfig.for_workload(snapshots=8, **sup),
+                        HashDelay(5), quarantine=bool(fkw),
+                        faults=Faults(3, **fkw) if fkw else None,
+                        exact_impl=impl, tiled=tiled, trace=Trace(capacity))
+    assert runner.kernel._trace_on and s.tr_meta.shape == (4, capacity)
+    live = ~runner.kernel._halted(s)
+    live[1] = False
+    got = _fused_equals_plain(runner, s, "ticks", 24, live=live)
+    assert torch.equal(got.tr_count[1], s.tr_count[1])
+    assert bool((got.tr_count > s.tr_count)[live].all())
+    if capacity == 8:
+        assert int((got.tr_count - s.tr_count).max()) > 8
+    _fused_equals_plain(runner, s, "drain", 8, limit=s.time + 7)
+    _fused_equals_plain(runner, s, "flush", runner.config.max_delay + 1)
+
+
+def test_traced_megatick_pileup_wraps_inside_one_step(dev):
+    """A complete 8-node digraph where every node snapshots, at capacity
+    4: one wave's or fold chunk's receipts and marker-sends pass the
+    ring within a single step; cascade and wave, bit-equal to the plain
+    form."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    for impl in ("cascade", "wave"):
+        runner, s = _loaded(dev, _complete(8, 50),
+                            SimConfig.for_workload(snapshots=8),
+                            HashDelay(3), exact_impl=impl, trace=Trace(4))
+        got = _fused_equals_plain(runner, s, "ticks", 16,
+                                  live=~runner.kernel._halted(s))
+        assert int((got.tr_count - s.tr_count).max()) > 4
+
+
+def test_traced_megatick_disarmed_lane(dev):
+    """A lane with ``tr_on = 0`` records nothing and keeps its count,
+    on the cascade and the faulted wave; the armed lanes record as the
+    plain form does."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    for impl, fkw, sup in (TILED_ARMS["cascade"], TILED_ARMS["wave, "
+                                                             "faulted"]):
+        runner, s = _loaded(dev, TOPO_SPEC,
+                            SimConfig.for_workload(snapshots=8, **sup),
+                            HashDelay(5), quarantine=bool(fkw),
+                            faults=Faults(3, **fkw) if fkw else None,
+                            exact_impl=impl, trace=Trace(64))
+        s.tr_on[2] = 0
+        got = _fused_equals_plain(runner, s, "ticks", 16,
+                                  live=~runner.kernel._halted(s))
+        for name in ("tr_meta", "tr_data", "tr_tick", "tr_count"):
+            assert torch.equal(getattr(got, name)[2], getattr(s, name)[2])
+        assert int(got.tr_count[0]) > int(s.tr_count[0])
+
+
+def test_traced_tiled_workspace_left_dirty(dev):
+    """The traced tiled arms on a workspace filled with 0xFF end where
+    they end on a zeroed one: the recorder's planes are written before
+    they are read, the count loaded at launch."""
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    for impl, fkw in (("cascade", None), ("wave", TILED_ARMS["wave, "
+                                                             "faulted"][1])):
+        runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(
+            snapshots=8, snapshot_timeout=8), HashDelay(5),
+            quarantine=True, faults=Faults(3, **fkw) if fkw else None,
+            exact_impl=impl, tiled=True, trace=Trace(256))
+        tk = runner.kernel
+        ends = []
+        for fill in (0x00, 0xFF):
+            x = _own(s)
+            for _ in range(2):
+                share = km.fused_smem_bytes(
+                    runner.topo.n, runner.topo.e, 8,
+                    fault_arm=km.fault_arm(tk), wave=km.wave_arm(tk),
+                    trace=True)
+                km.fused_workspace(tk, 4 * share, x.time.device).fill_(fill)
+                x = km.fused_ticks(tk, x, mode="ticks", length=8,
+                                   live=~tk._halted(x))
+            ends.append(x)
+        _leaves_equal(*ends)
+        want = _own(s)
+        for _ in range(2):
+            want = km.fused_ticks_plain(tk, want, mode="ticks", length=8,
+                                        live=~tk._halted(want))
+        _leaves_equal(ends[0], want)
+
+
+@pytest.mark.parametrize("case", ["sync", "cascade", "wave", "faulted"])
+def test_traced_storm_cuda_equals_cpu(dev, case):
+    """Small traced storms (the sync tick's recorder sites; the exact
+    scheduler at megatick 8, its drain in the recorder arm) on the card
+    equal the same storms on the CPU on every leaf."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    sync, faulted = case == "sync", case == "faulted"
+    fkw, sup = FAULT_ARMS["pause crashes, every class"]
+    finals = []
+    for device in (dev, "cpu"):
+        kw = dict(scheduler="sync") if sync else dict(
+            scheduler="exact", megatick=8, quarantine=faulted,
+            exact_impl="wave" if case == "wave" else "cascade",
+            faults=Faults(3, **fkw) if faulted else None)
+        runner = BatchedRunner(TOPO_SPEC, SimConfig.for_workload(
+            snapshots=3, split_markers=sync, **(sup if faulted else {})),
+            HashDelay(5), 4, device=device, trace=Trace(512), **kw)
+        prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=5))
+        before = launch_counts()["fused_scan_traced"]
+        finals.append(runner.run_storm(runner.init_batch_device(), prog))
+        assert (launch_counts()["fused_scan_traced"] > before) == (
+            device == dev and not sync)
+    _leaves_equal(*finals)
+    assert int(finals[0].tr_count.min()) > 0

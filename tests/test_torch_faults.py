@@ -348,9 +348,6 @@ def test_unported_fault_paths_raise():
         BatchedRunner(spec, SimConfig(snapshot_timeout=8), HashDelay(1), 2,
                       scheduler="sync", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedRunner(spec, SimConfig(), HashDelay(1), 2, scheduler="exact",
-                      trace=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         DenseSim(spec, FixedDelay(1), faults=Faults(1, drop_rate=0.1),
                  device="cpu")
 
