@@ -20,11 +20,13 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
 
     snaps, sim = run_events_file("x.top", "x.events")   # Go-exact delays
 
-The bench: ``python -m chandy_lamport_tpu_torch storm`` (``--stream`` for
-the streaming row); a job stream: ``python -m chandy_lamport_tpu_torch
-stream``; the 7 reference goldens: ``python -m chandy_lamport_tpu_torch
-test``; a fixture's timeline: ``python -m chandy_lamport_tpu_torch trace
-TOP EVENTS``.
+A batched storm with the JAX CLI's defaults and counters line: ``python
+-m chandy_lamport_tpu_torch storm``; the bench row: ``python -m
+chandy_lamport_tpu_torch bench`` (``--stream`` for the streaming row); a
+job stream: ``python -m chandy_lamport_tpu_torch stream``; the 7
+reference goldens: ``python -m chandy_lamport_tpu_torch test``; a
+fixture's timeline: ``python -m chandy_lamport_tpu_torch trace TOP
+EVENTS``.
 """
 
 from chandy_lamport_tpu_torch.api import run_events_file

@@ -1,8 +1,13 @@
 """Command line of the port.
 
-    python -m chandy_lamport_tpu_torch storm [flags]   the storm bench
-                                                       (bench.py; --stream
-                                                       for the stream row)
+    python -m chandy_lamport_tpu_torch storm [flags]   a batched storm
+                                                       (the JAX CLI's
+                                                       ``storm``): one JSON
+                                                       counters line
+    python -m chandy_lamport_tpu_torch bench [flags]   the node-ticks/s
+                                                       bench row (bench.py;
+                                                       --stream for the
+                                                       stream row)
     python -m chandy_lamport_tpu_torch stream [flags]  a streaming run: a
                                                        job queue over B
                                                        lane slots
@@ -23,7 +28,7 @@ import time
 import torch
 
 from chandy_lamport_tpu_torch.api import run_reference_tests
-from chandy_lamport_tpu_torch.bench import main as storm_main
+from chandy_lamport_tpu_torch.bench import main as bench_main
 from chandy_lamport_tpu_torch.parallel.batch import resolve_device
 
 
@@ -93,6 +98,242 @@ def trace_run(argv) -> int:
     print(f"# {recorded} events recorded, {dropped} dropped",
           file=sys.stderr)
     return 0
+
+
+def _storm_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's ``storm`` flags and defaults (``cli.py:614-751``),
+    plus ``--device``. Flags whose machinery is not ported are parsed and
+    refused by ``_refuse_unported`` when set away from their default."""
+    ps = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
+                                      "storm")
+    ps.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
+    ps.add_argument("--nodes", type=int, default=256)
+    ps.add_argument("--batch", type=int, default=128)
+    ps.add_argument("--phases", type=int, default=32)
+    ps.add_argument("--snapshots", type=int, default=8)
+    ps.add_argument("--scheduler", choices=["sync", "exact"], default="sync")
+    ps.add_argument("--exact-impl", choices=["cascade", "wave", "fold"],
+                    default="cascade",
+                    help="--scheduler exact: the bit-exact tick formulation "
+                         "('wave' needs --delay hash; 'fold' is not ported)")
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("--megatick", type=int, default=8,
+                    help="K-tick megaticks for the exact drain and flush "
+                         "(the fused megatick kernel on the card); the sync "
+                         "scheduler has none")
+    ps.add_argument("--queue-capacity", type=int, default=0,
+                    help="per-edge ring slots; 0 = size to the workload")
+    ps.add_argument("--max-recorded", type=int, default=0,
+                    help="per-edge log slots L; 0 = derived")
+    ps.add_argument("--window-dtype", choices=["int32", "uint16"],
+                    default="int32", help="uint16 is not ported")
+    ps.add_argument("--record-dtype", choices=["int32", "int16"],
+                    default="int32")
+    ps.add_argument("--reduce-mode", choices=["auto", "matmul", "segsum"],
+                    default="auto", help="not ported: the port has one "
+                                         "engine")
+    ps.add_argument("--kernel-engine", choices=["auto", "xla", "pallas"],
+                    default="auto", help="not ported: the port has one "
+                                         "engine")
+    ps.add_argument("--fused-tick", choices=["auto", "on", "off"],
+                    default="auto", help="not ported: the fused megatick "
+                                         "follows --megatick")
+    ps.add_argument("--fused-block-edges", type=int, default=0,
+                    help="not ported: the card hashes the fault masks in "
+                         "place")
+    ps.add_argument("--check-every", type=int, default=0,
+                    help="evaluate token conservation every K phases (0 = "
+                         "off); violations set ERR_CONSERVATION")
+    ps.add_argument("--delay", choices=["uniform", "hash"], default="hash",
+                    help="'uniform' is not ported")
+    ps.add_argument("--checkpoint", help="not ported (checkpoints)")
+    ps.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                    help="not ported (checkpoints)")
+    ps.add_argument("--resume-from", metavar="PATH",
+                    help="not ported (checkpoints)")
+    for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
+                       ("--fault-dup", "per-(edge, tick) token duplicate"),
+                       ("--fault-jitter", "per-(edge, tick) front stall"),
+                       ("--fault-crash", "per-(node, window) crash")):
+        ps.add_argument(name, type=float, default=0.0, metavar="R",
+                        help=f"{what} probability (--scheduler exact)")
+    ps.add_argument("--fault-seed", type=int, default=None,
+                    help="adversary stream seed (default: --seed)")
+    ps.add_argument("--crash-mode", choices=["pause", "lossy"],
+                    default="pause")
+    ps.add_argument("--crash-len", type=int, default=2)
+    ps.add_argument("--crash-period", type=int, default=32)
+    for name, what in (("--marker-fault-drop", "marker drop"),
+                       ("--marker-fault-dup", "marker duplicate"),
+                       ("--marker-fault-jitter", "marker front stall")):
+        ps.add_argument(name, type=float, default=0.0, metavar="R",
+                        help=f"per-(edge, tick) {what} probability "
+                             "(--scheduler exact)")
+    ps.add_argument("--snapshot-timeout", type=int, default=0, metavar="T")
+    ps.add_argument("--snapshot-retries", type=int, default=3)
+    ps.add_argument("--snapshot-every", type=int, default=0, metavar="K")
+    ps.add_argument("--quarantine", action="store_true",
+                    help="freeze a lane once its error bits fire (on "
+                         "whenever a fault rate is set; --scheduler exact)")
+    ps.add_argument("--kill-after-chunk", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ps.add_argument("--trace", action="store_true",
+                    help="arm the flight recorder; adds trace_events/"
+                         "trace_dropped to the JSON row")
+    ps.add_argument("--trace-capacity", type=int, default=0, metavar="K",
+                    help="ring slots per lane; implies --trace when > 0")
+    ps.add_argument("--telemetry", metavar="PATH",
+                    help="write the run's JSON row as schema-versioned "
+                         "JSONL telemetry")
+    ps.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "plain versions)")
+    return ps
+
+
+# the storm's flags whose machinery the port lacks: (flag, its ROADMAP
+# item, whether only the sync scheduler refuses it)
+_UNPORTED_STORM = (
+    ("--checkpoint", "A8", False), ("--checkpoint-every", "A8", False),
+    ("--resume-from", "A8", False), ("--kill-after-chunk", "A8", False),
+    ("--delay", "A7", False), ("--window-dtype", "A7", False),
+    ("--reduce-mode", "A7", False), ("--kernel-engine", "A7", False),
+    ("--fused-tick", "A7", False), ("--fused-block-edges", "A7", False),
+    ("--fault-drop", "A3a", True), ("--fault-dup", "A3a", True),
+    ("--fault-jitter", "A3a", True), ("--fault-crash", "A3a", True),
+    ("--fault-seed", "A3a", True), ("--marker-fault-drop", "A3a", True),
+    ("--marker-fault-dup", "A3a", True),
+    ("--marker-fault-jitter", "A3a", True),
+    ("--snapshot-timeout", "A3a", True), ("--snapshot-retries", "A3a", True),
+    ("--snapshot-every", "A3a", True), ("--quarantine", "A3a", True),
+)
+
+
+def _refuse_unported(parser, args) -> None:
+    """Refuse, by name and ROADMAP item, each storm flag set away from its
+    default whose machinery is not ported (``_UNPORTED_STORM``; the fault
+    and supervisor flags only on the sync scheduler), and ``--exact-impl
+    fold`` (A5b)."""
+    if args.scheduler == "exact" and args.exact_impl == "fold":
+        parser.error("--exact-impl fold is not ported yet (ROADMAP A5b)")
+    for flag, item, sync_only in _UNPORTED_STORM:
+        dest = flag.lstrip("-").replace("-", "_")
+        if sync_only and args.scheduler != "sync":
+            continue
+        if getattr(args, dest) != parser.get_default(dest):
+            where = " with --scheduler sync" if sync_only else ""
+            parser.error(f"{flag}{where} is not ported yet (ROADMAP "
+                         f"{item})")
+
+
+def storm_run(argv) -> int:
+    """The JAX CLI's ``storm`` (``cli.py:149-316``) on the port: one storm
+    of ``--batch`` lanes through ``BatchedRunner.run_storm`` (the drain
+    and flush in ``--megatick`` K-tick megaticks on the exact scheduler),
+    then one JSON counters line with the JAX keys. Exit 0 when no error
+    bit fired, or when an armed adversary's casualties were quarantined;
+    else 1."""
+    from chandy_lamport_tpu_torch.config import SimConfig
+    from chandy_lamport_tpu_torch.core.state import decode_error_bits
+    from chandy_lamport_tpu_torch.models.faults import Faults
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        ring_topology,
+        scale_free,
+        staggered_snapshots,
+        storm_program,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
+    from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+    from chandy_lamport_tpu_torch.utils.metrics import (
+        conservation_delta,
+        progress_counters,
+    )
+    from chandy_lamport_tpu_torch.utils.tracing import (
+        TelemetryWriter,
+        Trace,
+        trace_counts,
+    )
+
+    parser = _storm_parser()
+    args = parser.parse_args(argv)
+    _refuse_unported(parser, args)
+    device = resolve_device(args.device)
+    tokens = args.phases + 10
+    spec = {"ring": lambda: ring_topology(args.nodes, tokens=tokens),
+            "er": lambda: erdos_renyi(args.nodes, 3.0, args.seed,
+                                      tokens=tokens),
+            "sf": lambda: scale_free(args.nodes, 2, args.seed,
+                                     tokens=tokens)}[args.graph]()
+    cfg = SimConfig.for_workload(
+        snapshots=args.snapshots, max_recorded=args.max_recorded,
+        record_dtype=args.record_dtype, window_dtype=args.window_dtype,
+        split_markers=args.scheduler == "sync",
+        snapshot_timeout=args.snapshot_timeout,
+        snapshot_retries=args.snapshot_retries,
+        snapshot_every=args.snapshot_every,
+        **({"queue_capacity": args.queue_capacity}
+           if args.queue_capacity else {}))
+    faults = None
+    if any((args.fault_drop, args.fault_dup, args.fault_jitter,
+            args.fault_crash, args.marker_fault_drop, args.marker_fault_dup,
+            args.marker_fault_jitter)):
+        faults = Faults(
+            args.fault_seed if args.fault_seed is not None else args.seed,
+            drop_rate=args.fault_drop, dup_rate=args.fault_dup,
+            jitter_rate=args.fault_jitter, crash_rate=args.fault_crash,
+            crash_mode=args.crash_mode, crash_len=args.crash_len,
+            crash_period=args.crash_period,
+            marker_drop_rate=args.marker_fault_drop,
+            marker_dup_rate=args.marker_fault_dup,
+            marker_jitter_rate=args.marker_fault_jitter)
+    quarantine = args.quarantine or faults is not None
+    trace = (Trace(capacity=args.trace_capacity)
+             if args.trace or args.trace_capacity else None)
+    # the megatick is the exact scheduler's (the JAX sync path ignores it)
+    runner = BatchedRunner(
+        spec, cfg, make_fast_delay(args.delay, args.seed), batch=args.batch,
+        scheduler=args.scheduler, exact_impl=args.exact_impl,
+        check_every=args.check_every,
+        megatick=args.megatick if args.scheduler == "exact" else 1,
+        device=device, faults=faults, quarantine=quarantine, trace=trace)
+    prog = storm_program(
+        runner.topo, phases=args.phases, amount=1,
+        snapshot_phases=staggered_snapshots(runner.topo, args.snapshots, 1,
+                                            2, max_phases=args.phases))
+    final = runner.run_storm(runner.init_batch_device(), prog)
+    counters = {k: int(v) for k, v in progress_counters(
+        final, runner.config, runner.topo.n).items()}
+    counters["errors_decoded"] = decode_error_bits(counters["error_bits"])
+    expected = int(runner.topo.tokens0.sum()) * args.batch
+    counters["conservation_delta"] = int(
+        conservation_delta(final, runner.config, expected))
+    summary = BatchedRunner.summarize(final)
+    counters["snapshot_lifecycle"] = summary["snapshot_lifecycle"]
+    if faults is not None:
+        errs = final.error.cpu()
+        counters["fault_events"] = summary["fault_events"]
+        counters["fault_skew"] = summary["fault_skew"]
+        counters["quarantined_lanes"] = int((errs != 0).sum())
+        counters["lane_errors"] = {
+            int(i): decode_error_bits(int(errs[i]))
+            for i in torch.nonzero(errs).flatten()[:16].tolist()}
+    if trace is not None:
+        counters["trace_events"], counters["trace_dropped"] = \
+            trace_counts(final)
+    if args.telemetry:
+        meta = {"nodes": runner.topo.n, "batch": args.batch,
+                "scheduler": args.scheduler, "phases": args.phases,
+                "delay": args.delay, "seed": args.seed}
+        if faults is not None:
+            meta["faults"] = faults.describe()
+        with TelemetryWriter(args.telemetry) as tw:
+            tw.write("storm_run", {**meta, **counters})
+        counters["telemetry"] = args.telemetry
+    print(json.dumps(counters))
+    if counters["error_bits"] == 0:
+        return 0
+    return 0 if (faults is not None and quarantine) else 1
 
 
 def _stream_parser() -> argparse.ArgumentParser:
@@ -239,12 +480,13 @@ def stream_run(argv) -> int:
     return 0 if (faults is not None or not errored) else 1
 
 
-COMMANDS = {"storm": storm_main, "stream": stream_run, "test": golden_test,
-            "trace": trace_run}
+COMMANDS = {"storm": storm_run, "bench": bench_main, "stream": stream_run,
+            "test": golden_test, "trace": trace_run}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
     if not args or args[0] not in COMMANDS:
         sys.exit("usage: python -m chandy_lamport_tpu_torch "
-                 "{storm,stream,test,trace} [flags] (see <command> --help)")
+                 "{storm,bench,stream,test,trace} [flags] (see <command> "
+                 "--help)")
     sys.exit(COMMANDS[args[0]](args[1:]))

@@ -31,13 +31,16 @@ from chandy_lamport_tpu_torch.utils.goldens import (
 from chandy_lamport_tpu_torch.utils.tracing import Trace
 
 
-def run_events_file(top_path: str, events_path: str,
+def run_events_file(top_path: str, events_path: str, *,
                     seed: int = REFERENCE_TEST_SEED + 1, device=None,
                     trace: bool = False) -> Tuple[List[GlobalSnapshot],
                                                   DenseSim]:
     """Parse fixture files and run them to completion with the Go-exact
     delays — the ``runTest`` equivalent (snapshot_test.go:11-44) minus the
-    assertions. Returns (snapshots, sim). ``device=None`` means the card;
+    assertions. Returns (snapshots, sim). The two paths are the JAX
+    function's leading positional parameters; its third, ``backend``,
+    waits for the parity backend (ROADMAP A12), so the rest are
+    keyword-only. ``device=None`` means the card;
     without CUDA, pass ``device="cpu"``. ``trace=True`` arms the flight
     recorder (``Trace()``, its default capacity): ``sim.trace.pretty()``
     is then the run's timeline (the JAX ``run_events_file(...,

@@ -1,6 +1,6 @@
 """The storm bench of the port: node-ticks per second on one card.
 
-``python -m chandy_lamport_tpu_torch storm`` takes the JAX bench's flags
+``python -m chandy_lamport_tpu_torch bench`` takes the JAX bench's flags
 and defaults (the bench's config 4: the sync scheduler on scale-free 1024
 nodes, 2048 lanes, 32 phases, 8 snapshots, hash delay, int16 log;
 ``--scheduler exact`` runs the bit-exact tick instead, in the cascade
@@ -100,7 +100,7 @@ def log(msg: str) -> None:
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
-                                     "storm")
+                                     "bench")
     p.add_argument("--nodes", type=int, default=1024)
     p.add_argument("--graph", choices=["sf", "ring", "er"], default="sf",
                    help="topology family: scale-free (config 4), ring "
@@ -512,7 +512,7 @@ def main(argv=None) -> int:
             log(f"device OOM; retrying with batch={args.batch}")
             continue
         log(f"warm run: {time.perf_counter() - t0:.1f}s")
-        summary = BatchedRunner.summarize(final, runner)
+        summary = BatchedRunner.summarize(final, runner=runner)
         if faults is not None:
             verdict = _fault_verdict(final, runner, summary)
         del final

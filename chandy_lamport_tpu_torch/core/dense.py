@@ -86,10 +86,13 @@ class DenseSim:
     ``device`` names another."""
 
     def __init__(self, topology: TopologySpec, delay,
-                 config: Optional[SimConfig] = None, device=None,
-                 faults=None, megatick: int = 8,
-                 exact_impl: str = "cascade", trace=None):
-        """``megatick``: the K of the multi-tick loops (module docstring);
+                 config: Optional[SimConfig] = None,
+                 exact_impl: str = "cascade", megatick: int = 8, *,
+                 device=None, faults=None, trace=None):
+        """The positional parameters are the JAX ``DenseSim``'s, in its
+        order; the port's own (``device``) and those that follow the JAX
+        ``megatick`` are keyword-only.
+        ``megatick``: the K of the multi-tick loops (module docstring);
         ``self.fused`` and ``self.fused_reason`` say whether they run
         through the kernel. ``exact_impl``: the exact tick's formulation,
         "cascade" or "wave" (``ops/tick.TickKernel``; the wave refuses the

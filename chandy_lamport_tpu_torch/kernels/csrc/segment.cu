@@ -64,10 +64,23 @@
 //   layout and refuses a launch whose share is short of it.
 //
 // spread: out[r, e] = x[r, idx[e]] for x [R, N] (bool or int32).
-//   One thread per output element, consecutive threads on consecutive e,
-//   so the writes coalesce and the reads of one row stay in L1/L2.
-//   Bound at config 4: [B*S, N] bool in (16.8 MB) + [B*S, E] bool out
-//   (50.2 MB) -> about 20 us.
+//   What bounds it: bytes. At config 4 [B*S, N] bool in (16.8 MB) + [B*S,
+//   E] bool out (50.2 MB): about 20 us. The first design (one thread per
+//   output, its row and column by a 64-bit divide, idx re-read from
+//   memory for every output, one byte stored per thread) ran 1.3-1.9x
+//   behind index_select.
+//
+//   Design (spread_staged_kernel), the segment sums' staging turned
+//   around: a persistent grid; each block stages idx in shared memory
+//   once, then for each group of k rows (kernels/segment.spread_plan:
+//   ~4,096 outputs a group, so the small shapes still fill the card) the
+//   rows' contiguous span of x by 16-byte cp.async, double-buffered, and
+//   writes the group's outputs, one contiguous span, as words of 4 (a
+//   32-bit word for bool, an int4 for int32) between scalar ends; a
+//   thread divides once (32-bit) for its word's first output and steps
+//   through the rest. Rows too wide for the plan's share
+//   (spread_direct_kernel) read idx and x through L1/L2 in the same
+//   words.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a plan it refuses); the
@@ -304,12 +317,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Blocks of one kernel that fit on the card at once at `smem` bytes each,
-// cached per kernel and device (the wrapper's host time counts on the
-// small calls). The kernel's dynamic shared-memory limit is raised to
-// `smem` first: the default 48 KB counts the kernel's static shared
+// cached per kernel and device for the last kSlots shares (the wrapper's
+// host time counts on the small calls, and a path calls one kernel at a
+// few shapes in turn). The kernel's dynamic shared-memory limit is raised
+// to `smem` first: the default 48 KB counts the kernel's static shared
 // memory too, so a 48 KB dynamic share is already over it.
+constexpr int kSlots = 4;
 struct Occupancy {
-  int device = -1, smem = -1, per_sm = 0, sms = 0, limit = 0;
+  int device = -1, sms = 0, limit = 0, next = 0;
+  int smem[kSlots] = {-1, -1, -1, -1}, per_sm[kSlots] = {};
 };
 
 std::mutex g_occupancy_lock;
@@ -328,19 +344,24 @@ cudaError_t resident_blocks(Kernel kernel, Occupancy& c, int smem,
     if (st != cudaSuccess) return st;
     c.device = device;
   }
-  if (smem != c.smem) {
+  int slot = 0;
+  while (slot < kSlots && c.smem[slot] != smem) ++slot;
+  if (slot == kSlots) {
     if (smem > c.limit) {
       st = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (st != cudaSuccess) return st;
       c.limit = smem;
     }
-    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel,
-                                                       kThreads, smem);
+    slot = c.next;
+    c.next = (c.next + 1) % kSlots;
+    c.smem[slot] = -1;
+    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm[slot],
+                                                       kernel, kThreads, smem);
     if (st != cudaSuccess) return st;
-    c.smem = smem;
+    c.smem[slot] = smem;
   }
-  *total = (long long)c.per_sm * c.sms;
+  *total = (long long)c.per_sm[slot] * c.sms;
   return cudaSuccess;
 }
 
@@ -398,26 +419,160 @@ int segment_sum(const T* x, const int32_t* perm, const int32_t* lo,
                                              (cudaStream_t)stream);
 }
 
+// Byte offsets of spread's staged shared memory: the window of idx, then
+// buffers 0 and 1 of k rows of x each (stage_span's windows, 15 bytes of
+// slack each); kernels/segment.spread_smem_bytes gives the same total.
+struct Spread {
+  long long buf, buf_bytes, bytes;
+};
+
+__host__ __device__ inline Spread spread_layout(int e, int n, int k,
+                                                int size) {
+  Spread s;
+  s.buf = align16(4LL * e + 15);
+  s.buf_bytes = align16((long long)k * n * size + 15);
+  s.bytes = s.buf + 2 * s.buf_bytes;
+  return s;
+}
+
+// The 4-output word one thread stores: 4 bytes for bool, an int4 for
+// int32
+template <typename T> struct Word4;
+template <> struct Word4<uint8_t> {
+  using type = uint32_t;
+  __device__ static uint32_t pack(const uint8_t* v) {
+    return (uint32_t)v[0] | (uint32_t)v[1] << 8 | (uint32_t)v[2] << 16 |
+           (uint32_t)v[3] << 24;
+  }
+};
+template <> struct Word4<int32_t> {
+  using type = int4;
+  __device__ static int4 pack(const int32_t* v) {
+    return make_int4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// The outputs of krows rows, out[0, krows * e) (row q at out + q * e):
+// out[q, j] = v[q * n + idx[j]]. The rows are one contiguous span, so it
+// is cut at the first 4-output boundary of the word size: scalars before
+// it and after the last whole word, one word of 4 outputs per thread in
+// between. A thread finds its first output's row with one 32-bit
+// division and steps through the next three.
 template <typename T>
-__global__ void spread_kernel(const T* __restrict__ x,
-                              const int32_t* __restrict__ idx,
-                              T* __restrict__ out,
-                              long long rows, int n, int e) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * e) return;
-  const long long r = i / e;
-  const int col = (int)(i - r * e);
-  out[i] = x[r * n + idx[col]];
+__device__ inline void spread_rows(const T* v, const int32_t* idx, T* out,
+                                   int krows, int n, int e) {
+  using W = typename Word4<T>::type;
+  const int total = krows * e;
+  const int mis = (int)((reinterpret_cast<uintptr_t>(out) % sizeof(W)) /
+                        sizeof(T));
+  const int head = min(total, mis ? 4 - mis : 0);
+  const int words = (total - head) / 4;
+  const int tail = head + 4 * words;
+  for (int i = threadIdx.x; i < head + (total - tail); i += kThreads) {
+    const int o = i < head ? i : tail + (i - head);
+    const int q = o / e;
+    out[o] = v[q * n + idx[o - q * e]];
+  }
+  W* wout = reinterpret_cast<W*>(out + head);
+  for (int w = threadIdx.x; w < words; w += kThreads) {
+    const int o = head + 4 * w;
+    int q = o / e, j = o - q * e;
+    T vals[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      vals[i] = v[q * n + idx[j]];
+      if (++j == e) {
+        j = 0;
+        ++q;
+      }
+    }
+    wout[w] = Word4<T>::pack(vals);
+  }
+}
+
+// spread, staged: a persistent grid; each block stages idx once, then
+// for each group of k rows it owns, x's k rows (one contiguous span,
+// 16-byte cp.async, the next group's copy in flight while the block
+// writes the current one) and writes the group's k * e outputs in words.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    spread_staged_kernel(const T* __restrict__ x,
+                         const int32_t* __restrict__ idx,
+                         T* __restrict__ out, long long rows, int n, int e,
+                         int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Spread lay = spread_layout(e, n, k, (int)sizeof(T));
+  unsigned char* const buf0 = smem + lay.buf;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const long long row_bytes = (long long)n * (long long)sizeof(T);
+  const long long groups = (rows + k - 1) / k;
+  const int32_t* s_idx = stage_table(smem, idx, e);
+  long long g = blockIdx.x;
+  if (g < groups)
+    stage_span(buf0, xb + g * k * row_bytes,
+               xb + min(rows, (g + 1) * k) * row_bytes);
+  cp_async_commit();
+  int cur = 0;
+  for (; g < groups; g += gridDim.x) {
+    const long long next = g + gridDim.x;
+    if (next < groups)
+      stage_span(buf0 + (cur ^ 1) * lay.buf_bytes,
+                 xb + next * k * row_bytes,
+                 xb + min(rows, (next + 1) * k) * row_bytes);
+    cp_async_commit();
+    cp_async_wait_one();   // this group's copy (all but the newest)
+    __syncthreads();
+    const long long r0 = g * k;
+    const uintptr_t skew =
+        reinterpret_cast<uintptr_t>(xb + r0 * row_bytes) & 15;
+    spread_rows<T>(
+        reinterpret_cast<const T*>(buf0 + cur * lay.buf_bytes + skew), s_idx,
+        out + r0 * e, (int)min((long long)k, rows - r0), n, e);
+    __syncthreads();       // before the buffer is refilled
+    cur ^= 1;
+  }
+}
+
+// spread, direct: rows whose tables and two row buffers do not fit the
+// plan's share read idx and x through L1 and L2; one row per block step,
+// the same words.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    spread_direct_kernel(const T* __restrict__ x,
+                         const int32_t* __restrict__ idx,
+                         T* __restrict__ out, long long rows, int n, int e) {
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x)
+    spread_rows<T>(x + r * n, idx, out + r * e, 1, n, e);
 }
 
 template <typename T>
 int launch_spread(const T* x, const int32_t* idx, T* out, long long rows,
-                  int n, int e, cudaStream_t stream) {
-  const long long total = rows * e;
-  if (total > 0) {
-    const long long blocks = (total + kThreads - 1) / kThreads;
-    spread_kernel<T><<<(unsigned int)blocks, kThreads, 0, stream>>>(
-        x, idx, out, rows, n, e);
+                  int n, int e, int k, int smem, cudaStream_t stream) {
+  static Occupancy staged_occ, direct_occ;
+  if (rows < 0 || n < 0 || e < 0 || k < 0 || smem < 0 || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  // the row span of a group and a block's outputs are 32-bit offsets
+  if ((long long)max(k, 1) * max(n, e) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (k > 0 && spread_layout(e, n, k, (int)sizeof(T)).bytes > smem)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || e == 0) return (int)cudaGetLastError();
+  long long resident = 0;
+  const cudaError_t st =
+      k > 0 ? resident_blocks(spread_staged_kernel<T>, staged_occ, smem,
+                              &resident)
+            : resident_blocks(spread_direct_kernel<T>, direct_occ, 0,
+                              &resident);
+  if (st != cudaSuccess) return (int)st;
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  if (k > 0) {
+    const long long grid = std::min((rows + k - 1) / k, resident);
+    spread_staged_kernel<T><<<(unsigned int)grid, kThreads, (size_t)smem,
+                              stream>>>(x, idx, out, rows, n, e, k);
+  } else {
+    spread_direct_kernel<T><<<(unsigned int)std::min(rows, resident),
+                              kThreads, 0, stream>>>(x, idx, out, rows, n,
+                                                     e);
   }
   return (int)cudaGetLastError();
 }
@@ -444,15 +599,19 @@ int clsim_segment_sum_u8(const uint8_t* x, const int32_t* perm,
                               smem, stream);
 }
 
+// k (rows per staged group, 0: direct) and smem (bytes) are
+// kernels/segment.spread_plan's
 int clsim_spread_i32(const int32_t* x, const int32_t* idx, int32_t* out,
-                     long long rows, int n, int e, void* stream) {
-  return launch_spread<int32_t>(x, idx, out, rows, n, e,
+                     long long rows, int n, int e, int k, int smem,
+                     void* stream) {
+  return launch_spread<int32_t>(x, idx, out, rows, n, e, k, smem,
                                 (cudaStream_t)stream);
 }
 
 int clsim_spread_u8(const uint8_t* x, const int32_t* idx, uint8_t* out,
-                    long long rows, int n, int e, void* stream) {
-  return launch_spread<uint8_t>(x, idx, out, rows, n, e,
+                    long long rows, int n, int e, int k, int smem,
+                    void* stream) {
+  return launch_spread<uint8_t>(x, idx, out, rows, n, e, k, smem,
                                 (cudaStream_t)stream);
 }
 

@@ -11,7 +11,9 @@ are int32 (a bool input is summed as int32), a spread keeps its dtype.
 The segment sums take one of two CUDA paths, chosen by ``segment_plan``
 (the source note of ``csrc/segment.cu`` gives the design): "staged" keeps
 the index tables and two groups of rows in a block's shared memory,
-"tiled" takes the shapes that do not fit.
+"tiled" takes the shapes that do not fit. ``spread`` stages its index
+table and groups of rows the same way (``spread_plan``), or reads them
+through the caches where they do not fit.
 """
 
 from __future__ import annotations
@@ -41,11 +43,15 @@ PATHS = {"staged": 0, "tiled": 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# outputs one staged group of spread aims at, and the share a spread
+# block may take (two blocks an SM)
+SPREAD_GROUP = 4096
+SPREAD_SMEM = SMEM_BUDGET // 2 - 1024
 # (x, perm, lo, hi, out, rows, e, n, path, rows_per_group, smem_bytes,
-# stream) and (x, idx, out, rows, n, e, stream); the u8 and i32 entry
-# points differ only in x's element type
+# stream) and (x, idx, out, rows, n, e, rows_per_group, smem_bytes,
+# stream); the u8 and i32 entry points differ only in x's element type
 _SEGMENT_ARGS = [_P] * 5 + [ctypes.c_longlong] + [_I] * 5 + [_P]
-_SPREAD_ARGS = [_P] * 3 + [ctypes.c_longlong, _I, _I, _P]
+_SPREAD_ARGS = [_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P]
 _SIGS = {"clsim_segment_sum_i32": _SEGMENT_ARGS,
          "clsim_segment_sum_u8": _SEGMENT_ARGS,
          "clsim_spread_i32": _SPREAD_ARGS,
@@ -108,6 +114,31 @@ def segment_plan(rows: int, e: int, n: int, elem_size: int,
         return SegmentPlan("staged", k, smem)
     return SegmentPlan("tiled", 1,
                        4 * min(e, TILED_PERM_CAP) if has_perm else 0)
+
+
+def spread_smem_bytes(e: int, n: int, k: int, elem_size: int) -> int:
+    """Shared memory of a staged spread block, the one reckoning of it
+    (the kernel checks its own layout against it): idx as int32 and two
+    buffers of k rows of x, each with 15 bytes of slack."""
+    return _align16(4 * e + 15) + 2 * _align16(k * n * elem_size + 15)
+
+
+class SpreadPlan(NamedTuple):
+    rows_per_group: int   # rows of x one staged group copies; 0: direct
+    smem_bytes: int
+
+
+def spread_plan(rows: int, e: int, n: int, elem_size: int) -> SpreadPlan:
+    """How the CUDA kernel spreads ``rows`` rows of ``n`` values onto
+    ``e`` edges: staged groups of ~SPREAD_GROUP outputs (at least one
+    row, never more than ``rows``) when the block's layout fits
+    SPREAD_SMEM; else direct (``rows_per_group`` 0), reading idx and x
+    through the caches."""
+    k = max(1, min(rows, -(-SPREAD_GROUP // max(e, 1))))
+    while k > 1 and spread_smem_bytes(e, n, k, elem_size) > SPREAD_SMEM:
+        k //= 2
+    smem = spread_smem_bytes(e, n, k, elem_size)
+    return SpreadPlan(k, smem) if smem <= SPREAD_SMEM else SpreadPlan(0, 0)
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -188,21 +219,50 @@ def sum_by_perm(x_e, perm, lo, hi):
     return _segment_sum_cuda(x_e, perm, lo, hi, "sum_by_perm")
 
 
+_SPREAD_FN = {torch.bool: ("clsim_spread_u8", 1),
+              torch.int32: ("clsim_spread_i32", 4)}
+
+
+class _SpreadCall(NamedTuple):
+    fn: object         # the bound entry point
+    name: str
+    out_shape: tuple
+    args: tuple        # rows, n, e, rows_per_group, smem_bytes
+
+
+@functools.lru_cache(maxsize=256)
+def _spread_call(dtype, shape, e: int) -> _SpreadCall:
+    """What a spread of x (``dtype``, ``shape``) onto ``e`` edges passes
+    its entry point besides the pointers and the stream, worked out once
+    per shape: on the small calls the wrapper's host time is the call's
+    time."""
+    name, size = _SPREAD_FN.get(dtype, (None, 0))
+    if name is None:
+        raise ValueError(f"spread: a bool or int32 tensor, got {dtype}")
+    n = shape[-1]
+    rows = math.prod(shape[:-1]) if n else 0
+    plan = spread_plan(rows, e, n, size)
+    return _SpreadCall(_fn(name), name, tuple(shape[:-1]) + (e,),
+                       (rows, n, e, plan.rows_per_group, plan.smem_bytes))
+
+
 def spread(x_n, idx_e):
     """[..., N] -> [..., E]: a per-node value on each incident edge
     (``idx_e`` = edge_dst for inbound, edge_src for outbound edges)."""
-    if x_n.device.type == "cpu":
-        return spread_plain(x_n, idx_e)
-    _check_operand(x_n, "spread", (torch.int32, torch.bool))
-    _check_index(idx_e, "idx_e", x_n.device)
-    n, e = x_n.shape[-1], idx_e.shape[0]
-    out = torch.empty(x_n.shape[:-1] + (e,), dtype=x_n.dtype,
-                      device=x_n.device)
-    rows = x_n.numel() // n if n else 0
-    name = ("clsim_spread_u8" if x_n.dtype == torch.bool
-            else "clsim_spread_i32")
-    code = _fn(name)(x_n.data_ptr(), idx_e.data_ptr(), out.data_ptr(),
-                     rows, n, e, _build.stream_ptr(x_n))
-    _build.check(code, name)
+    if not x_n.is_cuda:
+        if x_n.device.type == "cpu":
+            return spread_plain(x_n, idx_e)
+        raise ValueError(f"spread: no kernel for {x_n.device}")
+    call = _spread_call(x_n.dtype, x_n.shape, idx_e.shape[0])
+    if not (x_n.is_contiguous() and idx_e.dtype == torch.int32
+            and idx_e.is_contiguous()
+            and idx_e.get_device() == x_n.get_device()):
+        raise ValueError(f"spread: x contiguous and idx_e a contiguous int32 "
+                         f"tensor on {x_n.device}, got {idx_e.dtype} on "
+                         f"{idx_e.device}")
+    out = x_n.new_empty(call.out_shape)
+    code = call.fn(x_n.data_ptr(), idx_e.data_ptr(), out.data_ptr(),
+                   *call.args, _build.stream_ptr(x_n))
+    _build.check(code, call.name)
     LAUNCHES["spread"] += 1
     return out

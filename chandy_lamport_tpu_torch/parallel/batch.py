@@ -240,12 +240,13 @@ class BatchedRunner:
     lanes of one topology."""
 
     def __init__(self, topology: TopologySpec, config: Optional[SimConfig],
-                 delay, batch: int, scheduler: str = "sync",
+                 delay, batch: int, scheduler: str = "exact",
                  check_every: int = 0, device=None,
                  exact_impl: str = "cascade", faults=None,
                  quarantine: bool = False, trace=None, megatick: int = 1):
-        """scheduler: "sync" (simultaneous delivery, the production path)
-        or "exact" (the reference's delivery semantics, bit-exact).
+        """scheduler: "exact" (the reference's delivery semantics,
+        bit-exact; the default, as in the JAX ``BatchedRunner``) or "sync"
+        (simultaneous delivery, the production path).
 
         exact_impl: the exact tick's formulation, "cascade" (one host step
         per batched marker delivery) or "wave" (one host step per wave:
@@ -817,12 +818,15 @@ class BatchedRunner:
         return d
 
     @staticmethod
-    def summarize(state: DenseState, runner=None) -> dict:
+    def summarize(state: DenseState, stream: Optional[StreamState] = None,
+                  *, runner=None) -> dict:
         """The JAX ``summarize`` counters of a batched state; given the
-        ``runner`` that ran it, also its ``megatick``, ``fused_tick`` (the
-        kernel's ``fused``: "on" or "off"), ``fused_reason``,
-        ``fused_tile`` (the layout: "on" tiled, "off" resident) and
-        ``fused_tile_reason``."""
+        ``stream`` carry, also its ``memo`` and ``serve`` books (the JAX
+        keys; zeros until the memo plane and serving are ported); given
+        the ``runner`` that ran it, also its ``megatick``, ``fused_tick``
+        (the kernel's ``fused``: "on" or "off"), ``fused_reason``,
+        ``fused_tile`` (the layout: "on" off the block's own shared
+        memory, "off" resident) and ``fused_tile_reason``."""
         bits = int(or_reduce(state.error))
         fc = state.fault_counts.sum(0).tolist()
         n = state.has_local.shape[-1]
@@ -850,6 +854,13 @@ class BatchedRunner:
                 key: int(v) for key, v in snapshot_lifecycle(
                     state, n).items()},
         }
+        if stream is not None:
+            sc = stream_counters(stream)
+            out["memo"] = {k: sc[k] for k in (
+                "cache_hits", "coalesced_jobs", "ff_skipped_ticks",
+                "shadow_checks", "memo_hit_rate")}
+            out["serve"] = {k: sc[k] for k in (
+                "deadline_misses", "tenant_served", "tenant_quota")}
         if runner is not None:
             out.update(megatick=runner.megatick, fused_tick=runner.fused,
                        fused_reason=runner.fused_reason,

@@ -224,28 +224,38 @@ a ``shapes`` list of its fault-free and faulted drain megaticks, cascade
 and wave, resident and tiled, untraced and traced, and config 5's,
 ``launches_tiled``, ``launches_traced`` (by path too) and
 ``traced_arms``, each traced drain megatick beside the untraced one;
-spread's a ``shapes`` list of its timed shapes), and last
+spread's a ``shapes`` list of its timed shapes, each with its device
+and host time beside index_select's and both timed in turns,
+``in_turns``), and last
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
 
     python3 chip_smoke.py --drain-timing \
         fault-free|faulted|wave|wave-faulted|config5-wave[-traced] \
-        [--package-root DIR]
+        [--batch B] [--package-root DIR]
 
 times one drain megatick (K=8) of the exact or the faulted exact cell
 (the wave step body for ``wave`` and ``wave-faulted``; config 5's tiled
 wave lane for ``config5-wave``; ``-traced``: the recorder arm, the flight
-recorder armed at 4,096 slots)
-and prints one JSON line, nothing else; ``--package-root`` imports the
+recorder armed at 4,096 slots; ``--batch``: that many lanes instead of
+the cell's) and prints one JSON line, nothing else, with the lane-ticks
+and the time per lane-tick; ``--package-root`` imports the
 package from another checkout (a parent commit unpacked into a
 gitignored directory), so parent and change are timed in turns in one
 call.
+
+    python3 chip_smoke.py --spread-timing [--package-root DIR]
+
+times ``spread`` against ``index_select`` at the faulted crash gate's
+shape in turns (event ms and host us per call, ``in_turns``) and prints
+one JSON line, nothing else.
 """
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -333,6 +343,10 @@ DRAIN_LAUNCHES = 10
 # what split_times adds to a row
 SPLIT_KEYS = ("device_ms", "host_us", "library_device_ms",
               "library_host_us")
+# rounds of in_turns, and what it adds to a row
+TURNS = 5
+TURN_KEYS = ("ms_turns", "library_ms_turns", "vs_library",
+             "host_us_turns", "library_host_us_turns")
 
 
 def emit(obj) -> None:
@@ -407,6 +421,27 @@ def split_times(kernel_fn, library_fn) -> dict:
         times.update(library_device_ms=l_ms, library_kernels=l_names,
                      library_host_us=host_us(library_fn))
     return times
+
+
+def in_turns(kernel_fn, library_fn, turns: int = TURNS) -> dict:
+    """A kernel wrapper and its library call timed in turns, ``turns``
+    rounds of ``time_ms`` and of ``host_us`` each, the kernel first: the
+    four lists, the event times' medians as ``ms`` and ``library_ms``,
+    and whether the kernel "leads" (every event reading below every
+    library reading), "trails" (every one above) or the readings cross
+    ("undecided")."""
+    ms, lib, host, lib_host = [], [], [], []
+    for _ in range(turns):
+        ms.append(time_ms(kernel_fn))
+        lib.append(time_ms(library_fn))
+        host.append(host_us(kernel_fn))
+        lib_host.append(host_us(library_fn))
+    verdict = ("leads" if max(ms) < min(lib) else
+               "trails" if min(ms) > max(lib) else "undecided")
+    return {"ms": statistics.median(ms),
+            "library_ms": statistics.median(lib), "ms_turns": ms,
+            "library_ms_turns": lib, "vs_library": verdict,
+            "host_us_turns": host, "library_host_us_turns": lib_host}
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -550,7 +585,7 @@ def config4_runner(device):
     cfg = SimConfig.for_workload(snapshots=SNAPSHOTS, split_markers=True,
                                  record_dtype="int16")
     runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), BATCH,
-                           device=device)
+                           scheduler="sync", device=device)
     prog = storm_program(
         runner.topo, PHASES, 1,
         staggered_snapshots(runner.topo, SNAPSHOTS, 1, 2,
@@ -618,10 +653,10 @@ def fault_runner(device, batch=X_BATCH, megatick=1, exact_impl="cascade",
                         tiled=tiled, trace=trace, snapshot_timeout=F_TIMEOUT)
 
 
-def config5_runner(device, megatick=MEGATICK, trace=None):
+def config5_runner(device, megatick=MEGATICK, trace=None, batch=C5_BATCH):
     """Config 5's exact wave storm (``C5_*``), tiled by "auto" on the
     card at megatick > 1."""
-    return exact_runner(device, C5_BATCH, C5_NODES, C5_PHASES, C5_SNAPSHOTS,
+    return exact_runner(device, batch, C5_NODES, C5_PHASES, C5_SNAPSHOTS,
                         graph="sf", megatick=megatick, exact_impl="wave",
                         trace=trace)
 
@@ -656,10 +691,13 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
     rows, out = {}, {}
 
     def record(name, shape_note, got, want, kernel_fn, plain_fn, nbytes,
-               ops, library_fn=None, extra=False, split=False):
+               ops, library_fn=None, extra=False, split=False,
+               turns=False):
         """One row of ``name``; ``extra`` rows stay out of the summary,
         ``split`` adds the device time per call (profiler) and the host
-        time per call of the kernel and of the library call."""
+        time per call of the kernel and of the library call, ``turns``
+        times the two again in turns (``in_turns``: its medians are the
+        row's ``ms`` and ``library_ms``)."""
         err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError(f"{name} ({shape_note}): kernel != plain, "
@@ -670,6 +708,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
                **bound(nbytes, ops), "main": not extra}
         if split:
             row.update(split_times(kernel_fn, library_fn))
+        if turns:
+            row.update(in_turns(kernel_fn, library_fn))
         rows.setdefault(name, []).append(row)
         if not extra:
             out.setdefault(name, []).append(row)
@@ -738,7 +778,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
                lambda: ks.spread(x, idx), lambda: ks.spread_plain(x, idx),
                x.numel() * x.element_size() + 4 * E
                + r * E * x.element_size(), 0,
-               lambda: torch.index_select(x, -1, idx_long), extra=not main)
+               lambda: torch.index_select(x, -1, idx_long), extra=not main,
+               split=True, turns=True)
 
     # -- head_fields: real rings, lanes 0-2 rebuilt as wrap / full /
     # marker-at-head regimes, lane 3 with random heads
@@ -940,7 +981,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
                lambda: ks.spread_plain(x, idx),
                x.numel() * x.element_size() + 4 * XE
                + r * XE * x.element_size(), 0,
-               lambda: torch.index_select(x, -1, idx_long), extra=True)
+               lambda: torch.index_select(x, -1, idx_long), extra=True,
+               split=True, turns=True)
     del pend, had, facts, node_facts, want, lib_out
 
     xslo, xshi = xk._src_lo, xk._src_hi
@@ -1037,7 +1079,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
            lambda: ks.spread(down, fk._edge_dst),
            lambda: ks.spread_plain(down, fk._edge_dst),
            FB * FN + 4 * FE + FB * FE, 0,
-           lambda: torch.index_select(down, -1, dst_long), extra=True)
+           lambda: torch.index_select(down, -1, dst_long), extra=True,
+           split=True, turns=True)
     head_rt, head_mk, _ = kq.head_fields_plain(ft.q_meta, ft.q_data,
                                                ft.q_head)
     elig = (ft.q_len > 0) & (head_rt <= ft.time[:, None])
@@ -1654,14 +1697,16 @@ DRAIN_CELLS = ("fault-free", "faulted", "wave", "wave-faulted",
                "config5-wave")
 
 
-def drain_timing(cell: str) -> int:
+def drain_timing(cell: str, batch=None) -> int:
     """``--drain-timing CELL``: one drain megatick (K=8) of that exact
     cell (``DRAIN_CELLS``: through the wave step body for the wave cells;
     config 5's tiled wave lane for ``config5-wave``; with the suffix
     ``-traced`` the flight recorder armed at its default capacity, the
     recorder arm) from the state after its storm phases, timed over
     ``DRAIN_LAUNCHES`` launches on fresh copies (``time_launch_ms``), and
-    printed as one JSON line with the card's name and power limit."""
+    printed as one JSON line with the card's name and power limit, the
+    lane-ticks the megatick runs and the time per lane-tick. ``batch``
+    (``--batch``) replaces the cell's lane count."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
@@ -1672,22 +1717,60 @@ def drain_timing(cell: str) -> int:
 
         kw["trace"] = Trace()
     if base == "config5-wave":
-        runner, prog = config5_runner("cuda", **kw)
+        runner, prog = config5_runner("cuda", batch=batch or C5_BATCH, **kw)
     else:
         make = fault_runner if base.endswith("faulted") else exact_runner
         if base.startswith("wave"):
             kw["exact_impl"] = "wave"
-        runner, prog = make("cuda", megatick=MEGATICK, **kw)
+        runner, prog = make("cuda", batch=batch or X_BATCH,
+                            megatick=MEGATICK, **kw)
     s0, _, drain = drain_setup(runner, prog)
+    lane_ticks = int((drain(BatchedRunner._own(s0)).time - s0.time).sum())
     ms = time_launch_ms(drain, lambda: BatchedRunner._own(s0),
                         reps=DRAIN_LAUNCHES)
     emit({"phase": "drain_timing", "cell": cell,
-          "package": os.path.dirname(km.__file__),
+          "package": os.path.dirname(km.__file__), "batch": runner.batch,
+          "lane_ticks": lane_ticks,
+          "us_per_lane_tick": 1e3 * ms / max(lane_ticks, 1),
           "launches": DRAIN_LAUNCHES, "ms_per_drain_megatick": ms,
           "layout": getattr(runner, "fused_tile", "off"),
           # a parent checkout (``--package-root``) may predate the recorder
           "traced": getattr(runner.kernel, "_trace_on", False),
           "nvidia_smi": nvidia_smi()})
+    return 0
+
+
+def spread_timing() -> int:
+    """``--spread-timing``: ``spread`` at the faulted crash gate's shape
+    (``X_BATCH`` lanes of one bool per ER-256 node onto its in-edges,
+    ``edge_dst``) against ``index_select`` on the same input, equal, then
+    timed in turns (``in_turns``), printed as one JSON line with the
+    card's name and power limit. With ``--package-root`` the wrapper is
+    another checkout's, so parent and change are timed in turns in one
+    call."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import segment as ks
+
+    runner, _ = exact_runner("cuda", batch=1)
+    idx = runner.kernel._edge_dst
+    idx_long = idx.to(torch.int64)
+    gen = torch.Generator().manual_seed(DELAY_SEED)
+    x = (torch.rand((X_BATCH, runner.topo.n), generator=gen) < 0.3).cuda()
+
+    def kernel():
+        return ks.spread(x, idx)
+
+    def library():
+        return torch.index_select(x, -1, idx_long)
+
+    if not torch.equal(kernel(), library()):
+        raise AssertionError("spread != index_select at the crash gate")
+    emit({"phase": "spread_timing",
+          "package": os.path.dirname(ks.__file__),
+          "shape": f"[{X_BATCH},{runner.topo.n}] bool -> "
+                   f"[{X_BATCH},{idx.numel()}]",
+          **in_turns(kernel, library), "nvidia_smi": nvidia_smi()})
     return 0
 
 
@@ -2383,7 +2466,7 @@ def sync_stream_runner(batch=SS_BATCH):
     cfg = SimConfig.for_workload(snapshots=SNAPSHOTS, split_markers=True,
                                  record_dtype="int16")
     return BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
-                         device="cuda"), spec
+                         scheduler="sync", device="cuda"), spec
 
 
 def phase_streams() -> tuple:
@@ -2496,7 +2579,7 @@ def phase_cpu_vs_cuda() -> None:
             scale_free(64, 2, seed=3, tokens=16),
             SimConfig.for_workload(snapshots=4, split_markers=True,
                                    record_dtype="int16"),
-            HashDelay(DELAY_SEED), 8, device=device)
+            HashDelay(DELAY_SEED), 8, scheduler="sync", device=device)
         prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
             runner.topo, 4, 1, 1, max_phases=6))
         return runner, prog
@@ -2787,11 +2870,14 @@ def phase_trace_storms(resident) -> dict:
     return paths
 
 
-def phase_trace_config5(untraced, untraced_m) -> dict:
+def phase_trace_config5(untraced, untraced_m, untraced_row) -> tuple:
     """Config 5 (``C5_*``, tiled by "auto") traced at megatick 8: clean,
     the tiled recorder arm launched, equal to the untraced run of this
-    call (``untraced``) on every leaf but the ring. Returns its launch
-    counts."""
+    call (``untraced``) on every leaf but the ring; then one of its drain
+    megaticks traced against the traced plain version, timed, beside its
+    bound and the untraced drain megatick of this call
+    (``untraced_row``). Returns (its launch counts, the drain megatick's
+    row)."""
     from chandy_lamport_tpu_torch.utils.tracing import Trace
 
     name = "trace_config5_wave_fused_storm"
@@ -2800,13 +2886,20 @@ def phase_trace_config5(untraced, untraced_m) -> dict:
     line = _trace_storm_line(name, runner, prog, "sf", C5_SNAPSHOTS, final,
                              m, untraced, untraced_m)
     _, bad = _storm_verdict(runner, final, C5_SNAPSHOTS, False)
-    emit({**line, "main_path": True, "checks_failed": bad,
-          "workspace_bytes": runner.kernel.fused_workspace.numel()})
+    del final
     if bad or line["untraced_mismatched"] or runner.fused_tile != "on":
+        emit({**line, "main_path": True, "checks_failed": bad})
         raise AssertionError(f"{name}: {bad}, {line}")
+    (row,) = drain_megatick_rows(runner, prog, "wave fault-free traced",
+                                 graph="sf")
+    row["untraced_ms"] = untraced_row["ms"]
+    row["traced_over_untraced"] = row["ms"] / untraced_row["ms"]
+    emit({**line, "main_path": True, "checks_failed": bad,
+          "workspace_bytes": runner.kernel.fused_workspace.numel(),
+          "drain_megatick": row})
     _check_launches(name, m["launches"], (
         "fused_scan", "fused_scan_tiled", "fused_scan_traced"))
-    return m["launches"]
+    return m["launches"], row
 
 
 def phase_trace_stream() -> dict:
@@ -2862,14 +2955,23 @@ def main(argv=None) -> int:
                                                 for c in DRAIN_CELLS),
                     help="only time one drain megatick of that exact cell "
                          "(-traced: with the flight recorder armed)")
+    ap.add_argument("--spread-timing", action="store_true",
+                    help="only time spread against index_select at the "
+                         "crash gate's shape, in turns")
+    ap.add_argument("--batch", type=int,
+                    help="with --drain-timing: the lanes of the cell "
+                         "(default: the cell's own)")
     ap.add_argument("--package-root",
-                    help="with --drain-timing: import the package from "
-                         "this checkout (a parent commit unpacked beside "
-                         "this one)")
+                    help="with --drain-timing or --spread-timing: "
+                         "import the package from this checkout (a parent "
+                         "commit unpacked beside this one)")
     args = ap.parse_args(argv)
+    if args.batch and not args.drain_timing:
+        ap.error("--batch goes with --drain-timing")
+    if args.package_root and not (args.drain_timing or args.spread_timing):
+        ap.error("--package-root goes with --drain-timing or "
+                 "--spread-timing")
     if args.package_root:
-        if not args.drain_timing:
-            ap.error("--package-root goes with --drain-timing")
         sys.path.insert(0, os.path.abspath(args.package_root))
     import torch
 
@@ -2885,7 +2987,9 @@ def main(argv=None) -> int:
         return 2
 
     if args.drain_timing:
-        return drain_timing(args.drain_timing)
+        return drain_timing(args.drain_timing, args.batch)
+    if args.spread_timing:
+        return spread_timing()
     smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.library("segment")
@@ -3020,8 +3124,9 @@ def main(argv=None) -> int:
     paths["config5_wave_fused_storm"], c5_rows, c5_final, c5_m = \
         phase_config5_wave_fused_storm()
     rows["fused_scan"] += c5_rows
-    paths["trace_config5_wave_fused_storm"] = phase_trace_config5(c5_final,
-                                                                  c5_m)
+    paths["trace_config5_wave_fused_storm"], c5_traced = \
+        phase_trace_config5(c5_final, c5_m, c5_rows[0])
+    rows["fused_scan"].append(c5_traced)
     del c5_final
     stream_paths, stream_rows = phase_streams()
     paths.update(stream_paths)
@@ -3048,9 +3153,10 @@ def main(argv=None) -> int:
         # and faulted drain megatick
         timed = [r for r in all_rows.get(name, ()) if "device_ms" in r]
         if name == "spread":
+            # every timed shape, index_select's times beside its own
             entry["shapes"] = [{key: r[key] for key in (
-                "shape", "main", "ms", "plain_ms", "bound_ms",
-                "library_ms")} for r in all_rows[name]]
+                "shape", "main", "ms", "plain_ms", "bound_ms", "library_ms",
+                *SPLIT_KEYS, *TURN_KEYS)} for r in all_rows[name]]
         if name == "fused_scan":
             entry["shapes"] = [{**{key: r[key] for key in (
                 "shape", "layout", "ms", "plain_ms", "bound_ms",
@@ -3073,6 +3179,7 @@ def main(argv=None) -> int:
                 if counts["fused_scan_traced"]}
         if timed:
             entry.update({key: row[key] for key in SPLIT_KEYS})
+        if timed and name != "spread":
             entry["shapes"] = [{key: r[key] for key in (
                 "shape", "main", "ms", "bound_ms", "library_ms",
                 *SPLIT_KEYS)} for r in timed]

@@ -99,6 +99,34 @@ def test_segment_kernels_equal_plain(dev, dtype):
                for k in ("sum_by_perm", "sum_segments", "spread"))
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bool])
+@pytest.mark.parametrize("rows, n, e, skew", [
+    (7, 5, 13, 0), (7, 5, 13, 1), (33, 64, 3063, 3), (4, 9, 0, 0),
+    (6, 1, 11, 2), (0, 8, 5, 0), (3, 8192, 24_572, 1), (1, 256, 768, 0)],
+    ids=["odd_e", "odd_e_unaligned", "sync_width_unaligned", "e0", "n1",
+         "rows0", "direct", "one_row"])
+def test_spread_edge_cases_equal_plain(dev, dtype, rows, n, e, skew):
+    """The redesigned spread (staged groups, or direct for rows too wide
+    for its share) equals index_select bit for bit on odd E, E=0, N=1,
+    zero rows and x and idx starting off a 16-byte boundary (``skew``
+    elements into a larger tensor), on both dtypes; its plan is the
+    one the kernel checks."""
+    gen = torch.Generator().manual_seed(rows * 7 + e)
+    size = rows * n + skew
+    base = (torch.rand((size,), generator=gen) < 0.4 if dtype == torch.bool
+            else torch.randint(-2**31, 2**31 - 1, (size,), generator=gen,
+                               dtype=torch.int32)).to(dev)
+    x = base[skew:].view(rows, n)
+    idx_base = torch.randint(0, n, (e + skew,), generator=gen,
+                             dtype=torch.int32).to(dev)
+    idx = idx_base[skew:]
+    direct = ks.spread_plan(rows, e, n, x.element_size()).rows_per_group == 0
+    assert direct == ((n, dtype) == (8192, torch.int32))
+    before = launch_counts()["spread"]
+    _equal([ks.spread(x, idx)], [ks.spread_plain(x, idx)])
+    assert launch_counts()["spread"] == before + 1
+
+
 def _csr(heads, n, dev):
     """(perm, lo, hi) of the by-head CSR of ``heads`` (numpy), as views of
     one tensor [perm | bounds], so lo and hi do not start 16-byte
@@ -319,7 +347,7 @@ def test_small_storm_cuda_equals_cpu(dev):
         runner = BatchedRunner(
             TOPO_SPEC, SimConfig.for_workload(snapshots=3,
                                               split_markers=True),
-            HashDelay(5), 4, device=device)
+            HashDelay(5), 4, scheduler="sync", device=device)
         prog = storm_program(runner.topo, 5, 1, staggered_snapshots(
             runner.topo, 3, 1, 1, max_phases=5))
         finals.append(state_to_numpy(

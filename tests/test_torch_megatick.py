@@ -209,7 +209,7 @@ def test_batched_storm_matches_jax_fused(storm_er16):
     clocks = np.asarray(want.time).tolist()
     assert len(set(clocks)) > 1, clocks
     assert int(np.max(want.error)) == 0
-    summary = BatchedRunner.summarize(got, tr)
+    summary = BatchedRunner.summarize(got, runner=tr)
     assert summary["megatick"] == 8 and summary["fused_tick"] == "off"
     assert summary["fused_reason"] == "CPU: the plain form"
 

@@ -153,7 +153,7 @@ def test_faulted_storm_matches_jax_fused(name, megatick):
     tr, prog = _port(name, megatick)
     got = tr.run_storm(tr.init_batch_device(), prog)
     _assert_states_equal(ref, state_to_numpy(got, tr.delay))
-    summary = BatchedRunner.summarize(got, tr)
+    summary = BatchedRunner.summarize(got, runner=tr)
     assert summary["megatick"] == megatick
     assert summary["fused_reason"] == "CPU: the plain form"
     assert sum(summary["fault_events"].values()) > 0

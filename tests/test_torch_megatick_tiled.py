@@ -215,7 +215,8 @@ def test_summary_and_bench_row_stamp_the_layout(capsys):
                            megatick=8)
     no_layout = ("off", "fused megatick off: no kernel to tile")
     assert (runner.fused_tile, runner.fused_tile_reason) == no_layout
-    summary = BatchedRunner.summarize(runner.init_batch_device(), runner)
+    summary = BatchedRunner.summarize(runner.init_batch_device(),
+                                     runner=runner)
     assert (summary["fused_tile"], summary["fused_tile_reason"]) == no_layout
     assert summary["fused_reason"] == "CPU: the plain form"
     assert bench.main(["--device", "cpu", "--scheduler", "exact",

@@ -66,7 +66,8 @@ def _pair(graph, check_every=0, **overrides):
                    check_every=check_every)
     tr = BatchedRunner(getattr(workloads, family)(*args, **kw),
                        SimConfig(**cfg), HashDelay(SEED),
-                       BATCH, check_every=check_every, device="cpu")
+                       BATCH, scheduler="sync", check_every=check_every,
+                       device="cpu")
     sched = workloads.staggered_snapshots(tr.topo, 4, 1, 2,
                                           max_phases=PHASES)
     prog = workloads.storm_program(tr.topo, PHASES, 1, sched)

@@ -1,0 +1,227 @@
+"""The port's public surface against the JAX package's, call for call.
+
+Each test builds the same call in both packages and compares what it
+does: ``BatchedRunner``'s default scheduler (a storm run through both
+with no ``scheduler`` argument, every state leaf equal),
+``BatchedRunner.summarize(state, stream=...)`` on one state and stream
+carry, the leading positional parameters of ``DenseSim`` and
+``run_events_file`` (``inspect.signature``), and the ``storm`` command
+line: its parser's defaults against the JAX ``storm`` subparser's, one
+tiny storm whose counters line equals the JAX CLI's on the shared keys
+(tolerance: none), and each flag whose machinery the port lacks refused
+by name with its ROADMAP item.
+"""
+
+import inspect
+import json
+
+import jax
+import numpy as np
+import pytest
+
+from chandy_lamport_tpu import api as jax_api
+from chandy_lamport_tpu import cli as jax_cli
+from chandy_lamport_tpu.config import SimConfig as JaxSimConfig
+from chandy_lamport_tpu.core.dense import DenseSim as JaxDenseSim
+from chandy_lamport_tpu.models import workloads as jax_workloads
+from chandy_lamport_tpu.ops.delay_jax import HashJaxDelay
+from chandy_lamport_tpu.parallel.batch import BatchedRunner as JaxRunner
+from chandy_lamport_tpu_torch import api
+from chandy_lamport_tpu_torch.__main__ import (
+    _UNPORTED_STORM,
+    _storm_parser,
+    storm_run,
+)
+from chandy_lamport_tpu_torch.config import SimConfig
+from chandy_lamport_tpu_torch.core.dense import DenseSim
+from chandy_lamport_tpu_torch.models import workloads
+from chandy_lamport_tpu_torch.ops.delay import HashDelay
+from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+from chandy_lamport_tpu_torch.utils.carry import (
+    state_to_numpy,
+    stream_to_numpy,
+)
+from chandy_lamport_tpu_torch.utils.tracing import read_telemetry
+
+CFG = dict(max_snapshots=4, queue_capacity=24, max_recorded=32)
+BATCH, PHASES, SEED = 4, 8, 17
+TINY_STORM = ["--graph", "ring", "--nodes", "8", "--batch", "4", "--phases",
+              "12", "--snapshots", "1"]
+
+
+def _assert_states_equal(ref, got):
+    for name in ref._fields:
+        xs = jax.tree_util.tree_leaves(getattr(ref, name))
+        ys = jax.tree_util.tree_leaves(getattr(got, name))
+        assert len(xs) == len(ys), name
+        for x, y in zip(xs, ys):
+            x, y = np.asarray(x), np.asarray(y)
+            assert x.dtype == y.dtype, (name, x.dtype, y.dtype)
+            np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+# ---- C1: the default scheduler -------------------------------------------
+
+def test_default_scheduler_is_the_jax_default():
+    """``BatchedRunner(spec, cfg, delay, B)`` with no scheduler runs the
+    exact scheduler in both packages: the same storm, every leaf equal."""
+    jr = JaxRunner(jax_workloads.ring_topology(8, tokens=20),
+                   JaxSimConfig(**CFG), HashJaxDelay(SEED), BATCH,
+                   kernel_engine="xla")
+    pr = BatchedRunner(workloads.ring_topology(8, tokens=20),
+                       SimConfig(**CFG), HashDelay(SEED), BATCH,
+                       device="cpu")
+    assert jr.scheduler == pr.scheduler == "exact"
+    prog = workloads.storm_program(pr.topo, PHASES, 1, workloads.
+                                   staggered_snapshots(pr.topo, 4, 1, 2,
+                                                       max_phases=PHASES))
+    ref = jax.device_get(jr.run_storm(jr.init_batch(), prog))
+    got = pr.run_storm(pr.init_batch_device(), prog)
+    _assert_states_equal(ref, state_to_numpy(got))
+
+
+# ---- C3: summarize(state, stream=...) -------------------------------------
+
+def test_summarize_takes_the_stream_as_jax_does():
+    """``summarize(state, stream)`` (positional, as the JAX signature
+    has it) and ``summarize(state, stream=stream)`` add the JAX ``memo``
+    and ``serve`` books; on the same state and stream carry the whole
+    summary equals the JAX ``summarize``'s. The runner's stamps are
+    keyword-only."""
+    pr = BatchedRunner(workloads.ring_topology(4), SimConfig(),
+                       HashDelay(1), 2, device="cpu")
+    jobs = workloads.stream_jobs(workloads.ring_topology(4), 3, seed=1,
+                                 max_phases=4)
+    state, stream = pr.run_stream(pr.pack_jobs(jobs))
+    got = BatchedRunner.summarize(state, stream)
+    assert got == BatchedRunner.summarize(state, stream=stream)
+    want = JaxRunner.summarize(state_to_numpy(state),
+                               stream_to_numpy(stream))
+    assert got == want
+    assert got["memo"]["cache_hits"] == 0 and "serve" in got
+    assert "memo" not in BatchedRunner.summarize(state)
+    stamped = BatchedRunner.summarize(state, runner=pr)
+    assert stamped["megatick"] == 1 and "memo" not in stamped
+    assert list(inspect.signature(BatchedRunner.summarize).parameters) == \
+        list(inspect.signature(JaxRunner.summarize).parameters) + ["runner"]
+    assert inspect.signature(BatchedRunner.summarize).parameters[
+        "runner"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+# ---- C4: the positional order ---------------------------------------------
+
+def _positional(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD
+            and p.name != "self"]
+
+
+@pytest.mark.parametrize("port, ref, renamed", [
+    (DenseSim.__init__, JaxDenseSim.__init__, {"delay": "delay_model"}),
+    (api.run_events_file, jax_api.run_events_file, {}),
+], ids=["DenseSim", "run_events_file"])
+def test_positional_parameters_lead_as_in_jax(port, ref, renamed):
+    """The port's positional parameters are the JAX function's leading
+    ones, in its order (``delay`` is the JAX ``delay_model``); every
+    port-only parameter is keyword-only."""
+    mine = [renamed.get(name, name) for name in _positional(port)]
+    assert mine == _positional(ref)[:len(mine)]
+    assert len(mine) >= 2
+    for name in ("device", "trace", "faults", "seed"):
+        p = inspect.signature(port).parameters.get(name)
+        assert p is None or p.kind is inspect.Parameter.KEYWORD_ONLY, name
+
+
+def test_densesim_fourth_argument_is_exact_impl():
+    """``DenseSim(top, delay, None, "wave")`` picks the wave as the JAX
+    call does, not a device."""
+    sim = DenseSim(workloads.ring_topology(4), HashDelay(1), None, "wave",
+                   1, device="cpu")
+    assert sim.kernel.exact_impl == "wave" and sim.kernel.megatick == 1
+
+
+# ---- C2: the storm command line ------------------------------------------
+
+def _jax_storm_defaults(monkeypatch):
+    seen = []
+    monkeypatch.setattr(jax_cli, "_cmd_storm",
+                        lambda args: seen.append(vars(args)) or 0)
+    assert jax_cli.main(["storm"]) == 0
+    (args,) = seen
+    return {k: v for k, v in args.items()
+            if k not in ("command", "fn", "platform")}
+
+
+def test_storm_parser_has_the_jax_defaults(monkeypatch):
+    """Every flag of the JAX ``storm`` subparser, with its default; the
+    port adds only ``--device``."""
+    want = _jax_storm_defaults(monkeypatch)
+    got = vars(_storm_parser().parse_args([]))
+    assert got.pop("device") is None
+    assert got == want
+
+
+def test_tiny_storm_prints_the_jax_counters(capsys, tmp_path):
+    """``storm --graph ring --nodes 8 --batch 4 --phases 12 --snapshots
+    1``: the port's counters line equals the JAX CLI's on every shared
+    key (the port prints no other), and both exit 0; with ``--telemetry``
+    the line also lands in the JSONL file as one ``storm_run`` record."""
+    assert jax_cli.main(["storm"] + TINY_STORM) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert storm_run(TINY_STORM + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) <= set(want)
+    assert got == {k: want[k] for k in got}
+    assert got["error_bits"] == 0 and got["conservation_delta"] == 0
+    assert got["snapshots_completed"] == 4
+    path = str(tmp_path / "storm.jsonl")
+    assert storm_run(TINY_STORM + ["--device", "cpu", "--telemetry",
+                                   path]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    (record,) = read_telemetry(path)
+    assert record["kind"] == "storm_run" and line["telemetry"] == path
+    assert {k: record[k] for k in got} == got and record["nodes"] == 8
+
+
+def _away_from_default(flag):
+    """A value of ``flag`` other than its default."""
+    values = {"--checkpoint": "ck.npz", "--resume-from": "ck.npz",
+              "--delay": "uniform", "--window-dtype": "uint16",
+              "--reduce-mode": "segsum", "--kernel-engine": "pallas",
+              "--fused-tick": "on", "--quarantine": None}
+    if flag in values:
+        return [flag] if values[flag] is None else [flag, values[flag]]
+    if "fault" in flag and "seed" not in flag:
+        return [flag, "0.1"]
+    return [flag, "2"]
+
+
+@pytest.mark.parametrize("flag, item, sync_only", _UNPORTED_STORM,
+                         ids=[f[0] for f in _UNPORTED_STORM])
+def test_storm_refuses_unported_flags_by_name(flag, item, sync_only,
+                                              capsys):
+    """A flag whose machinery is not ported, set away from its default,
+    is refused before anything runs, naming the flag and its ROADMAP
+    item (the fault and supervisor flags on the sync scheduler only)."""
+    with pytest.raises(SystemExit) as exc:
+        storm_run(TINY_STORM + _away_from_default(flag)
+                  + ["--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert flag in err and f"ROADMAP {item}" in err
+
+
+def test_storm_refuses_the_fold_and_runs_faults_on_exact(capsys):
+    """``--exact-impl fold`` is refused naming A5b; the fault flags that
+    the sync scheduler refuses run on the exact scheduler, whose counters
+    line then carries the adversary's books."""
+    with pytest.raises(SystemExit):
+        storm_run(TINY_STORM + ["--scheduler", "exact", "--exact-impl",
+                                "fold", "--device", "cpu"])
+    assert "ROADMAP A5b" in capsys.readouterr().err
+    assert storm_run(TINY_STORM + ["--scheduler", "exact", "--megatick",
+                                   "4", "--fault-drop", "0.05",
+                                   "--device", "cpu"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["conservation_delta"] == 0
+    assert row["fault_events"]["drops"] > 0 and "lane_errors" in row
