@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, with their plain PyTorch versions.
 
 ``segment.py`` (sum_segments, sum_by_perm, spread), ``queue.py``
-(head_fields, queue_step, select_pop, append_rows) and ``megatick.py``
+(head_fields, queue_step, select_pop, append_rows and its routed form
+append_marker_rows) and ``megatick.py``
 (fused_ticks, the fused megatick ``fused_scan``) port the eight Pallas
 kernels of the JAX package.
 Every wrapper runs its plain version on a CPU tensor and its CUDA kernel

@@ -16,8 +16,9 @@
 // not fit in a block's shared memory (ER-256: 0.347 MB against 227 KB),
 // so the TPU's resident carry does not carry over. The block keeps the
 // tick's small working planes in shared memory (carve: the [E]
-// vectors, tokens, the [S, N] planes, recording, the [S] vectors; 48,480
-// B at ER-256, 50,448 B with the fault arm) and reads and writes the
+// vectors, tokens, the [S, N] planes, recording, the [S] vectors, the
+// tick-start schedule; 52,416 B at ER-256, 54,384 B with the fault arm)
+// and reads and writes the
 // [E, C] rings, the [L, E] log and the [S, E] windows in device memory in
 // place. The JAX tiled layout defers each tick's ring appends into
 // buffers and replays them in one block pass (RingStream) because a TPU
@@ -27,9 +28,8 @@
 //
 // The tiled layout (JAX fused_tile, ROADMAP B2). The TPU tiles because the
 // rings overflow VMEM; here the rings already live in device memory, and
-// what overflows is the working set carve lays out (1,720,352 B for the
-// SF-8k lane at S=8 through the wave, against 232,448 B of shared memory a
-// block). The kTiled instantiations carve the same planes from the lane's
+// what overflows is the working set carve lays out (1,671,200 B for the
+// SF-8k lane at S=8, against 232,448 B of shared memory a block). The kTiled instantiations carve the same planes from the lane's
 // stride of a device-memory workspace (smem_bytes each, allocated by the
 // wrapper) and run the same bodies: loaded at launch, written back at
 // exit, nothing read that the launch did not write. Their bytes pass
@@ -66,17 +66,24 @@
 //      node) is popped, its payload kept in head_data; then the drop /
 //      dup split of the popped token or marker and, under the
 //      supervisor, the stale-epoch rejection;
-//   3. the marker fold, sequential, in warp 0: popped markers in ascending
-//      edge order; before each, the tokens of the sources ranked below it
-//      are credited (warp-parallel, atomicAdd in shared memory) and marked
-//      for the log when their channel records at that moment; credits run
-//      source range by source range, so a tick credits each edge once,
-//      O(E) in all. Then HandleMarker: the first receipt creates the local
-//      snapshot (windows open at the counter the channel WILL have after
-//      this tick's deferred log appends) and broadcasts one marker per
-//      out-edge in dest order, one delay draw each (thread 0 holds the
-//      sampler); a repeat closes the channel's window. Then the
-//      finalization check;
+//   3. the markers. The cascade's fold handles the popped markers in
+//      ascending edge order: before each, the tokens of the sources ranked
+//      below it are credited (marked for the log when their channel
+//      records at that moment); then HandleMarker: the first receipt
+//      creates the local snapshot (windows open at the counter the channel
+//      WILL have after this tick's deferred log appends) and broadcasts
+//      one marker per out-edge in dest order, one delay draw each; a
+//      repeat closes the channel's window. Then the finalization check.
+//      Markers bound for different destinations touch disjoint cells and
+//      commute but for their draws' stream positions, which are known at
+//      tick start (ops/tick._wave_tick), so the untraced instantiations,
+//      cascade and wave alike, run one destination-owned step
+//      (owner_step): a tick-start schedule (first receipts, their draw
+//      bases by a block scan), then one thread per node serving all of its
+//      markers in edge order with no barrier between them. Traced, the
+//      cascade keeps the fold in warp 0 (thread 0 holds the sampler) and
+//      the wave its waves (wave_step), each for the order its recorder
+//      appends in;
 //   4. the remaining credits (all threads), the log append with the
 //      record-dtype limit and the overflow bits, the duplicated tokens and
 //      markers re-appended at their ring's tail (after the fold's
@@ -114,9 +121,8 @@
 // window entries the tick writes; the delay words once in and out.
 // chip_smoke.py counts these from the run's own data (one ER-256 B=4096
 // drain megatick, K=8, fault-free and faulted). The kernel runs far above
-// that bound: the fold is a sequential chain of dependent shared-memory
-// operations in one warp per lane, bound by latency, not bytes; ~50 KB of
-// shared memory per block leaves room for four lanes per SM.
+// that bound: each step is a chain of dependent shared-memory and table
+// reads per node or per edge, bound by latency, not bytes.
 //
 // Modulus: CUDA's % truncates toward zero; every modulus here has
 // non-negative operands (head in [0, C), len >= 0, counters >= 0, the
@@ -232,8 +238,8 @@ constexpr int kRtimePackLimit = 1 << 30;   // core/state.RTIME_PACK_LIMIT
 constexpr int kGoLen = 607;                // ops/gorand.LEN
 constexpr int kClasses = 7;                // core/state.NUM_FAULT_CLASSES
 constexpr int kWarps = kThreads / 32;
-// the wave arm's control words: the warps' draw sums and depths, then the
-// sampler's tick-start key, counter and epoch
+// the tick-start schedule's control words: the warps' draw sums and
+// depths, then the sampler's tick-start key, counter and epoch
 constexpr int kWaveCtl = 24;
 enum { kCtlSums = 0, kCtlDepths = kWarps, kCtlKey = 2 * kWarps, kCtlCtr,
        kCtlEpoch };
@@ -267,9 +273,10 @@ struct Lane {
   // the fault arm (faulted or supervised lanes only)
   int32_t *epoch, *deadline, *retries, *initiator, *counts, *next_sid,
       *skew, *stale;
-  // the wave arm: each edge's draw base, the control words, each edge's
-  // wave number and first-receipt flag
-  int32_t *base, *wctl;
+  // the tick-start schedule: each edge's draw base, the control words,
+  // the Go-exact draws, each edge's wave number (traced wave) and
+  // first-receipt flag
+  int32_t *base, *wctl, *gdraw;
   // the recorder arm: its control words, one word per edge (the step's
   // fault events as bits; a wave's marker-send payloads, sid + 1) and,
   // with the wave, each node's marker count of the tick
@@ -291,11 +298,13 @@ __host__ __device__ __forceinline__ T* take(uintptr_t& p, long long count) {
 }
 
 // Lays the planes out from ``base`` (``ext``: the fault arm's planes
-// too; ``wave``: the wave arm's and ``trace``: the recorder's, which take
-// no byte otherwise); the host calls it at base 0 only to read ``bytes``
-// and check the caller's reckoning against it.
+// too; the tick-start schedule's for every untraced body and the traced
+// wave; ``trace``: the recorder's; ``go``: with the Go-exact sampler, an
+// untraced body's buffer of a tick's draws), each plane taking no byte
+// where it is not needed; the host calls it at base 0 only to read
+// ``bytes`` and check the caller's reckoning against it.
 __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
-                               bool ext, bool wave, bool trace) {
+                               bool ext, bool wave, bool trace, bool go) {
   Lane w;
   uintptr_t p = base;
   const long long sn = (long long)s * n, se = (long long)s * e;
@@ -321,12 +330,17 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.next_sid = take<int32_t>(p, ext ? 1 : 0);
   w.skew = take<int32_t>(p, ext ? 1 : 0);
   w.stale = take<int32_t>(p, ext ? 1 : 0);
-  w.base = take<int32_t>(p, wave ? e : 0);
-  w.wctl = take<int32_t>(p, wave ? kWaveCtl : 0);
+  // the tick-start schedule: every untraced step body, and the traced
+  // wave
+  const bool sched = !trace || wave;
+  w.base = take<int32_t>(p, sched ? e : 0);
+  w.wctl = take<int32_t>(p, sched ? kWaveCtl : 0);
+  // the Go-exact stream's draws of one tick, in stream order (untraced)
+  w.gdraw = take<int32_t>(p, !trace && go ? (long long)s * e : 0);
   w.tctl = take<int32_t>(p, trace ? kTraceCtl : 0);
   w.tev = take<int32_t>(p, trace ? e : 0);
   w.tnode = take<int32_t>(p, trace && wave ? n : 0);
-  w.wnum = take<int16_t>(p, wave ? e : 0);
+  w.wnum = take<int16_t>(p, trace && wave ? e : 0);
   w.tok = take<uint8_t>(p, e);
   w.mk = take<uint8_t>(p, e);
   w.app = take<uint8_t>(p, e);
@@ -339,7 +353,7 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.dupk = take<uint8_t>(p, ext ? e : 0);
   w.down = take<uint8_t>(p, ext ? n : 0);
   w.retry = take<uint8_t>(p, ext_s);
-  w.first = take<uint8_t>(p, wave ? e : 0);
+  w.first = take<uint8_t>(p, sched ? e : 0);
   w.bytes = (long long)(p - base);
   return w;
 }
@@ -817,36 +831,24 @@ __device__ __forceinline__ int marker_sid(int32_t data, int s, bool sup) {
   return data < 0 ? 0 : (data >= s ? s - 1 : data);
 }
 
-// Step 3 of the wave arm (ops/tick._wave_tick), all threads. The
-// tick-start schedule, one thread per node: each popped marker's wave
-// (its rank among the node's markers in edge order) and whether it is a
-// first receipt (no local snapshot for (sid, node), and no earlier marker
-// of this tick for them: bit 1 of has_local marks the cells seen and is
-// cleared again); a block scan of the first receipts' draws (the node's
-// out-degree) in edge order gives each its draw base, and thread 0
-// advances the sampler past the tick's draws. Then wave k = 0, 1, ...:
-// each node's k-th marker, one thread each. Nodes touch disjoint in-edges,
-// out-edges and (sid, node) cells, so only ``completed`` and the error
-// word take atomics. The thread credits the node's tokens of lower edge
-// rank (marked for the log where the channel records), then handles the
-// marker as the fold does, drawing the broadcast at base + ordinal. The
-// tokens left are credited in step 4 (``ctl[0]`` = 0). Traced, each wave
-// leaves its events marked (a credited token 2 in ``tok``, a marker-send's
-// sid + 1 in ``tev``, a completed cell 3 in ``done_local``) and records
-// them after the wave, in the plain wave's order, then clears the marks.
-// The plain wave also credits, in wave k, every token left at a node with
-// no k-th marker (a node that has had its last: ``tnode``, its marker
-// count, is k); here step 4 credits those, so wave k records their
-// receipts and marks them 3 (recorded, credit pending): the credits
-// commute, the record's order is the plain wave's.
+// The tick-start schedule of step 3 (ops/tick._wave_tick's, all threads),
+// shared by the untraced step and the traced wave: one thread per node
+// marks each popped marker's first receipt (no local snapshot for (sid,
+// node), and no earlier marker of this tick for them: bit 1 of has_local
+// marks the cells seen and is cleared again) and, traced, each marker's
+// wave (its rank among the node's markers in edge order, in ``wnum``) and
+// the node's marker count (``tnode``); a block scan of the first
+// receipts' draws (the node's out-degree) in edge order gives each its
+// draw base.
+// Returns the tick's draw count and the deepest wave (``depth``), and
+// leaves the sampler's tick-start key, counter and epoch in the control
+// words.
 template <bool kTrace>
-__device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
-                                          const Ring& ring, Sampler& smp,
-                                          long long be, long long bs,
-                                          int32_t t, int tid, int nt,
-                                          bool sup) {
+__device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
+                                             const Sampler& smp, int tid,
+                                             int nt, bool sup, int& depth) {
   const int n = a.n, e = a.e, S = a.s;
-  int depth = 0;
+  depth = 0;
   for (int v = tid; v < n; v += nt) {
     int rank = 0;
     for (int j = a.dst_lo[v]; j < a.dst_hi[v]; ++j) {
@@ -855,7 +857,8 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
       const int cell = marker_sid(w.head_data[f], S, sup) * n + v;
       w.first[f] = w.has_local[cell] == 0;
       w.has_local[cell] |= 2;
-      w.wnum[f] = (int16_t)rank++;
+      if constexpr (kTrace) w.wnum[f] = (int16_t)rank;
+      ++rank;
     }
     for (int j = a.dst_lo[v]; rank > 0 && j < a.dst_hi[v]; ++j) {
       const int f = a.by_dst[j];
@@ -903,6 +906,147 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
     if (w.mk[f] && w.first[f])
       off += a.src_hi[a.edge_dst[f]] - a.src_lo[a.edge_dst[f]];
   }
+  __syncthreads();                  // every base is written
+  return total;
+}
+
+// HandleMarker (node.go:149-171) for the marker on edge ``f`` into ``d``
+// by the thread that serves d (the untraced step's owner, the traced
+// wave's thread of f), its tokens of lower edge rank already credited: a
+// first receipt creates the local snapshot (every in-link but f, from the
+// counter it will have after this tick's log appends) and broadcasts one
+// marker per out-edge in dest order, the k-th at draw ``base + k`` (the
+// Go-exact stream: ``gdraw``, the tick's draws in stream order); a repeat
+// closes the channel's window; then the finalization check. Only
+// ``completed`` and the error word are shared with other threads.
+template <bool kTrace>
+__device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
+                                              long long be, long long bs,
+                                              int f, int d, int32_t t,
+                                              uint32_t key, uint32_t ctr0,
+                                              uint32_t epoch0, bool sup) {
+  const int n = a.n, e = a.e, S = a.s;
+  const int sid = marker_sid(w.head_data[f], S, sup);
+  const int cell = sid * n + d;
+  if (w.first[f]) {
+    for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
+      const int g = a.by_dst[j];
+      if (g == f) continue;
+      const int32_t cnt = w.rec_cnt[g] + (int32_t)w.app[g];
+      w.recording[sid * e + g] = 1;
+      a.rec_start[(bs + sid) * e + g] = cnt;
+      if (cnt < w.min_prot[g]) w.min_prot[g] = cnt;
+    }
+    w.has_local[cell] = 1;
+    w.frozen[cell] = w.tokens[d];
+    w.rem[cell] = a.in_degree[d] - 1;
+    const int32_t data = payload(w, sid, S, sup);
+    const int g0 = a.src_lo[d];
+    const uint32_t base = (uint32_t)w.base[f];
+    for (int g = g0; g < a.src_hi[d]; ++g) {
+      const uint32_t at = base + (uint32_t)(g - g0);
+      const int32_t rt = a.sampler == kGoExact
+                             ? w.gdraw[at]
+                             : draw_at(a, key, ctr0, epoch0, at, t);
+      append(a, w, be, g, rt, true, data);
+      if constexpr (kTrace) w.tev[g] = sid + 1;
+    }
+  } else {
+    const int rc = sid * e + f;
+    if (w.recording[rc]) {
+      w.recording[rc] = 0;
+      w.rem[cell] -= 1;
+      a.rec_end[(bs + sid) * e + f] = w.rec_cnt[f];
+    }
+  }
+  if (w.has_local[cell] && w.rem[cell] == 0 && !w.done_local[cell]) {
+    w.done_local[cell] = kTrace ? 3 : 1;
+    atomicAdd(&w.completed[sid], 1);
+  }
+}
+
+// Step 3 of every untraced instantiation, the cascade's and the wave's
+// alike (ops/tick._wave_tick's docstring: bit-identical to _cascade_tick):
+// the tick-start schedule, then one thread per node, which serves all of
+// that node's markers in edge order back to back: before each, the
+// node's tokens of lower edge rank are credited (marked for the log where
+// the channel records), then HandleMarker. Nodes touch disjoint in-edges,
+// out-edges and (sid, node) cells, so no barrier separates one node's
+// markers from another's. The draws are addressed by stream position; the
+// Go-exact stream, which draws one at a time, is drawn by thread 0 for the
+// whole tick in stream order first (at most one first receipt per (sid,
+// node) a tick, so at most S * E draws), which are exactly the cascade's
+// draws in its order. The tokens left are credited in step 4 (``ctl[0]``
+// = 0).
+__device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
+                                           Sampler& smp, long long be,
+                                           long long bs, int32_t t, int tid,
+                                           int nt, bool sup) {
+  int depth;
+  const uint32_t total = schedule<false>(a, w, smp, tid, nt, sup, depth);
+  const uint32_t key = (uint32_t)w.wctl[kCtlKey];
+  const uint32_t ctr0 = (uint32_t)w.wctl[kCtlCtr];
+  const uint32_t epoch0 = (uint32_t)w.wctl[kCtlEpoch];
+  if (tid == 0) {
+    if (a.sampler == kGoExact)
+      for (uint32_t i = 0; i < total; ++i) w.gdraw[i] = smp.draw(t);
+    else
+      smp.advance(total);
+    w.ctl[0] = 0;                      // step 4 credits every token left
+  }
+  if (a.sampler == kGoExact) __syncthreads();
+  for (int d = tid; d < a.n; d += nt) {
+    int next = a.dst_lo[d];            // in-edges [dst_lo, next) credited
+    for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
+      const int f = a.by_dst[j];
+      if (!w.mk[f]) continue;
+      // the node's tokens of lower edge rank (by_dst keeps edge order
+      // within a node)
+      for (; next < j; ++next) {
+        const int g = a.by_dst[next];
+        if (!w.tok[g]) continue;
+        w.tokens[d] += w.head_data[g];
+        w.app[g] = recorded(w, a.s, a.e, g);
+        w.tok[g] = 0;
+      }
+      handle_marker<false>(a, w, be, bs, f, d, t, key, ctr0, epoch0, sup);
+    }
+  }
+}
+
+// The tiled layout's owner step as a call, not inlined (kTiled): there
+// the kernel's registers bound how many lanes an SM keeps in flight, and
+// the tiled arm is latency-bound, so more lanes win; called, the step
+// keeps its own registers and the kernel's other steps fit in fewer
+// (PERF.md §6)
+__device__ __noinline__ void owner_step_call(const Args& a, const Lane& w,
+                                             Sampler& smp, long long be,
+                                             long long bs, int32_t t,
+                                             int tid, int nt, bool sup) {
+  owner_step(a, w, smp, be, bs, t, tid, nt, sup);
+}
+
+// Step 3 of the traced wave (ops/tick._wave_tick), all threads: the
+// tick-start schedule, then wave k = 0, 1, ...: each node's k-th marker,
+// one thread each; the thread credits the node's tokens of lower edge
+// rank, then handles the marker. The wave's barriers keep the recorder's
+// order, wave by wave: each wave leaves its events marked (a credited
+// token 2 in ``tok``, a marker-send's sid + 1 in ``tev``, a completed
+// cell 3 in ``done_local``) and records them after the wave, in the plain
+// wave's order, then clears the marks. The plain wave also credits, in
+// wave k, every token left at a node with no k-th marker (a node that has
+// had its last: ``tnode``, its marker count, is k); here step 4 credits
+// those, so wave k records their receipts and marks them 3 (recorded,
+// credit pending): the credits commute, the record's order is the plain
+// wave's.
+__device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
+                                          const Ring& ring, Sampler& smp,
+                                          long long be, long long bs,
+                                          int32_t t, int tid, int nt,
+                                          bool sup) {
+  const int n = a.n, e = a.e, S = a.s;
+  int depth;
+  const uint32_t total = schedule<true>(a, w, smp, tid, nt, sup, depth);
   const uint32_t key = (uint32_t)w.wctl[kCtlKey];
   const uint32_t ctr0 = (uint32_t)w.wctl[kCtlCtr];
   const uint32_t epoch0 = (uint32_t)w.wctl[kCtlEpoch];
@@ -910,7 +1054,6 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
     smp.advance(total);
     w.ctl[0] = 0;                      // step 4 credits every token left
   }
-  __syncthreads();
 
   for (int k = 0; k < depth; ++k) {
     for (int f = tid; f < e; f += nt) {
@@ -924,91 +1067,56 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
         if (!w.tok[g]) continue;
         w.tokens[d] += w.head_data[g];
         w.app[g] = recorded(w, S, e, g);
-        w.tok[g] = kTrace ? 2 : 0;
+        w.tok[g] = 2;
       }
-      // HandleMarker (node.go:149-171)
-      const int sid = marker_sid(w.head_data[f], S, sup);
-      const int cell = sid * n + d;
-      if (w.first[f]) {
-        for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
-          const int g = a.by_dst[j];
-          if (g == f) continue;
-          const int32_t cnt = w.rec_cnt[g] + (int32_t)w.app[g];
-          w.recording[sid * e + g] = 1;
-          a.rec_start[(bs + sid) * e + g] = cnt;
-          if (cnt < w.min_prot[g]) w.min_prot[g] = cnt;
-        }
-        w.has_local[cell] = 1;
-        w.frozen[cell] = w.tokens[d];
-        w.rem[cell] = a.in_degree[d] - 1;
-        const int32_t data = payload(w, sid, S, sup);
-        const int g0 = a.src_lo[d];
-        const uint32_t base = (uint32_t)w.base[f];
-        for (int g = g0; g < a.src_hi[d]; ++g) {
-          append(a, w, be, g,
-                 draw_at(a, key, ctr0, epoch0, base + (uint32_t)(g - g0), t),
-                 true, data);
-          if constexpr (kTrace) w.tev[g] = sid + 1;
-        }
-      } else {
-        const int rc = sid * e + f;
-        if (w.recording[rc]) {
-          w.recording[rc] = 0;
-          w.rem[cell] -= 1;
-          a.rec_end[(bs + sid) * e + f] = w.rec_cnt[f];
-        }
-      }
-      if (w.has_local[cell] && w.rem[cell] == 0 && !w.done_local[cell]) {
-        w.done_local[cell] = kTrace ? 3 : 1;
-        atomicAdd(&w.completed[sid], 1);
-      }
+      handle_marker<true>(a, w, be, bs, f, d, t, key, ctr0, epoch0, sup);
     }
     __syncthreads();
-    if constexpr (kTrace) {
-      block_record(ring, w, e, t, kEvRecv,
-                   [&](int g) {
-                     return w.tok[g] == 2 ||
-                            (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k);
-                   },
-                   [&](int g, int& actor, int32_t& data) {
-                     actor = g;
-                     data = w.head_data[g];
-                   });
-      block_record(ring, w, e, t, kEvMRecv,
-                   [&](int f) { return w.mk[f] && w.wnum[f] == k; },
-                   [&](int f, int& actor, int32_t& data) {
-                     actor = f;
-                     data = marker_sid(w.head_data[f], S, sup);
-                   });
-      block_record(ring, w, e, t, kEvMSend,
-                   [&](int g) { return w.tev[g] != 0; },
-                   [&](int g, int& actor, int32_t& data) {
-                     actor = g;
-                     data = w.tev[g] - 1;
-                   });
-      block_record(ring, w, S * n, t, kEvSnapEnd,
-                   [&](int i) { return (w.done_local[i] & 2) != 0; },
-                   [&](int i, int& actor, int32_t& data) {
-                     actor = i % n;
-                     data = i / n;
-                   });
-      for (int g = tid; g < e; g += nt) {
-        if (w.tok[g] == 2)
-          w.tok[g] = 0;
-        else if (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k)
-          w.tok[g] = 3;
-        w.tev[g] = 0;
-      }
-      for (int i = tid; i < S * n; i += nt) w.done_local[i] &= 1;
-      __syncthreads();
+    block_record(ring, w, e, t, kEvRecv,
+                 [&](int g) {
+                   return w.tok[g] == 2 ||
+                          (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k);
+                 },
+                 [&](int g, int& actor, int32_t& data) {
+                   actor = g;
+                   data = w.head_data[g];
+                 });
+    block_record(ring, w, e, t, kEvMRecv,
+                 [&](int f) { return w.mk[f] && w.wnum[f] == k; },
+                 [&](int f, int& actor, int32_t& data) {
+                   actor = f;
+                   data = marker_sid(w.head_data[f], S, sup);
+                 });
+    block_record(ring, w, e, t, kEvMSend,
+                 [&](int g) { return w.tev[g] != 0; },
+                 [&](int g, int& actor, int32_t& data) {
+                   actor = g;
+                   data = w.tev[g] - 1;
+                 });
+    block_record(ring, w, S * n, t, kEvSnapEnd,
+                 [&](int i) { return (w.done_local[i] & 2) != 0; },
+                 [&](int i, int& actor, int32_t& data) {
+                   actor = i % n;
+                   data = i / n;
+                 });
+    for (int g = tid; g < e; g += nt) {
+      if (w.tok[g] == 2)
+        w.tok[g] = 0;
+      else if (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k)
+        w.tok[g] = 3;
+      w.tev[g] = 0;
     }
+    for (int i = tid; i < S * n; i += nt) w.done_local[i] &= 1;
+    __syncthreads();
   }
 }
 
 // kExt: the fault arm (the adversary or the supervisor armed) is compiled
 // in; the fault-free instantiation carries none of it, so its registers
-// and occupancy are the fault-free kernel's own. kWave: the wave step body
-// (wave_step) in place of the cascade's marker fold in warp 0. kTiled: the
+// and occupancy are the fault-free kernel's own. kWave: with kTrace, the
+// wave's step 3 (wave_step) in place of the cascade's fold in warp 0;
+// untraced, the two are one body (owner_step) and only kWave = false is
+// instantiated. kTiled: the
 // lane's planes are carved from its stride of the device-memory workspace
 // instead of shared memory; the bodies are the same code, every access
 // goes through the Lane's pointers (generic: shared or global), and the
@@ -1056,7 +1164,8 @@ fused_ticks_kernel(const Args a) {
     lane_base = reinterpret_cast<uintptr_t>(a.workspace + b * a.smem_bytes);
   else
     lane_base = reinterpret_cast<uintptr_t>(smem);
-  const Lane w = carve(lane_base, n, e, S, ext, kWave, kTrace);
+  const Lane w = carve(lane_base, n, e, S, ext, kWave, kTrace,
+                       a.sampler == kGoExact);
   Ring ring{nullptr, nullptr, nullptr, 1, false};
   if constexpr (kTrace) {
     const long long bk = b * a.tr_k;
@@ -1302,9 +1411,16 @@ fused_ticks_kernel(const Args a) {
       }
     }
 
-    // 3. the marker fold, in warp 0 (the wave arm: the waves)
-    if constexpr (kWave) {
-      wave_step<kTrace>(a, w, ring, smp, be, bs, t, tid, nt, sup);
+    // 3. the markers: untraced, one destination-owned step (owner_step)
+    // for the cascade and the wave alike; traced, the wave's waves or the
+    // cascade's sequential fold in warp 0, whose orders the recorder keeps
+    if constexpr (!kTrace) {
+      if constexpr (kTiled)
+        owner_step_call(a, w, smp, be, bs, t, tid, nt, sup);
+      else
+        owner_step(a, w, smp, be, bs, t, tid, nt, sup);
+    } else if constexpr (kWave) {
+      wave_step(a, w, ring, smp, be, bs, t, tid, nt, sup);
     } else if (tid < 32) {
       const int ln = tid;
       int done = 0;                           // edges [0, done) credited
@@ -1323,13 +1439,13 @@ fused_ticks_kernel(const Args a) {
         // credit the tokens of the sources ranked below m's source
         const int upto = a.src_lo[a.edge_src[m]];
         for (int f = done + ln; f < upto; f += 32) credit(a, w, f);
-        if constexpr (kTrace)   // their receipts, before the marker's
-          warp_record(ring, w, done, upto, ln, t, kEvRecv,
-                      [&](int f) { return w.tok[f] != 0; },
-                      [&](int f, int& actor, int32_t& data) {
-                        actor = f;
-                        data = w.head_data[f];
-                      });
+        // their receipts, before the marker's
+        warp_record(ring, w, done, upto, ln, t, kEvRecv,
+                    [&](int f) { return w.tok[f] != 0; },
+                    [&](int f, int& actor, int32_t& data) {
+                      actor = f;
+                      data = w.head_data[f];
+                    });
         if (upto > done) done = upto;
         __syncwarp();
 
@@ -1343,16 +1459,12 @@ fused_ticks_kernel(const Args a) {
         }
         const int cell = sid * n + d;
         const bool first = !w.has_local[cell];
-        if constexpr (kTrace)
-          if (ln == 0) record(ring, w, m, kEvMRecv, sid, t);
+        if (ln == 0) record(ring, w, m, kEvMRecv, sid, t);
         __syncwarp();
         if (first) {
           // CreateLocalSnapshot: every in-link but m, from the counter it
-          // will have after this tick's appends; then SendToNeighbors.
-          // Written out here rather than through initiate / broadcast (the
-          // supervisor's): through them the fault-free instantiation
-          // took 80 registers and spilled, against 64 written out (ptxas
-          // -v, sm_90a), and its drain megatick ran 26 % slower
+          // will have after this tick's appends; then SendToNeighbors,
+          // thread 0 drawing one at a time
           for (int j = a.dst_lo[d] + ln; j < a.dst_hi[d]; j += 32) {
             const int f = a.by_dst[j];
             if (f == m) continue;
@@ -1379,7 +1491,7 @@ fused_ticks_kernel(const Args a) {
               a.q_data[slot] = data;
               w.q_len[g] = len + 1;
               w.tok_pushed[g] += 1;
-              if constexpr (kTrace) record(ring, w, g, kEvMSend, sid, t);
+              record(ring, w, g, kEvMSend, sid, t);
             }
           }
         } else if (ln == 0) {
@@ -1395,7 +1507,7 @@ fused_ticks_kernel(const Args a) {
             !w.done_local[cell]) {           // finalizeSnapshot
           w.done_local[cell] = 1;
           w.completed[sid] += 1;
-          if constexpr (kTrace) record(ring, w, d, kEvSnapEnd, sid, t);
+          record(ring, w, d, kEvSnapEnd, sid, t);
         }
         __syncwarp();
         from = m + 1;
@@ -1531,8 +1643,10 @@ int clsim_fused_ticks(const Args* a, void* stream) {
   const long long share = a->smem_bytes;
   const bool ext = a->ext != 0, wave = a->wave != 0, tiled = a->tiled != 0;
   const bool traced = a->traced != 0;
-  if (carve(0, a->n, a->e, a->s, ext, wave, traced).bytes > share ||
-      share % 16 || (wave && a->sampler == kGoExact))
+  // the traced wave reads its draws by stream position
+  if (carve(0, a->n, a->e, a->s, ext, wave, traced,
+            a->sampler == kGoExact).bytes > share ||
+      share % 16 || (wave && traced && a->sampler == kGoExact))
     return (int)cudaErrorInvalidValue;
   // the ring: K slots a lane, and its count and arm flag
   if (traced && (a->tr_k < 1 || a->tr_meta == nullptr ||
@@ -1545,15 +1659,13 @@ int clsim_fused_ticks(const Args* a, void* stream) {
             : share > 232448)
     return (int)cudaErrorInvalidValue;
   using Kernel = void (*)(const Args);
-  static const Kernel kernels[16] = {
+  // untraced: one body for the cascade and the wave (kWave = false)
+  static const Kernel untraced[4] = {
       fused_ticks_kernel<false, false, false, false>,
       fused_ticks_kernel<true, false, false, false>,
-      fused_ticks_kernel<false, true, false, false>,
-      fused_ticks_kernel<true, true, false, false>,
       fused_ticks_kernel<false, false, true, false>,
-      fused_ticks_kernel<true, false, true, false>,
-      fused_ticks_kernel<false, true, true, false>,
-      fused_ticks_kernel<true, true, true, false>,
+      fused_ticks_kernel<true, false, true, false>};
+  static const Kernel traced_arms[8] = {
       fused_ticks_kernel<false, false, false, true>,
       fused_ticks_kernel<true, false, false, true>,
       fused_ticks_kernel<false, true, false, true>,
@@ -1562,8 +1674,9 @@ int clsim_fused_ticks(const Args* a, void* stream) {
       fused_ticks_kernel<true, false, true, true>,
       fused_ticks_kernel<false, true, true, true>,
       fused_ticks_kernel<true, true, true, true>};
-  const Kernel kernel = kernels[(ext ? 1 : 0) + (wave ? 2 : 0) +
-                                (tiled ? 4 : 0) + (traced ? 8 : 0)];
+  const Kernel kernel =
+      traced ? traced_arms[(ext ? 1 : 0) + (wave ? 2 : 0) + (tiled ? 4 : 0)]
+             : untraced[(ext ? 1 : 0) + (tiled ? 2 : 0)];
   const size_t smem = tiled ? 0 : (size_t)share;
   // resident: raised for every share (the default limit counts static
   // bytes too); tiled: no shared memory, so the SM's L1 takes the most

@@ -48,19 +48,40 @@
 //   57 MB -> about 17 us at 3.35 TB/s; the loads are partly coalesced, as
 //   in queue_step.
 //
-// append_rows: one thread per (b, e) on a 1-D grid of ceil(E / 256)
-//   blocks per lane (block -> lane = blockIdx.x / blocks-per-lane), so a
-//   block, and every warp in it, lies in one lane and the lane count is
-//   bounded only by the 2^31 - 1 grid limit. An active edge writes its one
-//   slot at (head + len) % C IN PLACE in both planes; the Pallas form
-//   rewrites the whole [E, C] plane, which at config 4 would move
-//   2 x 401 MB per phase. The error word of a lane (ERR_VALUE_OVERFLOW on
-//   tok_pushed >= key_limit or rt >= RTIME_PACK_LIMIT, ERR_QUEUE_OVERFLOW
-//   on len >= C) is a warp OR (__reduce_or_sync) plus one atomicOr per
-//   warp into err[b], which the wrapper zeroes. q_len/tok_pushed advance
-//   in the caller. Bound at config 4: 25 B per row read + 8 B per active
-//   row written, about 180 MB -> about 54 us.
-//
+// append_rows: the whole routed append of a tick in one launch, one thread
+//   per (lane, row): a lane's rows take G threads, G the least power of
+//   two >= 32 and >= W (the row width), at most 256, so a block holds
+//   256 / G whole lanes (narrow rows) or a lane spans ceil(W / 256)
+//   blocks (wide ones), and the grid is bounded only by 2^31 - 1 blocks.
+//   Each active row packs its slot word (rt << 1 | marker,
+//   core/state.pack_meta) and writes it and the payload at (head + len) %
+//   C IN PLACE in both planes, then advances its own q_len and tok_pushed
+//   in place; the lane's overflow bits (ERR_VALUE_OVERFLOW on tok_pushed
+//   >= key_limit or rt >= RTIME_PACK_LIMIT, ERR_QUEUE_OVERFLOW on len >=
+//   C) reduce by a warp OR (a warp lies in one lane) and one atomicOr per
+//   warp into the lane's error word, in place. So the caller's pack, adds
+//   and error OR and the wrapper's zeroed error buffer are gone: one
+//   launch per append. The per-row inputs (active, rt, marker, data) are
+//   read through (lane, edge) element strides, so an expanded [E] or [B]
+//   operand needs no copy.
+// append_marker_rows: SendToNeighbors for one node per lane, routed in the
+//   same launch, W = D (the widest out-edge row): thread k of lane b takes
+//   node[b]'s out-edge src_lo + k, k below its out-degree (edges are
+//   sorted by (src, dst), so that is dest order), and the k-th receive
+//   time rt[b, k] of the
+//   [B, D] block the sampler drew, the marker bit and the lane's payload
+//   data[b]; a lane outside ``mask`` appends nothing. It replaces the
+//   caller's two dense [B, E + 1] scatter_s and their copies.
+// Bound (chip_smoke.py counts it from the run's inputs): each input read
+//   once (the [B, E] active mask; per active row head, len, tok_pushed, rt
+//   and data, 4 B each) and each output written once, every scattered slot
+//   write as the 32-byte sector it dirties (2 x 32 B a row), q_len and
+//   tok_pushed 4 B each, the error word read and written once a lane. At
+//   the exact token send (1,048,576 of 3,145,728 rows) about 100 MB, 0.030
+//   ms; the broadcast moves under 1 MB. The kernel is bound by its launch.
+// Ownership: the caller owns the planes and the three counter leaves it
+//   passes (ops/tick.py's module docstring lists the call sites).
+
 // Modulus: CUDA's % truncates toward zero where PyTorch's floors; every
 // modulus here has non-negative operands (head in [0, C), len >= 0), so
 // the two agree.
@@ -70,6 +91,34 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// ops/tick.TickKernel._append_rows's operands, mirrored by
+// kernels/queue._AppendArgs: the state's planes and counters, the per-row
+// inputs by (lane, edge) element strides (mk == nullptr: every row's
+// marker bit is mk_all), and for the routed form the lanes' nodes, masks
+// and payloads by their lane strides, the out-edge ranges and the [B, D]
+// receive times by (lane, ordinal) strides.
+// At global scope: the C entry point takes it, so it has external linkage
+struct AppendArgs {
+  int32_t* q_meta;        // [B, E, C]
+  int32_t* q_data;
+  const int32_t* q_head;  // [B, E]
+  int32_t* q_len;
+  int32_t* tok_pushed;
+  int32_t* error;         // [B]
+  const uint8_t* active;  // row form: [B, E] by strides; routed: [B]
+  const int32_t* rt;
+  const uint8_t* mk;
+  const int32_t* data;    // row form: [B, E] by strides; routed: [B]
+  const int32_t* node;    // routed: [B]
+  const int32_t* src_lo;  // routed: [N]
+  const int32_t* src_hi;
+  long long act_sb, act_se, rt_sb, rt_se, mk_sb, mk_se, data_sb, data_se;
+  long long node_sb;       // routed: node [B] by its stride
+  long long b;
+  int e, c, key_limit, flag_queue_overflow, mk_all;
+  int width;              // W: E (row form) or D (routed)
+};
 
 namespace {
 
@@ -156,38 +205,81 @@ __global__ void select_pop_kernel(const int32_t* __restrict__ q_head,
   }
 }
 
-__global__ void append_rows_kernel(int32_t* __restrict__ q_meta,
-                                   int32_t* __restrict__ q_data,
-                                   const int32_t* __restrict__ q_head,
-                                   const int32_t* __restrict__ q_len,
-                                   const int32_t* __restrict__ tok_pushed,
-                                   const uint8_t* __restrict__ active,
-                                   const int32_t* __restrict__ meta,
-                                   const int32_t* __restrict__ rt,
-                                   const int32_t* __restrict__ data,
-                                   int32_t* __restrict__ err,
-                                   int e, int c, int key_limit,
-                                   int flag_queue_overflow,
-                                   unsigned int blocks_per_lane) {
-  const long long b = blockIdx.x / blocks_per_lane;
-  const int edge = (int)(blockIdx.x % blocks_per_lane) * blockDim.x
-                   + threadIdx.x;
-  unsigned int bits = 0;
-  if (edge < e) {
-    const long long i = b * e + edge;
-    if (active[i]) {
-      const int32_t len = q_len[i];
-      if (tok_pushed[i] >= key_limit || rt[i] >= kRtimePackLimit)
-        bits |= kErrValueOverflow;
-      if (flag_queue_overflow && len >= c) bits |= kErrQueueOverflow;
-      const long long slot = i * c + (q_head[i] + len) % c;
-      q_meta[slot] = meta[i];
-      q_data[slot] = data[i];
-    }
+// one message on edge ``i`` (a flat (lane, edge) row) at its ring's tail,
+// in place; returns its overflow bits
+__device__ __forceinline__ unsigned append_one(const AppendArgs& a,
+                                               long long i, int32_t rt,
+                                               bool marker, int32_t data) {
+  const int32_t len = a.q_len[i];
+  const int32_t pushed = a.tok_pushed[i];
+  unsigned bits = 0;
+  if (pushed >= a.key_limit || rt >= kRtimePackLimit)
+    bits |= kErrValueOverflow;
+  if (a.flag_queue_overflow && len >= a.c) bits |= kErrQueueOverflow;
+  const long long slot = i * a.c + (a.q_head[i] + len) % a.c;
+  a.q_meta[slot] = (int32_t)((uint32_t)rt * 2u + (marker ? 1u : 0u));
+  a.q_data[slot] = data;
+  a.q_len[i] = len + 1;
+  a.tok_pushed[i] = pushed + 1;
+  return bits;
+}
+
+// The lane and the row of this thread (``group``, ``blocks_per_lane``:
+// the grid's layout, clsim_append_rows)
+struct RowAt {
+  long long lane;
+  int row;
+};
+
+__device__ __forceinline__ RowAt row_at(int group, int blocks_per_lane) {
+  const long long chunk = blockIdx.x / blocks_per_lane;
+  return {chunk * (kThreads / group) + threadIdx.x / group,
+          (int)(blockIdx.x % blocks_per_lane) * group +
+              (int)(threadIdx.x % group)};
+}
+
+// The lane's overflow bits into its error word, in place: a warp OR (a
+// warp lies in one lane), then one atomicOr a warp. Every thread of the
+// warp calls it.
+__device__ __forceinline__ void or_into_error(const AppendArgs& a,
+                                              unsigned bits, long long lane) {
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0 && bits && lane < a.b)
+    atomicOr(a.error + lane, (int32_t)bits);
+}
+
+__global__ void __launch_bounds__(kThreads)
+append_rows_kernel(const AppendArgs a, int group, int blocks_per_lane) {
+  const RowAt at = row_at(group, blocks_per_lane);
+  const long long lane = at.lane;
+  const int f = at.row;
+  unsigned bits = 0;
+  if (lane < a.b && f < a.e && a.active[lane * a.act_sb + f * a.act_se]) {
+    const bool marker =
+        a.mk ? a.mk[lane * a.mk_sb + f * a.mk_se] != 0 : a.mk_all != 0;
+    bits = append_one(a, lane * a.e + f, a.rt[lane * a.rt_sb + f * a.rt_se],
+                      marker, a.data[lane * a.data_sb + f * a.data_se]);
   }
   // no thread returned early: the whole warp takes part in the reduce
-  bits = __reduce_or_sync(0xffffffffu, bits);
-  if ((threadIdx.x & 31) == 0 && bits) atomicOr(err + b, (int)bits);
+  or_into_error(a, bits, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+append_marker_rows_kernel(const AppendArgs a, int group,
+                          int blocks_per_lane) {
+  const RowAt at = row_at(group, blocks_per_lane);
+  const long long lane = at.lane;
+  const int k = at.row;
+  unsigned bits = 0;
+  if (lane < a.b && a.active[lane * a.act_sb]) {
+    const int v = a.node[lane * a.node_sb];
+    const int lo = a.src_lo[v];
+    if (k < a.src_hi[v] - lo)
+      bits = append_one(a, lane * a.e + lo + k,
+                        a.rt[lane * a.rt_sb + k * a.rt_se], true,
+                        a.data[lane * a.data_sb]);
+  }
+  or_into_error(a, bits, lane);
 }
 
 }  // namespace
@@ -238,22 +330,23 @@ int clsim_select_pop(const int32_t* q_head, const int32_t* q_len,
   return (int)cudaGetLastError();
 }
 
-int clsim_append_rows(int32_t* q_meta, int32_t* q_data,
-                      const int32_t* q_head, const int32_t* q_len,
-                      const int32_t* tok_pushed, const uint8_t* active,
-                      const int32_t* meta, const int32_t* rt,
-                      const int32_t* data, int32_t* err, long long b, int e,
-                      int c, int key_limit, int flag_queue_overflow,
-                      void* stream) {
-  if (b > 0 && e > 0) {
-    const long long per_lane = (e + kThreads - 1) / kThreads;
-    if (b * per_lane > 0x7fffffffLL)
-      return (int)cudaErrorInvalidConfiguration;
-    append_rows_kernel<<<(unsigned int)(b * per_lane), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        q_meta, q_data, q_head, q_len, tok_pushed, active, meta, rt, data,
-        err, e, c, key_limit, flag_queue_overflow,
-        (unsigned int)per_lane);
+// routed = 0: append_rows over [B, E]; 1: append_marker_rows over the
+// lanes' out-edge rows of width D
+int clsim_append_rows(const AppendArgs* a, int routed, void* stream) {
+  if (a->b > 0 && a->width > 0) {
+    int group = 32;
+    while (group < a->width && group < kThreads) group *= 2;
+    const int per_lane = (a->width + group - 1) / group;
+    const long long per_block = kThreads / group;
+    const long long blocks = (a->b + per_block - 1) / per_block * per_lane;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    if (routed)
+      append_marker_rows_kernel<<<(unsigned int)blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(*a, group,
+                                                          per_lane);
+    else
+      append_rows_kernel<<<(unsigned int)blocks, kThreads, 0,
+                           (cudaStream_t)stream>>>(*a, group, per_lane);
   }
   return (int)cudaGetLastError();
 }

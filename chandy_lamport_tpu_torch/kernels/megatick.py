@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``kernels/megatick.py`` Pallas ``fused_scan``
 (:432, ``pl.pallas_call`` :641, with ``RingStream.commit_and_heads``
-:380): the cascade and wave step bodies — what the golden runs
+:380): the cascade and wave ticks — what the golden runs
 (``DenseSim``, megatick 8) and the exact storm's drain and flush at
 megatick K run — with its recorder arm (the flight recorder's sites inside
 the step, run when ``TickKernel._trace_on``: the JAX kernel traces the
@@ -54,12 +54,11 @@ form for, and its "on" would only force the slower layout on a lane that
 fits, so the port has no knob):
 
   resident  the planes in the block's shared memory (up to
-            ``SMEM_BUDGET``; ER-256: 48,480 B, SF-1k at S=8: 214,864 B
-            through the wave);
+            ``SMEM_BUDGET``; ER-256: 52,416 B, SF-1k at S=8: 208,736 B);
   tiled     the planes in a device-memory workspace, one
             ``fused_smem_bytes`` stride per lane (``fused_workspace``,
             kept on the ``TickKernel``), for lanes past a block's share
-            (config 5, SF-8k at S=8: 1,720,352 B through the wave). The
+            (config 5, SF-8k at S=8: 1,671,200 B). The
             step bodies are the same code; on the card the TPU's problem,
             rings past VMEM, is already solved, and what overflows is the
             working set, so that is what this layout moves off chip.
@@ -95,8 +94,8 @@ MODES = {"ticks": 0, "drain": 1, "flush": 2}
 # "fused_scan_traced" those of the recorder arm
 LAUNCHES = {"fused_scan": 0, "fused_scan_tiled": 0, "fused_scan_traced": 0}
 
-# the wave arm keeps a marker's rank among its node's markers of a tick in
-# int16: a node may have at most this many in-edges
+# the traced wave keeps a marker's rank among its node's markers of a tick
+# in int16: a node may have at most this many in-edges
 WAVE_MAX_IN_DEGREE = 32_768
 
 
@@ -108,15 +107,17 @@ def fault_arm(tk) -> bool:
 
 
 def wave_arm(tk) -> bool:
-    """Whether ``tk``'s fused megatick runs the wave step body
-    (``exact_impl="wave"``) in place of the cascade's marker fold: the
-    kernel's ``kWave`` instantiations, and their share of shared memory."""
+    """Whether ``tk``'s fused megatick runs the wave (``exact_impl=
+    "wave"``). Untraced, the kernel runs one destination-owned step for
+    the cascade and the wave alike, so this only names the tick form;
+    traced, it picks the wave's step (the kernel's traced ``kWave``
+    instantiations) over the cascade's fold, and its share."""
     return tk.exact_impl == "wave"
 
 
 def fused_smem_bytes(n: int, e: int, s: int, *,
                      fault_arm: bool = False, wave: bool = False,
-                     trace: bool = False) -> int:
+                     trace: bool = False, go_exact: bool = False) -> int:
     """One lane's working set, the one reckoning of it: the block's share
     of shared memory in the resident layout, the lane's stride in the
     workspace in the tiled one (the wrapper passes it to the kernel, which
@@ -131,12 +132,16 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     snap_initiator, the 7 fault counts, next_sid, fault_skew and
     stale_markers (int32); the step's fault flags and duplicate kind per
     edge, the down flag per node and a retry flag per slot (bytes).
-    ``wave`` (``wave_arm(tk)``) adds the wave schedule: each edge's draw
-    base (int32), its wave number (int16) and first-receipt flag (byte),
-    and 24 words of control. ``trace`` (``tk._trace_on``) adds the
-    recorder's word per edge and its 9 control words (the lane's count
-    and the block scan's 8 warp sums), and with ``wave`` a word per node
-    (its marker count of the tick). The rings, the log, the windows,
+    The tick-start schedule of every untraced step and of the traced
+    wave (``wave``, ``wave_arm(tk)``, with ``trace``) adds each edge's
+    draw base (int32) and first-receipt flag (byte) and 24 words of
+    control; the traced wave adds each edge's wave number (int16).
+    ``go_exact`` (the Go-exact sampler) adds to an untraced step a buffer
+    of the tick's draws, at most one broadcast per (slot, node): S x E
+    words. ``trace`` (``tk._trace_on``) adds the recorder's word per edge
+    and its 9 control words (the lane's count and the block scan's 8 warp
+    sums), and with ``wave`` a word per node (its marker count of the
+    tick). The rings, the log, the windows,
     the trace ring and the delay stream stay in device memory. Rounded up
     to 16 B."""
     ints = 6 * e + n + 2 * s * n + 2 * s + 4
@@ -144,9 +149,13 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     if fault_arm:
         ints += 4 * s + 10
         flags += 2 * e + n + s
-    if wave:
-        ints += e + 24
-        flags += 3 * e          # the int16 wave number and the flag
+    if wave or not trace:
+        ints += e + 24          # the draw bases and the control words
+        flags += e              # the first-receipt flag
+    if wave and trace:
+        flags += 2 * e          # the int16 wave number
+    if go_exact and not trace:
+        ints += s * e
     if trace:
         ints += e + 9 + (n if wave else 0)
     return (4 * ints + flags + 15) // 16 * 16
@@ -182,17 +191,17 @@ def resolve_fused(*, megatick: int, device: torch.device, smem_bytes: int,
 
 
 def check_wave_degree(in_degree) -> None:
-    """Refuse a graph for the wave arm of the kernel when a node has more
-    in-edges than the kernel's int16 wave numbers count
+    """Refuse a graph for the traced wave of the kernel when a node has
+    more in-edges than the kernel's int16 wave numbers count
     (``WAVE_MAX_IN_DEGREE``), naming the first such node."""
     in_degree = np.asarray(in_degree)
     over = np.flatnonzero(in_degree > WAVE_MAX_IN_DEGREE)
     if over.size:
         raise ValueError(
             f"node {over[0]} has {in_degree[over[0]]} in-edges; the "
-            "fused megatick's wave arm numbers a node's markers of a tick "
-            f"in int16, so at most {WAVE_MAX_IN_DEGREE}: use "
-            "exact_impl='cascade' or megatick=1")
+            "fused megatick's traced wave numbers a node's markers of a "
+            f"tick in int16, so at most {WAVE_MAX_IN_DEGREE}: use "
+            "exact_impl='cascade', megatick=1 or no trace")
 
 
 def _check_gates(mode: str, live, limit) -> None:
@@ -405,7 +414,8 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     crash, rates = _program(tk.faults)
     ext, wave, traced = fault_arm(tk), wave_arm(tk), tk._trace_on
     share = fused_smem_bytes(topo.n, topo.e, cfg.max_snapshots,
-                             fault_arm=ext, wave=wave, trace=traced)
+                             fault_arm=ext, wave=wave, trace=traced,
+                             go_exact=kind == 2)
     k = cfg.trace_capacity if traced else 0
     for name in _RING if traced else ():
         t = getattr(s, name)

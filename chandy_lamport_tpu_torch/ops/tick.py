@@ -44,10 +44,18 @@ counts, the supervisor's scan, re-initiation and daemon, the gates, the
 duplicate appends, the bulk sends and injections, and every delay draw.
 
 The JAX state is immutable; here some writes are in place, so callers
-hand the kernel a state they own: ``_append_rows`` writes the ring planes
-(kernels/queue.py), and the ring-mode handlers write single cells of the
-[B, S, N] / [B, S, E] planes, the rings and the node balances per lane
-instead of rebuilding whole planes once per marker.
+hand the kernel a state they own: ``_append_rows`` and the ring-mode
+``_broadcast_markers`` write the ring planes, ``q_len``, ``tok_pushed``
+and the error word in one launch (kernels/queue.py), and the ring-mode
+handlers write single cells of the [B, S, N] / [B, S, E] planes, the
+rings and the node balances per lane instead of rebuilding whole planes
+once per marker. Every call site owns what it passes: the runners clone
+the caller's state once at entry (``BatchedRunner._own``) and
+``DenseSim`` holds its one state; within a run each leaf flows from one
+step to the next, and no step keeps an older state to select lanes back
+from (the sync tick's ``select_lanes`` follows no append, the stream's
+``reset_lanes`` returns fresh tensors and its harvest is copied into the
+results ring before the lanes append again).
 """
 
 from __future__ import annotations
@@ -259,8 +267,10 @@ class TickKernel:
                 topo.n, topo.e, cfg.max_snapshots,
                 fault_arm=k_megatick.fault_arm(self),
                 wave=k_megatick.wave_arm(self),
-                trace=self._trace_on))
-        if self.fused == "on" and k_megatick.wave_arm(self):
+                trace=self._trace_on,
+                go_exact=not delay.position_streams))
+        if (self.fused == "on" and k_megatick.wave_arm(self)
+                and self._trace_on):
             k_megatick.check_wave_degree(topo.in_degree)
         self.fused_workspace = None     # the tiled layout's, at first launch
         # sequential host steps of the exact tick so far (the cascade's
@@ -292,6 +302,10 @@ class TickKernel:
         self._src_lo = t(src_bounds[:-1])
         self._src_hi = t(src_bounds[1:])
         self._edge_table = t(topo.edge_table)          # [N, D], -1 padded
+        # each node's out-degree, and the ordinals 0..D-1 of a broadcast's
+        # draws (its out-edges are src_lo + k, in dest order)
+        self._outdeg_n = self._src_hi - self._src_lo
+        self._ord_d = torch.arange(topo.d, dtype=_i32, device=self.device)
         # the wave tick's schedule tables (the JAX ops/tick.py:504-517):
         # the inverse of the by_dst permutation, each by_dst position's
         # segment start, each edge's ordinal among its source's out-edges,
@@ -347,19 +361,15 @@ class TickKernel:
                      data_e) -> DenseState:
         """One message on every edge where ``active`` [B, E], receive
         times ``rt_e`` [B, E] already drawn, marker bit ``mk_e`` (a bool
-        for the whole row, or a [B, E] mask); writes the ring planes of
-        ``s`` in place (module docstring)."""
-        meta_e = pack_meta(rt_e, mk_e.to(_i32) if torch.is_tensor(mk_e)
-                           else int(mk_e))
-        q_meta, q_data, err = k_queue.append_rows(
-            s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed, active,
-            meta_e, rt_e, data_e, capacity=self.cfg.queue_capacity,
+        for the whole row, or a [B, E] mask): one launch writes the ring
+        planes, q_len, tok_pushed and the error word of ``s`` in place
+        (module docstring). The [B, E] operands may be expanded views."""
+        q_meta, q_data, q_len, pushed, error = k_queue.append_rows(
+            s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed, s.error,
+            active, rt_e, mk_e, data_e, capacity=self.cfg.queue_capacity,
             key_limit=self._key_limit)
-        step = active.to(_i32)
-        return s._replace(q_meta=q_meta, q_data=q_data,
-                          q_len=s.q_len + step,
-                          tok_pushed=s.tok_pushed + step,
-                          error=s.error | err)
+        return s._replace(q_meta=q_meta, q_data=q_data, q_len=q_len,
+                          tok_pushed=pushed, error=error)
 
     # ---- storm injectors ----------------------------------------------------
 
@@ -393,8 +403,8 @@ class TickKernel:
             under, ERR_TOKEN_UNDERFLOW))
         if self._trace_on:
             s = trace_append_many(s, active, EV_SEND, self._rows_e, amounts)
-        return self._bulk_push(s, active.contiguous(), False,
-                               amounts.expand(b, -1).contiguous(), lanes)
+        return self._bulk_push(s, active, False, amounts.expand(b, -1),
+                               lanes)
 
     def _push_markers_split(self, s: DenseState, push_se) -> DenseState:
         """Marker multi-push into the [B, S, E] pending planes; merge keys
@@ -662,40 +672,40 @@ class TickKernel:
                     s = self._push_marker_split(s, row[:, k].clamp(min=0),
                                                 sid, go)
             return s
-        b, e = s.time.shape[0], self.topo.e
-        row = self._edge_table[node.long()]                   # [B, D]
-        go = (row >= 0) & mask.unsqueeze(-1)
+        b, d = s.time.shape[0], self._edge_table.shape[1]
         dstate = s.delay_state
+        # the row's k-th draw is its out-edge src_lo + k (dest order)
+        outdeg = self._outdeg_n[node.long()]                  # [B]
         if self.delay.position_streams:
-            valid = (row >= 0).to(_i32)
-            off = torch.cumsum(valid, dim=-1, dtype=_i32) - valid
-            rts_k = self.delay.block_receive_times(dstate, s.time, off)
-            dstate = self.delay.advance_draws(dstate,
-                                              go.sum(-1, dtype=_i32))
+            rts_k = self.delay.block_receive_times(
+                dstate, s.time, self._ord_d.expand(b, d))
+            dstate = self.delay.advance_draws(
+                dstate, torch.where(mask, outdeg, 0))
         else:
-            rts_k = torch.zeros_like(row)
-            for k in range(row.shape[1]):
-                lane_k = go[:, k]
+            rts_k = torch.zeros((b, d), dtype=_i32, device=self.device)
+            for k in range(d):
+                lane_k = mask & (outdeg > k)
                 if not bool(lane_k.any()):
                     continue
                 rt, drawn = self.delay.draw(dstate, s.time)
                 dstate = select_words(lane_k, drawn, dstate)
                 rts_k[:, k] = torch.where(lane_k, rt, 0)
-        # route the row onto its edges; padding and unmasked lanes aim at
-        # a spare column E that is dropped
-        tgt = torch.where(go, row, e).long()
-        active = torch.zeros((b, e + 1), dtype=torch.bool,
-                             device=self.device).scatter_(1, tgt, True)
-        rt_e = torch.zeros((b, e + 1), dtype=_i32,
-                           device=self.device).scatter_(1, tgt, rts_k)
         s = s._replace(delay_state=dstate)
-        s = self._append_rows(
-            s, active[:, :e].contiguous(), rt_e[:, :e].contiguous(), True,
-            self._marker_payload(s, sid).unsqueeze(-1).expand(b, e)
-            .contiguous())
+        q_meta, q_data, q_len, pushed, error = k_queue.append_marker_rows(
+            s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed, s.error,
+            node, mask, rts_k, self._marker_payload(s, sid), self._src_lo,
+            self._src_hi, capacity=self.cfg.queue_capacity,
+            key_limit=self._key_limit)
+        s = s._replace(q_meta=q_meta, q_data=q_data, q_len=q_len,
+                       tok_pushed=pushed, error=error)
         if self._trace_on:
             # the row's edges in dest order; the trace carries the raw sid
-            s = trace_append_many(s, active[:, :e], EV_MSEND, self._rows_e,
+            row = self._edge_table[node.long()]
+            sent = torch.zeros((b, self.topo.e + 1), dtype=torch.bool,
+                               device=self.device).scatter_(
+                1, torch.where((row >= 0) & mask.unsqueeze(-1), row,
+                               self.topo.e).long(), True)
+            s = trace_append_many(s, sent[:, :-1], EV_MSEND, self._rows_e,
                                   sid.unsqueeze(-1))
         return s
 
@@ -982,9 +992,8 @@ class TickKernel:
                 [wfirst_n.to(_i32), wsid_n, per_dst[:, 4]], dim=-2))
             rt_g = self.delay.block_receive_times(
                 dstate0, time, at_src[:, 2] + self._edge_ord_in_src)
-            s = self._append_rows(
-                s, (at_src[:, 0] > 0).contiguous(), rt_g.contiguous(), True,
-                self._marker_payload(s, at_src[:, 1]).contiguous())
+            s = self._append_rows(s, at_src[:, 0] > 0, rt_g, True,
+                                  self._marker_payload(s, at_src[:, 1]))
             if self._trace_on:
                 s = trace_append_many(s, at_src[:, 0] > 0, EV_MSEND,
                                       self._rows_e, at_src[:, 1])

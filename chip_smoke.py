@@ -21,7 +21,8 @@ phases, each printing one JSON line:
                several eligible edges per source, a source with every or
                no edge eligible after the fault gates, a lane with nothing
                eligible, partially active rows, overflow rows, a marker
-               broadcast), and append_rows at 131,072 lanes of ring-10: the
+               broadcast routed by append_marker_rows), and append_rows
+               at 131,072 lanes of ring-10: the
                CUDA kernel must equal its plain PyTorch version on the card
                bit for bit (tolerance: none, integer work), with times.
                The segment sums (sum_by_perm at the sync arrivals and
@@ -48,15 +49,17 @@ phases, each printing one JSON line:
                and without a completed snapshot, the daemon, the timeout
                alone, ERR_SNAPSHOT_TIMEOUT set mid-megatick under
                quarantine, duplicates re-appended into full rings, a clock
-               wrapping past 2^31 - 1), each again through the wave step
-               body where the sampler is position-addressable, with the
-               wave's own (a marker pile-up with a same-tick repeat on a
-               complete digraph, hash counters wrapping inside a tick):
-               bit-equal to its plain version,
+               wrapping past 2^31 - 1), each again through the wave where
+               the sampler is position-addressable, with the wave's own (a
+               marker pile-up with a same-tick repeat on a complete
+               digraph, hash counters wrapping inside a tick): bit-equal
+               to its plain version (untraced, the cascade and the wave
+               run one destination-owned marker step, the Go-exact
+               sampler through its pre-drawn buffer),
                timed per launch; its bound counts the bytes the kernel's
                design must move and the fault hash's integer operations,
                from the megatick's own steps (``fused_plain_and_bytes``).
-               The wave step body's drain megaticks (fault-free and
+               The wave's drain megaticks (fault-free and
                faulted) are timed and bound the same way, and each of the
                four drain megaticks again in the tiled layout (forced,
                ``force_tiled``: the working planes in a device-memory
@@ -148,7 +151,7 @@ phases, each printing one JSON line:
   config5_wave_fused_storm main path 10: config 5 (SF-8k, N=8,192,
                E=24,572, B=512, 16 phases, 8 snapshots; the JAX
                measurement plan's exact wave row) at megatick 8, its lane
-               (1,720,352 B) tiled by "auto": error bits 0, every snapshot
+               (1,671,200 B) tiled by "auto": error bits 0, every snapshot
                complete, conservation delta 0, fused_scan launched in the
                tiled layout, equal to the same storm at megatick 1 leaf
                for leaf; its wall, node-ticks/s, host waves, tiled
@@ -179,8 +182,9 @@ phases, each printing one JSON line:
                and a queue of 8,192 jobs of at most 8 phases at the
                same width gives the same rows through the cascade at
                megatick 8 and megatick 1; 64 sampled jobs each equal the same job run alone
-               through ``run``; fused_scan, queue_step, append_rows and
-               sum_by_perm launched, sum_segments and select_pop never;
+               through ``run``; fused_scan, queue_step,
+               append_marker_rows and sum_by_perm launched, sum_segments
+               and select_pop never;
                wall, jobs/s, steps, occupancy, host fold steps and
                launches of each drive, and ``speedup_vs_static``;
   stream_wave  the same through the wave (B=1,024, J=3,072): stream
@@ -231,19 +235,28 @@ and host time beside index_select's and both timed in turns,
 Any failure raises and exits non-zero with no result line; without CUDA
 it exits 2 before doing anything.
 
-    python3 chip_smoke.py --drain-timing \
-        fault-free|faulted|wave|wave-faulted|config5-wave[-traced] \
+    python3 chip_smoke.py --drain-timing CELL [CELL ...] \
         [--batch B] [--package-root DIR]
 
-times one drain megatick (K=8) of the exact or the faulted exact cell
-(the wave step body for ``wave`` and ``wave-faulted``; config 5's tiled
-wave lane for ``config5-wave``; ``-traced``: the recorder arm, the flight
-recorder armed at 4,096 slots; ``--batch``: that many lanes instead of
-the cell's) and prints one JSON line, nothing else, with the lane-ticks
-and the time per lane-tick; ``--package-root`` imports the
-package from another checkout (a parent commit unpacked into a
-gitignored directory), so parent and change are timed in turns in one
-call.
+times one drain megatick (K=8) of each CELL, in order: the exact or the
+faulted exact cell (``fault-free``, ``faulted``; ``wave``,
+``wave-faulted`` through the wave; suffix ``-tiled``: in the tiled
+layout, forced), config 5's tiled wave lane (``config5-wave``); suffix
+``-traced``: the recorder arm, the flight recorder armed at 4,096 slots;
+``--batch``: that many lanes instead of the cell's. It prints one JSON
+line a cell, nothing else, with the lane-ticks and the time per
+lane-tick; ``--package-root`` imports the package from another checkout
+(a parent commit unpacked into a gitignored directory), so parent and
+change are timed in turns in one call.
+
+    python3 chip_smoke.py --append-timing [--package-root DIR]
+
+times ``append_rows`` at its three shapes (the sync and exact token
+sends, the exact marker broadcast): the kernel's device time (profiler),
+the wrapper's and its caller's host time and the caller's device time
+(``TickKernel._append_rows``, for the broadcast ``_broadcast_markers``),
+5 rounds each, and prints one JSON line, nothing else; with
+``--package-root`` the package (and its API) is another checkout's.
 
     python3 chip_smoke.py --spread-timing [--package-root DIR]
 
@@ -283,7 +296,7 @@ F_PROGRAM = dict(drop_rate=0.01, dup_rate=0.01, jitter_rate=0.01,
 # config 5 (BASELINE.md's SF-8k rung) as the JAX measurement plan's exact
 # wave row (tools/r5_measure.py:334-338: ``--graph sf --nodes 8192 --batch
 # 512 --phases 16 --snapshots 8 --scheduler exact --exact-impl wave``) at
-# the JAX storm CLI's default megatick 8: its lane (1,720,352 B) tiles
+# the JAX storm CLI's default megatick 8: its lane (1,671,200 B) tiles
 C5_NODES, C5_BATCH, C5_PHASES, C5_SNAPSHOTS = 8192, 512, 16, 8
 # the oversized cascade lane: SF-2048 at S=8 (386,960 B, 401,472 B
 # faulted), at a batch and depth where its megatick-1 twin ends in about
@@ -333,6 +346,10 @@ KERNELS = {
                    "chandy_lamport_tpu/kernels/queue.py:119"),
     "append_rows": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
                     "chandy_lamport_tpu/kernels/queue.py:157"),
+    # the marker broadcast's append, routed in the same launch (the JAX
+    # _broadcast_markers routes its row, then calls append_rows)
+    "append_marker_rows": ("chandy_lamport_tpu_torch/kernels/csrc/queue.cu",
+                           "chandy_lamport_tpu/kernels/queue.py:157"),
     "fused_scan": ("chandy_lamport_tpu_torch/kernels/csrc/megatick.cu",
                    "chandy_lamport_tpu/kernels/megatick.py:432"),
 }
@@ -452,6 +469,25 @@ def bound(nbytes: float, ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(nbytes), "ops": int(ops)}
+
+
+def clones(tensors) -> tuple:
+    """Copies of the state leaves an in-place kernel writes."""
+    return tuple(t.clone() for t in tensors)
+
+
+def append_work(rows: int, active: int, lanes: int,
+                routed: bool = False) -> tuple:
+    """(bytes, operations) an append must take: the [B, E] active mask
+    read once (the row form), per active row its head, len, tok_pushed,
+    receive time and payload read (4 B each), its two slot words each
+    dirtying a 32-byte sector, its two counters written (4 B each), the
+    lane's error word read and written; the routed form reads per lane
+    its node, mask, payload and out-edge range instead of the mask.
+    Operations: one a row for the mask, 20 an active row, 10 a lane."""
+    per_lane = 8 + (17 if routed else 0)
+    nbytes = rows + active * (5 * 4 + 2 * 32 + 2 * 4) + lanes * per_lane
+    return nbytes, rows + 20 * active + 10 * lanes
 
 
 def max_abs_err(got, want) -> int:
@@ -797,11 +833,13 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
            lambda: kq.head_fields_plain(q_meta, q_data, q_head),
            B * E * (4 + 8 + 9), 3 * B * E)
 
-    # -- append_rows: the next phase's send on the real rings; lane 4
-    # partially active, overflow rows on lanes 5 (full ring), 6 (push
-    # counter at the merge-key bound) and 7 (receive time at the bound)
+    # -- append_rows: the next phase's send on the real rings, as
+    # _bulk_send passes it (the mask computed, the [E] amounts expanded
+    # over the lanes); lane 4 partially active, overflow rows on lanes 5
+    # (full ring), 6 (push counter at the merge-key bound) and 7 (receive
+    # time at the bound)
     key_limit = kern._key_limit
-    active = (amounts > 0).expand(B, -1).contiguous()
+    active = (amounts > 0).expand(B, -1).clone()
     active[4] &= torch.rand(E, generator=gen).to(dev) < 0.5
     rt, _ = runner.delay.draw_many(s.delay_state, s.time, E)
     rt = rt.contiguous()
@@ -810,54 +848,53 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
     tok_pushed = s.tok_pushed.clone()
     tok_pushed[6] = key_limit
     rt[7, int(active[7].nonzero()[0])] = RTIME_PACK_LIMIT
-    meta = pack_meta(rt, 0)
-    data = amounts.expand(B, -1).contiguous()
-    args = (s.q_head, q_len, tok_pushed, active, meta, rt, data)
-    planes_k = (s.q_meta.clone(), s.q_data.clone())
-    planes_p = (s.q_meta.clone(), s.q_data.clone())
-    got = kq.append_rows(*planes_k, *args, capacity=C, key_limit=key_limit)
-    want = kq.append_rows_plain(*planes_p, *args, capacity=C,
+    data = amounts.expand(B, -1)
+    leaves = (s.q_meta, s.q_data, s.q_head, q_len, tok_pushed,
+              torch.zeros(B, dtype=torch.int32, device=dev))
+    rows_in = (active, rt, False, data)
+    leaves_k, leaves_p = clones(leaves), clones(leaves)
+    got = kq.append_rows(*leaves_k, *rows_in, capacity=C,
+                         key_limit=key_limit)
+    want = kq.append_rows_plain(*leaves_p, *rows_in, capacity=C,
                                 key_limit=key_limit)
-    bits = got[2][5:8].tolist()
+    bits = got[4][5:8].tolist()
     if not (bits[0] & 1 and bits[1] & 32 and bits[2] & 32):
         raise AssertionError(f"append_rows overflow bits missing: {bits}")
     n_active = int(active.sum())
     record("append_rows", f"[{B},{E},{C}] planes, {n_active} active rows",
            list(got), list(want),
-           lambda: kq.append_rows(*planes_k, *args, capacity=C,
+           lambda: kq.append_rows(*leaves_k, *rows_in, capacity=C,
                                   key_limit=key_limit),
-           lambda: kq.append_rows_plain(*planes_p, *args, capacity=C,
+           lambda: kq.append_rows_plain(*leaves_p, *rows_in, capacity=C,
                                         key_limit=key_limit),
-           B * E + 32 * n_active + 4 * B, 6 * B * E)
+           *append_work(B * E, n_active, B))
 
     # -- append_rows past the old 65,535-lane limit: a ring-10 send at
     # 131,072 lanes, every other lane's ring full
     wb, we, wc = WIDE_LANES, 10, 16
-    w_meta = rand_int((wb, we, wc), 0, 2**30)
-    w_data = rand_int((wb, we, wc), -99, 99)
-    w_head = rand_int((wb, we), 0, wc)
     w_len = rand_int((wb, we), 0, wc)
     w_len[::2, 3] = wc
-    w_rt = rand_int((wb, we), 1, 60)
-    w_args = (w_head, w_len, rand_int((wb, we), 0, 50),
-              torch.ones((wb, we), dtype=torch.bool, device=dev),
-              pack_meta(w_rt, 0), w_rt, rand_int((wb, we), 1, 9))
-    w_k, w_p = (w_meta.clone(), w_data.clone()), (w_meta.clone(),
-                                                  w_data.clone())
-    got = kq.append_rows(*w_k, *w_args, capacity=wc, key_limit=1 << 20)
-    want = kq.append_rows_plain(*w_p, *w_args, capacity=wc,
+    w_leaves = (rand_int((wb, we, wc), 0, 2**30),
+                rand_int((wb, we, wc), -99, 99), rand_int((wb, we), 0, wc),
+                w_len, rand_int((wb, we), 0, 50),
+                torch.zeros(wb, dtype=torch.int32, device=dev))
+    w_rows = (torch.ones((wb, we), dtype=torch.bool, device=dev),
+              rand_int((wb, we), 1, 60), False, rand_int((wb, we), 1, 9))
+    w_k, w_p = clones(w_leaves), clones(w_leaves)
+    got = kq.append_rows(*w_k, *w_rows, capacity=wc, key_limit=1 << 20)
+    want = kq.append_rows_plain(*w_p, *w_rows, capacity=wc,
                                 key_limit=1 << 20)
-    if got[2][0] != 1 or got[2][1] != 0:
+    if got[4][0] != 1 or got[4][1] != 0:
         raise AssertionError("append_rows overflow bits wrong past 65,535 "
                              "lanes")
     record("append_rows", f"[{wb},{we},{wc}] planes, every row active",
            list(got), list(want),
-           lambda: kq.append_rows(*w_k, *w_args, capacity=wc,
+           lambda: kq.append_rows(*w_k, *w_rows, capacity=wc,
                                   key_limit=1 << 20),
-           lambda: kq.append_rows_plain(*w_p, *w_args, capacity=wc,
+           lambda: kq.append_rows_plain(*w_p, *w_rows, capacity=wc,
                                         key_limit=1 << 20),
-           33 * wb * we + 4 * wb, 6 * wb * we, extra=True)
-    del w_meta, w_data, w_k, w_p, w_args
+           *append_work(wb * we, wb * we, wb), extra=True)
+    del w_leaves, w_k, w_p, w_rows, leaves_k, leaves_p
 
     # -- queue_step at the exact-at-scale shapes: a real exact storm 4
     # phases in, lanes 0-5 rebuilt as the selection edge cases
@@ -1002,54 +1039,62 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
            split=True)
 
     # the next phase's token send, then a marker broadcast as
-    # _broadcast_markers builds it: a per-lane node's outbound row, block
-    # receive times, marker bit set, payload = sid; every third lane
-    # outside the broadcast, lane 1's rings full, lane 2 at the push
-    # counter bound
+    # _broadcast_markers passes it: a per-lane node, its block of receive
+    # times, the payload; every third lane outside the broadcast, lane
+    # 1's rings full, lane 2 at the push counter bound
     x_len = xs.q_len.clone()
     x_len[1] = XC
     x_pushed = xs.tok_pushed.clone()
     x_pushed[2] = xk._key_limit
-    x_active = (x_amounts > 0).expand(XB, -1).contiguous()
+    x_leaves = (xs.q_meta, xs.q_data, xs.q_head, x_len, x_pushed,
+                torch.zeros(XB, dtype=torch.int32, device=dev))
+    x_active = (x_amounts > 0).expand(XB, -1)
     x_rt, _ = xrunner.delay.draw_many(xs.delay_state, xs.time, XE)
+    rows_in = (x_active, x_rt, False, x_amounts.expand(XB, -1))
+    leaves_k, leaves_p = clones(x_leaves), clones(x_leaves)
+    got = kq.append_rows(*leaves_k, *rows_in, capacity=XC,
+                         key_limit=xk._key_limit)
+    want = kq.append_rows_plain(*leaves_p, *rows_in, capacity=XC,
+                                key_limit=xk._key_limit)
+    bits = got[4][1:3].tolist()
+    if not (bits[0] & 1 and bits[1] & 32):
+        raise AssertionError(f"append_rows overflow bits missing at the "
+                             f"exact token send: {bits}")
+    n_active = int(x_active.sum())
+    record("append_rows", f"exact: [{XB},{XE},{XC}] planes, token send, "
+           f"{n_active} active rows", list(got), list(want),
+           lambda: kq.append_rows(*leaves_k, *rows_in, capacity=XC,
+                                  key_limit=xk._key_limit),
+           lambda: kq.append_rows_plain(*leaves_p, *rows_in, capacity=XC,
+                                        key_limit=xk._key_limit),
+           *append_work(XB * XE, n_active, XB), extra=True)
     node = rand_int((XB,), 0, XN)
-    row = xk._edge_table[node.long()]
-    go = (row >= 0) & (torch.arange(XB, device=dev) % 3 != 0)[:, None]
-    valid = (row >= 0).to(torch.int32)
-    off = torch.cumsum(valid, dim=-1, dtype=torch.int32) - valid
-    rts_k = xrunner.delay.block_receive_times(xs.delay_state, xs.time, off)
-    tgt = torch.where(go, row, XE).long()
-    mk_active = torch.zeros((XB, XE + 1), dtype=torch.bool,
-                            device=dev).scatter_(1, tgt, True)
-    mk_rt = torch.zeros((XB, XE + 1), dtype=torch.int32,
-                        device=dev).scatter_(1, tgt, rts_k)
-    mk_rt = mk_rt[:, :XE].contiguous()
+    mask = torch.arange(XB, device=dev) % 3 != 0
+    d_max = xk._edge_table.shape[1]
+    rts_k = xrunner.delay.block_receive_times(
+        xs.delay_state, xs.time, xk._ord_d.expand(XB, d_max))
     sid = rand_int((XB,), 0, xrunner.config.max_snapshots)
-    for note, act, rt, meta, data in (
-            ("token send", x_active, x_rt.contiguous(), pack_meta(x_rt, 0),
-             x_amounts.expand(XB, -1).contiguous()),
-            ("marker broadcast", mk_active[:, :XE].contiguous(), mk_rt,
-             pack_meta(mk_rt, 1), sid[:, None].expand(XB, XE).contiguous())):
-        args = (xs.q_head, x_len, x_pushed, act, meta, rt, data)
-        planes_k = (xs.q_meta.clone(), xs.q_data.clone())
-        planes_p = (xs.q_meta.clone(), xs.q_data.clone())
-        got = kq.append_rows(*planes_k, *args, capacity=XC,
-                             key_limit=xk._key_limit)
-        want = kq.append_rows_plain(*planes_p, *args, capacity=XC,
-                                    key_limit=xk._key_limit)
-        bits = got[2][1:3].tolist()
-        if not (bits[0] & 1 and bits[1] & 32):
-            raise AssertionError(f"append_rows overflow bits missing at the "
-                                 f"exact shapes ({note}): {bits}")
-        n_active = int(act.sum())
-        record("append_rows", f"exact: [{XB},{XE},{XC}] planes, {note}, "
-               f"{n_active} active rows", list(got), list(want),
-               lambda: kq.append_rows(*planes_k, *args, capacity=XC,
-                                      key_limit=xk._key_limit),
-               lambda: kq.append_rows_plain(*planes_p, *args, capacity=XC,
-                                            key_limit=xk._key_limit),
-               XB * XE + 32 * n_active + 4 * XB, 6 * XB * XE, extra=True)
-    del xs, planes_k, planes_p, args
+    m_rows = (node, mask, rts_k, sid, xk._src_lo, xk._src_hi)
+    leaves_k, leaves_p = clones(x_leaves), clones(x_leaves)
+    got = kq.append_marker_rows(*leaves_k, *m_rows, capacity=XC,
+                                key_limit=xk._key_limit)
+    want = kq.append_marker_rows_plain(*leaves_p, *m_rows, capacity=XC,
+                                       key_limit=xk._key_limit)
+    bits = got[4][1:3].tolist()
+    if not (bits[0] & 1 and bits[1] & 32):
+        raise AssertionError(f"append_marker_rows overflow bits missing: "
+                             f"{bits}")
+    n_sent = int(torch.where(mask, xk._outdeg_n[node.long()], 0).sum())
+    record("append_marker_rows", f"exact: [{XB},{XE},{XC}] planes, marker "
+           f"broadcast, {n_sent} active rows (routed from [{XB},{d_max}])",
+           list(got), list(want),
+           lambda: kq.append_marker_rows(*leaves_k, *m_rows, capacity=XC,
+                                         key_limit=xk._key_limit),
+           lambda: kq.append_marker_rows_plain(*leaves_p, *m_rows,
+                                               capacity=XC,
+                                               key_limit=xk._key_limit),
+           *append_work(0, n_sent, XB, routed=True))
+    del xs, leaves_k, leaves_p, x_leaves
 
     # -- the faulted exact path at its shapes: a real faulted storm 6
     # phases in, the next tick's head read and fault gates as
@@ -1695,27 +1740,33 @@ def fault_hash_check() -> list:
 
 DRAIN_CELLS = ("fault-free", "faulted", "wave", "wave-faulted",
                "config5-wave")
+# the ER-256 cells again in the tiled layout (forced, ``force_tiled``)
+TILED_CELLS = tuple(f"{c}-tiled" for c in DRAIN_CELLS[:4])
 
 
-def drain_timing(cell: str, batch=None) -> int:
-    """``--drain-timing CELL``: one drain megatick (K=8) of that exact
-    cell (``DRAIN_CELLS``: through the wave step body for the wave cells;
+def drain_timing(cell: str, batch=None) -> None:
+    """``--drain-timing CELL ...``, for each cell: one drain megatick
+    (K=8) of that exact cell (``DRAIN_CELLS``: through the wave step body for the wave cells;
     config 5's tiled wave lane for ``config5-wave``; with the suffix
     ``-traced`` the flight recorder armed at its default capacity, the
     recorder arm) from the state after its storm phases, timed over
     ``DRAIN_LAUNCHES`` launches on fresh copies (``time_launch_ms``), and
     printed as one JSON line with the card's name and power limit, the
-    lane-ticks the megatick runs and the time per lane-tick. ``batch``
-    (``--batch``) replaces the cell's lane count."""
+    lane-ticks the megatick runs and the time per lane-tick; with the
+    suffix ``-tiled`` (``TILED_CELLS``) an ER-256 cell in the tiled
+    layout, forced. ``batch`` (``--batch``) replaces the cell's lane
+    count."""
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.kernels import megatick as km
 
-    base = cell.removesuffix("-traced")
+    base = cell.removesuffix("-traced").removesuffix("-tiled")
     kw = {}
-    if base != cell:
+    if cell.endswith("-traced"):
         from chandy_lamport_tpu_torch.utils.tracing import Trace
 
         kw["trace"] = Trace()
+    if cell.endswith("-tiled"):
+        kw["tiled"] = True
     if base == "config5-wave":
         runner, prog = config5_runner("cuda", batch=batch or C5_BATCH, **kw)
     else:
@@ -1737,7 +1788,6 @@ def drain_timing(cell: str, batch=None) -> int:
           # a parent checkout (``--package-root``) may predate the recorder
           "traced": getattr(runner.kernel, "_trace_on", False),
           "nvidia_smi": nvidia_smi()})
-    return 0
 
 
 def spread_timing() -> int:
@@ -1771,6 +1821,153 @@ def spread_timing() -> int:
           "shape": f"[{X_BATCH},{runner.topo.n}] bool -> "
                    f"[{X_BATCH},{idx.numel()}]",
           **in_turns(kernel, library), "nvidia_smi": nvidia_smi()})
+    return 0
+
+
+def append_cases(dev) -> list:
+    """The three timed shapes of ``append_rows`` as (note, kernel, the
+    wrapper's call, the caller's call): the sync storm's token send
+    (config 4, 6 phases in), and the exact cell's token send and marker
+    broadcast (4 phases in). The wrapper's call passes what the caller
+    passes it; the caller's call is ``TickKernel._append_rows`` for a
+    send and ``_broadcast_markers`` (node per lane, a random slot, every
+    third lane outside it) for the broadcast. Both write in place, so
+    each repeat appends again to the same state. The wrapper's signature
+    is read, so that a parent checkout (``--package-root``) is timed by
+    its own API."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from chandy_lamport_tpu_torch.core.state import pack_meta
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+
+    one_launch = "error" in inspect.signature(kq.append_rows).parameters
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    cases = []
+    for name, (runner, prog), phases in (
+            ("sync token send", config4_runner(dev), 6),
+            ("exact token send", exact_runner(dev), 4)):
+        tk = runner.kernel
+        B, E, C = runner.batch, runner.topo.e, runner.config.queue_capacity
+        s = runner.run_storm(runner.init_batch_device(),
+                             (prog.amounts[:phases], prog.snap[:phases]),
+                             drain=False)
+        amounts = torch.as_tensor(np.asarray(prog.amounts[phases]),
+                                  device=dev)
+        active = (amounts > 0).expand(B, -1).contiguous()
+        data = amounts.expand(B, -1).contiguous()
+        rt, _ = runner.delay.draw_many(s.delay_state, s.time, E)
+        rt = rt.contiguous()
+        note = (f"[{B},{E},{C}] planes, {name}, {int(active.sum())} "
+                "active rows")
+        if one_launch:
+            def wrapper(s=s, active=active, rt=rt, data=data, tk=tk, C=C):
+                return kq.append_rows(
+                    s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed,
+                    s.error, active, rt, False, data, capacity=C,
+                    key_limit=tk._key_limit)
+        else:
+            meta = pack_meta(rt, 0)
+
+            def wrapper(s=s, active=active, rt=rt, data=data, tk=tk, C=C,
+                        meta=meta):
+                return kq.append_rows(
+                    s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed,
+                    active, meta, rt, data, capacity=C,
+                    key_limit=tk._key_limit)
+
+        def caller(s=s, active=active, rt=rt, data=data, tk=tk):
+            return tk._append_rows(s, active, rt, False, data)
+
+        cases.append((note, "append_rows", wrapper, caller))
+        if name.startswith("exact"):
+            xrunner, xs = runner, s
+    tk, s = xrunner.kernel, xs
+    B, E, N = xrunner.batch, xrunner.topo.e, xrunner.topo.n
+    node = torch.randint(0, N, (B,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    sid = torch.randint(0, xrunner.config.max_snapshots, (B,),
+                        generator=gen, dtype=torch.int32).to(dev)
+    mask = torch.arange(B, device=dev) % 3 != 0
+    row = tk._edge_table[node.long()]
+    go = (row >= 0) & mask[:, None]
+    valid = (row >= 0).to(torch.int32)
+    off = torch.cumsum(valid, dim=-1, dtype=torch.int32) - valid
+    rts_k = xrunner.delay.block_receive_times(s.delay_state, s.time, off)
+    payload = tk._marker_payload(s, sid)
+    if one_launch:
+        kernel = "append_marker_rows"
+
+        def wrapper():
+            return kq.append_marker_rows(
+                s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed,
+                s.error, node, mask, rts_k, payload, tk._src_lo, tk._src_hi,
+                capacity=xrunner.config.queue_capacity,
+                key_limit=tk._key_limit)
+    else:
+        kernel = "append_rows"
+        tgt = torch.where(go, row, E).long()
+        active = torch.zeros((B, E + 1), dtype=torch.bool, device=dev
+                             ).scatter_(1, tgt, True)[:, :E].contiguous()
+        rt_e = torch.zeros((B, E + 1), dtype=torch.int32, device=dev
+                           ).scatter_(1, tgt, rts_k)[:, :E].contiguous()
+        meta = pack_meta(rt_e, 1)
+        data = payload.unsqueeze(-1).expand(B, E).contiguous()
+
+        def wrapper():
+            return kq.append_rows(
+                s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed, active,
+                meta, rt_e, data, capacity=xrunner.config.queue_capacity,
+                key_limit=tk._key_limit)
+
+    def caller():
+        return tk._broadcast_markers(s, node, sid, mask)
+
+    cases.append((f"[{B},{E},{xrunner.config.queue_capacity}] planes, "
+                  f"marker broadcast, {int(go.sum())} active rows", kernel,
+                  wrapper, caller))
+    return cases
+
+
+def append_timing() -> int:
+    """``--append-timing``: ``append_rows`` at its three timed shapes
+    (``append_cases``), each in ``TURNS`` rounds of: the kernel's device
+    time per call (torch.profiler, the wrapper's kernels only), the
+    caller's device time per call (every kernel it launches), the
+    wrapper's and the caller's host time per call (``host_us``) and their
+    event times (``time_ms``); the medians and every round, printed as
+    one JSON line with the card's name and power limit. With
+    ``--package-root`` the package is another checkout's (its own API),
+    so parent and change are timed in turns in one call."""
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+
+    rows = []
+    for note, kernel, wrapper, caller in append_cases("cuda"):
+        keys = ("kernel_device_ms", "caller_device_ms", "wrapper_host_us",
+                "caller_host_us", "wrapper_ms", "caller_ms")
+        turns = {k: [] for k in keys}
+        names = None
+        for _ in range(TURNS):
+            ms, names = device_ms(wrapper)
+            turns["kernel_device_ms"].append(ms)
+            turns["caller_device_ms"].append(device_ms(caller)[0])
+            turns["wrapper_host_us"].append(host_us(wrapper))
+            turns["caller_host_us"].append(host_us(caller))
+            turns["wrapper_ms"].append(time_ms(wrapper))
+            turns["caller_ms"].append(time_ms(caller))
+        # a profiler round that saw no kernel reads None; the median
+        # takes the rounds that read
+        rows.append({"shape": note, "kernel": kernel,
+                     "wrapper_kernels": names,
+                     **{k: statistics.median([x for x in v if x is not None]
+                                             or [None])
+                        for k, v in turns.items()},
+                     "turns": turns})
+    emit({"phase": "append_timing",
+          "package": os.path.dirname(kq.__file__), "shapes": rows,
+          "nvidia_smi": nvidia_smi()})
     return 0
 
 
@@ -2102,7 +2299,7 @@ def phase_config5_wave_fused_storm() -> tuple:
                              f"in {bad}")
     _check_launches(name, m["launches"], (
         "fused_scan", "fused_scan_tiled", "queue_step", "append_rows",
-        "sum_by_perm", "sum_segments", "spread"))
+        "append_marker_rows", "sum_by_perm", "sum_segments", "spread"))
     return m["launches"], rows, final, m
 
 
@@ -2475,7 +2672,9 @@ def phase_streams() -> tuple:
     stream_fault and stream_sync. Returns (the launch counts by path,
     the gated drain megatick's summary row)."""
     rows = phase_stream_kernel()
-    exact_kernels = ("fused_scan", "queue_step", "append_rows",
+    # the stream's sends are scalar pushes; its appends are the
+    # broadcasts (and, in the wave, each wave's)
+    exact_kernels = ("fused_scan", "queue_step", "append_marker_rows",
                      "sum_by_perm")
     # the whole queues' megatick-1 twins run through the wave: the
     # cascade's twin of the streaming cell folded 30,954 host steps (94-101
@@ -2492,14 +2691,16 @@ def phase_streams() -> tuple:
     paths["stream_wave"] = phase_stream(
         "stream_wave", lambda k, batch=STW_BATCH: stream_runner(
             "cuda", batch, k, exact_impl="wave"), SMALL_SAMPLED,
-        exact_kernels + ("spread",), idle_kernels=("sum_segments",),
+        exact_kernels + ("append_rows", "spread"),
+        idle_kernels=("sum_segments",),
         twin=lambda: stream_runner("cuda", STW_BATCH, 1,
                                    exact_impl="wave")[0])
     paths["stream_fault"] = phase_stream(
         "stream_fault", lambda k, batch=STF_BATCH: stream_runner(
             "cuda", batch, k, exact_impl="wave", faulted=True),
         SMALL_SAMPLED, ("fused_scan", "select_pop", "head_fields",
-                        "append_rows", "sum_by_perm", "spread"),
+                        "append_rows", "append_marker_rows", "sum_by_perm",
+                        "spread"),
         idle_kernels=("queue_step",), faulted=True,
         twin=lambda: stream_runner("cuda", STF_BATCH, 1, exact_impl="wave",
                                    faulted=True)[0])
@@ -2865,7 +3066,7 @@ def phase_trace_storms(resident) -> dict:
             raise AssertionError(f"{name}: {bad}, {line}")
         _check_launches(name, m["launches"], (
             "fused_scan", "fused_scan_traced", "append_rows",
-            "sum_by_perm"))
+            "append_marker_rows", "sum_by_perm"))
         paths[name] = m["launches"]
     return paths
 
@@ -2950,27 +3151,31 @@ def phase_trace_stream() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--drain-timing",
-                    choices=DRAIN_CELLS + tuple(f"{c}-traced"
-                                                for c in DRAIN_CELLS),
-                    help="only time one drain megatick of that exact cell "
-                         "(-traced: with the flight recorder armed)")
+    ap.add_argument("--drain-timing", nargs="+", metavar="CELL",
+                    choices=DRAIN_CELLS + TILED_CELLS
+                    + tuple(f"{c}-traced" for c in DRAIN_CELLS),
+                    help="only time one drain megatick of each of these "
+                         "exact cells, in order (-traced: with the flight "
+                         "recorder armed; -tiled: in the tiled layout)")
     ap.add_argument("--spread-timing", action="store_true",
                     help="only time spread against index_select at the "
                          "crash gate's shape, in turns")
+    ap.add_argument("--append-timing", action="store_true",
+                    help="only time append_rows and its callers at their "
+                         "three shapes")
     ap.add_argument("--batch", type=int,
                     help="with --drain-timing: the lanes of the cell "
                          "(default: the cell's own)")
     ap.add_argument("--package-root",
-                    help="with --drain-timing or --spread-timing: "
-                         "import the package from this checkout (a parent "
-                         "commit unpacked beside this one)")
+                    help="with a timing mode: import the package from "
+                         "this checkout (a parent commit unpacked beside "
+                         "this one)")
     args = ap.parse_args(argv)
+    timing = args.drain_timing or args.spread_timing or args.append_timing
     if args.batch and not args.drain_timing:
         ap.error("--batch goes with --drain-timing")
-    if args.package_root and not (args.drain_timing or args.spread_timing):
-        ap.error("--package-root goes with --drain-timing or "
-                 "--spread-timing")
+    if args.package_root and not timing:
+        ap.error("--package-root goes with a timing mode")
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
     import torch
@@ -2987,9 +3192,13 @@ def main(argv=None) -> int:
         return 2
 
     if args.drain_timing:
-        return drain_timing(args.drain_timing, args.batch)
+        for cell in args.drain_timing:
+            drain_timing(cell, args.batch)
+        return 0
     if args.spread_timing:
         return spread_timing()
+    if args.append_timing:
+        return append_timing()
     smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.library("segment")
@@ -3041,13 +3250,14 @@ def main(argv=None) -> int:
     resident = {}
     exact_final, exact_m = phase_storm(
         "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
-        ("queue_step", "append_rows", "sum_by_perm", "sum_segments"))
+        ("queue_step", "append_rows", "append_marker_rows", "sum_by_perm",
+         "sum_segments"))
     paths["exact_storm"] = exact_m["launches"]
     del xrunner
     fused_final, m = phase_storm(
         "fused_storm", mrunner, mprog, "er", X_SNAPSHOTS,
-        ("fused_scan", "queue_step", "append_rows", "sum_by_perm",
-         "sum_segments"))
+        ("fused_scan", "queue_step", "append_rows", "append_marker_rows",
+         "sum_by_perm", "sum_segments"))
     paths["fused_storm"] = m["launches"]
     resident["fused_storm"] = (mprog, fused_final, m)
     bad = _mismatched(fused_final, exact_final)
@@ -3063,8 +3273,8 @@ def main(argv=None) -> int:
                              "phases")
     del mrunner
     # the wave twins of the two: each held to its cascade twin
-    exact_kernels = ("queue_step", "append_rows", "sum_by_perm",
-                     "sum_segments", "spread")
+    exact_kernels = ("queue_step", "append_rows", "append_marker_rows",
+                     "sum_by_perm", "sum_segments", "spread")
     for name, wr, twin, twin_name, twin_m, kernels in (
             ("wave_storm", wrunner, exact_final, "exact_storm", exact_m,
              exact_kernels),
@@ -3081,7 +3291,7 @@ def main(argv=None) -> int:
         del final
     del wrunner, w8runner, exact_final, fused_final
     fault_kernels = ("select_pop", "head_fields", "spread", "append_rows",
-                     "sum_by_perm", "sum_segments")
+                     "append_marker_rows", "sum_by_perm", "sum_segments")
     fault_final, m = phase_fault_storm("fault_storm", frunner, fprog,
                                        fault_kernels)
     paths["fault_storm"] = m["launches"]

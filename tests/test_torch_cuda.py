@@ -73,6 +73,11 @@ def _i32(a, dev):
     return torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
 
+def _copies(*leaves):
+    """Clones of the state leaves an append writes in place."""
+    return tuple(x.clone() for x in leaves)
+
+
 def _equal(got, want):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -243,13 +248,14 @@ def test_queue_kernels_equal_plain(dev):
     tok = _i32(rng.integers(0, 60, (b, E)), dev)
     rt = _i32(rng.integers(1, 50, (b, E)), dev)
     data = _i32(rng.integers(1, 9, (b, E)), dev)
-    args = (q_head, q_len, tok, active, pack_meta(rt, 0), rt, data)
-    got = kq.append_rows(q_meta.clone(), q_data.clone(), *args, capacity=C,
-                         key_limit=50)
-    want = kq.append_rows_plain(q_meta.clone(), q_data.clone(), *args,
-                                capacity=C, key_limit=50)
-    _equal(got, want)
-    assert int(got[2].max()) > 0          # full rings and tok >= 50 flag
+    err = torch.zeros(b, dtype=torch.int32, device=dev)
+    got = kq.append_rows(*_copies(q_meta, q_data, q_head, q_len, tok, err),
+                         active, rt, False, data, capacity=C, key_limit=50)
+    want = kq.append_rows_plain(*(x.cpu() for x in (
+        q_meta, q_data, q_head, q_len, tok, err, active, rt)), False,
+        data.cpu(), capacity=C, key_limit=50)
+    _equal([g.cpu() for g in got], want)
+    assert int(got[4].max()) > 0          # full rings and tok >= 50 flag
 
 
 def test_queue_step_equals_plain(dev):
@@ -315,16 +321,101 @@ def test_append_rows_past_65535_lanes(dev):
     q_len = ints((b, e), 0, c)
     q_len[::3, 7] = c
     rt = ints((b, e), 1, 60)
-    args = (ints((b, e), 0, c), q_len, ints((b, e), 0, 50),
-            torch.ones((b, e), dtype=torch.bool, device=dev),
-            pack_meta(rt, 0), rt, ints((b, e), 1, 9))
-    got = kq.append_rows(q_meta.clone(), q_data.clone(), *args, capacity=c,
+    leaves = (q_meta, q_data, ints((b, e), 0, c), q_len, ints((b, e), 0, 50),
+              torch.zeros(b, dtype=torch.int32, device=dev))
+    rows = (torch.ones((b, e), dtype=torch.bool, device=dev), rt, False,
+            ints((b, e), 1, 9))
+    got = kq.append_rows(*_copies(*leaves), *rows, capacity=c,
                          key_limit=1 << 20)
-    want = kq.append_rows_plain(q_meta.clone(), q_data.clone(), *args,
-                                capacity=c, key_limit=1 << 20)
-    _equal(got, want)
-    flagged = (got[2] & 1).nonzero().flatten()
+    want = kq.append_rows_plain(*(x.cpu() for x in leaves), *(
+        x.cpu() if torch.is_tensor(x) else x for x in rows), capacity=c,
+        key_limit=1 << 20)
+    _equal([g.cpu() for g in got], want)
+    flagged = (got[4] & 1).nonzero().flatten()
     assert torch.equal(flagged.cpu(), torch.arange(0, b, 3))
+
+
+# the three timed shapes of the append (B, E, C, active share)
+APPEND_SHAPES = {"sync send [2048,3063,16]": (2048, 3063, 16, 0.33),
+                 "exact send [4096,768,24]": (4096, 768, 24, 0.33)}
+
+
+@pytest.mark.parametrize("shape", sorted(APPEND_SHAPES))
+def test_one_launch_append_at_the_timed_shapes(dev, shape):
+    """Row 5 at the sends of the sync and exact cells: one launch writes
+    the planes, both counters and the error word, bit-equal to the plain
+    version; the per-row operands passed as the callers pass them (an [E]
+    send expanded over the lanes, the mask computed); rings full on every
+    fifth lane, a push counter at the key limit and a receive time at the
+    packed bound on two lanes; one launch counted."""
+    from chandy_lamport_tpu_torch.core.state import RTIME_PACK_LIMIT
+
+    b, e, c, share = APPEND_SHAPES[shape]
+    gen = torch.Generator().manual_seed(b + e)
+
+    def ints(shape_, lo, hi):
+        return torch.randint(lo, hi, shape_, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    q_len = ints((b, e), 0, c)
+    q_len[::5] = c
+    pushed = ints((b, e), 0, 500)
+    pushed[3, :] = 1000
+    rt = ints((b, e), 1, 60)
+    rt[4, :] = RTIME_PACK_LIMIT
+    leaves = (ints((b, e, c), 0, 2**30), ints((b, e, c), -9, 9),
+              ints((b, e), 0, c), q_len, pushed, ints((b,), 0, 3) * 2)
+    amounts = (torch.rand(e, generator=gen) < share).to(torch.int32).to(dev)
+    lanes = torch.arange(b, device=dev) % 7 != 6
+    active = (amounts > 0).expand(b, -1) & lanes[:, None]
+    rows = (active, rt, False, amounts.expand(b, -1))
+    before = launch_counts()["append_rows"]
+    got = kq.append_rows(*_copies(*leaves), *rows, capacity=c,
+                         key_limit=1000)
+    assert launch_counts()["append_rows"] == before + 1
+    want = kq.append_rows_plain(*(x.cpu() for x in leaves), *(
+        x.cpu() if torch.is_tensor(x) else x for x in rows), capacity=c,
+        key_limit=1000)
+    _equal([g.cpu() for g in got], want)
+    assert int(got[4][3]) & 32 and int(got[4][4]) & 32 and int(got[4][0]) & 1
+
+
+@pytest.mark.parametrize("b", [4096, 70_000])
+def test_marker_rows_equal_plain(dev, b):
+    """The marker broadcast's append, routed in the launch, at the exact
+    cell's width (ER-256, C=24) and past 65,535 lanes: each masked lane's
+    node's out-edges in dest order, bit-equal to the plain version; every
+    third lane outside the mask, one lane's rings full."""
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+
+    topo = DenseTopology(erdos_renyi(256, 3.0, seed=3, tokens=10))
+    e, c = topo.e, 24
+    lo = np.searchsorted(topo.edge_src, np.arange(topo.n), "left")
+    hi = np.searchsorted(topo.edge_src, np.arange(topo.n), "right")
+    gen = torch.Generator().manual_seed(b)
+
+    def ints(shape_, lo_, hi_):
+        return torch.randint(lo_, hi_, shape_, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    q_len = ints((b, e), 0, c)
+    q_len[1] = c
+    leaves = (ints((b, e, c), 0, 2**30), ints((b, e, c), -9, 9),
+              ints((b, e), 0, c), q_len, ints((b, e), 0, 500),
+              torch.zeros(b, dtype=torch.int32, device=dev))
+    node = ints((b,), 0, topo.n)
+    mask = torch.arange(b, device=dev) % 3 != 0
+    rt_k = ints((b, int((hi - lo).max())), 1, 60)
+    rows = (node, mask, rt_k, ints((b,), 0, 8), _i32(lo, dev), _i32(hi, dev))
+    before = launch_counts()["append_marker_rows"]
+    got = kq.append_marker_rows(*_copies(*leaves), *rows, capacity=c,
+                                key_limit=1000)
+    assert launch_counts()["append_marker_rows"] == before + 1
+    want = kq.append_marker_rows_plain(*(x.cpu() for x in leaves),
+                                       *(x.cpu() for x in rows), capacity=c,
+                                       key_limit=1000)
+    _equal([g.cpu() for g in got], want)
+    assert int(got[4][1]) & 1 and not int(got[4][0])
 
 
 def test_wrappers_refuse_bad_operands(dev):
@@ -535,12 +626,14 @@ def test_fused_smem_reckoning_checked_by_kernel(dev, monkeypatch):
                         - 16)
     with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
         km.fused_ticks(runner.kernel, _own(s), mode="flush", length=2)
-    # the fault arm's and the wave arm's planes count too: the share
-    # without them is short
-    for kw in (dict(faults=Faults(3, drop_rate=0.1)),
-               dict(exact_impl="wave")):
+    # the fault arm's planes and the Go-exact draw buffer count too: the
+    # share without them is short
+    from chandy_lamport_tpu_torch.ops.delay import GoExactDelay
+
+    for delay, kw in ((HashDelay(5), dict(faults=Faults(3, drop_rate=0.1))),
+                      (GoExactDelay(11), {})):
         runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(
-            snapshots=3), HashDelay(5), **kw)
+            snapshots=3), delay, **kw)
         monkeypatch.setattr(km, "fused_smem_bytes",
                             lambda n, e, k, **arms: reckoned(n, e, k))
         with pytest.raises(RuntimeError, match="clsim_fused_ticks"):
@@ -660,6 +753,65 @@ def test_megatick_storm_and_goldens_on_the_card(dev):
     results = run_reference_tests(dev)
     assert all(why is None for _, _, why in results), results
     assert launch_counts()["fused_scan"] > before
+
+
+@pytest.mark.parametrize("case", ["loaded", "pile-up"])
+def test_owner_step_go_exact_equals_plain(dev, case):
+    """The untraced step with the Go-exact sampler, whose tick's draws
+    thread 0 draws up front in stream order and the nodes' owners read by
+    position: from a loaded state and on a complete 8-node digraph with
+    every node initiating (markers of several sids and two of one sid to
+    one destination), the three step bodies bit-equal to the plain form
+    (the port's cascade), resident and tiled."""
+    from chandy_lamport_tpu_torch.ops.delay import GoExactDelay
+
+    spec, snaps = ((TOPO_SPEC, 3) if case == "loaded"
+                   else (_complete(8, 50), 8))
+    for tiled in (False, True):
+        runner, s = _loaded(dev, spec, SimConfig.for_workload(
+            snapshots=snaps), GoExactDelay(11), tiled=tiled)
+        if case == "pile-up":
+            for v in range(1, 8):
+                s = runner.kernel._inject_snapshot(s, v)
+        _fused_equals_plain(runner, s, "ticks", 24,
+                            live=~runner.kernel._halted(s))
+        _fused_equals_plain(runner, s, "drain", 8,
+                            limit=s.time + runner.config.max_ticks)
+        _fused_equals_plain(runner, s, "flush", runner.config.max_delay + 1)
+
+
+def test_goldens_megatick8_equal_megatick1_on_the_card(dev):
+    """The 7 goldens through ``DenseSim`` with the Go-exact stream: at
+    megatick 8 (the untraced step, its draws pre-drawn) every snapshot and
+    every state leaf equal megatick 1's on the card, fused_scan launched
+    in every case."""
+    from chandy_lamport_tpu_torch.config import REFERENCE_TEST_SEED
+    from chandy_lamport_tpu_torch.core.dense import DenseSim
+    from chandy_lamport_tpu_torch.ops.delay import GoExactDelay
+    from chandy_lamport_tpu_torch.utils.fixtures import (
+        read_events_file,
+        read_topology_file,
+    )
+    from chandy_lamport_tpu_torch.utils.goldens import (
+        REFERENCE_TESTS,
+        fixture_path,
+    )
+
+    for top, events, _ in REFERENCE_TESTS:
+        runs = []
+        for k in (8, 1):
+            sim = DenseSim(read_topology_file(fixture_path(top)),
+                           GoExactDelay(REFERENCE_TEST_SEED + 1),
+                           device=dev, megatick=k)
+            before = launch_counts()["fused_scan"]
+            snaps = sim.run_events(read_events_file(fixture_path(events)))
+            assert (launch_counts()["fused_scan"] > before) == (k == 8)
+            runs.append(([(g.id, g.token_map, [(m.src, m.dest,
+                                                 m.message.data)
+                                                for m in g.messages])
+                          for g in snaps], sim.state))
+        assert runs[0][0] == runs[1][0], events
+        _leaves_equal(runs[0][1], runs[1][1])
 
 
 # ---- the wave step body of the fused megatick (row 8's wave arm) ----------

@@ -262,28 +262,34 @@ def test_append_rows_matches_pallas(flag_queue_overflow):
         q_meta, q_data, q_head, q_len, tok_pushed, active, meta, rt, data)
     got = t_queue.append_rows(
         _t(q_meta), _t(q_data), _t(q_head), _t(q_len), _t(tok_pushed),
-        _t(active), _t(meta), _t(rt), _t(data), capacity=C,
-        key_limit=KEY_LIMIT, flag_queue_overflow=flag_queue_overflow)
+        torch.zeros(b, dtype=torch.int32), _t(active), _t(rt), False,
+        _t(data), capacity=C, key_limit=KEY_LIMIT,
+        flag_queue_overflow=flag_queue_overflow)
     _assert_same(ref[0], got[0])
     _assert_same(ref[1], got[1])
-    _assert_same(np.asarray(ref[2])[:, 0], got[2])
-    err = got[2].tolist()
+    # the JAX caller's adds, now in the same launch
+    _assert_same(q_len + active, got[2])
+    _assert_same(tok_pushed + active, got[3])
+    _assert_same(np.asarray(ref[2])[:, 0], got[4])
+    err = got[4].tolist()
     assert err[1] == (ERR_QUEUE_OVERFLOW if flag_queue_overflow else 0)
     assert err[3] & ERR_VALUE_OVERFLOW and err[4] & ERR_VALUE_OVERFLOW
 
 
 def test_append_rows_writes_in_place():
-    """The port's append writes the planes it was given (the CUDA kernel's
-    contract, shared by the plain version) and returns them."""
+    """The port's append writes the planes and counters it was given (the
+    CUDA kernel's contract, shared by the plain version) and returns
+    them."""
     q_meta, q_data, q_head, q_len = _rings(np.random.default_rng(7), 3)
-    planes = (_t(q_meta), _t(q_data))
+    leaves = (_t(q_meta), _t(q_data), _t(q_head), _t(q_len),
+              _t(np.ones((3, E), np.int32)), torch.zeros(3, dtype=torch.int32))
     active = np.ones((3, E), bool)
     ones = np.ones((3, E), np.int32)
-    out = t_queue.append_rows(*planes, _t(q_head), _t(q_len), _t(ones),
-                              _t(active), _t(ones), _t(ones), _t(ones),
-                              capacity=C, key_limit=KEY_LIMIT)
-    assert out[0] is planes[0] and out[1] is planes[1]
-    assert not np.array_equal(planes[0].numpy(), q_meta)
+    out = t_queue.append_rows(*leaves, _t(active), _t(ones), False,
+                              _t(ones), capacity=C, key_limit=KEY_LIMIT)
+    assert out[0] is leaves[0] and out[1] is leaves[1]
+    assert all(o is x for o, x in zip(out[2:], leaves[3:]))
+    assert not np.array_equal(leaves[0].numpy(), q_meta)
 
 
 def _step_inputs(rng, lead):

@@ -280,8 +280,8 @@ def test_resolution_on_names_every_unmet_requirement():
     assert km.resolve_fused(megatick=8, device=torch.device("cpu"),
                             smem_bytes=km.SMEM_BUDGET + 16)[:3] == (
         "off", "CPU: the plain form", "off")
-    # the ER-256 lane's working set fits a block (48,480 B)
-    assert km.fused_smem_bytes(256, 768, 8) == 48_480
+    # the ER-256 lane's working set fits a block (52,416 B)
+    assert km.fused_smem_bytes(256, 768, 8) == 52_416
 
 
 @pytest.mark.parametrize("arm", ["faults", "timeout", "every"])

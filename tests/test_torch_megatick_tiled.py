@@ -1,7 +1,7 @@
 """The tiled layout of the port's fused megatick on the CPU: its
 resolution at the byte boundary (the port picks the layout from a lane's
 working set alone, as the JAX ``fused_tile="auto"`` does), the per-lane
-working sets it is chosen from, the wave arm's in-degree limit, the
+working sets it is chosen from, the traced wave's in-degree limit, the
 kernel's argument struct, and the layout's stamps on the storm summary
 and the bench row.
 
@@ -27,6 +27,7 @@ from chandy_lamport_tpu_torch.ops.delay import HashDelay
 from chandy_lamport_tpu_torch.ops.tick import TickKernel
 from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
 from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+from chandy_lamport_tpu_torch.utils.tracing import Trace
 
 CUDA = torch.device("cuda")
 CPU = torch.device("cpu")
@@ -50,10 +51,10 @@ def test_auto_tiles_exactly_past_the_budget(smem, tile):
 
 def test_budget_is_the_only_input():
     """The layout follows the working set against the budget and nothing
-    else: the ER-256 lane (48,480 B) is resident under a block's shared
+    else: the ER-256 lane (52,416 B) is resident under a block's shared
     memory and tiled under a budget below it."""
     smem = km.fused_smem_bytes(256, 768, 8)
-    assert smem == 48_480
+    assert smem == 52_416
     assert km.resolve_fused(megatick=8, device=CUDA,
                             smem_bytes=smem)[2] == "off"
     assert km.resolve_fused(megatick=8, device=CUDA, smem_bytes=smem,
@@ -97,14 +98,15 @@ def test_cpu_state_takes_the_plain_form_in_either_layout():
 
 # ---- the working sets the layout is chosen from ----------------------------
 
-# (graph, S): (cascade, wave, cascade faulted, wave faulted) bytes a lane;
-# the SF graphs are the bench's scale_free(N, 2, seed=3)
+# (graph, S): (cascade, wave, cascade faulted, wave faulted) bytes a lane,
+# untraced (one step body for the cascade and the wave, so the pairs are
+# equal); the SF graphs are the bench's scale_free(N, 2, seed=3)
 WORKING_SETS = {
-    ("er-256", 8): (48_480, None, 50_448, None),
-    ("sf-1024", 8): (193_328, 214_864, 200_656, 222_192),
-    ("sf-1024", 16): (299_824, 321_360, 307_296, 328_832),
-    ("sf-2048", 8): (386_960, 430_032, 401_472, 444_528),
-    ("sf-8192", 8): (1_548_256, 1_720_352, 1_605_760, 1_777_856),
+    ("er-256", 8): (52_416, None, 54_384, None),
+    ("sf-1024", 8): (208_736, 208_736, 216_064, 216_064),
+    ("sf-1024", 16): (315_232, 315_232, 322_704, 322_704),
+    ("sf-2048", 8): (417_744, 417_744, 432_256, 432_256),
+    ("sf-8192", 8): (1_671_200, 1_671_200, 1_728_720, 1_728_720),
 }
 EDGES = {"er-256": 768, "sf-1024": 3063, "sf-2048": 6138, "sf-8192": 24572}
 
@@ -130,12 +132,12 @@ def test_working_sets_of_the_ladder(graph, s):
 
 
 def test_config5_tiles_with_a_reason():
-    """Config 5's wave lane (SF-8k, S=8, 1,720,352 B) resolves to the
+    """Config 5's wave lane (SF-8k, S=8, 1,671,200 B) resolves to the
     tiled layout on the card, with a reason that names the working set
     and the workspace; its faulted lane too."""
     topo = DenseTopology(workloads.scale_free(8192, 2, seed=3))
     assert SimConfig.for_workload(snapshots=8).max_snapshots == 8
-    for fault_arm, want in ((False, 1_720_352), (True, 1_777_856)):
+    for fault_arm, want in ((False, 1_671_200), (True, 1_728_720)):
         smem = km.fused_smem_bytes(topo.n, topo.e, 8, wave=True,
                                    fault_arm=fault_arm)
         assert smem == want
@@ -146,10 +148,12 @@ def test_config5_tiles_with_a_reason():
 
 
 def test_wave_arm_refuses_a_node_past_int16_waves():
-    """The kernel's wave numbers are int16: a node with more than
-    ``WAVE_MAX_IN_DEGREE`` in-edges is refused at construction for the
-    card, naming the node, before any table moves; the limit itself
-    passes, the cascade and the CPU have no such limit."""
+    """The traced wave's wave numbers are int16: a node with more than
+    ``WAVE_MAX_IN_DEGREE`` in-edges is refused at construction of a
+    traced wave for the card, naming the node, before any table moves;
+    the limit itself passes, the untraced step (one body for the cascade
+    and the wave, which numbers no waves) and the CPU have no such
+    limit."""
     limit = km.WAVE_MAX_IN_DEGREE
     km.check_wave_degree(np.array([3, limit, 0]))
     with pytest.raises(ValueError, match="node 2 has 32769 in-edges"):
@@ -162,8 +166,9 @@ def test_wave_arm_refuses_a_node_past_int16_waves():
     hub = int(np.argmax(topo.in_degree))
     assert int(topo.in_degree[hub]) == limit + 1
     with pytest.raises(ValueError, match=f"node {hub} has {limit + 1}"):
-        TickKernel(topo, SimConfig(max_snapshots=2), HashDelay(1), "cuda",
-                   megatick=8, exact_impl="wave")
+        TickKernel(topo, SimConfig(max_snapshots=2, trace_capacity=16),
+                   HashDelay(1), "cuda", megatick=8, exact_impl="wave",
+                   trace=Trace())
     tk = TickKernel(topo, SimConfig(max_snapshots=2), HashDelay(1), "cpu",
                     megatick=8, exact_impl="wave")
     assert tk.fused == "off"
