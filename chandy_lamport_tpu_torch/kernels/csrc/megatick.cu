@@ -76,17 +76,14 @@
 //      repeat closes the channel's window. Then the finalization check.
 //      Markers bound for different destinations touch disjoint cells and
 //      commute but for their draws' stream positions, which are known at
-//      tick start (ops/tick._wave_tick), so the untraced instantiations,
-//      cascade and wave alike, run one destination-owned step
+//      tick start (ops/tick._wave_tick), so every instantiation, cascade
+//      and wave, traced or not, runs one destination-owned step
 //      (owner_step): a tick-start schedule (first receipts, their draw
 //      bases by a block scan), then one thread per node serving all of its
-//      markers in edge order with no barrier between them. Traced, the
-//      cascade keeps the fold in warp 0 (thread 0 holds the sampler) and
-//      the wave its waves (wave_step), each for the order its recorder
-//      appends in;
+//      markers in edge order with no barrier between them;
 //   4. the remaining credits (all threads), the log append with the
 //      record-dtype limit and the overflow bits, the duplicated tokens and
-//      markers re-appended at their ring's tail (after the fold's
+//      markers re-appended at their ring's tail (after the step's
 //      broadcasts; receive time t + 1 + word % max_delay from the fault
 //      stream), and the completion stamp.
 // The small planes are loaded into shared memory at launch and written
@@ -105,12 +102,14 @@
 // order) and its endSnapshot; in the wave, each wave's receipts, then its
 // marker-recvs, marker-sends and endSnapshots ([S, N], slot major); then
 // the tokens left. A multi-event append ranks its events in flattened row
-// order, by a warp ballot in warp 0's fold and a block scan elsewhere;
-// event r of m goes to slot (count + r) % K, and only the last K of one
-// append are written, so no two threads write one slot (the plain
-// version's rule too). A lane with tr_on == 0, and a quiet bump, append
-// nothing. The untraced instantiations carry none of it: their carve,
-// share and registers are those of the kernel without the recorder.
+// order by a block scan; event r of m goes to slot (count + r) % K, and
+// only the last K of one append are written, so no two threads write one
+// slot (the plain version's rule too). Steps 3 and 4's events are one
+// ranked append after the owner step (record_step): their orders are
+// orders of keys fixed at tick start, so each event's slot comes from its
+// key's rank. A lane with tr_on == 0, and a quiet bump, append nothing.
+// The untraced instantiations carry none of it: their carve, share and
+// registers are those of the kernel without the recorder.
 //
 // Bound: the bytes this design must move over 3.35 TB/s, or the hash's
 // integer operations over the scalar rate, whichever is larger. Per lane
@@ -264,6 +263,10 @@ enum { kEvRecv = 1, kEvMSend = 2, kEvMRecv = 3, kEvSnapStart = 4,
 // the recorder's control words: the lane's count, then the block scan's
 // warp sums
 constexpr int kTraceCtl = 1 + kWarps;
+// the ranked append's count table ([group][warp] words) reuses the draw
+// bases' plane once the owner step has read them; traced, that plane holds
+// at least this many words, so a window takes at least 32 key groups
+constexpr int kRankMin = kWarps * 32;
 
 // one lane's planes (in shared memory, or in the workspace when tiled),
 // and the bytes they take
@@ -273,14 +276,14 @@ struct Lane {
   // the fault arm (faulted or supervised lanes only)
   int32_t *epoch, *deadline, *retries, *initiator, *counts, *next_sid,
       *skew, *stale;
-  // the tick-start schedule: each edge's draw base, the control words,
-  // the Go-exact draws, each edge's wave number (traced wave) and
-  // first-receipt flag
+  // the tick-start schedule: each edge's draw base (traced, then the
+  // ranked append's count table), the control words, the Go-exact draws,
+  // each in-edge's wave number (traced wave: the markers of its node below
+  // it) and first-receipt flag (traced, bit 1: the marker's cell fired)
   int32_t *base, *wctl, *gdraw;
-  // the recorder arm: its control words, one word per edge (the step's
-  // fault events as bits; a wave's marker-send payloads, sid + 1) and,
-  // with the wave, each node's marker count of the tick
-  int32_t *tctl, *tev, *tnode;
+  // the recorder arm: its control words and one word per edge (the step's
+  // fault events as bits)
+  int32_t *tctl, *tev;
   int16_t* wnum;
   uint8_t *tok, *mk, *app, *recording, *has_local, *done_local, *started,
       *failed;
@@ -298,11 +301,11 @@ __host__ __device__ __forceinline__ T* take(uintptr_t& p, long long count) {
 }
 
 // Lays the planes out from ``base`` (``ext``: the fault arm's planes
-// too; the tick-start schedule's for every untraced body and the traced
-// wave; ``trace``: the recorder's; ``go``: with the Go-exact sampler, an
-// untraced body's buffer of a tick's draws), each plane taking no byte
-// where it is not needed; the host calls it at base 0 only to read
-// ``bytes`` and check the caller's reckoning against it.
+// too; ``trace``: the recorder's, and the draw bases' plane at least
+// kRankMin words; ``wave`` with ``trace``: the wave numbers; ``go``: with
+// the Go-exact sampler, the buffer of a tick's draws), each plane taking
+// no byte where it is not needed; the host calls it at base 0 only to
+// read ``bytes`` and check the caller's reckoning against it.
 __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
                                bool ext, bool wave, bool trace, bool go) {
   Lane w;
@@ -330,16 +333,13 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.next_sid = take<int32_t>(p, ext ? 1 : 0);
   w.skew = take<int32_t>(p, ext ? 1 : 0);
   w.stale = take<int32_t>(p, ext ? 1 : 0);
-  // the tick-start schedule: every untraced step body, and the traced
-  // wave
-  const bool sched = !trace || wave;
-  w.base = take<int32_t>(p, sched ? e : 0);
-  w.wctl = take<int32_t>(p, sched ? kWaveCtl : 0);
-  // the Go-exact stream's draws of one tick, in stream order (untraced)
-  w.gdraw = take<int32_t>(p, !trace && go ? (long long)s * e : 0);
+  // the tick-start schedule of every step body
+  w.base = take<int32_t>(p, trace && e < kRankMin ? kRankMin : e);
+  w.wctl = take<int32_t>(p, kWaveCtl);
+  // the Go-exact stream's draws of one tick, in stream order
+  w.gdraw = take<int32_t>(p, go ? (long long)s * e : 0);
   w.tctl = take<int32_t>(p, trace ? kTraceCtl : 0);
   w.tev = take<int32_t>(p, trace ? e : 0);
-  w.tnode = take<int32_t>(p, trace && wave ? n : 0);
   w.wnum = take<int16_t>(p, trace && wave ? e : 0);
   w.tok = take<uint8_t>(p, e);
   w.mk = take<uint8_t>(p, e);
@@ -353,7 +353,7 @@ __host__ __device__ Lane carve(uintptr_t base, int n, int e, int s,
   w.dupk = take<uint8_t>(p, ext ? e : 0);
   w.down = take<uint8_t>(p, ext ? n : 0);
   w.retry = take<uint8_t>(p, ext_s);
-  w.first = take<uint8_t>(p, sched ? e : 0);
+  w.first = take<uint8_t>(p, e);
   w.bytes = (long long)(p - base);
   return w;
 }
@@ -605,40 +605,6 @@ __device__ __forceinline__ void block_record(const Ring& r, const Lane& w,
   __syncthreads();
 }
 
-// The same by the 32 lanes of one warp over [lo, hi) (warp 0's fold): a
-// ballot counts the events, a second ballot ranks and writes the last K.
-template <class Pred, class Ev>
-__device__ __forceinline__ void warp_record(const Ring& r, const Lane& w,
-                                            int lo, int hi, int ln,
-                                            int32_t t, int kind, Pred pred,
-                                            Ev ev) {
-  if (!r.on) return;
-  int total = 0;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + ln;
-    total += __popc(__ballot_sync(0xffffffffu, i < hi && pred(i)));
-  }
-  if (total == 0) return;               // uniform in the warp
-  const int32_t c = w.tctl[0];
-  int rank = 0;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + ln;
-    const bool p = i < hi && pred(i);
-    const unsigned hit = __ballot_sync(0xffffffffu, p);
-    const int mine = rank + __popc(hit & ((1u << ln) - 1u));
-    if (p && mine >= total - r.k) {
-      int actor;
-      int32_t data;
-      ev(i, actor, data);
-      put_event(r, wrap_add(c, mine), pack_event(actor, kind), data, t);
-    }
-    rank += __popc(hit);
-  }
-  __syncwarp();
-  if (ln == 0) w.tctl[0] = wrap_add(c, total);
-  __syncwarp();
-}
-
 // ---- the tick's pieces ----------------------------------------------------
 
 __device__ __forceinline__ bool recorded(const Lane& w, int s, int e, int f) {
@@ -647,10 +613,13 @@ __device__ __forceinline__ bool recorded(const Lane& w, int s, int e, int f) {
   return any;
 }
 
-// HandleToken's credit (node.go:175) for edge f when it delivered a token,
-// and its mark for the log when its channel records now
+// HandleToken's credit (node.go:175) for edge f when it delivered a token
+// not yet credited, and its mark for the log when its channel records now
+// (traced, a token its owner credited holds 2: its receipt is recorded
+// later, and it is not credited again)
+template <bool kTrace>
 __device__ __forceinline__ void credit(const Args& a, const Lane& w, int f) {
-  if (!w.tok[f]) return;
+  if (kTrace ? w.tok[f] != 1 : !w.tok[f]) return;
   atomicAdd(&w.tokens[a.edge_dst[f]], w.head_data[f]);
   w.app[f] = recorded(w, a.s, a.e, f);
 }
@@ -691,7 +660,7 @@ __device__ __forceinline__ int32_t payload(const Lane& w, int sid, int s,
 // CreateLocalSnapshot (node.go:58-84) of an initiator: slot ``sid`` at
 // ``node``, by the 32 lanes of warp 0, recording every in-link from the
 // counter it has now and freezing the balance (the supervisor's
-// injections; the fold's first receipts write theirs out in place)
+// injections; the owner step's first receipts write theirs in place)
 __device__ __forceinline__ void initiate(const Args& a, const Lane& w,
                                          long long bs, int sid, int node,
                                          int ln) {
@@ -831,19 +800,18 @@ __device__ __forceinline__ int marker_sid(int32_t data, int s, bool sup) {
   return data < 0 ? 0 : (data >= s ? s - 1 : data);
 }
 
-// The tick-start schedule of step 3 (ops/tick._wave_tick's, all threads),
-// shared by the untraced step and the traced wave: one thread per node
-// marks each popped marker's first receipt (no local snapshot for (sid,
-// node), and no earlier marker of this tick for them: bit 1 of has_local
-// marks the cells seen and is cleared again) and, traced, each marker's
-// wave (its rank among the node's markers in edge order, in ``wnum``) and
-// the node's marker count (``tnode``); a block scan of the first
-// receipts' draws (the node's out-degree) in edge order gives each its
-// draw base.
+// The tick-start schedule of step 3 (ops/tick._wave_tick's, all threads):
+// one thread per node marks each popped marker's first receipt (no local
+// snapshot for (sid, node), and no earlier marker of this tick for them:
+// bit 1 of has_local marks the cells seen and is cleared again) and, with
+// ``kWnum`` (the traced wave), each in-edge's wave: the number of the
+// node's markers below it in edge order (a marker's rank among them, the
+// wave a token is credited in); a block scan of the first receipts' draws
+// (the node's out-degree) in edge order gives each its draw base.
 // Returns the tick's draw count and the deepest wave (``depth``), and
-// leaves the sampler's tick-start key, counter and epoch in the control
-// words.
-template <bool kTrace>
+// leaves the sampler's tick-start key, counter and epoch and the warps'
+// depths in the control words.
+template <bool kWnum>
 __device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
                                              const Sampler& smp, int tid,
                                              int nt, bool sup, int& depth) {
@@ -853,11 +821,11 @@ __device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
     int rank = 0;
     for (int j = a.dst_lo[v]; j < a.dst_hi[v]; ++j) {
       const int f = a.by_dst[j];
+      if constexpr (kWnum) w.wnum[f] = (int16_t)rank;
       if (!w.mk[f]) continue;
       const int cell = marker_sid(w.head_data[f], S, sup) * n + v;
       w.first[f] = w.has_local[cell] == 0;
       w.has_local[cell] |= 2;
-      if constexpr (kTrace) w.wnum[f] = (int16_t)rank;
       ++rank;
     }
     for (int j = a.dst_lo[v]; rank > 0 && j < a.dst_hi[v]; ++j) {
@@ -865,7 +833,6 @@ __device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
       if (w.mk[f])
         w.has_local[marker_sid(w.head_data[f], S, sup) * n + v] &= 1;
     }
-    if constexpr (kTrace) w.tnode[v] = rank;
     depth = rank > depth ? rank : depth;
   }
   __syncthreads();
@@ -911,14 +878,15 @@ __device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
 }
 
 // HandleMarker (node.go:149-171) for the marker on edge ``f`` into ``d``
-// by the thread that serves d (the untraced step's owner, the traced
-// wave's thread of f), its tokens of lower edge rank already credited: a
-// first receipt creates the local snapshot (every in-link but f, from the
-// counter it will have after this tick's log appends) and broadcasts one
-// marker per out-edge in dest order, the k-th at draw ``base + k`` (the
-// Go-exact stream: ``gdraw``, the tick's draws in stream order); a repeat
-// closes the channel's window; then the finalization check. Only
-// ``completed`` and the error word are shared with other threads.
+// by the thread that serves d (its owner), its tokens of lower edge rank
+// already credited: a first receipt creates the local snapshot (every
+// in-link but f, from the counter it will have after this tick's log
+// appends) and broadcasts one marker per out-edge in dest order, the k-th
+// at draw ``base + k`` (the Go-exact stream: ``gdraw``, the tick's draws
+// in stream order); a repeat closes the channel's window; then the
+// finalization check, which (traced) sets bit 1 of ``first[f]`` where the
+// cell fires. Only ``completed`` and the error word are shared with other
+// threads.
 template <bool kTrace>
 __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
                                               long long be, long long bs,
@@ -949,7 +917,6 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
                              ? w.gdraw[at]
                              : draw_at(a, key, ctr0, epoch0, at, t);
       append(a, w, be, g, rt, true, data);
-      if constexpr (kTrace) w.tev[g] = sid + 1;
     }
   } else {
     const int rc = sid * e + f;
@@ -960,14 +927,15 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
     }
   }
   if (w.has_local[cell] && w.rem[cell] == 0 && !w.done_local[cell]) {
-    w.done_local[cell] = kTrace ? 3 : 1;
+    w.done_local[cell] = 1;
     atomicAdd(&w.completed[sid], 1);
+    if constexpr (kTrace) w.first[f] |= 2;
   }
 }
 
-// Step 3 of every untraced instantiation, the cascade's and the wave's
-// alike (ops/tick._wave_tick's docstring: bit-identical to _cascade_tick):
-// the tick-start schedule, then one thread per node, which serves all of
+// Step 3 of every instantiation, the cascade's and the wave's alike
+// (ops/tick._wave_tick's docstring: bit-identical to _cascade_tick): the
+// tick-start schedule, then one thread per node, which serves all of
 // that node's markers in edge order back to back: before each, the
 // node's tokens of lower edge rank are credited (marked for the log where
 // the channel records), then HandleMarker. Nodes touch disjoint in-edges,
@@ -977,13 +945,21 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
 // whole tick in stream order first (at most one first receipt per (sid,
 // node) a tick, so at most S * E draws), which are exactly the cascade's
 // draws in its order. The tokens left are credited in step 4 (``ctl[0]``
-// = 0).
+// = 0). Traced (kTrace), a token its owner credits is left at 2 and each
+// marker's block is left in ``first`` (first receipt, cell fired) for the
+// ranked append (record_step); kWave (traced only) numbers every in-edge's
+// wave for the wave's key, and the owner leaves each in-edge's record at
+// its by_dst position j in ``tev`` (free once step 2's fault events are
+// recorded): 0 for no marker, else 1 | first receipt << 1 | fired << 2 |
+// wave << 3, so the wave's sends and endSnapshots are found in node order
+// with no gather.
+template <bool kTrace, bool kWave>
 __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
                                            Sampler& smp, long long be,
                                            long long bs, int32_t t, int tid,
                                            int nt, bool sup) {
   int depth;
-  const uint32_t total = schedule<false>(a, w, smp, tid, nt, sup, depth);
+  const uint32_t total = schedule<kWave>(a, w, smp, tid, nt, sup, depth);
   const uint32_t key = (uint32_t)w.wctl[kCtlKey];
   const uint32_t ctr0 = (uint32_t)w.wctl[kCtlCtr];
   const uint32_t epoch0 = (uint32_t)w.wctl[kCtlEpoch];
@@ -997,9 +973,13 @@ __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
   if (a.sampler == kGoExact) __syncthreads();
   for (int d = tid; d < a.n; d += nt) {
     int next = a.dst_lo[d];            // in-edges [dst_lo, next) credited
+    int wave = 0;                      // the node's markers so far
     for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
       const int f = a.by_dst[j];
-      if (!w.mk[f]) continue;
+      if (!w.mk[f]) {
+        if constexpr (kWave) w.tev[j] = 0;
+        continue;
+      }
       // the node's tokens of lower edge rank (by_dst keeps edge order
       // within a node)
       for (; next < j; ++next) {
@@ -1007,9 +987,10 @@ __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
         if (!w.tok[g]) continue;
         w.tokens[d] += w.head_data[g];
         w.app[g] = recorded(w, a.s, a.e, g);
-        w.tok[g] = 0;
+        w.tok[g] = kTrace ? 2 : 0;
       }
-      handle_marker<false>(a, w, be, bs, f, d, t, key, ctr0, epoch0, sup);
+      handle_marker<kTrace>(a, w, be, bs, f, d, t, key, ctr0, epoch0, sup);
+      if constexpr (kWave) w.tev[j] = 1 | w.first[f] << 1 | wave++ << 3;
     }
   }
 }
@@ -1019,103 +1000,281 @@ __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
 // the tiled arm is latency-bound, so more lanes win; called, the step
 // keeps its own registers and the kernel's other steps fit in fewer
 // (PERF.md §6)
+template <bool kTrace, bool kWave>
 __device__ __noinline__ void owner_step_call(const Args& a, const Lane& w,
                                              Sampler& smp, long long be,
                                              long long bs, int32_t t,
                                              int tid, int nt, bool sup) {
-  owner_step(a, w, smp, be, bs, t, tid, nt, sup);
+  owner_step<kTrace, kWave>(a, w, smp, be, bs, t, tid, nt, sup);
 }
 
-// Step 3 of the traced wave (ops/tick._wave_tick), all threads: the
-// tick-start schedule, then wave k = 0, 1, ...: each node's k-th marker,
-// one thread each; the thread credits the node's tokens of lower edge
-// rank, then handles the marker. The wave's barriers keep the recorder's
-// order, wave by wave: each wave leaves its events marked (a credited
-// token 2 in ``tok``, a marker-send's sid + 1 in ``tev``, a completed
-// cell 3 in ``done_local``) and records them after the wave, in the plain
-// wave's order, then clears the marks. The plain wave also credits, in
-// wave k, every token left at a node with no k-th marker (a node that has
-// had its last: ``tnode``, its marker count, is k); here step 4 credits
-// those, so wave k records their receipts and marks them 3 (recorded,
-// credit pending): the credits commute, the record's order is the plain
-// wave's.
-__device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
-                                          const Ring& ring, Sampler& smp,
-                                          long long be, long long bs,
-                                          int32_t t, int tid, int nt,
-                                          bool sup) {
-  const int n = a.n, e = a.e, S = a.s;
-  int depth;
-  const uint32_t total = schedule<true>(a, w, smp, tid, nt, sup, depth);
-  const uint32_t key = (uint32_t)w.wctl[kCtlKey];
-  const uint32_t ctr0 = (uint32_t)w.wctl[kCtlCtr];
-  const uint32_t epoch0 = (uint32_t)w.wctl[kCtlEpoch];
-  if (tid == 0) {
-    smp.advance(total);
-    w.ctl[0] = 0;                      // step 4 credits every token left
-  }
+// ---- the ranked append of a traced tick's marker and receipt events -----
+//
+// The plain ticks append these events as they happen, in an order that is
+// an order of keys, all fixed once the owner step has run:
+//   the cascade (ops/tick._cascade_tick): a source pops at most one
+//     message a tick, and the fold records, before marker m, the receipts
+//     of every source below m's, so the ring takes the popped edges in
+//     edge order, a token as its receipt, a marker as its block (its
+//     marker-recv, its broadcast's marker-sends in dest order where it was
+//     a first receipt, its endSnapshot where its cell fired): key (source,
+//     block before receipts, edge), one key group over the E edges;
+//   the wave (ops/tick._wave_tick): wave k records its receipts, its
+//     marker-recvs and its marker-sends, each in edge order, then its
+//     endSnapshots in [S, N] slot-major order. A token on in-edge g of d
+//     is credited in wave wnum[g] (d's markers below it; at the lane's
+//     depth, after the last wave, where step 4 records it), a marker is
+//     received in wave wnum[f], and a node has at most one marker a wave,
+//     so wave k's sends are its first receipts' out-edge rows in node
+//     order and its endSnapshots one a node: key (wave, class, index), key
+//     group (3 + S) wave + class (the endSnapshots' class by slot), over
+//     four classes of E items: the edges (receipts), the edges
+//     (marker-recvs), the by_dst positions (a first receipt's row of
+//     sends: in-edges in node order) and the by_dst positions again (a
+//     fired cell's endSnapshot), the last two read from the owner's
+//     records in ``tev``.
+// Every item's block of events goes to its rank in (group, item) order:
+// each warp counts its contiguous chunk of each class's E items per group
+// into a [group][warp] table (a window of groups at a time; a group holds
+// one class, so the chunks of each class keep its order), one block scan
+// makes the table the blocks' offsets, and the warps walk their chunks
+// again and write the events ranked at or past total - K, so no two
+// threads write one slot. O(E + events) a tick, with no barrier between
+// one node's events and another's.
 
-  for (int k = 0; k < depth; ++k) {
-    for (int f = tid; f < e; f += nt) {
-      if (!w.mk[f] || w.wnum[f] != k) continue;
-      const int d = a.edge_dst[f];
-      // the node's tokens of lower edge rank (by_dst keeps edge order
-      // within a node)
-      for (int j = a.dst_lo[d]; j < a.dst_hi[d]; ++j) {
-        const int g = a.by_dst[j];
-        if (g >= f) break;
-        if (!w.tok[g]) continue;
-        w.tokens[d] += w.head_data[g];
-        w.app[g] = recorded(w, S, e, g);
-        w.tok[g] = 2;
-      }
-      handle_marker<true>(a, w, be, bs, f, d, t, key, ctr0, epoch0, sup);
+// item ``i`` of class ``cls``: its key group and the events its block
+// holds
+template <bool kWave>
+__device__ __forceinline__ void rank_item(const Args& a, const Lane& w,
+                                          int cls, int i, int per, bool sup,
+                                          int& grp, int& size) {
+  grp = 0;
+  size = 0;
+  if constexpr (!kWave) {
+    if (w.tok[i]) {
+      size = 1;
+    } else if (w.mk[i]) {
+      const int d = a.edge_dst[i], fl = w.first[i];
+      size = 1 + ((fl & 1) ? a.src_hi[d] - a.src_lo[d] : 0) + (fl >> 1);
     }
-    __syncthreads();
-    block_record(ring, w, e, t, kEvRecv,
-                 [&](int g) {
-                   return w.tok[g] == 2 ||
-                          (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k);
-                 },
-                 [&](int g, int& actor, int32_t& data) {
-                   actor = g;
-                   data = w.head_data[g];
-                 });
-    block_record(ring, w, e, t, kEvMRecv,
-                 [&](int f) { return w.mk[f] && w.wnum[f] == k; },
-                 [&](int f, int& actor, int32_t& data) {
-                   actor = f;
-                   data = marker_sid(w.head_data[f], S, sup);
-                 });
-    block_record(ring, w, e, t, kEvMSend,
-                 [&](int g) { return w.tev[g] != 0; },
-                 [&](int g, int& actor, int32_t& data) {
-                   actor = g;
-                   data = w.tev[g] - 1;
-                 });
-    block_record(ring, w, S * n, t, kEvSnapEnd,
-                 [&](int i) { return (w.done_local[i] & 2) != 0; },
-                 [&](int i, int& actor, int32_t& data) {
-                   actor = i % n;
-                   data = i / n;
-                 });
-    for (int g = tid; g < e; g += nt) {
-      if (w.tok[g] == 2)
-        w.tok[g] = 0;
-      else if (w.tok[g] == 1 && w.tnode[a.edge_dst[g]] == k)
-        w.tok[g] = 3;
-      w.tev[g] = 0;
+  } else if (cls < 2) {
+    if (cls == 0 ? w.tok[i] != 0 : w.mk[i] != 0) {
+      grp = per * w.wnum[i] + cls;
+      size = 1;
     }
-    for (int i = tid; i < S * n; i += nt) w.done_local[i] &= 1;
-    __syncthreads();
+  } else {
+    const int rec = w.tev[i];
+    if (cls == 2 && (rec & 2)) {
+      const int d = a.edge_dst[a.by_dst[i]];
+      grp = per * (rec >> 3) + 2;
+      size = a.src_hi[d] - a.src_lo[d];
+    } else if (cls == 3 && (rec & 4)) {
+      grp = per * (rec >> 3) + 3 +
+            marker_sid(w.head_data[a.by_dst[i]], a.s, sup);
+      size = 1;
+    }
   }
+}
+
+// whether item ``i`` of class ``cls`` holds events, by one load
+// (record_step's tiled walk)
+template <bool kWave>
+__device__ __forceinline__ bool rank_peek(const Lane& w, int cls, int i) {
+  if constexpr (!kWave) return (w.tok[i] | w.mk[i]) != 0;
+  if (cls < 2) return (cls == 0 ? w.tok[i] : w.mk[i]) != 0;
+  return (w.tev[i] & (cls == 2 ? 2 : 4)) != 0;
+}
+
+// writes item ``i`` of class ``cls``'s events, the first at rank ``pos``,
+// those ranked at or past ``keep``; ``c`` is the lane's count before the
+// append
+template <bool kWave>
+__device__ __forceinline__ void rank_emit(const Args& a, const Lane& w,
+                                          const Ring& r, int cls, int i,
+                                          int pos, int keep, int32_t c,
+                                          int32_t t, bool sup) {
+  const int f = kWave && cls >= 2 ? a.by_dst[i] : i;
+  if (kWave ? cls == 0 : w.tok[f] != 0) {
+    if (pos >= keep)
+      put_event(r, wrap_add(c, pos), pack_event(f, kEvRecv), w.head_data[f],
+                t);
+    return;
+  }
+  const int sid = marker_sid(w.head_data[f], a.s, sup);
+  const int d = a.edge_dst[f], fl = w.first[f];
+  if (!kWave || cls == 1) {
+    if (pos >= keep)
+      put_event(r, wrap_add(c, pos), pack_event(f, kEvMRecv), sid, t);
+    ++pos;
+  }
+  if (kWave ? cls == 2 : (fl & 1) != 0) {
+    const int lo = a.src_lo[d], hi = a.src_hi[d];
+    int g = lo;
+    if (pos < keep) {                   // skip the sends overwritten later
+      g = keep - pos < hi - lo ? lo + (keep - pos) : hi;
+      pos += g - lo;
+    }
+    for (; g < hi; ++g, ++pos)
+      put_event(r, wrap_add(c, pos), pack_event(g, kEvMSend), sid, t);
+  }
+  if ((kWave ? cls == 3 : (fl & 2) != 0) && pos >= keep)
+    put_event(r, wrap_add(c, pos), pack_event(d, kEvSnapEnd), sid, t);
+}
+
+// The ranked append of step 3's and step 4's events in the body's key
+// order (above), by the whole block, after step 4's credits; the count
+// table lies in ``base`` (its draw bases read), the total's warp sums in
+// the schedule's (read) draw sums. A lane with tr_on == 0 appends nothing.
+// kTiled: the planes lie in device memory, where a tile's loads wait a
+// memory latency, so the walks peek at four tiles at once and skip the
+// empty ones; in shared memory they go tile by tile.
+template <bool kWave, bool kTiled>
+__device__ __forceinline__ void record_step(const Args& a, const Lane& w,
+                                            const Ring& r, int32_t t,
+                                            int tid, int nt, bool sup) {
+  if (!r.on) return;                    // the lane's: uniform in the block
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const unsigned full = 0xffffffffu;
+  int depth = 0;
+  for (int k = 0; k < nw; ++k)
+    depth = w.wctl[kCtlDepths + k] > depth ? w.wctl[kCtlDepths + k] : depth;
+  const int per = 3 + a.s;
+  const int groups = kWave ? per * (depth + 1) : 1;
+  const int classes = kWave ? 4 : 1;
+  const int cap = (a.e < kRankMin ? kRankMin : a.e) / nw;  // groups a window
+  // each warp's contiguous chunk of a class's E items, in whole tiles of 32
+  const int chunk = (a.e + nw * 32 - 1) / (nw * 32) * 32;
+  const int lo = warp * chunk < a.e ? warp * chunk : a.e;
+  const int hi = lo + chunk < a.e ? lo + chunk : a.e;
+  int32_t* const table = w.base;
+  const int32_t c = w.tctl[0];
+  int total = 0, done = 0;
+  // every tile of 32 items of the warp's chunks, class by class, in order,
+  // passed to ``tile(cls, x0)`` (kTiled: unless it holds no event, four
+  // tiles peeked at once, their loads in flight together)
+  auto walk = [&](auto&& tile) {
+    for (int cls = 0; cls < classes; ++cls) {
+      if constexpr (!kTiled) {
+        for (int x0 = lo; x0 < hi; x0 += 32) tile(cls, x0);
+        continue;
+      }
+      for (int x0 = lo; x0 < hi; x0 += 128) {
+        bool any[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int x = x0 + 32 * u + lane;
+          any[u] = x < hi && rank_peek<kWave>(w, cls, x);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (__any_sync(full, any[u])) tile(cls, x0 + 32 * u);
+      }
+    }
+  };
+  for (int g0 = 0; g0 < groups; g0 += cap) {
+    const int gw = groups - g0 < cap ? groups - g0 : cap;
+    for (int i = tid; i < gw * nw; i += nt) table[i] = 0;
+    __syncthreads();
+    // the count walk: each warp's events per group of the window
+    int all = 0;
+    walk([&](int cls, int x0) {
+      const int x = x0 + lane;
+      int grp = 0, size = 0;
+      if (x < hi) rank_item<kWave>(a, w, cls, x, per, sup, grp, size);
+      all += size;
+      const bool in = size > 0 && grp >= g0 && grp < g0 + gw;
+      unsigned todo = __ballot_sync(full, in);
+      while (todo) {
+        const int lead = __ffs(todo) - 1;
+        const int gl = __shfl_sync(full, grp, lead);
+        const bool mine = in && grp == gl;
+        const int sum = (int)__reduce_add_sync(full, mine ? size : 0);
+        if (lane == lead) table[(gl - g0) * nw + warp] += sum;
+        __syncwarp();
+        todo &= ~__ballot_sync(full, mine);
+      }
+    });
+    __syncthreads();                    // every warp's counts are in
+    // the offsets: an exclusive scan of the table in (group, warp) order
+    // from the events of the windows before; the first window also sums
+    // every group's events, the tick's total
+    const int m = gw * nw, each = (m + nt - 1) / nt;
+    const int tlo = tid * each < m ? tid * each : m;
+    const int thi = tlo + each < m ? tlo + each : m;
+    int part = 0;
+    for (int i = tlo; i < thi; ++i) part += table[i];
+    int incl = part;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(full, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const bool first = g0 == 0, more = groups > cap;
+    if (first && more) {
+      const int ws = (int)__reduce_add_sync(full, all);
+      if (lane == 0) w.wctl[kCtlSums + warp] = ws;
+    }
+    if (lane == 31) w.tctl[1 + warp] = incl;
+    __syncthreads();
+    int off = done + incl - part, wsum = 0;
+    for (int k = 0; k < nw; ++k) {
+      const int y = w.tctl[1 + k];
+      if (k < warp) off += y;
+      wsum += y;
+    }
+    if (first) {
+      total = wsum;
+      if (more) {
+        total = 0;
+        for (int k = 0; k < nw; ++k) total += w.wctl[kCtlSums + k];
+      }
+    }
+    for (int i = tlo; i < thi; ++i) {
+      const int y = table[i];
+      table[i] = off;
+      off += y;
+    }
+    __syncthreads();
+    // the write walk: each block at its offset, ranks by the warp's scan
+    const int keep = total - r.k;
+    walk([&](int cls, int x0) {
+      const int x = x0 + lane;
+      int grp = 0, size = 0;
+      if (x < hi) rank_item<kWave>(a, w, cls, x, per, sup, grp, size);
+      const bool in = size > 0 && grp >= g0 && grp < g0 + gw;
+      unsigned todo = __ballot_sync(full, in);
+      while (todo) {
+        const int lead = __ffs(todo) - 1;
+        const int gl = __shfl_sync(full, grp, lead);
+        const bool mine = in && grp == gl;
+        int run = mine ? size : 0;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(full, run, o);
+          if (lane >= o) run += y;
+        }
+        int32_t* const at = &table[(gl - g0) * nw + warp];
+        const int from = *at;
+        if (mine)
+          rank_emit<kWave>(a, w, r, cls, x, from + run - size, keep, c, t,
+                           sup);
+        const int sum = __shfl_sync(full, run, 31);
+        __syncwarp();
+        if (lane == lead) *at = from + sum;
+        __syncwarp();
+        todo &= ~__ballot_sync(full, mine);
+      }
+    });
+    done += wsum;
+    __syncthreads();                    // the table read before it clears
+  }
+  if (tid == 0) w.tctl[0] = wrap_add(c, total);
+  __syncthreads();
 }
 
 // kExt: the fault arm (the adversary or the supervisor armed) is compiled
 // in; the fault-free instantiation carries none of it, so its registers
 // and occupancy are the fault-free kernel's own. kWave: with kTrace, the
-// wave's step 3 (wave_step) in place of the cascade's fold in warp 0;
-// untraced, the two are one body (owner_step) and only kWave = false is
+// wave's key for the ranked append in place of the cascade's (the step
+// body is one, owner_step); untraced, only kWave = false is
 // instantiated. kTiled: the
 // lane's planes are carved from its stride of the device-memory workspace
 // instead of shared memory; the bodies are the same code, every access
@@ -1124,9 +1283,9 @@ __device__ __forceinline__ void wave_step(const Args& a, const Lane& w,
 // ones. A compile-time parameter, so the resident instantiations keep
 // their shared-memory addressing and registers. kTrace: the recorder arm
 // (the module comment); the untraced instantiations compile none of it.
+// The body of both kernels below (untraced and traced).
 template <bool kExt, bool kWave, bool kTiled, bool kTrace>
-__global__ void __launch_bounds__(kThreads)
-fused_ticks_kernel(const Args a) {
+__device__ __forceinline__ void fused_ticks(const Args a) {
   extern __shared__ __align__(16) char smem[];
   const long long b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -1406,127 +1565,24 @@ fused_ticks_kernel(const Args a) {
                          data = fc;
                        });
         }
-        for (int f = tid; f < e; f += nt) w.tev[f] = 0;  // for the wave
-        __syncthreads();
       }
     }
 
-    // 3. the markers: untraced, one destination-owned step (owner_step)
-    // for the cascade and the wave alike; traced, the wave's waves or the
-    // cascade's sequential fold in warp 0, whose orders the recorder keeps
-    if constexpr (!kTrace) {
-      if constexpr (kTiled)
-        owner_step_call(a, w, smp, be, bs, t, tid, nt, sup);
-      else
-        owner_step(a, w, smp, be, bs, t, tid, nt, sup);
-    } else if constexpr (kWave) {
-      wave_step(a, w, ring, smp, be, bs, t, tid, nt, sup);
-    } else if (tid < 32) {
-      const int ln = tid;
-      int done = 0;                           // edges [0, done) credited
-      int from = 0;
-      for (;;) {
-        int m = -1;
-        for (int base = from; base < e; base += 32) {
-          const int f = base + ln;
-          const unsigned hit = __ballot_sync(0xffffffffu, f < e && w.mk[f]);
-          if (hit) {
-            m = base + __ffs(hit) - 1;
-            break;
-          }
-        }
-        if (m < 0) break;
-        // credit the tokens of the sources ranked below m's source
-        const int upto = a.src_lo[a.edge_src[m]];
-        for (int f = done + ln; f < upto; f += 32) credit(a, w, f);
-        // their receipts, before the marker's
-        warp_record(ring, w, done, upto, ln, t, kEvRecv,
-                    [&](int f) { return w.tok[f] != 0; },
-                    [&](int f, int& actor, int32_t& data) {
-                      actor = f;
-                      data = w.head_data[f];
-                    });
-        if (upto > done) done = upto;
-        __syncwarp();
-
-        // HandleMarker (node.go:149-171) for the marker on edge m
-        const int d = a.edge_dst[m];
-        int sid = w.head_data[m];
-        if (sup) {
-          sid = floor_mod(sid, S);            // the decoded slot id
-        } else {
-          sid = sid < 0 ? 0 : (sid >= S ? S - 1 : sid);
-        }
-        const int cell = sid * n + d;
-        const bool first = !w.has_local[cell];
-        if (ln == 0) record(ring, w, m, kEvMRecv, sid, t);
-        __syncwarp();
-        if (first) {
-          // CreateLocalSnapshot: every in-link but m, from the counter it
-          // will have after this tick's appends; then SendToNeighbors,
-          // thread 0 drawing one at a time
-          for (int j = a.dst_lo[d] + ln; j < a.dst_hi[d]; j += 32) {
-            const int f = a.by_dst[j];
-            if (f == m) continue;
-            const int32_t cnt = w.rec_cnt[f] + (int32_t)w.app[f];
-            w.recording[sid * e + f] = 1;
-            a.rec_start[(bs + sid) * e + f] = cnt;
-            if (cnt < w.min_prot[f]) w.min_prot[f] = cnt;
-          }
-          if (ln == 0) {
-            w.has_local[cell] = 1;
-            w.frozen[cell] = w.tokens[d];
-            w.rem[cell] = a.in_degree[d] - 1;
-            const int32_t data = payload(w, sid, S, sup);
-            for (int g = a.src_lo[d]; g < a.src_hi[d]; ++g) {
-              const int32_t rt = smp.draw(t);
-              const int32_t len = w.q_len[g];
-              int bits = 0;
-              if (len >= C) bits |= kErrQueueOverflow;
-              if (w.tok_pushed[g] >= a.key_limit || rt >= kRtimePackLimit)
-                bits |= kErrValueOverflow;
-              if (bits) atomicOr(w.err, bits);
-              const long long slot = (be + g) * C + (w.q_head[g] + len) % C;
-              a.q_meta[slot] = (int32_t)((uint32_t)rt * 2u + 1u);
-              a.q_data[slot] = data;
-              w.q_len[g] = len + 1;
-              w.tok_pushed[g] += 1;
-              record(ring, w, g, kEvMSend, sid, t);
-            }
-          }
-        } else if (ln == 0) {
-          // a repeat closes the window where the channel still records
-          const int rc = sid * e + m;
-          if (w.recording[rc]) {
-            w.recording[rc] = 0;
-            w.rem[cell] -= 1;
-            a.rec_end[(bs + sid) * e + m] = w.rec_cnt[m];
-          }
-        }
-        if (ln == 0 && w.has_local[cell] && w.rem[cell] == 0 &&
-            !w.done_local[cell]) {           // finalizeSnapshot
-          w.done_local[cell] = 1;
-          w.completed[sid] += 1;
-          record(ring, w, d, kEvSnapEnd, sid, t);
-        }
-        __syncwarp();
-        from = m + 1;
-      }
-      if (ln == 0) w.ctl[0] = done;
-    }
+    // 3. the markers: one destination-owned step (owner_step), for the
+    // cascade and the wave alike
+    if constexpr (kTiled)
+      owner_step_call<kTrace, kWave>(a, w, smp, be, bs, t, tid, nt, sup);
+    else
+      owner_step<kTrace, kWave>(a, w, smp, be, bs, t, tid, nt, sup);
     __syncthreads();
 
-    // 4. the remaining credits, then the log append, the duplicates'
-    // re-appends (after the fold's broadcasts) and the stamp
-    for (int f = w.ctl[0] + tid; f < e; f += nt) credit(a, w, f);
+    // 4. the remaining credits, then (traced) the ranked append of the
+    // tick's marker and receipt events, the log append, the duplicates'
+    // re-appends (after the broadcasts) and the stamp
+    for (int f = w.ctl[0] + tid; f < e; f += nt) credit<kTrace>(a, w, f);
     __syncthreads();
     if constexpr (kTrace)
-      block_record(ring, w, e, t, kEvRecv,
-                   [&](int f) { return f >= w.ctl[0] && w.tok[f] == 1; },
-                   [&](int f, int& actor, int32_t& data) {
-                     actor = f;
-                     data = w.head_data[f];
-                   });
+      record_step<kWave, kTiled>(a, w, ring, t, tid, nt, sup);
     for (int f = tid; f < e; f += nt) {
       if (w.app[f]) {
         const int32_t cnt = w.rec_cnt[f];
@@ -1604,6 +1660,25 @@ fused_ticks_kernel(const Args a) {
   }
 }
 
+// the untraced instantiations
+template <bool kExt, bool kTiled>
+__global__ void __launch_bounds__(kThreads)
+fused_ticks_kernel(const Args a) {
+  fused_ticks<kExt, false, kTiled, false>(a);
+}
+
+// The traced instantiations (the recorder arm), bound to 3 blocks an SM
+// resident (80 registers) and 4 tiled (64), with spills: unbound they
+// take 128, 2 lanes an SM, and the step is latency-bound, so lanes in
+// flight win (drain megatick on config 5 18.2 ms bound against 24.3, the
+// resident 8-12 % faster; PERF.md §6). A kernel template of its own, so
+// the untraced instantiations keep their allocation.
+template <bool kExt, bool kWave, bool kTiled>
+__global__ void __launch_bounds__(kThreads, kTiled ? 4 : 3)
+fused_ticks_traced(const Args a) {
+  fused_ticks<kExt, kWave, kTiled, true>(a);
+}
+
 // Faults.fault_planes from the device hash above: block (lane, step),
 // threads over edges and nodes; row j is tick time time[b] + 1 + j
 __global__ void __launch_bounds__(kThreads)
@@ -1661,19 +1736,17 @@ int clsim_fused_ticks(const Args* a, void* stream) {
   using Kernel = void (*)(const Args);
   // untraced: one body for the cascade and the wave (kWave = false)
   static const Kernel untraced[4] = {
-      fused_ticks_kernel<false, false, false, false>,
-      fused_ticks_kernel<true, false, false, false>,
-      fused_ticks_kernel<false, false, true, false>,
-      fused_ticks_kernel<true, false, true, false>};
+      fused_ticks_kernel<false, false>, fused_ticks_kernel<true, false>,
+      fused_ticks_kernel<false, true>, fused_ticks_kernel<true, true>};
   static const Kernel traced_arms[8] = {
-      fused_ticks_kernel<false, false, false, true>,
-      fused_ticks_kernel<true, false, false, true>,
-      fused_ticks_kernel<false, true, false, true>,
-      fused_ticks_kernel<true, true, false, true>,
-      fused_ticks_kernel<false, false, true, true>,
-      fused_ticks_kernel<true, false, true, true>,
-      fused_ticks_kernel<false, true, true, true>,
-      fused_ticks_kernel<true, true, true, true>};
+      fused_ticks_traced<false, false, false>,
+      fused_ticks_traced<true, false, false>,
+      fused_ticks_traced<false, true, false>,
+      fused_ticks_traced<true, true, false>,
+      fused_ticks_traced<false, false, true>,
+      fused_ticks_traced<true, false, true>,
+      fused_ticks_traced<false, true, true>,
+      fused_ticks_traced<true, true, true>};
   const Kernel kernel =
       traced ? traced_arms[(ext ? 1 : 0) + (wave ? 2 : 0) + (tiled ? 4 : 0)]
              : untraced[(ext ? 1 : 0) + (tiled ? 2 : 0)];

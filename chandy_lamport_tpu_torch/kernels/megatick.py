@@ -94,9 +94,14 @@ MODES = {"ticks": 0, "drain": 1, "flush": 2}
 # "fused_scan_traced" those of the recorder arm
 LAUNCHES = {"fused_scan": 0, "fused_scan_tiled": 0, "fused_scan_traced": 0}
 
-# the traced wave keeps a marker's rank among its node's markers of a tick
-# in int16: a node may have at most this many in-edges
+# the traced wave keeps each in-edge's wave (its node's markers of a tick
+# below it) in int16: a node may have at most this many in-edges
 WAVE_MAX_IN_DEGREE = 32_768
+
+# traced, the draw bases' plane (the ranked append's count table once the
+# owner step has read the bases) holds at least this many words: 8 warps
+# by 32 key groups (``csrc/megatick.cu`` kRankMin)
+RANK_MIN_WORDS = 8 * 32
 
 
 def fault_arm(tk) -> bool:
@@ -108,10 +113,11 @@ def fault_arm(tk) -> bool:
 
 def wave_arm(tk) -> bool:
     """Whether ``tk``'s fused megatick runs the wave (``exact_impl=
-    "wave"``). Untraced, the kernel runs one destination-owned step for
-    the cascade and the wave alike, so this only names the tick form;
-    traced, it picks the wave's step (the kernel's traced ``kWave``
-    instantiations) over the cascade's fold, and its share."""
+    "wave"``). The kernel runs one destination-owned step for the cascade
+    and the wave alike, so untraced this only names the tick form; traced,
+    it picks the wave's key order for the recorder's ranked append (the
+    kernel's traced ``kWave`` instantiations) over the cascade's, and its
+    share."""
     return tk.exact_impl == "wave"
 
 
@@ -132,32 +138,32 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     snap_initiator, the 7 fault counts, next_sid, fault_skew and
     stale_markers (int32); the step's fault flags and duplicate kind per
     edge, the down flag per node and a retry flag per slot (bytes).
-    The tick-start schedule of every untraced step and of the traced
-    wave (``wave``, ``wave_arm(tk)``, with ``trace``) adds each edge's
-    draw base (int32) and first-receipt flag (byte) and 24 words of
-    control; the traced wave adds each edge's wave number (int16).
-    ``go_exact`` (the Go-exact sampler) adds to an untraced step a buffer
-    of the tick's draws, at most one broadcast per (slot, node): S x E
-    words. ``trace`` (``tk._trace_on``) adds the recorder's word per edge
-    and its 9 control words (the lane's count and the block scan's 8 warp
-    sums), and with ``wave`` a word per node (its marker count of the
-    tick). The rings, the log, the windows,
-    the trace ring and the delay stream stay in device memory. Rounded up
-    to 16 B."""
+    The tick-start schedule of the owner step adds each edge's draw base
+    (int32; traced, at least ``RANK_MIN_WORDS`` of them: the plane holds
+    the ranked append's count table after the step) and first-receipt flag
+    (byte) and 24 words of control; the traced wave (``wave``,
+    ``wave_arm(tk)``, with ``trace``) adds each edge's wave number
+    (int16). ``go_exact`` (the Go-exact sampler) adds a buffer of the
+    tick's draws, at most one broadcast per (slot, node): S x E words.
+    ``trace`` (``tk._trace_on``) adds the recorder's word per edge and its
+    9 control words (the lane's count and the block scan's 8 warp sums).
+    The rings, the log, the windows, the trace ring and the delay stream
+    stay in device memory. Rounded up to 16 B."""
     ints = 6 * e + n + 2 * s * n + 2 * s + 4
     flags = 3 * e + s * e + 2 * s * n + 2 * s
     if fault_arm:
         ints += 4 * s + 10
         flags += 2 * e + n + s
-    if wave or not trace:
-        ints += e + 24          # the draw bases and the control words
-        flags += e              # the first-receipt flag
+    # the draw bases (traced, the count table's floor) and the control
+    # words; the first-receipt flag
+    ints += (max(e, RANK_MIN_WORDS) if trace else e) + 24
+    flags += e
     if wave and trace:
         flags += 2 * e          # the int16 wave number
-    if go_exact and not trace:
+    if go_exact:
         ints += s * e
     if trace:
-        ints += e + 9 + (n if wave else 0)
+        ints += e + 9
     return (4 * ints + flags + 15) // 16 * 16
 
 

@@ -242,8 +242,9 @@ times one drain megatick (K=8) of each CELL, in order: the exact or the
 faulted exact cell (``fault-free``, ``faulted``; ``wave``,
 ``wave-faulted`` through the wave; suffix ``-tiled``: in the tiled
 layout, forced), config 5's tiled wave lane (``config5-wave``); suffix
-``-traced``: the recorder arm, the flight recorder armed at 4,096 slots;
-``--batch``: that many lanes instead of the cell's. It prints one JSON
+``-traced`` (after ``-tiled`` where both): the recorder arm, the flight
+recorder armed at 4,096 slots; ``--batch``: that many lanes instead of
+the cell's. It prints one JSON
 line a cell, nothing else, with the lane-ticks and the time per
 lane-tick; ``--package-root`` imports the package from another checkout
 (a parent commit unpacked into a gitignored directory), so parent and
@@ -257,6 +258,14 @@ the wrapper's and its caller's host time and the caller's device time
 (``TickKernel._append_rows``, for the broadcast ``_broadcast_markers``),
 5 rounds each, and prints one JSON line, nothing else; with
 ``--package-root`` the package (and its API) is another checkout's.
+
+    python3 chip_smoke.py --queue-timing [--package-root DIR]
+
+times ``head_fields`` at the sync and faulted shapes and ``queue_step`` at
+the exact one (``queue_cases``): each held to its plain version, then
+event ms, profiler device ms and host us per call, 5 rounds each, beside
+its bound (each gathered word a 32-byte sector), one JSON line, nothing
+else.
 
     python3 chip_smoke.py --spread-timing [--package-root DIR]
 
@@ -831,7 +840,7 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
            list(kq.head_fields_plain(q_meta, q_data, q_head)),
            lambda: kq.head_fields(q_meta, q_data, q_head),
            lambda: kq.head_fields_plain(q_meta, q_data, q_head),
-           B * E * (4 + 8 + 9), 3 * B * E)
+           B * E * (4 + 2 * 32 + 9), 3 * B * E)
 
     # -- append_rows: the next phase's send on the real rings, as
     # _bulk_send passes it (the mask computed, the [E] amounts expanded
@@ -932,7 +941,7 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
            "deliveries", list(got), list(want),
            lambda: kq.queue_step(*sargs, capacity=XC),
            lambda: kq.queue_step_plain(*sargs[:6], capacity=XC),
-           30 * XB * XE + 4 * XB + 8 * XN, 8 * XB * XE)
+           86 * XB * XE + 4 * XB + 8 * XN, 8 * XB * XE)
     del q_meta, q_data, sargs
 
     # -- sum_by_perm, sum_segments and append_rows at the exact path's
@@ -1113,7 +1122,7 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
            list(kq.head_fields_plain(ft.q_meta, ft.q_data, ft.q_head)),
            lambda: kq.head_fields(ft.q_meta, ft.q_data, ft.q_head),
            lambda: kq.head_fields_plain(ft.q_meta, ft.q_data, ft.q_head),
-           FB * FE * (4 + 8 + 9), 3 * FB * FE, extra=True)
+           FB * FE * (4 + 2 * 32 + 9), 3 * FB * FE, extra=True)
     # the crash gate's spread: this tick's down nodes, lanes 0-3 random
     down = fk.faults.down_nodes(ft.fault_key, ft.time, FN)
     down[:4] = torch.rand((4, FN), generator=gen).to(dev) < 0.3
@@ -1765,7 +1774,7 @@ def drain_timing(cell: str, batch=None) -> None:
         from chandy_lamport_tpu_torch.utils.tracing import Trace
 
         kw["trace"] = Trace()
-    if cell.endswith("-tiled"):
+    if cell.removesuffix("-traced").endswith("-tiled"):
         kw["tiled"] = True
     if base == "config5-wave":
         runner, prog = config5_runner("cuda", batch=batch or C5_BATCH, **kw)
@@ -1821,6 +1830,109 @@ def spread_timing() -> int:
           "shape": f"[{X_BATCH},{runner.topo.n}] bool -> "
                    f"[{X_BATCH},{idx.numel()}]",
           **in_turns(kernel, library), "nvidia_smi": nvidia_smi()})
+    return 0
+
+
+def queue_cases(dev) -> list:
+    """The timed shapes of rows 4 and 6 as (kernel, shape note, the
+    wrapper's call, the plain call, bytes, operations): ``head_fields`` at
+    the sync storm's planes (config 4, [2048,3063,16]) and the faulted
+    exact cell's ([4096,768,24]); ``queue_step`` at the exact cell's, with
+    ER-256's source segments. The rings are made from seed 7: heads
+    anywhere in the ring, lengths 0-3, head receive times within 3 ticks
+    of each lane's clock, every fourth head a marker, so about half the
+    non-empty heads are due. Bytes: each row reads its head (and its
+    length) and each gathered slot word as the 32-byte sector it comes in,
+    and writes its outputs once."""
+    import torch
+
+    from chandy_lamport_tpu_torch.core.state import DenseTopology
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        scale_free,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def rings(b, e, c):
+        q_head = torch.randint(0, c, (b, e), generator=gen,
+                               dtype=torch.int32)
+        q_len = torch.randint(0, 4, (b, e), generator=gen,
+                              dtype=torch.int32)
+        time = torch.randint(10, 1000, (b,), generator=gen,
+                             dtype=torch.int32)
+        rt = time[:, None, None] + torch.randint(
+            -3, 4, (b, e, c), generator=gen, dtype=torch.int32)
+        mk = torch.randint(0, 4, (b, e, c), generator=gen,
+                           dtype=torch.int32) == 0
+        q_meta = rt * 2 + mk.to(torch.int32)
+        q_data = torch.randint(-99, 100, (b, e, c), generator=gen,
+                               dtype=torch.int32)
+        return [x.to(dev) for x in (q_meta, q_data, q_head, q_len, time)]
+
+    sync_e = DenseTopology(scale_free(NODES, ATTACH, seed=3)).e
+    x_topo = DenseTopology(erdos_renyi(X_NODES, 3.0, seed=3))
+    cases = []
+    for b, e, c, note in ((BATCH, sync_e, 16, "sync"),
+                          (X_BATCH, x_topo.e, 24, "faulted exact")):
+        q_meta, q_data, q_head, _, _ = rings(b, e, c)
+        cases.append((
+            "head_fields", f"{note}: [{b},{e},{c}] planes",
+            lambda q_meta=q_meta, q_data=q_data, q_head=q_head:
+            kq.head_fields(q_meta, q_data, q_head),
+            lambda q_meta=q_meta, q_data=q_data, q_head=q_head:
+            kq.head_fields_plain(q_meta, q_data, q_head),
+            b * e * (4 + 2 * 32 + 9), 3 * b * e))
+    b, e, c = X_BATCH, x_topo.e, 24
+    q_meta, q_data, q_head, q_len, time = rings(b, e, c)
+    src = torch.as_tensor(x_topo.edge_src, dtype=torch.int64)
+    nodes = torch.arange(x_topo.n)
+    src_lo = torch.searchsorted(src, nodes).to(torch.int32)
+    src_hi = torch.searchsorted(src, nodes, right=True).to(torch.int32)
+    src_first = src_lo[src].to(dev)
+    src_lo, src_hi = src_lo.to(dev), src_hi.to(dev)
+    args = (q_meta, q_data, q_head, q_len, time)
+    cases.append((
+        "queue_step", f"exact: [{b},{e},{c}] planes",
+        lambda: kq.queue_step(*args, src_first, src_lo, src_hi, capacity=c),
+        lambda: kq.queue_step_plain(*args, src_first, capacity=c),
+        b * e * (4 + 4 + 2 * 32 + 14) + 4 * b + 8 * x_topo.n, 8 * b * e))
+    return cases
+
+
+def queue_timing() -> int:
+    """``--queue-timing``: ``head_fields`` (row 4) and ``queue_step``
+    (row 6) at their timed shapes (``queue_cases``), each first held to
+    its plain version bit for bit, then in ``TURNS`` rounds of: event ms
+    per call (``time_ms``), profiler device ms per call and the wrapper's
+    host us per call; the medians and every round beside the bound, the
+    plain version's ms and the share of the bound reached, printed as one
+    JSON line with the card's name and power limit. With
+    ``--package-root`` the package is another checkout's, so parent and
+    change are timed in turns in one call."""
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+
+    rows = []
+    for kernel, note, fn, plain, nbytes, ops in queue_cases("cuda"):
+        err = max_abs_err(list(fn()), list(plain()))
+        if err:
+            raise AssertionError(f"{kernel} ({note}) != plain: {err}")
+        turns = {"ms": [], "device_ms": [], "host_us": []}
+        for _ in range(TURNS):
+            turns["ms"].append(time_ms(fn))
+            turns["device_ms"].append(device_ms(fn)[0])
+            turns["host_us"].append(host_us(fn))
+        med = {k: statistics.median([x for x in v if x is not None]
+                                    or [None]) for k, v in turns.items()}
+        lim = bound(nbytes, ops)
+        rows.append({"kernel": kernel, "shape": note, "max_abs_err": err,
+                     **med, **lim, "plain_ms": time_ms(plain),
+                     "bound_share": lim["bound_ms"] / med["ms"],
+                     "turns": turns})
+    emit({"phase": "queue_timing",
+          "package": os.path.dirname(kq.__file__), "shapes": rows,
+          "nvidia_smi": nvidia_smi()})
     return 0
 
 
@@ -3153,7 +3265,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--drain-timing", nargs="+", metavar="CELL",
                     choices=DRAIN_CELLS + TILED_CELLS
-                    + tuple(f"{c}-traced" for c in DRAIN_CELLS),
+                    + tuple(f"{c}-traced" for c in DRAIN_CELLS
+                            + TILED_CELLS),
                     help="only time one drain megatick of each of these "
                          "exact cells, in order (-traced: with the flight "
                          "recorder armed; -tiled: in the tiled layout)")
@@ -3163,6 +3276,9 @@ def main(argv=None) -> int:
     ap.add_argument("--append-timing", action="store_true",
                     help="only time append_rows and its callers at their "
                          "three shapes")
+    ap.add_argument("--queue-timing", action="store_true",
+                    help="only time head_fields and queue_step at their "
+                         "timed shapes")
     ap.add_argument("--batch", type=int,
                     help="with --drain-timing: the lanes of the cell "
                          "(default: the cell's own)")
@@ -3171,7 +3287,8 @@ def main(argv=None) -> int:
                          "this checkout (a parent commit unpacked beside "
                          "this one)")
     args = ap.parse_args(argv)
-    timing = args.drain_timing or args.spread_timing or args.append_timing
+    timing = (args.drain_timing or args.spread_timing or args.append_timing
+              or args.queue_timing)
     if args.batch and not args.drain_timing:
         ap.error("--batch goes with --drain-timing")
     if args.package_root and not timing:
@@ -3199,6 +3316,8 @@ def main(argv=None) -> int:
         return spread_timing()
     if args.append_timing:
         return append_timing()
+    if args.queue_timing:
+        return queue_timing()
     smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.library("segment")

@@ -258,6 +258,30 @@ def test_queue_kernels_equal_plain(dev):
     assert int(got[4].max()) > 0          # full rings and tok >= 50 flag
 
 
+@pytest.mark.parametrize("b,e,c", [(1, 1, 8), (3, 7, 16), (4, 768, 24),
+                                   (2, 3063, 16)],
+                         ids=["one-edge-one-lane", "ragged", "er256", "sf1k"])
+def test_head_fields_edge_cases(dev, b, e, c):
+    """Row 4 on the card, bit for bit against the plain version: empty
+    rings (the stale slot word is read), heads at slot C - 1, negative
+    packed receive times (arithmetic >> 1), row counts that are and are
+    not a multiple of a thread's 4 rows, and heads read through a view
+    whose first row is not 16-byte aligned."""
+    rng = np.random.default_rng(b * e + c)
+    q_meta = _i32(rng.integers(-2**31, 2**31, (b, e, c), dtype=np.int64),
+                  dev)
+    q_data = _i32(rng.integers(-2**31, 2**31, (b, e, c), dtype=np.int64),
+                  dev)
+    q_head = _i32(rng.integers(0, c, (b, e)), dev)
+    q_head[:, ::3] = c - 1
+    q_meta[0, :, c - 1] = -5                  # negative: rtime -3, a marker
+    for heads in (q_head, torch.cat([q_head.new_zeros(1),
+                                     q_head.flatten()])[1:].view(b, e)):
+        got = kq.head_fields(q_meta, q_data, heads)
+        _equal(got, kq.head_fields_plain(q_meta, q_data, heads))
+    assert int(got[0].min()) < 0 and bool(got[1].any())
+
+
 def test_queue_step_equals_plain(dev):
     """Row 6 on the card: the exact tick's selection + pop, with one
     clock per lane, bit-equal to the plain version."""
@@ -1114,20 +1138,41 @@ def test_traced_megatick_equals_plain(dev, arm, tiled, capacity):
     _fused_equals_plain(runner, s, "flush", runner.config.max_delay + 1)
 
 
-def test_traced_megatick_pileup_wraps_inside_one_step(dev):
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("arm", sorted(TILED_ARMS))
+def test_traced_megatick_pileup_wraps_inside_one_step(dev, arm, tiled):
     """A complete 8-node digraph where every node snapshots, at capacity
-    4: one wave's or fold chunk's receipts and marker-sends pass the
-    ring within a single step; cascade and wave, bit-equal to the plain
-    form."""
+    4: one step's marker and receipt events (several markers a node, one
+    ranked append) pass the ring within a single step; every traced
+    instantiation, resident and tiled, bit-equal to the plain form."""
     from chandy_lamport_tpu_torch.utils.tracing import Trace
 
-    for impl in ("cascade", "wave"):
-        runner, s = _loaded(dev, _complete(8, 50),
-                            SimConfig.for_workload(snapshots=8),
-                            HashDelay(3), exact_impl=impl, trace=Trace(4))
-        got = _fused_equals_plain(runner, s, "ticks", 16,
-                                  live=~runner.kernel._halted(s))
-        assert int((got.tr_count - s.tr_count).max()) > 4
+    impl, fkw, sup = TILED_ARMS[arm]
+    runner, s = _loaded(dev, _complete(8, 50),
+                        SimConfig.for_workload(snapshots=8, **sup),
+                        HashDelay(3), quarantine=bool(fkw),
+                        faults=Faults(3, **fkw) if fkw else None,
+                        exact_impl=impl, tiled=tiled, trace=Trace(4))
+    got = _fused_equals_plain(runner, s, "ticks", 16,
+                              live=~runner.kernel._halted(s))
+    assert int((got.tr_count - s.tr_count).max()) > 4
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("impl", ["cascade", "wave"])
+def test_traced_megatick_count_wraps(dev, impl, tiled):
+    """Every lane's count 3 events below the int32 wrap: the ranked
+    append's slots and the count wrap as the plain form's int32
+    arithmetic does."""
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    runner, s = _loaded(dev, TOPO_SPEC, SimConfig.for_workload(snapshots=8),
+                        HashDelay(5), exact_impl=impl, tiled=tiled,
+                        trace=Trace(64))
+    s = s._replace(tr_count=torch.full_like(s.tr_count, 2**31 - 3))
+    got = _fused_equals_plain(runner, s, "ticks", 16,
+                              live=~runner.kernel._halted(s))
+    assert bool((got.tr_count < 0).all())
 
 
 def test_traced_megatick_disarmed_lane(dev):

@@ -178,7 +178,8 @@ def _owner_step(tk, tab, s, tok, mk, head_data, rng):
 
 def _handle(tk, tab, x, lane, f, d, sid, first, base, rts, app, S, C, sup):
     """HandleMarker for the marker on edge ``f`` into ``d`` (the kernel's
-    ``handle_marker``), then the finalization check."""
+    ``handle_marker``), then the finalization check; returns whether the
+    cell fired."""
     cell = (lane, sid, d)
     if first:
         for g in tab.by_dst[tab.dst_lo[d]:tab.dst_hi[d]]:
@@ -199,10 +200,12 @@ def _handle(tk, tab, x, lane, f, d, sid, first, base, rts, app, S, C, sup):
         x["recording"][lane, sid, f] = False
         x["rem"][cell] -= 1
         x["rec_end"][lane, sid, f] = x["rec_cnt"][lane, f]
-    if (x["has_local"][cell] and x["rem"][cell] == 0
-            and not x["done_local"][cell]):
+    fire = bool(x["has_local"][cell] and x["rem"][cell] == 0
+                and not x["done_local"][cell])
+    if fire:
         x["done_local"][cell] = True
         x["completed"][lane, sid] += 1
+    return fire
 
 
 def _wrap32(v):
