@@ -60,7 +60,7 @@
 //      ERR_SNAPSHOT_TIMEOUT), then each retried slot's re-initiation,
 //      lowest first; markers carry epoch * S + sid;
 //   2. selection + pop, one thread per source node walking its edges in
-//      dest order (queue_step's walk): the first edge with len > 0 and
+//      dest order: the first edge with len > 0 and
 //      rtime <= time (and, under faults, not stalled by jitter or the
 //      marker jitter, whose stalls are counted, and not bound for a down
 //      node) is popped, its payload kept in head_data; then the drop /

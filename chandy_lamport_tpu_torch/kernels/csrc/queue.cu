@@ -21,32 +21,40 @@
 // queue_step: the exact tick's delivery selection (_queue_step_kernel,
 //   queue.py:76-89): head gather, eligibility len > 0 && rtime <= time[b],
 //   the first eligible edge of each source in dest order, and its pop.
-//   One thread per (b, source node) walks the source's outbound edges
-//   [src_lo, src_hi) in edge (= dest) order. The Pallas form selects an
-//   edge when its exclusive prefix count of eligible edges equals the
-//   count at its source's first edge (_select :47-52), i.e. when no
-//   earlier edge of the same contiguous segment is eligible: that is
-//   exactly "the first eligible edge of the segment", which the walk
-//   finds directly, with no scan. Every edge writes head_data (the word
-//   at its head slot, stale for an empty ring, as the gather reads it)
-//   and its head/len (popped only where selected). time[b] is per lane,
-//   as vmap gives each lane its own scalar. Bound at the exact-at-scale
-//   cell (er-256, B=4096, E=768): per (lane, edge) 8 B of head/len and 8 B
-//   of gathered slot words in, 1+1+4+4+4 B out = 30 B, about 94 MB ->
-//   about 28 us at 3.35 TB/s; adjacent threads walk adjacent edge ranges,
-//   so loads are only partly coalesced, which the simple design accepts.
-//
-// select_pop: the selection + pop of the faulted exact tick
-//   (_select_pop_kernel, queue.py:111-116), where the fault gates (jitter
-//   stalls, crashed destinations) edit the eligibility mask between the
-//   head read (head_fields) and the selection. The same walk as
-//   queue_step: one thread per (b, source node) over [src_lo, src_hi),
-//   selecting the first eligible edge of the segment, and writing sel,
-//   new_head = (head + sel) % c and new_len = len - sel on every edge of
-//   the segment. Bound at the faulted exact cell (er-256, B=4096, E=768):
-//   per (lane, edge) 4 + 4 + 1 B in and 1 + 4 + 4 B out = 18 B, about
-//   57 MB -> about 17 us at 3.35 TB/s; the loads are partly coalesced, as
-//   in queue_step.
+// select_pop: the same selection and pop in the faulted exact tick
+//   (_select_pop_kernel, queue.py:111-116), over the eligibility mask the
+//   fault gates (jitter stalls, crashed destinations) edited between the
+//   head read (head_fields) and the selection.
+// The selection as a max-scan. The Pallas _select (queue.py:47-52) keeps
+//   an eligible edge e when the exclusive prefix count of eligible edges
+//   at e equals the count at src_first[e], its source's first edge: when
+//   no edge of [src_first[e], e) is eligible. With last(e) the largest
+//   eligible k < e (-1 if none), that is
+//       sel[e] = elig[e] && last(e) < src_first[e],
+//   and max is associative, so last(e) carries across lanes, warps and
+//   tiles with no per-segment logic: within a warp it is the highest set
+//   bit of the eligibility ballot below the thread's lane; across the
+//   block's chunks of 32 edges, an exclusive max-scan of one word a chunk
+//   by warp 0; across the block's tiles, the running maximum. So one
+//   thread takes one edge of each of kItems chunks of the tile (striped:
+//   base + j * 256 + tid), a warp's loads and byte stores fall on 32
+//   consecutive edges, and every load of a thread (head, len, then both
+//   slot words) is issued before the scan.
+// Ownership: a lane's edges are cut into tiles of T = 256 * kItems
+//   (kItems = ceil(E / 256), at most 4); block k of the lane owns the
+//   edges whose segment starts in [k T, (k + 1) T), read off src_first
+//   alone. It scans from k T, tile by tile, while the next tile's first
+//   edge is still its own, so a segment of any length is walked whole by
+//   the block it starts in, and no carry leaves a block. The edges before
+//   the block's first segment start belong to an earlier block: they are
+//   not loaded and count as not eligible, which changes no selection,
+//   since every such edge lies before the owned edges' src_first.
+// Bounds (chip_smoke.py counts them from the run's inputs): queue_step per
+//   (lane, edge) its head and len (8 B), its two gathered slot words as
+//   the 32-byte sectors they come in (64 B) and 1 + 1 + 4 + 4 + 4 B out =
+//   86 B, 0.0808 ms at the exact cell's [4096,768,24] and 0.323 ms at
+//   config 5's [512,24572,24] at 3.35 TB/s; select_pop 4 + 4 + 1 B in and
+//   1 + 4 + 4 B out = 18 B, 0.0169 ms at [4096,768].
 //
 // append_rows: the whole routed append of a tick in one launch, one thread
 //   per (lane, row): a lane's rows take G threads, G the least power of
@@ -143,66 +151,147 @@ __global__ void head_fields_kernel(const int32_t* __restrict__ q_meta,
   data[i] = q_data[slot];
 }
 
-__global__ void queue_step_kernel(const int32_t* __restrict__ q_meta,
-                                  const int32_t* __restrict__ q_data,
-                                  const int32_t* __restrict__ q_head,
-                                  const int32_t* __restrict__ q_len,
-                                  const int32_t* __restrict__ time,
-                                  const int32_t* __restrict__ src_lo,
-                                  const int32_t* __restrict__ src_hi,
-                                  uint8_t* __restrict__ tok,
-                                  uint8_t* __restrict__ mk,
-                                  int32_t* __restrict__ head_data,
-                                  int32_t* __restrict__ new_head,
-                                  int32_t* __restrict__ new_len,
-                                  long long rows, int n, int e, int c) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const long long b = i / n;
-  const int node = (int)(i - b * n);
-  const int32_t t = time[b];
-  bool found = false;
-  for (int k = src_lo[node]; k < src_hi[node]; ++k) {
-    const long long r = b * e + k;
-    const int32_t head = q_head[r];
-    const int32_t len = q_len[r];
-    const long long slot = r * c + head;
-    const int32_t meta = q_meta[slot];
-    head_data[r] = q_data[slot];
-    // arithmetic >>, as jnp's on int32; the first eligible edge wins
-    const bool sel = !found && len > 0 && (meta >> 1) <= t;
-    found = found || sel;
-    tok[r] = (uint8_t)(sel && !(meta & 1));
-    mk[r] = (uint8_t)(sel && (meta & 1));
-    new_head[r] = sel ? (head + 1) % c : head;
-    new_len[r] = len - (int32_t)sel;
+// The operands of queue_step (kGather) and select_pop: select_pop reads
+// elig and writes sel through ``tok``.
+struct SelectArgs {
+  const int32_t* q_meta;     // [B, E, C] (kGather)
+  const int32_t* q_data;
+  const int32_t* q_head;     // [B, E]
+  const int32_t* q_len;
+  const int32_t* time;       // [B] (kGather)
+  const uint8_t* elig;       // [B, E] (select_pop)
+  const int32_t* src_first;  // [E]
+  uint8_t* tok;              // [B, E]: tok, or select_pop's sel
+  uint8_t* mk;               // (kGather)
+  int32_t* head_data;        // (kGather)
+  int32_t* new_head;
+  int32_t* new_len;
+  int e, c, blocks_per_lane;
+};
+
+template <bool kGather, int kItems>
+__global__ void __launch_bounds__(kThreads)
+select_kernel(const SelectArgs a) {
+  constexpr int kTile = kThreads * kItems;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kChunks = kItems * kWarps;   // chunks of 32 edges a tile
+  static_assert(kChunks <= 32, "warp 0 scans one chunk a lane");
+  __shared__ int chunk_last[kChunks];    // the chunk's last eligible edge
+  __shared__ int chunk_before[kChunks];  // the last one before the chunk
+  const unsigned lane = blockIdx.x / a.blocks_per_lane;
+  const int lo = (int)(blockIdx.x - lane * a.blocks_per_lane) * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int ln = threadIdx.x & 31;
+  const long long row0 = (long long)lane * a.e;
+  const int32_t t = kGather ? a.time[lane] : 0;
+  // an edge is this block's when its segment starts in [lo, lo + kTile)
+  auto owned = [&](int edge, int32_t first) {
+    return edge < a.e && (uint32_t)first - (uint32_t)lo < (uint32_t)kTile;
+  };
+  int carry = -1;   // warp 0: the last eligible edge before this tile
+  for (int base = lo;; base += kTile) {
+    int32_t first[kItems], head[kItems], len[kItems], word[kItems],
+        data[kItems];
+    bool own[kItems], el[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int edge = base + j * kThreads + threadIdx.x;
+      first[j] = edge < a.e ? a.src_first[edge] : -1;
+    }
+    const int next = base + kTile;
+    const bool more = next < a.e && owned(next, a.src_first[next]);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int edge = base + j * kThreads + threadIdx.x;
+      own[j] = owned(edge, first[j]);
+      if (own[j]) {
+        head[j] = a.q_head[row0 + edge];
+        len[j] = a.q_len[row0 + edge];
+        if (!kGather) word[j] = a.elig[row0 + edge];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (kGather && own[j]) {
+        const long long slot =
+            (row0 + base + j * kThreads + threadIdx.x) * a.c + head[j];
+        word[j] = a.q_meta[slot];
+        data[j] = a.q_data[slot];
+      }
+    }
+    unsigned ballot[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      // arithmetic >>, as jnp's on int32
+      el[j] = own[j] && (kGather ? len[j] > 0 && (word[j] >> 1) <= t
+                                 : word[j] != 0);
+      ballot[j] = __ballot_sync(0xffffffffu, el[j]);
+      if (ln == 0)
+        chunk_last[j * kWarps + warp] =
+            ballot[j] ? base + j * kThreads + warp * 32 + 31 -
+                            __clz((int)ballot[j])
+                      : -1;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int v = ln < kChunks ? chunk_last[ln] : -1;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, d);
+        if (ln >= d) v = max(v, u);
+      }
+      int before = __shfl_up_sync(0xffffffffu, v, 1);
+      if (ln == 0) before = -1;
+      if (ln < kChunks) chunk_before[ln] = max(before, carry);
+      carry = max(carry, __shfl_sync(0xffffffffu, v, 31));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (!own[j]) continue;
+      const int edge = base + j * kThreads + threadIdx.x;
+      const unsigned below = ballot[j] & ((1u << ln) - 1u);
+      const int last = below ? base + j * kThreads + warp * 32 + 31 -
+                                   __clz((int)below)
+                             : chunk_before[j * kWarps + warp];
+      const bool sel = el[j] && last < first[j];
+      const long long r = row0 + edge;
+      if (kGather) {
+        a.tok[r] = (uint8_t)(sel && !(word[j] & 1));
+        a.mk[r] = (uint8_t)(sel && (word[j] & 1));
+        a.head_data[r] = data[j];   // stale for an empty ring
+      } else {
+        a.tok[r] = (uint8_t)sel;
+      }
+      a.new_head[r] = sel ? (head[j] + 1) % a.c : head[j];
+      a.new_len[r] = len[j] - (int32_t)sel;
+    }
+    if (!more) break;
   }
 }
 
-__global__ void select_pop_kernel(const int32_t* __restrict__ q_head,
-                                  const int32_t* __restrict__ q_len,
-                                  const uint8_t* __restrict__ elig,
-                                  const int32_t* __restrict__ src_lo,
-                                  const int32_t* __restrict__ src_hi,
-                                  uint8_t* __restrict__ sel,
-                                  int32_t* __restrict__ new_head,
-                                  int32_t* __restrict__ new_len,
-                                  long long rows, int n, int e, int c) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const long long b = i / n;
-  const int node = (int)(i - b * n);
-  bool found = false;
-  for (int k = src_lo[node]; k < src_hi[node]; ++k) {
-    const long long r = b * e + k;
-    const int32_t head = q_head[r];
-    // the first eligible edge of the segment wins
-    const bool s = !found && elig[r];
-    found = found || s;
-    sel[r] = (uint8_t)s;
-    new_head[r] = s ? (head + 1) % c : head;
-    new_len[r] = q_len[r] - (int32_t)s;
+// One launch of the selection over ``lanes`` lanes, kItems from E
+template <bool kGather>
+int launch_select(SelectArgs a, long long lanes, void* stream) {
+  if (lanes > 0 && a.e > 0) {
+    const int items = a.e > 3 * kThreads ? 4 : (a.e + kThreads - 1) / kThreads;
+    a.blocks_per_lane = (a.e + kThreads * items - 1) / (kThreads * items);
+    const long long blocks = lanes * a.blocks_per_lane;
+    if (blocks > 0x7fffffffLL || a.e > 0x7fffffff - 2 * 4 * kThreads)
+      return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned int)blocks);
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (items) {
+      case 1: select_kernel<kGather, 1><<<grid, kThreads, 0, st>>>(a);
+        break;
+      case 2: select_kernel<kGather, 2><<<grid, kThreads, 0, st>>>(a);
+        break;
+      case 3: select_kernel<kGather, 3><<<grid, kThreads, 0, st>>>(a);
+        break;
+      default: select_kernel<kGather, 4><<<grid, kThreads, 0, st>>>(a);
+    }
   }
+  return (int)cudaGetLastError();
 }
 
 // one message on edge ``i`` (a flat (lane, edge) row) at its ring's tail,
@@ -301,33 +390,24 @@ int clsim_head_fields(const int32_t* q_meta, const int32_t* q_data,
 
 int clsim_queue_step(const int32_t* q_meta, const int32_t* q_data,
                      const int32_t* q_head, const int32_t* q_len,
-                     const int32_t* time, const int32_t* src_lo,
-                     const int32_t* src_hi, uint8_t* tok, uint8_t* mk,
-                     int32_t* head_data, int32_t* new_head, int32_t* new_len,
-                     long long rows, int n, int e, int c, void* stream) {
-  if (rows > 0) {
-    const long long blocks = (rows + kThreads - 1) / kThreads;
-    queue_step_kernel<<<(unsigned int)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        q_meta, q_data, q_head, q_len, time, src_lo, src_hi, tok, mk,
-        head_data, new_head, new_len, rows, n, e, c);
-  }
-  return (int)cudaGetLastError();
+                     const int32_t* time, const int32_t* src_first,
+                     uint8_t* tok, uint8_t* mk, int32_t* head_data,
+                     int32_t* new_head, int32_t* new_len, long long lanes,
+                     int e, int c, void* stream) {
+  const SelectArgs a{q_meta,    q_data, q_head,    q_len,    time,
+                     nullptr,   src_first, tok,    mk,       head_data,
+                     new_head,  new_len, e,        c,        0};
+  return launch_select<true>(a, lanes, stream);
 }
 
 int clsim_select_pop(const int32_t* q_head, const int32_t* q_len,
-                     const uint8_t* elig, const int32_t* src_lo,
-                     const int32_t* src_hi, uint8_t* sel, int32_t* new_head,
-                     int32_t* new_len, long long rows, int n, int e, int c,
-                     void* stream) {
-  if (rows > 0) {
-    const long long blocks = (rows + kThreads - 1) / kThreads;
-    select_pop_kernel<<<(unsigned int)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        q_head, q_len, elig, src_lo, src_hi, sel, new_head, new_len, rows,
-        n, e, c);
-  }
-  return (int)cudaGetLastError();
+                     const uint8_t* elig, const int32_t* src_first,
+                     uint8_t* sel, int32_t* new_head, int32_t* new_len,
+                     long long lanes, int e, int c, void* stream) {
+  const SelectArgs a{nullptr,  nullptr, q_head,  q_len,   nullptr,
+                     elig,     src_first, sel,   nullptr, nullptr,
+                     new_head, new_len, e,       c,       0};
+  return launch_select<false>(a, lanes, stream);
 }
 
 // routed = 0: append_rows over [B, E]; 1: append_marker_rows over the

@@ -47,8 +47,8 @@ _APPEND_PTRS = ("q_meta", "q_data", "q_head", "q_len", "tok_pushed", "error",
                 "active", "rt", "mk", "data", "node", "src_lo", "src_hi")
 _SIGS = {
     "clsim_head_fields": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
-    "clsim_queue_step": [_P] * 12 + [ctypes.c_longlong, _I, _I, _I, _P],
-    "clsim_select_pop": [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P],
+    "clsim_queue_step": [_P] * 11 + [ctypes.c_longlong, _I, _I, _P],
+    "clsim_select_pop": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
 }
 
 
@@ -210,40 +210,64 @@ def head_fields(q_meta, q_data, q_head):
     return rtime, marker, data
 
 
+@functools.lru_cache(maxsize=256)
+def _select_plan(gather: bool, capacity: int, sigs) -> tuple:
+    """(lanes, E) of one ``queue_step`` (``gather``) or ``select_pop``
+    call, its operands checked, worked out once per
+    (capacity, operand dtypes, shapes, strides and devices): on the
+    megatick-1 paths the wrapper's host time is the call's time."""
+    name = "queue_step" if gather else "select_pop"
+    lead = tuple(sigs[0][1])[:-1] if gather else tuple(sigs[0][1])
+    dev = sigs[0][3]
+    if dev < 0:
+        raise ValueError(f"{name}: operands on the CPU or a CUDA device")
+    i32 = torch.int32
+    if gather:
+        names = ("q_meta", "q_data", "q_head", "q_len", "time", "src_first")
+        want = [(i32, lead + (capacity,))] * 2 + [(i32, lead)] * 2 + [
+            (i32, lead[:-1])]
+    else:
+        names = ("q_head", "q_len", "elig", "src_first")
+        want = [(i32, lead)] * 2 + [(torch.bool, lead)]
+    e = lead[-1] if lead else -1
+    want.append((i32, (e,)))
+    for sig, nm, (dtype, shape) in zip(sigs, names, want):
+        if not (sig[0] == dtype and tuple(sig[1]) == shape and sig[3] == dev
+                and _row_major(shape, sig[2])):
+            raise ValueError(f"{name}: {nm} must be a contiguous {dtype} "
+                             f"{shape} on cuda:{dev}, got {sig[0]} "
+                             f"{tuple(sig[1])} strides {tuple(sig[2])} on "
+                             f"device {sig[3]}")
+    lanes = 1
+    for d in lead[:-1]:
+        lanes *= d
+    return lanes, e
+
+
 def queue_step(q_meta, q_data, q_head, q_len, time, src_first, src_lo,
                src_hi, *, capacity: int):
     """The fused delivery selection of the exact tick (``queue_step_plain``
-    says what it computes). ``src_first`` [E] drives the plain version;
-    the kernel walks each source's edges between ``src_lo`` and
-    ``src_hi`` [N] (the same segments). ``time`` holds one clock per
-    lane."""
+    says what it computes), one clock per lane in ``time``. ``src_first``
+    [E] gives each edge's segment; ``src_lo``/``src_hi`` [N], the same
+    segments as ranges, are not read."""
     if q_meta.device.type == "cpu":
         return queue_step_plain(q_meta, q_data, q_head, q_len, time,
                                 src_first, capacity=capacity)
-    lead = tuple(q_head.shape)
-    dev = q_meta.device
-    if q_meta.shape[-1] != capacity:
-        raise ValueError(f"q_meta has {q_meta.shape[-1]} slots, capacity "
-                         f"is {capacity}")
-    _check({"q_meta": q_meta, "q_data": q_data}, torch.int32,
-           lead + (capacity,), dev)
-    _check({"q_head": q_head, "q_len": q_len}, torch.int32, lead, dev)
-    _check({"time": time}, torch.int32, lead[:-1], dev)
-    n = src_lo.shape[0]
-    _check({"src_lo": src_lo, "src_hi": src_hi}, torch.int32, (n,), dev)
-    e = lead[-1]
-    rows = (q_head.numel() // e) * n if e else 0
-    tok = torch.empty(lead, dtype=torch.bool, device=dev)
-    mk = torch.empty(lead, dtype=torch.bool, device=dev)
-    head_data = torch.empty(lead, dtype=torch.int32, device=dev)
-    new_head = torch.empty(lead, dtype=torch.int32, device=dev)
-    new_len = torch.empty(lead, dtype=torch.int32, device=dev)
+    lanes, e = _select_plan(True, capacity, (
+        _sig(q_meta), _sig(q_data), _sig(q_head), _sig(q_len), _sig(time),
+        _sig(src_first)))
+    # q_head is a contiguous int32 [..., E]: the outputs are laid out so
+    tok = torch.empty_like(q_head, dtype=torch.bool)
+    mk = torch.empty_like(q_head, dtype=torch.bool)
+    head_data = torch.empty_like(q_head)
+    new_head = torch.empty_like(q_head)
+    new_len = torch.empty_like(q_head)
     code = _fn("clsim_queue_step")(
         q_meta.data_ptr(), q_data.data_ptr(), q_head.data_ptr(),
-        q_len.data_ptr(), time.data_ptr(), src_lo.data_ptr(),
-        src_hi.data_ptr(), tok.data_ptr(), mk.data_ptr(),
-        head_data.data_ptr(), new_head.data_ptr(), new_len.data_ptr(),
-        rows, n, e, capacity, _build.stream_ptr(q_meta))
+        q_len.data_ptr(), time.data_ptr(), src_first.data_ptr(),
+        tok.data_ptr(), mk.data_ptr(), head_data.data_ptr(),
+        new_head.data_ptr(), new_len.data_ptr(), lanes, e, capacity,
+        _build.stream_ptr(q_meta))
     _build.check(code, "clsim_queue_step")
     LAUNCHES["queue_step"] += 1
     return tok, mk, head_data, new_head, new_len
@@ -252,28 +276,21 @@ def queue_step(q_meta, q_data, q_head, q_len, time, src_first, src_lo,
 def select_pop(q_head, q_len, elig, src_first, src_lo, src_hi, *,
                capacity: int):
     """The selection + pop of the faulted exact tick (``select_pop_plain``
-    says what it computes): ``src_first`` [E] drives the plain version,
-    the kernel walks each source's edges between ``src_lo`` and ``src_hi``
-    [N] (the same segments)."""
+    says what it computes). ``src_first`` [E] gives each edge's segment;
+    ``src_lo``/``src_hi`` [N], the same segments as ranges, are not
+    read."""
     if q_head.device.type == "cpu":
         return select_pop_plain(q_head, q_len, elig, src_first,
                                 capacity=capacity)
-    lead = tuple(q_head.shape)
-    dev = q_head.device
-    _check({"q_head": q_head, "q_len": q_len}, torch.int32, lead, dev)
-    _check({"elig": elig}, torch.bool, lead, dev)
-    n = src_lo.shape[0]
-    _check({"src_lo": src_lo, "src_hi": src_hi}, torch.int32, (n,), dev)
-    e = lead[-1]
-    rows = (q_head.numel() // e) * n if e else 0
-    sel = torch.empty(lead, dtype=torch.bool, device=dev)
-    new_head = torch.empty(lead, dtype=torch.int32, device=dev)
-    new_len = torch.empty(lead, dtype=torch.int32, device=dev)
+    lanes, e = _select_plan(False, capacity, (
+        _sig(q_head), _sig(q_len), _sig(elig), _sig(src_first)))
+    sel = torch.empty_like(q_head, dtype=torch.bool)
+    new_head = torch.empty_like(q_head)
+    new_len = torch.empty_like(q_head)
     code = _fn("clsim_select_pop")(
         q_head.data_ptr(), q_len.data_ptr(), elig.data_ptr(),
-        src_lo.data_ptr(), src_hi.data_ptr(), sel.data_ptr(),
-        new_head.data_ptr(), new_len.data_ptr(), rows, n, e, capacity,
-        _build.stream_ptr(q_head))
+        src_first.data_ptr(), sel.data_ptr(), new_head.data_ptr(),
+        new_len.data_ptr(), lanes, e, capacity, _build.stream_ptr(q_head))
     _build.check(code, "clsim_select_pop")
     LAUNCHES["select_pop"] += 1
     return sel, new_head, new_len
@@ -281,7 +298,10 @@ def select_pop(q_head, q_len, elig, src_first, src_lo, src_hi, *,
 
 def _row_major(shape, stride) -> bool:
     """Whether ``stride`` lays ``shape`` out contiguously (the stride of a
-    dimension of size 1 is free, as in ``Tensor.is_contiguous``)."""
+    dimension of size 1 is free, and a tensor with no element is
+    contiguous, as in ``Tensor.is_contiguous``)."""
+    if 0 in shape:
+        return True
     step = 1
     for dim, st in zip(reversed(shape), reversed(stride)):
         if dim != 1 and st != step:

@@ -36,6 +36,11 @@ phases, each printing one JSON line:
                2,000-edge segment, R = 0, unaligned rows and tables, the
                int32 wrap); the wave tick's shapes too (sum_by_perm of its
                stacked [B, 5, E] per-wave facts, spread of its node flags);
+               queue_step and select_pop also on the source layouts no
+               real cell has (``select_edge_cases``: a 2,500-edge source
+               past a block's tile, segments across every boundary the
+               grid draws, sources of out-degree 0, E below 32 and off
+               every multiple of 32, one lane, no edges);
   fused_kernel fused_scan (the fused megatick) at the exact cell's shape —
                one drain megatick (K=8) from the state after its 32 storm
                phases, fault-free and faulted (the fault_storm cell's
@@ -261,8 +266,9 @@ the wrapper's and its caller's host time and the caller's device time
 
     python3 chip_smoke.py --queue-timing [--package-root DIR]
 
-times ``head_fields`` at the sync and faulted shapes and ``queue_step`` at
-the exact one (``queue_cases``): each held to its plain version, then
+times ``head_fields`` at the sync and faulted shapes, ``queue_step`` at
+the exact one and config 5's, and ``select_pop`` at the faulted one
+(``queue_cases``): each held to its plain version, then
 event ms, profiler device ms and host us per call, 5 rounds each, beside
 its bound (each gathered word a 32-byte sector), one JSON line, nothing
 else.
@@ -605,6 +611,98 @@ def segment_edge_cases(dev) -> list:
             rows.append({"kernel": name, "case": note, "path": plan.path,
                          "rows_per_group": plan.rows_per_group,
                          "smem_bytes": plan.smem_bytes,
+                         "max_abs_err": err})
+    return rows
+
+
+# the selection's source layouts beside the real cells' (out-degree at
+# most 8 on ER-256, 3 on SF-1k and SF-8k): out-degrees, 0 for a node with
+# no out-edge, and the lanes. "long": a 2,500-edge source from edge 1,012
+# (past a 1,024-edge tile, across three tile boundaries, leaving two
+# blocks of the lane nothing to own), segments across edges 32, 256 and
+# 768, E = 3,611 (no multiple of 32 or of a tile); "mid": E = 300, a
+# 280-edge source across 256; "ragged": E = 13; "one-lane": B = 1, E = 45,
+# a segment across 32; "empty": E = 0
+SELECT_LAYOUTS = {
+    "long": ([0, 30, 5, 0, 215, 12, 0, 500, 10, 240, 2500, 0]
+             + [1, 4, 2, 3] * 9 + [2, 0, 3, 1, 0, 3], 3),
+    "mid": ([3, 0, 280, 9, 8], 3),
+    "ragged": ([0, 3, 0, 0, 6, 1, 3], 3),
+    "one-lane": ([2, 31, 0, 12], 1),
+    "empty": ([0, 0, 0], 2),
+}
+
+
+def select_inputs(degrees, lanes, capacity, seed):
+    """numpy operands of queue_step and select_pop on a source layout
+    (``degrees``: each node's out-degree): (q_meta, q_data, q_head, q_len,
+    time, elig, src_first, src_lo, src_hi). Lanes cycle through three
+    regimes: every edge eligible (a head due now on every non-empty ring
+    beside empty rings whose stale slot looks due), the frozen clock
+    -2^31 (nothing eligible), random rings with about half the heads due;
+    ``elig`` (select_pop's) is every edge, none, and 40 % at random."""
+    import numpy as np
+
+    from chandy_lamport_tpu_torch.core.state import pack_meta
+
+    rng = np.random.default_rng(seed)
+    deg = np.asarray(degrees, np.int64)
+    bounds = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    src = np.repeat(np.arange(len(deg)), deg)
+    e, c = len(src), capacity
+    time = rng.integers(10, 1000, lanes).astype(np.int32)
+    rt = time[:, None, None] + rng.integers(-3, 4, (lanes, e, c))
+    q_head = rng.integers(0, c, (lanes, e)).astype(np.int32)
+    q_len = rng.integers(0, c + 1, (lanes, e)).astype(np.int32)
+    elig = rng.random((lanes, e)) < 0.4
+    regime = np.arange(lanes) % 3
+    rt[regime == 0] = time[regime == 0, None, None]
+    time[regime == 1] = -2**31
+    elig[regime == 0], elig[regime == 1] = True, False
+    q_meta = pack_meta(rt, rng.random((lanes, e, c)) < 0.25)
+    q_data = rng.integers(-99, 100, (lanes, e, c))
+    return (q_meta.astype(np.int32), q_data.astype(np.int32), q_head, q_len,
+            time, elig, bounds[src], bounds[:-1], bounds[1:])
+
+
+def select_edge_cases(dev) -> list:
+    """queue_step and select_pop against their plain versions, bit for
+    bit, on ``SELECT_LAYOUTS``: segments longer than a block's tile,
+    across every boundary the grid draws, sources of out-degree 0, E
+    below 32 and off every multiple of 32 and of the tile, one lane, no
+    edges; on each, lanes of every edge eligible, of none (queue_step:
+    the frozen clock) and random ones, and empty rings whose stale head
+    word ``head_data`` must carry."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+
+    rows, c = [], 24
+    for i, (name, (degrees, lanes)) in enumerate(SELECT_LAYOUTS.items()):
+        q_meta, q_data, q_head, q_len, time, elig, first, lo, hi = (
+            torch.as_tensor(x, device=dev)
+            for x in select_inputs(degrees, lanes, c, seed=40 + i))
+        for kernel, got, want in (
+                ("queue_step",
+                 kq.queue_step(q_meta, q_data, q_head, q_len, time, first,
+                               lo, hi, capacity=c),
+                 kq.queue_step_plain(q_meta, q_data, q_head, q_len, time,
+                                     first, capacity=c)),
+                ("select_pop",
+                 kq.select_pop(q_head, q_len, elig, first, lo, hi,
+                               capacity=c),
+                 kq.select_pop_plain(q_head, q_len, elig, first,
+                                     capacity=c))):
+            err = max_abs_err(list(got), list(want))
+            if err:
+                raise AssertionError(f"{kernel} != plain on the {name} "
+                                     f"layout: max |diff| {err}")
+            rows.append({"kernel": kernel, "layout": name,
+                         "lanes": lanes, "edges": int(first.numel()),
+                         "longest_segment": max(degrees),
+                         "selected": int(got[0].sum()
+                                         + (got[1].sum() if kernel
+                                            == "queue_step" else 0)),
                          "max_abs_err": err})
     return rows
 
@@ -1170,7 +1268,8 @@ def phase_kernels(runner, prog, xrunner, xprog, frunner, fprog,
     del sel_args, elig, f_head, f_len, down
 
     emit({"phase": "kernels", "tolerance": "bit-equal (integer work)",
-          "rows": rows, "segment_edge_cases": segment_edges})
+          "rows": rows, "segment_edge_cases": segment_edges,
+          "select_edge_cases": select_edge_cases(dev)})
     return out, rows
 
 
@@ -1834,16 +1933,21 @@ def spread_timing() -> int:
 
 
 def queue_cases(dev) -> list:
-    """The timed shapes of rows 4 and 6 as (kernel, shape note, the
+    """The timed shapes of rows 4, 6 and 7 as (kernel, shape note, the
     wrapper's call, the plain call, bytes, operations): ``head_fields`` at
     the sync storm's planes (config 4, [2048,3063,16]) and the faulted
     exact cell's ([4096,768,24]); ``queue_step`` at the exact cell's, with
-    ER-256's source segments. The rings are made from seed 7: heads
-    anywhere in the ring, lengths 0-3, head receive times within 3 ticks
-    of each lane's clock, every fourth head a marker, so about half the
-    non-empty heads are due. Bytes: each row reads its head (and its
-    length) and each gathered slot word as the 32-byte sector it comes in,
-    and writes its outputs once."""
+    ER-256's source segments, and at config 5's ([512,24572,24]), with
+    SF-8k's; ``select_pop`` at the faulted exact cell's ([4096,768]). The
+    rings are made from seed 7: heads anywhere in the ring, lengths 0-3,
+    head receive times within 3 ticks of each lane's clock, every fourth
+    head a marker, so about half the non-empty heads are due.
+    ``select_pop``'s eligibility is that of the rings' heads, gated as
+    ``_fault_gate_elig`` gates it (a jittered edge, 5 % of them, and the
+    in-edges of a crashed node, 3 % of a lane's nodes, lose it): about
+    40 % of the rows. Bytes: each row reads its head (and its length) and
+    each gathered slot word as the 32-byte sector it comes in, and writes
+    its outputs once; ``select_pop`` 18 B a row and the out-edge ranges."""
     import torch
 
     from chandy_lamport_tpu_torch.core.state import DenseTopology
@@ -1869,14 +1973,22 @@ def queue_cases(dev) -> list:
         q_meta = rt * 2 + mk.to(torch.int32)
         q_data = torch.randint(-99, 100, (b, e, c), generator=gen,
                                dtype=torch.int32)
-        return [x.to(dev) for x in (q_meta, q_data, q_head, q_len, time)]
+        return q_meta, q_data, q_head, q_len, time
+
+    def segments(topo):
+        """(src_first [E], src_lo [N], src_hi [N]) on ``dev``."""
+        src = torch.as_tensor(topo.edge_src, dtype=torch.int64)
+        nodes = torch.arange(topo.n)
+        src_lo = torch.searchsorted(src, nodes).to(torch.int32)
+        src_hi = torch.searchsorted(src, nodes, right=True).to(torch.int32)
+        return tuple(x.to(dev) for x in (src_lo[src], src_lo, src_hi))
 
     sync_e = DenseTopology(scale_free(NODES, ATTACH, seed=3)).e
     x_topo = DenseTopology(erdos_renyi(X_NODES, 3.0, seed=3))
     cases = []
     for b, e, c, note in ((BATCH, sync_e, 16, "sync"),
                           (X_BATCH, x_topo.e, 24, "faulted exact")):
-        q_meta, q_data, q_head, _, _ = rings(b, e, c)
+        q_meta, q_data, q_head = (x.to(dev) for x in rings(b, e, c)[:3])
         cases.append((
             "head_fields", f"{note}: [{b},{e},{c}] planes",
             lambda q_meta=q_meta, q_data=q_data, q_head=q_head:
@@ -1884,27 +1996,46 @@ def queue_cases(dev) -> list:
             lambda q_meta=q_meta, q_data=q_data, q_head=q_head:
             kq.head_fields_plain(q_meta, q_data, q_head),
             b * e * (4 + 2 * 32 + 9), 3 * b * e))
+    c5_topo = DenseTopology(scale_free(C5_NODES, ATTACH, seed=3))
+    for b, topo, note in ((X_BATCH, x_topo, "exact"),
+                          (C5_BATCH, c5_topo, "config 5")):
+        e, c = topo.e, 24
+        args = tuple(x.to(dev) for x in rings(b, e, c))
+        seg = segments(topo)
+        cases.append((
+            "queue_step", f"{note}: [{b},{e},{c}] planes",
+            lambda args=args, seg=seg: kq.queue_step(*args, *seg,
+                                                     capacity=c),
+            lambda args=args, seg=seg: kq.queue_step_plain(*args, seg[0],
+                                                           capacity=c),
+            b * e * (4 + 4 + 2 * 32 + 14) + 4 * b + 8 * topo.n, 8 * b * e))
+        del args
     b, e, c = X_BATCH, x_topo.e, 24
-    q_meta, q_data, q_head, q_len, time = rings(b, e, c)
-    src = torch.as_tensor(x_topo.edge_src, dtype=torch.int64)
-    nodes = torch.arange(x_topo.n)
-    src_lo = torch.searchsorted(src, nodes).to(torch.int32)
-    src_hi = torch.searchsorted(src, nodes, right=True).to(torch.int32)
-    src_first = src_lo[src].to(dev)
-    src_lo, src_hi = src_lo.to(dev), src_hi.to(dev)
-    args = (q_meta, q_data, q_head, q_len, time)
+    q_meta, _, q_head, q_len, time = rings(b, e, c)
+    head_meta = torch.gather(q_meta, -1, q_head.long().unsqueeze(-1))
+    elig = (q_len > 0) & ((head_meta.squeeze(-1) >> 1) <= time[:, None])
+    jittered = torch.rand((b, e), generator=gen) < 0.05
+    down = torch.rand((b, x_topo.n), generator=gen) < 0.03
+    dead = down[:, torch.as_tensor(x_topo.edge_dst, dtype=torch.int64)]
+    elig = (elig & ~jittered & ~dead).to(dev)
+    q_head, q_len = q_head.to(dev), q_len.to(dev)
+    seg = segments(x_topo)
+    del q_meta
     cases.append((
-        "queue_step", f"exact: [{b},{e},{c}] planes",
-        lambda: kq.queue_step(*args, src_first, src_lo, src_hi, capacity=c),
-        lambda: kq.queue_step_plain(*args, src_first, capacity=c),
-        b * e * (4 + 4 + 2 * 32 + 14) + 4 * b + 8 * x_topo.n, 8 * b * e))
+        "select_pop", f"faulted exact: [{b},{e}] gated elig, "
+                      f"{float(elig.float().mean()):.3f} of it true",
+        lambda: kq.select_pop(q_head, q_len, elig, *seg, capacity=c),
+        lambda: kq.select_pop_plain(q_head, q_len, elig, seg[0],
+                                    capacity=c),
+        18 * b * e + 8 * x_topo.n, 4 * b * e))
     return cases
 
 
 def queue_timing() -> int:
-    """``--queue-timing``: ``head_fields`` (row 4) and ``queue_step``
-    (row 6) at their timed shapes (``queue_cases``), each first held to
-    its plain version bit for bit, then in ``TURNS`` rounds of: event ms
+    """``--queue-timing``: ``head_fields`` (row 4), ``queue_step`` (row
+    6) and ``select_pop`` (row 7) at their timed shapes
+    (``queue_cases``), each first held to its plain version bit for bit,
+    then in ``TURNS`` rounds of: event ms
     per call (``time_ms``), profiler device ms per call and the wrapper's
     host us per call; the medians and every round beside the bound, the
     plain version's ms and the share of the bound reached, printed as one
@@ -3277,8 +3408,8 @@ def main(argv=None) -> int:
                     help="only time append_rows and its callers at their "
                          "three shapes")
     ap.add_argument("--queue-timing", action="store_true",
-                    help="only time head_fields and queue_step at their "
-                         "timed shapes")
+                    help="only time head_fields, queue_step and "
+                         "select_pop at their timed shapes")
     ap.add_argument("--batch", type=int,
                     help="with --drain-timing: the lanes of the cell "
                          "(default: the cell's own)")

@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
 from chandy_lamport_tpu_torch.core.state import DenseTopology, pack_meta
 from chandy_lamport_tpu_torch.kernels import launch_counts
@@ -328,6 +329,54 @@ def test_select_pop_equals_plain(dev):
                                     capacity=C))
     assert launch_counts()["select_pop"] == before + 1
     assert not bool(got[0][1].any()) and bool(got[0][0].any())
+
+
+@pytest.mark.parametrize("layout", sorted(chip_smoke.SELECT_LAYOUTS))
+def test_selection_layouts_equal_plain(dev, layout):
+    """Rows 6 and 7 on the layouts no real cell has (``chip_smoke.
+    SELECT_LAYOUTS``): a 2,500-edge source past a block's tile, segments
+    across every boundary the grid draws, sources of out-degree 0, E
+    below 32 and off every multiple of 32 and of the tile, one lane, no
+    edges; lanes of every edge eligible, of none (the frozen clock) and
+    random ones, empty rings' stale head words: bit-equal to the plain
+    versions, one launch each."""
+    degrees, lanes = chip_smoke.SELECT_LAYOUTS[layout]
+    q_meta, q_data, q_head, q_len, time, elig, first, lo, hi = (
+        torch.as_tensor(x, device=dev)
+        for x in chip_smoke.select_inputs(degrees, lanes, C, seed=3))
+    before = launch_counts()
+    got = kq.queue_step(q_meta, q_data, q_head, q_len, time, first, lo, hi,
+                        capacity=C)
+    _equal(got, kq.queue_step_plain(q_meta, q_data, q_head, q_len, time,
+                                    first, capacity=C))
+    got = kq.select_pop(q_head, q_len, elig, first, lo, hi, capacity=C)
+    _equal(got, kq.select_pop_plain(q_head, q_len, elig, first,
+                                    capacity=C))
+    after = launch_counts()
+    assert after["queue_step"] == before["queue_step"] + 1
+    assert after["select_pop"] == before["select_pop"] + 1
+
+
+def test_selection_refuses_what_it_does_not_take(dev):
+    """The selection wrappers raise on a wrong dtype, shape or layout of
+    any operand, ``src_first`` included."""
+    q_meta, q_data, q_head, q_len, time, elig, first, lo, hi = (
+        torch.as_tensor(x, device=dev) for x in chip_smoke.select_inputs(
+            [3, 0, 5, 2], 2, C, seed=4))
+    with pytest.raises(ValueError, match="src_first"):
+        kq.queue_step(q_meta, q_data, q_head, q_len, time, first[:-1], lo,
+                      hi, capacity=C)
+    with pytest.raises(ValueError, match="q_meta"):
+        kq.queue_step(q_meta, q_data, q_head, q_len, time, first, lo, hi,
+                      capacity=C + 1)
+    with pytest.raises(ValueError, match="time"):
+        kq.queue_step(q_meta, q_data, q_head, q_len, time.long(), first, lo,
+                      hi, capacity=C)
+    with pytest.raises(ValueError, match="elig"):
+        kq.select_pop(q_head, q_len, elig.int(), first, lo, hi, capacity=C)
+    with pytest.raises(ValueError, match="q_len"):
+        kq.select_pop(q_head, q_len.t().contiguous().t(), elig, first, lo,
+                      hi, capacity=C)
 
 
 def test_append_rows_past_65535_lanes(dev):
