@@ -146,17 +146,24 @@ def _storm_parser() -> argparse.ArgumentParser:
                          "off); violations set ERR_CONSERVATION")
     ps.add_argument("--delay", choices=["uniform", "hash"], default="hash",
                     help="'uniform' is not ported")
-    ps.add_argument("--checkpoint", help="not ported (checkpoints)")
+    ps.add_argument("--checkpoint", help="save the final state to this "
+                                         ".npz (atomic write)")
     ps.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
-                    help="not ported (checkpoints)")
+                    help="checkpoint to --checkpoint after every K phases "
+                         "(the phases in chunks, bit-identical to one run); "
+                         "a killed run resumes via --resume-from to the "
+                         "same final state")
     ps.add_argument("--resume-from", metavar="PATH",
-                    help="not ported (checkpoints)")
+                    help="resume a storm from a checkpoint of either "
+                         "package written by --checkpoint-every (pass the "
+                         "same storm flags; a mismatch raises "
+                         "CheckpointError)")
     for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
                        ("--fault-dup", "per-(edge, tick) token duplicate"),
                        ("--fault-jitter", "per-(edge, tick) front stall"),
                        ("--fault-crash", "per-(node, window) crash")):
         ps.add_argument(name, type=float, default=0.0, metavar="R",
-                        help=f"{what} probability (--scheduler exact)")
+                        help=f"{what} probability")
     ps.add_argument("--fault-seed", type=int, default=None,
                     help="adversary stream seed (default: --seed)")
     ps.add_argument("--crash-mode", choices=["pause", "lossy"],
@@ -167,14 +174,14 @@ def _storm_parser() -> argparse.ArgumentParser:
                        ("--marker-fault-dup", "marker duplicate"),
                        ("--marker-fault-jitter", "marker front stall")):
         ps.add_argument(name, type=float, default=0.0, metavar="R",
-                        help=f"per-(edge, tick) {what} probability "
-                             "(--scheduler exact)")
+                        help=f"per-(edge, tick) {what} probability")
     ps.add_argument("--snapshot-timeout", type=int, default=0, metavar="T")
     ps.add_argument("--snapshot-retries", type=int, default=3)
     ps.add_argument("--snapshot-every", type=int, default=0, metavar="K")
     ps.add_argument("--quarantine", action="store_true",
                     help="freeze a lane once its error bits fire (on "
-                         "whenever a fault rate is set; --scheduler exact)")
+                         "whenever a fault rate is set)")
+    # the resume drill: exit 17 right after that chunk's checkpoint lands
     ps.add_argument("--kill-after-chunk", type=int, default=None,
                     help=argparse.SUPPRESS)
     ps.add_argument("--trace", action="store_true",
@@ -191,52 +198,44 @@ def _storm_parser() -> argparse.ArgumentParser:
     return ps
 
 
-# the storm's flags whose machinery the port lacks: (flag, its ROADMAP
-# item, whether only the sync scheduler refuses it)
+# the storm's flags whose machinery the port lacks, with their ROADMAP
+# item
 _UNPORTED_STORM = (
-    ("--checkpoint", "A8", False), ("--checkpoint-every", "A8", False),
-    ("--resume-from", "A8", False), ("--kill-after-chunk", "A8", False),
-    ("--delay", "A7", False), ("--window-dtype", "A7", False),
-    ("--reduce-mode", "A7", False), ("--kernel-engine", "A7", False),
-    ("--fused-tick", "A7", False), ("--fused-block-edges", "A7", False),
-    ("--fault-drop", "A3a", True), ("--fault-dup", "A3a", True),
-    ("--fault-jitter", "A3a", True), ("--fault-crash", "A3a", True),
-    ("--fault-seed", "A3a", True), ("--marker-fault-drop", "A3a", True),
-    ("--marker-fault-dup", "A3a", True),
-    ("--marker-fault-jitter", "A3a", True),
-    ("--snapshot-timeout", "A3a", True), ("--snapshot-retries", "A3a", True),
-    ("--snapshot-every", "A3a", True), ("--quarantine", "A3a", True),
+    ("--delay", "A7"), ("--window-dtype", "A7"), ("--reduce-mode", "A7"),
+    ("--kernel-engine", "A7"), ("--fused-tick", "A7"),
+    ("--fused-block-edges", "A7"),
 )
 
 
 def _refuse_unported(parser, args) -> None:
     """Refuse, by name and ROADMAP item, each storm flag set away from its
-    default whose machinery is not ported (``_UNPORTED_STORM``; the fault
-    and supervisor flags only on the sync scheduler), and ``--exact-impl
-    fold`` (A5b)."""
+    default whose machinery is not ported (``_UNPORTED_STORM``), and
+    ``--exact-impl fold`` (A5b)."""
     if args.scheduler == "exact" and args.exact_impl == "fold":
         parser.error("--exact-impl fold is not ported yet (ROADMAP A5b)")
-    for flag, item, sync_only in _UNPORTED_STORM:
+    for flag, item in _UNPORTED_STORM:
         dest = flag.lstrip("-").replace("-", "_")
-        if sync_only and args.scheduler != "sync":
-            continue
         if getattr(args, dest) != parser.get_default(dest):
-            where = " with --scheduler sync" if sync_only else ""
-            parser.error(f"{flag}{where} is not ported yet (ROADMAP "
-                         f"{item})")
+            parser.error(f"{flag} is not ported yet (ROADMAP {item})")
 
 
 def storm_run(argv) -> int:
     """The JAX CLI's ``storm`` (``cli.py:149-316``) on the port: one storm
     of ``--batch`` lanes through ``BatchedRunner.run_storm`` (the drain
     and flush in ``--megatick`` K-tick megaticks on the exact scheduler),
-    then one JSON counters line with the JAX keys. Exit 0 when no error
-    bit fired, or when an armed adversary's casualties were quarantined;
-    else 1."""
+    then one JSON counters line with the JAX keys. With
+    ``--checkpoint-every K`` the phases run in chunks of K with a
+    checkpoint after each (meta ``next_phase``), then the drain;
+    ``--resume-from`` starts from such a file (either package's);
+    ``--checkpoint`` alone saves the final state (meta ``drained``).
+    Exit 0 when no error bit fired, or when an armed adversary's
+    casualties were quarantined; 17 after ``--kill-after-chunk``; else
+    1."""
     from chandy_lamport_tpu_torch.config import SimConfig
     from chandy_lamport_tpu_torch.core.state import decode_error_bits
     from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
+        StormProgram,
         erdos_renyi,
         ring_topology,
         scale_free,
@@ -245,6 +244,10 @@ def storm_run(argv) -> int:
     )
     from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
     from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+    from chandy_lamport_tpu_torch.utils.checkpoint import (
+        load_state,
+        save_state,
+    )
     from chandy_lamport_tpu_torch.utils.metrics import (
         conservation_delta,
         progress_counters,
@@ -258,6 +261,10 @@ def storm_run(argv) -> int:
     parser = _storm_parser()
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
+    if args.checkpoint_every and not args.checkpoint:
+        print("--checkpoint-every needs --checkpoint PATH (the file "
+              "the periodic snapshots land in)", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     tokens = args.phases + 10
     spec = {"ring": lambda: ring_topology(args.nodes, tokens=tokens),
@@ -301,7 +308,43 @@ def storm_run(argv) -> int:
         runner.topo, phases=args.phases, amount=1,
         snapshot_phases=staggered_snapshots(runner.topo, args.snapshots, 1,
                                             2, max_phases=args.phases))
-    final = runner.run_storm(runner.init_batch_device(), prog)
+    meta_base = {"nodes": runner.topo.n, "batch": args.batch,
+                 "scheduler": args.scheduler, "phases": args.phases,
+                 "delay": args.delay, "seed": args.seed}
+    if faults is not None:
+        meta_base["faults"] = faults.describe()
+
+    state = runner.init_batch_device()
+    start_phase = 0
+    if args.resume_from:
+        # a fresh state of the same flags is the template: a file of
+        # another run's shape raises CheckpointError
+        state, meta = load_state(args.resume_from, state, delay=runner.delay)
+        start_phase = int(meta.get("next_phase", 0))
+        print(f"resumed from {args.resume_from} at phase {start_phase}",
+              file=sys.stderr)
+
+    def phases(lo, hi):
+        return StormProgram(prog.amounts[lo:hi], prog.snap[lo:hi])
+
+    if args.checkpoint_every:
+        k = args.checkpoint_every
+        for chunk, lo in enumerate(range(start_phase, args.phases, k)):
+            hi = min(lo + k, args.phases)
+            state = runner.run_storm(state, phases(lo, hi), drain=False)
+            save_state(args.checkpoint, state,
+                       meta={**meta_base, "next_phase": hi},
+                       delay=runner.delay)
+            if (args.kill_after_chunk is not None
+                    and chunk == args.kill_after_chunk):
+                # the preemption drill: stop right after a checkpoint
+                # landed, before the drain
+                print(json.dumps({"killed_after_phase": hi,
+                                  "checkpoint": args.checkpoint}))
+                return 17
+        final = runner.drain(state)
+    else:
+        final = runner.run_storm(state, phases(start_phase, args.phases))
     counters = {k: int(v) for k, v in progress_counters(
         final, runner.config, runner.topo.n).items()}
     counters["errors_decoded"] = decode_error_bits(counters["error_bits"])
@@ -321,14 +364,14 @@ def storm_run(argv) -> int:
     if trace is not None:
         counters["trace_events"], counters["trace_dropped"] = \
             trace_counts(final)
+    if args.checkpoint:
+        save_state(args.checkpoint, final,
+                   meta={**meta_base, "next_phase": args.phases,
+                         "drained": True}, delay=runner.delay)
+        counters["checkpoint"] = args.checkpoint
     if args.telemetry:
-        meta = {"nodes": runner.topo.n, "batch": args.batch,
-                "scheduler": args.scheduler, "phases": args.phases,
-                "delay": args.delay, "seed": args.seed}
-        if faults is not None:
-            meta["faults"] = faults.describe()
         with TelemetryWriter(args.telemetry) as tw:
-            tw.write("storm_run", {**meta, **counters})
+            tw.write("storm_run", {**meta_base, **counters})
         counters["telemetry"] = args.telemetry
     print(json.dumps(counters))
     if counters["error_bits"] == 0:
@@ -338,7 +381,7 @@ def storm_run(argv) -> int:
 
 def _stream_parser() -> argparse.ArgumentParser:
     """The JAX CLI's ``stream`` flags (``cli.py:753-855``) less the memo
-    plane, checkpoints, guards and telemetry, plus ``--device``."""
+    plane, guards and telemetry, plus ``--device``."""
     pq = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
                                       "stream")
     pq.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
@@ -385,12 +428,25 @@ def _stream_parser() -> argparse.ArgumentParser:
                     help="drain ticks per stream step for draining lanes")
     pq.add_argument("--fault-drop", type=float, default=0.0, metavar="R",
                     help="fault adversary: per-(edge, tick) token-drop "
-                         "probability, armed per job (--scheduler exact; "
-                         "the sync scheduler refuses faults)")
+                         "probability, armed per job (each job replays its "
+                         "own stream wherever it lands)")
     pq.add_argument("--fault-dup", type=float, default=0.0, metavar="R")
     pq.add_argument("--fault-jitter", type=float, default=0.0, metavar="R")
     pq.add_argument("--fault-seed", type=int, default=None,
                     help="adversary stream seed (default: --seed)")
+    pq.add_argument("--checkpoint", help="save the (state, stream) carry "
+                                         "to this .npz")
+    pq.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                    help="checkpoint to --checkpoint every K stream steps; "
+                         "a killed run resumes via --resume-from to a "
+                         "bit-identical finish")
+    pq.add_argument("--resume-from", metavar="PATH",
+                    help="resume a streaming run from a checkpoint of "
+                         "either package written by --checkpoint-every "
+                         "(pass the same flags)")
+    # the resume drill: exit 17 after that many checkpoints
+    pq.add_argument("--kill-after-saves", type=int, default=None,
+                    help=argparse.SUPPRESS)
     pq.add_argument("--trace", action="store_true",
                     help="arm the flight recorder (lane admits and harvests "
                          "land in the per-lane rings); adds trace_events/"
@@ -408,7 +464,11 @@ def stream_run(argv) -> int:
     """The JAX CLI's ``stream`` (``cli.py:317-439``) on the port: pack a
     ``stream_jobs`` queue, drive it through ``run_stream`` and print one
     JSON row (``summarize_stream``'s counters, the wall time, jobs/s and
-    the errored jobs). Exit 1 when a job erred without an adversary."""
+    the errored jobs). ``--checkpoint-every K`` saves the ``(state,
+    stream)`` carry every K steps, ``--resume-from`` continues from such a
+    file. Exit 1 when a job erred without an adversary, 17 after
+    ``--kill-after-saves``, 2 on ``--checkpoint-every`` without
+    ``--checkpoint``."""
     from chandy_lamport_tpu_torch.config import SimConfig
     from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
@@ -419,9 +479,14 @@ def stream_run(argv) -> int:
     )
     from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
     from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+    from chandy_lamport_tpu_torch.utils.checkpoint import load_state
     from chandy_lamport_tpu_torch.utils.tracing import Trace, trace_counts
 
     args = _stream_parser().parse_args(argv)
+    if args.checkpoint_every and not args.checkpoint:
+        print("--checkpoint-every needs --checkpoint PATH (the file the "
+              "periodic (state, stream) snapshots land in)", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     tokens = args.max_phases + 10
     spec = {"ring": lambda: ring_topology(args.nodes, tokens=tokens),
@@ -450,15 +515,31 @@ def stream_run(argv) -> int:
                        max_phases=args.max_phases, dup_rate=args.dup_rate,
                        prefix_overlap=args.prefix_overlap)
     pool = runner.pack_jobs(jobs)
+    state = stream = None
+    if args.resume_from:
+        # a fresh carry of the same flags is the template: a file of
+        # another queue or batch shape raises CheckpointError
+        like = (runner.init_batch_device(), runner.init_stream(pool))
+        (state, stream), meta = load_state(args.resume_from, like,
+                                           delay=runner.delay)
+        print(f"resumed from {args.resume_from} at {meta}", file=sys.stderr)
     t0 = time.perf_counter()
     state, stream = runner.run_stream(
         pool, stretch=args.stretch, drain_chunk=args.drain_chunk,
-        admission=args.admission)
+        admission=args.admission, state=state, stream=stream,
+        checkpoint=args.checkpoint, checkpoint_every=args.checkpoint_every,
+        kill_after_saves=args.kill_after_saves)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     done = int(stream.jobs_done)
     results = runner.stream_results(stream)
+    if args.kill_after_saves is not None and len(results) < jcount:
+        # the preemption drill: stop right after that many checkpoints
+        print(json.dumps({"killed_after_steps": int(stream.steps),
+                          "jobs_done": done,
+                          "checkpoint": args.checkpoint}))
+        return 17
     row = runner.summarize_stream(stream)
     row.update({"graph": args.graph, "nodes": runner.topo.n,
                 "batch": args.batch, "jobs": jcount,

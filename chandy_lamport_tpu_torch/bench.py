@@ -15,7 +15,7 @@ card takes, ``fused_tile`` and ``fused_tile_reason``: tiled into device
 memory for a lane whose working set passes a block's shared memory, such
 as config 5's SF-8k).
 
-The exact scheduler takes the JAX storm CLI's fault adversary and
+Either scheduler takes the JAX storm CLI's fault adversary and
 snapshot supervisor flags by their names (``--fault-*``, ``--crash-*``,
 ``--marker-fault-*``, ``--snapshot-*``, ``--quarantine``; quarantine is on
 whenever a fault rate is set). With an armed adversary a row counts when
@@ -178,7 +178,7 @@ def _parser() -> argparse.ArgumentParser:
                         "Zipf-drawn library job with a distinguishing tail "
                         "(stream_jobs prefix_overlap; excludes --dup-rate)")
     f = p.add_argument_group("fault adversary and snapshot supervisor "
-                             "(--scheduler exact; the JAX storm CLI's flags)")
+                             "(the JAX storm CLI's flags)")
     for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
                        ("--fault-dup", "per-(edge, tick) token duplicate"),
                        ("--fault-jitter", "per-(edge, tick) front stall"),

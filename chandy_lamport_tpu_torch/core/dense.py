@@ -102,7 +102,7 @@ class DenseSim:
         if faults is not None:
             raise NotImplementedError(
                 "faults in DenseSim are not ported yet (ROADMAP.md, "
-                "section A); BatchedRunner(scheduler='exact') carries them")
+                "section A); BatchedRunner carries them")
         self.device = resolve_device(device)
         self.config = config or SimConfig()
         self.topo = DenseTopology(topology)

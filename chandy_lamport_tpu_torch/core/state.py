@@ -97,6 +97,42 @@ INT32_MAX = 2**31 - 1
 # DenseState leaves that hold uint32 words (as int64, module docstring)
 U32_LEAVES = ("fault_key", "sig")
 
+# Checkpoint-format version history (utils/checkpoint.py writes the live
+# version into each file's header), copied row for row from the JAX
+# package's core/state.py: the port's DenseState and StreamState have the
+# JAX fields in the JAX order, so its files are the JAX package's files
+# and each package loads the other's. One row per breaking layout change;
+# versions run consecutively from 1 and the live version is the last row.
+CHECKPOINT_FORMAT_HISTORY: Tuple[Tuple[int, str], ...] = (
+    (1, "round-2 DenseState (q_seq/seq_next/m_seq/rec_len/rec_data leaves)"),
+    (2, "window-log/merge-key state (tok_pushed/mk_cnt/m_key/rec_cnt/"
+        "min_prot/log_amt/rec_start/rec_end) + three-word hash-delay state"),
+    (3, "packed ring slots: q_marker/q_data/q_rtime became "
+        "q_meta (rtime << 1 | is_marker) + full-range q_data"),
+    (4, "fault-adversary leaves (fault_key/fault_skew/fault_counts) join "
+        "the carry; writes became atomic (tmp-then-os.replace)"),
+    (5, "snapshot-supervisor leaves (snap_epoch/snap_deadline/snap_retries/"
+        "snap_initiator/snap_failed/snap_done_time + stale_markers); "
+        "fault_counts widens to [7] with the marker-plane classes"),
+    (6, "streaming-engine leaves (job_id/prog_cursor/admit_tick): per-lane "
+        "job identity resumes mid-queue admission bit-exactly"),
+    (7, "flight-recorder leaves (tr_meta/tr_data/tr_tick/tr_count/tr_on): "
+        "the device trace ring and its dropped-events accounting survive "
+        "a kill mid-run"),
+    (8, "memo-plane leaf (sig: per-lane rolling state signature for "
+        "transition fast-forwarding) + StreamState memo counters "
+        "(cache_hits/coalesced_jobs/ff_skipped_ticks/shadow_checks): a "
+        "kill mid-stream resumes the fast-forward memo and hit "
+        "accounting bit-exactly"),
+    (9, "serving-plane StreamState leaves (deadline_misses + per-tenant "
+        "tenant_served/tenant_quota books): a killed serve run resumes "
+        "its deadline-miss and fairness accounting bit-exactly"),
+    (10, "prefix-fork StreamState counters (prefix_hits/forked_jobs/"
+         "fork_depth_sum): a killed memo=\"prefix\" run resumes its "
+         "speculative-fork accounting bit-exactly"),
+)
+CHECKPOINT_FORMAT_VERSION = CHECKPOINT_FORMAT_HISTORY[-1][0]
+
 
 def pack_meta(rtime, marker):
     """One packed ring-slot metadata word: ``rtime << 1 | is_marker``."""

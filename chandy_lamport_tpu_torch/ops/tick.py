@@ -31,17 +31,19 @@ site of the JAX ticks on a ported tick form appends its events to the
 lane's ring, in the JAX order (``utils/tracing.py``); with ``trace=None``
 or ``cfg.trace_capacity == 0`` no site runs.
 
-The ring-mode ticks carry the fault adversary (``faults``,
+Every tick form carries the fault adversary (``faults``,
 models/faults.py), the snapshot supervisor (``cfg.snapshot_timeout`` /
 ``snapshot_every``) and quarantine (a lane with error bits stops
 ticking), as the JAX ticks do; with all three off they run exactly the
-fault-free code (no hook is called). The sync tick refuses them. JAX
-freezes a lane with ``lax.cond`` under ``vmap``, which computes both
-branches and selects; since the port writes in place, it cannot tick
-every lane and select afterwards, so the
-lane mask ``active`` reaches every effect instead: restarts and their
-counts, the supervisor's scan, re-initiation and daemon, the gates, the
-duplicate appends, the bulk sends and injections, and every delay draw.
+fault-free code (no hook is called). JAX freezes a lane with
+``lax.cond`` under ``vmap``, which computes both branches and selects;
+since the port writes some leaves in place, the lane mask ``active``
+reaches every in-place effect: restarts and their counts, the
+supervisor's scan, re-initiation and daemon, the gates, the duplicate
+appends, the bulk sends and injections, and every delay draw. The sync
+tick computes its functional leaves for every lane and selects the
+inactive lanes back (``_sync_tick_lanes``); its in-place effects (the
+fault counts, the duplicates' appends, the recorder) take ``active``.
 
 The JAX state is immutable; here some writes are in place, so callers
 hand the kernel a state they own: ``_append_rows`` and the ring-mode
@@ -53,9 +55,9 @@ once per marker. Every call site owns what it passes: the runners clone
 the caller's state once at entry (``BatchedRunner._own``) and
 ``DenseSim`` holds its one state; within a run each leaf flows from one
 step to the next, and no step keeps an older state to select lanes back
-from (the sync tick's ``select_lanes`` follows no append, the stream's
-``reset_lanes`` returns fresh tensors and its harvest is copied into the
-results ring before the lanes append again).
+from (the sync tick's ``select_lanes`` follows only appends masked to its
+active lanes, the stream's ``reset_lanes`` returns fresh tensors and its
+harvest is copied into the results ring before the lanes append again).
 """
 
 from __future__ import annotations
@@ -199,7 +201,7 @@ class TickKernel:
     ``faults`` (models/faults.Faults or None) arms the fault adversary,
     the config's ``snapshot_timeout``/``snapshot_every`` the snapshot
     supervisor, and ``quarantine`` freezes a lane once its error bits
-    fire (module docstring); all three are ring-mode only. ``trace``
+    fire (module docstring), in both marker modes. ``trace``
     (utils/tracing.Trace or None) arms the flight recorder when the
     config gives the ring slots (``cfg.trace_capacity > 0``).
 
@@ -236,12 +238,6 @@ class TickKernel:
                 f"{type(delay).__name__} draws are order-dependent: use "
                 "FixedDelay or HashDelay (or exact_impl='cascade')")
         self._sup = bool(cfg.snapshot_timeout > 0 or cfg.snapshot_every > 0)
-        if marker_mode == "split" and (faults is not None or self._sup
-                                       or quarantine):
-            raise NotImplementedError(
-                "the sync scheduler under faults, the snapshot supervisor "
-                "or quarantine is not ported yet (ROADMAP.md, section A); "
-                "the exact scheduler carries them")
         if megatick < 1:
             raise ValueError(f"megatick must be >= 1, got {megatick}")
         if megatick > 1 and marker_mode == "split":
@@ -406,12 +402,16 @@ class TickKernel:
         return self._bulk_push(s, active, False, amounts.expand(b, -1),
                                lanes)
 
-    def _push_markers_split(self, s: DenseState, push_se) -> DenseState:
+    def _push_markers_split(self, s: DenseState, push_se,
+                            lanes=None) -> DenseState:
         """Marker multi-push into the [B, S, E] pending planes; merge keys
-        allocated in slot order on each edge."""
+        allocated in slot order on each edge. Lanes outside ``lanes`` [B]
+        (None = all; ``push_se`` must be empty there) draw nothing."""
         S = self.cfg.max_snapshots
         rts_se, dstate = self.delay.draw_many(s.delay_state, s.time,
                                               (S, self.topo.e))
+        if lanes is not None:
+            dstate = select_words(lanes, dstate, s.delay_state)
         push_i = push_se.to(_i32)
         off_se = torch.cumsum(push_i, dim=-2, dtype=_i32) - push_i
         k_e = push_i.sum(-2, dtype=_i32)
@@ -429,9 +429,11 @@ class TickKernel:
                                   self._slot_ids[:, None])
         return s
 
-    def _create_and_broadcast(self, s: DenseState, created) -> DenseState:
+    def _create_and_broadcast(self, s: DenseState, created,
+                              lanes=None) -> DenseState:
         """CreateLocalSnapshot + marker broadcast for every True (lane,
-        slot, node) of ``created`` [B, S, N]."""
+        slot, node) of ``created`` [B, S, N]; lanes outside ``lanes`` [B]
+        (None = all; ``created`` must be empty there) draw nothing."""
         created_dst_se = self._spread_dst(created)
         s = s._replace(
             recording=s.recording | created_dst_se,
@@ -440,27 +442,49 @@ class TickKernel:
             has_local=s.has_local | created,
             **window_update(s, created_dst_se, None, s.rec_cnt),
         )
-        return self._push_markers_split(s, self._spread_src(created))
+        return self._push_markers_split(s, self._spread_src(created), lanes)
 
-    def _bulk_snapshots(self, s: DenseState, init_mask) -> DenseState:
-        """Start a snapshot at every node of ``init_mask`` [N] (shared by
-        every lane), ids allocated in node-index order from next_sid."""
+    def _bulk_snapshots(self, s: DenseState, init_mask,
+                        lanes=None) -> DenseState:
+        """Start a snapshot at every node of ``init_mask`` ([N], shared by
+        every lane, or [B, N], one row per lane), ids allocated in
+        node-index order from next_sid, on the lanes of ``lanes`` [B]
+        (None = all; the others are left as they were, their delay stream
+        included). Under the supervisor, remember each slot's initiator
+        and arm its first deadline (the JAX ``_bulk_snapshots``)."""
         S = self.cfg.max_snapshots
-        count = init_mask.sum(dtype=_i32)
+        init_mask = init_mask.expand(s.time.shape[0], self.topo.n)
+        if lanes is not None:
+            init_mask = init_mask & lanes.unsqueeze(-1)
+        count = init_mask.sum(-1, dtype=_i32)                   # [B]
         rank = torch.cumsum(init_mask.to(_i32), dim=-1, dtype=_i32) - 1
         sid_n = s.next_sid.unsqueeze(-1) + rank                 # [B, N]
-        created = init_mask & (sid_n.unsqueeze(-2)
-                               == self._slot_ids[:, None])      # [B, S, N]
+        created = init_mask.unsqueeze(-2) & (
+            sid_n.unsqueeze(-2) == self._slot_ids[:, None])     # [B, S, N]
+        over = s.next_sid + count > S
+        if lanes is not None:
+            over = over & lanes
         s = s._replace(
             next_sid=s.next_sid + count,
             started=s.started | created.any(-1),
-            error=s.error | _flag(s.next_sid + count > S,
-                                  ERR_SNAPSHOT_OVERFLOW),
+            error=s.error | _flag(over, ERR_SNAPSHOT_OVERFLOW),
         )
+        if self._sup:
+            any_c = created.any(-1)                              # [B, S]
+            # the first True node of each slot (argmax over bools)
+            init_n = torch.where(created, self._node_ids,
+                                 self.topo.n).amin(-1).clamp(
+                                     max=self.topo.n - 1).to(_i32)
+            s = s._replace(snap_initiator=torch.where(
+                any_c, init_n, s.snap_initiator))
+            if self.cfg.snapshot_timeout:
+                s = s._replace(snap_deadline=torch.where(
+                    any_c, s.time.unsqueeze(-1) + self.cfg.snapshot_timeout,
+                    s.snap_deadline))
         if self._trace_on:
-            s = trace_append_many(s, init_mask.expand(sid_n.shape),
-                                  EV_SNAP_START, self._node_ids, sid_n)
-        return self._create_and_broadcast(s, created)
+            s = trace_append_many(s, init_mask, EV_SNAP_START,
+                                  self._node_ids, sid_n)
+        return self._create_and_broadcast(s, created, lanes)
 
     # ---- the synchronous tick ----------------------------------------------
 
@@ -474,12 +498,31 @@ class TickKernel:
         return s._replace(snap_done_time=torch.where(
             newly, s.time.unsqueeze(-1), s.snap_done_time))
 
-    def _sync_tick(self, s: DenseState) -> DenseState:
+    def _sync_tick(self, s: DenseState, active=None) -> DenseState:
         """Every source delivers its first eligible channel front at once,
-        all tokens before all markers (the JAX ``_sync_tick`` docstring)."""
+        all tokens before all markers (the JAX ``_sync_tick`` docstring).
+
+        Under faults and the supervisor, in the JAX order: the crash
+        restarts and the supervisor step at tick start, the jitter and
+        crash gates on the eligibility, the drop/dup split of the popped
+        tokens, the duplicated tokens re-appended after the log append,
+        the marker drop/dup split of the consumed fronts, windows closed
+        only where a channel still records (``closed_sn``; a duplicated
+        marker may find its channel closed), and the duplicated markers
+        re-armed in the pending planes with a fresh merge key.
+
+        ``active`` [B] (None = every lane): the lanes that tick. This
+        function computes every lane and ``_sync_tick_lanes`` selects the
+        others back; ``active`` keeps its in-place effects (the fault
+        counts, the duplicates' appends) off the other lanes."""
         C = self.cfg.queue_capacity
+        faulted = self.faults is not None
         time = s.time + 1
         s = s._replace(time=time)
+        if faulted:
+            s = self._fault_restart(s, active)
+        if self._sup:
+            s = self._supervise(s, active)
 
         # channel fronts: ring head, or the pending marker with the
         # smallest merge key once every token pushed before it has popped
@@ -496,6 +539,16 @@ class TickKernel:
         front_rt = torch.where(front_is_marker, m_front_rt, head_rt)
         elig_e = (tok_live | front_is_marker) & (
             front_rt <= time.unsqueeze(-1))
+        if faulted:
+            # the gates first (jitter stalls the merged front, the marker
+            # jitter marker fronts on top, a down destination receives
+            # nothing), then the drop/dup programs on what delivers
+            if active is not None:
+                elig_e = elig_e & active.unsqueeze(-1)
+            drop_e, dup_e, jit_e, dup_rt = self._fault_edge_masks(s)
+            mdrop_e, mdup_e, mjit_e, mdup_rt = self._fault_marker_masks(s)
+            s, elig_e = self._fault_gate_elig(s, elig_e, jit_e, mjit_e,
+                                              front_is_marker)
         # first eligible edge per source: exclusive prefix count re-based
         # at each source's first edge
         elig_i = elig_e.to(_i32)
@@ -506,6 +559,9 @@ class TickKernel:
         mk_e = deliver_e & front_is_marker
         s = s._replace(q_head=(s.q_head + tok_e.to(_i32)) % C,
                        q_len=s.q_len - tok_e.to(_i32))
+        if faulted:
+            s, tok_e, dup_tok = self._fault_split_tokens(s, tok_e, head_amt,
+                                                         drop_e, dup_e)
 
         # token deliveries: credit + shared-log append
         amt_e = torch.where(tok_e, head_amt, 0)
@@ -521,10 +577,20 @@ class TickKernel:
             s.log_amt, s.rec_cnt, s.min_prot, s.recording, tok_e, amt_e,
             self._rec_dtype, self._rec_limit, self.cfg.max_recorded)
         s = s._replace(log_amt=log, rec_cnt=cnt, error=s.error | err_bits)
+        if faulted:
+            # duplicated tokens re-enter their ring at the tail, with
+            # fault-stream receive times (tok_pushed advances, so this
+            # tick's marker merge keys order after them)
+            s = self._append_rows(s, dup_tok, dup_rt, False, head_amt)
 
-        # marker deliveries, every slot at once (HandleMarker)
+        # marker deliveries, every slot at once (HandleMarker): every
+        # delivering front is consumed, the dropped ones included
+        s = s._replace(m_pending=s.m_pending & ~(m_is_front
+                                                 & mk_e.unsqueeze(-2)))
+        if faulted:
+            s, mk_e, mk_dup_e = self._fault_split_markers(s, mk_e, mdrop_e,
+                                                          mdup_e)
         mk_se = m_is_front & mk_e.unsqueeze(-2)                     # [B,S,E]
-        s = s._replace(m_pending=s.m_pending & ~mk_se)
         if self._trace_on:
             # the consumed front's plane index is the snapshot id
             sid_e = torch.where(mk_se, self._slot_ids[:, None], 0).sum(
@@ -536,17 +602,31 @@ class TickKernel:
         created_dst_se = self._spread_dst(created)
         stopped = mk_se & s.recording
         started_se = created_dst_se & ~mk_se
+        # only live closes decrement rem under faults; without duplicates
+        # every arrival at a node with its local snapshot closes a window
+        closed_sn = self._sum_by_dst(stopped) if faulted else arrivals
         s = s._replace(
             recording=(s.recording | created_dst_se) & ~mk_se,
             frozen=torch.where(created, s.tokens.unsqueeze(-2), s.frozen),
             rem=torch.where(created, self._in_degree - arrivals,
-                            s.rem - torch.where(had, arrivals, 0)),
+                            s.rem - torch.where(had, closed_sn, 0)),
             has_local=had | created,
             **window_update(s, started_se, stopped, s.rec_cnt),
         )
 
         # re-broadcast from every node that just created its snapshot
         s = self._push_markers_split(s, self._spread_src(created))
+        if faulted:
+            # duplicated markers re-arm their pending entry with a
+            # fault-stream receive time and a fresh merge key
+            dup_se = m_is_front & mk_dup_e.unsqueeze(-2)            # [B,S,E]
+            key_e = s.tok_pushed * self._keymult + s.mk_cnt
+            s = s._replace(
+                m_pending=s.m_pending | dup_se,
+                m_rtime=torch.where(dup_se, mdup_rt.unsqueeze(-2),
+                                    s.m_rtime),
+                m_key=torch.where(dup_se, key_e.unsqueeze(-2), s.m_key),
+                mk_cnt=s.mk_cnt + mk_dup_e.to(_i32))
 
         # finalize (node.go:165-170)
         fire = s.has_local & (s.rem == 0) & ~s.done_local
@@ -555,7 +635,7 @@ class TickKernel:
         return self._stamp_done(s._replace(
             done_local=s.done_local | fire,
             completed=s.completed + fire.sum(-1, dtype=_i32),
-        ))
+        ), active)
 
     # ---- ring mode: the exact scheduler ------------------------------------
     # Scalar-event arguments (an edge, a node, an amount) are host ints
@@ -1132,7 +1212,8 @@ class TickKernel:
                                   ERR_FAULT_UNRECOVERED))
 
     # ---- snapshot supervisor (cfg.snapshot_timeout / snapshot_every) ------
-    # Called only when the supervisor is armed; ring mode only.
+    # Called only when the supervisor is armed; only the re-initiation and
+    # the daemon's injection differ by marker mode.
 
     def _marker_payload(self, s: DenseState, sid):
         """The ring payload of a marker for slot ``sid`` ([B], or [B, K]
@@ -1231,10 +1312,25 @@ class TickKernel:
                               & (self._slot_ids == sid.unsqueeze(-1)))
         return s
 
+    def _sup_reinitiate_split(self, s: DenseState, retry) -> DenseState:
+        """The split-mode re-initiation (the sync scheduler): one
+        create-and-broadcast over every retried slot's initiator, on the
+        lanes with a retry; the others draw nothing (the JAX
+        ``lax.cond(any(retry))`` under ``vmap``)."""
+        go = retry.any(-1)
+        if not bool(go.any()):
+            return s
+        init = s.snap_initiator.clamp(0, self.topo.n - 1)        # [B, S]
+        created = retry.unsqueeze(-1) & (self._node_ids
+                                         == init.unsqueeze(-1))  # [B, S, N]
+        return self._create_and_broadcast(s, created, go)
+
     def _sup_daemon(self, s: DenseState, active=None) -> DenseState:
         """Every ``snapshot_every`` ticks, initiate a snapshot from the
         rotating initiator ``(time // every) % n`` while free slots remain
-        (per lane: each lane's clock and slots are its own)."""
+        (per lane: each lane's clock and slots are its own): the scalar
+        injection in ring mode, the bulk one in split mode. A lane that
+        does not fire draws nothing."""
         every = self.cfg.snapshot_every
         fire = ((s.time % every == 0) & (s.time > 0)
                 & (s.next_sid < self.cfg.max_snapshots))
@@ -1243,18 +1339,24 @@ class TickKernel:
         if not bool(fire.any()):
             return s
         node = torch.div(s.time, every, rounding_mode="floor") % self.topo.n
-        return self._inject_snapshot(s, node, fire)
+        if self.marker_mode == "ring":
+            return self._inject_snapshot(s, node, fire)
+        mask = fire.unsqueeze(-1) & (self._node_ids == node.unsqueeze(-1))
+        return self._bulk_snapshots(s, mask, fire)
 
     def _supervise(self, s: DenseState, active=None) -> DenseState:
         """The per-tick supervisor step at tick start (after the time
         increment and the crash restarts, before the selection): the
-        daemon, then the timeout scan and the re-initiations, whose
-        markers are due after this tick."""
+        daemon, then the timeout scan and the re-initiations (by the
+        kernel's marker mode), whose markers are due after this tick."""
         if self.cfg.snapshot_every:
             s = self._sup_daemon(s, active)
         if self.cfg.snapshot_timeout:
             s, retry = self._sup_scan(s, active)
-            s = self._sup_reinitiate_ring(s, retry)
+            if self.marker_mode == "ring":
+                s = self._sup_reinitiate_ring(s, retry)
+            else:
+                s = self._sup_reinitiate_split(s, retry)
         return s
 
     def _quiescent(self, s: DenseState):
@@ -1441,13 +1543,15 @@ class TickKernel:
 
     def _sync_tick_lanes(self, s: DenseState, active) -> DenseState:
         """The sync tick on the lanes of ``active`` [B] (None = all): every
-        lane ticks and the others are selected back. The recorder writes
-        its ring in place, so an inactive lane's is disarmed for the tick
-        (its ``tr_on`` is selected back with the rest)."""
+        lane's functional leaves are computed and the others are selected
+        back. The in-place effects take ``active`` (``_sync_tick``), and
+        the recorder, which writes its ring in place, is disarmed on an
+        inactive lane for the tick (its ``tr_on`` is selected back with
+        the rest)."""
         if active is None:
             return self._sync_tick(s)
         ticked = self._sync_tick(s._replace(
-            tr_on=torch.where(active, s.tr_on, 0)))
+            tr_on=torch.where(active, s.tr_on, 0)), active)
         return select_lanes(active, ticked, s)
 
     def _sync_drain_and_flush(self, s: DenseState) -> DenseState:

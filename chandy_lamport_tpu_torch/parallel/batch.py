@@ -20,12 +20,13 @@ At ``megatick`` K > 1 the exact drain and flush (the stream's drain slice
 and flush pass among them) run in K-tick megaticks through the fused
 megatick kernel. Runs on the card unless the caller passes
 ``device="cpu"``, where the kernel wrappers take their plain PyTorch
-versions. The exact scheduler also carries the fault adversary
-(``faults=``), the snapshot supervisor (the config's ``snapshot_*`` knobs)
-and ``quarantine=``, and every scheduler the flight recorder
-(``trace=``, utils/tracing.py). Not ported yet (ROADMAP.md): the sync
-scheduler under faults, the stream's memo plane (A9b) and its checkpoints
-(A8).
+versions. Both schedulers carry the fault adversary (``faults=``), the
+snapshot supervisor (the config's ``snapshot_*`` knobs), ``quarantine=``
+and the flight recorder (``trace=``, utils/tracing.py). ``run_stream``
+checkpoints its ``(state, stream)`` carry every K steps
+(utils/checkpoint.py), and a run resumed from the file ends bit-equal to
+the uninterrupted one. Not ported yet (ROADMAP.md): the stream's memo
+plane (A9b).
 """
 
 from __future__ import annotations
@@ -258,12 +259,12 @@ class BatchedRunner:
         faults: models/faults.Faults, the deterministic fault adversary,
         armed per lane by the ``fault_key`` ramp of
         ``Faults.init_batch_state`` (zero a lane's key to disarm it); None
-        calls no hook. Exact scheduler only.
+        calls no hook. Both schedulers.
 
         quarantine: a lane whose sticky error bits fire stops — its storm
         phases, drain and flush ticks are skipped and its clock stays
-        where it was poisoned; healthy lanes are unaffected. Exact
-        scheduler only.
+        where it was poisoned; healthy lanes are unaffected. Both
+        schedulers.
 
         trace: utils/tracing.Trace arms the flight recorder: every tick
         form (and, at megatick K > 1 on the card, the fused megatick's
@@ -343,11 +344,11 @@ class BatchedRunner:
                     lanes=None) -> DenseState:
         """One storm phase: bulk sends ``amounts`` [E], snapshot
         initiations at the nodes in ``snaps`` [J] (-1 = none), one tick,
-        on the lanes of ``lanes`` [B] (None = every lane; the exact
-        scheduler's quarantine gate passes the unpoisoned ones). The exact
-        scheduler starts one snapshot at a time, in schedule order; the
-        program is shared by every lane, so which entries fire is a host
-        fact."""
+        on the lanes of ``lanes`` [B] (None = every lane; the quarantine
+        gate passes the unpoisoned ones, and a lane outside it is left as
+        it was, its delay stream included). The exact scheduler starts one
+        snapshot at a time, in schedule order; the program is shared by
+        every lane, so which entries fire is a host fact."""
         s = self.kernel._bulk_send(s, amounts, lanes)
         if self.scheduler == "exact":
             for node in np.asarray(snaps).tolist():
@@ -356,8 +357,8 @@ class BatchedRunner:
             return self.kernel._exact_tick(s, lanes)
         init_mask = (self._node_ids.unsqueeze(0)
                      == snaps.unsqueeze(-1)).any(0)
-        s = self.kernel._bulk_snapshots(s, init_mask)
-        return self.kernel._sync_tick(s)
+        s = self.kernel._bulk_snapshots(s, init_mask, lanes)
+        return self.kernel._sync_tick_lanes(s, lanes)
 
     def _check_conservation(self, s: DenseState) -> DenseState:
         delta = (lane_total_tokens(s, self.config) - self._tokens0_total
@@ -761,7 +762,10 @@ class BatchedRunner:
                    results_capacity: Optional[int] = None,
                    state: Optional[DenseState] = None,
                    stream: Optional[StreamState] = None,
-                   max_steps: int = 1_000_000):
+                   max_steps: int = 1_000_000,
+                   checkpoint: Optional[str] = None,
+                   checkpoint_every: int = 0,
+                   kill_after_saves: Optional[int] = None):
         """Drive a queue of jobs through the B lane slots (the JAX
         ``run_stream`` with the memo plane off); returns the final
         ``(state, stream)``. ``jobs``: a JobPool (``pack_jobs``) or a list
@@ -773,8 +777,21 @@ class BatchedRunner:
         fresh batch and ``init_stream(pool, results_capacity)``) are left
         as they were: the run owns its copies, which the kernels write in
         place. With the flight recorder armed, each lane's ring records
-        its jobs' ticks and their admits and harvests. Checkpoints (A8)
-        and the memo plane (A9b) are not ported."""
+        its jobs' ticks and their admits and harvests. The memo plane
+        (A9b) is not ported.
+
+        Checkpointing (the JAX ``run_stream``'s): with ``checkpoint`` and
+        ``checkpoint_every`` k, every step whose count ``steps`` is a
+        multiple of k saves the ``(state, stream)`` pair atomically
+        (utils/checkpoint.save_state) with ``meta`` holding
+        ``stream_steps`` and ``jobs_done``. Resume by loading it with
+        ``like=(runner.init_batch_device(), runner.init_stream(pool))``
+        and passing ``state=`` and ``stream=`` back in: admission order,
+        the per-job streams and the results ring live in the carry, so
+        the continuation is bit-exact. ``kill_after_saves``: return right
+        after that many saves (a preemption drill)."""
+        from chandy_lamport_tpu_torch.utils.checkpoint import save_state
+
         if admission not in ("stream", "gang"):
             raise ValueError(f"unknown admission mode {admission!r}")
         if stretch < 1 or drain_chunk < 1:
@@ -785,7 +802,7 @@ class BatchedRunner:
              else self._own(state))
         st = (self.init_stream(pool, results_capacity) if stream is None
               else StreamState(*(x.clone() for x in stream)))
-        done, steps = int(st.jobs_done), 0
+        done, steps, saves = int(st.jobs_done), 0, 0
         while done < target:
             if steps == max_steps:
                 raise RuntimeError(
@@ -794,6 +811,16 @@ class BatchedRunner:
             s, st = self._stream_step(s, st, pool, stretch, drain_chunk,
                                       admission == "gang")
             done, steps = int(st.jobs_done), steps + 1
+            steps_now = int(st.steps)
+            if (checkpoint and checkpoint_every
+                    and steps_now % int(checkpoint_every) == 0):
+                save_state(checkpoint, (s, st),
+                           meta={"stream_steps": steps_now,
+                                 "jobs_done": done}, delay=self.delay)
+                saves += 1
+                if (kill_after_saves is not None
+                        and saves >= int(kill_after_saves)):
+                    return s, st
         return s, st
 
     def stream_results(self, stream: StreamState) -> List[dict]:

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs thirty
+kernels/csrc`` (one nvcc per source, in parallel), then runs thirty-two
 phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -97,6 +97,27 @@ phases, each printing one JSON line:
                every snapshot complete, conservation delta 0, and every
                kernel of the path launched during the run (launch counts
                are zeroed just before it);
+  fault_sync_storm main path 18: config 4's sync storm under the
+               faulted exact cell's adversary (below), its supervisor
+               (timeout 64) and quarantine (``config4_runner(faulted=
+               True)``, the JAX storm CLI's default scheduler under
+               faults): first rows 1 and 3-5 against their plain versions
+               on its own operands 8 phases in (the crash gate's spread
+               of the down nodes, the closed windows' sum_by_perm, the
+               faulted rings' heads, the duplicates' append_rows), then a
+               warm run at 256 lanes and the timed run at B=2048, judged
+               by the faulted rule (conservation delta 0, no bit but
+               ERR_SNAPSHOT_TIMEOUT, every snapshot of a clean lane
+               complete); rows 1-5 launched, rows 6-8 never; its wall,
+               node-ticks/s, fault events, skew, lifecycle and
+               quarantined lanes;
+  checkpoint   ``utils/checkpoint`` on the card: fault_sync_storm and the
+               faulted ER-256 storm at megatick 8, each run again in
+               chunks of 16 phases with a save after each, resumed from
+               disk after the first by a fresh runner (the megatick-8
+               one's drain in fused_scan), every leaf equal to the
+               uninterrupted run; each file's bytes, the saves' and the
+               load's seconds (in a temporary directory it removes);
   exact_storm  main path 2: the exact-at-scale cell through
                ``BatchedRunner(scheduler="exact").run_storm``, with the
                same checks;
@@ -222,9 +243,14 @@ phases, each printing one JSON line:
   cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
                (the faulted one with lossy crashes at a fixed window,
                marker drops and the supervisor with its daemon, at
-               megatick 1 and 8), and the wave's at megatick 8, faulted
-               and not, on the card and on the CPU (plain versions):
-               every state leaf identical.
+               megatick 1 and 8), the wave's at megatick 8, faulted
+               and not, and a faulted sync storm (every class, lossy
+               crashes, the supervisor and its daemon, quarantine), on
+               the card and on the CPU (plain versions): every state leaf
+               identical; and a small faulted sync stream checkpointed,
+               killed after its first save and resumed, each file (the
+               card's and the CPU's) on both devices, every leaf of the
+               state and the stream equal to the uninterrupted run.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
@@ -322,6 +348,14 @@ C5_NODES, C5_BATCH, C5_PHASES, C5_SNAPSHOTS = 8192, 512, 16, 8
 # took the twin to 69,192 fold steps (231 s on the H100) at 2 snapshots
 T_NODES, T_BATCH, T_PHASES, T_SNAPSHOTS = 2048, 256, 16, 1
 T_PROGRAM = dict(F_PROGRAM, marker_drop_rate=0.0)
+# cpu_vs_cuda's faulted sync storm (SF-64, B=8): every class at 0.02,
+# lossy crashes from tick 70 (after its first snapshots completed) and
+# rare marker drops, whose retries run out on 3 of its 8 lanes
+# (ERR_SNAPSHOT_TIMEOUT, quarantined)
+SMALL_SYNC_FAULTS = dict(drop_rate=0.02, dup_rate=0.02, jitter_rate=0.02,
+                         crash_rate=0.5, crash_mode="lossy", crash_start=70,
+                         marker_drop_rate=0.002, marker_dup_rate=0.02,
+                         marker_jitter_rate=0.02)
 # the streaming cell: the JAX bench's ``--stream`` row (bench.py:871; its
 # recipe :541-547, :904-907) on the exact cell, ``storm --stream --graph er
 # --nodes 256 --batch 4096 --scheduler exact --megatick 8``: J = 3 x B jobs
@@ -370,6 +404,8 @@ KERNELS = {
 }
 # the megatick of main path 4 (the JAX storm CLI's default --megatick)
 MEGATICK = 8
+# the checkpoint phase's chunk: phases run between two saves
+CK_CHUNK = 16
 # launches averaged by --drain-timing
 DRAIN_LAUNCHES = 10
 # what split_times adds to a row
@@ -715,8 +751,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def config4_runner(device):
+def config4_runner(device, faulted=False, batch=BATCH):
+    """The sync storm of config 4; ``faulted``: under the faulted exact
+    cell's adversary and supervisor (``F_PROGRAM``, ``F_TIMEOUT``),
+    quarantined (main path 18)."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
         scale_free,
         staggered_snapshots,
@@ -725,10 +765,13 @@ def config4_runner(device):
     from chandy_lamport_tpu_torch.ops.delay import HashDelay
 
     spec = scale_free(NODES, ATTACH, seed=3, tokens=PHASES + 10)
-    cfg = SimConfig.for_workload(snapshots=SNAPSHOTS, split_markers=True,
-                                 record_dtype="int16")
-    runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), BATCH,
-                           scheduler="sync", device=device)
+    cfg = SimConfig.for_workload(
+        snapshots=SNAPSHOTS, split_markers=True, record_dtype="int16",
+        snapshot_timeout=F_TIMEOUT if faulted else 0)
+    runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
+                           scheduler="sync", device=device,
+                           faults=Faults(3, **F_PROGRAM) if faulted else None,
+                           quarantine=faulted)
     prog = storm_program(
         runner.topo, PHASES, 1,
         staggered_snapshots(runner.topo, SNAPSHOTS, 1, 2,
@@ -2422,6 +2465,176 @@ def phase_fault_storm(name, runner, prog, path_kernels):
     return final, m
 
 
+def fault_sync_kernel_checks(runner, prog) -> dict:
+    """Rows 1 and 3-5 against their plain versions on the faulted sync
+    tick's own operands, from a state 8 phases into the faulted config-4
+    storm: the crash gate's spread of the down nodes ([B, N] bool onto the
+    in-edges; and of a mask with half the nodes down), the closed
+    windows' sum_by_perm ([B, S, E] bool), the heads of the faulted rings
+    and the duplicates' append_rows (the tick's dup mask at the tail of
+    the rings, with fault-stream receive times). Returns {case: max
+    |kernel - plain|}; every case must be 0."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+    from chandy_lamport_tpu_torch.kernels import segment as ks
+
+    kern, f = runner.kernel, runner.faults
+    s = runner.run_storm(runner.init_batch_device(),
+                         (prog.amounts[:8], prog.snap[:8]), drain=False)
+    t = s.time + 1
+    down = f.down_nodes(s.fault_key, t, runner.topo.n)
+    half = (torch.rand(down.shape, generator=torch.Generator().manual_seed(
+        11)) < 0.5).to(down.device)
+    _, dup, _, dupw = f.edge_masks(s.fault_key, t, runner.topo.e)
+    closed = s.m_pending & s.recording
+    out = {}
+    for note, x in (("down nodes", down), ("half the nodes", half)):
+        out[f"spread {list(x.shape)} bool, {note}"] = max_abs_err(
+            [ks.spread(x, kern._edge_dst)],
+            [ks.spread_plain(x, kern._edge_dst)])
+    out[f"sum_by_perm {list(closed.shape)} bool, closed windows"] = \
+        max_abs_err([kern._sum_by_dst(closed)],
+                    [ks.sum_by_perm_plain(closed, kern._by_dst, kern._dst_lo,
+                                          kern._dst_hi)])
+    heads = kq.head_fields(s.q_meta, s.q_data, s.q_head)
+    out[f"head_fields {list(s.q_meta.shape)}"] = max_abs_err(
+        list(heads), list(kq.head_fields_plain(s.q_meta, s.q_data,
+                                               s.q_head)))
+    rt = kern._dup_times(s, dupw)
+    leaves = (s.q_meta, s.q_data, s.q_head, s.q_len, s.tok_pushed, s.error)
+    kw = dict(capacity=runner.config.queue_capacity,
+              key_limit=kern._key_limit)
+    got = kq.append_rows(*clones(leaves), dup, rt, False, heads[2], **kw)
+    want = kq.append_rows_plain(*clones(leaves), dup, rt, False, heads[2],
+                                **kw)
+    out[f"append_rows {list(s.q_meta.shape)}, "
+        f"{int(dup.sum())} duplicate rows"] = max_abs_err(got, want)
+    return out
+
+
+def phase_fault_sync_storm(runner, prog):
+    """Main path 18: config 4's sync storm under the faulted exact cell's
+    adversary, its supervisor and quarantine (the JAX storm CLI's default
+    scheduler under faults): the kernel checks on its operands
+    (``fault_sync_kernel_checks``), a warm run at F_WARM_BATCH lanes over
+    4 phases, the timed run at B=2048, judged by the faulted rule; rows
+    1-5 launched, rows 6-8 never. Returns (final state, measurements)."""
+    checks = fault_sync_kernel_checks(runner, prog)
+    warm_runner, _ = config4_runner("cuda", faulted=True,
+                                    batch=F_WARM_BATCH)
+    final, m = _timed_storm(runner, prog, warm_runner,
+                            (prog.amounts[:4], prog.snap[:4]))
+    del warm_runner
+    out, bad = _storm_verdict(runner, final, SNAPSHOTS, True)
+    emit({**_storm_meta("fault_sync_storm", runner, prog, "sf", SNAPSHOTS),
+          **m, "faults": runner.faults.describe(),
+          "snapshot_timeout": runner.config.snapshot_timeout,
+          "snapshot_retries": runner.config.snapshot_retries,
+          "quarantine": runner.quarantine, "kernel_checks": checks, **out})
+    bad += [f"{case}: kernel != plain" for case, err in checks.items()
+            if err]
+    if bad:
+        raise AssertionError(f"fault_sync_storm: {bad}")
+    _check_launches("fault_sync_storm", m["launches"],
+                    ("sum_by_perm", "sum_segments", "spread", "head_fields",
+                     "append_rows"),
+                    idle_kernels=("queue_step", "select_pop", "fused_scan"))
+    return final, m
+
+
+def _chunked_resume(name, runner, prog, whole, fresh, tmp) -> dict:
+    """The storm of ``runner`` on ``prog`` in chunks of CK_CHUNK phases
+    with a checkpoint after each: after the first, a fresh runner
+    (``fresh()``) loads the file from disk and runs the rest, then drains.
+    Returns the line's fields: the file's bytes, each save's and the
+    load's seconds, the resumed run's launches and the leaves where its
+    final state differs from ``whole`` (the uninterrupted run's)."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.utils.checkpoint import (
+        load_state,
+        save_state,
+    )
+
+    path = os.path.join(tmp, f"{name}.npz")
+    phases = len(prog.amounts)
+
+    def run(r, s, lo):
+        hi = min(lo + CK_CHUNK, phases)
+        s = r.run_storm(s, (prog.amounts[lo:hi], prog.snap[lo:hi]),
+                        drain=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(path, s, meta={"next_phase": hi}, delay=r.delay)
+        saves.append(time.perf_counter() - t0)
+        sizes.append(os.path.getsize(path))
+        return s, hi
+
+    saves, sizes = [], []
+    s, lo = run(runner, runner.init_batch_device(), 0)
+    del s
+    resumed = fresh()
+    like = resumed.init_batch_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, meta = load_state(path, like, delay=resumed.delay)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del like
+    reset_launch_counts()
+    while lo < phases:
+        s, lo = run(resumed, s, lo)
+    final = resumed.drain(s)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    return {"file_bytes": sizes, "save_s": saves, "load_s": load_s,
+            "resumed_at_phase": meta["next_phase"],
+            "resumed_launches": {k: v for k, v in launches.items() if v},
+            "leaves": len(whole._fields),
+            "mismatched": _mismatched(final, whole)}
+
+
+def phase_checkpoint(sync_runner, sync_prog, sync_final) -> None:
+    """Checkpoints on the card (utils/checkpoint.py): the faulted sync
+    storm of main path 18 and the faulted ER-256 storm at megatick 8 (its
+    drain resumed into fused_scan), each run in chunks of CK_CHUNK phases
+    with a save after each and resumed from disk after the first by a
+    fresh runner, equal to its uninterrupted run leaf for leaf. The files
+    go to a temporary directory this phase removes."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    try:
+        line = {"phase": "checkpoint", "chunk_phases": CK_CHUNK,
+                "free_bytes": shutil.disk_usage(tmp).free}
+        line["fault_sync_storm"] = _chunked_resume(
+            "fault_sync_storm", sync_runner, sync_prog, sync_final,
+            lambda: config4_runner("cuda", faulted=True)[0], tmp)
+        f8runner, f8prog = fault_runner("cuda", megatick=MEGATICK)
+        whole = f8runner.run_storm(f8runner.init_batch_device(), f8prog)
+        line["fault_fused_storm"] = _chunked_resume(
+            "fault_fused_storm", f8runner, f8prog, whole,
+            lambda: fault_runner("cuda", megatick=MEGATICK)[0], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(line)
+    bad = {k: line[k]["mismatched"] for k in ("fault_sync_storm",
+                                              "fault_fused_storm")
+           if line[k]["mismatched"]}
+    if bad:
+        raise AssertionError(f"resumed storms differ from their "
+                             f"uninterrupted runs in {bad}")
+    if not line["fault_fused_storm"]["resumed_launches"].get("fused_scan"):
+        raise AssertionError("the resumed megatick-8 storm never launched "
+                             "fused_scan")
+
+
 def _twin_check(name, final, m, twin_name, twin, twin_m) -> None:
     """A wave storm against its cascade twin: every leaf equal; one line
     with the host steps of both (the wave's waves against the cascade's
@@ -3002,14 +3215,17 @@ def phase_golden() -> dict:
 
 
 def phase_cpu_vs_cuda() -> None:
-    """Small sync, exact, faulted exact (megatick 1 and 8), megatick-8
-    exact storms and the wave's at megatick 8 (faulted and not) on the
-    card and on the CPU: identical leaves."""
+    """Small sync, faulted sync, exact, faulted exact (megatick 1 and 8),
+    megatick-8 exact storms and the wave's at megatick 8 (faulted and
+    not) on the card and on the CPU: identical leaves; then a small
+    faulted sync stream checkpointed, killed and resumed
+    (``stream_checkpoint_card_vs_cpu``)."""
     import functools
 
     import numpy as np
 
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
     from chandy_lamport_tpu_torch.models.workloads import (
         scale_free,
         staggered_snapshots,
@@ -3024,6 +3240,23 @@ def phase_cpu_vs_cuda() -> None:
             SimConfig.for_workload(snapshots=4, split_markers=True,
                                    record_dtype="int16"),
             HashDelay(DELAY_SEED), 8, scheduler="sync", device=device)
+        prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
+            runner.topo, 4, 1, 1, max_phases=6))
+        return runner, prog
+
+    def faulted_sync_storm(device):
+        # every message and marker class, lossy crashes at tick 70 after
+        # the first snapshots completed, the supervisor with its daemon
+        from chandy_lamport_tpu_torch.models.faults import Faults
+
+        runner = BatchedRunner(
+            scale_free(64, 2, seed=3, tokens=16),
+            SimConfig.for_workload(snapshots=4, split_markers=True,
+                                   record_dtype="int16",
+                                   snapshot_timeout=F_TIMEOUT,
+                                   snapshot_every=12),
+            HashDelay(DELAY_SEED), 8, scheduler="sync", device=device,
+            faults=Faults(3, **SMALL_SYNC_FAULTS), quarantine=True)
         prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
             runner.topo, 4, 1, 1, max_phases=6))
         return runner, prog
@@ -3053,7 +3286,9 @@ def phase_cpu_vs_cuda() -> None:
 
     result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
               "phases": 6, "snapshots": 4}
-    for scheduler, build in (("sync", sync_storm), ("exact", exact_storm),
+    for scheduler, build in (("sync", sync_storm),
+                             ("faulted_sync", faulted_sync_storm),
+                             ("exact", exact_storm),
                              ("faulted_exact", faulted_storm),
                              ("faulted_exact_megatick8", functools.partial(
                                  faulted_storm, megatick=MEGATICK)),
@@ -3086,10 +3321,86 @@ def phase_cpu_vs_cuda() -> None:
         if mismatched:
             raise AssertionError(f"CUDA and CPU {scheduler} storms differ "
                                  f"in {mismatched}")
-        if bits:
+        allowed = ERR_SNAPSHOT_TIMEOUT if scheduler == "faulted_sync" else 0
+        if bits & ~allowed:
             raise AssertionError(f"small {scheduler} storm raised error "
                                  "bits")
+    result["stream_checkpoint"] = stream_checkpoint_card_vs_cpu()
     emit(result)
+
+
+def stream_checkpoint_card_vs_cpu() -> dict:
+    """A small faulted sync stream (SF-64, B=4, 12 jobs, every job armed,
+    quarantined) checkpointed every 2 steps and killed after its first
+    save, on the card and on the CPU; each file resumed on both devices.
+    All four resumed runs and the uninterrupted CPU run end with every
+    leaf of the state and the stream equal. Returns the line's fields."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.faults import Faults
+    from chandy_lamport_tpu_torch.models.workloads import (
+        scale_free,
+        stream_jobs,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+    from chandy_lamport_tpu_torch.utils.carry import (
+        state_to_numpy,
+        stream_to_numpy,
+    )
+    from chandy_lamport_tpu_torch.utils.checkpoint import load_state
+
+    spec = scale_free(64, 2, seed=3, tokens=16)
+    jobs = stream_jobs(spec, 12, seed=DELAY_SEED, base_phases=2,
+                       max_phases=6)
+
+    def runner(device):
+        r = BatchedRunner(
+            spec, SimConfig.for_workload(snapshots=4, split_markers=True,
+                                         record_dtype="int16"),
+            HashDelay(DELAY_SEED), 4, scheduler="sync", device=device,
+            faults=Faults(3, drop_rate=0.05, dup_rate=0.05,
+                          jitter_rate=0.05), quarantine=True)
+        return r, r.pack_jobs(jobs)
+
+    def host(pair):
+        state, stream = pair
+        return [x for leaf in state_to_numpy(state)
+                for x in (leaf if isinstance(leaf, tuple) else (leaf,))] \
+            + list(stream_to_numpy(stream))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_checkpoint_")
+    try:
+        r, pool = runner("cpu")
+        want = host(r.run_stream(pool, stretch=2, drain_chunk=8))
+        runs = {}
+        for writer in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{writer}.npz")
+            r, pool = runner(writer)
+            r.run_stream(pool, stretch=2, drain_chunk=8, checkpoint=path,
+                         checkpoint_every=2, kill_after_saves=1)
+            for reader in ("cuda", "cpu"):
+                r, pool = runner(reader)
+                pair, meta = load_state(
+                    path, (r.init_batch_device(), r.init_stream(pool)),
+                    delay=r.delay)
+                got = host(r.run_stream(pool, stretch=2, drain_chunk=8,
+                                        state=pair[0], stream=pair[1]))
+                runs[f"{writer}_file_on_{reader}"] = {
+                    "resumed_at_step": meta["stream_steps"],
+                    "equal": len(got) == len(want) and all(
+                        a.dtype == b.dtype and np.array_equal(a, b)
+                        for a, b in zip(got, want))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [k for k, v in runs.items() if not v["equal"]]
+    if bad:
+        raise AssertionError(f"resumed streams differ from the "
+                             f"uninterrupted run: {bad}")
+    return {"graph": "sf-64", "batch": 4, "jobs": 12, "runs": runs}
 
 
 # ---- the flight recorder (the recorder arm of fused_scan) --------------------
@@ -3496,6 +3807,11 @@ def main(argv=None) -> int:
                         "head_fields", "append_rows"))
     paths = {"sync_storm": m["launches"]}
     del runner
+    fsrunner, fsprog = config4_runner("cuda", faulted=True)
+    fs_final, m = phase_fault_sync_storm(fsrunner, fsprog)
+    paths["fault_sync_storm"] = m["launches"]
+    phase_checkpoint(fsrunner, fsprog, fs_final)
+    del fsrunner, fs_final
     # the resident megatick-8 storms' finals, for their tiled twins
     resident = {}
     exact_final, exact_m = phase_storm(

@@ -27,7 +27,10 @@ instantiations): on every arm, resident and tiled, at a capacity above
 and below a step's events (the ring wrapping inside one append), with a
 lane disarmed (``tr_on = 0``) and on a dirty tiled workspace, it equals
 the plain form on every leaf, the ring included, and small traced storms
-and streams on the card equal the CPU's. The
+and streams on the card equal the CPU's; the sync scheduler under
+every fault arm (with its supervisor, daemon and quarantine, traced and
+not) equals the CPU on every leaf, and a checkpoint written on either
+device loads on the other and resumes to the uninterrupted run. The
 segment sums
 (rows 1-2) take two paths, staged and tiled (``segment_plan``); each, on
 both dtypes, with and without perm, must equal the plain version, and
@@ -1305,3 +1308,74 @@ def test_traced_storm_cuda_equals_cpu(dev, case):
             device == dev and not sync)
     _leaves_equal(*finals)
     assert int(finals[0].tr_count.min()) > 0
+
+
+# ---- the sync scheduler under faults, and checkpoints across devices -------
+
+@pytest.mark.parametrize("arm", sorted(FAULT_ARMS))
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced", "traced"])
+def test_faulted_sync_storm_cuda_equals_cpu(dev, arm, traced):
+    """The sync scheduler under each fault arm, with its supervisor (the
+    split re-initiation, the daemon every 5 ticks unless the arm sets its
+    own) and quarantine, on
+    the card equals the CPU on every leaf, the recorder's ring too; rows
+    1-5 launch and the exact rows never."""
+    from chandy_lamport_tpu_torch.kernels import reset_launch_counts
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    fkw, sup = FAULT_ARMS[arm]
+    finals = []
+    for device in (dev, "cpu"):
+        runner = BatchedRunner(TOPO_SPEC, SimConfig.for_workload(
+            snapshots=3, split_markers=True,
+            **{"snapshot_every": 5, **sup}),
+            HashDelay(5), 4, scheduler="sync", device=device,
+            faults=Faults(3, **fkw), quarantine=True,
+            trace=Trace(512) if traced else None)
+        prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
+            runner.topo, 3, 1, 1, max_phases=6))
+        reset_launch_counts()
+        finals.append(runner.run_storm(runner.init_batch_device(), prog))
+        if device == dev:
+            launched = launch_counts()
+    _leaves_equal(*finals)
+    assert int(finals[1].fault_counts.sum()) > 0
+    assert all(launched[k] > 0 for k in ("sum_by_perm", "spread",
+                                         "head_fields", "append_rows"))
+    assert not any(launched[k] for k in ("queue_step", "select_pop",
+                                         "fused_scan"))
+
+
+def test_checkpoint_crosses_devices(dev, tmp_path):
+    """A faulted sync storm's mid-storm state saved on the card loads on
+    the CPU and the other way round, leaf for leaf; each resumed on the
+    other device ends equal to the uninterrupted run."""
+    from chandy_lamport_tpu_torch.utils.checkpoint import (
+        load_state,
+        save_state,
+    )
+
+    fkw, sup = FAULT_ARMS["pause crashes, every class"]
+
+    def runner(device):
+        r = BatchedRunner(TOPO_SPEC, SimConfig.for_workload(
+            snapshots=3, split_markers=True, **sup), HashDelay(5), 4,
+            scheduler="sync", device=device, faults=Faults(3, **fkw),
+            quarantine=True)
+        return r, storm_program(r.topo, 8, 1, staggered_snapshots(
+            r.topo, 3, 1, 1, max_phases=8))
+
+    r, prog = runner("cpu")
+    whole = r.run_storm(r.init_batch_device(), prog)
+    first = (prog.amounts[:4], prog.snap[:4])
+    rest = (prog.amounts[4:], prog.snap[4:])
+    for writer, reader in ((dev, "cpu"), ("cpu", dev)):
+        w, _ = runner(writer)
+        mid = w.run_storm(w.init_batch_device(), first, drain=False)
+        path = str(tmp_path / f"{writer}.npz")
+        save_state(path, mid, delay=w.delay)
+        rd, _ = runner(reader)
+        state, _ = load_state(path, rd.init_batch_device(), delay=rd.delay)
+        _leaves_equal(state, mid)
+        _leaves_equal(rd.drain(rd.run_storm(state, rest, drain=False)),
+                      whole)

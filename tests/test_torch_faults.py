@@ -342,12 +342,6 @@ def test_faulted_run_ticks_matches_jax():
 def test_unported_fault_paths_raise():
     spec = workloads.ring_topology(4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedRunner(spec, SimConfig(), HashDelay(1), 2, scheduler="sync",
-                      faults=Faults(1, drop_rate=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedRunner(spec, SimConfig(snapshot_timeout=8), HashDelay(1), 2,
-                      scheduler="sync", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         DenseSim(spec, FixedDelay(1), faults=Faults(1, drop_rate=0.1),
                  device="cpu")
 

@@ -384,9 +384,8 @@ def test_stream_carried_mid_queue_from_jax(sync_pair):
 
 def test_stream_refusals_and_carry():
     """The memo plane's ``content_keys`` is refused naming A9b; a bad
-    admission or stretch is a ValueError; the sync scheduler still
-    refuses faults; ``run_stream`` leaves the state and stream it is
-    given as they were."""
+    admission or stretch is a ValueError; ``run_stream`` leaves the state
+    and stream it is given as they were."""
     runner = BatchedRunner(workloads.ring_topology(4), SimConfig(),
                            HashDelay(1), 2, scheduler="exact", device="cpu")
     jobs = workloads.stream_jobs(workloads.ring_topology(4), 3, seed=1,
@@ -397,10 +396,6 @@ def test_stream_refusals_and_carry():
         runner.run_stream(jobs, admission="fifo")
     with pytest.raises(ValueError, match="stretch"):
         runner.run_stream(jobs, stretch=0)
-    with pytest.raises(NotImplementedError):
-        BatchedRunner(workloads.ring_topology(4), SimConfig(), HashDelay(1),
-                      2, scheduler="sync", device="cpu",
-                      faults=Faults(1, drop_rate=0.1))
     pool = runner.pack_jobs(jobs)
     state, stream = runner.init_batch_device(), runner.init_stream(pool)
     before = (state_to_numpy(state), stream_to_numpy(stream))

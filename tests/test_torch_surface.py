@@ -8,8 +8,10 @@ carry, the leading positional parameters of ``DenseSim`` and
 ``run_events_file`` (``inspect.signature``), and the ``storm`` command
 line: its parser's defaults against the JAX ``storm`` subparser's, one
 tiny storm whose counters line equals the JAX CLI's on the shared keys
-(tolerance: none), and each flag whose machinery the port lacks refused
-by name with its ROADMAP item.
+(tolerance: none), each flag whose machinery the port lacks refused by
+name with its ROADMAP item, and each flag the port once refused (the
+checkpoint flags; the fault, supervisor and quarantine flags on the sync
+scheduler) run through both CLIs with equal counters lines.
 """
 
 import inspect
@@ -185,24 +187,20 @@ def test_tiny_storm_prints_the_jax_counters(capsys, tmp_path):
 
 def _away_from_default(flag):
     """A value of ``flag`` other than its default."""
-    values = {"--checkpoint": "ck.npz", "--resume-from": "ck.npz",
-              "--delay": "uniform", "--window-dtype": "uint16",
+    values = {"--delay": "uniform", "--window-dtype": "uint16",
               "--reduce-mode": "segsum", "--kernel-engine": "pallas",
-              "--fused-tick": "on", "--quarantine": None}
+              "--fused-tick": "on"}
     if flag in values:
-        return [flag] if values[flag] is None else [flag, values[flag]]
-    if "fault" in flag and "seed" not in flag:
-        return [flag, "0.1"]
+        return [flag, values[flag]]
     return [flag, "2"]
 
 
-@pytest.mark.parametrize("flag, item, sync_only", _UNPORTED_STORM,
+@pytest.mark.parametrize("flag, item", _UNPORTED_STORM,
                          ids=[f[0] for f in _UNPORTED_STORM])
-def test_storm_refuses_unported_flags_by_name(flag, item, sync_only,
-                                              capsys):
+def test_storm_refuses_unported_flags_by_name(flag, item, capsys):
     """A flag whose machinery is not ported, set away from its default,
     is refused before anything runs, naming the flag and its ROADMAP
-    item (the fault and supervisor flags on the sync scheduler only)."""
+    item."""
     with pytest.raises(SystemExit) as exc:
         storm_run(TINY_STORM + _away_from_default(flag)
                   + ["--device", "cpu"])
@@ -211,10 +209,82 @@ def test_storm_refuses_unported_flags_by_name(flag, item, sync_only,
     assert flag in err and f"ROADMAP {item}" in err
 
 
+# the flags the port refused before the checkpoints (A8) and the sync
+# scheduler under faults (A3a) were ported, each with what makes it act on
+# the tiny sync storm; "{ck}" is a checkpoint path of the case's own
+MARKER_FAULTS = ["--marker-fault-drop", "0.15", "--snapshot-timeout", "16",
+                 "--snapshot-retries", "8"]
+LIFTED = {
+    "--checkpoint": ["--checkpoint", "{ck}"] + MARKER_FAULTS,
+    "--checkpoint-every": ["--checkpoint", "{ck}", "--checkpoint-every",
+                           "5"] + MARKER_FAULTS,
+    "--resume-from": ["--resume-from", "{mid}"] + MARKER_FAULTS,
+    "--kill-after-chunk": ["--checkpoint", "{ck}", "--checkpoint-every",
+                           "5", "--kill-after-chunk", "0"] + MARKER_FAULTS,
+    "--fault-drop": ["--fault-drop", "0.1"],
+    "--fault-dup": ["--fault-dup", "0.1"],
+    "--fault-jitter": ["--fault-jitter", "0.2"],
+    "--fault-crash": ["--fault-crash", "0.5", "--crash-mode", "lossy"],
+    "--fault-seed": ["--fault-seed", "7", "--fault-drop", "0.1"],
+    "--marker-fault-drop": MARKER_FAULTS,
+    "--marker-fault-dup": ["--marker-fault-dup", "0.3"],
+    "--marker-fault-jitter": ["--marker-fault-jitter", "0.3"],
+    "--snapshot-timeout": ["--snapshot-timeout", "6",
+                           "--marker-fault-drop", "0.3"],
+    "--snapshot-retries": ["--snapshot-retries", "1", "--snapshot-timeout",
+                           "8", "--marker-fault-drop", "0.3"],
+    "--snapshot-every": ["--snapshot-every", "5"],
+    "--quarantine": ["--quarantine", "--queue-capacity", "2"],
+}
+
+
+def _last_json(out):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _without_paths(row):
+    return {k: v for k, v in row.items() if k != "checkpoint"}
+
+
+@pytest.mark.parametrize("flag", list(LIFTED))
+def test_storm_runs_the_lifted_flags(flag, capsys, tmp_path):
+    """Each flag the port once refused runs the tiny sync storm through
+    the port's and the JAX ``storm`` on the CPU: equal exit codes and
+    counters lines (the checkpoint path aside), and where a checkpoint is
+    written, equal leaves in the two files. The resumed case starts both
+    from one file the port wrote after its first chunk."""
+    mid = str(tmp_path / "mid.npz")
+    if flag == "--resume-from":
+        assert storm_run(TINY_STORM + MARKER_FAULTS + [
+            "--device", "cpu", "--checkpoint", mid, "--checkpoint-every",
+            "5", "--kill-after-chunk", "0"]) == 17
+        capsys.readouterr()
+    runs = {}
+    for pkg in ("jax", "port"):
+        ck = str(tmp_path / f"{pkg}.npz")
+        extra = [a.format(ck=ck, mid=mid) for a in LIFTED[flag]]
+        if pkg == "jax":
+            rc = jax_cli.main(["storm"] + TINY_STORM + extra)
+        else:
+            rc = storm_run(TINY_STORM + extra + ["--device", "cpu"])
+        runs[pkg] = (rc, _last_json(capsys.readouterr().out), ck)
+    (jrc, jrow, jck), (prc, prow, pck) = runs["jax"], runs["port"]
+    assert prc == jrc
+    assert _without_paths(prow) == _without_paths(jrow)
+    assert prow.get("checkpoint", pck) == pck
+    if "{ck}" in LIFTED[flag]:
+        with np.load(jck) as za, np.load(pck) as zb:
+            assert set(za.files) == set(zb.files)
+            for name in za.files:
+                if name != "__header__":
+                    assert za[name].dtype == zb[name].dtype, name
+                    np.testing.assert_array_equal(za[name], zb[name])
+
+
 def test_storm_refuses_the_fold_and_runs_faults_on_exact(capsys):
-    """``--exact-impl fold`` is refused naming A5b; the fault flags that
-    the sync scheduler refuses run on the exact scheduler, whose counters
-    line then carries the adversary's books."""
+    """``--exact-impl fold`` is refused naming A5b; the fault flags run on
+    the exact scheduler too, whose counters line then carries the
+    adversary's books."""
     with pytest.raises(SystemExit):
         storm_run(TINY_STORM + ["--scheduler", "exact", "--exact-impl",
                                 "fold", "--device", "cpu"])
