@@ -8,7 +8,9 @@ supervisor and quarantine,
 the single-instance golden runner (``core/dense.py``, ``api.py``),
 compiled event scripts and the streaming job engine
 (``BatchedRunner.run``, ``run_stream``), the flight recorder
-(``utils/tracing.py``, ``trace=``), and the Pallas kernels of those paths
+(``utils/tracing.py``, ``trace=``), checkpoints (``utils/checkpoint.py``),
+the stream's memo plane (``BatchedRunner(memo=...)``,
+``utils/memocache.py``), and the Pallas kernels of those paths
 hand-written in CUDA C++ (``kernels/csrc``).
 It imports neither jax nor chandy_lamport_tpu.
 
@@ -30,8 +32,31 @@ EVENTS``.
 """
 
 from chandy_lamport_tpu_torch.api import run_events_file
-from chandy_lamport_tpu_torch.config import SimConfig
+from chandy_lamport_tpu_torch.config import MAX_DELAY, SimConfig
 from chandy_lamport_tpu_torch.core.dense import DenseSim
+from chandy_lamport_tpu_torch.core.spec import (
+    GlobalSnapshot,
+    Message,
+    MsgSnapshot,
+    PassTokenEvent,
+    SnapshotEvent,
+    TickEvent,
+)
 from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
 
-__all__ = ["BatchedRunner", "DenseSim", "SimConfig", "run_events_file"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "SimConfig",
+    "MAX_DELAY",
+    "Message",
+    "MsgSnapshot",
+    "GlobalSnapshot",
+    "PassTokenEvent",
+    "SnapshotEvent",
+    "TickEvent",
+    "run_events_file",
+    "BatchedRunner",
+    "DenseSim",
+    "__version__",
+]

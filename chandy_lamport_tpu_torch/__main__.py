@@ -380,8 +380,8 @@ def storm_run(argv) -> int:
 
 
 def _stream_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's ``stream`` flags (``cli.py:753-855``) less the memo
-    plane, guards and telemetry, plus ``--device``."""
+    """The JAX CLI's ``stream`` flags (``cli.py:753-855``) less guards
+    and telemetry, plus ``--device``."""
     pq = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
                                       "stream")
     pq.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
@@ -397,11 +397,30 @@ def _stream_parser() -> argparse.ArgumentParser:
     pq.add_argument("--max-phases", type=int, default=32)
     pq.add_argument("--dup-rate", type=float, default=0.0, metavar="R",
                     help="fraction of the queue that repeats a Zipf-drawn "
-                         "library job byte for byte (stream_jobs)")
+                         "library job byte for byte (stream_jobs): the "
+                         "traffic the memo plane serves without a lane")
+    pq.add_argument("--memo", choices=["off", "admit", "full", "prefix"],
+                    default="off",
+                    help="the memo plane: 'admit' runs one lane per "
+                         "distinct job and serves duplicates and summary-"
+                         "cache hits from it; 'full' adds fast-forwarding "
+                         "of lanes whose state recurs; 'prefix' adds "
+                         "forking near-duplicates from checkpointed "
+                         "prefixes. Every served row equals the row of "
+                         "'off', which is the memo-free engine")
+    pq.add_argument("--memo-cache", metavar="PATH",
+                    help="the persistent summary cache (JSON lines, "
+                         "utils/memocache.py; the JAX package's format): "
+                         "hits across runs take no lane")
     pq.add_argument("--prefix-overlap", type=float, default=0.0,
                     metavar="R",
                     help="fraction of the queue that extends a shared base "
-                         "job with a unique tail (stream_jobs)")
+                         "job with a unique tail (stream_jobs): the "
+                         "near-duplicates memo 'prefix' forks")
+    pq.add_argument("--prefix-cache", metavar="PATH",
+                    help="the persistent prefix-checkpoint store of memo "
+                         "'prefix' (JSON lines, utils/memocache."
+                         "PrefixCache; the JAX package's format)")
     pq.add_argument("--snapshots", type=int, default=8)
     pq.add_argument("--scheduler", choices=["sync", "exact"], default="sync")
     pq.add_argument("--kernel-engine", choices=["auto", "xla", "pallas"],
@@ -462,9 +481,11 @@ def _stream_parser() -> argparse.ArgumentParser:
 
 def stream_run(argv) -> int:
     """The JAX CLI's ``stream`` (``cli.py:317-439``) on the port: pack a
-    ``stream_jobs`` queue, drive it through ``run_stream`` and print one
-    JSON row (``summarize_stream``'s counters, the wall time, jobs/s and
-    the errored jobs). ``--checkpoint-every K`` saves the ``(state,
+    ``stream_jobs`` queue, drive it through ``run_stream`` (under
+    ``--memo``, with ``--memo-cache`` / ``--prefix-cache``) and print one
+    JSON row (``summarize_stream``'s counters with the memo books, the
+    memo mode, the wall time, jobs/s executed and served, and the errored
+    jobs). ``--checkpoint-every K`` saves the ``(state,
     stream)`` carry every K steps, ``--resume-from`` continues from such a
     file. Exit 1 when a job erred without an adversary, 17 after
     ``--kill-after-saves``, 2 on ``--checkpoint-every`` without
@@ -507,7 +528,9 @@ def stream_run(argv) -> int:
     runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, args.seed),
                            batch=args.batch, scheduler=args.scheduler,
                            device=device, faults=faults,
-                           quarantine=faults is not None, trace=trace)
+                           quarantine=faults is not None, trace=trace,
+                           memo=args.memo, memo_cache=args.memo_cache,
+                           prefix_cache=args.prefix_cache)
     jcount = args.jobs or 3 * args.batch
     jobs = stream_jobs(spec, jcount, seed=args.seed,
                        base_phases=args.base_phases,
@@ -544,7 +567,7 @@ def stream_run(argv) -> int:
     row.update({"graph": args.graph, "nodes": runner.topo.n,
                 "batch": args.batch, "jobs": jcount,
                 "admission": args.admission, "scheduler": args.scheduler,
-                "memo": "off", "dup_rate": args.dup_rate,
+                "memo": runner.memo, "dup_rate": args.dup_rate,
                 "prefix_overlap": args.prefix_overlap,
                 "wall_seconds": round(wall, 3),
                 "jobs_per_sec": round(done / wall, 2) if wall > 0 else 0.0,

@@ -39,6 +39,14 @@ no error bit; then ``--repeats`` timed drives of each, and one row:
 occupancy, refills and steps of both, and the host fold steps of the
 exact tick. At ``--megatick`` K > 1 on the exact scheduler the drain
 slices and flush passes run through the fused megatick kernel.
+``--memo {admit,full,prefix}`` adds the memo plane's arm (the JAX bench's,
+``bench.py:913-1060``): every arm drives the same content-keyed pool (the
+memo runner packs it), the memo arm's served rows must equal the off
+arm's rows, and the row gains ``effective_jobs_per_sec`` (jobs served a
+second), ``memo_speedup`` over the off arm, the memo books and the host
+seconds of the memo stages (``memo_timing``); under ``prefix`` also a
+``full`` arm on the same pool and ``prefix_speedup`` over it, with the
+fork books and the prefix bank's rows and bytes.
 
 ``--trace`` (or ``--trace-capacity K``) arms the flight recorder
 (utils/tracing.py) for the measured runs, as the JAX bench's ``--trace``
@@ -177,6 +185,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="--stream: fraction of the queue that extends a "
                         "Zipf-drawn library job with a distinguishing tail "
                         "(stream_jobs prefix_overlap; excludes --dup-rate)")
+    q.add_argument("--memo", choices=["off", "admit", "full", "prefix"],
+                   default="off",
+                   help="--stream: also drive the queue through the memo "
+                        "plane at this level and report effective jobs/s "
+                        "(served = executed + coalesced + cached) against "
+                        "the memo-off arm on the same content-keyed pool; "
+                        "'prefix' adds a 'full' arm for prefix_speedup")
     f = p.add_argument_group("fault adversary and snapshot supervisor "
                              "(the JAX storm CLI's flags)")
     for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
@@ -310,16 +325,24 @@ def run_stream_worker(args, device, spec, cfg) -> int:
     """``--stream`` (module docstring): the JAX bench's stream row on the
     port. Returns the exit code."""
     trace = _trace(args)
-    runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
-                           batch=args.batch, scheduler=args.scheduler,
-                           exact_impl=args.exact_impl, device=device,
-                           megatick=args.megatick, trace=trace)
+
+    def make(memo="off"):
+        return BatchedRunner(spec, cfg, make_fast_delay(args.delay, 17),
+                             batch=args.batch, scheduler=args.scheduler,
+                             exact_impl=args.exact_impl, device=device,
+                             megatick=args.megatick, trace=trace, memo=memo)
+
+    runner = make()
     jcount = args.jobs or 3 * args.batch
     jobs = stream_jobs(spec, jcount, seed=17, base_phases=4, tail_alpha=1.1,
                        max_phases=max(args.phases, 8),
                        dup_rate=args.dup_rate,
                        prefix_overlap=args.prefix_overlap)
-    pool = runner.pack_jobs(jobs)
+    # every arm runs the pool the memo runner packs (under "prefix" its
+    # identities are keyed on the first phase), so the arms differ in the
+    # memo plane alone
+    memo_runner = make(args.memo) if args.memo != "off" else None
+    pool = (memo_runner or runner).pack_jobs(jobs)
     per = instance_footprint_bytes(runner.topo.n, runner.topo.e, cfg)
     log(f"stream: {jcount} jobs over {args.batch} slots, pooled phase "
         f"table {pool.do_tick.shape[0]} rows, stretch={args.stretch}, "
@@ -415,11 +438,92 @@ def run_stream_worker(args, device, spec, cfg) -> int:
         recorded, dropped = trace_counts(finals["stream"])
         result.update(trace_capacity=runner.config.trace_capacity,
                       trace_events=recorded, trace_dropped=dropped)
+    result["memo"] = args.memo
+    result["effective_jobs_per_sec"] = best["stream"]
+    if memo_runner is not None:
+        bad = memo_arms(args, device, make, memo_runner, pool,
+                        job_rows(runner, stream_w), best["stream"], result)
+        if bad:
+            log(f"ERROR: {bad}")
+            return 1
     if device.type != "cuda":
         result["note"] = ("CPU run of the plain PyTorch versions; not a "
                           "device measurement")
     print(json.dumps(result), flush=True)
     return 0
+
+
+def served_rows(runner, stream) -> list:
+    """A memoized stream's per-job rows without the fields that depend on
+    admission or provenance (``admit_step``, ``digest``,
+    ``served_from``): what must equal the memo-off arm's rows."""
+    return [{k: v for k, v in row.items()
+             if k not in ("admit_step", "digest", "served_from")}
+            for row in runner.stream_results(stream)]
+
+
+def memo_arms(args, device, make, memo_runner, pool, off_rows, off_rate,
+              result) -> str:
+    """``--memo``'s arms (module docstring) on ``pool``: a warm drive
+    (its served rows held to ``off_rows``, every job served), then
+    ``--repeats`` timed drives; under "prefix" the same for a "full"
+    runner. Updates ``result``; returns what failed, or ""."""
+    jcount = pool.num_jobs
+
+    def drive(r):
+        _sync(device)
+        t0 = time.perf_counter()
+        _, stream = r.run_stream(pool, stretch=args.stretch,
+                                 drain_chunk=args.drain_chunk)
+        _sync(device)
+        return time.perf_counter() - t0, stream
+
+    def arm(r, name):
+        dt, stream = drive(r)
+        served = served_rows(r, stream)
+        log(f"{name} arm warm drive: {dt:.1f}s, served {len(served)}/"
+            f"{jcount}")
+        if len(served) != jcount:
+            return None, f"the {name} arm did not serve every job"
+        if served != off_rows:
+            return None, f"the {name} arm's rows differ from memo off"
+        times = []
+        for i in range(args.repeats):
+            dt, stream = drive(r)
+            times.append(dt)
+            log(f"{name} run {i}: {dt:.3f}s -> {jcount / dt:.1f} "
+                f"effective jobs/s")
+        return (jcount / min(times), r.summarize_stream(stream)), ""
+
+    got, bad = arm(memo_runner, args.memo)
+    if bad:
+        return bad
+    eff, sm = got
+    result.update({
+        "effective_jobs_per_sec": eff,
+        "effective_jobs_per_sec_off": off_rate,
+        "memo_speedup": eff / off_rate if off_rate else 0.0,
+        **{k: sm[k] for k in ("cache_hits", "coalesced_jobs",
+                              "ff_skipped_ticks", "shadow_checks",
+                              "memo_hit_rate")},
+        "memo_steps": sm["steps"],
+        "memo_timing": dict(memo_runner.memo_timing)})
+    if args.memo == "prefix":
+        got, bad = arm(make("full"), "full")
+        if bad:
+            return bad
+        eff_full, _ = got
+        hist: dict = {}
+        for d in memo_runner._fork_depths:
+            hist[str(d)] = hist.get(str(d), 0) + 1
+        result.update({
+            "prefix_overlap": args.prefix_overlap,
+            **{k: sm[k] for k in ("prefix_hits", "forked_jobs",
+                                  "fork_depth_mean", "prefix_evictions")},
+            "fork_depth_hist": hist,
+            "effective_jobs_per_sec_full": eff_full,
+            "prefix_speedup": eff / eff_full if eff_full else 0.0})
+    return ""
 
 
 def _trace_overhead(base, prog, device, best, capacity, summary) -> dict:

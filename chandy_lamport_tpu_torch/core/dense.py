@@ -112,9 +112,10 @@ class DenseSim:
             self.config = dataclasses.replace(self.config,
                                               max_delay=delay.max_delay)
         self.config = armed_config(self.config, trace)
-        self.kernel = TickKernel(self.topo, self.config, delay, self.device,
+        self.kernel = TickKernel(self.topo, self.config, delay,
                                  marker_mode="ring", megatick=megatick,
-                                 exact_impl=exact_impl, trace=trace)
+                                 exact_impl=exact_impl, device=self.device,
+                                 trace=trace)
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
         self.trace = DenseTraceView(self) if self.kernel._trace_on else None

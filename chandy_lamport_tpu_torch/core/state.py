@@ -343,7 +343,9 @@ def decode_error_bits(mask: int) -> List[str]:
     return [name for bit, (name, _) in ERROR_NAMES.items() if mask & bit]
 
 
-def decode_errors(mask: int) -> List[str]:
-    """Long diagnostic messages for a bitmask."""
-    mask = int(mask)
-    return [msg for bit, (_, msg) in ERROR_NAMES.items() if mask & bit]
+def decode_errors(error_bits: int) -> List[str]:
+    """Long diagnostic messages for a bitmask (the JAX ``decode_errors``,
+    its parameter name too)."""
+    error_bits = int(error_bits)
+    return [msg for bit, (_, msg) in ERROR_NAMES.items()
+            if error_bits & bit]

@@ -215,10 +215,10 @@ class TickKernel:
     (``self.fused_workspace``), or the constructor raises; on the CPU they
     run its plain form."""
 
-    def __init__(self, topo: DenseTopology, cfg: SimConfig, delay, device,
+    def __init__(self, topo: DenseTopology, cfg: SimConfig, delay,
                  marker_mode: str = "ring", exact_impl: str = "cascade",
-                 faults=None, quarantine: bool = False, megatick: int = 1,
-                 trace=None):
+                 megatick: int = 1, *, device, faults=None,
+                 quarantine: bool = False, trace=None):
         if marker_mode not in ("ring", "split"):
             raise ValueError(f"unknown marker_mode {marker_mode!r}")
         if exact_impl not in ("cascade", "wave", "fold"):
@@ -1677,3 +1677,37 @@ def reset_lanes(state: DenseState, mask, template: DenseState) -> DenseState:
     return state._replace(**{
         name: mix(getattr(state, name), getattr(template, name))
         for name in DenseState._fields if name not in _RESET_KEEP})
+
+
+# leaves fork_lanes leaves as they were: reset_lanes' keep-set less
+# ``delay_state``, which the fork takes from the checkpoint (the sampler's
+# counters advanced during the prefix)
+_FORK_KEEP = ("fault_key", "job_id", "prog_cursor", "admit_tick",
+              "tr_meta", "tr_data", "tr_tick", "tr_count", "tr_on")
+
+
+def fork_lanes(state: DenseState, mask, bank: DenseState,
+               src) -> DenseState:
+    """Put checkpointed prefix states into admitted lanes (the JAX
+    ``fork_lanes``): lane b where ``mask`` [B] holds takes every
+    simulation leaf from row ``src[b]`` of ``bank`` (a ``DenseState`` with
+    an [F] lead axis on the state's device: the decoded prefix-checkpoint
+    bank), so it resumes from the phase boundary the checkpoint captured.
+    ``delay_state`` is forked; ``fault_key`` (part of the prefix digest,
+    so the admitted pool row already equals the checkpoint's) and the
+    lane bookkeeping and flight-recorder leaves of ``_FORK_KEEP`` stay as
+    they were. Every other lane is left as it was. Returns new tensors."""
+    srci = torch.as_tensor(src, device=mask.device).long()
+
+    def mix(old, rows):
+        m = mask.reshape(mask.shape + (1,) * (old.dim() - 1))
+        return torch.where(m, rows[srci], old)
+
+    updates = {}
+    for name in DenseState._fields:
+        if name in _FORK_KEEP:
+            continue
+        old, rows = getattr(state, name), getattr(bank, name)
+        updates[name] = (tuple(mix(o, r) for o, r in zip(old, rows))
+                         if isinstance(old, tuple) else mix(old, rows))
+    return state._replace(**updates)

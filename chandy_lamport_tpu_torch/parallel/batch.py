@@ -14,7 +14,12 @@ carries a per-lane mask. Three ways to drive the lanes:
   ``run_stream``): a queue of J compiled jobs through the B lane slots,
   each lane in its own stage (script, drain, flush, retired), a retired
   lane harvested into a results ring and refilled at once. Every job's
-  row equals the same job run alone through ``run``.
+  row equals the same job run alone through ``run``. With the memo plane
+  on (``memo=``, utils/memocache.py) duplicate jobs share one lane, jobs
+  whose digest the summary cache holds take none, lanes whose state
+  signature recurs in their drain are fast-forwarded, and near-duplicates
+  fork from checkpointed prefix states; every served row equals the row
+  the memo-off engine gives the same pool.
 
 At ``megatick`` K > 1 the exact drain and flush (the stream's drain slice
 and flush pass among them) run in K-tick megaticks through the fused
@@ -25,13 +30,14 @@ snapshot supervisor (the config's ``snapshot_*`` knobs), ``quarantine=``
 and the flight recorder (``trace=``, utils/tracing.py). ``run_stream``
 checkpoints its ``(state, stream)`` carry every K steps
 (utils/checkpoint.py), and a run resumed from the file ends bit-equal to
-the uninterrupted one. Not ported yet (ROADMAP.md): the stream's memo
-plane (A9b).
+the uninterrupted one, under every memo mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
@@ -47,6 +53,7 @@ from chandy_lamport_tpu_torch.core.spec import (
 from chandy_lamport_tpu_torch.core.state import (
     ERR_CONSERVATION,
     ERR_TICK_LIMIT,
+    U32_LEAVES,
     DenseState,
     DenseTopology,
     decode_error_bits,
@@ -54,10 +61,21 @@ from chandy_lamport_tpu_torch.core.state import (
 )
 from chandy_lamport_tpu_torch.ops.tick import (
     TickKernel,
+    fork_lanes,
     harvest_lane_summaries,
     reset_lanes,
 )
 from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+from chandy_lamport_tpu_torch.utils.memocache import (
+    MemoCacheError,
+    PrefixCache,
+    PrefixCacheError,
+    SummaryCache,
+    job_digest,
+    prefix_extend,
+    prefix_seed_digest,
+    resolve_memo,
+)
 from chandy_lamport_tpu_torch.utils.metrics import (
     lane_total_tokens,
     or_reduce,
@@ -67,7 +85,10 @@ from chandy_lamport_tpu_torch.utils.metrics import (
 )
 from chandy_lamport_tpu_torch.utils.tracing import (
     EV_LANE_ADMIT,
+    EV_LANE_COALESCE,
     EV_LANE_HARVEST,
+    EV_MEMO_HIT,
+    EV_PREFIX_FORK,
     armed_config,
     trace_append_lanes,
     trace_counts,
@@ -76,6 +97,106 @@ from chandy_lamport_tpu_torch.utils.tracing import (
 OP_NOP, OP_SEND, OP_SNAPSHOT = 0, 1, 2
 
 _i32 = torch.int32
+_M32 = 0xFFFFFFFF
+
+# With memo != "off", every MEMO_SHADOW_EVERY-th job served without
+# execution (a summary-cache hit or a coalesced follower) also runs alone
+# on a lane, and its summary must equal the served one bit for bit, or
+# MemoCacheError. Under "prefix" the same cadence re-runs forked jobs cold
+# at the end of the run (PrefixCacheError on a mismatch).
+# run_stream(shadow_every=...) overrides it (0 disables). The JAX value.
+MEMO_SHADOW_EVERY = 16
+
+# DenseState leaves a prefix checkpoint does not capture: fork_lanes'
+# keep-set (the lane bookkeeping, the flight recorder's ring and
+# fault_key, which is part of the chain identity). Everything else, the
+# delay sampler's advanced words included, is captured, so a forked lane
+# equals a cold lane whose cursor just crossed the boundary.
+_PREFIX_KEEP_LEAVES = frozenset((
+    "fault_key", "job_id", "prog_cursor", "admit_tick",
+    "tr_meta", "tr_data", "tr_tick", "tr_count", "tr_on"))
+
+# DenseState leaves the per-lane state signature leaves out: the clock
+# (fast-forwarding asks whether the state is invariant under the tick
+# modulo time), the recorder's ring, the signature itself and the
+# admission stamp. Everything else is hashed.
+_SIG_SKIP_LEAVES = frozenset((
+    "time", "admit_tick", "tr_meta", "tr_data", "tr_tick", "tr_count",
+    "tr_on", "sig"))
+
+
+@functools.lru_cache(maxsize=64)
+def _sig_weights(size: int, device: str) -> torch.Tensor:
+    """The signature's per-position u32 weights ``i * 2654435761 +
+    0x85EBCA6B`` (mod 2^32) of a leaf of ``size`` words, as int64."""
+    i = np.arange(size, dtype=np.uint64)
+    w = (i * np.uint64(2654435761) + np.uint64(0x85EBCA6B)) \
+        & np.uint64(_M32)
+    return torch.from_numpy(w.astype(np.int64)).to(device)
+
+
+def _sig_words(leaf: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """One [B, ...] leaf as [B, M] u32 words held in int64 (the JAX
+    ``_sig_words`` per lane): a leaf whose JAX dtype is 8 bytes wide splits
+    into its lo then its hi words; every narrower one is cast to uint32
+    as jnp's ``astype`` casts (an int16 -1 is 0xFFFFFFFF, a bool 0 or
+    1). The port's uint32 words are int64 values in [0, 2^32) already."""
+    x = leaf.reshape(leaf.shape[0], -1)
+    if x.dtype.is_floating_point:
+        raise TypeError("the state signature hashes integer leaves only")
+    x = x.to(torch.int64)
+    if itemsize == 8:
+        return torch.cat([x & _M32, (x >> 32) & _M32], dim=1)
+    return x & _M32
+
+
+def _sig_leaves(s: DenseState, delay):
+    """(leaf, JAX itemsize) of every hashed leaf of ``s``, in the JAX
+    flatten order."""
+    for name, val in zip(DenseState._fields, s):
+        if name in _SIG_SKIP_LEAVES:
+            continue
+        if name == "delay_state":
+            for w, dt in zip(val, delay.host_dtypes):
+                yield w, np.dtype(dt).itemsize
+        elif name in U32_LEAVES:
+            yield val, 4
+        else:
+            yield val, val.element_size()
+
+
+def _lane_signature(s: DenseState, delay) -> torch.Tensor:
+    """[B] u32 fingerprint (int64 values) of each lane's semantic state,
+    bit-equal to the JAX ``_lane_signature`` of the same lane: per leaf a
+    position-weighted u32 sum (positions count within one lane), then an
+    FNV-style combine across leaves with a per-leaf salt. Every product
+    of two u32 values goes through 16-bit halves, so no partial product
+    passes 2^48 in int64. Equal states hash equal; a 32-bit collision is
+    the residual risk the shadow audit (MEMO_SHADOW_EVERY) exists to
+    catch. ``delay``: the sampler whose words ``delay_state`` holds (their
+    JAX dtypes)."""
+    acc = torch.full_like(s.time, 0x9E3779B9, dtype=torch.int64)
+    for idx, (leaf, itemsize) in enumerate(_sig_leaves(s, delay)):
+        w = _sig_words(leaf, itemsize)
+        wt = _sig_weights(w.shape[1], str(w.device))
+        prod = ((w & 0xFFFF) * wt
+                + ((((w >> 16) * wt) & 0xFFFF) << 16)) & _M32
+        h = prod.sum(1) & _M32
+        salt = (idx * 0x9E3779B9) & _M32
+        acc = ((acc * 1000003) & _M32) ^ ((h + salt) & _M32)
+    return acc
+
+
+def _delay_treedef(words: int) -> str:
+    """The JAX ``str(tree_structure(...))`` of a sampler state of
+    ``words`` words (a tuple)."""
+    inner = {0: "()", 1: "(*,)"}.get(words,
+                                     "(" + ", ".join(["*"] * words) + ")")
+    return f"PyTreeDef({inner})"
+
+
+def _hex(row) -> str:
+    return bytes(bytearray(np.asarray(row, np.uint8).tolist())).hex()
 
 
 class ScriptOps(NamedTuple):
@@ -141,9 +262,15 @@ class JobPool(NamedTuple):
     K with OP_NOP); ``job_limit[j]`` is its drain budget from tick 0 (its
     scripted ticks + ``max_ticks``: a static run enters its drain at
     exactly that many ticks); ``fault_key[j]`` and ``delay_state[j]``
-    are its stream identities (row j of ``init_batch_state(J)``), copied
-    into whichever lane admits it. ``digest`` is all zeros and
-    ``prefix_digest`` None: both belong to the memo plane (A9b)."""
+    are its stream identities (row j of ``init_batch_state(J)``, or under
+    content keys the row of its content rank), copied into whichever lane
+    admits it. ``digest[j]`` is its content address (sha256 bytes,
+    utils/memocache.job_digest; zeros with content keys off).
+    ``prefix_digest`` (memo "prefix" only, else None) is the rolling
+    chain of phase-boundary digests, a host numpy array [P, 32]
+    row-aligned with the phase table: row ``job_start[j] + i`` addresses
+    job j's lane state after its first i + 1 phases. It is planning data
+    and never moves to the device."""
 
     kind: Any        # i32 [P, K]
     arg0: Any        # i32 [P, K]
@@ -155,7 +282,7 @@ class JobPool(NamedTuple):
     fault_key: Any   # u32 [J] (int64 words; 0 = disarmed)
     digest: Any      # u8 [J, 32]
     delay_state: Any  # sampler tuple, leaves [J, ...]
-    prefix_digest: Any = None
+    prefix_digest: Any = None  # numpy u8 [P, 32] (memo "prefix")
 
     @property
     def num_jobs(self) -> int:
@@ -165,23 +292,27 @@ class JobPool(NamedTuple):
 class StreamState(NamedTuple):
     """The streaming engine's carry beside the lane batch (the JAX
     ``StreamState``, leaf for leaf): admission and occupancy books, the
-    memo, prefix and serving counters (zeros here: those planes are not
-    ported), and the per-job results ring the harvest writes. Every leaf
-    is an int32 tensor on the runner's device."""
+    memo and prefix counters, the serving books (zeros: serving is not
+    ported) and the per-job results ring the harvest writes. Every leaf
+    is an int32 tensor on the runner's device. ``cache_hits``,
+    ``coalesced_jobs``, ``shadow_checks`` and ``prefix_hits`` are set by
+    the host when a memoized run ends; ``ff_skipped_ticks``,
+    ``forked_jobs`` and ``fork_depth_sum`` accumulate on the device, so a
+    checkpoint carries them."""
 
-    next_job: Any          # []  jobs admitted so far
+    next_job: Any          # []  jobs admitted (memo on: exec-order slots)
     jobs_done: Any         # []  jobs harvested into the ring
     steps: Any             # []  stream steps executed
     refills: Any           # []  admissions into a recycled slot
     lane_steps_live: Any   # []  lane-steps that held a live job
     lane_steps_total: Any  # []  lane-steps charged (occupancy denominator)
-    cache_hits: Any        # []  memo plane (A9b): 0
-    coalesced_jobs: Any
-    ff_skipped_ticks: Any
-    shadow_checks: Any
-    prefix_hits: Any
-    forked_jobs: Any
-    fork_depth_sum: Any
+    cache_hits: Any        # []  jobs served from the summary cache
+    coalesced_jobs: Any    # []  duplicates served by a leader's lane
+    ff_skipped_ticks: Any  # []  ticks credited by fast-forward
+    shadow_checks: Any     # []  served summaries re-proven by a shadow
+    prefix_hits: Any       # []  jobs planned to fork from a checkpoint
+    forked_jobs: Any       # []  fork admissions made
+    fork_depth_sum: Any    # []  phases skipped by forks
     deadline_misses: Any   # []  serving plane (A10): 0
     tenant_served: Any     # [T]
     tenant_quota: Any      # [T]
@@ -242,9 +373,14 @@ class BatchedRunner:
 
     def __init__(self, topology: TopologySpec, config: Optional[SimConfig],
                  delay, batch: int, scheduler: str = "exact",
-                 check_every: int = 0, device=None,
-                 exact_impl: str = "cascade", faults=None,
-                 quarantine: bool = False, trace=None, megatick: int = 1):
+                 check_every: int = 0, exact_impl: str = "cascade", *,
+                 device=None, faults=None, quarantine: bool = False,
+                 trace=None, megatick: int = 1, memo: str = "off",
+                 memo_cache: Optional[str] = None,
+                 memo_cache_entries: int = 0, memo_cache_bytes: int = 0,
+                 prefix_cache: Optional[str] = None,
+                 prefix_cache_entries: int = 0,
+                 prefix_cache_bytes: int = 0):
         """scheduler: "exact" (the reference's delivery semantics,
         bit-exact; the default, as in the JAX ``BatchedRunner``) or "sync"
         (simultaneous delivery, the production path).
@@ -286,6 +422,27 @@ class BatchedRunner:
         and once after the run, setting the sticky ERR_CONSERVATION bit on
         any lane whose balances + in-flight tokens drift.
 
+        memo: the stream's memo plane (the JAX knob; utils/memocache.py).
+        "off" (default) is the memo-free engine, bit for bit. "admit":
+        ``pack_jobs`` derives the jobs' stream identities from their
+        content, so duplicates share digests; ``run_stream`` runs one
+        leader per digest and serves its duplicates from its row, and
+        serves digests the summary cache holds without a lane. "full"
+        adds the per-lane state signature (``sig``) and fast-forwards a
+        lane whose signature recurs in its drain. "prefix" adds the fork:
+        jobs sharing a checkpointed phase-boundary digest start from the
+        checkpointed lane state. Every served row is audited by shadow
+        runs (``MEMO_SHADOW_EVERY``). ``memo_cache``: the summary cache's
+        JSON-lines file (None keeps it in memory for one run);
+        ``memo_cache_entries`` / ``memo_cache_bytes`` its LRU bounds (0 =
+        none). ``prefix_cache``: the prefix-checkpoint store's file (None
+        keeps one in memory on the runner, across runs);
+        ``prefix_cache_entries`` / ``prefix_cache_bytes`` its bounds.
+
+        The parameters after ``exact_impl`` are keyword-only: the JAX
+        runner's 8th positional parameter is ``auto_layouts`` (ROADMAP
+        A7), which the port does not have.
+
         device: where the state lives and the kernels run; None means the
         card (``resolve_device``)."""
         if scheduler not in ("sync", "exact"):
@@ -304,13 +461,35 @@ class BatchedRunner:
         self.batch = batch
         self.scheduler = scheduler
         self.check_every = int(check_every)
+        self._topo_spec = topology
+        self.memo = resolve_memo(memo)
+        self.memo_cache_path = memo_cache
+        self.memo_cache_entries = int(memo_cache_entries)
+        self.memo_cache_bytes = int(memo_cache_bytes)
+        self.prefix_cache_path = prefix_cache
+        self.prefix_cache_entries = int(prefix_cache_entries)
+        self.prefix_cache_bytes = int(prefix_cache_bytes)
+        self._prefix_cache_handle: Optional[PrefixCache] = None
+        # the books of the last memoized run, for summarize_stream
+        self._memo_cache_stats = {"cache_evictions": 0,
+                                  "cache_evicted_bytes": 0}
+        self._prefix_stats = {"prefix_evictions": 0,
+                              "prefix_evicted_bytes": 0,
+                              "prefix_store_entries": 0}
+        self._fork_depths: List[int] = []
+        # rows the last memoized run served without a lane (job -> row)
+        self._memo_rows: dict = {}
+        # host seconds of the last run's memo stages (plan, finalize, the
+        # fast-forward watch, the prefix plan, producer and bank) and the
+        # bank's rows and bytes; the bench and chip_smoke.py read them
+        self.memo_timing: dict = {}
         # sync keeps markers in the split planes; exact needs the unified
         # ring for push-order delay draws
         self.kernel = TickKernel(
-            self.topo, self.config, delay, self.device,
+            self.topo, self.config, delay,
             marker_mode="split" if scheduler == "sync" else "ring",
-            exact_impl=exact_impl, faults=faults, quarantine=quarantine,
-            megatick=megatick, trace=trace)
+            exact_impl=exact_impl, megatick=megatick, device=self.device,
+            faults=faults, quarantine=quarantine, trace=trace)
         self.megatick = self.kernel.megatick
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
@@ -503,7 +682,7 @@ class BatchedRunner:
         or sync ticks. ``state`` is left as it was."""
         return self._ticks(self._own(state), n)
 
-    # ---- the streaming job engine (A9, memo off) -----------------------------
+    # ---- the streaming job engine (A9) -----------------------------------------
     #
     # run() amortizes ONE script over B lanes, which retire together, so a
     # heavy-tailed job mix waits for each batch's slowest member.
@@ -517,18 +696,19 @@ class BatchedRunner:
     def pack_jobs(self, jobs, fault_armed=None,
                   content_keys: Optional[bool] = None) -> JobPool:
         """Compile and pack J jobs (event lists or ScriptOps) into one
-        pooled phase table on the runner's device (the JAX ``pack_jobs``
-        on its memo-off path): each job's stream identities are row j of
-        ``init_batch_state(J)`` of the delay sampler and the adversary.
-        ``fault_armed`` [J] bools arms exactly those jobs (keys zeroed
-        elsewhere; default all); without an adversary every key is 0.
-        ``content_keys=True`` (content-derived identities and digests)
-        belongs to the memo plane: NotImplementedError."""
-        if content_keys:
-            raise NotImplementedError(
-                "content_keys=True derives the jobs' stream identities and "
-                "digests by content for the memo plane, which is not "
-                "ported yet (ROADMAP.md, A9b)")
+        pooled phase table on the runner's device (the JAX
+        ``pack_jobs``). ``fault_armed`` [J] bools arms exactly those jobs
+        (keys zeroed elsewhere; default all); without an adversary every
+        key is 0.
+
+        ``content_keys`` (default: on iff the runner's memo is not
+        "off"): job j's stream identities are the ``init_batch_state``
+        row of its content rank (the first appearance of its compiled
+        script; under memo "prefix" of its first phase row) instead of
+        row j, so duplicates run the same computation, and ``digest``
+        holds each job's content address (under "prefix" also
+        ``prefix_digest``, the phase-boundary chain). Off, the pool is
+        the memo-free one: index-derived rows, zero digests."""
         scripts = [j if isinstance(j, ScriptOps)
                    else compile_events(self.topo, j) for j in jobs]
         if not scripts:
@@ -555,23 +735,149 @@ class BatchedRunner:
                 self.config.max_ticks
             row += t
         dev = self.device
+        if content_keys is None:
+            content_keys = self.memo != "off"
+        if content_keys:
+            # content rank: the first appearance of each distinct compiled
+            # script (the bytes of its op arrays)
+            u_of: dict = {}
+            u_index = np.zeros(jcount, np.int64)
+            for j, sc in enumerate(scripts):
+                key = (sc.kind.shape, np.asarray(sc.kind).tobytes(),
+                       np.asarray(sc.arg0).tobytes(),
+                       np.asarray(sc.arg1).tobytes(),
+                       np.asarray(sc.do_tick).tobytes())
+                u_index[j] = u_of.setdefault(key, len(u_of))
+            ident_index, nident = u_index, len(u_of)
+            if self.memo == "prefix":
+                # the identity rank of the first pooled phase row, so that
+                # jobs sharing a prefix share their streams (and a
+                # checkpoint forks into each); duplicates share it too
+                f_of: dict = {}
+                ident_index = np.zeros(jcount, np.int64)
+                for j in range(jcount):
+                    r = int(start[j])
+                    key = (kind[r].tobytes(), arg0[r].tobytes(),
+                           arg1[r].tobytes(), int(do_tick[r]))
+                    ident_index[j] = f_of.setdefault(key, len(f_of))
+                nident = len(f_of)
+            rows = torch.as_tensor(ident_index, device=dev)
+        else:
+            u_index, nident, rows = None, jcount, None
         if self.faults is not None:
-            keys = self.faults.init_batch_state(jcount, dev)
+            keys = self.faults.init_batch_state(nident, dev)
+            if rows is not None:
+                keys = keys[rows]
             if fault_armed is not None:
                 armed = torch.as_tensor(np.asarray(fault_armed, bool),
                                         device=dev)
                 keys = torch.where(armed, keys, 0)
         else:
             keys = torch.zeros(jcount, dtype=torch.int64, device=dev)
+        delay_rows = self.delay.init_batch_state(nident, dev)
+        prefix_digest = None
+        if content_keys:
+            delay_rows = tuple(w[rows] for w in delay_rows)
+            digest = torch.as_tensor(self._job_digests(
+                scripts, u_index, keys, delay_rows), device=dev)
+            if self.memo == "prefix":
+                prefix_digest = self._prefix_chains(
+                    kind, arg0, arg1, do_tick, start, end, ident_index,
+                    keys, delay_rows)
+        else:
+            digest = torch.zeros((jcount, 32), dtype=torch.uint8,
+                                 device=dev)
 
         def put(x):
             return torch.as_tensor(x, device=dev)
 
         return JobPool(put(kind), put(arg0), put(arg1), put(do_tick),
-                       put(start), put(end), put(limit), keys,
-                       torch.zeros((jcount, 32), dtype=torch.uint8,
-                                   device=dev),
-                       self.delay.init_batch_state(jcount, dev))
+                       put(start), put(end), put(limit), keys, digest,
+                       delay_rows, prefix_digest)
+
+    def _digest_identity(self):
+        """The runner's execution identity as digest ingredients (the JAX
+        ``_digest_identity`` over the port's knobs): every SimConfig field
+        but ``trace_capacity`` (observability only), and the resolved
+        knobs. The fused megatick's layout is left out: the kernel and
+        its plain form give the same bits, so a digest means the same on
+        the card and on the CPU."""
+        cfg_fields = dataclasses.asdict(self.config)
+        cfg_fields.pop("trace_capacity")
+        knobs = {
+            "exact_impl": self.kernel.exact_impl,
+            "megatick": self.megatick,
+            "check_every": self.check_every,
+            "quarantine": self.quarantine,
+            "delay_kind": type(self.delay).__name__,
+            "faults": (None if self.faults is None
+                       else sorted(vars(self.faults).items())),
+        }
+        return cfg_fields, knobs
+
+    def _host_rows(self, keys, delay_rows):
+        """The pool's fault keys and delay rows on the host in the JAX
+        dtypes, as the digests hash them."""
+        from chandy_lamport_tpu_torch.utils.carry import words_to_numpy
+
+        return (keys.cpu().numpy().astype(np.uint32),
+                words_to_numpy(delay_rows, self.delay))
+
+    def _job_digests(self, scripts, u_index, keys, delay_rows) -> np.ndarray:
+        """[J, 32] content addresses (the JAX ``_job_digests``):
+        utils/memocache.job_digest over the topology, the job's compiled
+        script, its fault key and delay row, the scheduler and the
+        runner's identity. A (content rank, key) pair hashes once."""
+        cfg_fields, knobs = self._digest_identity()
+        keys, leaves = self._host_rows(keys, delay_rows)
+        treedef = _delay_treedef(len(leaves))
+        out = np.zeros((len(scripts), 32), np.uint8)
+        seen: dict = {}
+        for j, sc in enumerate(scripts):
+            memo_key = (int(u_index[j]), int(keys[j]))
+            hx = seen.get(memo_key)
+            if hx is None:
+                hx = job_digest(
+                    topo_spec=self._topo_spec,
+                    script=(np.asarray(sc.kind), np.asarray(sc.arg0),
+                            np.asarray(sc.arg1), np.asarray(sc.do_tick)),
+                    fault_key=int(keys[j]),
+                    delay_row={"treedef": treedef,
+                               "leaves": [lv[j] for lv in leaves]},
+                    scheduler=self.scheduler, knobs=knobs,
+                    config_fields=cfg_fields)
+                seen[memo_key] = hx
+            out[j] = np.frombuffer(bytes.fromhex(hx), np.uint8)
+        return out
+
+    def _prefix_chains(self, kind, arg0, arg1, do_tick, start, end,
+                       ident_index, keys, delay_rows) -> np.ndarray:
+        """[P, 32] phase-boundary digest chains (the JAX
+        ``_prefix_chains``): per job, link 0 is
+        utils/memocache.prefix_seed_digest of its script-free identity,
+        and each pooled phase row extends it (prefix_extend), written at
+        its row. Seeds are shared by (identity rank, key)."""
+        cfg_fields, knobs = self._digest_identity()
+        keys, leaves = self._host_rows(keys, delay_rows)
+        treedef = _delay_treedef(len(leaves))
+        out = np.zeros((kind.shape[0], 32), np.uint8)
+        seeds: dict = {}
+        for j in range(len(start)):
+            seed_key = (int(ident_index[j]), int(keys[j]))
+            c = seeds.get(seed_key)
+            if c is None:
+                c = prefix_seed_digest(
+                    topo_spec=self._topo_spec, fault_key=int(keys[j]),
+                    delay_row={"treedef": treedef,
+                               "leaves": [lv[j] for lv in leaves]},
+                    scheduler=self.scheduler, knobs=knobs,
+                    config_fields=cfg_fields)
+                seeds[seed_key] = c
+            for r in range(int(start[j]), int(end[j])):
+                c = prefix_extend(
+                    c, (kind[r], arg0[r], arg1[r], int(do_tick[r])))
+                out[r] = np.frombuffer(c, np.uint8)
+        return out
 
     def init_stream(self, pool: JobPool,
                     results_capacity: Optional[int] = None) -> StreamState:
@@ -624,14 +930,15 @@ class BatchedRunner:
         return torch.where(run & (cur == end + 1), 3, stage)
 
     def _lane_pass(self, s: DenseState, pool: JobPool, stretch: int,
-                   drain_chunk: int) -> DenseState:
+                   drain_chunk: int, memo: str = "off") -> DenseState:
         """Every lane's pass through its stage (the JAX ``lane_pass``):
         ``stretch`` script substeps (one pooled phase each), then one
         drain slice of ``drain_chunk`` conditional ticks against each
         job's absolute limit, then one flush pass. A lane that ends its
         script in a substep drains in the same step, and one that ends
         its drain in the slice flushes in the same step: the stage is
-        read again before each pass."""
+        read again before each pass. Under memo "full" every lane's
+        ``sig`` is then refreshed (``_lane_signature``)."""
         kern = self.kernel
         last = pool.kind.shape[0] - 1
         for _ in range(stretch):
@@ -660,15 +967,31 @@ class BatchedRunner:
             s = kern._stream_flush(s, flush)
             s = s._replace(prog_cursor=s.prog_cursor + flush.to(_i32))
         kern.drain_fold_steps += kern.fold_steps - folds
+        if memo == "full":
+            s = s._replace(sig=_lane_signature(s, self.delay))
         return s
 
     def _stream_step(self, s: DenseState, st: StreamState, pool: JobPool,
-                     stretch: int, drain_chunk: int, gang: bool):
-        """One streaming step (the JAX ``_build_stream_step`` with memo
-        off), in the JAX order: harvest retired lanes into the results
-        ring, admit queued jobs into the freed slots (``reset_lanes``,
-        then the pool's rows), the occupancy books, then every lane's
-        ``_lane_pass``. Returns (state, stream)."""
+                     stretch: int, drain_chunk: int, gang: bool,
+                     memo: Optional[str] = None, order=None,
+                     followers=None, bank=None, fork_src=None,
+                     fork_depth=None):
+        """One streaming step (the JAX ``_build_stream_step``), in the JAX
+        order: harvest retired lanes into the results ring, admit queued
+        jobs into the freed slots (``reset_lanes``, then the pool's rows),
+        the occupancy books, then every lane's ``_lane_pass``. Returns
+        (state, stream).
+
+        ``memo`` (default: the runner's): with it on, admission walks the
+        exec order ``order`` [U] (pool job ids: one leader per digest and
+        the shadow runs) rather than the pool, and ``followers`` [U]
+        counts the duplicates each position's leader serves (the
+        recorder's EV_LANE_COALESCE). Under "prefix" an admitted job
+        whose ``fork_src`` [J] row is >= 0 takes that row of ``bank`` (a
+        ``DenseState`` of checkpointed prefix states, ``fork_lanes``) and
+        starts ``fork_depth`` [J] phases into its script (EV_PREFIX_FORK),
+        counted in ``forked_jobs`` and ``fork_depth_sum``."""
+        memo = self.memo if memo is None else memo
         b, jcount = self.batch, pool.num_jobs
         jmax = jcount - 1
         rcap = st.res_job.shape[0]
@@ -715,12 +1038,22 @@ class BatchedRunner:
         # -- admit: reset the freed slots, copy in the jobs' identities
         idle = fin | ~has_job
         arank = torch.cumsum(idle.to(_i32), 0, dtype=_i32) - 1
-        admit = idle & (arank < jcount - st.next_job)
+        if memo == "off":
+            admit = idle & (arank < jcount - st.next_job)
+        else:
+            # memoized admission: next_job walks the exec order, and the
+            # pool row admitted is order[pos]
+            uexec = order.shape[0]
+            admit = idle & (arank < uexec - st.next_job)
         if gang:
             # gang admission, the static-batching baseline on the same
             # engine: refill only when every lane is idle
             admit = admit & idle.all()
-        new_jid = st.next_job + arank
+        if memo == "off":
+            new_jid = st.next_job + arank
+        else:
+            epos = (st.next_job + arank).clamp(0, max(uexec - 1, 0)).long()
+            new_jid = torch.where(admit, order[epos], -1)
         pick_at = new_jid.clamp(0, jmax).long()
         reset = fin | admit
         s = reset_lanes(s, reset, self._lane_template())
@@ -741,8 +1074,30 @@ class BatchedRunner:
                                     torch.where(reset, 0, s.prog_cursor)),
             admit_tick=torch.where(admit, st.steps,
                                    torch.where(reset, 0, s.admit_tick)))
+        if memo == "prefix":
+            # the fork: an admitted job the plan mapped to a bank row takes
+            # the checkpointed state (delay words included) and resumes at
+            # the divergence cursor
+            fsrc = fork_src[pick_at]
+            fdep = fork_depth[pick_at]
+            is_fork = admit & (fsrc >= 0)
+            fmax = bank.time.shape[0] - 1
+            s = fork_lanes(s, is_fork, bank, fsrc.clamp(0, fmax))
+            s = s._replace(prog_cursor=torch.where(
+                is_fork, pool.job_start[pick_at] + fdep, s.prog_cursor))
+            st = st._replace(
+                forked_jobs=st.forked_jobs + is_fork.sum(dtype=_i32),
+                fork_depth_sum=st.fork_depth_sum
+                + torch.where(is_fork, fdep, 0).sum(dtype=_i32))
+            if self.kernel._trace_on:
+                s = trace_append_lanes(s, is_fork, EV_PREFIX_FORK, fdep)
         if self.kernel._trace_on:
             s = trace_append_lanes(s, admit, EV_LANE_ADMIT, new_jid)
+        if self.kernel._trace_on and memo != "off" \
+                and followers is not None:
+            fcnt = followers[epos]
+            s = trace_append_lanes(s, admit & (fcnt > 0), EV_LANE_COALESCE,
+                                   fcnt)
         st = st._replace(
             next_job=st.next_job + admit.sum(dtype=_i32),
             refills=st.refills + (admit & fin).sum(dtype=_i32))
@@ -755,7 +1110,465 @@ class BatchedRunner:
             lane_steps_total=st.lane_steps_total
             + torch.where(live > 0, b, 0).to(_i32))
         # -- advance
-        return self._lane_pass(s, pool, stretch, drain_chunk), st
+        return self._lane_pass(s, pool, stretch, drain_chunk, memo), st
+
+    # ---- the memo plane (A9b): fast-forward, plan, finalize ------------------
+
+    def _ff_apply(self, s: DenseState, st: StreamState, skips):
+        """The fast-forward credit (the JAX ``_ff_step``): add ``skips``
+        [B] ticks to the clock of each lane the device finds eligible —
+        no armed adversary (its stream is indexed by time), no message in
+        flight in either queue plane, no armed supervisor deadline, no
+        error — so every tick skipped is provably ``time += 1``; stamp
+        EV_MEMO_HIT with the ticks skipped and book them in
+        ``ff_skipped_ticks``."""
+        eligible = ((s.fault_key == 0) & (s.error == 0)
+                    & ~(s.q_len > 0).any(-1)
+                    & ~s.m_pending.flatten(1).any(-1))
+        if self.config.snapshot_timeout > 0:
+            eligible = eligible & ~(s.snap_deadline > 0).any(-1)
+        skip = torch.where(eligible, skips, 0).to(_i32)
+        s = s._replace(time=s.time + skip)
+        if self.kernel._trace_on:
+            s = trace_append_lanes(s, skip > 0, EV_MEMO_HIT, skip)
+        return s, st._replace(
+            ff_skipped_ticks=st.ff_skipped_ticks + skip.sum(dtype=_i32))
+
+    def _ff_host(self, s: DenseState, st: StreamState, watch: dict):
+        """The host half of fast-forwarding (the JAX ``_ff_host``, memo
+        "full"): watch each draining lane's (job, cursor, signature)
+        across steps. A recurrence at the same drain cursor with the
+        clock advanced means the lane's semantic state is a fixed point
+        of the tick, so the wait to its tick limit is credited at once:
+        whole multiples of the observed period, stopping short of the
+        limit so the ERR_TICK_LIMIT edge replays tick-exactly. The four
+        [B] leaves come to the host in one copy, and the watch over the
+        lanes is numpy. ``watch`` holds the job tables and the last
+        sighting of every lane, across steps; a lane out of its drain
+        drops out of it."""
+        t0 = time.perf_counter()
+        jid, cur, sig, tnow = torch.stack(
+            [s.job_id.long(), s.prog_cursor.long(), s.sig,
+             s.time.long()]).cpu().numpy()
+        jc = np.clip(jid, 0, watch["jend"].shape[0] - 1)
+        valid = (jid >= 0) & (cur == watch["jend"][jc])
+        skips = np.zeros(jid.shape[0], np.int64)
+        prev = watch.get("prev")
+        if prev is not None:
+            pv, pj, pc, ps, pt = prev
+            same = (valid & pv & (pj == jid) & (pc == cur) & (ps == sig)
+                    & (tnow > pt))
+            dt = np.where(same, tnow - pt, 1)
+            k = (watch["jlim"][jc] - tnow - 1) // dt
+            skips = np.where(same & (k > 0), k * dt, 0)
+        watch["prev"] = (valid, jid, cur, sig, tnow)
+        if skips.any():
+            s, st = self._ff_apply(
+                s, st, torch.as_tensor(skips, device=self.device))
+        self.memo_timing["ff_watch_s"] = (
+            self.memo_timing.get("ff_watch_s", 0.0)
+            + time.perf_counter() - t0)
+        return s, st
+
+    def _summary_cache(self) -> SummaryCache:
+        """The runner's summary cache, opened with its LRU bounds."""
+        return SummaryCache(self.memo_cache_path,
+                            max_entries=self.memo_cache_entries,
+                            max_bytes=self.memo_cache_bytes)
+
+    def _memo_plan(self, pool: JobPool, shadow_every: Optional[int]) -> dict:
+        """The admission plan of a memoized run (the JAX ``_memo_plan``):
+        each pool job by digest is a leader (runs on a lane), a coalesced
+        follower (served from its leader's row) or a summary-cache hit
+        (served without a lane); every ``shadow_every``-th served job
+        also runs alone, for the audit. A pure function of the pool and
+        the cache file, which changes only when a run ends, so a killed
+        run replans identically on resume."""
+        digests = [_hex(row) for row in pool.digest.cpu().numpy()]
+        if pool.num_jobs and all(d == "0" * 64 for d in digests):
+            raise ValueError(
+                "memo != 'off' needs a content-addressed pool — pack_jobs "
+                "on a memo-enabled runner (or content_keys=True) stamps "
+                "the job digests")
+        cache = self._summary_cache()
+        se = MEMO_SHADOW_EVERY if shadow_every is None else int(shadow_every)
+        leader: dict = {}      # digest -> ("exec", job) | ("cache", summary)
+        exec_jobs: List[int] = []  # pool job ids in admission order
+        fcounts: dict = {}         # exec job -> coalesced followers
+        served: List[tuple] = []   # (job, "cache"|"coalesce", digest, ref)
+        shadows: set = set()
+        nserved = 0
+
+        def maybe_shadow(j):
+            nonlocal nserved
+            nserved += 1
+            if se and (nserved - 1) % se == 0:
+                shadows.add(j)
+                exec_jobs.append(j)
+                fcounts.setdefault(j, 0)
+
+        for j, dg in enumerate(digests):
+            led = leader.get(dg)
+            if led is None:
+                hit = cache.get(dg)
+                if hit is not None:
+                    leader[dg] = ("cache", dict(hit))
+                    served.append((j, "cache", dg, dict(hit)))
+                    maybe_shadow(j)
+                else:
+                    leader[dg] = ("exec", j)
+                    exec_jobs.append(j)
+                    fcounts[j] = 0
+            else:
+                kind, ref = led
+                if kind == "exec":
+                    fcounts[ref] += 1
+                    served.append((j, "coalesce", dg, ref))
+                else:
+                    served.append((j, "cache", dg, dict(ref)))
+                maybe_shadow(j)
+        return {"digests": digests, "cache": cache, "exec": exec_jobs,
+                "follower_counts": [fcounts[e] for e in exec_jobs],
+                "served": served, "shadows": shadows}
+
+    @staticmethod
+    def _summary_of(row: dict) -> dict:
+        return {k: v for k, v in row.items()
+                if k not in ("job", "admit_step")}
+
+    def _memo_finalize(self, s: DenseState, st: StreamState, plan: dict):
+        """After the exec order drained (the JAX ``_memo_finalize``): the
+        leaders' rows go into the summary cache (one atomic flush), every
+        served row is made with its provenance (``digest``,
+        ``served_from``, ``admit_step`` -1), the shadow runs are held to
+        their served rows (MemoCacheError on any difference) and the
+        memo counters set."""
+        ring = {r["job"]: r for r in _ring_rows(st)}
+        cache = plan["cache"]
+        digests = plan["digests"]
+        for e in plan["exec"]:
+            r = ring.get(e)
+            if r is not None:
+                cache.put(digests[e], self._summary_of(r))
+        nshadow = 0
+        for j, src, dg, ref in plan["served"]:
+            if src == "cache":
+                summ = dict(ref)
+            else:
+                r = ring.get(ref)
+                if r is None:
+                    # the leader's row left an undersized results ring:
+                    # the follower cannot be served
+                    continue
+                summ = self._summary_of(r)
+            if j in plan["shadows"]:
+                solo = ring.get(j)
+                if solo is not None:
+                    nshadow += 1
+                    if self._summary_of(solo) != summ:
+                        raise MemoCacheError(
+                            f"shadow re-execution of job {j} (digest {dg}) "
+                            f"disagrees with its served summary — the "
+                            f"memoized result is not bit-exact; refusing "
+                            f"to serve it")
+            row = dict(summ)
+            row["job"] = j
+            row["admit_step"] = -1
+            row["digest"] = dg
+            row["served_from"] = src
+            self._memo_rows[j] = row
+        cache.flush()
+        self._memo_cache_stats = {"cache_evictions": cache.evictions,
+                                  "cache_evicted_bytes": cache.evicted_bytes}
+        ncache = sum(1 for it in plan["served"] if it[1] == "cache")
+        ncoal = sum(1 for it in plan["served"] if it[1] == "coalesce")
+
+        def put(v):
+            return torch.tensor(v, dtype=_i32, device=self.device)
+
+        return s, st._replace(cache_hits=put(ncache),
+                              coalesced_jobs=put(ncoal),
+                              shadow_checks=put(nshadow))
+
+    # ---- memo "prefix": the fork from checkpointed prefixes -------------------
+
+    def _prefix_cache(self) -> PrefixCache:
+        """The prefix store a run plans against: with a file, a fresh
+        handle per run (so checkpoints other processes flushed count);
+        without, one in-memory store per runner, across runs."""
+        if self.prefix_cache_path is not None:
+            return PrefixCache(self.prefix_cache_path,
+                               max_entries=self.prefix_cache_entries,
+                               max_bytes=self.prefix_cache_bytes)
+        if self._prefix_cache_handle is None:
+            self._prefix_cache_handle = PrefixCache(
+                None, max_entries=self.prefix_cache_entries,
+                max_bytes=self.prefix_cache_bytes)
+        return self._prefix_cache_handle
+
+    def _prefix_produce(self, pool: JobPool, cands,
+                        pcache: PrefixCache) -> None:
+        """Run every candidate prefix cold and checkpoint its boundary
+        state (the JAX ``_prefix_produce``), ``batch`` candidates a
+        chunk: a producer lane is a stream lane at admission (a fresh
+        lane, the job's fault key and delay row, its start cursor) that
+        runs its script rows through ``_apply_phase`` up to its stop
+        cursor and never drains. The captured leaves are every field
+        outside ``_PREFIX_KEEP_LEAVES``, in the JAX dtypes. ``cands``:
+        (digest hex, job, depth) triples."""
+        from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
+
+        if not cands:
+            return
+        b, dev = self.batch, self.device
+        capture = [f for f in DenseState._fields
+                   if f not in _PREFIX_KEEP_LEAVES and f != "delay_state"]
+        last = pool.kind.shape[0] - 1
+        for lo in range(0, len(cands), b):
+            chunk = cands[lo:lo + b]
+            pad = b - len(chunk)
+            idx = torch.as_tensor([j for _, j, _ in chunk]
+                                  + [chunk[-1][1]] * pad, device=dev)
+            deps = torch.as_tensor([d for _, _, d in chunk] + [0] * pad,
+                                   dtype=_i32, device=dev)
+            u = self.init_batch_device()
+            u = u._replace(
+                delay_state=tuple(w[idx] for w in pool.delay_state),
+                fault_key=pool.fault_key[idx].to(u.fault_key.dtype),
+                prog_cursor=pool.job_start[idx].to(_i32),
+                job_id=idx.to(_i32))
+            stop = pool.job_start[idx] + deps
+            for _ in range(int(deps.max())):
+                m = u.prog_cursor < stop
+                c = u.prog_cursor.clamp(0, last).long()
+                # the JAX _apply_phase's own quarantine gate; the cursor
+                # moves on either way
+                u = self._apply_phase(u, pool.kind[c], pool.arg0[c],
+                                      pool.arg1[c], pool.do_tick[c],
+                                      self._quarantine_gate(u, m))
+                u = u._replace(prog_cursor=u.prog_cursor + m.to(_i32))
+            n = len(chunk)
+            host = state_to_numpy(DenseState(*(
+                tuple(w[:n] for w in leaf) if isinstance(leaf, tuple)
+                else leaf[:n] for leaf in u)), self.delay)
+            for i, (dg, _j, d) in enumerate(chunk):
+                leaves = {f: getattr(host, f)[i] for f in capture}
+                leaves["delay_state"] = tuple(w[i] for w in host.delay_state)
+                pcache.put_ckpt(dg, int(d), leaves)
+
+    def _prefix_plan(self, pool: JobPool, plan: dict,
+                     shadow_every: Optional[int]) -> dict:
+        """The fork plan over ``_memo_plan``'s exec order (the JAX
+        ``_prefix_plan``): for each leader the deepest phase boundary
+        whose chain digest has a checkpoint, or is hot enough to produce
+        one now (two leaders cross it in this run, or an earlier run
+        counted it as seen); the producer runs the chosen boundaries;
+        every fork source is decoded through the store's codec into a
+        bank of a power-of-two rows on the device; ``fork_src`` /
+        ``fork_depth`` per job (-1: cold). Boundaries crossed without a
+        checkpoint are counted as seen, for the next run."""
+        from chandy_lamport_tpu_torch.utils.carry import (
+            state_from_numpy,
+            state_to_numpy,
+        )
+
+        if pool.prefix_digest is None:
+            raise ValueError(
+                "memo='prefix' needs a prefix-chained pool — pack_jobs on "
+                "the prefix runner (content_keys on) stamps the "
+                "phase-boundary digest chain")
+        t0 = time.perf_counter()
+        chains = np.asarray(pool.prefix_digest)
+        starts = pool.job_start.cpu().numpy()
+        ends = pool.job_end.cpu().numpy()
+        pcache = self._prefix_cache()
+        exec_jobs = plan["exec"]
+        shadows = plan["shadows"]
+        leaders = [j for j in exec_jobs if j not in shadows]
+
+        def chex(j, d):
+            return _hex(chains[int(starts[j]) + d - 1])
+
+        counts: dict = {}
+        for j in leaders:
+            for d in range(1, int(ends[j] - starts[j]) + 1):
+                dg = chex(j, d)
+                counts[dg] = counts.get(dg, 0) + 1
+        fork_of: dict = {}    # leader job -> (digest hex, depth)
+        produce: dict = {}    # digest hex -> (job, depth) to produce
+        for j in leaders:
+            for d in range(int(ends[j] - starts[j]), 0, -1):
+                dg = chex(j, d)
+                if pcache.has_ckpt(dg) or dg in produce:
+                    fork_of[j] = (dg, d)
+                    break
+                if counts.get(dg, 0) >= 2 or pcache.seen(dg) >= 1:
+                    # the first leader through seeds the checkpoint and
+                    # forks from it itself: the prefix runs once either way
+                    produce[dg] = (j, d)
+                    fork_of[j] = (dg, d)
+                    break
+        bumped: set = set()
+        for j in leaders:
+            for d in range(1, int(ends[j] - starts[j]) + 1):
+                dg = chex(j, d)
+                if dg not in bumped and dg not in produce \
+                        and not pcache.has_ckpt(dg):
+                    bumped.add(dg)
+                    pcache.bump_seen(dg, d)
+        self.memo_timing["prefix_plan_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._prefix_produce(
+            pool, [(dg, j, d) for dg, (j, d) in produce.items()], pcache)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.memo_timing["prefix_produce_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lane0 = state_to_numpy(self._lane_template(), self.delay)
+        lane0 = DenseState(*(tuple(w[0] for w in leaf)
+                             if isinstance(leaf, tuple) else leaf[0]
+                             for leaf in lane0))
+        rows: List[DenseState] = []
+        bank_index: dict = {}
+        fork_src = np.full(pool.num_jobs, -1, np.int32)
+        fork_depth = np.zeros(pool.num_jobs, np.int32)
+        for j in exec_jobs:
+            if j in shadows or j not in fork_of:
+                continue
+            dg, d = fork_of[j]
+            ri = bank_index.get(dg)
+            if ri is None:
+                got = pcache.get_ckpt(dg)
+                if got is None:
+                    # produced, then evicted under a tight bound: this
+                    # leader falls back to a cold admission
+                    del fork_of[j]
+                    continue
+                depth, leaves = got
+                if int(depth) != int(d):
+                    raise PrefixCacheError(
+                        f"prefix cache entry {dg[:12]}… claims depth "
+                        f"{int(depth)} but the pool's chain puts this "
+                        f"digest at depth {int(d)} — refusing the fork")
+                row = lane0._replace(delay_state=tuple(
+                    leaves.pop("delay_state")), **leaves)
+                for name, want, got_leaf in zip(DenseState._fields, lane0,
+                                                row):
+                    for w, g in zip(
+                            want if isinstance(want, tuple) else (want,),
+                            got_leaf if isinstance(got_leaf, tuple)
+                            else (got_leaf,)):
+                        if (np.shape(w) != np.shape(g)
+                                or np.asarray(g).dtype != w.dtype):
+                            raise PrefixCacheError(
+                                f"prefix cache entry {dg[:12]}…: leaf "
+                                f"{name} is {np.asarray(g).dtype}"
+                                f"{list(np.shape(g))}, this runner's is "
+                                f"{w.dtype}{list(np.shape(w))} — refusing "
+                                f"the fork")
+                ri = len(rows)
+                rows.append(row)
+                bank_index[dg] = ri
+            fork_src[j] = ri
+            fork_depth[j] = d
+        se = (MEMO_SHADOW_EVERY if shadow_every is None
+              else int(shadow_every))
+        forked = [j for j in exec_jobs if j in fork_of and j not in shadows]
+        fork_shadows = ([j for k, j in enumerate(forked) if k % se == 0]
+                        if se else [])
+        self._fork_depths = [int(fork_of[j][1]) for j in forked]
+        nbank = 1 << ((len(rows) - 1).bit_length() if rows else 0)
+        rows += [lane0] * (nbank - len(rows))
+        bank = state_from_numpy(DenseState(*(
+            tuple(np.stack(ws) for ws in zip(*leaves))
+            if isinstance(leaves[0], tuple) else np.stack(leaves)
+            for leaves in zip(*rows))), self.device)
+        self.memo_timing.update(
+            prefix_bank_s=time.perf_counter() - t0, prefix_bank_rows=nbank,
+            prefix_bank_bytes=sum(
+                sum(w.numel() * w.element_size() for w in leaf)
+                if isinstance(leaf, tuple)
+                else leaf.numel() * leaf.element_size() for leaf in bank),
+            prefix_produced=len(produce))
+        dev = self.device
+        return {"cache": pcache, "fork_of": fork_of,
+                "fork_shadows": fork_shadows, "produced": sorted(produce),
+                "bank": bank,
+                "fork_src": torch.as_tensor(fork_src, device=dev),
+                "fork_depth": torch.as_tensor(fork_depth, device=dev)}
+
+    def _run_cold_jobs(self, pool: JobPool, js, stretch: int,
+                       drain_chunk: int) -> dict:
+        """The audited forked jobs run cold together (the JAX
+        ``_run_cold_jobs``): a sub-pool of exactly those jobs (the full
+        phase table, so cursors address the same rows) through the
+        memo-off stream step in one multi-lane run. A job's row does not
+        depend on its lane, so this equals each run alone. Returns {job:
+        row} by pool job id."""
+        idx = np.asarray([int(j) for j in js], np.int64)
+        it = torch.as_tensor(idx, device=self.device)
+        sub = pool._replace(
+            job_start=pool.job_start[it], job_end=pool.job_end[it],
+            job_limit=pool.job_limit[it], fault_key=pool.fault_key[it],
+            digest=torch.zeros((len(idx), 32), dtype=torch.uint8,
+                               device=self.device),
+            delay_state=tuple(w[it] for w in pool.delay_state),
+            prefix_digest=None)
+        s, st = self.init_batch_device(), self.init_stream(sub)
+        for _ in range(1_000_000):
+            s, st = self._stream_step(s, st, sub, stretch, drain_chunk,
+                                      False, memo="off")
+            if int(st.jobs_done) >= len(idx):
+                break
+        else:
+            raise RuntimeError(
+                f"cold re-execution of jobs {list(js)} failed to retire")
+        return {int(idx[r["job"]]): dict(r, job=int(idx[r["job"]]))
+                for r in _ring_rows(st)}
+
+    def _prefix_finalize(self, s: DenseState, st: StreamState, plan: dict,
+                         pplan: dict, pool: JobPool, stretch: int,
+                         drain_chunk: int):
+        """After ``_memo_finalize`` (the JAX ``_prefix_finalize``): the
+        fork audit (the chosen forked leaders re-run cold together, each
+        row held to its forked one: PrefixCacheError on any difference),
+        the forked rows' provenance (``served_from="prefix:<depth>"``),
+        the store's flush and the prefix books; ``prefix_hits`` (planned
+        forks) equals ``forked_jobs`` (made) on a finished run."""
+        ring = {r["job"]: r for r in _ring_rows(st)}
+        digests = plan["digests"]
+        audited = [j for j in pplan["fork_shadows"] if j in ring]
+        self.memo_timing["fork_audits"] = len(audited)
+        cold_rows = (self._run_cold_jobs(pool, audited, stretch,
+                                         drain_chunk) if audited else {})
+        for j in audited:
+            dg, d = pplan["fork_of"][j]
+            cold = cold_rows.get(j)
+            if cold is None or (self._summary_of(cold)
+                                != self._summary_of(ring[j])):
+                raise PrefixCacheError(
+                    f"fork shadow: job {j}, forked at depth {d} from "
+                    f"prefix {dg[:12]}…, disagrees with its cold "
+                    f"re-execution — the checkpointed prefix is not "
+                    f"bit-exact; refusing to serve forks from it")
+        for j, (dg, d) in pplan["fork_of"].items():
+            r = ring.get(j)
+            if r is None:
+                continue
+            row = dict(r)
+            row["digest"] = digests[j]
+            row["served_from"] = f"prefix:{d}"
+            self._memo_rows[j] = row
+        pcache = pplan["cache"]
+        pcache.flush()
+        self._prefix_stats = {
+            "prefix_evictions": pcache.evictions,
+            "prefix_evicted_bytes": pcache.evicted_bytes,
+            "prefix_store_entries": len(pcache)}
+        return s, st._replace(
+            prefix_hits=torch.tensor(len(pplan["fork_of"]), dtype=_i32,
+                                     device=self.device),
+            shadow_checks=st.shadow_checks + len(audited))
 
     def run_stream(self, jobs, *, stretch: int = 4, drain_chunk: int = 32,
                    admission: str = "stream",
@@ -765,20 +1578,32 @@ class BatchedRunner:
                    max_steps: int = 1_000_000,
                    checkpoint: Optional[str] = None,
                    checkpoint_every: int = 0,
-                   kill_after_saves: Optional[int] = None):
+                   kill_after_saves: Optional[int] = None,
+                   shadow_every: Optional[int] = None):
         """Drive a queue of jobs through the B lane slots (the JAX
-        ``run_stream`` with the memo plane off); returns the final
-        ``(state, stream)``. ``jobs``: a JobPool (``pack_jobs``) or a list
-        of event lists / ScriptOps. ``admission``: "stream" refills a slot
-        the moment its job retires; "gang" only when every slot is idle,
-        the static-batching baseline on the same engine. Each step is
-        ``_stream_step``; the loop ends when every job is harvested, or
-        raises after ``max_steps``. ``state`` and ``stream`` (default: a
-        fresh batch and ``init_stream(pool, results_capacity)``) are left
-        as they were: the run owns its copies, which the kernels write in
-        place. With the flight recorder armed, each lane's ring records
-        its jobs' ticks and their admits and harvests. The memo plane
-        (A9b) is not ported.
+        ``run_stream``); returns the final ``(state, stream)``. ``jobs``:
+        a JobPool (``pack_jobs``) or a list of event lists / ScriptOps.
+        ``admission``: "stream" refills a slot the moment its job
+        retires; "gang" only when every slot is idle, the
+        static-batching baseline on the same engine. Each step is
+        ``_stream_step``; the loop ends when every job to execute is
+        harvested, or raises after ``max_steps``. ``state`` and
+        ``stream`` (default: a fresh batch and ``init_stream(pool,
+        results_capacity)``) are left as they were: the run owns its
+        copies, which the kernels write in place. With the flight
+        recorder armed, each lane's ring records its jobs' ticks and
+        their admits and harvests (and the memo plane's coalesces,
+        fast-forwards and forks).
+
+        The memo plane (the runner's ``memo``): only one leader per
+        distinct digest runs; its duplicates and the summary cache's hits
+        are served at the end (``stream_results`` rows with ``digest``
+        and ``served_from``). Under "full" a lane whose signature recurs
+        mid-drain is fast-forwarded (``_ff_host``; not with periodic
+        re-initiation, which the clock drives). Under "prefix" leaders
+        fork from the deepest checkpointed boundary they share
+        (``_prefix_plan``). ``shadow_every`` overrides
+        ``MEMO_SHADOW_EVERY`` for both audits (0 disables).
 
         Checkpointing (the JAX ``run_stream``'s): with ``checkpoint`` and
         ``checkpoint_every`` k, every step whose count ``steps`` is a
@@ -787,9 +1612,11 @@ class BatchedRunner:
         ``stream_steps`` and ``jobs_done``. Resume by loading it with
         ``like=(runner.init_batch_device(), runner.init_stream(pool))``
         and passing ``state=`` and ``stream=`` back in: admission order,
-        the per-job streams and the results ring live in the carry, so
-        the continuation is bit-exact. ``kill_after_saves``: return right
-        after that many saves (a preemption drill)."""
+        the per-job streams and the results ring live in the carry, and
+        under memo the plan is a pure function of the pool and the cache
+        files, which change only when a run ends, so the continuation is
+        bit-exact. ``kill_after_saves``: return right after that many
+        saves (a preemption drill), before the memo plane's end."""
         from chandy_lamport_tpu_torch.utils.checkpoint import save_state
 
         if admission not in ("stream", "gang"):
@@ -797,19 +1624,54 @@ class BatchedRunner:
         if stretch < 1 or drain_chunk < 1:
             raise ValueError("stretch and drain_chunk must be >= 1")
         pool = jobs if isinstance(jobs, JobPool) else self.pack_jobs(jobs)
-        target = pool.num_jobs
+        memo = self.memo
+        self._memo_rows = {}
+        self._fork_depths = []
+        self._prefix_stats = {"prefix_evictions": 0,
+                              "prefix_evicted_bytes": 0,
+                              "prefix_store_entries": 0}
+        self.memo_timing = {}
+        arms: dict = {}
+        plan = pplan = None
+        if memo == "off":
+            target = pool.num_jobs
+        else:
+            t0 = time.perf_counter()
+            plan = self._memo_plan(pool, shadow_every)
+            self.memo_timing["plan_s"] = time.perf_counter() - t0
+            target = len(plan["exec"])
+            arms = {"order": torch.as_tensor(np.asarray(plan["exec"],
+                                                        np.int32),
+                                             device=self.device),
+                    "followers": torch.as_tensor(
+                        np.asarray(plan["follower_counts"], np.int32),
+                        device=self.device)}
         s = (self.init_batch_device() if state is None
              else self._own(state))
         st = (self.init_stream(pool, results_capacity) if stream is None
               else StreamState(*(x.clone() for x in stream)))
+        if memo == "prefix":
+            pplan = self._prefix_plan(pool, plan, shadow_every)
+            arms.update(bank=pplan["bank"], fork_src=pplan["fork_src"],
+                        fork_depth=pplan["fork_depth"])
+        watch = None
+        if memo == "full" and self.config.snapshot_every == 0:
+            # fast-forward: a recurring signature means a frozen lane, but
+            # periodic re-initiation is driven by the clock
+            watch = {"jend": pool.job_end.cpu().numpy(),
+                     "jlim": pool.job_limit.cpu().numpy()}
+            self.memo_timing["ff_watch_s"] = 0.0
         done, steps, saves = int(st.jobs_done), 0, 0
         while done < target:
             if steps == max_steps:
                 raise RuntimeError(
-                    f"run_stream: {target - done} of {target} jobs "
-                    f"unfinished after {max_steps} steps; raise max_steps")
+                    f"run_stream: {target - done} of {target} executed "
+                    f"jobs unfinished after {max_steps} steps; raise "
+                    f"max_steps")
             s, st = self._stream_step(s, st, pool, stretch, drain_chunk,
-                                      admission == "gang")
+                                      admission == "gang", memo, **arms)
+            if watch is not None:
+                s, st = self._ff_host(s, st, watch)
             done, steps = int(st.jobs_done), steps + 1
             steps_now = int(st.steps)
             if (checkpoint and checkpoint_every
@@ -821,27 +1683,39 @@ class BatchedRunner:
                 if (kill_after_saves is not None
                         and saves >= int(kill_after_saves)):
                     return s, st
+        if memo != "off":
+            t0 = time.perf_counter()
+            s, st = self._memo_finalize(s, st, plan)
+            self.memo_timing["finalize_s"] = time.perf_counter() - t0
+        if memo == "prefix":
+            t0 = time.perf_counter()
+            s, st = self._prefix_finalize(s, st, plan, pplan, pool, stretch,
+                                          drain_chunk)
+            self.memo_timing["prefix_finalize_s"] = time.perf_counter() - t0
         return s, st
 
     def stream_results(self, stream: StreamState) -> List[dict]:
-        """The harvested results as per-job rows sorted by job id (the
-        JAX ``stream_results``); a ring smaller than the job count keeps
-        only its newest rows."""
+        """The results as per-job rows sorted by job id (the JAX
+        ``stream_results``): the harvested ring overlaid with the rows the
+        last memoized run served without a lane or forked (with
+        ``digest``, ``served_from``, and ``admit_step`` -1 when served); a
+        ring smaller than the executed-job count keeps only its newest
+        rows."""
         rows = {r["job"]: r for r in _ring_rows(stream)}
+        rows.update(self._memo_rows)
         return sorted(rows.values(), key=lambda r: r["job"])
 
     def summarize_stream(self, stream: StreamState) -> dict:
         """The stream's host-side counters (``utils/metrics.
-        stream_counters``) and the results ring's accounting, with the
-        memo plane's cache and prefix books at zero (the JAX
-        ``summarize_stream`` with memo off)."""
+        stream_counters``), the results ring's accounting, and the LRU
+        books of the last memoized run's summary cache and prefix store
+        (the JAX ``summarize_stream``)."""
         d = stream_counters(stream)
         rcap = int(stream.res_job.shape[0])
         d["results_capacity"] = rcap
         d["results_evicted"] = max(0, int(stream.res_count) - rcap)
-        d.update(cache_evictions=0, cache_evicted_bytes=0,
-                 prefix_evictions=0, prefix_evicted_bytes=0,
-                 prefix_store_entries=0)
+        d.update(self._memo_cache_stats)
+        d.update(self._prefix_stats)
         return d
 
     @staticmethod

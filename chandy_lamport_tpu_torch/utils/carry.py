@@ -43,6 +43,15 @@ def _host(leaf, dtype: str):
     return array.astype(dtype)
 
 
+def words_to_numpy(words, delay=None) -> tuple:
+    """A sampler state's words (a tuple of tensors) as numpy arrays in the
+    JAX dtypes: ``delay.host_dtypes`` names each word's (without a
+    sampler every word is taken as uint32, as the hash sampler's are)."""
+    dtypes = (delay.host_dtypes if delay is not None
+              else ("uint32",) * len(words))
+    return tuple(_host(w, d) for w, d in zip(words, dtypes))
+
+
 def state_from_numpy(host_state, device) -> DenseState:
     fields = {}
     for name, leaf in zip(DenseState._fields, host_state):
@@ -61,9 +70,7 @@ def state_to_numpy(state: DenseState, delay=None) -> DenseState:
     fields = {}
     for name, leaf in zip(DenseState._fields, state):
         if name == "delay_state":
-            dtypes = (delay.host_dtypes if delay is not None
-                      else ("uint32",) * len(leaf))
-            fields[name] = tuple(_host(w, d) for w, d in zip(leaf, dtypes))
+            fields[name] = words_to_numpy(leaf, delay)
         elif name in U32_LEAVES:
             fields[name] = _host(leaf, "uint32")
         else:
@@ -73,15 +80,15 @@ def state_to_numpy(state: DenseState, delay=None) -> DenseState:
 
 def pool_from_numpy(host_pool, device) -> JobPool:
     """A host ``JobPool`` (numpy leaves, e.g. a JAX pool through
-    ``jax.device_get``) as the port's, on ``device``. The memo plane's
-    ``prefix_digest`` is not carried (None)."""
+    ``jax.device_get``) as the port's, on ``device``. ``prefix_digest``
+    stays a host numpy array (or None), as the port keeps it."""
     fields = {}
     for name in JobPool._fields:
         leaf = getattr(host_pool, name)
         if name == "delay_state":
             fields[name] = tuple(_tensor(w, device) for w in leaf)
         elif name == "prefix_digest":
-            fields[name] = None
+            fields[name] = None if leaf is None else np.array(leaf)
         else:
             fields[name] = _tensor(leaf, device)
     return JobPool(**fields)
@@ -94,11 +101,9 @@ def pool_to_numpy(pool: JobPool, delay=None) -> JobPool:
     for name in JobPool._fields:
         leaf = getattr(pool, name)
         if name == "delay_state":
-            dtypes = (delay.host_dtypes if delay is not None
-                      else ("uint32",) * len(leaf))
-            fields[name] = tuple(_host(w, d) for w, d in zip(leaf, dtypes))
+            fields[name] = words_to_numpy(leaf, delay)
         elif name == "prefix_digest":
-            fields[name] = None
+            fields[name] = None if leaf is None else np.array(leaf)
         elif name == "fault_key":
             fields[name] = _host(leaf, "uint32")
         else:

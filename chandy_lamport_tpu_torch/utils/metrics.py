@@ -106,8 +106,9 @@ def stream_counters(stream) -> Dict[str, Any]:
     """Host-side scalars of a ``StreamState`` (the JAX
     ``stream_counters``): jobs admitted and harvested, refills
     (admissions into a recycled slot), occupancy (live lane-steps over
-    charged ones) and the straggler-wasted lane-steps, beside the memo,
-    prefix and serving books (zeros: those planes are not ported)."""
+    charged ones) and the straggler-wasted lane-steps, beside the memo
+    and prefix books and the serving books (zeros: serving is not
+    ported)."""
     total = int(stream.lane_steps_total)
     live = int(stream.lane_steps_live)
     done = int(stream.jobs_done)

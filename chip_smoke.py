@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs thirty-two
+kernels/csrc`` (one nvcc per source, in parallel), then runs thirty-four
 phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -111,7 +111,8 @@ phases, each printing one JSON line:
                complete); rows 1-5 launched, rows 6-8 never; its wall,
                node-ticks/s, fault events, skew, lifecycle and
                quarantined lanes;
-  checkpoint   ``utils/checkpoint`` on the card: fault_sync_storm and the
+  checkpoint   ``utils/checkpoint`` on the card: fault_sync_storm (at
+               512 lanes, against its own uninterrupted run) and the
                faulted ER-256 storm at megatick 8, each run again in
                chunks of 16 phases with a save after each, resumed from
                disk after the first by a fresh runner (the megatick-8
@@ -229,6 +230,24 @@ phases, each printing one JSON line:
                slices and flushes, its lane admits and harvests in the
                rings (a lane whose ring did not wrap holds one harvest per
                admit);
+  memo_stream  main path 19: the streaming cell's queue (J=12,288) at
+               the README's 80 % duplicate shape, packed once with
+               content keys, through memo "off", "full" (a cold
+               summary-cache file in a temporary directory) and a warm
+               "admit" on that file: every row of both memo arms equal
+               to the off arm's (digest and provenance aside), the
+               kernels of stream_exact's path launched by every arm;
+               cache hits, coalesced jobs, fast-forwarded ticks, shadow
+               checks, steps, wall and effective jobs/s of each arm, the
+               host seconds of the memo stages, and the signature's
+               device ms a step (CUDA events, the full arm's final
+               state);
+  prefix_stream main path 20: the same cell at prefix overlap 0.75, J
+               cut to 4,096, memo "prefix" against "off" on the
+               prefix-packed pool: rows equal, forked jobs equal to the
+               planned ones and above 0; the mean fork depth, the bank's
+               rows and bytes, the producer's seconds and the fork
+               audit's count;
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -250,7 +269,11 @@ phases, each printing one JSON line:
                identical; and a small faulted sync stream checkpointed,
                killed after its first save and resumed, each file (the
                card's and the CPU's) on both devices, every leaf of the
-               state and the stream equal to the uninterrupted run.
+               state and the stream equal to the uninterrupted run; and
+               a ring-8 exact stream at megatick 8 under memo "admit",
+               "full" and "prefix" (every served job shadowed), every
+               leaf and every row (digests included) equal between the
+               card and the CPU.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
@@ -375,6 +398,12 @@ ST_TWIN_JOBS_PER_LANE, ST_TWIN_MAX_PHASES = 2, 8
 # the steps after the queue runs dry in which the kernel check looks for
 # one that runs both a drain slice and a flush
 ST_CAPTURE_STEPS = 8
+# the memo cells: the streaming cell's queue at the README's 80 %
+# duplicate shape (memo_stream, J = 3 x B), and at prefix overlap 0.75
+# (prefix_stream) with J cut to 4,096, so that the prefix bank on the card
+# and the in-memory prefix store stay near 0.36 GB and 0.5 GB (one ER-256
+# lane at C=24 holds about 347 KB)
+MEMO_DUP, MEMO_OVERLAP, PREFIX_JOBS = 0.8, 0.75, 4096
 # the lane count of append_rows' lane-limit check (ring-10 sync storms run
 # at this batch)
 WIDE_LANES = 131_072
@@ -406,6 +435,12 @@ KERNELS = {
 MEGATICK = 8
 # the checkpoint phase's chunk: phases run between two saves
 CK_CHUNK = 16
+# the lanes of the checkpoint phase's faulted sync storm: a quarter of
+# main path 18's, whose every lane runs its retries out over ~970 ticks
+# (~45 s at B=2048); at B=512 its uninterrupted and its chunked run take
+# about a quarter of that each, which keeps the smoke inside its time
+# with the memo phases
+CK_SYNC_BATCH = 512
 # launches averaged by --drain-timing
 DRAIN_LAUNCHES = 10
 # what split_times adds to a row
@@ -781,13 +816,15 @@ def config4_runner(device, faulted=False, batch=BATCH):
 
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                  snapshots=X_SNAPSHOTS, graph="er", faults=None, megatick=1,
-                 exact_impl="cascade", tiled=False, trace=None, **cfg_kw):
+                 exact_impl="cascade", tiled=False, trace=None, memo="off",
+                 memo_cache=None, **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
     smaller exact storm; with ``faults`` (and supervisor knobs in
     ``cfg_kw``) the faulted exact storm, quarantined; ``megatick`` > 1
     the fused megatick's path (in the tiled layout whatever the lane's
     size with ``tiled``: ``force_tiled``); ``exact_impl`` the tick's
-    form; ``trace`` (utils/tracing.Trace) arms the flight recorder."""
+    form; ``trace`` (utils/tracing.Trace) arms the flight recorder;
+    ``memo`` / ``memo_cache`` the stream's memo plane."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -805,7 +842,8 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
     runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
                            scheduler="exact", device=device, faults=faults,
                            quarantine=faults is not None, megatick=megatick,
-                           exact_impl=exact_impl, trace=trace)
+                           exact_impl=exact_impl, trace=trace, memo=memo,
+                           memo_cache=memo_cache)
     if tiled:
         force_tiled(runner)
     prog = storm_program(
@@ -2599,13 +2637,14 @@ def _chunked_resume(name, runner, prog, whole, fresh, tmp) -> dict:
             "mismatched": _mismatched(final, whole)}
 
 
-def phase_checkpoint(sync_runner, sync_prog, sync_final) -> None:
+def phase_checkpoint() -> None:
     """Checkpoints on the card (utils/checkpoint.py): the faulted sync
-    storm of main path 18 and the faulted ER-256 storm at megatick 8 (its
-    drain resumed into fused_scan), each run in chunks of CK_CHUNK phases
-    with a save after each and resumed from disk after the first by a
-    fresh runner, equal to its uninterrupted run leaf for leaf. The files
-    go to a temporary directory this phase removes."""
+    storm of main path 18 at CK_SYNC_BATCH lanes and the faulted ER-256
+    storm at megatick 8 (its drain resumed into fused_scan), each run in
+    chunks of CK_CHUNK phases with a save after each and resumed from
+    disk after the first by a fresh runner, equal to its uninterrupted
+    run leaf for leaf. The files go to a temporary directory this phase
+    removes."""
     import shutil
     import tempfile
 
@@ -2613,9 +2652,16 @@ def phase_checkpoint(sync_runner, sync_prog, sync_final) -> None:
     try:
         line = {"phase": "checkpoint", "chunk_phases": CK_CHUNK,
                 "free_bytes": shutil.disk_usage(tmp).free}
+        sync_runner, sync_prog = config4_runner("cuda", faulted=True,
+                                                batch=CK_SYNC_BATCH)
+        sync_final = sync_runner.run_storm(sync_runner.init_batch_device(),
+                                           sync_prog)
         line["fault_sync_storm"] = _chunked_resume(
             "fault_sync_storm", sync_runner, sync_prog, sync_final,
-            lambda: config4_runner("cuda", faulted=True)[0], tmp)
+            lambda: config4_runner("cuda", faulted=True,
+                                   batch=CK_SYNC_BATCH)[0], tmp)
+        line["fault_sync_storm"]["batch"] = CK_SYNC_BATCH
+        del sync_runner, sync_final
         f8runner, f8prog = fault_runner("cuda", megatick=MEGATICK)
         whole = f8runner.run_storm(f8runner.init_batch_device(), f8prog)
         line["fault_fused_storm"] = _chunked_resume(
@@ -2763,10 +2809,11 @@ def phase_config5_wave_fused_storm() -> tuple:
 
 def stream_runner(device, batch=X_BATCH, megatick=MEGATICK,
                   exact_impl="cascade", faulted=False, tiled=False,
-                  trace=None):
+                  trace=None, memo="off", memo_cache=None):
     """The streaming cell's runner (``ST_*``: the bench's ER-256 with 8
     snapshot slots) and its topology spec; ``faulted``: fault_storm's
-    adversary and supervisor, quarantined."""
+    adversary and supervisor, quarantined; ``memo`` / ``memo_cache``: the
+    memo plane."""
     from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
 
@@ -2775,20 +2822,25 @@ def stream_runner(device, batch=X_BATCH, megatick=MEGATICK,
     runner, _ = exact_runner(device, batch, X_NODES, ST_PHASES,
                              ST_SNAPSHOTS, megatick=megatick,
                              exact_impl=exact_impl, tiled=tiled,
-                             trace=trace, **kw)
+                             trace=trace, memo=memo, memo_cache=memo_cache,
+                             **kw)
     return runner, erdos_renyi(X_NODES, 3.0, seed=3, tokens=ST_PHASES + 10)
 
 
 def stream_queue(runner, spec, faulted=False, per_lane=3,
-                 max_phases=ST_PHASES):
+                 max_phases=ST_PHASES, **traffic):
     """The bench's job queue for ``runner`` (J = ``per_lane`` x B jobs of
-    at most ``max_phases`` phases) and its pool; the adversary armed on
-    every third job when ``faulted``."""
+    at most ``max_phases`` phases; ``traffic``: stream_jobs' duplicate
+    or prefix shape) and its pool (content-keyed when ``runner``'s memo
+    is on: under "prefix" its identities are keyed on the first phase, so
+    every arm of a memo phase drives the one pool); the adversary armed
+    on every third job when ``faulted``."""
     from chandy_lamport_tpu_torch.models.workloads import stream_jobs
 
-    jcount = per_lane * runner.batch
+    jcount = int(per_lane * runner.batch)
     jobs = stream_jobs(spec, jcount, seed=DELAY_SEED, base_phases=4,
-                       tail_alpha=1.1, max_phases=max(max_phases, 8))
+                       tail_alpha=1.1, max_phases=max(max_phases, 8),
+                       **traffic)
     armed = [j % 3 == 0 for j in range(jcount)] if faulted else None
     return jobs, runner.pack_jobs(jobs, fault_armed=armed)
 
@@ -3169,6 +3221,154 @@ def phase_streams() -> tuple:
     return paths, rows
 
 
+# ---- the stream's memo plane (memo_stream, prefix_stream) ---------------------
+
+def memo_arm(name, runner, pool, off_rows, path_kernels) -> tuple:
+    """One drive of ``runner`` on ``pool`` with the launch counts zeroed
+    just before it (``drive_stream``): its served rows held to
+    ``off_rows`` (every job served, no error bit), its launches to
+    ``path_kernels``. Returns (the final state, the arm's line)."""
+    from chandy_lamport_tpu_torch.bench import served_rows
+
+    state, stream, m = drive_stream(runner, pool)
+    rows = served_rows(runner, stream)
+    summary = runner.summarize_stream(stream)
+    line = {k: v for k, v in m.items() if k != "jobs_per_s"}
+    line.update({key: summary[key] for key in (
+        "cache_hits", "coalesced_jobs", "ff_skipped_ticks", "shadow_checks",
+        "memo_hit_rate", "prefix_hits", "forked_jobs", "fork_depth_mean",
+        "cache_evictions", "prefix_store_entries")})
+    line.update(memo=runner.memo, served=len(rows),
+                executed=summary["jobs_done"],
+                effective_jobs_per_s=len(rows) / m["run_s"],
+                memo_timing=dict(runner.memo_timing),
+                rows_equal_off=rows == off_rows)
+    bad = []
+    if len(rows) != pool.num_jobs:
+        bad.append(f"{pool.num_jobs - len(rows)} jobs never served")
+    if not line["rows_equal_off"]:
+        bad.append("served rows differ from the memo-off arm's")
+    if bad:
+        emit({"phase": name, **line})
+        raise AssertionError(f"{name}: {bad}")
+    _check_launches(name, m["launches"], path_kernels)
+    return state, line
+
+
+# the memo cells' path: the streaming cell's (stream_exact's) kernels
+MEMO_KERNELS = ("fused_scan", "queue_step", "append_marker_rows",
+                "sum_by_perm")
+
+
+def phase_memo_stream() -> dict:
+    """The streaming cell's queue (J=12,288) at the README's 80 %
+    duplicate shape, packed once with content keys, through three arms:
+    memo "off"; "full" on a cold summary-cache file in a temporary
+    directory (empty at its start, as an in-memory cache; the arm
+    flushes it at its end); and a warm "admit" on that file. Every row
+    of both memo arms equals the off arm's; the signature's device ms per
+    step is timed on the full arm's final state. Returns the full arm's
+    launch counts (the main path's)."""
+    import shutil
+    import tempfile
+
+    from chandy_lamport_tpu_torch.bench import served_rows
+    from chandy_lamport_tpu_torch.parallel.batch import _lane_signature
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_memo_")
+    try:
+        cache = os.path.join(tmp, "summaries.jsonl")
+        full, spec = stream_runner("cuda", memo="full", memo_cache=cache)
+        pool = stream_queue(full, spec, dup_rate=MEMO_DUP)[1]
+        off, _ = stream_runner("cuda")
+        _, ostream, om = drive_stream(off, pool)
+        off_rows = served_rows(off, ostream)
+        errored = [r["job"] for r in off_rows if r["error"]]
+        if len(off_rows) != pool.num_jobs or errored:
+            raise AssertionError(f"memo_stream: the off arm retired "
+                                 f"{len(off_rows)} jobs, {len(errored)} "
+                                 "with error bits")
+        _check_launches("memo_stream (off)", om["launches"], MEMO_KERNELS)
+        del off, ostream
+        state, fl = memo_arm("memo_stream", full, pool, off_rows,
+                             MEMO_KERNELS)
+        sig_ms = time_ms(lambda: _lane_signature(state, full.delay), 10)
+        del state, full
+        admit, _ = stream_runner("cuda", memo="admit", memo_cache=cache)
+        _, al = memo_arm("memo_stream (warm admit)", admit, pool, off_rows,
+                         MEMO_KERNELS)
+        cache_bytes = os.path.getsize(cache)
+        del admit
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    off_line = {k: v for k, v in om.items() if k != "launches"}
+    off_line["effective_jobs_per_s"] = pool.num_jobs / om["run_s"]
+    emit({"phase": "memo_stream", "graph": f"er-{X_NODES}",
+          "batch": X_BATCH, "jobs": pool.num_jobs, "dup_rate": MEMO_DUP,
+          "megatick": MEGATICK, "stretch": ST_STRETCH,
+          "drain_chunk": ST_CHUNK,
+          "distinct_digests": len({bytes(d) for d in
+                                   pool.digest.cpu().numpy()}),
+          "off": off_line,
+          "full": {k: v for k, v in fl.items() if k != "launches"},
+          "warm_admit": {k: v for k, v in al.items() if k != "launches"},
+          "full_over_off": fl["effective_jobs_per_s"]
+          / off_line["effective_jobs_per_s"],
+          "warm_admit_over_off": al["effective_jobs_per_s"]
+          / off_line["effective_jobs_per_s"],
+          "signature_ms_per_step": sig_ms,
+          "signature_timing": "CUDA events, the full arm's final state",
+          "cache_file_bytes": cache_bytes,
+          "launches_full": fl["launches"],
+          "launches_warm_admit": al["launches"]})
+    if al["cache_hits"] <= 0 or fl["coalesced_jobs"] <= 0:
+        raise AssertionError("memo_stream: nothing was coalesced or served "
+                             "from the cache")
+    return fl["launches"]
+
+
+def phase_prefix_stream() -> dict:
+    """The same cell at prefix overlap 0.75, J cut to 4,096
+    (``PREFIX_JOBS``), packed by the "prefix" runner: memo "off" against
+    "prefix" (in-memory prefix store) on that pool. Every row of the
+    prefix arm equals the off arm's, and ``forked_jobs == prefix_hits >
+    0``. Returns the prefix arm's launch counts."""
+    from chandy_lamport_tpu_torch.bench import served_rows
+
+    pre, spec = stream_runner("cuda", memo="prefix")
+    pool = stream_queue(pre, spec, per_lane=PREFIX_JOBS / X_BATCH,
+                        prefix_overlap=MEMO_OVERLAP)[1]
+    off, _ = stream_runner("cuda")
+    _, ostream, om = drive_stream(off, pool)
+    off_rows = served_rows(off, ostream)
+    if len(off_rows) != pool.num_jobs or any(r["error"] for r in off_rows):
+        raise AssertionError("prefix_stream: the off arm did not retire "
+                             "every job cleanly")
+    _check_launches("prefix_stream (off)", om["launches"], MEMO_KERNELS)
+    del off, ostream
+    _, pl = memo_arm("prefix_stream", pre, pool, off_rows, MEMO_KERNELS)
+    off_line = {k: v for k, v in om.items() if k != "launches"}
+    off_line["effective_jobs_per_s"] = pool.num_jobs / om["run_s"]
+    t = pl["memo_timing"]
+    emit({"phase": "prefix_stream", "graph": f"er-{X_NODES}",
+          "batch": X_BATCH, "jobs": pool.num_jobs,
+          "prefix_overlap": MEMO_OVERLAP, "megatick": MEGATICK,
+          "off": off_line,
+          "prefix": {k: v for k, v in pl.items() if k != "launches"},
+          "prefix_over_off": pl["effective_jobs_per_s"]
+          / off_line["effective_jobs_per_s"],
+          "fork_depth_mean": pl["fork_depth_mean"],
+          "bank_rows": t.get("prefix_bank_rows"),
+          "bank_bytes": t.get("prefix_bank_bytes"),
+          "producer_s": t.get("prefix_produce_s"),
+          "fork_audits": t.get("fork_audits"),
+          "launches_prefix": pl["launches"]})
+    if not pl["forked_jobs"] or pl["forked_jobs"] != pl["prefix_hits"]:
+        raise AssertionError(f"prefix_stream: {pl['forked_jobs']} forks "
+                             f"made, {pl['prefix_hits']} planned")
+    return pl["launches"]
+
+
 def phase_golden() -> dict:
     """Main path 5: the 7 reference goldens on the card through
     ``check_reference_case`` (``run_events_file``, ``DenseSim`` at its
@@ -3219,7 +3419,8 @@ def phase_cpu_vs_cuda() -> None:
     megatick-8 exact storms and the wave's at megatick 8 (faulted and
     not) on the card and on the CPU: identical leaves; then a small
     faulted sync stream checkpointed, killed and resumed
-    (``stream_checkpoint_card_vs_cpu``)."""
+    (``stream_checkpoint_card_vs_cpu``), and small streams under each
+    memo mode (``memo_streams_card_vs_cpu``)."""
     import functools
 
     import numpy as np
@@ -3326,7 +3527,70 @@ def phase_cpu_vs_cuda() -> None:
             raise AssertionError(f"small {scheduler} storm raised error "
                                  "bits")
     result["stream_checkpoint"] = stream_checkpoint_card_vs_cpu()
+    result["memo_streams"] = memo_streams_card_vs_cpu()
     emit(result)
+
+
+def memo_streams_card_vs_cpu() -> dict:
+    """A ring-8 exact stream at megatick 8 (B=4, 24 jobs) under memo
+    "admit" and "full" (duplicate rate 0.5) and "prefix" (prefix overlap
+    0.75, two drives on one in-memory store), every served job shadowed,
+    on the card and on the CPU: every leaf of the final state and the
+    stream equal, and every row (digest and provenance included) equal.
+    Returns the line's fields."""
+    import numpy as np
+
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        stream_jobs,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+    from chandy_lamport_tpu_torch.utils.carry import (
+        state_to_numpy,
+        stream_to_numpy,
+    )
+
+    spec = ring_topology(8, tokens=16)
+    out = {}
+    for memo in ("admit", "full", "prefix"):
+        traffic = (dict(prefix_overlap=0.75) if memo == "prefix"
+                   else dict(dup_rate=0.5))
+        jobs = stream_jobs(spec, 24, seed=DELAY_SEED, base_phases=3,
+                           max_phases=10, **traffic)
+        got = []
+        for device in ("cuda", "cpu"):
+            r = BatchedRunner(spec, SimConfig.for_workload(snapshots=4),
+                              HashDelay(DELAY_SEED), 4, scheduler="exact",
+                              device=device, megatick=MEGATICK, memo=memo)
+            pool = r.pack_jobs(jobs)
+            for _ in range(2 if memo == "prefix" else 1):
+                state, stream = r.run_stream(pool, stretch=2, drain_chunk=8,
+                                             shadow_every=1)
+            host = state_to_numpy(state, r.delay)
+            got.append(([x for leaf in host for x in (
+                leaf if isinstance(leaf, tuple) else (leaf,))]
+                + list(stream_to_numpy(stream)), r.stream_results(stream),
+                r.summarize_stream(stream), r.fused))
+        (a, rows_a, sm, fused), (b, rows_b, _, _) = got
+        equal = len(a) == len(b) and all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(a, b))
+        out[memo] = {"leaves_equal": equal, "rows_equal": rows_a == rows_b,
+                     "fused_tick": fused, **{k: sm[k] for k in (
+                         "jobs_done", "coalesced_jobs", "shadow_checks",
+                         "ff_skipped_ticks", "forked_jobs")}}
+        if not (equal and rows_a == rows_b):
+            raise AssertionError(f"the card's memo {memo!r} stream differs "
+                                 f"from the CPU's: {out[memo]}")
+        if fused != "on":
+            raise AssertionError(f"memo {memo!r}: no fused megatick on the "
+                                 "card")
+    if not out["prefix"]["forked_jobs"] or not out["admit"][
+            "coalesced_jobs"]:
+        raise AssertionError(f"the memo streams forked or coalesced "
+                             f"nothing: {out}")
+    return {"graph": "ring-8", "batch": 4, "jobs": 24, "arms": out}
 
 
 def stream_checkpoint_card_vs_cpu() -> dict:
@@ -3810,8 +4074,8 @@ def main(argv=None) -> int:
     fsrunner, fsprog = config4_runner("cuda", faulted=True)
     fs_final, m = phase_fault_sync_storm(fsrunner, fsprog)
     paths["fault_sync_storm"] = m["launches"]
-    phase_checkpoint(fsrunner, fsprog, fs_final)
     del fsrunner, fs_final
+    phase_checkpoint()
     # the resident megatick-8 storms' finals, for their tiled twins
     resident = {}
     exact_final, exact_m = phase_storm(
@@ -3908,6 +4172,8 @@ def main(argv=None) -> int:
     paths.update(stream_paths)
     rows["fused_scan"] += stream_rows
     paths["trace_stream"] = phase_trace_stream()
+    paths["memo_stream"] = phase_memo_stream()
+    paths["prefix_stream"] = phase_prefix_stream()
     paths["golden"] = phase_golden()
     paths["trace_golden"] = phase_trace_golden()
     phase_cpu_vs_cuda()

@@ -1158,6 +1158,49 @@ def test_small_stream_cuda_equals_cpu(dev, case):
     assert (launched > 0) != sync
 
 
+@pytest.mark.parametrize("memo", ["admit", "full", "prefix"])
+def test_memo_stream_cuda_equals_cpu(dev, memo):
+    """A ring-8 stream at megatick 8 under each memo mode, every served
+    job shadowed (under "prefix" two drives on one in-memory store) on
+    the card equals the same on the CPU: every result row (digest and
+    provenance included) and every leaf of the final state and stream;
+    its drains launch ``fused_scan``."""
+    from chandy_lamport_tpu_torch.kernels import reset_launch_counts
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        stream_jobs,
+    )
+    from chandy_lamport_tpu_torch.utils.carry import stream_to_numpy
+
+    spec = ring_topology(8, tokens=16)
+    traffic = (dict(prefix_overlap=0.75) if memo == "prefix"
+               else dict(dup_rate=0.5))
+    jobs = stream_jobs(spec, 24, seed=17, base_phases=3, max_phases=10,
+                       **traffic)
+    out = {}
+    for where in ("cpu", dev):
+        runner = BatchedRunner(spec, SimConfig.for_workload(snapshots=4),
+                               HashDelay(17), 4, scheduler="exact",
+                               device=where, megatick=8, memo=memo)
+        pool = runner.pack_jobs(jobs)
+        reset_launch_counts()
+        for _ in range(2 if memo == "prefix" else 1):
+            state, stream = runner.run_stream(pool, stretch=2,
+                                              drain_chunk=8, shadow_every=1)
+        out[str(where)] = (runner.stream_results(stream), state, stream,
+                           launch_counts()["fused_scan"],
+                           runner.summarize_stream(stream))
+    rows, state, stream, _, summary = out["cpu"]
+    rows_c, state_c, stream_c, launched, _ = out[str(dev)]
+    assert rows_c == rows and len(rows) == 24
+    _leaves_equal(state_c, state)
+    for x, y in zip(stream_to_numpy(stream_c), stream_to_numpy(stream)):
+        assert np.array_equal(x, y)
+    assert launched > 0
+    assert summary["forked_jobs" if memo == "prefix"
+                   else "coalesced_jobs"] > 0
+
+
 # ---- the recorder arm of the fused megatick (the flight recorder) ----------
 
 @pytest.mark.parametrize("capacity", [4096, 8])

@@ -113,8 +113,8 @@ def _pair10(layout, extra=None, impl="cascade", fkw=None):
     s = fused.inject_snapshot(s, np.int32(0))
     delay = HashDelay(7)
     port = TickKernel(DenseTopology(TopologySpec(spec.nodes, spec.links)),
-                      SimConfig(**CFG10, **(extra or {})), delay, "cpu",
-                      megatick=K, exact_impl=impl,
+                      SimConfig(**CFG10, **(extra or {})), delay,
+                      device="cpu", megatick=K, exact_impl=impl,
                       faults=Faults(3, **fkw) if fkw else None,
                       quarantine=fkw is not None)
     return fused, port, delay, jax.device_get(s)
@@ -328,9 +328,9 @@ def test_card_megatick_launches_or_raises():
     assert (fused, tile) == ("on", "on") and "workspace" in why
     if torch.cuda.is_available():
         tk = TickKernel(topo, SimConfig(max_snapshots=16), HashDelay(1),
-                        "cuda", megatick=8)
+                        device="cuda", megatick=8)
         assert (tk.fused, tk.fused_tile) == ("on", "on")
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             TickKernel(topo, SimConfig(max_snapshots=16), HashDelay(1),
-                       "cuda", megatick=8)
+                       device="cuda", megatick=8)

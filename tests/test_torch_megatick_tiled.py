@@ -167,10 +167,11 @@ def test_wave_arm_refuses_a_node_past_int16_waves():
     assert int(topo.in_degree[hub]) == limit + 1
     with pytest.raises(ValueError, match=f"node {hub} has {limit + 1}"):
         TickKernel(topo, SimConfig(max_snapshots=2, trace_capacity=16),
-                   HashDelay(1), "cuda", megatick=8, exact_impl="wave",
+                   HashDelay(1), device="cuda", megatick=8,
+                   exact_impl="wave",
                    trace=Trace())
-    tk = TickKernel(topo, SimConfig(max_snapshots=2), HashDelay(1), "cpu",
-                    megatick=8, exact_impl="wave")
+    tk = TickKernel(topo, SimConfig(max_snapshots=2), HashDelay(1),
+                    device="cpu", megatick=8, exact_impl="wave")
     assert tk.fused == "off"
 
 

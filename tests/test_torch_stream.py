@@ -383,15 +383,20 @@ def test_stream_carried_mid_queue_from_jax(sync_pair):
 
 
 def test_stream_refusals_and_carry():
-    """The memo plane's ``content_keys`` is refused naming A9b; a bad
-    admission or stretch is a ValueError; ``run_stream`` leaves the state
-    and stream it is given as they were."""
+    """``content_keys=True`` stamps every job's digest on a memo-off
+    runner (the memo plane is ported: test_torch_memo.py), an unknown
+    memo mode is a ValueError; a bad admission or stretch is a
+    ValueError; ``run_stream`` leaves the state and stream it is given as
+    they were."""
     runner = BatchedRunner(workloads.ring_topology(4), SimConfig(),
                            HashDelay(1), 2, scheduler="exact", device="cpu")
     jobs = workloads.stream_jobs(workloads.ring_topology(4), 3, seed=1,
                                  max_phases=4)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        runner.pack_jobs(jobs, content_keys=True)
+    keyed = runner.pack_jobs(jobs, content_keys=True)
+    assert bool((keyed.digest != 0).any(1).all())
+    with pytest.raises(ValueError, match="memo must be one of"):
+        BatchedRunner(workloads.ring_topology(4), SimConfig(), HashDelay(1),
+                      2, device="cpu", memo="auto")
     with pytest.raises(ValueError, match="admission"):
         runner.run_stream(jobs, admission="fifo")
     with pytest.raises(ValueError, match="stretch"):

@@ -11,7 +11,10 @@ tiny storm whose counters line equals the JAX CLI's on the shared keys
 (tolerance: none), each flag whose machinery the port lacks refused by
 name with its ROADMAP item, and each flag the port once refused (the
 checkpoint flags; the fault, supervisor and quarantine flags on the sync
-scheduler) run through both CLIs with equal counters lines.
+scheduler) run through both CLIs with equal counters lines. Then the
+repairs C5-C7 (``BatchedRunner``'s and ``TickKernel``'s positional
+order, the JAX top-level names, ``decode_errors(error_bits=)``) and the
+``stream --memo --memo-cache`` row against the JAX CLI's.
 """
 
 import inspect
@@ -295,3 +298,126 @@ def test_storm_refuses_the_fold_and_runs_faults_on_exact(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["conservation_delta"] == 0
     assert row["fault_events"]["drops"] > 0 and "lane_errors" in row
+
+
+# ---- C5-C7: BatchedRunner's positional order, the top-level names, ----------
+# ---- decode_errors' keyword -------------------------------------------------
+
+def test_batched_runner_positional_order_as_jax():
+    """``BatchedRunner(topo, cfg, delay, 4, "exact", 0, "wave")`` takes
+    the wave in both packages (the JAX 7th positional parameter is
+    ``exact_impl``), and the two give equal stream rows on a ring-8 pool;
+    the port's parameters after ``exact_impl`` are keyword-only (the JAX
+    8th is ``auto_layouts``, which the port lacks), ``device`` among
+    them."""
+    jspec = jax_workloads.ring_topology(8)
+    jr = JaxRunner(jspec, JaxSimConfig.for_workload(snapshots=4),
+                   HashJaxDelay(seed=11), 4, "exact", 0, "wave")
+    pr = BatchedRunner(workloads.ring_topology(8),
+                       SimConfig.for_workload(snapshots=4), HashDelay(11),
+                       4, "exact", 0, "wave", device="cpu")
+    assert pr.kernel.exact_impl == jr.kernel.exact_impl == "wave"
+    assert _positional(BatchedRunner.__init__) == \
+        _positional(JaxRunner.__init__)[:7]
+    params = inspect.signature(BatchedRunner.__init__).parameters
+    for name in ("device", "faults", "quarantine", "trace", "megatick",
+                 "memo", "memo_cache", "memo_cache_entries",
+                 "memo_cache_bytes", "prefix_cache", "prefix_cache_entries",
+                 "prefix_cache_bytes"):
+        assert params[name].kind is inspect.Parameter.KEYWORD_ONLY, name
+    with pytest.raises(TypeError):
+        BatchedRunner(workloads.ring_topology(8), None, HashDelay(1), 4,
+                      "exact", 0, "cascade", "cpu")
+    jobs = jax_workloads.stream_jobs(jspec, 8, seed=5, max_phases=10)
+    _, jst = jr.run_stream(jr.pack_jobs(jobs), stretch=3, drain_chunk=16)
+    from test_torch_stream import _port_job
+
+    _, pst = pr.run_stream(pr.pack_jobs([_port_job(j) for j in jobs]),
+                           stretch=3, drain_chunk=16)
+    assert pr.stream_results(pst) == jr.stream_results(jst)
+
+
+def test_tick_kernel_positional_order_as_jax():
+    """``TickKernel``'s leading positional parameters are the JAX ones
+    (``marker_mode`` 4th), through ``megatick``; ``device`` and the rest
+    are keyword-only."""
+    from chandy_lamport_tpu.ops.tick import TickKernel as JaxTickKernel
+    from chandy_lamport_tpu_torch.core.state import DenseTopology
+    from chandy_lamport_tpu_torch.ops.tick import TickKernel
+
+    assert _positional(TickKernel.__init__) == \
+        _positional(JaxTickKernel.__init__)[:6]
+    params = inspect.signature(TickKernel.__init__).parameters
+    for name in ("device", "faults", "quarantine", "trace"):
+        assert params[name].kind is inspect.Parameter.KEYWORD_ONLY, name
+    tk = TickKernel(DenseTopology(workloads.ring_topology(4)),
+                    SimConfig(), HashDelay(1), "split", device="cpu")
+    assert tk.marker_mode == "split"
+
+
+def test_top_level_names_as_jax():
+    """The JAX package's top-level names import from the port (less
+    ``run_events`` and ``make_backend``, ROADMAP A12), each the port's
+    own and equal in use: ``MAX_DELAY``, the event and snapshot types,
+    ``__version__``."""
+    import chandy_lamport_tpu as jax_pkg
+    import chandy_lamport_tpu_torch as pkg
+    from chandy_lamport_tpu_torch import (  # noqa: F401
+        MAX_DELAY,
+        GlobalSnapshot,
+        Message,
+        MsgSnapshot,
+        PassTokenEvent,
+        SnapshotEvent,
+        TickEvent,
+        __version__,
+    )
+
+    missing = set(jax_pkg.__all__) - set(pkg.__all__)
+    assert missing == {"run_events", "make_backend"}
+    assert __version__ == jax_pkg.__version__ == "0.1.0"
+    assert MAX_DELAY == jax_pkg.MAX_DELAY
+    for name in ("Message", "MsgSnapshot", "GlobalSnapshot",
+                 "PassTokenEvent", "SnapshotEvent", "TickEvent"):
+        assert getattr(pkg, name).__module__.startswith(
+            "chandy_lamport_tpu_torch"), name
+    assert str(TickEvent(3)) == str(jax_pkg.TickEvent(3))
+    assert str(Message(True, 2)) == str(jax_pkg.Message(True, 2))
+
+
+@pytest.mark.parametrize("bits", [0, 1, 2 | 4 | 8 | 16, 511])
+def test_decode_errors_keyword_as_jax(bits):
+    """``decode_errors(error_bits=...)`` is the JAX call: one message per
+    bit set, in bit order, the JAX message for bits 0-4 (the port words
+    bits 5-8, whose JAX text names JAX machinery, its own way)."""
+    from chandy_lamport_tpu.core.state import decode_errors as jax_decode
+    from chandy_lamport_tpu_torch.core.state import decode_errors
+
+    got, want = decode_errors(error_bits=bits), jax_decode(error_bits=bits)
+    assert len(got) == len(want) == bin(bits).count("1")
+    assert got[:5] == want[:5] if bits == 511 else got == want
+    assert list(inspect.signature(decode_errors).parameters) == \
+        ["error_bits"]
+
+
+def test_stream_command_memo_equals_the_jax_cli(capsys, tmp_path):
+    """``stream --memo admit --memo-cache PATH`` prints the JAX CLI's row
+    (every counter, ``"memo": "admit"``), and the second run of each CLI
+    on its own cache file serves every job from it."""
+    from chandy_lamport_tpu_torch.__main__ import stream_run
+
+    flags = ["--graph", "ring", "--nodes", "8", "--batch", "4", "--jobs",
+             "10", "--max-phases", "10", "--snapshots", "4", "--seed", "2",
+             "--dup-rate", "0.6", "--memo", "admit"]
+    clock = ("wall_seconds", "jobs_per_sec", "effective_jobs_per_sec")
+    for _ in range(2):
+        assert jax_cli.main(["stream"] + flags + [
+            "--memo-cache", str(tmp_path / "j.jsonl")]) == 0
+        want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert stream_run(flags + ["--memo-cache", str(tmp_path / "p.jsonl"),
+                                   "--device", "cpu"]) == 0
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert {k: v for k, v in got.items() if k not in clock} == \
+            {k: v for k, v in want.items() if k not in clock}
+        assert got["memo"] == "admit" and got["jobs_errored"] == 0
+    assert got["cache_hits"] == 10 and got["shadow_checks"] == 1
