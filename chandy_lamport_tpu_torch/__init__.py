@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of chandy_lamport_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, which stays the reference: the same
-dense encoding (``core/state.py``), the same sync and exact (cascade)
-ticks (``ops/tick.py``) over an explicit lane axis (``parallel/batch.py``),
-the exact scheduler's fault adversary (``models/faults.py``), snapshot
-supervisor and quarantine,
+dense encoding (``core/state.py``), the same sync and exact (cascade,
+wave and fold) ticks (``ops/tick.py``) over an explicit lane axis
+(``parallel/batch.py``), the delay samplers (hash, Go-exact, fixed and
+threefry, ``ops/delay.py``), the fault adversary (``models/faults.py``),
+snapshot supervisor and quarantine,
 the single-instance golden runner (``core/dense.py``, ``api.py``),
 compiled event scripts and the streaming job engine
 (``BatchedRunner.run``, ``run_stream``), the flight recorder

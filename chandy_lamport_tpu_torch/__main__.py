@@ -102,8 +102,7 @@ def trace_run(argv) -> int:
 
 def _storm_parser() -> argparse.ArgumentParser:
     """The JAX CLI's ``storm`` flags and defaults (``cli.py:614-751``),
-    plus ``--device``. Flags whose machinery is not ported are parsed and
-    refused by ``_refuse_unported`` when set away from their default."""
+    plus ``--device``."""
     ps = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
                                       "storm")
     ps.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
@@ -115,7 +114,9 @@ def _storm_parser() -> argparse.ArgumentParser:
     ps.add_argument("--exact-impl", choices=["cascade", "wave", "fold"],
                     default="cascade",
                     help="--scheduler exact: the bit-exact tick formulation "
-                         "('wave' needs --delay hash; 'fold' is not ported)")
+                         "('wave' needs --delay hash; 'fold', the "
+                         "reference-literal form, takes no faults and no "
+                         "supervisor)")
     ps.add_argument("--seed", type=int, default=0)
     ps.add_argument("--megatick", type=int, default=8,
                     help="K-tick megaticks for the exact drain and flush "
@@ -126,26 +127,32 @@ def _storm_parser() -> argparse.ArgumentParser:
     ps.add_argument("--max-recorded", type=int, default=0,
                     help="per-edge log slots L; 0 = derived")
     ps.add_argument("--window-dtype", choices=["int32", "uint16"],
-                    default="int32", help="uint16 is not ported")
+                    default="int32",
+                    help="uint16: the window counters modulo 2^16")
     ps.add_argument("--record-dtype", choices=["int32", "int16"],
                     default="int32")
     ps.add_argument("--reduce-mode", choices=["auto", "matmul", "segsum"],
-                    default="auto", help="not ported: the port has one "
-                                         "engine")
+                    default="auto", help="the JAX reduction; the port "
+                                         "reduces through its segment "
+                                         "kernels, equal in result")
     ps.add_argument("--kernel-engine", choices=["auto", "xla", "pallas"],
-                    default="auto", help="not ported: the port has one "
-                                         "engine")
+                    default="auto", help="the JAX engine knob; the port has "
+                                         "one engine, so every choice runs "
+                                         "it")
     ps.add_argument("--fused-tick", choices=["auto", "on", "off"],
-                    default="auto", help="not ported: the fused megatick "
-                                         "follows --megatick")
+                    default="auto", help="the fused megatick: 'off' runs "
+                                         "the megaticks as single ticks, "
+                                         "'on' raises where it cannot run")
     ps.add_argument("--fused-block-edges", type=int, default=0,
-                    help="not ported: the card hashes the fault masks in "
-                         "place")
+                    help="the TPU kernel's fault-plane block width; the "
+                         "card hashes the fault masks in place, so it "
+                         "moves nothing")
     ps.add_argument("--check-every", type=int, default=0,
                     help="evaluate token conservation every K phases (0 = "
                          "off); violations set ERR_CONSERVATION")
     ps.add_argument("--delay", choices=["uniform", "hash"], default="hash",
-                    help="'uniform' is not ported")
+                    help="'uniform': the threefry stream of jax.random; "
+                         "'hash': the counter hash")
     ps.add_argument("--checkpoint", help="save the final state to this "
                                          ".npz (atomic write)")
     ps.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
@@ -198,27 +205,6 @@ def _storm_parser() -> argparse.ArgumentParser:
     return ps
 
 
-# the storm's flags whose machinery the port lacks, with their ROADMAP
-# item
-_UNPORTED_STORM = (
-    ("--delay", "A7"), ("--window-dtype", "A7"), ("--reduce-mode", "A7"),
-    ("--kernel-engine", "A7"), ("--fused-tick", "A7"),
-    ("--fused-block-edges", "A7"),
-)
-
-
-def _refuse_unported(parser, args) -> None:
-    """Refuse, by name and ROADMAP item, each storm flag set away from its
-    default whose machinery is not ported (``_UNPORTED_STORM``), and
-    ``--exact-impl fold`` (A5b)."""
-    if args.scheduler == "exact" and args.exact_impl == "fold":
-        parser.error("--exact-impl fold is not ported yet (ROADMAP A5b)")
-    for flag, item in _UNPORTED_STORM:
-        dest = flag.lstrip("-").replace("-", "_")
-        if getattr(args, dest) != parser.get_default(dest):
-            parser.error(f"{flag} is not ported yet (ROADMAP {item})")
-
-
 def storm_run(argv) -> int:
     """The JAX CLI's ``storm`` (``cli.py:149-316``) on the port: one storm
     of ``--batch`` lanes through ``BatchedRunner.run_storm`` (the drain
@@ -258,9 +244,7 @@ def storm_run(argv) -> int:
         trace_counts,
     )
 
-    parser = _storm_parser()
-    args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    args = _storm_parser().parse_args(argv)
     if args.checkpoint_every and not args.checkpoint:
         print("--checkpoint-every needs --checkpoint PATH (the file "
               "the periodic snapshots land in)", file=sys.stderr)
@@ -275,6 +259,7 @@ def storm_run(argv) -> int:
     cfg = SimConfig.for_workload(
         snapshots=args.snapshots, max_recorded=args.max_recorded,
         record_dtype=args.record_dtype, window_dtype=args.window_dtype,
+        reduce_mode=args.reduce_mode,
         split_markers=args.scheduler == "sync",
         snapshot_timeout=args.snapshot_timeout,
         snapshot_retries=args.snapshot_retries,
@@ -303,7 +288,9 @@ def storm_run(argv) -> int:
         scheduler=args.scheduler, exact_impl=args.exact_impl,
         check_every=args.check_every,
         megatick=args.megatick if args.scheduler == "exact" else 1,
-        device=device, faults=faults, quarantine=quarantine, trace=trace)
+        kernel_engine=args.kernel_engine, device=device, faults=faults,
+        quarantine=quarantine, trace=trace, fused_tick=args.fused_tick,
+        fused_block_edges=args.fused_block_edges)
     prog = storm_program(
         runner.topo, phases=args.phases, amount=1,
         snapshot_phases=staggered_snapshots(runner.topo, args.snapshots, 1,
@@ -435,7 +422,8 @@ def _stream_parser() -> argparse.ArgumentParser:
                          "every choice runs the same")
     pq.add_argument("--seed", type=int, default=0)
     pq.add_argument("--delay", choices=["uniform", "hash"], default="hash",
-                    help="'uniform' is not ported yet")
+                    help="'uniform': the threefry stream of jax.random; "
+                         "'hash': the counter hash")
     pq.add_argument("--admission", choices=["stream", "gang"],
                     default="stream",
                     help="'stream' refills a slot the moment its job "

@@ -124,13 +124,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler", choices=["sync", "exact"], default="sync",
                    help="sync = simultaneous delivery (the production "
                         "path); exact = the reference's sequential fold")
-    p.add_argument("--exact-impl", choices=["cascade", "wave"],
+    p.add_argument("--exact-impl", choices=["cascade", "wave", "fold"],
                    default="cascade",
                    help="bit-exact tick formulation when --scheduler exact "
                         "(ops/tick.TickKernel): 'wave' serves every "
-                        "destination's next marker in one host step; "
-                        "bit-identical, and it needs --delay hash (fold is "
-                        "not ported yet)")
+                        "destination's next marker in one host step and "
+                        "needs --delay hash; 'fold' steps the sources one "
+                        "by one, the reference-literal form (no faults, no "
+                        "supervisor); bit-identical")
     p.add_argument("--megatick", type=int, default=1,
                    help="K-tick megaticks for the exact drain and flush "
                         "(the JAX bench's default 1; the fused megatick "
@@ -143,9 +144,10 @@ def _parser() -> argparse.ArgumentParser:
                    default="int16")
     p.add_argument("--window-dtype", choices=["uint16", "int32"],
                    default="int32",
-                   help="uint16 is not ported yet (SimConfig raises)")
+                   help="uint16: the window counters modulo 2^16")
     p.add_argument("--delay", choices=["uniform", "hash"], default="hash",
-                   help="'uniform' is not ported yet")
+                   help="'uniform': the threefry stream of jax.random; "
+                        "'hash': the counter hash")
     p.add_argument("--target", type=float, default=10e6,
                    help="north-star node-ticks/s/chip")
     p.add_argument("--profile", metavar="PATH", default=None,
@@ -650,7 +652,8 @@ def main(argv=None) -> int:
 
     topo = runner.topo
     times, node_ticks = [], []
-    steps = "waves" if args.exact_impl == "wave" else "marker folds"
+    steps = {"wave": "waves", "fold": "source steps"}.get(args.exact_impl,
+                                                          "marker folds")
     for r in range(args.repeats):
         state = runner.init_batch_device()
         _sync(device)

@@ -8,9 +8,11 @@ structure the Go reference grows dynamically (per-link queues, snapshot
 slots, recorded-message logs), so the state is fixed-shape tensors on the
 device. The supervisor knobs (``snapshot_timeout``, ``snapshot_retries``,
 ``snapshot_every``) and the flight recorder's ``trace_capacity`` mean
-what they mean in the JAX config; the JAX config's engine knobs are not
-ported: the port runs without them, as the JAX package does at their
-defaults.
+what they mean in the JAX config. The JAX config's engine knobs
+(``count_dtype``, ``reduce_mode``, ``comm_engine``, ``kernel_engine``,
+``fused_tick``, ``fused_tile``) are fields here too, in the JAX order and
+with its spellings and messages; ``ops/tick.TickKernel`` resolves each to
+what the port runs and says why (``resolve_knobs``).
 """
 
 import dataclasses
@@ -23,6 +25,16 @@ MAX_DELAY = 5
 # rand.Seed(seed + 1)).
 REFERENCE_TEST_SEED = 8053172852482175523
 
+# the engine knobs' spellings, "auto" first (the JAX ``ENGINE_KNOBS`` rows
+# the port's config and constructors validate against)
+ENGINE_KNOBS = {
+    "queue_engine": ("auto", "gather", "mask"),
+    "comm_engine": ("auto", "dense", "sparse"),
+    "kernel_engine": ("auto", "xla", "pallas"),
+    "fused_tick": ("auto", "on", "off"),
+    "fused_tile": ("auto", "on", "off"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
@@ -34,7 +46,24 @@ class SimConfig:
     max_delay: int = MAX_DELAY
     max_ticks: int = 100_000       # drain-loop budget
     record_dtype: str = "int32"    # dtype of log_amt[L, E]
-    window_dtype: str = "int32"    # dtype of rec_start/rec_end[S, E]
+    # dtype of rec_start/rec_end [S, E]: "uint16" keeps the window
+    # counters modulo 2^16 (a window's length is bounded by max_recorded,
+    # and L divides 2^16, so the modular decode equals the absolute one);
+    # the port stores them as int16 tensors holding the uint16 bits
+    # (core/state.py), uint16 on the host
+    window_dtype: str = "int32"
+    # the JAX engine knobs (ops/tick.resolve_knobs): count_dtype and
+    # reduce_mode pick the JAX reduction (equal in result); the port
+    # reduces through its segment kernels. comm_engine is the graph-sharded
+    # runner's (stored). kernel_engine: the port has one engine. fused_tick
+    # and fused_tile: the fused megatick and its layout
+    # (kernels/megatick.resolve_fused)
+    count_dtype: str = "auto"
+    reduce_mode: str = "auto"
+    comm_engine: str = "auto"
+    kernel_engine: str = "auto"
+    fused_tick: str = "auto"
+    fused_tile: str = "auto"
     # snapshot supervisor: an attempt not complete within snapshot_timeout
     # ticks of its (re-)initiation is aborted and re-initiated under a new
     # epoch, the deadline doubling per retry (capped at 16x); after
@@ -59,12 +88,28 @@ class SimConfig:
             raise ValueError("capacities must be positive")
         if self.record_dtype not in ("int32", "int16"):
             raise ValueError("record_dtype must be 'int32' or 'int16'")
-        if self.window_dtype == "uint16":
-            raise NotImplementedError(
-                "window_dtype='uint16' (modular window counters) is not "
-                "ported yet; use window_dtype='int32'")
-        if self.window_dtype != "int32":
+        if self.window_dtype not in ("int32", "uint16"):
             raise ValueError("window_dtype must be 'int32' or 'uint16'")
+        if self.window_dtype == "uint16" and (
+                self.max_recorded > 32768
+                or self.max_recorded & (self.max_recorded - 1)):
+            # a full window (length L) must not alias length 0 mod 2^16
+            raise ValueError(
+                "window_dtype='uint16' needs max_recorded to be a power of "
+                "two <= 32768 (modular window decode requires L | 2^16 and "
+                "full-window lengths < 2^16)")
+        if self.count_dtype not in ("auto", "bfloat16", "float32"):
+            raise ValueError(
+                "count_dtype must be 'auto', 'bfloat16' or 'float32'")
+        if self.reduce_mode not in ("auto", "matmul", "segsum"):
+            raise ValueError(
+                "reduce_mode must be 'auto', 'matmul' or 'segsum'")
+        for knob in ("comm_engine", "kernel_engine", "fused_tick",
+                     "fused_tile"):
+            allowed = ENGINE_KNOBS[knob]
+            if getattr(self, knob) not in allowed:
+                raise ValueError(
+                    f"{knob} must be one of {', '.join(map(repr, allowed))}")
         if (self.snapshot_timeout < 0 or self.snapshot_retries < 0
                 or self.snapshot_every < 0):
             raise ValueError(
@@ -93,6 +138,10 @@ class SimConfig:
         c = max(16, analytic + hol_slack)
         overrides.setdefault("max_snapshots", max(8, snapshots))
         if not overrides.get("max_recorded"):
-            overrides["max_recorded"] = max(32, 4 * snapshots)
+            derived = max(32, 4 * snapshots)
+            if overrides.get("window_dtype") == "uint16":
+                # the modular planes need a power of two, at most 2^15
+                derived = min(1 << (derived - 1).bit_length(), 32768)
+            overrides["max_recorded"] = derived
         capacity = overrides.pop("queue_capacity", (c + 7) // 8 * 8)
         return cls(queue_capacity=capacity, max_delay=max_delay, **overrides)

@@ -17,6 +17,11 @@ the same.
 is then a ``DenseTraceView`` of the lane's ring (the JAX
 ``DenseTraceView``), whose ``pretty()`` is the reference Logger's
 timeline, as the parity backend's ``EpochTrace.pretty()`` prints it.
+
+``faults`` (models/faults.Faults) arms the adversary on the one lane with
+the JAX single instance's key, ``faults.init_state()`` = ``base | 1``
+(lane 0 of ``init_batch_state``); its ``tick N`` stretches, drain and
+flush run through the fused megatick's fault arm on the card.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from chandy_lamport_tpu_torch.core.state import (
     DenseTopology,
     decode_errors,
     decode_snapshot,
-    init_state,
+    init_single_state,
 )
 from chandy_lamport_tpu_torch.ops.tick import TickKernel
 from chandy_lamport_tpu_torch.parallel.batch import resolve_device
@@ -87,22 +92,26 @@ class DenseSim:
 
     def __init__(self, topology: TopologySpec, delay,
                  config: Optional[SimConfig] = None,
-                 exact_impl: str = "cascade", megatick: int = 8, *,
-                 device=None, faults=None, trace=None):
-        """The positional parameters are the JAX ``DenseSim``'s, in its
-        order; the port's own (``device``) and those that follow the JAX
-        ``megatick`` are keyword-only.
+                 exact_impl: str = "cascade", megatick: int = 8,
+                 queue_engine: str = "auto",
+                 kernel_engine: Optional[str] = None, faults=None,
+                 trace=None, fused_tick: Optional[str] = None,
+                 fused_block_edges: int = 0, *, device=None):
+        """The parameters are the JAX ``DenseSim``'s, in its order; the
+        port's own (``device``) is keyword-only.
         ``megatick``: the K of the multi-tick loops (module docstring);
         ``self.fused`` and ``self.fused_reason`` say whether they run
         through the kernel. ``exact_impl``: the exact tick's formulation,
-        "cascade" or "wave" (``ops/tick.TickKernel``; the wave refuses the
-        Go-exact sampler). ``trace``: utils/tracing.Trace or None, the
-        flight recorder; ``self.trace`` is its ``DenseTraceView`` when
-        armed, else None."""
-        if faults is not None:
-            raise NotImplementedError(
-                "faults in DenseSim are not ported yet (ROADMAP.md, "
-                "section A); BatchedRunner carries them")
+        "cascade", "wave" or "fold" (``ops/tick.TickKernel``; the wave
+        refuses the Go-exact and threefry samplers, the fold faults and
+        the supervisor). ``faults``: models/faults.Faults or None, the
+        adversary (module docstring). ``trace``: utils/tracing.Trace or
+        None, the flight recorder; ``self.trace`` is its
+        ``DenseTraceView`` when armed, else None. ``queue_engine``,
+        ``kernel_engine``, ``fused_tick`` (None: the config's) and
+        ``fused_block_edges`` are the JAX knobs, resolved by
+        ``TickKernel`` (``self.kernel_engine`` and the kernel's
+        ``*_reason`` attributes)."""
         self.device = resolve_device(device)
         self.config = config or SimConfig()
         self.topo = DenseTopology(topology)
@@ -115,12 +124,24 @@ class DenseSim:
         self.kernel = TickKernel(self.topo, self.config, delay,
                                  marker_mode="ring", megatick=megatick,
                                  exact_impl=exact_impl, device=self.device,
-                                 trace=trace)
+                                 faults=faults, trace=trace,
+                                 queue_engine=queue_engine,
+                                 kernel_engine=kernel_engine,
+                                 fused_tick=fused_tick,
+                                 fused_block_edges=fused_block_edges)
+        self.faults = faults
+        self.kernel_engine = self.kernel.kernel_engine
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
         self.trace = DenseTraceView(self) if self.kernel._trace_on else None
-        self.state: DenseState = init_state(self.topo, self.config, 1, delay,
-                                            self.device)
+        # the single instance's streams (the JAX ``init_state``s): the
+        # sampler's own and the adversary's base | 1
+        state = init_single_state(self.topo, self.config, delay,
+                                  self.device)
+        if faults is not None:
+            state = state._replace(
+                fault_key=faults.init_batch_state(1, self.device))
+        self.state: DenseState = state
         # host mirror of next_sid (ids are allocated sequentially,
         # sim.go:107-108) so collection knows which slots this run started
         self._next_sid = 0
@@ -170,6 +191,20 @@ class DenseSim:
     def node_tokens(self):
         tokens = self.state.tokens[0].tolist()
         return {nid: tokens[i] for i, nid in enumerate(self.topo.ids)}
+
+    def total_tokens(self) -> int:
+        """Node balances + in-flight non-marker tokens (the conserved
+        quantity, test_common.go:298-328; the JAX ``total_tokens``)."""
+        host = self.host_state()
+        total = int(host.tokens.sum())
+        C = self.config.queue_capacity
+        for e in range(self.topo.e):
+            head, length = int(host.q_head[e]), int(host.q_len[e])
+            for k in range(length):
+                slot = (head + k) % C
+                if not int(host.q_meta[e, slot]) & 1:
+                    total += int(host.q_data[e, slot])
+        return total
 
     def check_errors(self) -> None:
         bits = int(self.state.error[0])

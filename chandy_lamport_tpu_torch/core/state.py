@@ -97,6 +97,18 @@ INT32_MAX = 2**31 - 1
 # DenseState leaves that hold uint32 words (as int64, module docstring)
 U32_LEAVES = ("fault_key", "sig")
 
+# the window planes: with SimConfig.window_dtype="uint16" the port holds
+# them as int16 tensors carrying the uint16 bits (PyTorch's uint16 has no
+# subtraction or index_put_), and they are uint16 on the host
+# (utils/carry.py); an int16 cast of an int32 counter keeps its low 16
+# bits, which is the JAX ``astype(uint16)``
+WINDOW_LEAVES = ("rec_start", "rec_end")
+
+
+def window_dtype(cfg: SimConfig) -> torch.dtype:
+    """The torch dtype of the window planes under ``cfg``."""
+    return torch.int16 if cfg.window_dtype == "uint16" else torch.int32
+
 # Checkpoint-format version history (utils/checkpoint.py writes the live
 # version into each file's header), copied row for row from the JAX
 # package's core/state.py: the port's DenseState and StreamState have the
@@ -238,8 +250,8 @@ class DenseState(NamedTuple):
     rec_cnt: Any       # i32 [E]
     min_prot: Any      # i32 [E]      earliest window start (INT32_MAX = none)
     log_amt: Any       # record_dtype [L, E]
-    rec_start: Any     # i32 [S, E]
-    rec_end: Any       # i32 [S, E]
+    rec_start: Any     # window_dtype [S, E] (int16 bits of uint16)
+    rec_end: Any       # window_dtype [S, E]
     completed: Any     # i32 [S]
     delay_state: Any   # sampler tuple (ops/delay.py)
     fault_key: Any     # u32 []
@@ -294,7 +306,8 @@ def init_state(topo: DenseTopology, cfg: SimConfig, batch: int, delay,
         done_local=z(s, n, dtype=bl), recording=z(s, e, dtype=bl),
         rec_cnt=z(e), min_prot=full(INT32_MAX, e),
         log_amt=z(m, e, dtype=getattr(torch, cfg.record_dtype)),
-        rec_start=z(s, e), rec_end=z(s, e), completed=z(s),
+        rec_start=z(s, e, dtype=window_dtype(cfg)),
+        rec_end=z(s, e, dtype=window_dtype(cfg)), completed=z(s),
         delay_state=delay.init_batch_state(b, device),
         fault_key=z(dtype=i64), fault_skew=z(),
         fault_counts=z(NUM_FAULT_CLASSES),
@@ -307,15 +320,38 @@ def init_state(topo: DenseTopology, cfg: SimConfig, batch: int, delay,
     )
 
 
+def init_single_state(topo: DenseTopology, cfg: SimConfig, delay,
+                      device) -> DenseState:
+    """One simulation's fresh state (a batch of one lane): ``init_state``
+    with the sampler's single-instance stream where it has its own (the
+    threefry key ``PRNGKey(seed)``, the JAX ``init_state()``; lane 0 of
+    ``init_batch_state`` is ``fold_in(PRNGKey(seed), 0)``)."""
+    state = init_state(topo, cfg, 1, delay, device)
+    single = getattr(delay, "init_state", None)
+    if single is not None:
+        state = state._replace(delay_state=single(device))
+    return state
+
+
 def recorded_window(host: DenseState, sid: int, eidx: int) -> List[int]:
     """The amounts snapshot ``sid`` recorded on edge ``eidx``, in arrival
     order: the ``[rec_start, rec_end)`` window of the edge's ring log
     (``rec_end`` falls back to the live ``rec_cnt`` for a still-recording
-    channel). ``host`` is ONE lane's state as numpy arrays."""
+    channel). ``host`` is ONE lane's state as numpy arrays.
+
+    With uint16 window planes (``window_dtype="uint16"``) the counters are
+    held modulo 2^16: the length is (end - start) mod 2^16 and the log
+    positions (start + k) mod L, equal to the absolute decode because L
+    divides 2^16 (the JAX ``recorded_window``)."""
     lcap = host.log_amt.shape[-2]
     start = int(host.rec_start[sid, eidx])
     end = (int(host.rec_cnt[eidx]) if host.recording[sid, eidx]
            else int(host.rec_end[sid, eidx]))
+    if np.dtype(host.rec_start.dtype) != np.int32:   # modular planes
+        bits = 8 * np.dtype(host.rec_start.dtype).itemsize
+        length = (end - start) & ((1 << bits) - 1)
+        return [int(host.log_amt[(start + k) % lcap, eidx])
+                for k in range(length)]
     return [int(host.log_amt[j % lcap, eidx]) for j in range(start, end)]
 
 

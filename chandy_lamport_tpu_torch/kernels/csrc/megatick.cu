@@ -123,6 +123,24 @@
 // that bound: each step is a chain of dependent shared-memory and table
 // reads per node or per edge, bound by latency, not bytes.
 //
+// The threefry sampler (kThreefry; ops/delay.UniformDelay, the JAX
+// UniformJaxDelay): each draw splits the lane's key and draws
+// randint(second half, 0, max_delay), five Threefry-2x32 blocks, so its
+// stream is order-dependent like the Go-exact one: the owner step reads its
+// draws from the buffer thread 0 fills in stream order (gdraw), as for
+// Go-exact. Its state is the key's two words a lane. The draw is compiled
+// only into the instantiations launched for it (kTf): compiled into every
+// one, its call raised the others' registers (PERF.md §6).
+//
+// The uint16 window arm (SimConfig.window_dtype="uint16"): rec_start and
+// rec_end are [B, S, E] planes of 2-byte words (rec_start16 / rec_end16,
+// the int32 pair left null), written natively with the counter's low 16
+// bits, which is the JAX astype(uint16). The windows lie in device memory
+// in both layouts, so the working set (fused_smem_bytes) is the same; the
+// window writes move half the bytes. The untraced instantiations fix the
+// width at compile time (kWin): a branch on it at each write cost the
+// int32 drain megaticks 0.7-2.7 % (PERF.md §6).
+//
 // Modulus: CUDA's % truncates toward zero; every modulus here has
 // non-negative operands (head in [0, C), len >= 0, counters >= 0, the
 // unsigned hash), so it agrees with PyTorch's floor. The clock's floor
@@ -162,7 +180,7 @@ struct ClsimMegatickArgs {
   int32_t* rec_cnt;       // [B, E]
   int32_t* min_prot;
   void* log_amt;          // [B, L, E] int16 or int32
-  int32_t* rec_start;     // [B, S, E]
+  int32_t* rec_start;     // [B, S, E], null under the uint16 arm
   int32_t* rec_end;
   int32_t* completed;     // [B, S]
   uint8_t* snap_failed;
@@ -177,7 +195,8 @@ struct ClsimMegatickArgs {
   int32_t* snap_initiator;
   int32_t* next_sid;         // [B]
   int32_t* stale_markers;    // [B]
-  void* dw0;              // hash: key; Go: vec [B, 607] (uint64 bits)
+  void* dw0;              // hash: key; Go: vec [B, 607] (uint64 bits);
+                          // threefry: the key [B, 2]
   void* dw1;              // hash: counter; Go: tap (int32)
   void* dw2;              // hash: epoch; Go: feed (int32)
   const uint8_t* live;    // [B] lane gate: required in mode "ticks",
@@ -221,6 +240,10 @@ struct ClsimMegatickArgs {
   const int32_t* tr_on;
   int tr_k;
   int traced;
+  // the uint16 window arm (window_dtype="uint16"): the window planes as
+  // 2-byte words, rec_start / rec_end then null; last, as above
+  uint16_t* rec_start16;  // [B, S, E]
+  uint16_t* rec_end16;
 };
 
 namespace {
@@ -244,7 +267,7 @@ enum { kCtlSums = 0, kCtlDepths = kWarps, kCtlKey = 2 * kWarps, kCtlCtr,
        kCtlEpoch };
 static_assert(kCtlEpoch < kWaveCtl, "the wave's control words");
 enum { kTicks = 0, kDrain = 1, kFlush = 2 };
-enum { kFixed = 0, kHash = 1, kGoExact = 2 };
+enum { kFixed = 0, kHash = 1, kGoExact = 2, kThreefry = 3 };
 // fault_counts columns (core/state.FC_*)
 enum { kFcDrop = 0, kFcDup, kFcJitter, kFcCrash, kFcMDrop, kFcMDup,
        kFcMJitter };
@@ -460,15 +483,77 @@ __device__ __forceinline__ int32_t dup_time(const Fault& f, int32_t t,
 
 // ---- the delay sampler ---------------------------------------------------
 
+// Threefry-2x32, 20 rounds, of key (k0, k1) on the counter pair (x0, x1)
+// (ops/delay.threefry2x32, jax/_src/prng.py _threefry2x32_lowering)
+__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
+                                         uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = ((x1 << rot[i & 1][j]) | (x1 >> (32 - rot[i & 1][j]))) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+}
+
+// The sampler's draws come from a stream whose order matters (Go-exact,
+// threefry): the owner step reads them from the buffer of a tick's draws
+__host__ __device__ __forceinline__ bool ordered(int kind) {
+  return kind == kGoExact || kind == kThreefry;
+}
+
+// the key's block of counter (0, i): jax.random.split's key i
+__device__ __forceinline__ void key_split(uint32_t k0, uint32_t k1,
+                                          uint32_t i, uint32_t& o0,
+                                          uint32_t& o1) {
+  o0 = 0u;
+  o1 = i;
+  threefry(k0, k1, o0, o1);
+}
+
+// One threefry draw (UniformDelay.draw) from the key (k0, k1): split it,
+// and draw jax.random.randint(second half, (), 0, n) for int32: two 32-bit
+// words, one per half of the second key, folded into the span with uint32
+// wrap-around. Returns (the first half: the next key, the draw). A call,
+// not inlined: only thread 0 draws, and inlined its five blocks raised
+// the kernel's registers (ptxas: the fault-free resident kernel from 80
+// to 120), and with them the lanes an SM keeps in flight.
+__device__ __noinline__ uint3 threefry_draw(uint32_t k0, uint32_t k1,
+                                            uint32_t n) {
+  uint32_t n0, n1, s0, s1, a0, a1, b0, b1;
+  key_split(k0, k1, 0u, n0, n1);
+  key_split(k0, k1, 1u, s0, s1);
+  key_split(s0, s1, 0u, a0, a1);
+  key_split(s0, s1, 1u, b0, b1);
+  uint32_t h0 = 0u, h1 = 0u, l0 = 0u, l1 = 0u;
+  threefry(a0, a1, h0, h1);
+  threefry(b0, b1, l0, l1);
+  const uint32_t hi = h0 ^ h1, lo = l0 ^ l1;
+  uint32_t mult = 65536u % n;
+  mult = (mult * mult) % n;
+  return make_uint3(n0, n1, ((hi % n) * mult + lo % n) % n);
+}
+
 // The lane's delay stream, held by thread 0 (ops/delay.py): FixedDelay,
 // HashDelay (a counter hash; the epoch advances when the counter wraps,
-// as draw() does one draw at a time) and GoExactDelay (Go's additive
-// lagged Fibonacci source and Intn, one draw at a time).
+// as draw() does one draw at a time), GoExactDelay (Go's additive
+// lagged Fibonacci source and Intn, one draw at a time) and UniformDelay
+// (threefry: ``threefry_draw`` on the key's two words ``tk0``, ``tk1``;
+// compiled in only with kTf).
+template <bool kTf>
 struct Sampler {
   int kind, max_delay, fixed;
   uint32_t key, ctr, epoch;
   uint64_t* vec;
   int tap, feed;
+  uint32_t tk0, tk1;
 
   __device__ int32_t int31() {
     tap = tap == 0 ? kGoLen - 1 : tap - 1;
@@ -482,7 +567,12 @@ struct Sampler {
   __device__ int32_t draw(int32_t time) {
     if (kind == kFixed) return wrap_add(time, fixed);
     uint32_t d;
-    if (kind == kHash) {
+    if constexpr (kTf) {
+      const uint3 r = threefry_draw(tk0, tk1, (uint32_t)max_delay);
+      tk0 = r.x;
+      tk1 = r.y;
+      d = r.z;
+    } else if (kind == kHash) {
       d = lowbias32(lowbias32(ctr) ^ key ^ lowbias32(epoch)) %
           (uint32_t)max_delay;
       ctr += 1u;
@@ -650,6 +740,23 @@ __device__ __forceinline__ void append(const Args& a, const Lane& w,
   w.tok_pushed[g] += 1;
 }
 
+// The window planes' width, fixed at compile time (kWin32, kWin16) in the
+// untraced hash instantiations, which thus compile the parent's int32
+// writes alone; read from the launch (kWinAny: ``p16`` set or not) in the
+// others
+enum { kWinAny = 0, kWin32 = 1, kWin16 = 2 };
+
+// one window-plane entry ``i`` of a [B, S, E] plane: the counter, or under
+// the uint16 arm its low 16 bits
+template <int kWin>
+__device__ __forceinline__ void put_window(int32_t* p32, uint16_t* p16,
+                                           long long i, int32_t v) {
+  if (kWin == kWin16 || (kWin == kWinAny && p16 != nullptr))
+    p16[i] = (uint16_t)v;
+  else
+    p32[i] = v;
+}
+
 // a marker's ring payload: epoch * S + sid under the supervisor
 // (TickKernel._marker_payload), the bare sid otherwise
 __device__ __forceinline__ int32_t payload(const Lane& w, int sid, int s,
@@ -661,6 +768,7 @@ __device__ __forceinline__ int32_t payload(const Lane& w, int sid, int s,
 // ``node``, by the 32 lanes of warp 0, recording every in-link from the
 // counter it has now and freezing the balance (the supervisor's
 // injections; the owner step's first receipts write theirs in place)
+template <int kWin>
 __device__ __forceinline__ void initiate(const Args& a, const Lane& w,
                                          long long bs, int sid, int node,
                                          int ln) {
@@ -668,7 +776,7 @@ __device__ __forceinline__ void initiate(const Args& a, const Lane& w,
     const int f = a.by_dst[j];
     const int32_t cnt = w.rec_cnt[f];
     w.recording[sid * a.e + f] = 1;
-    a.rec_start[(bs + sid) * a.e + f] = cnt;
+    put_window<kWin>(a.rec_start, a.rec_start16, (bs + sid) * a.e + f, cnt);
     if (cnt < w.min_prot[f]) w.min_prot[f] = cnt;
   }
   if (ln == 0) {
@@ -682,9 +790,9 @@ __device__ __forceinline__ void initiate(const Args& a, const Lane& w,
 // SendToNeighbors (node.go:97-109), thread 0: one marker per out-link of
 // ``node`` in dest order, one delay draw each, appended in place (traced:
 // a marker-send each, with the raw ``sid``)
-template <bool kTrace>
+template <bool kTrace, class Smp>
 __device__ __forceinline__ void broadcast(const Args& a, const Lane& w,
-                                          const Ring& ring, Sampler& smp,
+                                          const Ring& ring, Smp& smp,
                                           long long be, int node, int sid,
                                           int32_t data, int32_t t) {
   for (int g = a.src_lo[node]; g < a.src_hi[node]; ++g) {
@@ -697,9 +805,9 @@ __device__ __forceinline__ void broadcast(const Args& a, const Lane& w,
 // the daemon, then the timeout scan and the re-initiations. Draws stay in
 // thread 0 (lane 0), in the plain form's order, and so do the recorder's
 // events.
-template <bool kTrace>
+template <bool kTrace, int kWin, class Smp>
 __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
-                                          const Ring& ring, Sampler& smp,
+                                          const Ring& ring, Smp& smp,
                                           long long be, long long bs,
                                           int32_t t, int ln) {
   const int S = a.s, n = a.n, e = a.e;
@@ -716,7 +824,7 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
         if (timeout > 0) w.deadline[sid] = wrap_add(t, timeout);
         if constexpr (kTrace) record(ring, w, node, kEvSnapStart, sid, t);
       }
-      initiate(a, w, bs, sid, node, ln);
+      initiate<kWin>(a, w, bs, sid, node, ln);
       __syncwarp();
       if (ln == 0)
         broadcast<kTrace>(a, w, ring, smp, be, node, sid,
@@ -775,8 +883,8 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
     }
     for (int f = ln; f < e; f += 32) {
       w.recording[k * e + f] = 0;
-      a.rec_start[(bs + k) * e + f] = 0;
-      a.rec_end[(bs + k) * e + f] = 0;
+      put_window<kWin>(a.rec_start, a.rec_start16, (bs + k) * e + f, 0);
+      put_window<kWin>(a.rec_end, a.rec_end16, (bs + k) * e + f, 0);
     }
   }
   __syncwarp();
@@ -784,7 +892,7 @@ __device__ __forceinline__ void supervise(const Args& a, const Lane& w,
     if (w.retry[k] != 1) continue;
     int node = w.initiator[k];
     node = node < 0 ? 0 : (node >= n ? n - 1 : node);
-    initiate(a, w, bs, k, node, ln);
+    initiate<kWin>(a, w, bs, k, node, ln);
     __syncwarp();
     if (ln == 0)
       broadcast<kTrace>(a, w, ring, smp, be, node, k,
@@ -811,9 +919,9 @@ __device__ __forceinline__ int marker_sid(int32_t data, int s, bool sup) {
 // Returns the tick's draw count and the deepest wave (``depth``), and
 // leaves the sampler's tick-start key, counter and epoch and the warps'
 // depths in the control words.
-template <bool kWnum>
+template <bool kWnum, class Smp>
 __device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
-                                             const Sampler& smp, int tid,
+                                             const Smp& smp, int tid,
                                              int nt, bool sup, int& depth) {
   const int n = a.n, e = a.e, S = a.s;
   depth = 0;
@@ -887,7 +995,7 @@ __device__ __forceinline__ uint32_t schedule(const Args& a, const Lane& w,
 // finalization check, which (traced) sets bit 1 of ``first[f]`` where the
 // cell fires. Only ``completed`` and the error word are shared with other
 // threads.
-template <bool kTrace>
+template <bool kTrace, int kWin>
 __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
                                               long long be, long long bs,
                                               int f, int d, int32_t t,
@@ -902,7 +1010,7 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
       if (g == f) continue;
       const int32_t cnt = w.rec_cnt[g] + (int32_t)w.app[g];
       w.recording[sid * e + g] = 1;
-      a.rec_start[(bs + sid) * e + g] = cnt;
+      put_window<kWin>(a.rec_start, a.rec_start16, (bs + sid) * e + g, cnt);
       if (cnt < w.min_prot[g]) w.min_prot[g] = cnt;
     }
     w.has_local[cell] = 1;
@@ -913,7 +1021,7 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
     const uint32_t base = (uint32_t)w.base[f];
     for (int g = g0; g < a.src_hi[d]; ++g) {
       const uint32_t at = base + (uint32_t)(g - g0);
-      const int32_t rt = a.sampler == kGoExact
+      const int32_t rt = ordered(a.sampler)
                              ? w.gdraw[at]
                              : draw_at(a, key, ctr0, epoch0, at, t);
       append(a, w, be, g, rt, true, data);
@@ -923,7 +1031,8 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
     if (w.recording[rc]) {
       w.recording[rc] = 0;
       w.rem[cell] -= 1;
-      a.rec_end[(bs + sid) * e + f] = w.rec_cnt[f];
+      put_window<kWin>(a.rec_end, a.rec_end16, (bs + sid) * e + f,
+                       w.rec_cnt[f]);
     }
   }
   if (w.has_local[cell] && w.rem[cell] == 0 && !w.done_local[cell]) {
@@ -953,9 +1062,9 @@ __device__ __forceinline__ void handle_marker(const Args& a, const Lane& w,
 // recorded): 0 for no marker, else 1 | first receipt << 1 | fired << 2 |
 // wave << 3, so the wave's sends and endSnapshots are found in node order
 // with no gather.
-template <bool kTrace, bool kWave>
+template <bool kTrace, bool kWave, int kWin, class Smp>
 __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
-                                           Sampler& smp, long long be,
+                                           Smp& smp, long long be,
                                            long long bs, int32_t t, int tid,
                                            int nt, bool sup) {
   int depth;
@@ -964,13 +1073,13 @@ __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
   const uint32_t ctr0 = (uint32_t)w.wctl[kCtlCtr];
   const uint32_t epoch0 = (uint32_t)w.wctl[kCtlEpoch];
   if (tid == 0) {
-    if (a.sampler == kGoExact)
+    if (ordered(a.sampler))
       for (uint32_t i = 0; i < total; ++i) w.gdraw[i] = smp.draw(t);
     else
       smp.advance(total);
     w.ctl[0] = 0;                      // step 4 credits every token left
   }
-  if (a.sampler == kGoExact) __syncthreads();
+  if (ordered(a.sampler)) __syncthreads();
   for (int d = tid; d < a.n; d += nt) {
     int next = a.dst_lo[d];            // in-edges [dst_lo, next) credited
     int wave = 0;                      // the node's markers so far
@@ -989,7 +1098,8 @@ __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
         w.app[g] = recorded(w, a.s, a.e, g);
         w.tok[g] = kTrace ? 2 : 0;
       }
-      handle_marker<kTrace>(a, w, be, bs, f, d, t, key, ctr0, epoch0, sup);
+      handle_marker<kTrace, kWin>(a, w, be, bs, f, d, t, key, ctr0, epoch0,
+                                  sup);
       if constexpr (kWave) w.tev[j] = 1 | w.first[f] << 1 | wave++ << 3;
     }
   }
@@ -1000,12 +1110,12 @@ __device__ __forceinline__ void owner_step(const Args& a, const Lane& w,
 // the tiled arm is latency-bound, so more lanes win; called, the step
 // keeps its own registers and the kernel's other steps fit in fewer
 // (PERF.md §6)
-template <bool kTrace, bool kWave>
+template <bool kTrace, bool kWave, int kWin, class Smp>
 __device__ __noinline__ void owner_step_call(const Args& a, const Lane& w,
-                                             Sampler& smp, long long be,
+                                             Smp& smp, long long be,
                                              long long bs, int32_t t,
                                              int tid, int nt, bool sup) {
-  owner_step<kTrace, kWave>(a, w, smp, be, bs, t, tid, nt, sup);
+  owner_step<kTrace, kWave, kWin>(a, w, smp, be, bs, t, tid, nt, sup);
 }
 
 // ---- the ranked append of a traced tick's marker and receipt events -----
@@ -1283,8 +1393,10 @@ __device__ __forceinline__ void record_step(const Args& a, const Lane& w,
 // ones. A compile-time parameter, so the resident instantiations keep
 // their shared-memory addressing and registers. kTrace: the recorder arm
 // (the module comment); the untraced instantiations compile none of it.
-// The body of both kernels below (untraced and traced).
-template <bool kExt, bool kWave, bool kTiled, bool kTrace>
+// kTf: the threefry sampler's (the module comment), and no other's; kWin
+// the window planes' width (put_window). The body of every kernel below.
+template <bool kExt, bool kWave, bool kTiled, bool kTrace, bool kTf,
+          int kWin>
 __device__ __forceinline__ void fused_ticks(const Args a) {
   extern __shared__ __align__(16) char smem[];
   const long long b = blockIdx.x;
@@ -1324,7 +1436,7 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
   else
     lane_base = reinterpret_cast<uintptr_t>(smem);
   const Lane w = carve(lane_base, n, e, S, ext, kWave, kTrace,
-                       a.sampler == kGoExact);
+                       ordered(a.sampler));
   Ring ring{nullptr, nullptr, nullptr, 1, false};
   if constexpr (kTrace) {
     const long long bk = b * a.tr_k;
@@ -1363,8 +1475,8 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
   if (ext)
     for (int k = tid; k < kClasses; k += nt)
       w.counts[k] = a.fault_counts[b * kClasses + k];
-  Sampler smp{a.sampler, a.max_delay, a.fixed_delay, 0u, 0u, 0u, nullptr,
-              0, 0};
+  Sampler<kTf> smp{a.sampler, a.max_delay, a.fixed_delay, 0u, 0u, 0u,
+                   nullptr, 0, 0, 0u, 0u};
   if (tid == 0) {
     *w.err = a.error[b];
     if (ext) {
@@ -1372,7 +1484,10 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
       *w.skew = a.fault_skew[b];
       *w.stale = a.stale_markers[b];
     }
-    if (a.sampler == kHash) {
+    if constexpr (kTf) {
+      smp.tk0 = (uint32_t)static_cast<const int64_t*>(a.dw0)[2 * b];
+      smp.tk1 = (uint32_t)static_cast<const int64_t*>(a.dw0)[2 * b + 1];
+    } else if (a.sampler == kHash) {
       smp.key = (uint32_t)static_cast<const int64_t*>(a.dw0)[b];
       smp.ctr = (uint32_t)static_cast<const int64_t*>(a.dw1)[b];
       smp.epoch = (uint32_t)static_cast<const int64_t*>(a.dw2)[b];
@@ -1452,7 +1567,8 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
 
     // 1. the supervisor
     if (sup) {
-      if (tid < 32) supervise<kTrace>(a, w, ring, smp, be, bs, t, tid);
+      if (tid < 32)
+        supervise<kTrace, kWin>(a, w, ring, smp, be, bs, t, tid);
       __syncthreads();
     }
 
@@ -1571,9 +1687,10 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
     // 3. the markers: one destination-owned step (owner_step), for the
     // cascade and the wave alike
     if constexpr (kTiled)
-      owner_step_call<kTrace, kWave>(a, w, smp, be, bs, t, tid, nt, sup);
+      owner_step_call<kTrace, kWave, kWin>(a, w, smp, be, bs, t, tid, nt,
+                                           sup);
     else
-      owner_step<kTrace, kWave>(a, w, smp, be, bs, t, tid, nt, sup);
+      owner_step<kTrace, kWave, kWin>(a, w, smp, be, bs, t, tid, nt, sup);
     __syncthreads();
 
     // 4. the remaining credits, then (traced) the ranked append of the
@@ -1650,7 +1767,10 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
       a.next_sid[b] = *w.next_sid;
       a.stale_markers[b] = *w.stale;
     }
-    if (a.sampler == kHash) {
+    if constexpr (kTf) {
+      static_cast<int64_t*>(a.dw0)[2 * b] = (int64_t)smp.tk0;
+      static_cast<int64_t*>(a.dw0)[2 * b + 1] = (int64_t)smp.tk1;
+    } else if (a.sampler == kHash) {
       static_cast<int64_t*>(a.dw1)[b] = (int64_t)smp.ctr;
       static_cast<int64_t*>(a.dw2)[b] = (int64_t)smp.epoch;
     } else if (a.sampler == kGoExact) {
@@ -1660,11 +1780,11 @@ __device__ __forceinline__ void fused_ticks(const Args a) {
   }
 }
 
-// the untraced instantiations
-template <bool kExt, bool kTiled>
+// the untraced instantiations, int32 or uint16 windows (kWin)
+template <bool kExt, bool kTiled, int kWin>
 __global__ void __launch_bounds__(kThreads)
 fused_ticks_kernel(const Args a) {
-  fused_ticks<kExt, false, kTiled, false>(a);
+  fused_ticks<kExt, false, kTiled, false, false, kWin>(a);
 }
 
 // The traced instantiations (the recorder arm), bound to 3 blocks an SM
@@ -1676,7 +1796,21 @@ fused_ticks_kernel(const Args a) {
 template <bool kExt, bool kWave, bool kTiled>
 __global__ void __launch_bounds__(kThreads, kTiled ? 4 : 3)
 fused_ticks_traced(const Args a) {
-  fused_ticks<kExt, kWave, kTiled, true>(a);
+  fused_ticks<kExt, kWave, kTiled, true, false, kWinAny>(a);
+}
+
+// The threefry sampler's instantiations (kTf; the cascade only: the wave
+// takes no order-dependent sampler), untraced and traced, each bound to
+// the lanes an SM keeps in flight in the others: unbound, the draw's call
+// took the fault-free resident kernel from 80 registers to 120-123 (2
+// lanes an SM, not 3), and bound to 1 lane the faulted one to 147.
+// Resident 3 / 2 blocks (fault-free / faulted), tiled 4 / 2; traced 3 / 4
+// as above.
+template <bool kExt, bool kTiled, bool kTrace>
+__global__ void __launch_bounds__(kThreads, kTrace ? (kTiled ? 4 : 3)
+                                  : (kExt ? 2 : (kTiled ? 4 : 3)))
+fused_ticks_threefry(const Args a) {
+  fused_ticks<kExt, false, kTiled, kTrace, true, kWinAny>(a);
 }
 
 // Faults.fault_planes from the device hash above: block (lane, step),
@@ -1720,8 +1854,13 @@ int clsim_fused_ticks(const Args* a, void* stream) {
   const bool traced = a->traced != 0;
   // the traced wave reads its draws by stream position
   if (carve(0, a->n, a->e, a->s, ext, wave, traced,
-            a->sampler == kGoExact).bytes > share ||
-      share % 16 || (wave && traced && a->sampler == kGoExact))
+            ordered(a->sampler)).bytes > share ||
+      share % 16 || (wave && traced && ordered(a->sampler)))
+    return (int)cudaErrorInvalidValue;
+  // the window planes: the int32 pair, or the uint16 pair
+  if ((a->rec_start16 == nullptr) != (a->rec_end16 == nullptr) ||
+      (a->rec_start16 != nullptr) == (a->rec_start != nullptr) ||
+      (a->rec_start == nullptr) != (a->rec_end == nullptr))
     return (int)cudaErrorInvalidValue;
   // the ring: K slots a lane, and its count and arm flag
   if (traced && (a->tr_k < 1 || a->tr_meta == nullptr ||
@@ -1735,9 +1874,15 @@ int clsim_fused_ticks(const Args* a, void* stream) {
     return (int)cudaErrorInvalidValue;
   using Kernel = void (*)(const Args);
   // untraced: one body for the cascade and the wave (kWave = false)
-  static const Kernel untraced[4] = {
-      fused_ticks_kernel<false, false>, fused_ticks_kernel<true, false>,
-      fused_ticks_kernel<false, true>, fused_ticks_kernel<true, true>};
+  static const Kernel untraced[8] = {
+      fused_ticks_kernel<false, false, kWin32>,
+      fused_ticks_kernel<true, false, kWin32>,
+      fused_ticks_kernel<false, true, kWin32>,
+      fused_ticks_kernel<true, true, kWin32>,
+      fused_ticks_kernel<false, false, kWin16>,
+      fused_ticks_kernel<true, false, kWin16>,
+      fused_ticks_kernel<false, true, kWin16>,
+      fused_ticks_kernel<true, true, kWin16>};
   static const Kernel traced_arms[8] = {
       fused_ticks_traced<false, false, false>,
       fused_ticks_traced<true, false, false>,
@@ -1747,9 +1892,22 @@ int clsim_fused_ticks(const Args* a, void* stream) {
       fused_ticks_traced<true, false, true>,
       fused_ticks_traced<false, true, true>,
       fused_ticks_traced<true, true, true>};
+  static const Kernel threefry_arms[8] = {
+      fused_ticks_threefry<false, false, false>,
+      fused_ticks_threefry<true, false, false>,
+      fused_ticks_threefry<false, true, false>,
+      fused_ticks_threefry<true, true, false>,
+      fused_ticks_threefry<false, false, true>,
+      fused_ticks_threefry<true, false, true>,
+      fused_ticks_threefry<false, true, true>,
+      fused_ticks_threefry<true, true, true>};
   const Kernel kernel =
-      traced ? traced_arms[(ext ? 1 : 0) + (wave ? 2 : 0) + (tiled ? 4 : 0)]
-             : untraced[(ext ? 1 : 0) + (tiled ? 2 : 0)];
+      a->sampler == kThreefry
+          ? threefry_arms[(ext ? 1 : 0) + (tiled ? 2 : 0) + (traced ? 4 : 0)]
+      : traced
+          ? traced_arms[(ext ? 1 : 0) + (wave ? 2 : 0) + (tiled ? 4 : 0)]
+          : untraced[(ext ? 1 : 0) + (tiled ? 2 : 0) +
+                     (a->rec_start16 != nullptr ? 4 : 0)];
   const size_t smem = tiled ? 0 : (size_t)share;
   // resident: raised for every share (the default limit counts static
   // bytes too); tiled: no shared memory, so the SM's L1 takes the most

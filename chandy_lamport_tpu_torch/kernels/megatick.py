@@ -48,10 +48,8 @@ its deferred appends: ``ring_append_slots``, :131, has no counterpart
 here), and lays the tick's working planes (``fused_smem_bytes``: the
 ``[E]`` vectors, the ``[S, N]`` planes, ``recording`` [S, E]) out in one
 of two layouts, chosen from the lane's working set alone by
-``resolve_fused`` (the JAX ``fused_tile="auto"``, :263; the JAX knob's
-"off" splits the megatick into single ticks, which the card has no plain
-form for, and its "on" would only force the slower layout on a lane that
-fits, so the port has no knob):
+``resolve_fused`` (the JAX ``fused_tile``, :263: "auto" by the working
+set, "on" and "off" forced):
 
   resident  the planes in the block's shared memory (up to
             ``SMEM_BUDGET``; ER-256: 52,416 B, SF-1k at S=8: 208,736 B);
@@ -66,6 +64,13 @@ fits, so the port has no knob):
 Every plane is loaded from the state at launch and written back at exit
 in both layouts; no launch reads what an earlier one left in the
 workspace.
+
+The samplers: fixed, hash, Go-exact and threefry (``UniformDelay``, the
+kernel's ``kThreefry`` kind, its key's two words a lane); an
+order-dependent one (Go-exact, threefry) is drawn by thread 0 in stream
+order into a buffer of the tick's draws. The window planes: int32, or
+under ``window_dtype="uint16"`` the kernel's uint16 arm, which writes the
+2-byte planes in place (``rec_start16`` / ``rec_end16``).
 """
 
 from __future__ import annotations
@@ -81,6 +86,7 @@ from chandy_lamport_tpu_torch.ops.delay import (
     FixedDelay,
     GoExactDelay,
     HashDelay,
+    UniformDelay,
 )
 from chandy_lamport_tpu_torch.ops.gorand import LEN as GO_LEN
 
@@ -143,8 +149,8 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
     the ranked append's count table after the step) and first-receipt flag
     (byte) and 24 words of control; the traced wave (``wave``,
     ``wave_arm(tk)``, with ``trace``) adds each edge's wave number
-    (int16). ``go_exact`` (the Go-exact sampler) adds a buffer of the
-    tick's draws, at most one broadcast per (slot, node): S x E words.
+    (int16). ``go_exact`` (an order-dependent sampler: Go-exact,
+    threefry) adds a buffer of the tick's draws, at most one broadcast per (slot, node): S x E words.
     ``trace`` (``tk._trace_on``) adds the recorder's word per edge and its
     9 control words (the lane's count and the block scan's 8 warp sums).
     The rings, the log, the windows, the trace ring and the delay stream
@@ -168,30 +174,61 @@ def fused_smem_bytes(n: int, e: int, s: int, *,
 
 
 def resolve_fused(*, megatick: int, device: torch.device, smem_bytes: int,
+                  fused_tick: str = "auto", fused_tile: str = "auto",
+                  marker_mode: str = "ring", exact_impl: str = "cascade",
                   budget: int = SMEM_BUDGET) -> tuple[str, str, str, str]:
     """Where the megatick-K loops of the exact tick run, and in which
-    layout, as (fused, reason, tile, tile reason), each "on"|"off": one
-    tick at a time at megatick 1; the plain form (``fused_ticks_plain``)
-    on the CPU; the kernel on the card, which has no plain form: it
-    launches the kernel or raises. The kernel tiles (the JAX
-    ``resolve_fused_tile`` under "auto", ``kernels/megatick.py:263``)
-    exactly when the lane's working set ``smem_bytes`` exceeds the
-    ``budget`` of a block's shared memory: at the budget it stays
-    resident, one byte over it tiles."""
+    layout, as (fused, reason, tile, tile reason), each "on"|"off" (the
+    JAX ``resolve_fused_tick`` and ``resolve_fused_tile``, :193, :263).
+    The fused megatick needs megatick > 1, the ring representation and a
+    vectorised formulation (the cascade or the wave; the fold is the
+    specification form), and its layout: resident exactly when the lane's
+    working set ``smem_bytes`` fits the ``budget`` of a block's shared
+    memory (``fused_tile`` "auto": at the budget resident, one byte over
+    tiled), tiled into device memory under "on", resident under "off".
+    ``fused_tick`` "auto" takes it where it applies, "off" never (the
+    megaticks run single ticks of the split kernels), "on" raises
+    ValueError naming every unmet requirement. Where it applies it runs
+    the kernel on the card, which has no plain form (a launch or a raise),
+    and its plain form (``fused_ticks_plain``) on the CPU."""
+    if fused_tick == "off":
+        return ("off", "fused_tick='off': the split kernels, one tick at "
+                "a time", "off", "fused megatick off: no kernel to tile")
+    unmet = []
     if megatick <= 1:
-        fused, why = "off", f"megatick={megatick}: one tick at a time"
-    elif device.type == "cpu":
-        fused, why = "off", "CPU: the plain form"
-    else:
-        fused, why = "on", "fused megatick engaged"
-    if fused != "on":
-        return fused, why, "off", "fused megatick off: no kernel to tile"
+        unmet.append(f"megatick={megatick}: one tick at a time")
+    if marker_mode != "ring":
+        unmet.append(f"marker_mode={marker_mode!r}: the exact tick runs "
+                     "on the ring representation only")
+    if exact_impl not in ("cascade", "wave"):
+        unmet.append(f"exact_impl={exact_impl!r}: the fold is the "
+                     "reference-literal specification form")
+    if fused_tile == "off" and smem_bytes > budget:
+        unmet.append(f"working set {smem_bytes} B exceeds the {budget} B "
+                     "of shared memory a block can have and "
+                     "fused_tile='off' forbids the workspace")
+    if unmet:
+        if fused_tick == "on":
+            raise ValueError(
+                f"fused_tick='on' impossible — {len(unmet)} unmet "
+                "requirement(s): " + "; ".join(unmet))
+        return "off", unmet[0], "off", "fused megatick off: no kernel to tile"
+    if device.type == "cpu":
+        return ("off", "CPU: the plain form", "off",
+                "fused megatick off: no kernel to tile")
+    why = "fused megatick engaged"
+    if fused_tile == "on":
+        return "on", why, "on", ("fused_tile='on': the planes lie in a "
+                                 "device-memory workspace")
+    if fused_tile == "off":
+        return "on", why, "off", ("fused_tile='off': resident, working set "
+                                  f"{smem_bytes} B")
     if smem_bytes > budget:
-        return fused, why, "on", (
+        return "on", why, "on", (
             f"working set {smem_bytes} B exceeds the {budget} B of shared "
             "memory a block can have: the planes lie in a device-memory "
             "workspace")
-    return fused, why, "off", (
+    return "on", why, "off", (
         f"working set {smem_bytes} B fits the {budget} B of shared memory "
         "a block can have: resident")
 
@@ -267,8 +304,10 @@ _LEAVES = (
     ("rem", torch.int32, ("s", "n")), ("done_local", torch.bool, ("s", "n")),
     ("recording", torch.bool, ("s", "e")), ("rec_cnt", torch.int32, ("e",)),
     ("min_prot", torch.int32, ("e",)), ("log_amt", None, ("l", "e")),
-    ("rec_start", torch.int32, ("s", "e")),
-    ("rec_end", torch.int32, ("s", "e")),
+    # the window planes: int32, or int16 holding uint16 bits (the kernel's
+    # uint16 arm takes them through ``rec_start16`` / ``rec_end16``)
+    ("rec_start", "window", ("s", "e")),
+    ("rec_end", "window", ("s", "e")),
     ("completed", torch.int32, ("s",)), ("snap_failed", torch.bool, ("s",)),
     ("snap_done_time", torch.int32, ("s",)), ("error", torch.int32, ()),
     ("fault_key", torch.int64, ()), ("fault_skew", torch.int32, ()),
@@ -289,6 +328,7 @@ _INTS = ("b", "n", "e", "c", "s", "l", "log16", "rec_limit", "key_limit",
 # the flight recorder's leaves, in ``_Args`` order (traced launches only)
 _RING = ("tr_meta", "tr_data", "tr_tick", "tr_count", "tr_on")
 _CLASSES = 7   # core/state.NUM_FAULT_CLASSES, in FC_* order
+_WINDOWS = ("rec_start", "rec_end")
 # the crash schedule's ints when no adversary is armed
 _NO_CRASH = dict(crash_kind=0, crash_lossy=0, crash_len=0, crash_period=1,
                  crash_start=0)
@@ -314,7 +354,8 @@ class _Args(ctypes.Structure):
                    ("workspace_bytes", ctypes.c_longlong),
                    ("tiled", ctypes.c_int)]
                 + [(name, ctypes.c_void_p) for name in _RING]
-                + [("tr_k", ctypes.c_int), ("traced", ctypes.c_int)])
+                + [("tr_k", ctypes.c_int), ("traced", ctypes.c_int)]
+                + [(f"{name}16", ctypes.c_void_p) for name in _WINDOWS])
 
 
 _SIGS = {
@@ -356,6 +397,9 @@ def _sampler(delay, b, dev, words):
         shapes = ((torch.int64, (b, GO_LEN)), (torch.int32, (b,)),
                   (torch.int32, (b,)))
         kind = 2
+    elif isinstance(delay, UniformDelay):
+        shapes = ((torch.int64, (b, 2)),)
+        kind = 3
     else:
         raise NotImplementedError(f"no fused megatick for the "
                                   f"{type(delay).__name__} sampler")
@@ -365,7 +409,7 @@ def _sampler(delay, b, dev, words):
             raise ValueError(f"delay word: expected {dtype} {shape} on {dev},"
                              f" got {w.dtype} {tuple(w.shape)} on {w.device}")
         out.append(w.contiguous())
-    return kind, 0, tuple(out)
+    return kind, 0, tuple(out) + (None,) * (3 - len(out))
 
 
 def fused_workspace(tk, nbytes: int, dev: torch.device) -> torch.Tensor:
@@ -403,7 +447,8 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     for name, dtype, shape in _LEAVES:
         t = getattr(s, name)
         want = (b,) + tuple(dims[d] for d in shape)
-        dtype = dtype or tk._rec_dtype
+        dtype = (tk._win_dtype if dtype == "window"
+                 else dtype or tk._rec_dtype)
         if t.dtype != dtype or tuple(t.shape) != want or t.device != dev:
             raise ValueError(f"{name}: expected {dtype} {want} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -421,7 +466,7 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     ext, wave, traced = fault_arm(tk), wave_arm(tk), tk._trace_on
     share = fused_smem_bytes(topo.n, topo.e, cfg.max_snapshots,
                              fault_arm=ext, wave=wave, trace=traced,
-                             go_exact=kind == 2)
+                             go_exact=kind in (2, 3))
     k = cfg.trace_capacity if traced else 0
     for name in _RING if traced else ():
         t = getattr(s, name)
@@ -447,6 +492,9 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
                 snapshot_timeout=cfg.snapshot_timeout,
                 snapshot_retries=cfg.snapshot_retries,
                 snapshot_every=cfg.snapshot_every, **dims)
+    win16 = tk._win_dtype == torch.int16
+    for name in _WINDOWS if win16 else ():
+        ptrs[name + "16"], ptrs[name] = ptrs[name], None
     args = _Args(
         *(ptrs[name] for name, _, _ in _LEAVES),
         *(w.data_ptr() if w is not None else None for w in words),
@@ -457,7 +505,7 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
         ws.data_ptr() if tiled else None, ws.numel() if tiled else 0,
         int(tiled),
         *(fields[name].data_ptr() if traced else None for name in _RING),
-        k, int(traced))
+        k, int(traced), *(ptrs.get(name + "16") for name in _WINDOWS))
     code = _fn("clsim_fused_ticks")(ctypes.byref(args),
                                     _build.stream_ptr(s.time))
     _build.check(code, "clsim_fused_ticks")
@@ -465,7 +513,7 @@ def fused_ticks(tk, s, *, mode: str, length: int, live=None, limit=None):
     LAUNCHES["fused_scan_tiled"] += int(tiled)
     LAUNCHES["fused_scan_traced"] += int(traced)
     if words[0] is not None:
-        fields["delay_state"] = words
+        fields["delay_state"] = tuple(w for w in words if w is not None)
     return s._replace(**fields)
 
 

@@ -1,6 +1,7 @@
 """Message-delay samplers of the port (the JAX package's
-``ops/delay_jax.py``: ``HashJaxDelay``, ``FixedJaxDelay`` and
-``GoExactJaxDelay``).
+``ops/delay_jax.py``: ``HashJaxDelay``, ``FixedJaxDelay``,
+``GoExactJaxDelay`` and ``UniformJaxDelay``, the last over a torch
+threefry2x32 that reproduces ``jax.random``'s keys and ``randint``).
 
 A sampler is a stateless object; its state rides in
 ``DenseState.delay_state`` as a tuple of tensors with a leading lane axis
@@ -12,8 +13,9 @@ Position streams: a sampler whose draw value depends only on its stream
 position (``position_streams = True``: hash, fixed) also serves a block of
 draws at ``current + offsets`` out of order (``block_receive_times``) and
 skips the stream past them (``advance_draws``), which is what the exact
-tick's marker broadcast uses. The Go-exact stream is order-dependent and
-draws one at a time.
+tick's marker broadcast uses. The Go-exact and threefry streams are
+order-dependent (each draw splits the key the next one splits again) and
+draw one at a time.
 
 uint32 arithmetic: PyTorch has no usable uint32 tensor arithmetic, so the
 32-bit words are int64 tensors holding values in ``[0, 2^32)``. Every
@@ -238,6 +240,175 @@ class GoExactDelay:
         return time + 1 + d, dstate
 
 
+# ---- threefry2x32 and the jax.random key functions -------------------------
+# The JAX package's reference is jax.random with its default
+# jax_threefry_partitionable=True and 64-bit seeds (jax_enable_x64, as its
+# tests run): a key is two uint32 words; ``split`` and ``random_bits``
+# address the counter pairs (hi, lo) of a 64-bit iota over the output
+# shape (jax/_src/prng.py iota_2x32_shape, _threefry_split_foldlike,
+# _threefry_random_bits_partitionable); ``fold_in`` hashes the counter
+# pair (0, data) (threefry_fold_in). Words are int64 tensors in [0, 2^32).
+
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _i32(x) -> torch.Tensor:
+    """uint32 words (int64 in [0, 2^32), or a Python int) as int32 bit
+    patterns."""
+    if not torch.is_tensor(x):
+        return torch.tensor(x - (1 << 32) if x >= 1 << 31 else x,
+                            dtype=torch.int32)
+    return x.to(torch.int32)
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block (20 rounds) of key ``(k1, k2)`` on the
+    counter pair ``(x1, x2)``, every argument broadcast against the
+    others; returns the two output words (jax/_src/prng.py
+    ``_threefry2x32_lowering``). The rounds run on int32 bit patterns,
+    whose adds wrap at 2^32 as uint32's do and take half the bytes of
+    the int64 words; a logical right shift masks off the sign's
+    copies."""
+    k1, k2 = _i32(k1), _i32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = _i32(x1) + ks[0]
+    x1 = _i32(x2) + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << r) | ((x1 >> (32 - r)) & ((1 << r) - 1))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + (ks[(i + 2) % 3] + (i + 1))
+    return x0.to(torch.int64) & _M32, x1.to(torch.int64) & _M32
+
+
+def prng_key(seed: int, device="cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: [2] words, the seed's high and low 32
+    bits (two's complement for a negative seed)."""
+    return torch.tensor([(seed >> 32) & _M32, seed & _M32],
+                        dtype=torch.int64, device=device)
+
+
+def _iota(count: int, like: torch.Tensor) -> torch.Tensor:
+    """The low words of a 64-bit iota of ``count`` elements (the high
+    words are 0 below 2^32 elements)."""
+    if count >= 1 << 32:
+        raise ValueError("threefry: 2^32 or more counters in one call")
+    return torch.arange(count, dtype=torch.int64, device=like.device)
+
+
+def key_split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for keys ``[..., 2]``: [..., num, 2],
+    key i the block of counter (0, i)."""
+    b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], 0, _iota(num, key))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def key_fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for keys ``[..., 2]`` and uint32
+    ``data`` broadcast against the key's lead axes."""
+    data = torch.as_tensor(data, dtype=torch.int64,
+                           device=key.device) & _M32
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, data)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """32-bit ``jax.random.bits``: [..., *shape] words of keys [..., 2],
+    element i the xor of the block of counter (0, i), row-major."""
+    shape = _shape(shape)
+    count = int(np.prod(shape, dtype=np.int64))
+    b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], 0,
+                          _iota(count, key))
+    return (b1 ^ b2).reshape(key.shape[:-1] + shape)
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 ``jax.random.randint(key, shape, minval, maxval)`` for keys
+    [..., 2]: the key splits in two, each gives 32 random bits per
+    element, and the pair is folded into the span as
+    ``(hi % span * m + lo % span) % span``, ``m = (2^16 % span)^2 %
+    span``, every product and sum wrapping at 2^32 as uint32 arithmetic
+    does (jax/_src/random.py ``_randint``); int32 bounds, so the span is
+    below 2^32."""
+    minval, maxval = int(minval), int(maxval)
+    span = maxval - minval if maxval > minval else 1
+    halves = key_split(key)
+    hi = random_bits(halves[..., 0, :], shape)
+    lo = random_bits(halves[..., 1, :], shape)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = (((hi % span) * mult) & _M32) + (lo % span)
+    off = (off & _M32) % span
+    return (off + minval).to(torch.int32)
+
+
+class UniformDelay:
+    """Uniform delay in {1..max_delay} from the threefry stream of
+    ``jax.random`` (the JAX ``UniformJaxDelay``): each draw splits the
+    lane's key, keeps the first half and draws ``randint(second, 0,
+    max_delay)``; ``draw_many`` splits once and draws the whole shape.
+    State is ``(key,)``, key [B, 2] words; a lane's key is
+    ``fold_in(PRNGKey(seed), lane)`` (``init_batch_state``), a single
+    instance's ``PRNGKey(seed)`` (``init_state``, what ``DenseSim``
+    seeds). On the host the state is one uint32 [..., 2] leaf
+    (``bare_leaf``), not a tuple, as in the JAX tree."""
+
+    position_streams = False   # a draw's key depends on every split before
+    host_dtypes = ("uint32",)
+    bare_leaf = True
+
+    def __init__(self, seed: int, max_delay: int = MAX_DELAY):
+        if not 0 < max_delay < 1 << 31:
+            raise ValueError(f"max_delay must be in [1, 2^31), got "
+                             f"{max_delay}")
+        self.seed = seed
+        self.max_delay = max_delay
+
+    def init_state(self, device="cuda"):
+        """One lane's state: ``PRNGKey(seed)``."""
+        return (prng_key(self.seed, device).unsqueeze(0),)
+
+    def init_batch_state(self, batch: int, device="cuda"):
+        lane = torch.arange(batch, dtype=torch.int64, device=device)
+        return (key_fold_in(prng_key(self.seed, device).expand(batch, 2),
+                            lane),)
+
+    def draw(self, dstate, time):
+        keys = key_split(dstate[0])
+        d = randint(keys[..., 1, :], (), 0, self.max_delay)
+        return time + 1 + d, (keys[..., 0, :].contiguous(),)
+
+    def draw_many(self, dstate, time, shape):
+        """Receive times of shape ``time.shape + shape``."""
+        shape = _shape(shape)
+        keys = key_split(dstate[0])
+        d = randint(keys[..., 1, :], shape, 0, self.max_delay)
+        return (time.reshape(time.shape + (1,) * len(shape)) + 1 + d,
+                (keys[..., 0, :].contiguous(),))
+
+    def draw_run(self, dstate, time, counts, width: int):
+        """``counts[b]`` draws one after another on lane b (``width`` >=
+        every count): [B, width] receive times (0 past a lane's count) and
+        the state after them, equal to ``counts[b]`` calls of ``draw``.
+        The key chain is split ``width`` times in turn; the draws off its
+        second halves are one ``randint`` over [B, width]."""
+        key = dstate[0]
+        chain, subs = [key], []
+        for _ in range(width):
+            halves = key_split(chain[-1])
+            chain.append(halves[..., 0, :])
+            subs.append(halves[..., 1, :])
+        d = randint(torch.stack(subs, dim=-2), (), 0, self.max_delay)
+        ks = torch.stack(chain, dim=-2)                      # [B, W+1, 2]
+        end = torch.gather(ks, -2, counts.long().reshape(-1, 1, 1)
+                           .expand(-1, 1, 2)).squeeze(-2)
+        live = torch.arange(width, device=key.device) < counts.unsqueeze(-1)
+        rts = torch.where(live, time.unsqueeze(-1) + 1 + d, 0)
+        return rts, (end.contiguous(),)
+
+
 def select_words(mask, new, old):
     """Per-lane ``where(mask, new, old)`` over a sampler state's words
     (mask ``[B]``)."""
@@ -246,11 +417,10 @@ def select_words(mask, new, old):
 
 
 def make_fast_delay(name: str, seed: int, max_delay: int = MAX_DELAY):
-    """The bench's ``--delay`` choices; only "hash" is ported."""
+    """The CLI and bench ``--delay`` choices: "uniform" (threefry) or
+    "hash" (the counter hash)."""
+    if name == "uniform":
+        return UniformDelay(seed, max_delay)
     if name == "hash":
         return HashDelay(seed, max_delay)
-    if name == "uniform":
-        raise NotImplementedError(
-            "the threefry 'uniform' sampler is not ported yet; use "
-            "--delay hash")
     raise ValueError(f"unknown fast delay sampler {name!r}")

@@ -4,8 +4,9 @@ The port of the JAX package's ``ops/tick.TickKernel`` in both channel
 representations: ``marker_mode="split"`` carries the sync scheduler (the
 synchronous tick ``_sync_tick`` and the bulk snapshot injector), and
 ``marker_mode="ring"`` the bit-exact scheduler (the cascade tick
-``_cascade_tick`` and the wave tick ``_wave_tick``, the scalar event
-injectors, the multi-tick loop and the drain). The JAX kernel is
+``_cascade_tick``, the wave tick ``_wave_tick`` and the reference-literal
+fold ``_fold_tick``, the scalar event injectors, the multi-tick loop and
+the drain). The JAX kernel is
 written for one instance and ``vmap``ped; here every state leaf carries
 a leading lane axis ``B`` and every function works on the whole batch
 at once. Where the JAX code branches
@@ -31,10 +32,10 @@ site of the JAX ticks on a ported tick form appends its events to the
 lane's ring, in the JAX order (``utils/tracing.py``); with ``trace=None``
 or ``cfg.trace_capacity == 0`` no site runs.
 
-Every tick form carries the fault adversary (``faults``,
-models/faults.py), the snapshot supervisor (``cfg.snapshot_timeout`` /
-``snapshot_every``) and quarantine (a lane with error bits stops
-ticking), as the JAX ticks do; with all three off they run exactly the
+Every tick form carries quarantine (a lane with error bits stops
+ticking), and every one but the fold the fault adversary (``faults``,
+models/faults.py) and the snapshot supervisor (``cfg.snapshot_timeout``
+/ ``snapshot_every``), as the JAX ticks do; with all three off they run exactly the
 fault-free code (no hook is called). JAX freezes a lane with
 ``lax.cond`` under ``vmap``, which computes both branches and selects;
 since the port writes some leaves in place, the lane mask ``active``
@@ -65,7 +66,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chandy_lamport_tpu_torch.config import SimConfig
+from chandy_lamport_tpu_torch.config import ENGINE_KNOBS, SimConfig
 from chandy_lamport_tpu_torch.core.state import (
     ERR_FAULT_UNRECOVERED,
     ERR_QUEUE_OVERFLOW,
@@ -91,6 +92,7 @@ from chandy_lamport_tpu_torch.core.state import (
     marker_data_sid,
     pack_marker_data,
     pack_meta,
+    window_dtype,
 )
 from chandy_lamport_tpu_torch.kernels import megatick as k_megatick
 from chandy_lamport_tpu_torch.kernels import queue as k_queue
@@ -115,6 +117,70 @@ _i32 = torch.int32
 # the clock a frozen lane shows the delivery selection: every slot word's
 # rtime (meta >> 1) is >= -2^30, so nothing is eligible at this time
 _FROZEN_TIME = -(2**31)
+
+
+# the JAX reduce_mode="auto" threshold: the largest [N, E] incidence
+# matrix its matmul formulation keeps (ops/tick.py MATMUL_MAX_ELEMS), and
+# the degree bound under which its bfloat16 counts are exact
+MATMUL_MAX_ELEMS = 32 * 2**20
+BF16_EXACT_COUNT = 256
+
+
+def _knob(name: str, value) -> str:
+    """An engine knob's value, checked against its JAX spellings."""
+    if value not in ENGINE_KNOBS[name]:
+        raise ValueError(f"unknown {name} {value!r}")
+    return value
+
+
+def resolve_knobs(topo: DenseTopology, cfg: SimConfig, device,
+                  queue_engine: str = "auto",
+                  kernel_engine=None) -> dict:
+    """What the port runs for each JAX engine knob, as ``{knob: (value,
+    reason)}``. The JAX package has two engines for some of its work and
+    pins them equal in result (``tests/test_pallas_kernels.py``,
+    ``test_queue_engine.py``); the port has one, so every spelling is
+    accepted and resolves to it, and the reason says what ran:
+    ``kernel_engine`` (None defers to ``cfg.kernel_engine``) to the
+    port's kernels, CUDA on the card and their plain versions on the CPU;
+    ``queue_engine`` to the ring kernels' gathers and scatters (rows 4-7,
+    the JAX "gather"); ``reduce_mode`` and ``count_dtype`` to the segment
+    kernels' integer sums (rows 1-3, the JAX "segsum"). Where the JAX
+    package refuses (a forced bfloat16 count past its exact degree bound,
+    on the matmul formulation its "auto" picks) the port raises the same
+    ValueError. ``comm_engine`` belongs to graph sharding (ROADMAP A11)
+    and is stored."""
+    kernel_engine = _knob("kernel_engine", cfg.kernel_engine
+                          if kernel_engine is None else kernel_engine)
+    queue_engine = _knob("queue_engine", queue_engine)
+    mode = cfg.reduce_mode
+    if mode == "auto":
+        mode = "matmul" if topo.n * topo.e <= MATMUL_MAX_ELEMS else "segsum"
+    degree = max(int(topo.in_degree.max()) if topo.e else 0, topo.d)
+    if (mode == "matmul" and cfg.count_dtype == "bfloat16"
+            and degree > BF16_EXACT_COUNT):
+        raise ValueError(f"count_dtype=bfloat16 is not exact: degree bound "
+                         f"{degree} > {BF16_EXACT_COUNT}")
+    engine = ("cuda", "its CUDA kernels on the card") \
+        if torch.device(device).type == "cuda" \
+        else ("plain", "its kernels' plain versions on the CPU")
+    return {
+        "kernel_engine": (engine[0], (
+            f"kernel_engine={kernel_engine!r}: the port has one engine, "
+            f"{engine[1]}")),
+        "queue_engine": ("gather", (
+            f"queue_engine={queue_engine!r}: the ring kernels gather the "
+            "heads and scatter the appends (rows 4-7); 'mask' is equal in "
+            "result in JAX")),
+        "reduce_mode": ("segsum", (
+            f"reduce_mode={cfg.reduce_mode!r}: the segment kernels' "
+            "integer sums (rows 1-3); 'matmul' is equal in result in JAX")),
+        "count_dtype": ("int32", (
+            f"count_dtype={cfg.count_dtype!r}: the segment sums count in "
+            "int32, exactly")),
+        "comm_engine": (cfg.comm_engine, (
+            "the graph-sharded runner's knob (ROADMAP A11), stored")),
+    }
 
 
 def merge_keymult(max_snapshots: int) -> int:
@@ -193,10 +259,11 @@ class TickKernel:
     "split" (the sync scheduler: tokens in the rings, markers in the
     [S, E] pending planes; the sync entry points) or "ring" (the exact
     scheduler: tokens and markers share the rings in push order; the
-    exact entry points). Of the exact formulations ``exact_impl``
-    "cascade" and "wave" are ported (``self._exact_tick`` is the one
-    chosen); a ring-mode kernel refuses "fold" (ROADMAP.md, A5b), and
-    "wave" with a sampler whose draws are order-dependent (ValueError).
+    exact entry points). ``exact_impl`` picks the exact formulation,
+    "cascade", "wave" or "fold" (``self._exact_tick``); a ring-mode
+    kernel refuses "wave" with a sampler whose draws are order-dependent,
+    and "fold" under the adversary or the supervisor (ValueError, as the
+    JAX kernel does: the fold is the uninjured specification form).
 
     ``faults`` (models/faults.Faults or None) arms the fault adversary,
     the config's ``snapshot_timeout``/``snapshot_every`` the snapshot
@@ -213,20 +280,44 @@ class TickKernel:
     the fused kernel on the card, resident in shared memory or, for a
     lane past a block's share, tiled into a device-memory workspace
     (``self.fused_workspace``), or the constructor raises; on the CPU they
-    run its plain form."""
+    run its plain form. ``fused_tick`` and ``fused_tile`` (None defers to
+    the config's) are the JAX knobs: "off" runs the megaticks as K single
+    ticks of the split kernels, "on" raises naming every unmet
+    requirement (``resolve_fused``); the fold has no fused form and runs K
+    single ticks. ``queue_engine``, ``kernel_engine`` and the config's
+    ``reduce_mode``/``count_dtype``/``comm_engine`` resolve by
+    ``resolve_knobs`` (``self.<knob>`` and ``self.<knob>_reason``).
+    ``fused_block_edges``, the TPU kernel's fault-plane DMA block width,
+    is accepted and moves nothing: the card hashes the fault masks in
+    place and has no blocks to size (``self.fused_block_edges_reason``)."""
 
     def __init__(self, topo: DenseTopology, cfg: SimConfig, delay,
                  marker_mode: str = "ring", exact_impl: str = "cascade",
                  megatick: int = 1, *, device, faults=None,
-                 quarantine: bool = False, trace=None):
+                 quarantine: bool = False, trace=None,
+                 queue_engine: str = "auto", kernel_engine=None,
+                 fused_tick=None, fused_block_edges: int = 0,
+                 fused_tile=None):
         if marker_mode not in ("ring", "split"):
             raise ValueError(f"unknown marker_mode {marker_mode!r}")
         if exact_impl not in ("cascade", "wave", "fold"):
             raise ValueError(f"unknown exact_impl {exact_impl!r}")
-        if marker_mode == "ring" and exact_impl == "fold":
-            raise NotImplementedError(
-                "exact_impl='fold' (the reference-literal fold) is not "
-                "ported yet (ROADMAP.md, A5b); 'cascade' and 'wave' are")
+        if (faults is not None and marker_mode == "ring"
+                and exact_impl == "fold"):
+            raise ValueError(
+                "exact_impl='fold' is the reference-literal specification "
+                "form and runs uninjured; use cascade/wave (or the sync "
+                "scheduler) for fault injection")
+        if (marker_mode == "ring" and exact_impl == "fold"
+                and (cfg.snapshot_timeout > 0 or cfg.snapshot_every > 0)):
+            raise ValueError(
+                "exact_impl='fold' is the reference-literal specification "
+                "form and carries no snapshot supervisor; use cascade/wave "
+                "(or the sync scheduler) with snapshot_timeout/"
+                "snapshot_every")
+        if fused_block_edges < 0:
+            raise ValueError("fused_block_edges must be >= 0 (0 = the "
+                             "default)")
         # only the ring representation runs the exact tick: a split-mode
         # kernel is not refused over a formulation it never executes
         if (marker_mode == "ring" and exact_impl == "wave"
@@ -252,10 +343,21 @@ class TickKernel:
         self.device = torch.device(device)
         self.megatick = int(megatick)
         self.exact_impl = exact_impl
-        self._exact_tick = (self._wave_tick if exact_impl == "wave"
-                            else self._cascade_tick)
+        self._exact_tick = {"cascade": self._cascade_tick,
+                            "wave": self._wave_tick,
+                            "fold": self._fold_tick}[exact_impl]
         # no recorder site runs unless armed AND the ring has slots
         self._trace_on = trace is not None and cfg.trace_capacity > 0
+        for knob, (value, why) in resolve_knobs(
+                topo, cfg, self.device, queue_engine,
+                kernel_engine).items():
+            setattr(self, knob, value)
+            setattr(self, f"{knob}_reason", why)
+        self.fused_block_edges = int(fused_block_edges)
+        self.fused_block_edges_reason = (
+            f"fused_block_edges={self.fused_block_edges}: the TPU kernel's "
+            "fault-plane DMA block width; the card hashes each step's "
+            "fault masks in place, so nothing moves")
         (self.fused, self.fused_reason, self.fused_tile,
          self.fused_tile_reason) = k_megatick.resolve_fused(
             megatick=self.megatick, device=self.device,
@@ -264,7 +366,12 @@ class TickKernel:
                 fault_arm=k_megatick.fault_arm(self),
                 wave=k_megatick.wave_arm(self),
                 trace=self._trace_on,
-                go_exact=not delay.position_streams))
+                go_exact=not delay.position_streams),
+            fused_tick=_knob("fused_tick", cfg.fused_tick
+                             if fused_tick is None else fused_tick),
+            fused_tile=_knob("fused_tile", cfg.fused_tile
+                             if fused_tile is None else fused_tile),
+            marker_mode=marker_mode, exact_impl=exact_impl)
         if (self.fused == "on" and k_megatick.wave_arm(self)
                 and self._trace_on):
             k_megatick.check_wave_degree(topo.in_degree)
@@ -284,6 +391,8 @@ class TickKernel:
                                    device=self.device).contiguous()
 
         n = topo.n
+        self._src_bounds_host = np.concatenate(
+            [[0], np.cumsum(np.bincount(topo.edge_src, minlength=n))])
         self._edge_src = t(topo.edge_src)
         self._edge_dst = t(topo.edge_dst)
         self._in_degree = t(topo.in_degree)
@@ -293,8 +402,7 @@ class TickKernel:
         self._by_dst = t(topo.by_dst)
         self._dst_lo = t(topo.dst_bounds[:-1])
         self._dst_hi = t(topo.dst_bounds[1:])
-        src_bounds = np.concatenate(
-            [[0], np.cumsum(np.bincount(topo.edge_src, minlength=n))])
+        src_bounds = self._src_bounds_host
         self._src_lo = t(src_bounds[:-1])
         self._src_hi = t(src_bounds[1:])
         self._edge_table = t(topo.edge_table)          # [N, D], -1 padded
@@ -319,6 +427,7 @@ class TickKernel:
                                       device=self.device)
         self._rec_dtype = getattr(torch, cfg.record_dtype)
         self._rec_limit = torch.iinfo(self._rec_dtype).max
+        self._win_dtype = window_dtype(cfg)
 
     # ---- kernel-backed primitives ------------------------------------------
 
@@ -761,6 +870,14 @@ class TickKernel:
                 dstate, s.time, self._ord_d.expand(b, d))
             dstate = self.delay.advance_draws(
                 dstate, torch.where(mask, outdeg, 0))
+        elif hasattr(self.delay, "draw_run"):
+            # a chain of splits, the draws off it in one call (threefry)
+            counts = torch.where(mask, outdeg, 0)
+            width = int(counts.max())
+            rts_k = torch.zeros((b, d), dtype=_i32, device=self.device)
+            if width:
+                rts_k[:, :width], dstate = self.delay.draw_run(
+                    dstate, s.time, counts, width)
         else:
             rts_k = torch.zeros((b, d), dtype=_i32, device=self.device)
             for k in range(d):
@@ -909,6 +1026,89 @@ class TickKernel:
                         & (self._rows_e == e.unsqueeze(-1)))
             tok = tok & ~tmask
         return self._tick_close(s, tok, app, amt_e, head_data, dups, active)
+
+    def _fold_tick(self, s: DenseState, active=None) -> DenseState:
+        """One exact tick in the reference-literal form (sim.go:71-95, the
+        JAX ``_tick`` :1459): the N sources in node order, each popping
+        its first eligible out-edge in dest order and handling it before
+        the next source looks (HandlePacket: a token credits its
+        destination and is logged where its channel records, a marker
+        runs HandleMarker, whose first receipt broadcasts through
+        ``_broadcast_markers``, row 5 on the card). Each source step is
+        batched over the lanes: a lane whose source has no eligible edge,
+        or that is outside ``active`` [B], is left as it was (no draw, no
+        write). Sources whose out-edges are empty in every lane at tick
+        start are skipped: a tick's appends all carry receive times past
+        it, so they cannot become eligible. The fold runs uninjured and
+        unsupervised (the constructor refuses both)."""
+        s = s._replace(time=s.time + (1 if active is None
+                                      else active.to(_i32)))
+        time = (s.time if active is None
+                else torch.where(active, s.time, _FROZEN_TIME))
+        lo_n = self._src_bounds_host
+        busy = (s.q_len > 0).any(0).cpu().numpy()
+        sources = [v for v in range(self.topo.n)
+                   if busy[lo_n[v]:lo_n[v + 1]].any()]
+        for v in sources:
+            lo, hi = int(lo_n[v]), int(lo_n[v + 1])
+            head = s.q_head[:, lo:hi].long()
+            meta = torch.gather(s.q_meta[:, lo:hi], 2,
+                                head.unsqueeze(-1)).squeeze(-1)
+            elig = (s.q_len[:, lo:hi] > 0) & (
+                (meta >> 1) <= time.unsqueeze(-1))
+            found = elig.any(-1)
+            if not bool(found.any()):
+                continue
+            self.fold_steps += 1
+            # the first eligible out-edge in dest order
+            k = torch.where(elig, torch.arange(hi - lo, device=self.device),
+                            hi - lo).amin(-1)
+            e = (lo + torch.where(found, k, 0)).long()
+            s = self._fold_deliver(s, e, found)
+        return self._stamp_done(s, active)
+
+    def _fold_deliver(self, s: DenseState, e, act) -> DenseState:
+        """Pop edge ``e`` [B]'s head on the lanes of ``act`` and dispatch
+        it (HandlePacket, node.go:140-146; the JAX ``_deliver``)."""
+        C = self.cfg.queue_capacity
+        lanes = self._lanes(s)
+        head = s.q_head[lanes, e]
+        slot = (lanes, e, head.long())
+        marker = act & ((s.q_meta[slot] & 1) == 1)
+        data = s.q_data[slot]
+        s.q_head[lanes, e] = torch.where(act, (head + 1) % C, head)
+        s.q_len[lanes, e] -= act.to(_i32)
+        token = act & ~marker
+        if bool(token.any()):
+            s = self._fold_token(s, e, data, token)
+        if bool(marker.any()):
+            # a marker's payload is its slot id (the fold is unsupervised)
+            s = self._handle_marker(s, marker, e, torch.where(marker, data, 0),
+                                    None)
+        return s
+
+    def _fold_token(self, s: DenseState, e, amount, act) -> DenseState:
+        """HandleToken (node.go:174-185; the JAX ``_handle_token``) for
+        the token ``amount`` [B] on edge ``e`` [B], on the lanes of
+        ``act``: credit the destination and, where any slot records the
+        edge, append the amount to its log at the live counter."""
+        if self._trace_on:
+            s = trace_append_one(s, act, EV_RECV, e.to(_i32), amount)
+        L = self.cfg.max_recorded
+        lanes = self._lanes(s)
+        rec = act & s.recording[lanes, :, e].any(-1)
+        cnt = s.rec_cnt[lanes, e]
+        new_cnt = cnt + rec.to(_i32)
+        err = (_flag(rec & (new_cnt - s.min_prot[lanes, e] > L),
+                     ERR_RECORD_OVERFLOW)
+               | _flag(rec & (amount > self._rec_limit), ERR_VALUE_OVERFLOW))
+        dst = self._edge_dst[e].long()
+        s.tokens[lanes, dst] += torch.where(act, amount, 0)
+        cell = (lanes, (cnt % L).long(), e)       # rec_cnt >= 0
+        s.log_amt[cell] = torch.where(rec, amount.to(self._rec_dtype),
+                                      s.log_amt[cell])
+        s.rec_cnt[lanes, e] = new_cnt
+        return s._replace(error=s.error | err)
 
     def _tick_open(self, s: DenseState, active):
         """The exact tick up to its markers, shared by the cascade and the
@@ -1382,10 +1582,14 @@ class TickKernel:
     def _fused_steps(self, s: DenseState, mode: str, length: int,
                      live=None, limit=None) -> DenseState:
         """One megatick of ``length`` steps (``kernels/megatick`` module
-        docstring): the kernel on a CUDA state, its plain form on a CPU
-        one."""
-        return k_megatick.fused_ticks(self, s, mode=mode, length=length,
-                                      live=live, limit=limit)
+        docstring): the kernel where the fused megatick is on (the card),
+        else its plain form, single ticks of this kernel's tick (the CPU;
+        ``fused_tick="off"`` and the fold on the card: the split
+        kernels)."""
+        run = (k_megatick.fused_ticks if self.fused == "on"
+               else k_megatick.fused_ticks_plain)
+        return run(self, s, mode=mode, length=length, live=live,
+                   limit=limit)
 
     def _run_ticks(self, s: DenseState, n) -> DenseState:
         """``n`` exact ticks per lane (the JAX ``_run_ticks``): ``n`` is a

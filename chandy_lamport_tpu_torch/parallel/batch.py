@@ -54,6 +54,7 @@ from chandy_lamport_tpu_torch.core.state import (
     ERR_CONSERVATION,
     ERR_TICK_LIMIT,
     U32_LEAVES,
+    WINDOW_LEAVES,
     DenseState,
     DenseTopology,
     decode_error_bits,
@@ -161,6 +162,9 @@ def _sig_leaves(s: DenseState, delay):
                 yield w, np.dtype(dt).itemsize
         elif name in U32_LEAVES:
             yield val, 4
+        elif name in WINDOW_LEAVES and val.dtype == torch.int16:
+            # uint16 windows zero-extend, as jnp's astype(uint32) does
+            yield val.to(torch.int64) & 0xFFFF, 2
         else:
             yield val, val.element_size()
 
@@ -187,11 +191,12 @@ def _lane_signature(s: DenseState, delay) -> torch.Tensor:
     return acc
 
 
-def _delay_treedef(words: int) -> str:
+def _delay_treedef(words: int, bare: bool = False) -> str:
     """The JAX ``str(tree_structure(...))`` of a sampler state of
-    ``words`` words (a tuple)."""
-    inner = {0: "()", 1: "(*,)"}.get(words,
-                                     "(" + ", ".join(["*"] * words) + ")")
+    ``words`` words (a tuple; one bare leaf where ``bare``, the threefry
+    key)."""
+    inner = "*" if bare else {0: "()", 1: "(*,)"}.get(
+        words, "(" + ", ".join(["*"] * words) + ")")
     return f"PyTreeDef({inner})"
 
 
@@ -373,24 +378,30 @@ class BatchedRunner:
 
     def __init__(self, topology: TopologySpec, config: Optional[SimConfig],
                  delay, batch: int, scheduler: str = "exact",
-                 check_every: int = 0, exact_impl: str = "cascade", *,
-                 device=None, faults=None, quarantine: bool = False,
-                 trace=None, megatick: int = 1, memo: str = "off",
+                 check_every: int = 0, exact_impl: str = "cascade",
+                 auto_layouts: bool = False, megatick: int = 1,
+                 queue_engine: str = "auto",
+                 kernel_engine: Optional[str] = None, faults=None,
+                 quarantine: bool = False, trace=None, memo: str = "off",
                  memo_cache: Optional[str] = None,
                  memo_cache_entries: int = 0, memo_cache_bytes: int = 0,
                  prefix_cache: Optional[str] = None,
                  prefix_cache_entries: int = 0,
-                 prefix_cache_bytes: int = 0):
+                 prefix_cache_bytes: int = 0, guards=None,
+                 fused_tick: Optional[str] = None,
+                 fused_block_edges: int = 0,
+                 fused_tile: Optional[str] = None, *, device=None):
         """scheduler: "exact" (the reference's delivery semantics,
         bit-exact; the default, as in the JAX ``BatchedRunner``) or "sync"
         (simultaneous delivery, the production path).
 
         exact_impl: the exact tick's formulation, "cascade" (one host step
-        per batched marker delivery) or "wave" (one host step per wave:
+        per batched marker delivery), "wave" (one host step per wave:
         every destination's next marker at once; needs a
         position-addressable sampler, HashDelay or FixedDelay, else
-        ValueError); bit-identical to each other, at any megatick.
-        "fold" raises NotImplementedError (ROADMAP.md, A5b).
+        ValueError) or "fold" (the reference-literal form: one host step
+        per source that delivers; no faults, no supervisor, ValueError);
+        bit-identical to each other, at any megatick.
 
         faults: models/faults.Faults, the deterministic fault adversary,
         armed per lane by the ``fault_key`` ramp of
@@ -439,12 +450,21 @@ class BatchedRunner:
         keeps one in memory on the runner, across runs);
         ``prefix_cache_entries`` / ``prefix_cache_bytes`` its bounds.
 
-        The parameters after ``exact_impl`` are keyword-only: the JAX
-        runner's 8th positional parameter is ``auto_layouts`` (ROADMAP
-        A7), which the port does not have.
+        The JAX runner's knobs, in its positions: ``auto_layouts`` (the
+        XLA boundary layouts; PyTorch tensors have one, row-major, so it
+        resolves to "default": ``self.layouts_effective`` and
+        ``self.layouts_reason``); ``queue_engine``, ``kernel_engine``,
+        ``fused_tick``, ``fused_block_edges`` and ``fused_tile`` (None:
+        the config's), resolved by ``ops/tick.TickKernel``
+        (``self.kernel.<knob>_reason``); ``guards`` waits for ROADMAP A12
+        and anything but None raises NotImplementedError.
 
         device: where the state lives and the kernels run; None means the
-        card (``resolve_device``)."""
+        card (``resolve_device``); keyword-only, the port's own."""
+        if guards is not None:
+            raise NotImplementedError(
+                "guards= (utils/guards.RuntimeGuards, built on "
+                "jax.transfer_guard) is not ported yet (ROADMAP A12)")
         if scheduler not in ("sync", "exact"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if check_every < 0:
@@ -489,7 +509,19 @@ class BatchedRunner:
             self.topo, self.config, delay,
             marker_mode="split" if scheduler == "sync" else "ring",
             exact_impl=exact_impl, megatick=megatick, device=self.device,
-            faults=faults, quarantine=quarantine, trace=trace)
+            faults=faults, quarantine=quarantine, trace=trace,
+            queue_engine=queue_engine, kernel_engine=kernel_engine,
+            fused_tick=fused_tick, fused_block_edges=fused_block_edges,
+            fused_tile=fused_tile)
+        self.auto_layouts = bool(auto_layouts)
+        self.layouts_effective = ("default(auto-unavailable)"
+                                  if self.auto_layouts else "default")
+        self.layouts_reason = (
+            "PyTorch tensors have one layout, row-major and contiguous: "
+            "no boundary layouts to choose" if self.auto_layouts
+            else "auto_layouts off")
+        self.queue_engine = self.kernel.queue_engine
+        self.kernel_engine = self.kernel.kernel_engine
         self.megatick = self.kernel.megatick
         self.fused = self.kernel.fused
         self.fused_reason = self.kernel.fused_reason
@@ -830,7 +862,8 @@ class BatchedRunner:
         runner's identity. A (content rank, key) pair hashes once."""
         cfg_fields, knobs = self._digest_identity()
         keys, leaves = self._host_rows(keys, delay_rows)
-        treedef = _delay_treedef(len(leaves))
+        treedef = _delay_treedef(len(leaves),
+                                 getattr(self.delay, "bare_leaf", False))
         out = np.zeros((len(scripts), 32), np.uint8)
         seen: dict = {}
         for j, sc in enumerate(scripts):
@@ -859,7 +892,8 @@ class BatchedRunner:
         its row. Seeds are shared by (identity rank, key)."""
         cfg_fields, knobs = self._digest_identity()
         keys, leaves = self._host_rows(keys, delay_rows)
-        treedef = _delay_treedef(len(leaves))
+        treedef = _delay_treedef(len(leaves),
+                                 getattr(self.delay, "bare_leaf", False))
         out = np.zeros((kind.shape[0], 32), np.uint8)
         seeds: dict = {}
         for j in range(len(start)):

@@ -7,7 +7,8 @@ a JAX ``DenseState`` fetched with ``jax.device_get``, or the output of
 ``state_to_numpy`` goes back, restoring each leaf's JAX dtype. PyTorch has
 no usable unsigned arithmetic, so the port holds uint32 words as int64
 values in [0, 2^32) and uint64 words (the Go-exact stream) as int64 bit
-for bit (core/state.py, ops/delay.py). Field order is the same in both
+for bit (core/state.py, ops/delay.py), and uint16 window planes as int16
+bit patterns (``core/state.WINDOW_LEAVES``). Field order is the same in both
 packages, so a JAX run can hand its state to the port mid-storm and the
 two can be compared leaf for leaf. ``pool_from_numpy``/``pool_to_numpy``
 and ``stream_from_numpy``/``stream_to_numpy`` do the same for the
@@ -20,17 +21,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chandy_lamport_tpu_torch.core.state import U32_LEAVES, DenseState
+from chandy_lamport_tpu_torch.core.state import (
+    U32_LEAVES,
+    WINDOW_LEAVES,
+    DenseState,
+)
 from chandy_lamport_tpu_torch.parallel.batch import JobPool, StreamState
 
 
 def _tensor(array, device):
-    """One host leaf as a port tensor: uint32 widens to int64, uint64 is
-    reinterpreted as int64. np.array copies, so the port never aliases
-    (or writes into) the host arrays it was given."""
+    """One host leaf as a port tensor: uint32 widens to int64, uint64 and
+    uint16 are reinterpreted as int64 and int16. np.array copies, so the
+    port never aliases (or writes into) the host arrays it was given."""
     array = np.array(array)
     if array.dtype == np.uint64:
         array = array.view(np.int64)
+    elif array.dtype == np.uint16:
+        array = array.view(np.int16)
     elif array.dtype == np.uint32:
         array = array.astype(np.int64)
     return torch.from_numpy(array).to(device)
@@ -52,11 +59,17 @@ def words_to_numpy(words, delay=None) -> tuple:
     return tuple(_host(w, d) for w, d in zip(words, dtypes))
 
 
+def _words(leaf) -> tuple:
+    """A host sampler state as its tuple of words: the JAX tree holds the
+    threefry key as one bare array (ops/delay.UniformDelay)."""
+    return tuple(leaf) if isinstance(leaf, tuple) else (leaf,)
+
+
 def state_from_numpy(host_state, device) -> DenseState:
     fields = {}
     for name, leaf in zip(DenseState._fields, host_state):
         if name == "delay_state":
-            fields[name] = tuple(_tensor(w, device) for w in leaf)
+            fields[name] = tuple(_tensor(w, device) for w in _words(leaf))
         else:
             fields[name] = _tensor(leaf, device)
     return DenseState(**fields)
@@ -73,6 +86,8 @@ def state_to_numpy(state: DenseState, delay=None) -> DenseState:
             fields[name] = words_to_numpy(leaf, delay)
         elif name in U32_LEAVES:
             fields[name] = _host(leaf, "uint32")
+        elif name in WINDOW_LEAVES and leaf.dtype == torch.int16:
+            fields[name] = leaf.cpu().numpy().view(np.uint16)
         else:
             fields[name] = leaf.cpu().numpy()
     return DenseState(**fields)
@@ -86,7 +101,7 @@ def pool_from_numpy(host_pool, device) -> JobPool:
     for name in JobPool._fields:
         leaf = getattr(host_pool, name)
         if name == "delay_state":
-            fields[name] = tuple(_tensor(w, device) for w in leaf)
+            fields[name] = tuple(_tensor(w, device) for w in _words(leaf))
         elif name == "prefix_digest":
             fields[name] = None if leaf is None else np.array(leaf)
         else:

@@ -38,8 +38,9 @@ import torch
 from chandy_lamport_tpu_torch.core.state import (
     CHECKPOINT_FORMAT_VERSION,
     U32_LEAVES,
+    WINDOW_LEAVES,
     DenseState,
-    init_state,
+    init_single_state,
     pack_meta,
     recorded_window,
 )
@@ -67,13 +68,14 @@ class CheckpointError(ValueError):
     the path."""
 
 
-def _node(name: str, fields, words: int = -1) -> str:
+def _node(name: str, fields, words: int = -1, bare: bool = False) -> str:
     """The JAX ``str(treedef)`` of a NamedTuple node: ``*`` per leaf, the
-    ``delay_state`` tuple of ``words`` leaves in place."""
+    ``delay_state`` tuple of ``words`` leaves in place (one bare leaf
+    where ``bare``: the threefry key)."""
     kids = []
     for field in fields:
         if field == "delay_state":
-            kids.append("(*,)" if words == 1
+            kids.append("*" if bare else "(*,)" if words == 1
                         else "(" + ", ".join(["*"] * words) + ")")
         else:
             kids.append("*")
@@ -93,11 +95,14 @@ def _split(tree):
     return state, stream
 
 
-def treedef_string(tree) -> str:
+def treedef_string(tree, delay=None) -> str:
     """The JAX package's ``str(jax.tree_util.tree_structure(tree))`` for
-    the same structure (the header's ``treedef``)."""
+    the same structure (the header's ``treedef``); ``delay``: the sampler
+    whose words ``delay_state`` holds (a ``bare_leaf`` sampler's key is
+    one leaf in the JAX tree)."""
     state, stream = _split(tree)
-    node = _node("DenseState", DenseState._fields, len(state.delay_state))
+    node = _node("DenseState", DenseState._fields, len(state.delay_state),
+                 getattr(delay, "bare_leaf", False))
     if stream is None:
         return f"PyTreeDef({node})"
     return (f"PyTreeDef(({node}, "
@@ -134,6 +139,8 @@ def _expected(like, delay) -> List[Tuple[tuple, np.dtype]]:
                        for w, d in zip(leaf, dtypes))
         elif name in U32_LEAVES:
             out.append((tuple(leaf.shape), np.dtype(np.uint32)))
+        elif name in WINDOW_LEAVES and leaf.dtype == torch.int16:
+            out.append((tuple(leaf.shape), np.dtype(np.uint16)))
         else:
             out.append((tuple(leaf.shape), _np_dtype(leaf)))
     if stream is not None:
@@ -152,7 +159,7 @@ def save_state(path: str, state, meta: dict | None = None, *,
     header = {
         "format_version": _FORMAT_VERSION,
         "num_leaves": len(host),
-        "treedef": treedef_string(state),
+        "treedef": treedef_string(state, delay),
         "meta": meta or {},
     }
     arrays = {f"leaf_{i}": a for i, a in enumerate(host)}
@@ -205,7 +212,7 @@ def load_state(path: str, like, *, delay=None):
         raise CheckpointError(
             f"checkpoint {path}: unreadable or corrupt "
             f"({type(exc).__name__}: {exc})") from exc
-    want = treedef_string(like)
+    want = treedef_string(like, delay)
     if header["treedef"] != want:
         raise CheckpointError(
             f"checkpoint {path}: treedef {header['treedef']!r} != expected "
@@ -284,7 +291,7 @@ def restore_from_snapshot(topo, cfg, host: DenseState, sid: int, delay,
             q_data[0, e, k] = amt
         q_len[0, e] = len(amts)
     device = resolve_device(device)
-    fresh = init_state(topo, cfg, 1, delay, device)
+    fresh = init_single_state(topo, cfg, delay, device)
 
     def put(x):
         return torch.as_tensor(x, device=device)

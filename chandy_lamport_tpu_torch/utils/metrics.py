@@ -78,8 +78,15 @@ def progress_counters(state: DenseState, cfg: SimConfig,
     """Aggregate lifecycle counters."""
     started = state.started
     complete = started & (state.completed >= num_nodes)
+    # a window's length, subtracted in the window dtype (uint16's modular
+    # wrap recovers it, as the JAX counter does): the int16 bits of a
+    # uint16 plane widen, subtract and keep 16 bits
     live_end = torch.where(state.recording,
-                           state.rec_cnt.unsqueeze(-2), state.rec_end)
+                           state.rec_cnt.unsqueeze(-2).to(
+                               state.rec_end.dtype), state.rec_end)
+    lengths = live_end.to(torch.int32) - state.rec_start.to(torch.int32)
+    if state.rec_start.dtype == torch.int16:
+        lengths = lengths & 0xFFFF
     return {
         "time_total": state.time.sum(),
         "time_max": state.time.max(),
@@ -88,7 +95,7 @@ def progress_counters(state: DenseState, cfg: SimConfig,
         "snapshots_completed": complete.sum(),
         "snapshots_pending": (started & ~complete).sum(),
         "nodes_finalized": state.done_local.sum(),
-        "recorded_messages": (live_end - state.rec_start).sum(),
+        "recorded_messages": lengths.sum(),
         "error_bits": or_reduce(state.error),
     }
 

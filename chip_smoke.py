@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs thirty-four
+kernels/csrc`` (one nvcc per source, in parallel), then runs forty-eight
 phases, each printing one JSON line:
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
@@ -54,7 +54,10 @@ phases, each printing one JSON line:
                and without a completed snapshot, the daemon, the timeout
                alone, ERR_SNAPSHOT_TIMEOUT set mid-megatick under
                quarantine, duplicates re-appended into full rings, a clock
-               wrapping past 2^31 - 1), each again through the wave where
+               wrapping past 2^31 - 1; and slice 17's: the threefry
+               sampler, fault-free and under marker faults, and uint16
+               window planes, fault-free, from counters one below 2^16,
+               and under every fault class), each again through the wave where
                the sampler is position-addressable, with the wave's own (a
                marker pile-up with a same-tick repeat on a complete
                digraph, hash counters wrapping inside a tick): bit-equal
@@ -67,7 +70,7 @@ phases, each printing one JSON line:
                The wave's drain megaticks (fault-free and
                faulted) are timed and bound the same way, and each of the
                four drain megaticks again in the tiled layout (forced,
-               ``force_tiled``: the working planes in a device-memory
+               ``fused_tile="on"``: the working planes in a device-memory
                workspace) on the same input, bit-equal to
                the same plain result (``tiled_over_resident``).
                The fault-hash check: ``fault_hash_planes`` (the kernel's
@@ -75,7 +78,7 @@ phases, each printing one JSON line:
                ``Faults.fault_planes`` at tick times 0, 1, 31, 32, 2^20 and
                2^31 - 1 (and on past the int32 wrap);
   tiled_edge_cases the edge cases of fused_kernel through the tiled
-               layout (forced, ``force_tiled``), launched beside the
+               layout (forced, ``fused_tile="on"``), launched beside the
                resident ones against the same plain runs, bit-equal to
                the plain version, all four tiled instantiations (cascade and wave,
                with and without the fault arm) among them;
@@ -92,6 +95,18 @@ phases, each printing one JSON line:
                append), each launched resident and tiled against one
                plain run: every leaf equal, all eight traced
                instantiations among them;
+  window16_sync_storm, window16_sync_vs_int32, window16_kernel,
+  window16_fused_storm, window16_fused_vs_int32, window16_counter_wrap
+               main paths 27-28, ``window_dtype="uint16"`` on the card:
+               config 4's sync storm and the exact cell at megatick 8 with
+               uint16 window planes, each against its int32 twin (every
+               other leaf equal, every window equal modulo 2^16, two
+               lanes' windows decoded equal); row 8's uint16 arm at the
+               exact cell's drain megatick, resident and forced tiled,
+               bit-equal to the plain form and timed beside the int32
+               arm; a synthetic wrap (256 lanes from counters 3 below
+               2^16, against int32) and its uint16 checkpoint saved and
+               loaded bit-equal;
   storm        main path 1: the config-4 sync storm through
                ``BatchedRunner.run_storm`` on the card: zero error bits,
                every snapshot complete, conservation delta 0, and every
@@ -206,9 +221,10 @@ phases, each printing one JSON line:
                every job retires with error 0; stream and gang admission
                give equal job rows; every row equals its megatick-1
                twin's (the same queue through the wave at megatick 1),
-               and a queue of 8,192 jobs of at most 8 phases at the
+               and a queue of 4,096 jobs of at most 8 phases at the
                same width gives the same rows through the cascade at
-               megatick 8 and megatick 1; 64 sampled jobs each equal the same job run alone
+               megatick 8 and megatick 1; 16 sampled jobs each equal the
+               same job run alone
                through ``run``; fused_scan, queue_step,
                append_marker_rows and sum_by_perm launched, sum_segments
                and select_pop never;
@@ -259,6 +275,25 @@ phases, each printing one JSON line:
                .snap file, the recorder arm launched in every case, the
                timeline (``sim.trace.pretty()``) and the ring equal to the
                card's megatick-1 traced run;
+  uniform_sync_storm, uniform_kernel, uniform_fused_storm main paths
+               25-26, the threefry sampler (``UniformDelay(17)``): config
+               4's sync storm, clean with every snapshot complete; the
+               exact cell at megatick 8, its drain megatick through row
+               8's threefry kind bit-equal to the plain form and timed
+               beside the hash arm, and the storm itself;
+  dense_faults_golden, dense_faults_script main paths 21-22,
+               ``DenseSim(faults=)``: the 7 goldens under the zero-rate
+               ``Faults(7)`` at megatick 8 (fused_scan's fault arm in each),
+               each equal to its .snap; an ER-256 event script under the
+               faulted cell's program, single-instance, through the
+               kernel at megatick 8, its plain form (``fused_tick="off"``)
+               and megatick 1, every leaf equal;
+  fold_golden, fold_storm, fold_vs_cascade main paths 23-24, the fold
+               (``exact_impl="fold"``): the 7 goldens at megatick 8 (K
+               single fold ticks; append_marker_rows in each), and the
+               exact cell cut to 4 phases and 1 snapshot, equal to the
+               cascade's storm leaf for leaf; ms per fold tick and row-5
+               launches per tick;
   cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
                (the faulted one with lossy crashes at a fixed window,
                marker drops and the supervisor with its daemon, at
@@ -280,8 +315,10 @@ Then, on lines of their own: nvidia-smi's name/power-limit line, one
 and host times and a ``shapes`` list of every timed shape; fused_scan's
 a ``shapes`` list of its fault-free and faulted drain megaticks, cascade
 and wave, resident and tiled, untraced and traced, and config 5's,
-``launches_tiled``, ``launches_traced`` (by path too) and
-``traced_arms``, each traced drain megatick beside the untraced one;
+``launches_tiled``, ``launches_traced`` (by path too),
+``traced_arms``, each traced drain megatick beside the untraced one, and
+``arms``, the threefry and uint16 drain megaticks beside the hash and
+int32 ones;
 spread's a ``shapes`` list of its timed shapes, each with its device
 and host time beside index_select's and both timed in turns,
 ``in_turns``), and last
@@ -295,7 +332,9 @@ it exits 2 before doing anything.
 times one drain megatick (K=8) of each CELL, in order: the exact or the
 faulted exact cell (``fault-free``, ``faulted``; ``wave``,
 ``wave-faulted`` through the wave; suffix ``-tiled``: in the tiled
-layout, forced), config 5's tiled wave lane (``config5-wave``); suffix
+layout, forced), the exact cell under the threefry sampler
+(``threefry``) or with uint16 windows (``uint16``), config 5's tiled
+wave lane (``config5-wave``); suffix
 ``-traced`` (after ``-tiled`` where both): the recorder arm, the flight
 recorder armed at 4,096 slots; ``--batch``: that many lanes instead of
 the cell's. It prints one JSON
@@ -391,10 +430,11 @@ ST_SAMPLED = 64
 # batch (J = 3 x B), 16 sampled jobs each; the sync stream on config 4's
 # graph (SF-1k) at B=512, J=1,536
 STW_BATCH, STF_BATCH, SS_BATCH, SMALL_SAMPLED = 1024, 512, 512, 16
-# the streaming cell's cascade twin at megatick 1, cut in depth: J = 2 x B
+# the streaming cell's cascade twin at megatick 1, cut in depth: J = 1 x B
 # jobs of at most 8 phases at the cell's width and batch (the whole
-# queue's cascade twin folds 30,954 host steps, 94-101 s on the H100)
-ST_TWIN_JOBS_PER_LANE, ST_TWIN_MAX_PHASES = 2, 8
+# queue's cascade twin folds 30,954 host steps, 94-101 s on the H100; 2 x B
+# took 27.3 s, cut to 1 x B for the slice-17 phases)
+ST_TWIN_JOBS_PER_LANE, ST_TWIN_MAX_PHASES = 1, 8
 # the steps after the queue runs dry in which the kernel check looks for
 # one that runs both a drain slice and a flush
 ST_CAPTURE_STEPS = 8
@@ -786,10 +826,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def config4_runner(device, faulted=False, batch=BATCH):
+def config4_runner(device, faulted=False, batch=BATCH, delay=None,
+                   **cfg_kw):
     """The sync storm of config 4; ``faulted``: under the faulted exact
     cell's adversary and supervisor (``F_PROGRAM``, ``F_TIMEOUT``),
-    quarantined (main path 18)."""
+    quarantined (main path 18); ``delay``: a sampler in place of the hash
+    one; ``cfg_kw``: more config fields (``window_dtype``)."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
@@ -802,8 +844,8 @@ def config4_runner(device, faulted=False, batch=BATCH):
     spec = scale_free(NODES, ATTACH, seed=3, tokens=PHASES + 10)
     cfg = SimConfig.for_workload(
         snapshots=SNAPSHOTS, split_markers=True, record_dtype="int16",
-        snapshot_timeout=F_TIMEOUT if faulted else 0)
-    runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
+        snapshot_timeout=F_TIMEOUT if faulted else 0, **cfg_kw)
+    runner = BatchedRunner(spec, cfg, delay or HashDelay(DELAY_SEED), batch,
                            scheduler="sync", device=device,
                            faults=Faults(3, **F_PROGRAM) if faulted else None,
                            quarantine=faulted)
@@ -814,17 +856,24 @@ def config4_runner(device, faulted=False, batch=BATCH):
     return runner, prog
 
 
+# the fused megatick in the tiled layout whatever the lane's size (a
+# ValueError where the fused megatick cannot run): on a lane that fits a
+# block, how the tiled arm is held against the resident one
+TILED = dict(fused_tick="on", fused_tile="on")
+
+
 def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
                  snapshots=X_SNAPSHOTS, graph="er", faults=None, megatick=1,
                  exact_impl="cascade", tiled=False, trace=None, memo="off",
-                 memo_cache=None, **cfg_kw):
+                 memo_cache=None, delay=None, **cfg_kw):
     """The exact-at-scale cell as the bench builds it (defaults), or a
     smaller exact storm; with ``faults`` (and supervisor knobs in
     ``cfg_kw``) the faulted exact storm, quarantined; ``megatick`` > 1
     the fused megatick's path (in the tiled layout whatever the lane's
-    size with ``tiled``: ``force_tiled``); ``exact_impl`` the tick's
+    size with ``tiled``: ``fused_tile="on"``); ``exact_impl`` the tick's
     form; ``trace`` (utils/tracing.Trace) arms the flight recorder;
-    ``memo`` / ``memo_cache`` the stream's memo plane."""
+    ``memo`` / ``memo_cache`` the stream's memo plane; ``delay`` a sampler
+    in place of the hash one."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
     from chandy_lamport_tpu_torch.models.workloads import (
         erdos_renyi,
@@ -839,31 +888,16 @@ def exact_runner(device, batch=X_BATCH, nodes=X_NODES, phases=X_PHASES,
             scale_free(nodes, ATTACH, seed=3, tokens=phases + 10))
     cfg = SimConfig.for_workload(snapshots=snapshots, record_dtype="int16",
                                  **cfg_kw)
-    runner = BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), batch,
+    runner = BatchedRunner(spec, cfg, delay or HashDelay(DELAY_SEED), batch,
                            scheduler="exact", device=device, faults=faults,
                            quarantine=faults is not None, megatick=megatick,
                            exact_impl=exact_impl, trace=trace, memo=memo,
-                           memo_cache=memo_cache)
-    if tiled:
-        force_tiled(runner)
+                           memo_cache=memo_cache, **(TILED if tiled else {}))
     prog = storm_program(
         runner.topo, phases, 1,
         staggered_snapshots(runner.topo, snapshots, 1, 2,
                             max_phases=phases))
     return runner, prog
-
-
-def force_tiled(runner) -> None:
-    """Put ``runner``'s fused megatick in the tiled layout whatever its
-    lane's size: the port picks the layout from the working set alone, so
-    on a lane that fits a block this is how the tiled arm is held against
-    the resident one (``fused_ticks`` reads the kernel's
-    ``fused_tile``)."""
-    tk = runner.kernel
-    if tk.fused != "on":
-        raise AssertionError(f"no fused megatick to tile: {tk.fused_reason}")
-    tk.fused_tile = "on"
-    tk.fused_tile_reason = "forced: held against the resident layout"
 
 
 def fault_runner(device, batch=X_BATCH, megatick=1, exact_impl="cascade",
@@ -1450,6 +1484,7 @@ def _edge_checks(name, s, got, steps, live, seen) -> None:
                                    and seen["repeat"] >= 1),
         "counter_wrap": len(got.delay_state) == 3 and bool(
             (got.delay_state[2] > s.delay_state[2]).any()),
+        "window_wrap": bool((got.rec_cnt >= 2**16).any()),
     }[name]
     if not ok:
         raise AssertionError(f"fused_scan edge case {name!r} did not show "
@@ -1481,8 +1516,12 @@ def fused_edge_cases(layouts=("resident",), capacity=None) -> list:
     digraph where every node snapshots (a tick delivers several markers
     to one node, two of one sid among them: the plain run is watched for
     both); and hash counters 3 draws below 2^32, so that a tick's draws
-    straddle the wrap. Each case runs through the cascade and, where the
-    sampler is position-addressable, through the wave step body."""
+    straddle the wrap; untraced (``capacity`` None) also the threefry
+    sampler, fault-free and under marker faults with retries, and uint16
+    window planes, fault-free, from counters one below 2^16 (they pass it)
+    and under every fault class. Each case runs through the cascade and,
+    where the sampler is position-addressable, through the wave step
+    body."""
     from chandy_lamport_tpu_torch import SimConfig
     from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
@@ -1493,6 +1532,7 @@ def fused_edge_cases(layouts=("resident",), capacity=None) -> list:
         FixedDelay,
         GoExactDelay,
         HashDelay,
+        UniformDelay,
     )
     from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
 
@@ -1572,6 +1612,25 @@ def fused_edge_cases(layouts=("resident",), capacity=None) -> list:
         ("hash counters 3 draws below 2^32", sf48, wide(), HashDelay(5),
          None, False, "counter_wrap"),
     )
+    # the threefry sampler kind and the uint16 window arm, untraced (their
+    # traced instantiations: tests/test_torch_cuda.py)
+    cases += () if capacity is not None else (
+        ("sf-48, uniform(5) (threefry)", sf48, wide(), UniformDelay(5),
+         None, False, None),
+        ("faulted: marker faults, timeout 6, uniform(11)", sf48,
+         wide(snapshot_timeout=6, snapshot_retries=6), UniformDelay(11),
+         Faults(3, marker_drop_rate=0.3, marker_dup_rate=0.2,
+                marker_jitter_rate=0.2), True, "retried"),
+        ("sf-48, uint16 windows, hash(5)", sf48,
+         wide(window_dtype="uint16"), HashDelay(5), None, False, None),
+        ("sf-48, uint16 windows, counters 1 below 2^16", sf48,
+         wide(window_dtype="uint16"), HashDelay(5), None, False,
+         "window_wrap"),
+        ("faulted: uint16 windows, every class 0.05, pause crashes 0.3, "
+         "timeout 8", sf48, wide(window_dtype="uint16", snapshot_timeout=8),
+         HashDelay(7), Faults(5, crash_rate=0.3, crash_period=4,
+                              crash_len=1, **every), True, None),
+    )
     rows = []
     for note, spec, cfg, delay, faults, quarantine, check in cases:
         for impl in (("cascade", "wave") if delay.position_streams
@@ -1599,9 +1658,8 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
             spec, cfg, delay, 4, scheduler="exact", device="cuda",
             faults=faults, quarantine=quarantine, megatick=MEGATICK,
             exact_impl=impl,
-            trace=None if capacity is None else Trace(capacity))
-        if layout == "tiled":
-            force_tiled(runners[layout])
+            trace=None if capacity is None else Trace(capacity),
+            **(TILED if layout == "tiled" else {}))
     runner = runners[layouts[0]]
     tk = runner.kernel
     s = (runner.init_batch_device() if check == "never_quiet"
@@ -1615,6 +1673,16 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
     if check == "counter_wrap":
         key, _, epoch = s.delay_state
         s = s._replace(delay_state=(key, key * 0 + 2**32 - 3, epoch))
+    if check == "window_wrap":
+        # every window counter 65,535 higher: the uint16 planes wrap past
+        # 2^16 within the megatick
+        off, wd = 2**16 - 1, s.rec_start.dtype
+        s = s._replace(
+            rec_cnt=s.rec_cnt + off,
+            min_prot=torch.where(s.min_prot == 2**31 - 1, s.min_prot,
+                                 s.min_prot + off),
+            rec_start=(s.rec_start.to(torch.int32) + off).to(wd),
+            rec_end=(s.rec_end.to(torch.int32) + off).to(wd))
     seen = _watch_waves(tk) if impl == "wave" else None
     live = ~tk._halted(s)
     live[1] = False
@@ -1679,6 +1747,14 @@ def _watch_waves(tk) -> dict:
 
 # integer operations of one lowbias32 (three xor-shifts, two multiplies)
 LOWBIAS_OPS = 8
+# integer instructions of one Threefry-2x32 block: 20 rounds of an add, a
+# rotate (one funnel shift on sm_90) and a xor, and six key injections of
+# two adds (the round constant folded into a three-input add)
+THREEFRY_BLOCK_OPS = 20 * 3 + 6 * 2
+# of one threefry draw (UniformDelay.draw): five blocks (two splits, the
+# two halves' bits), the halves' two xors, and randint's fold into the
+# span: five modulos, two multiplies and an add, one operation each
+THREEFRY_OPS = 5 * THREEFRY_BLOCK_OPS + 2 + 8
 
 
 def fused_plain_and_bytes(tk, s0, limit, live=None):
@@ -1718,6 +1794,7 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
     from chandy_lamport_tpu_torch import BatchedRunner
     from chandy_lamport_tpu_torch.core.state import FC_DUP, FC_MDUP
     from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.ops.delay import UniformDelay
 
     n, e = tk.topo.n, tk.topo.e
     S = tk.cfg.max_snapshots
@@ -1751,6 +1828,7 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
             node_ops = n * 2 * (3 * LOWBIAS_OPS + 8)
     log_size = s0.log_amt.element_size()
     s, plain_ms, lane_ticks, dups = BatchedRunner._own(s0), 0.0, 0, 0
+    appended = 0
     for _ in range(MEGATICK):
         step = cond(s)
         lane_ticks += int(step.sum())
@@ -1771,11 +1849,12 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
             int((s.q_len - before["q_len"]).sum()) + pops)
         parts["log_writes"] += log_size * int(
             (s.log_amt != before["log_amt"]).sum())
-        parts["window_writes"] += 4 * int(
+        parts["window_writes"] += s.rec_start.element_size() * int(
             (s.rec_start != before["rec_start"]).sum()
             + (s.rec_end != before["rec_end"]).sum())
         fired = s.fault_counts - before["fault_counts"]
         dups += int(fired[:, FC_DUP].sum() + fired[:, FC_MDUP].sum())
+        appended += int((s.q_len - before["q_len"]).sum()) + pops
         if traced:
             parts["trace_events"] += 12 * int(torch.clamp(
                 s.tr_count - before["tr_count"],
@@ -1784,6 +1863,9 @@ def fused_plain_and_bytes(tk, s0, limit, live=None):
     ops = {"tick": 8 * e * lane_ticks, "fault_hash_edges":
            edge_ops * lane_ticks, "fault_hash_nodes": node_ops * lane_ticks,
            "dup_times": (LOWBIAS_OPS + 3) * dups}
+    if isinstance(tk.delay, UniformDelay):
+        # every append but a duplicate's is a broadcast's draw
+        ops["threefry_draws"] = THREEFRY_OPS * (appended - dups)
     return (s, plain_ms, sum(parts.values()), sum(ops.values()),
             {"draining_lanes": lanes, "lane_ticks": lane_ticks, **parts,
              "ops": ops})
@@ -1927,10 +2009,10 @@ def fault_hash_check() -> list:
     return rows
 
 
-DRAIN_CELLS = ("fault-free", "faulted", "wave", "wave-faulted",
-               "config5-wave")
-# the ER-256 cells again in the tiled layout (forced, ``force_tiled``)
-TILED_CELLS = tuple(f"{c}-tiled" for c in DRAIN_CELLS[:4])
+DRAIN_CELLS = ("fault-free", "faulted", "wave", "wave-faulted", "threefry",
+               "uint16", "config5-wave")
+# the ER-256 cells again in the tiled layout (forced, ``fused_tile="on"``)
+TILED_CELLS = tuple(f"{c}-tiled" for c in DRAIN_CELLS[:4] + ("uint16",))
 
 
 def drain_timing(cell: str, batch=None) -> None:
@@ -1958,6 +2040,16 @@ def drain_timing(cell: str, batch=None) -> None:
         kw["tiled"] = True
     if base == "config5-wave":
         runner, prog = config5_runner("cuda", batch=batch or C5_BATCH, **kw)
+    elif base in ("threefry", "uint16"):
+        # the fault-free cascade cell under the slice-17 arms
+        from chandy_lamport_tpu_torch.ops.delay import UniformDelay
+
+        if base == "threefry":
+            kw["delay"] = UniformDelay(UNIFORM_SEED)
+        else:
+            kw["window_dtype"] = "uint16"
+        runner, prog = exact_runner("cuda", batch=batch or X_BATCH,
+                                    megatick=MEGATICK, **kw)
     else:
         make = fault_runner if base.endswith("faulted") else exact_runner
         if base.startswith("wave"):
@@ -2403,7 +2495,10 @@ def _storm_meta(name, runner, prog, graph, snapshots) -> dict:
             "snapshots": snapshots,
             "queue_capacity": runner.config.queue_capacity,
             "max_recorded": runner.config.max_recorded,
-            "record_dtype": "int16", "delay": f"hash({DELAY_SEED})"}
+            "record_dtype": "int16",
+            "window_dtype": runner.config.window_dtype,
+            "delay": f"{type(runner.delay).__name__}"
+                     f"({getattr(runner.delay, 'seed', '')})"}
 
 
 def _check_launches(name, launches, path_kernels, idle_kernels=()):
@@ -3369,12 +3464,24 @@ def phase_prefix_stream() -> dict:
     return pl["launches"]
 
 
-def phase_golden() -> dict:
-    """Main path 5: the 7 reference goldens on the card through
-    ``check_reference_case`` (``run_events_file``, ``DenseSim`` at its
-    default megatick 8); every snapshot must equal its .snap file and
-    every case must launch fused_scan. Launch counts are zeroed just
-    before the first case and read after each."""
+# ---- the slice-17 phases: faults in DenseSim, the fold, the threefry
+# ---- sampler, uint16 windows ------------------------------------------------
+
+# the fold's ER-256 storm, cut in depth: the fold steps the N sources one
+# by one each tick (one host step each), so 4 phases and 1 snapshot at the
+# cell's width and batch
+FOLD_PHASES, FOLD_SNAPSHOTS = 4, 1
+# the threefry sampler's seed (UniformDelay) and the uint16 counter wrap's
+# lanes and offset (every window counter starts this far below 2^16)
+UNIFORM_SEED, WRAP_BATCH, WRAP_OFFSET = 17, 256, 2**16 - 3
+
+
+def _golden_cases(kernel: str, **kw) -> dict:
+    """The 7 reference goldens through ``check_reference_case`` on the
+    card (``DenseSim`` at its default megatick 8) with ``kw`` passed to
+    ``run_events_file``; launch counts are zeroed just before the first
+    case. Returns the phase's fields: each case's launches of ``kernel``,
+    the failures, the launches and the wall."""
     from chandy_lamport_tpu_torch.api import check_reference_case
     from chandy_lamport_tpu_torch.kernels import (
         launch_counts,
@@ -3387,31 +3494,347 @@ def phase_golden() -> dict:
     t0 = time.perf_counter()
     for top, events, snaps in REFERENCE_TESTS:
         name = events.removesuffix(".events")
-        before = launch_counts()["fused_scan"]
+        before = launch_counts()[kernel]
         try:
-            sim = check_reference_case(top, events, snaps, device="cuda")
+            sim = check_reference_case(top, events, snaps, device="cuda",
+                                       **kw)
             megaticks.add((sim.kernel.megatick, sim.fused))
         except (AssertionError, ValueError, OSError, RuntimeError) as exc:
             failed[name] = str(exc)
-        per_case[name] = launch_counts()["fused_scan"] - before
+        per_case[name] = launch_counts()[kernel] - before
         snapshots += len(snaps)
-    dt = time.perf_counter() - t0
-    launches = launch_counts()
-    emit({"phase": "golden", "main_path": True,
-          "megatick_fused": sorted(megaticks), "cases": len(per_case),
-          "snapshots": snapshots, "passed": len(per_case) - len(failed),
-          "failed": failed, "fused_scan_by_case": per_case,
-          "launches": launches, "run_s": dt})
-    if failed or len(per_case) != 7 or snapshots != 21:
-        raise AssertionError(f"goldens failed on the card: {failed}")
-    if megaticks != {(MEGATICK, "on")}:
-        raise AssertionError(f"goldens not run at the fused megatick 8: "
-                             f"{megaticks}")
-    idle = [name for name, n in per_case.items() if n <= 0]
+    return {"cases": len(per_case), "snapshots": snapshots,
+            "passed": len(per_case) - len(failed), "failed": failed,
+            "megatick_fused": sorted(megaticks),
+            f"{kernel}_by_case": per_case, "launches": launch_counts(),
+            "run_s": time.perf_counter() - t0}
+
+
+def _golden_verdict(name: str, out: dict, kernel: str, fused: str) -> None:
+    if out["failed"] or out["cases"] != 7 or out["snapshots"] != 21:
+        raise AssertionError(f"{name}: goldens failed on the card: "
+                             f"{out['failed']}")
+    if out["megatick_fused"] != [(MEGATICK, fused)]:
+        raise AssertionError(f"{name}: goldens not run at megatick 8 with "
+                             f"the fused megatick {fused}: "
+                             f"{out['megatick_fused']}")
+    idle = [c for c, n in out[f"{kernel}_by_case"].items() if n <= 0]
     if idle:
-        raise AssertionError(f"goldens that never launched fused_scan: "
-                             f"{idle}")
-    return launches
+        raise AssertionError(f"{name}: goldens that never launched "
+                             f"{kernel}: {idle}")
+
+
+def phase_golden() -> dict:
+    """Main path 5: the 7 reference goldens on the card through
+    ``check_reference_case`` (``run_events_file``, ``DenseSim`` at its
+    default megatick 8); every snapshot must equal its .snap file and
+    every case must launch fused_scan. Launch counts are zeroed just
+    before the first case and read after each."""
+    out = _golden_cases("fused_scan")
+    emit({"phase": "golden", "main_path": True, **out})
+    _golden_verdict("golden", out, "fused_scan", "on")
+    return out["launches"]
+
+
+def _dense_script(spec, seed: int):
+    """One event script on ``spec``: a ``stream_jobs`` job of 32 phases
+    (a send and a tick each, its snapshots among them)."""
+    from chandy_lamport_tpu_torch.models.workloads import stream_jobs
+
+    (job,) = stream_jobs(spec, 1, seed=seed, base_phases=32,
+                         max_phases=32, snapshots_per_job=2)
+    return job
+
+
+def phase_dense_faults() -> dict:
+    """Main paths 21-22, ``DenseSim(faults=)`` (A3c) on the card: the 7
+    goldens through ``run_events_file(faults=Faults(7))``, the zero-rate
+    adversary at megatick 8 (``fused_scan``'s fault arm in every case),
+    each equal to its .snap; then one event script on ER-256 under the
+    faulted exact cell's program (``F_PROGRAM``, timeout 64) run three
+    ways, single-instance: at megatick 8 through the kernel, at megatick 8
+    with ``fused_tick="off"`` (the plain form: its steps one tick at a
+    time through the split kernels) and at megatick 1; every leaf equal,
+    the faults firing. Returns the two paths' launch counts."""
+    import torch
+
+    from chandy_lamport_tpu_torch import SimConfig
+    from chandy_lamport_tpu_torch.core.dense import DenseSim
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.models.faults import Faults
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+
+    out = _golden_cases("fused_scan", faults=Faults(7))
+    emit({"phase": "dense_faults_golden", "main_path": True,
+          "faults": "Faults(7), every rate 0", **out})
+    _golden_verdict("dense_faults_golden", out, "fused_scan", "on")
+    paths = {"dense_faults_golden": out["launches"]}
+    spec = erdos_renyi(X_NODES, 3.0, seed=3, tokens=X_PHASES + 10)
+    events = _dense_script(spec, 5)
+    cfg = SimConfig.for_workload(snapshots=X_SNAPSHOTS,
+                                 record_dtype="int16",
+                                 snapshot_timeout=F_TIMEOUT)
+    runs = {}
+    for label, megatick, fused in (("kernel", MEGATICK, None),
+                                   ("plain", MEGATICK, "off"),
+                                   ("megatick 1", 1, None)):
+        sim = DenseSim(spec, HashDelay(DELAY_SEED), cfg, "cascade",
+                       megatick, faults=Faults(3, **F_PROGRAM),
+                       fused_tick=fused, device="cuda")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        snaps = sim.run_events(events)
+        torch.cuda.synchronize()
+        runs[label] = (sim, snaps, time.perf_counter() - t0,
+                       launch_counts())
+    sim, snaps, dt, launches = runs["kernel"]
+    bad = {label: _mismatched(sim.state, other.state)
+           for label, (other, _, _, _) in runs.items() if label != "kernel"}
+    same_snaps = all(o == snaps for _, o, _, _ in runs.values())
+    fired = int(sim.state.fault_counts.sum())
+    emit({"phase": "dense_faults_script", "main_path": True,
+          "graph": f"er-{X_NODES}", "edges": sim.topo.e,
+          "phases": sum(1 for ev in events if type(ev).__name__
+                        == "TickEvent"), "snapshots": len(snaps),
+          "program": F_PROGRAM, "snapshot_timeout": F_TIMEOUT,
+          "fault_events": fired, "time": int(sim.state.time[0]),
+          "error_bits": int(sim.state.error[0]),
+          "total_tokens": sim.total_tokens(),
+          "fused_tick": {k: v[0].fused for k, v in runs.items()},
+          "run_s": {k: v[2] for k, v in runs.items()},
+          "mismatched": bad, "snapshots_equal": same_snaps,
+          "launches": launches,
+          "plain_launches": runs["plain"][3]})
+    if any(bad.values()) or not same_snaps:
+        raise AssertionError(f"dense_faults_script: the kernel's run "
+                             f"differs from {bad} (snapshots equal: "
+                             f"{same_snaps})")
+    if launches["fused_scan"] <= 0 or runs["plain"][3]["fused_scan"]:
+        raise AssertionError("dense_faults_script: fused_scan launched "
+                             f"{launches['fused_scan']} times in the kernel"
+                             f" run, {runs['plain'][3]['fused_scan']} in "
+                             "the plain one")
+    if not fired:
+        raise AssertionError("dense_faults_script: no fault fired")
+    paths["dense_faults_script"] = launches
+    return paths
+
+
+def phase_fold() -> dict:
+    """Main paths 23-24, the reference-literal fold (``exact_impl=
+    "fold"``, A5b) on the card: the 7 goldens through ``DenseSim(
+    exact_impl="fold")`` at megatick 8 (the fold has no fused form: K
+    single fold ticks, no fused_scan), each equal to its .snap, every case
+    launching append_marker_rows (row 5, its broadcasts); then the ER-256
+    exact storm at the cell's width and batch, cut to ``FOLD_PHASES``
+    phases and ``FOLD_SNAPSHOTS`` snapshot, through the fold and through
+    the cascade at megatick 8: every leaf equal. Its ms per fold tick and
+    row-5 launches per tick. Returns the paths' launch counts."""
+    out = _golden_cases("append_marker_rows", exact_impl="fold")
+    emit({"phase": "fold_golden", "main_path": True, **out})
+    _golden_verdict("fold_golden", out, "append_marker_rows", "off")
+    if out["launches"]["fused_scan"]:
+        raise AssertionError("fold_golden launched fused_scan")
+    paths = {"fold_golden": out["launches"]}
+    frunner, prog = exact_runner("cuda", phases=FOLD_PHASES,
+                                 snapshots=FOLD_SNAPSHOTS,
+                                 megatick=MEGATICK, exact_impl="fold")
+    final, m = phase_storm("fold_storm", frunner, prog, "er",
+                           FOLD_SNAPSHOTS, ("append_marker_rows",
+                                            "append_rows", "sum_segments"))
+    paths["fold_storm"] = m["launches"]
+    crunner, _ = exact_runner("cuda", phases=FOLD_PHASES,
+                              snapshots=FOLD_SNAPSHOTS, megatick=MEGATICK)
+    twin, tm = _timed_storm(crunner, prog, warm=False)
+    bad = _mismatched(final, twin)
+    ticks = m["batched_ticks"]
+    emit({"phase": "fold_vs_cascade", "leaves": len(final._fields),
+          "mismatched": bad, "fold_run_s": m["run_s"],
+          "cascade_run_s": tm["run_s"], "batched_ticks": ticks,
+          "ms_per_fold_tick": m["run_s"] / ticks * 1e3,
+          "fold_source_steps": m["fold_steps"],
+          "source_steps_per_tick": m["fold_steps"] / ticks,
+          "append_marker_rows_per_tick":
+              m["launches"]["append_marker_rows"] / ticks,
+          "fused_scan_launches": m["launches"]["fused_scan"],
+          "depth_cut": f"{FOLD_PHASES} phases, {FOLD_SNAPSHOTS} snapshot "
+                       f"(the cell: {X_PHASES}, {X_SNAPSHOTS})"})
+    if bad:
+        raise AssertionError(f"the fold storm differs from the cascade's "
+                             f"in {bad}")
+    if m["launches"]["fused_scan"]:
+        raise AssertionError("fold_storm launched fused_scan")
+    return paths
+
+
+def phase_uniform(hash_row: dict) -> tuple:
+    """Main paths 25-26, the threefry sampler (``UniformDelay``, A7) on
+    the card: config 4's sync storm under ``UniformDelay(UNIFORM_SEED)``
+    (the sync tick's and the phases' draws are torch ops, as JAX draws
+    them outside any Pallas kernel), error-free with every snapshot
+    complete; then the ER-256 exact cascade at B=4096 and megatick 8
+    under the same sampler, its drain megatick through row 8's threefry
+    kind bit-equal to the plain form, timed beside the hash arm's
+    (``hash_row``: fused_kernel's fault-free drain megatick of this run),
+    and the storm itself. Returns (the paths' launch counts, the row 8
+    row)."""
+    from chandy_lamport_tpu_torch.ops.delay import UniformDelay
+
+    runner, prog = config4_runner("cuda",
+                                  delay=UniformDelay(UNIFORM_SEED))
+    _, m = phase_storm("uniform_sync_storm", runner, prog, "sf", SNAPSHOTS,
+                       ("sum_by_perm", "sum_segments", "spread",
+                        "head_fields", "append_rows"))
+    paths = {"uniform_sync_storm": m["launches"]}
+    del runner
+    urunner, uprog = exact_runner("cuda", megatick=MEGATICK,
+                                  delay=UniformDelay(UNIFORM_SEED))
+    (row,) = drain_megatick_rows(urunner, uprog, "threefry")
+    row = {**row, "arm": "threefry", "hash_ms": hash_row["ms"],
+           "threefry_over_hash": row["ms"] / hash_row["ms"]}
+    emit({"phase": "uniform_kernel", "tolerance": "bit-equal (integer "
+          "work)", "delay": f"uniform({UNIFORM_SEED})", **row})
+    _, m = phase_storm("uniform_fused_storm", urunner, uprog, "er",
+                       X_SNAPSHOTS, ("fused_scan", "queue_step",
+                                     "append_rows", "append_marker_rows"))
+    paths["uniform_fused_storm"] = m["launches"]
+    return paths, row
+
+
+def _windows_agree(name: str, wide, narrow, sample_lanes=2) -> dict:
+    """A uint16-window final against the int32 run of the same program:
+    every leaf but the windows equal, each window's start and end equal
+    modulo 2^16, and the windows of ``sample_lanes`` lanes decoded
+    (``recorded_window``) equal; the decode reads nothing else."""
+    import torch
+
+    from chandy_lamport_tpu_torch.core.state import recorded_window
+    from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
+
+    bad = [f for f in _mismatched(wide._replace(
+        rec_start=narrow.rec_start, rec_end=narrow.rec_end), narrow)]
+    mod = {w: bool(torch.equal(getattr(wide, w).to(torch.int32) & 0xFFFF,
+                               getattr(narrow, w).to(torch.int32) & 0xFFFF))
+           for w in ("rec_start", "rec_end")}
+    decoded = wrapped = 0
+    for lane in range(sample_lanes):
+        hw, hn = (state_to_numpy(type(x)(*(
+            tuple(w[lane:lane + 1] for w in leaf) if isinstance(leaf, tuple)
+            else leaf[lane:lane + 1] for leaf in x))) for x in (wide, narrow))
+        one = [type(h)(*(tuple(w[0] for w in leaf) if isinstance(leaf, tuple)
+                         else leaf[0] for leaf in h)) for h in (hw, hn)]
+        for sid in range(int(one[0].next_sid)):
+            for e in range(one[0].rec_start.shape[-1]):
+                a = recorded_window(one[0], sid, e)
+                if a != recorded_window(one[1], sid, e):
+                    bad.append(f"lane {lane} slot {sid} edge {e}")
+                decoded += 1
+                wrapped += int(one[1].rec_end[sid, e]
+                               < one[1].rec_start[sid, e])
+    out = {"phase": name, "mismatched": bad, "windows_equal_mod_2^16": mod,
+           "windows_decoded": decoded, "wrapped_windows_decoded": wrapped,
+           "window_dtype": str(narrow.rec_start.dtype)}
+    if bad or not all(mod.values()) or narrow.rec_start.dtype \
+            != torch.int16:
+        raise AssertionError(f"{name}: the uint16 run disagrees with the "
+                             f"int32 one: {out}")
+    return out
+
+
+def phase_window16(sync_final, int32_rows: dict) -> tuple:
+    """Main paths 27-28, ``window_dtype="uint16"`` (A7) on the card: config
+    4's sync storm and the ER-256 exact cascade at megatick 8 with uint16
+    window planes, each against the int32 run of the same program
+    (``sync_final``: main path 1's; the exact one run here): every other
+    leaf equal and every window equal modulo 2^16, sampled lanes decoded
+    equal (``_windows_agree``); row 8's uint16 arm at the drain megatick,
+    resident and forced tiled, bit-equal to the plain form, timed beside
+    the int32 arm in the same layout (``int32_rows``: fused_kernel's
+    fault-free drain megaticks by layout); a synthetic counter wrap: the exact cell at ``WRAP_BATCH``
+    lanes from a state whose window counters start at ``WRAP_OFFSET``, 3
+    below 2^16, in both dtypes (the uint16 windows wrap past 2^16 on the
+    card); and that state's uint16 checkpoint saved and loaded
+    bit-equal, its planes uint16 in the file. Returns (the paths'
+    launch counts, the row 8 rows)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chandy_lamport_tpu_torch.utils.checkpoint import (
+        load_state,
+        save_state,
+    )
+
+    narrow_runner, prog = config4_runner("cuda", window_dtype="uint16")
+    final, m = phase_storm("window16_sync_storm", narrow_runner, prog, "sf",
+                           SNAPSHOTS, ("sum_by_perm", "sum_segments",
+                                       "spread", "head_fields",
+                                       "append_rows"))
+    paths = {"window16_sync_storm": m["launches"]}
+    emit(_windows_agree("window16_sync_vs_int32", sync_final, final))
+    del final, narrow_runner
+    wrunner, wprog = exact_runner("cuda", megatick=MEGATICK,
+                                  window_dtype="uint16")
+    trunner, _ = exact_runner("cuda", megatick=MEGATICK,
+                              window_dtype="uint16", tiled=True)
+    rows = [{**r, "arm": "uint16",
+             "int32_ms": int32_rows[r["layout"]]["ms"],
+             "uint16_over_int32": r["ms"] / int32_rows[r["layout"]]["ms"]}
+            for r in drain_megatick_rows(wrunner, wprog, "uint16 windows",
+                                         tiled=trunner)]
+    emit({"phase": "window16_kernel", "tolerance": "bit-equal (integer "
+          "work)", "resident": rows[0], "tiled": rows[1]})
+    del trunner
+    narrow, m = phase_storm("window16_fused_storm", wrunner, wprog, "er",
+                            X_SNAPSHOTS, ("fused_scan", "queue_step",
+                                          "append_rows",
+                                          "append_marker_rows"))
+    paths["window16_fused_storm"] = m["launches"]
+    irunner, _ = exact_runner("cuda", megatick=MEGATICK)
+    wide, _ = _timed_storm(irunner, wprog, warm=False)
+    emit(_windows_agree("window16_fused_vs_int32", wide, narrow))
+    del wide, narrow, irunner, wrunner
+    # the synthetic wrap
+    ends = {}
+    for wd in ("int32", "uint16"):
+        r, p = exact_runner("cuda", batch=WRAP_BATCH, megatick=MEGATICK,
+                            window_dtype=wd)
+        s = r.init_batch_device()
+        s = s._replace(rec_cnt=s.rec_cnt + WRAP_OFFSET)
+        ends[wd] = (r, r.run_storm(s, p))
+    out = _windows_agree("window16_counter_wrap", ends["int32"][1],
+                         ends["uint16"][1])
+    r16, f16 = ends["uint16"]
+    out["max_rec_cnt"] = int(f16.rec_cnt.max())
+    if out["max_rec_cnt"] <= 2**16:
+        raise AssertionError("window16_counter_wrap: no counter passed "
+                             "2^16")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "w16.npz")
+        t0 = time.perf_counter()
+        save_state(path, f16, {"note": "uint16 windows"}, delay=r16.delay)
+        save_s = time.perf_counter() - t0
+        with np.load(path) as z:
+            dtypes = {str(z[k].dtype) for k in z.files if k != "__header__"}
+        loaded, meta = load_state(path, r16.init_batch_device(),
+                                  delay=r16.delay)
+        out.update(checkpoint_bytes=os.path.getsize(path), save_s=save_s,
+                   checkpoint_leaf_dtypes=sorted(dtypes),
+                   checkpoint_mismatched=_mismatched(loaded, f16))
+    emit(out)
+    if out["checkpoint_mismatched"] or "uint16" not in dtypes \
+            or meta["note"] != "uint16 windows":
+        raise AssertionError(f"the uint16 checkpoint did not round-trip: "
+                             f"{out['checkpoint_mismatched']}, {dtypes}")
+    del ends, loaded, f16
+    return paths, rows
+
 
 
 def phase_cpu_vs_cuda() -> None:
@@ -4066,11 +4489,16 @@ def main(argv=None) -> int:
     rows["fused_scan"] += phase_trace_kernel(rows["fused_scan"][:8])
     phase_trace_edge_cases()
     # each main path runs with the launch counts zeroed just before it
-    _, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
-                       ("sum_by_perm", "sum_segments", "spread",
-                        "head_fields", "append_rows"))
+    sync_final, m = phase_storm("storm", runner, prog, "sf", SNAPSHOTS,
+                                ("sum_by_perm", "sum_segments", "spread",
+                                 "head_fields", "append_rows"))
     paths = {"sync_storm": m["launches"]}
     del runner
+    w16_paths, w16_rows = phase_window16(
+        sync_final, {r["layout"]: r for r in rows["fused_scan"][:2]})
+    paths.update(w16_paths)
+    rows["fused_scan"] += w16_rows
+    del sync_final
     fsrunner, fsprog = config4_runner("cuda", faulted=True)
     fs_final, m = phase_fault_sync_storm(fsrunner, fsprog)
     paths["fault_sync_storm"] = m["launches"]
@@ -4176,6 +4604,11 @@ def main(argv=None) -> int:
     paths["prefix_stream"] = phase_prefix_stream()
     paths["golden"] = phase_golden()
     paths["trace_golden"] = phase_trace_golden()
+    uniform_paths, uniform_row = phase_uniform(rows["fused_scan"][0])
+    paths.update(uniform_paths)
+    rows["fused_scan"].append(uniform_row)
+    paths.update(phase_dense_faults())
+    paths.update(phase_fold())
     phase_cpu_vs_cuda()
 
     kernels = []
@@ -4202,8 +4635,17 @@ def main(argv=None) -> int:
         if name == "fused_scan":
             entry["shapes"] = [{**{key: r[key] for key in (
                 "shape", "layout", "ms", "plain_ms", "bound_ms",
-                "bound_by")}, "traced": r.get("traced", False)}
+                "bound_by")}, "traced": r.get("traced", False),
+                "arm": r.get("arm", "hash sampler, int32 windows")}
                 for r in rows[name]]
+            # the slice-17 arms: the threefry sampler kind and the uint16
+            # window planes, each beside the hash / int32 arm of this run
+            entry["arms"] = [
+                {key: r[key] for key in (
+                    "arm", "shape", "layout", "ms", "bound_ms", "bound_by",
+                    "plain_ms", "max_abs_err", "hash_ms", "int32_ms",
+                    "threefry_over_hash", "uint16_over_int32") if key in r}
+                for r in rows[name] if "arm" in r]
             for arm in ("tiled", "traced"):
                 entry[f"launches_{arm}"] = sum(
                     counts[f"fused_scan_{arm}"] for counts in paths.values())

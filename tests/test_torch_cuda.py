@@ -589,19 +589,17 @@ def _loaded(dev, spec, cfg, delay, quarantine=False, faults=None,
             exact_impl="cascade", tiled=False, trace=None):
     """A megatick-8 exact runner on the card (with ``faults`` armed, if
     given; the wave step body for ``exact_impl="wave"``; with ``tiled``
-    the tiled layout forced on a lane that fits a block: the port picks
-    the layout from the working set alone, and ``fused_ticks`` reads the
-    kernel's ``fused_tile``) and a small state
+    the tiled layout forced, ``fused_tile="on"``, on a lane that fits a
+    block) and a small state
     with traffic and snapshots in flight, built by the scalar injectors
     (every sampler has them): per round a 1-token send on every third
     edge, a snapshot at node ``round % N`` on every other lane, one
     tick. ``trace``: a utils/tracing.Trace to arm the recorder."""
     runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
                            device=dev, quarantine=quarantine, megatick=8,
-                           faults=faults, exact_impl=exact_impl, trace=trace)
+                           faults=faults, exact_impl=exact_impl, trace=trace,
+                           fused_tile="on" if tiled else None)
     tk = runner.kernel
-    if tiled:
-        tk.fused_tile = "on"
     s = runner.init_batch_device()
     lanes = torch.arange(4, device=dev)
     for r in range(min(3, cfg.max_snapshots)):
@@ -1422,3 +1420,92 @@ def test_checkpoint_crosses_devices(dev, tmp_path):
         _leaves_equal(state, mid)
         _leaves_equal(rd.drain(rd.run_storm(state, rest, drain=False)),
                       whole)
+
+
+# the threefry sampler kind and the uint16 window arm of row 8: (sampler,
+# window dtype, adversary program, supervisor knobs)
+ARMS_A7 = {
+    "threefry": ("uniform", "int32", None, {}),
+    "uint16": ("hash", "uint16", None, {}),
+    "threefry, uint16": ("uniform", "uint16", None, {}),
+    "threefry, faulted": ("uniform", "int32",
+                          dict(marker_drop_rate=0.3, marker_dup_rate=0.2,
+                               drop_rate=0.1), dict(snapshot_timeout=6,
+                                                    snapshot_retries=6)),
+    "uint16, faulted": ("hash", "uint16",
+                        dict(drop_rate=0.05, dup_rate=0.05, crash_rate=0.3,
+                             crash_period=4, crash_len=1,
+                             marker_drop_rate=0.1),
+                        dict(snapshot_timeout=8)),
+}
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced",
+                                                        "traced"])
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("arm", sorted(ARMS_A7))
+def test_threefry_and_uint16_arms_equal_plain(dev, arm, tiled, traced):
+    """Row 8's threefry sampler kind (``UniformDelay``: the tick's draws
+    by thread 0 into the draw buffer) and its uint16 window arm (2-byte
+    window planes written in place), resident and forced tiled, traced
+    (a 16-slot ring) and not, fault-free and under the adversary with the
+    supervisor (whose aborts clear windows): the three step bodies from a
+    loaded state equal the plain form on every leaf, the key words and
+    the uint16 planes included."""
+    from chandy_lamport_tpu_torch.ops.delay import UniformDelay
+    from chandy_lamport_tpu_torch.utils.tracing import Trace
+
+    kind, window, fkw, sup = ARMS_A7[arm]
+    delay = UniformDelay(5) if kind == "uniform" else HashDelay(5)
+    cfg = SimConfig.for_workload(snapshots=3, window_dtype=window, **sup)
+    faults = Faults(3, **fkw) if fkw else None
+    runner, s = _loaded(dev, TOPO_SPEC, cfg, delay, quarantine=bool(fkw),
+                        faults=faults, tiled=tiled,
+                        trace=Trace(16) if traced else None)
+    assert s.rec_start.dtype == (torch.int16 if window == "uint16"
+                                 else torch.int32)
+    live = ~runner.kernel._halted(s)
+    live[1] = False
+    for mode, length, kw in (("ticks", 24, {"live": live}),
+                             ("drain", 8, {"limit": s.time + 7}),
+                             ("drain", 8, {"limit": s.time + 10_000}),
+                             ("flush", runner.config.max_delay + 1, {})):
+        _fused_equals_plain(runner, s, mode, length, **kw)
+
+
+def test_fold_dense_faults_and_uint16_on_the_card(dev):
+    """The fold, DenseSim under the zero-rate adversary and a uint16
+    exact storm on the card: the 7 goldens through ``DenseSim(
+    exact_impl="fold")`` and ``DenseSim(faults=Faults(7))`` at megatick 8
+    pass (the latter through fused_scan's fault arm), and a small fold
+    storm and a uniform uint16 megatick-8 storm equal the same storms on
+    the CPU leaf for leaf."""
+    from chandy_lamport_tpu_torch.api import check_reference_case
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+    from chandy_lamport_tpu_torch.ops.delay import UniformDelay
+    from chandy_lamport_tpu_torch.utils.goldens import REFERENCE_TESTS
+
+    for top, events, snaps in REFERENCE_TESTS:
+        before = launch_counts()["fused_scan"]
+        check_reference_case(top, events, snaps, device=dev,
+                             faults=Faults(7))
+        assert launch_counts()["fused_scan"] > before
+        check_reference_case(top, events, snaps, device=dev,
+                             exact_impl="fold")
+    spec = erdos_renyi(24, 3.0, seed=3, tokens=30)
+    for kw in (dict(exact_impl="fold", megatick=4),
+               dict(megatick=8, window="uint16", uniform=True)):
+        ends = []
+        for device in (dev, "cpu"):
+            cfg = SimConfig.for_workload(snapshots=3, window_dtype=kw.get(
+                "window", "int32"))
+            delay = UniformDelay(7) if kw.get("uniform") else HashDelay(7)
+            runner = BatchedRunner(spec, cfg, delay, 4, scheduler="exact",
+                                   device=device, megatick=kw["megatick"],
+                                   exact_impl=kw.get("exact_impl",
+                                                     "cascade"))
+            prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
+                runner.topo, 3, 1, 2, max_phases=6))
+            ends.append(runner.run_storm(runner.init_batch_device(), prog))
+        _leaves_equal(*ends)
+        assert int(ends[0].error.max()) == 0

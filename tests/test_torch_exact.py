@@ -9,7 +9,7 @@ device="cpu")`` run the same small storms (sf-32, er-16, ring-8; B=4, S=4,
 sampler's stream position and the error word included — must be equal in
 value and dtype. Tolerance: none. Also: the mid-storm carry from JAX into
 the port, the multi-tick loop, the capacity-overflow regimes, and the
-refusal of the formulation that is not ported (the fold).
+fold, which runs now and is refused only under the adversary.
 """
 
 import functools
@@ -147,9 +147,22 @@ def test_exact_error_regimes_match_jax(overrides, bit):
 
 @pytest.mark.parametrize("impl", ["fold"])
 def test_unported_exact_formulations_raise(impl):
-    """(d) The fold formulation is refused by name (the wave is ported:
-    tests/test_torch_wave.py)."""
+    """(d) Every exact formulation is ported now (the wave:
+    tests/test_torch_wave.py; the fold: tests/test_torch_fold.py): the
+    fold builds and runs a storm equal to the cascade's, and raises only
+    where the JAX fold does, under the adversary (ValueError)."""
+    from chandy_lamport_tpu_torch.models.faults import Faults
+
     spec = workloads.ring_topology(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ends = []
+    for form in (impl, "cascade"):
+        r = BatchedRunner(spec, SimConfig(), HashDelay(1), 2,
+                          scheduler="exact", exact_impl=form, device="cpu")
+        prog = workloads.storm_program(r.topo, 4, 1, workloads.
+                                       staggered_snapshots(r.topo, 1))
+        ends.append(state_to_numpy(r.run_storm(r.init_batch_device(), prog)))
+    _assert_states_equal(*ends)
+    with pytest.raises(ValueError, match="runs uninjured"):
         BatchedRunner(spec, SimConfig(), HashDelay(1), 2, scheduler="exact",
-                      exact_impl=impl, device="cpu")
+                      exact_impl=impl, device="cpu",
+                      faults=Faults(1, drop_rate=0.1))

@@ -340,10 +340,17 @@ def test_faulted_run_ticks_matches_jax():
 # ---- (e) what is not ported --------------------------------------------------
 
 def test_unported_fault_paths_raise():
+    """``DenseSim(faults=)`` is ported (tests/test_torch_dense_faults.py):
+    it arms the one lane with the JAX single instance's key; what raises
+    now is the fold under faults (ValueError, as in JAX)."""
     spec = workloads.ring_topology(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenseSim(spec, FixedDelay(1), faults=Faults(1, drop_rate=0.1),
-                 device="cpu")
+    sim = DenseSim(spec, FixedDelay(1), faults=Faults(1, drop_rate=0.1),
+                   device="cpu")
+    assert int(sim.state.fault_key[0]) == int(
+        Faults(1).init_batch_state(1, "cpu")[0])
+    with pytest.raises(ValueError, match="runs uninjured"):
+        DenseSim(spec, FixedDelay(1), None, "fold",
+                 faults=Faults(1, drop_rate=0.1), device="cpu")
 
 
 def test_faulted_runner_needs_cuda_or_cpu():

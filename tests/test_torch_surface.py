@@ -8,13 +8,19 @@ carry, the leading positional parameters of ``DenseSim`` and
 ``run_events_file`` (``inspect.signature``), and the ``storm`` command
 line: its parser's defaults against the JAX ``storm`` subparser's, one
 tiny storm whose counters line equals the JAX CLI's on the shared keys
-(tolerance: none), each flag whose machinery the port lacks refused by
-name with its ROADMAP item, and each flag the port once refused (the
-checkpoint flags; the fault, supervisor and quarantine flags on the sync
-scheduler) run through both CLIs with equal counters lines. Then the
-repairs C5-C7 (``BatchedRunner``'s and ``TickKernel``'s positional
-order, the JAX top-level names, ``decode_errors(error_bits=)``) and the
-``stream --memo --memo-cache`` row against the JAX CLI's.
+(tolerance: none), and each flag the port once refused (the checkpoint
+flags; the fault, supervisor and quarantine flags on the sync scheduler;
+the A7 flags ``--delay uniform``, ``--window-dtype``, ``--reduce-mode``,
+``--kernel-engine``, ``--fused-tick``, ``--fused-block-edges``; and
+``--exact-impl fold``) run through both CLIs with equal counters lines.
+Then the repairs C5-C7 (``BatchedRunner``'s and ``TickKernel``'s
+positional order, the JAX top-level names, ``decode_errors(
+error_bits=)``) and the ``stream --memo --memo-cache`` row against the
+JAX CLI's. Then A7's surface: ``SimConfig``'s fields in the JAX order with
+the JAX checks, each engine knob accepted and resolved (or refused) by
+name on ``DenseSim`` and ``BatchedRunner`` in the JAX positions,
+``run_events_file``'s keywords, and ``stream``/``bench`` under the
+threefry sampler and uint16 windows.
 """
 
 import inspect
@@ -32,11 +38,7 @@ from chandy_lamport_tpu.models import workloads as jax_workloads
 from chandy_lamport_tpu.ops.delay_jax import HashJaxDelay
 from chandy_lamport_tpu.parallel.batch import BatchedRunner as JaxRunner
 from chandy_lamport_tpu_torch import api
-from chandy_lamport_tpu_torch.__main__ import (
-    _UNPORTED_STORM,
-    _storm_parser,
-    storm_run,
-)
+from chandy_lamport_tpu_torch.__main__ import _storm_parser, storm_run
 from chandy_lamport_tpu_torch.config import SimConfig
 from chandy_lamport_tpu_torch.core.dense import DenseSim
 from chandy_lamport_tpu_torch.models import workloads
@@ -132,7 +134,10 @@ def test_positional_parameters_lead_as_in_jax(port, ref, renamed):
     mine = [renamed.get(name, name) for name in _positional(port)]
     assert mine == _positional(ref)[:len(mine)]
     assert len(mine) >= 2
-    for name in ("device", "trace", "faults", "seed"):
+    # the port's own parameters, and those the missing ``backend`` shifts
+    own = ("device",) if port is DenseSim.__init__ else (
+        "device", "trace", "faults", "seed")
+    for name in own:
         p = inspect.signature(port).parameters.get(name)
         assert p is None or p.kind is inspect.Parameter.KEYWORD_ONLY, name
 
@@ -198,18 +203,33 @@ def _away_from_default(flag):
     return [flag, "2"]
 
 
-@pytest.mark.parametrize("flag, item", _UNPORTED_STORM,
-                         ids=[f[0] for f in _UNPORTED_STORM])
-def test_storm_refuses_unported_flags_by_name(flag, item, capsys):
-    """A flag whose machinery is not ported, set away from its default,
-    is refused before anything runs, naming the flag and its ROADMAP
-    item."""
-    with pytest.raises(SystemExit) as exc:
-        storm_run(TINY_STORM + _away_from_default(flag)
-                  + ["--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and f"ROADMAP {item}" in err
+# the storm flags the port refused by name until A7 was ported
+A7_FLAGS = ("--delay", "--window-dtype", "--reduce-mode", "--kernel-engine",
+            "--fused-tick", "--fused-block-edges")
+
+
+@pytest.mark.parametrize("flag", A7_FLAGS, ids=list(A7_FLAGS))
+def test_storm_refuses_unported_flags_by_name(flag, capsys):
+    """The A7 flags, once refused by name, are ported: set away from its
+    default each runs the tiny storm through the port's and the JAX
+    ``storm`` with equal exit codes and counters lines, or raises the
+    same error in both (``--fused-tick on`` on the sync scheduler, which
+    has no megatick to fuse)."""
+    out = {}
+    for pkg in ("jax", "port"):
+        try:
+            rc = (jax_cli.main(["storm"] + TINY_STORM
+                               + _away_from_default(flag))
+                  if pkg == "jax" else
+                  storm_run(TINY_STORM + _away_from_default(flag)
+                            + ["--device", "cpu"]))
+            out[pkg] = (rc, _last_json(capsys.readouterr().out))
+        except ValueError as exc:
+            out[pkg] = ("ValueError", "fused_tick='on' impossible" in str(
+                exc))
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == (
+        "ValueError" if flag == "--fused-tick" else 0)
 
 
 # the flags the port refused before the checkpoints (A8) and the sync
@@ -285,13 +305,21 @@ def test_storm_runs_the_lifted_flags(flag, capsys, tmp_path):
 
 
 def test_storm_refuses_the_fold_and_runs_faults_on_exact(capsys):
-    """``--exact-impl fold`` is refused naming A5b; the fault flags run on
-    the exact scheduler too, whose counters line then carries the
-    adversary's books."""
-    with pytest.raises(SystemExit):
-        storm_run(TINY_STORM + ["--scheduler", "exact", "--exact-impl",
-                                "fold", "--device", "cpu"])
-    assert "ROADMAP A5b" in capsys.readouterr().err
+    """``--exact-impl fold`` runs (A5b) and prints the JAX CLI's counters
+    line; under a fault flag both CLIs refuse it (ValueError: the fold
+    runs uninjured); the fault flags run on the cascade, whose counters
+    line then carries the adversary's books."""
+    fold = TINY_STORM + ["--scheduler", "exact", "--exact-impl", "fold"]
+    assert jax_cli.main(["storm"] + fold) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert storm_run(fold + ["--device", "cpu"]) == 0
+    assert _last_json(capsys.readouterr().out) == want
+    for run in (lambda: jax_cli.main(["storm"] + fold
+                                     + ["--fault-drop", "0.1"]),
+                lambda: storm_run(fold + ["--fault-drop", "0.1",
+                                          "--device", "cpu"])):
+        with pytest.raises(ValueError, match="runs uninjured"):
+            run()
     assert storm_run(TINY_STORM + ["--scheduler", "exact", "--megatick",
                                    "4", "--fault-drop", "0.05",
                                    "--device", "cpu"]) == 0
@@ -307,9 +335,8 @@ def test_batched_runner_positional_order_as_jax():
     """``BatchedRunner(topo, cfg, delay, 4, "exact", 0, "wave")`` takes
     the wave in both packages (the JAX 7th positional parameter is
     ``exact_impl``), and the two give equal stream rows on a ring-8 pool;
-    the port's parameters after ``exact_impl`` are keyword-only (the JAX
-    8th is ``auto_layouts``, which the port lacks), ``device`` among
-    them."""
+    every parameter has the JAX position and default (``auto_layouts``
+    8th), and the port's own ``device`` is keyword-only."""
     jspec = jax_workloads.ring_topology(8)
     jr = JaxRunner(jspec, JaxSimConfig.for_workload(snapshots=4),
                    HashJaxDelay(seed=11), 4, "exact", 0, "wave")
@@ -317,17 +344,14 @@ def test_batched_runner_positional_order_as_jax():
                        SimConfig.for_workload(snapshots=4), HashDelay(11),
                        4, "exact", 0, "wave", device="cpu")
     assert pr.kernel.exact_impl == jr.kernel.exact_impl == "wave"
+    # every JAX parameter in its position (A7 brought auto_layouts, the
+    # 8th, so the tail is positional too); the port's device keyword-only
     assert _positional(BatchedRunner.__init__) == \
-        _positional(JaxRunner.__init__)[:7]
+        _positional(JaxRunner.__init__)
     params = inspect.signature(BatchedRunner.__init__).parameters
-    for name in ("device", "faults", "quarantine", "trace", "megatick",
-                 "memo", "memo_cache", "memo_cache_entries",
-                 "memo_cache_bytes", "prefix_cache", "prefix_cache_entries",
-                 "prefix_cache_bytes"):
-        assert params[name].kind is inspect.Parameter.KEYWORD_ONLY, name
-    with pytest.raises(TypeError):
-        BatchedRunner(workloads.ring_topology(8), None, HashDelay(1), 4,
-                      "exact", 0, "cascade", "cpu")
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    for name, p in inspect.signature(JaxRunner.__init__).parameters.items():
+        assert params[name].default == p.default, name
     jobs = jax_workloads.stream_jobs(jspec, 8, seed=5, max_phases=10)
     _, jst = jr.run_stream(jr.pack_jobs(jobs), stretch=3, drain_chunk=16)
     from test_torch_stream import _port_job
@@ -421,3 +445,197 @@ def test_stream_command_memo_equals_the_jax_cli(capsys, tmp_path):
             {k: v for k, v in want.items() if k not in clock}
         assert got["memo"] == "admit" and got["jobs_errored"] == 0
     assert got["cache_hits"] == 10 and got["shadow_checks"] == 1
+
+
+# ---- A7: the config knobs, the constructors' keywords, run_events_file -----
+
+def test_simconfig_fields_in_the_jax_order():
+    """``SimConfig``'s fields are the JAX ones in the JAX order, with its
+    defaults, so a positional call lands on the same fields."""
+    import dataclasses
+
+    fields = [f.name for f in dataclasses.fields(SimConfig)]
+    assert fields == [f.name for f in dataclasses.fields(JaxSimConfig)]
+    assert dataclasses.asdict(SimConfig()) == dataclasses.asdict(
+        JaxSimConfig())
+    args = (24, 4, 64, 5, 900, "int16", "uint16", "float32", "segsum",
+            "dense", "pallas", "off", "on", 30, 2, 7, 16)
+    assert dataclasses.asdict(SimConfig(*args)) == dataclasses.asdict(
+        JaxSimConfig(*args))
+
+
+@pytest.mark.parametrize("field, bad", [
+    ("count_dtype", "int8"), ("reduce_mode", "sum"),
+    ("comm_engine", "mesh"), ("kernel_engine", "cuda"),
+    ("fused_tick", "yes"), ("fused_tile", "maybe"),
+    ("window_dtype", "int16")])
+def test_config_knobs_checked_as_jax(field, bad):
+    """A knob's unknown spelling raises ValueError with the JAX message."""
+    with pytest.raises(ValueError) as want:
+        JaxSimConfig(**{field: bad})
+    with pytest.raises(ValueError) as got:
+        SimConfig(**{field: bad})
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("knob, values", [
+    ("kernel_engine", ("auto", "xla", "pallas")),
+    ("queue_engine", ("auto", "gather", "mask")),
+    ("reduce_mode", ("auto", "matmul", "segsum")),
+    ("count_dtype", ("auto", "bfloat16", "float32")),
+    ("comm_engine", ("auto", "dense", "sparse"))])
+def test_engine_knobs_resolve_to_the_port_engine(knob, values):
+    """Every spelling of each knob is accepted, on the constructor or the
+    config, and resolves to what the port runs with a reason naming the
+    spelling; the storms are equal whichever is set."""
+    spec = workloads.ring_topology(6)
+    ends = []
+    for value in values:
+        ctor = {k: value for k in ("kernel_engine", "queue_engine")
+                if k == knob}
+        cfg = SimConfig(**{k: value for k in ("reduce_mode", "count_dtype",
+                                              "comm_engine") if k == knob})
+        r = BatchedRunner(spec, cfg, HashDelay(3), 2, device="cpu", **ctor)
+        got, why = getattr(r.kernel, knob), getattr(r.kernel, f"{knob}_reason")
+        if knob == "comm_engine":
+            assert got == value
+        else:
+            assert got == {"kernel_engine": "plain", "queue_engine": "gather",
+                           "reduce_mode": "segsum",
+                           "count_dtype": "int32"}[knob]
+            assert repr(value) in why
+        prog = workloads.storm_program(r.topo, 4, 1, workloads.
+                                       staggered_snapshots(r.topo, 1))
+        ends.append(state_to_numpy(r.run_storm(r.init_batch_device(), prog)))
+    for other in ends[1:]:
+        _assert_states_equal(ends[0], other)
+
+
+def test_bfloat16_counts_refused_as_jax():
+    """A forced bfloat16 count past its exact degree bound raises the JAX
+    ValueError on the matmul formulation its "auto" picks (a 300-node
+    star's hub), not on "segsum"."""
+    from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+
+    nodes = [("H", 1)] + [(f"L{i}", 1) for i in range(300)]
+    links = ([(f"L{i}", "H") for i in range(300)]
+             + [("H", f"L{i}") for i in range(300)])
+    spec = TopologySpec(nodes, links)
+    from chandy_lamport_tpu.ops.tick import TickKernel as JaxTickKernel
+    from chandy_lamport_tpu.core.state import DenseTopology as JaxTopo
+    from chandy_lamport_tpu.utils.fixtures import TopologySpec as JaxSpec
+
+    with pytest.raises(ValueError) as want:
+        JaxTickKernel(JaxTopo(JaxSpec(nodes, links)),
+                      JaxSimConfig(count_dtype="bfloat16"),
+                      HashJaxDelay(1), "split")
+    with pytest.raises(ValueError) as got:
+        BatchedRunner(spec, SimConfig(count_dtype="bfloat16"), HashDelay(1),
+                      2, scheduler="sync", device="cpu")
+    assert str(got.value) == str(want.value)
+    BatchedRunner(spec, SimConfig(count_dtype="bfloat16",
+                                  reduce_mode="segsum"), HashDelay(1), 2,
+                  scheduler="sync", device="cpu")
+
+
+def test_fused_knobs_on_the_runners():
+    """``fused_tick`` (constructor or config): "off" runs the megaticks
+    as single ticks, equal to "auto"; "on" raises naming every unmet
+    requirement; ``fused_tile`` "on" forces the workspace, "off" refuses
+    a lane past shared memory under "on" (``resolve_fused``);
+    ``fused_block_edges`` moves nothing and says so; ``auto_layouts``
+    resolves to the one layout, labelled."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+
+    spec = workloads.ring_topology(6)
+    ends = []
+    for knob in ("off", "auto"):
+        r = BatchedRunner(spec, SimConfig(fused_tick=knob), HashDelay(3), 2,
+                          megatick=4, device="cpu", fused_block_edges=64)
+        assert r.fused == "off" and "nothing moves" in \
+            r.kernel.fused_block_edges_reason
+        prog = workloads.storm_program(r.topo, 4, 1, workloads.
+                                       staggered_snapshots(r.topo, 1))
+        ends.append(state_to_numpy(r.run_storm(r.init_batch_device(), prog)))
+    _assert_states_equal(*ends)
+    with pytest.raises(ValueError) as exc:
+        BatchedRunner(spec, None, HashDelay(3), 2, scheduler="sync",
+                      device="cpu", fused_tick="on")
+    assert "2 unmet" in str(exc.value) and "megatick=1" in str(exc.value)
+    cuda = torch.device("cuda")
+    assert km.resolve_fused(megatick=8, device=cuda, smem_bytes=100,
+                            fused_tile="on")[2] == "on"
+    with pytest.raises(ValueError, match="fused_tile='off'"):
+        km.resolve_fused(megatick=8, device=cuda, smem_bytes=km.SMEM_BUDGET
+                         + 1, fused_tick="on", fused_tile="off")
+    assert km.resolve_fused(megatick=8, device=cuda, smem_bytes=km.
+                            SMEM_BUDGET + 1, fused_tile="off")[0] == "off"
+    r = BatchedRunner(spec, None, HashDelay(3), 2, "exact", 0, "cascade",
+                      True, device="cpu")
+    assert r.auto_layouts and r.layouts_effective == \
+        "default(auto-unavailable)" and "row-major" in r.layouts_reason
+    with pytest.raises(ValueError, match="fused_block_edges"):
+        BatchedRunner(spec, None, HashDelay(3), 2, device="cpu",
+                      fused_block_edges=-1)
+
+
+def test_constructors_take_the_jax_keywords():
+    """``DenseSim`` and ``BatchedRunner`` take every JAX keyword in the
+    JAX position; ``guards`` (ROADMAP A12) raises NotImplementedError by
+    name; the resolutions are on the objects."""
+    spec = workloads.ring_topology(4)
+    sim = DenseSim(spec, HashDelay(1), None, "cascade", 4, "mask", "xla",
+                   None, None, "off", 32, device="cpu")
+    assert (sim.kernel.queue_engine, sim.kernel_engine, sim.fused) == (
+        "gather", "plain", "off")
+    assert "fused_tick='off'" in sim.fused_reason
+    jnames = [p for p in inspect.signature(JaxDenseSim.__init__).parameters
+              if p != "self"]
+    mine = [{"delay": "delay_model"}.get(p, p)
+            for p in inspect.signature(DenseSim.__init__).parameters
+            if p not in ("self", "device")]
+    assert mine == jnames
+    with pytest.raises(NotImplementedError, match="A12"):
+        BatchedRunner(spec, None, HashDelay(1), 2, device="cpu",
+                      guards=object())
+
+
+def test_run_events_file_keywords_are_the_jax_ones():
+    """``run_events_file``'s keywords are the JAX function's, with its
+    defaults, less ``backend`` (the parity backend, ROADMAP A12), plus
+    the port's ``device``."""
+    mine = inspect.signature(api.run_events_file).parameters
+    want = inspect.signature(jax_api.run_events_file).parameters
+    assert set(mine) - {"device"} == set(want) - {"backend"}
+    for name, p in want.items():
+        if name not in ("backend", "top_path", "events_path"):
+            assert mine[name].default == p.default, name
+
+
+def test_stream_and_bench_take_uniform_and_uint16(capsys):
+    """``stream --delay uniform`` prints the JAX CLI's row; ``bench
+    --delay uniform --window-dtype uint16 --exact-impl fold`` runs a
+    clean storm."""
+    from chandy_lamport_tpu_torch import bench
+    from chandy_lamport_tpu_torch.__main__ import stream_run
+
+    flags = ["--graph", "ring", "--nodes", "8", "--batch", "4", "--jobs",
+             "8", "--max-phases", "8", "--snapshots", "2", "--delay",
+             "uniform", "--scheduler", "exact"]
+    clock = ("wall_seconds", "jobs_per_sec", "effective_jobs_per_sec")
+    assert jax_cli.main(["stream"] + flags) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert stream_run(flags + ["--device", "cpu"]) == 0
+    got = _last_json(capsys.readouterr().out)
+    assert {k: v for k, v in got.items() if k not in clock} == \
+        {k: v for k, v in want.items() if k not in clock}
+    assert bench.main(["--device", "cpu", "--scheduler", "exact",
+                       "--exact-impl", "fold", "--graph", "er", "--nodes",
+                       "12", "--batch", "2", "--phases", "4", "--snapshots",
+                       "2", "--repeats", "1", "--megatick", "4", "--delay",
+                       "uniform", "--window-dtype", "uint16"]) == 0
+    row = _last_json(capsys.readouterr().out)
+    assert row["error_bits"] == 0 and row["scheduler"] == "exact/fold"
+    assert row["delay"] == "uniform"

@@ -355,16 +355,15 @@ def test_wave_counter_wrap_inside_a_tick():
 def test_wave_refuses_order_dependent_sampler():
     """The Go-exact stream draws by order, not position: the wave refuses
     it at construction (ValueError), in the batched runner and in
-    ``DenseSim``; "fold" stays unported."""
+    ``DenseSim``; the fold, which draws in stream order, takes it."""
     spec = workloads.ring_topology(4, tokens=10)
     with pytest.raises(ValueError, match="position-addressable"):
         BatchedRunner(spec, SimConfig(max_snapshots=2), GoExactDelay(7), 2,
                       scheduler="exact", exact_impl="wave", device="cpu")
     with pytest.raises(ValueError, match="position-addressable"):
         DenseSim(spec, GoExactDelay(7), device="cpu", exact_impl="wave")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        BatchedRunner(spec, SimConfig(), HashDelay(1), 2, scheduler="exact",
-                      exact_impl="fold", device="cpu")
+    sim = DenseSim(spec, GoExactDelay(7), device="cpu", exact_impl="fold")
+    assert sim.kernel.exact_impl == "fold"
 
 
 def test_wave_bench_row(capsys):
