@@ -11,7 +11,8 @@ compiled event scripts and the streaming job engine
 (``BatchedRunner.run``, ``run_stream``), the flight recorder
 (``utils/tracing.py``, ``trace=``), checkpoints (``utils/checkpoint.py``),
 the stream's memo plane (``BatchedRunner(memo=...)``,
-``utils/memocache.py``), and the Pallas kernels of those paths
+``utils/memocache.py``), the serving front-end (``serving/``) with the
+runtime guards (``utils/guards.py``), and the Pallas kernels of those paths
 hand-written in CUDA C++ (``kernels/csrc``).
 It imports neither jax nor chandy_lamport_tpu.
 
@@ -26,7 +27,9 @@ Entry points run on the card unless the caller passes ``device="cpu"``::
 A batched storm with the JAX CLI's defaults and counters line: ``python
 -m chandy_lamport_tpu_torch storm``; the bench row: ``python -m
 chandy_lamport_tpu_torch bench`` (``--stream`` for the streaming row); a
-job stream: ``python -m chandy_lamport_tpu_torch stream``; the 7
+job stream: ``python -m chandy_lamport_tpu_torch stream``; a served
+schedule (``serving.serve_run``): ``python -m chandy_lamport_tpu_torch
+serve``; the 7
 reference goldens: ``python -m chandy_lamport_tpu_torch test``; a
 fixture's timeline: ``python -m chandy_lamport_tpu_torch trace TOP
 EVENTS``.

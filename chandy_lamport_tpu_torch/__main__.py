@@ -11,6 +11,10 @@
     python -m chandy_lamport_tpu_torch stream [flags]  a streaming run: a
                                                        job queue over B
                                                        lane slots
+    python -m chandy_lamport_tpu_torch serve [flags]   online multi-tenant
+                                                       serving over the
+                                                       stream step (the
+                                                       JAX CLI's ``serve``)
     python -m chandy_lamport_tpu_torch test [--device cpu]
                                                        the 7 reference goldens
                                                        (DenseSim, megatick 8)
@@ -367,8 +371,8 @@ def storm_run(argv) -> int:
 
 
 def _stream_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's ``stream`` flags (``cli.py:753-855``) less guards
-    and telemetry, plus ``--device``."""
+    """The JAX CLI's ``stream`` flags (``cli.py:753-855``), plus
+    ``--device``."""
     pq = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
                                       "stream")
     pq.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
@@ -461,6 +465,16 @@ def _stream_parser() -> argparse.ArgumentParser:
     pq.add_argument("--trace-capacity", type=int, default=0, metavar="K",
                     help="ring slots per lane (0 = Trace's default when "
                          "--trace is set); implies --trace when > 0")
+    pq.add_argument("--telemetry", metavar="PATH",
+                    help="append a stream_run row plus one stream_job row "
+                         "per harvested job as schema-versioned JSONL")
+    pq.add_argument("--guards", action="store_true",
+                    help="arm the runtime contract guards "
+                         "(utils/guards.RuntimeGuards): the steady-state "
+                         "loop runs under torch.cuda.set_sync_debug_mode("
+                         "'error') with a kernel-build counter; adds a "
+                         "guards (compiles + per-site transfer) books dict "
+                         "to the JSON row")
     pq.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain versions)")
@@ -489,7 +503,12 @@ def stream_run(argv) -> int:
     from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
     from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
     from chandy_lamport_tpu_torch.utils.checkpoint import load_state
-    from chandy_lamport_tpu_torch.utils.tracing import Trace, trace_counts
+    from chandy_lamport_tpu_torch.utils.guards import RuntimeGuards
+    from chandy_lamport_tpu_torch.utils.tracing import (
+        TelemetryWriter,
+        Trace,
+        trace_counts,
+    )
 
     args = _stream_parser().parse_args(argv)
     if args.checkpoint_every and not args.checkpoint:
@@ -513,12 +532,13 @@ def stream_run(argv) -> int:
             jitter_rate=args.fault_jitter)
     trace = (Trace(capacity=args.trace_capacity)
              if args.trace or args.trace_capacity else None)
+    guards = RuntimeGuards() if args.guards else None
     runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, args.seed),
                            batch=args.batch, scheduler=args.scheduler,
                            device=device, faults=faults,
                            quarantine=faults is not None, trace=trace,
                            memo=args.memo, memo_cache=args.memo_cache,
-                           prefix_cache=args.prefix_cache)
+                           prefix_cache=args.prefix_cache, guards=guards)
     jcount = args.jobs or 3 * args.batch
     jobs = stream_jobs(spec, jcount, seed=args.seed,
                        base_phases=args.base_phases,
@@ -568,17 +588,237 @@ def stream_run(argv) -> int:
                              for r in errored[:16]}
     if trace is not None:
         row["trace_events"], row["trace_dropped"] = trace_counts(state)
+    if guards is not None:
+        row["guards"] = guards.books()
+    if args.telemetry:
+        with TelemetryWriter(args.telemetry) as tw:
+            tw.write("stream_run", row)
+            for r in results:
+                tw.write("stream_job", r)
+        row["telemetry"] = args.telemetry
     print(json.dumps(row))
     return 0 if (faults is not None or not errored) else 1
 
 
+def _serve_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's ``serve`` flags (``cli.py:857-946``) with its
+    defaults, plus ``--device``."""
+    pz = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
+                                      "serve")
+    pz.add_argument("--graph", choices=["ring", "er", "sf"], default="sf")
+    pz.add_argument("--nodes", type=int, default=256)
+    pz.add_argument("--batch", type=int, default=64,
+                    help="lane slots B (device batch width)")
+    pz.add_argument("--requests", type=int, default=0,
+                    help="request count J (0 = 3x batch)")
+    pz.add_argument("--rate", type=float, default=2.0,
+                    help="open-loop Poisson arrival rate in requests per "
+                         "stream step (models/workloads.serve_workload)")
+    pz.add_argument("--tenants", type=int, default=4,
+                    help="Zipf-weighted tenant population")
+    pz.add_argument("--priorities", type=int, default=2,
+                    help="priority classes (higher class admits first "
+                         "under edf)")
+    pz.add_argument("--deadline-slack", type=int, nargs=2,
+                    default=[64, 256], metavar=("LO", "HI"),
+                    help="per-request deadline = arrival + uniform[LO, HI] "
+                         "stream steps; misses are counted in the carry")
+    pz.add_argument("--quota", metavar="N,N,...",
+                    help="per-tenant admission caps, comma-separated in "
+                         "tenant order (0 = unlimited); requests over "
+                         "quota are refused at ingest")
+    pz.add_argument("--serve-policy", choices=["edf", "fifo"],
+                    default="edf",
+                    help="admission ordering (config.ENGINE_KNOBS): 'edf' "
+                         "= earliest deadline first within priority "
+                         "class; 'fifo' = arrival order (the baseline)")
+    pz.add_argument("--dup-rate", type=float, default=0.0, metavar="R",
+                    help="fraction of requests repeating a Zipf-drawn "
+                         "library job byte for byte: served by the memo "
+                         "plane without a lane")
+    pz.add_argument("--base-phases", type=int, default=4)
+    pz.add_argument("--tail-alpha", type=float, default=1.1)
+    pz.add_argument("--max-phases", type=int, default=32)
+    pz.add_argument("--snapshots", type=int, default=8)
+    pz.add_argument("--scheduler", choices=["sync", "exact"], default="sync")
+    pz.add_argument("--kernel-engine", choices=["auto", "xla", "pallas"],
+                    default="auto",
+                    help="the JAX tick-kernel engine knob; the port has one "
+                         "engine, so every choice runs it")
+    pz.add_argument("--fused-tick", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="the JAX one-kernel megatick knob; this command "
+                         "runs megatick 1, where no megatick is fused")
+    pz.add_argument("--seed", type=int, default=0)
+    pz.add_argument("--delay", choices=["uniform", "hash"], default="hash")
+    pz.add_argument("--stretch", type=int, default=4)
+    pz.add_argument("--drain-chunk", type=int, default=32)
+    pz.add_argument("--results-capacity", type=int, default=0,
+                    help="results-ring slots (0 = one per request; must "
+                         "cover every executed job)")
+    pz.add_argument("--memo-cache", metavar="PATH",
+                    help="persistent summary cache (utils/memocache.py; "
+                         "the JAX package's format): warm digests are "
+                         "served at ingest, without a lane")
+    pz.add_argument("--memo-cache-entries", type=int, default=0,
+                    help="summary-cache LRU capacity in entries (0 = "
+                         "unbounded)")
+    pz.add_argument("--memo-cache-bytes", type=int, default=0,
+                    help="summary-cache LRU capacity in serialized bytes "
+                         "(0 = unbounded)")
+    pz.add_argument("--exec-cache", metavar="DIR",
+                    help="shape-bucketed serve-step cache directory "
+                         "(serving/executables.py): a restarted server at "
+                         "a seen bucket loads the built kernels without "
+                         "nvcc")
+    pz.add_argument("--checkpoint", help="save the (state, stream) carry "
+                                         "to this .npz")
+    pz.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                    help="checkpoint every K stream steps; a killed server "
+                         "resumes via --resume-from bit-exactly")
+    pz.add_argument("--resume-from", metavar="PATH",
+                    help="resume a killed serve run of either package "
+                         "(pass the same flags)")
+    pz.add_argument("--kill-after-saves", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    pz.add_argument("--telemetry", metavar="PATH",
+                    help="schema-versioned JSONL: one serve_interval row "
+                         "per --telemetry-interval steps, a final "
+                         "serve_run row and one serve_job row per served "
+                         "request")
+    pz.add_argument("--telemetry-interval", type=int, default=64,
+                    metavar="K")
+    pz.add_argument("--guards", action="store_true",
+                    help="arm the runtime contract guards "
+                         "(utils/guards.RuntimeGuards) around the serve "
+                         "loop; adds a guards books dict to the JSON row")
+    pz.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "plain versions)")
+    return pz
+
+
+def serve_cmd(argv) -> int:
+    """The JAX CLI's ``serve`` (``cli.py:443-555``) on the port: a
+    ``serve_workload`` schedule served by ``serving.serve_run``, one JSON
+    row (``summarize_stream``'s counters, the serve report, the flags'
+    echo, the errored jobs and, with ``--guards``, the guard books).
+    Exit 1 when a job erred, 17 after ``--kill-after-saves``, 2 on
+    ``--checkpoint-every`` without ``--checkpoint``."""
+    from chandy_lamport_tpu_torch.config import SimConfig
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        ring_topology,
+        scale_free,
+        serve_workload,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import make_fast_delay
+    from chandy_lamport_tpu_torch.parallel.batch import BatchedRunner
+    from chandy_lamport_tpu_torch.serving import ExecutableCache, serve_run
+    from chandy_lamport_tpu_torch.utils.checkpoint import load_state
+    from chandy_lamport_tpu_torch.utils.guards import RuntimeGuards
+    from chandy_lamport_tpu_torch.utils.tracing import TelemetryWriter
+
+    args = _serve_parser().parse_args(argv)
+    if args.checkpoint_every and not args.checkpoint:
+        print("--checkpoint-every needs --checkpoint PATH (the file the "
+              "periodic (state, stream) snapshots land in)", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    tokens = args.max_phases + 10
+    spec = {"ring": lambda: ring_topology(args.nodes, tokens=tokens),
+            "er": lambda: erdos_renyi(args.nodes, 3.0, args.seed,
+                                      tokens=tokens),
+            "sf": lambda: scale_free(args.nodes, 2, args.seed,
+                                     tokens=tokens)}[args.graph]()
+    cfg = SimConfig.for_workload(snapshots=args.snapshots,
+                                 split_markers=args.scheduler == "sync")
+    guards = RuntimeGuards() if args.guards else None
+    runner = BatchedRunner(spec, cfg, make_fast_delay(args.delay, args.seed),
+                           batch=args.batch, scheduler=args.scheduler,
+                           kernel_engine=args.kernel_engine,
+                           fused_tick=args.fused_tick,
+                           memo_cache=args.memo_cache,
+                           memo_cache_entries=args.memo_cache_entries,
+                           memo_cache_bytes=args.memo_cache_bytes,
+                           guards=guards, device=device)
+    rcount = args.requests or 3 * args.batch
+    quotas = ([int(x) for x in args.quota.split(",")] if args.quota
+              else None)
+    reqs = serve_workload(spec, rcount, seed=args.seed, rate=args.rate,
+                          tenants=args.tenants, priorities=args.priorities,
+                          deadline_slack=tuple(args.deadline_slack),
+                          dup_rate=args.dup_rate,
+                          base_phases=args.base_phases,
+                          tail_alpha=args.tail_alpha,
+                          max_phases=args.max_phases)
+    state = stream = None
+    if args.resume_from:
+        # a fresh carry of the same flags is the template: the serving
+        # books (deadline misses, per-tenant counts) ride the carry
+        tenants = max(args.tenants, len(quotas) if quotas else 0)
+        pool = runner.pack_jobs([r.events for r in reqs],
+                                content_keys=True)
+        like = (runner.init_batch_device(),
+                runner.init_stream(
+                    pool, args.results_capacity, tenants=tenants,
+                    tenant_quota=(list(quotas)
+                                  + [0] * (tenants - len(quotas))
+                                  if quotas else None)))
+        (state, stream), meta = load_state(args.resume_from, like,
+                                           delay=runner.delay)
+        print(f"resumed from {args.resume_from} at {meta}", file=sys.stderr)
+    telemetry = TelemetryWriter(args.telemetry) if args.telemetry else None
+    try:
+        state, stream, report = serve_run(
+            runner, reqs, policy=args.serve_policy, quotas=quotas,
+            stretch=args.stretch, drain_chunk=args.drain_chunk,
+            results_capacity=args.results_capacity, state=state,
+            stream=stream, checkpoint=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            kill_after_saves=args.kill_after_saves,
+            telemetry=telemetry,
+            telemetry_interval=args.telemetry_interval,
+            exec_cache=(ExecutableCache(args.exec_cache)
+                        if args.exec_cache else None))
+        if report["killed"]:
+            # the preemption drill: stop right after that many saves
+            print(json.dumps({"killed_after_steps": report["steps"],
+                              "checkpoint": args.checkpoint}))
+            return 17
+        rows = runner.stream_results(stream)
+        if telemetry is not None:
+            for r in rows:
+                telemetry.write("serve_job", r)
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+    row = runner.summarize_stream(stream)
+    row.update(report)
+    row.update({"graph": args.graph, "nodes": runner.topo.n,
+                "batch": args.batch, "rate": args.rate,
+                "dup_rate": args.dup_rate, "scheduler": args.scheduler,
+                "serve_policy": args.serve_policy})
+    errored = [r for r in rows if r["error"]]
+    row["jobs_errored"] = len(errored)
+    if errored:
+        row["job_errors"] = {r["job"]: r["errors_decoded"]
+                             for r in errored[:16]}
+    if guards is not None:
+        row["guards"] = guards.books()
+    if args.telemetry:
+        row["telemetry"] = args.telemetry
+    print(json.dumps(row))
+    return 0 if not errored else 1
+
+
 COMMANDS = {"storm": storm_run, "bench": bench_main, "stream": stream_run,
-            "test": golden_test, "trace": trace_run}
+            "serve": serve_cmd, "test": golden_test, "trace": trace_run}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
     if not args or args[0] not in COMMANDS:
         sys.exit("usage: python -m chandy_lamport_tpu_torch "
-                 "{storm,bench,stream,test,trace} [flags] (see <command> "
-                 "--help)")
+                 "{storm,bench,stream,serve,test,trace} [flags] (see "
+                 "<command> --help)")
     sys.exit(COMMANDS[args[0]](args[1:]))

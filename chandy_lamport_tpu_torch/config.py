@@ -25,12 +25,16 @@ MAX_DELAY = 5
 # rand.Seed(seed + 1)).
 REFERENCE_TEST_SEED = 8053172852482175523
 
-# the engine knobs' spellings, "auto" first (the JAX ``ENGINE_KNOBS`` rows
-# the port's config and constructors validate against)
+# the engine knobs' spellings (the JAX ``ENGINE_KNOBS`` rows, in its
+# order, that the port's config and constructors validate against)
 ENGINE_KNOBS = {
     "queue_engine": ("auto", "gather", "mask"),
     "comm_engine": ("auto", "dense", "sparse"),
     "kernel_engine": ("auto", "xla", "pallas"),
+    # explicit policies, not "auto"-first: resolution is validation
+    # (utils/memocache.resolve_memo, serving/admission.resolve_serve_policy)
+    "memo": ("off", "admit", "full", "prefix"),
+    "serve_policy": ("edf", "fifo"),
     "fused_tick": ("auto", "on", "off"),
     "fused_tile": ("auto", "on", "off"),
 }

@@ -163,6 +163,96 @@ def stream_jobs(spec: TopologySpec, count: int, seed: int,
     return jobs
 
 
+class ServeRequest(NamedTuple):
+    """One job of an open-loop serving workload (serving/server.py): the
+    event-list payload and the service metadata the admission policy
+    orders by. ``arrival_step`` and ``deadline_step`` are absolute
+    stream-step clocks; ``priority`` is higher-wins."""
+
+    job: int            # index into the packed pool (== list position)
+    arrival_step: int   # stream step the job becomes visible to admission
+    tenant: int         # tenant id in [0, tenants)
+    priority: int       # admission class, higher admitted first
+    deadline_step: int  # absolute harvest-by step (arrival + slack)
+    events: List[Event]
+
+
+def serve_workload(spec: TopologySpec, count: int, seed: int,
+                   rate: float = 1.0, tenants: int = 4,
+                   priorities: int = 2,
+                   deadline_slack: Tuple[int, int] = (64, 256),
+                   dup_rate: float = 0.0, base_phases: int = 4,
+                   tail_alpha: float = 1.1, max_phases: int = 64,
+                   amount: int = 1, snapshots_per_job: int = 1,
+                   ) -> List[ServeRequest]:
+    """A seeded Poisson/Zipf open-loop serving trace: ``count`` jobs whose
+    scripts are the ``stream_jobs`` mix (``dup_rate`` the Zipf duplicate
+    share), arriving at Poisson times (exponential inter-arrivals of mean
+    ``1/rate`` stream steps, accumulated and floored onto the step
+    clock). Tenants are drawn with weight 1/(t+1), priorities uniformly
+    over ``priorities`` classes, and each deadline is the arrival plus a
+    uniform slack from ``deadline_slack``. Deterministic in ``seed``, and
+    equal to the JAX ``serve_workload`` for equal arguments. Returned in
+    arrival order."""
+    if count < 1:
+        raise ValueError("count must be >= 1")
+    if rate <= 0.0:
+        raise ValueError("rate must be > 0 (jobs per stream step)")
+    if tenants < 1 or priorities < 1:
+        raise ValueError("tenants and priorities must be >= 1")
+    lo, hi = int(deadline_slack[0]), int(deadline_slack[1])
+    if not 0 < lo <= hi:
+        raise ValueError("deadline_slack must be 0 < lo <= hi")
+    jobs = stream_jobs(spec, count, seed, base_phases=base_phases,
+                       tail_alpha=tail_alpha, max_phases=max_phases,
+                       amount=amount, snapshots_per_job=snapshots_per_job,
+                       dup_rate=dup_rate)
+    rng = random.Random(seed + 0x5E12E)
+    tweights = [1.0 / (t + 1) for t in range(tenants)]
+    clock = 0.0
+    reqs: List[ServeRequest] = []
+    for j, ev in enumerate(jobs):
+        clock += rng.expovariate(rate)
+        arrival = int(clock)
+        reqs.append(ServeRequest(
+            job=j, arrival_step=arrival,
+            tenant=rng.choices(range(tenants), weights=tweights)[0],
+            priority=rng.randrange(priorities),
+            deadline_step=arrival + rng.randint(lo, hi),
+            events=ev))
+    return reqs
+
+
+def burst_workload(spec: TopologySpec, count: int, seed: int,
+                   rate: float = 1.0, burst_period: int = 32,
+                   burst_factor: float = 8.0,
+                   **kwargs) -> List[ServeRequest]:
+    """A bursty open-loop serving trace: the ``serve_workload`` mix with
+    its arrivals re-timed by an on/off rate, ``burst_factor`` times
+    ``rate`` in the first half of each ``burst_period`` steps and
+    ``rate / burst_factor`` in the second, so the backlog builds in
+    waves. Each request keeps its deadline slack; tenants, priorities
+    and scripts are untouched. Deterministic in ``seed`` (the JAX
+    ``burst_workload``); other keywords go to ``serve_workload``."""
+    if burst_period < 2:
+        raise ValueError("burst_period must be >= 2 steps")
+    if burst_factor <= 1.0:
+        raise ValueError("burst_factor must be > 1")
+    reqs = serve_workload(spec, count, seed, rate=rate, **kwargs)
+    rng = random.Random(seed + 0xB125)
+    clock = 0.0
+    out: List[ServeRequest] = []
+    for r in reqs:
+        on = (int(clock) % int(burst_period)) < int(burst_period) // 2
+        eff = rate * burst_factor if on else rate / burst_factor
+        clock += rng.expovariate(eff)
+        arrival = int(clock)
+        slack = r.deadline_step - r.arrival_step
+        out.append(r._replace(arrival_step=arrival,
+                              deadline_step=arrival + slack))
+    return out
+
+
 class StormProgram(NamedTuple):
     """Compiled storm traffic: T phases, each = bulk sends + snapshot
     initiations + one tick."""

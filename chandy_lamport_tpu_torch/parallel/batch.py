@@ -67,6 +67,13 @@ from chandy_lamport_tpu_torch.ops.tick import (
     reset_lanes,
 )
 from chandy_lamport_tpu_torch.utils.fixtures import TopologySpec
+from chandy_lamport_tpu_torch.utils.guards import (
+    armed,
+    guarded_get,
+    guarded_put,
+    host_sync,
+    relaxed_site,
+)
 from chandy_lamport_tpu_torch.utils.memocache import (
     MemoCacheError,
     PrefixCache,
@@ -90,6 +97,8 @@ from chandy_lamport_tpu_torch.utils.tracing import (
     EV_LANE_HARVEST,
     EV_MEMO_HIT,
     EV_PREFIX_FORK,
+    EV_SERVE_ADMIT,
+    EV_SERVE_MISS,
     armed_config,
     trace_append_lanes,
     trace_counts,
@@ -297,9 +306,10 @@ class JobPool(NamedTuple):
 class StreamState(NamedTuple):
     """The streaming engine's carry beside the lane batch (the JAX
     ``StreamState``, leaf for leaf): admission and occupancy books, the
-    memo and prefix counters, the serving books (zeros: serving is not
-    ported) and the per-job results ring the harvest writes. Every leaf
-    is an int32 tensor on the runner's device. ``cache_hits``,
+    memo and prefix counters, the serving books (serving/server.py; a
+    plain stream keeps one zero tenant) and the per-job results ring the
+    harvest writes. Every leaf is an int32 tensor on the runner's
+    device. ``cache_hits``,
     ``coalesced_jobs``, ``shadow_checks`` and ``prefix_hits`` are set by
     the host when a memoized run ends; ``ff_skipped_ticks``,
     ``forked_jobs`` and ``fork_depth_sum`` accumulate on the device, so a
@@ -318,7 +328,7 @@ class StreamState(NamedTuple):
     prefix_hits: Any       # []  jobs planned to fork from a checkpoint
     forked_jobs: Any       # []  fork admissions made
     fork_depth_sum: Any    # []  phases skipped by forks
-    deadline_misses: Any   # []  serving plane (A10): 0
+    deadline_misses: Any   # []  harvests past their job's deadline
     tenant_served: Any     # [T]
     tenant_quota: Any      # [T]
     res_count: Any         # []  results written (the ring wraps past R)
@@ -456,15 +466,13 @@ class BatchedRunner:
         ``self.layouts_reason``); ``queue_engine``, ``kernel_engine``,
         ``fused_tick``, ``fused_block_edges`` and ``fused_tile`` (None:
         the config's), resolved by ``ops/tick.TickKernel``
-        (``self.kernel.<knob>_reason``); ``guards`` waits for ROADMAP A12
-        and anything but None raises NotImplementedError.
+        (``self.kernel.<knob>_reason``). ``guards``: utils/guards.
+        RuntimeGuards arms the ``run_stream`` loop (no kernel build, no
+        sync outside a named site; ``guards.books()``); None (default)
+        arms nothing.
 
         device: where the state lives and the kernels run; None means the
         card (``resolve_device``); keyword-only, the port's own."""
-        if guards is not None:
-            raise NotImplementedError(
-                "guards= (utils/guards.RuntimeGuards, built on "
-                "jax.transfer_guard) is not ported yet (ROADMAP A12)")
         if scheduler not in ("sync", "exact"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if check_every < 0:
@@ -479,6 +487,7 @@ class BatchedRunner:
                                               max_delay=delay.max_delay)
         self.delay = delay
         self.batch = batch
+        self.guards = guards
         self.scheduler = scheduler
         self.check_every = int(check_every)
         self._topo_spec = topology
@@ -914,14 +923,23 @@ class BatchedRunner:
         return out
 
     def init_stream(self, pool: JobPool,
-                    results_capacity: Optional[int] = None) -> StreamState:
+                    results_capacity: Optional[int] = None,
+                    tenants: int = 1, tenant_quota=None) -> StreamState:
         """A fresh stream carry for ``pool``: zero counters and an empty
         results ring of ``results_capacity`` slots (default one per job;
-        a smaller ring wraps, keeping the newest rows). The serving books
-        are one zero tenant."""
+        a smaller ring wraps, keeping the newest rows). ``tenants`` and
+        ``tenant_quota`` (one cap per tenant; default zeros) size the
+        serving books; a plain stream keeps one zero tenant."""
         r = int(results_capacity) if results_capacity else pool.num_jobs
         if r < 1:
             raise ValueError("results_capacity must be >= 1")
+        t = max(1, int(tenants))
+        quota = (np.zeros(t, np.int32) if tenant_quota is None
+                 else np.asarray(tenant_quota, np.int32))
+        if quota.shape != (t,):
+            raise ValueError(
+                f"tenant_quota must be one cap per tenant ([{t}]), "
+                f"got shape {quota.shape}")
 
         def z(*shape):
             return torch.zeros(shape, dtype=_i32, device=self.device)
@@ -931,7 +949,8 @@ class BatchedRunner:
             lane_steps_live=z(), lane_steps_total=z(), cache_hits=z(),
             coalesced_jobs=z(), ff_skipped_ticks=z(), shadow_checks=z(),
             prefix_hits=z(), forked_jobs=z(), fork_depth_sum=z(),
-            deadline_misses=z(), tenant_served=z(1), tenant_quota=z(1),
+            deadline_misses=z(), tenant_served=z(t),
+            tenant_quota=torch.as_tensor(quota, device=self.device),
             res_count=z(),
             res_job=torch.full((r,), -1, dtype=_i32, device=self.device),
             res_time=z(r), res_error=z(r), res_snap_started=z(r),
@@ -1005,11 +1024,19 @@ class BatchedRunner:
             s = s._replace(sig=_lane_signature(s, self.delay))
         return s
 
+    def _lane_event(self, s: DenseState, mask, kind: int, payload):
+        """One lane event on each lane of ``mask`` (the recorder's
+        append gathers its slots with ``nonzero``, a host sync: the
+        ``stream-recorder`` site of utils/guards)."""
+        with host_sync("stream-recorder"):
+            return trace_append_lanes(s, mask, kind, payload)
+
     def _stream_step(self, s: DenseState, st: StreamState, pool: JobPool,
                      stretch: int, drain_chunk: int, gang: bool,
                      memo: Optional[str] = None, order=None,
                      followers=None, bank=None, fork_src=None,
-                     fork_depth=None):
+                     fork_depth=None, *, serve: bool = False, limit=None,
+                     tenant_of=None, arrival_of=None, deadline_of=None):
         """One streaming step (the JAX ``_build_stream_step``), in the JAX
         order: harvest retired lanes into the results ring, admit queued
         jobs into the freed slots (``reset_lanes``, then the pool's rows),
@@ -1024,7 +1051,18 @@ class BatchedRunner:
         whose ``fork_src`` [J] row is >= 0 takes that row of ``bank`` (a
         ``DenseState`` of checkpointed prefix states, ``fork_lanes``) and
         starts ``fork_depth`` [J] phases into its script (EV_PREFIX_FORK),
-        counted in ``forked_jobs`` and ``fork_depth_sum``."""
+        counted in ``forked_jobs`` and ``fork_depth_sum``.
+
+        ``serve`` (serving/server.py; the JAX ``serve=True`` step):
+        admission walks the exec order ``order`` [U] only up to ``limit``
+        (a 0-d tensor or an int: the positions the server marked
+        admissible this step), whatever ``memo`` is (memo "prefix" still
+        forks). At harvest a lane past its job's ``deadline_of`` [J] step
+        counts in ``deadline_misses`` (EV_SERVE_MISS with the lateness),
+        and each harvested lane adds one to its job's tenant
+        (``tenant_of`` [J]) in ``tenant_served``; an idle lane charges
+        nothing. An admitted lane records its wait since ``arrival_of``
+        [J] (EV_SERVE_ADMIT)."""
         memo = self.memo if memo is None else memo
         b, jcount = self.batch, pool.num_jobs
         jmax = jcount - 1
@@ -1045,10 +1083,29 @@ class BatchedRunner:
         # step retiring more lanes than R slots keeps its newest R
         keep = fin & (rank >= nfin - rcap)
         widx = torch.where(keep, (st.res_count + rank) % rcap, rcap).long()
+        if serve:
+            # the serving books: a lane harvested past its job's deadline
+            # is a miss; each harvested lane charges its job's tenant (the
+            # clipped index masked to a spare row, so an idle lane
+            # charges nothing)
+            jc = jid.clamp(0, jmax).long()
+            tcap = st.tenant_served.shape[0]
+            late = st.steps - deadline_of[jc]
+            missed = fin & (late > 0)
+            t_of = torch.where(fin, tenant_of[jc].clamp(0, tcap - 1),
+                               tcap).long()
+            served = torch.zeros(tcap + 1, dtype=_i32, device=self.device)
+            served.index_add_(0, t_of, torch.ones_like(jid))
+            st = st._replace(
+                deadline_misses=st.deadline_misses + missed.sum(dtype=_i32),
+                tenant_served=st.tenant_served + served[:tcap])
+            if self.kernel._trace_on:
+                s = self._lane_event(s, missed, EV_SERVE_MISS,
+                                     late.clamp(min=0))
         if self.kernel._trace_on:
             # before the reset: the ring spans the lane's jobs
             # (_RESET_KEEP), so the harvest survives it
-            s = trace_append_lanes(s, fin, EV_LANE_HARVEST, jid)
+            s = self._lane_event(s, fin, EV_LANE_HARVEST, jid)
 
         def put(ring, vals):
             spare = torch.cat([ring, ring[:1]])
@@ -1072,7 +1129,14 @@ class BatchedRunner:
         # -- admit: reset the freed slots, copy in the jobs' identities
         idle = fin | ~has_job
         arank = torch.cumsum(idle.to(_i32), 0, dtype=_i32) - 1
-        if memo == "off":
+        if serve:
+            # serving admission: the exec order walked only up to the
+            # host's admissible prefix ``limit``
+            uexec = order.shape[0]
+            cap = (limit.clamp(max=uexec) if torch.is_tensor(limit)
+                   else min(int(limit), uexec))
+            admit = idle & (arank < (cap - st.next_job).clamp(min=0))
+        elif memo == "off":
             admit = idle & (arank < jcount - st.next_job)
         else:
             # memoized admission: next_job walks the exec order, and the
@@ -1083,7 +1147,7 @@ class BatchedRunner:
             # gang admission, the static-batching baseline on the same
             # engine: refill only when every lane is idle
             admit = admit & idle.all()
-        if memo == "off":
+        if memo == "off" and not serve:
             new_jid = st.next_job + arank
         else:
             epos = (st.next_job + arank).clamp(0, max(uexec - 1, 0)).long()
@@ -1124,14 +1188,19 @@ class BatchedRunner:
                 fork_depth_sum=st.fork_depth_sum
                 + torch.where(is_fork, fdep, 0).sum(dtype=_i32))
             if self.kernel._trace_on:
-                s = trace_append_lanes(s, is_fork, EV_PREFIX_FORK, fdep)
+                s = self._lane_event(s, is_fork, EV_PREFIX_FORK, fdep)
         if self.kernel._trace_on:
-            s = trace_append_lanes(s, admit, EV_LANE_ADMIT, new_jid)
+            s = self._lane_event(s, admit, EV_LANE_ADMIT, new_jid)
+        if self.kernel._trace_on and serve:
+            # the admit wait in stream steps (arrival to admission)
+            s = self._lane_event(
+                s, admit, EV_SERVE_ADMIT,
+                (st.steps - arrival_of[pick_at]).clamp(min=0))
         if self.kernel._trace_on and memo != "off" \
                 and followers is not None:
             fcnt = followers[epos]
-            s = trace_append_lanes(s, admit & (fcnt > 0), EV_LANE_COALESCE,
-                                   fcnt)
+            s = self._lane_event(s, admit & (fcnt > 0), EV_LANE_COALESCE,
+                                 fcnt)
         st = st._replace(
             next_job=st.next_job + admit.sum(dtype=_i32),
             refills=st.refills + (admit & fin).sum(dtype=_i32))
@@ -1143,8 +1212,11 @@ class BatchedRunner:
             steps=st.steps + 1, lane_steps_live=st.lane_steps_live + live,
             lane_steps_total=st.lane_steps_total
             + torch.where(live > 0, b, 0).to(_i32))
-        # -- advance
-        return self._lane_pass(s, pool, stretch, drain_chunk, memo), st
+        # -- advance: host-driven (the stage gates, the exact tick's folds,
+        # the drain's megatick gates read the card), the stream-lane-pass
+        # site of utils/guards
+        with host_sync("stream-lane-pass"):
+            return self._lane_pass(s, pool, stretch, drain_chunk, memo), st
 
     # ---- the memo plane (A9b): fast-forward, plan, finalize ------------------
 
@@ -1695,28 +1767,44 @@ class BatchedRunner:
             watch = {"jend": pool.job_end.cpu().numpy(),
                      "jlim": pool.job_limit.cpu().numpy()}
             self.memo_timing["ff_watch_s"] = 0.0
-        done, steps, saves = int(st.jobs_done), 0, 0
-        while done < target:
-            if steps == max_steps:
-                raise RuntimeError(
-                    f"run_stream: {target - done} of {target} executed "
-                    f"jobs unfinished after {max_steps} steps; raise "
-                    f"max_steps")
-            s, st = self._stream_step(s, st, pool, stretch, drain_chunk,
-                                      admission == "gang", memo, **arms)
-            if watch is not None:
-                s, st = self._ff_host(s, st, watch)
-            done, steps = int(st.jobs_done), steps + 1
-            steps_now = int(st.steps)
-            if (checkpoint and checkpoint_every
-                    and steps_now % int(checkpoint_every) == 0):
-                save_state(checkpoint, (s, st),
-                           meta={"stream_steps": steps_now,
-                                 "jobs_done": done}, delay=self.delay)
-                saves += 1
-                if (kill_after_saves is not None
-                        and saves >= int(kill_after_saves)):
-                    return s, st
+        guards = self.guards
+        self._lane_template()   # built before the armed loop
+        # the carry enters the loop through the named bulk upload, and
+        # the loop's only host reads are the named sites below
+        s, st = guarded_put(guards, "stream-carry-upload", (s, st),
+                            self.device)
+        done = int(guarded_get(guards, "stream-termination-scalars",
+                               st.jobs_done))
+        steps, saves = 0, 0
+        with armed(guards):
+            while done < target:
+                if steps == max_steps:
+                    raise RuntimeError(
+                        f"run_stream: {target - done} of {target} executed "
+                        f"jobs unfinished after {max_steps} steps; raise "
+                        f"max_steps")
+                s, st = self._stream_step(s, st, pool, stretch,
+                                          drain_chunk, admission == "gang",
+                                          memo, **arms)
+                if watch is not None:
+                    with relaxed_site(guards, "memo-fastforward"):
+                        s, st = self._ff_host(s, st, watch)
+                done, steps_now = (int(x) for x in guarded_get(
+                    guards, "stream-termination-scalars",
+                    (st.jobs_done, st.steps)))
+                steps += 1
+                if (checkpoint and checkpoint_every
+                        and steps_now % int(checkpoint_every) == 0):
+                    # save_state copies the whole carry to the host
+                    with relaxed_site(guards, "checkpoint-save"):
+                        save_state(checkpoint, (s, st),
+                                   meta={"stream_steps": steps_now,
+                                         "jobs_done": done},
+                                   delay=self.delay)
+                    saves += 1
+                    if (kill_after_saves is not None
+                            and saves >= int(kill_after_saves)):
+                        return s, st
         if memo != "off":
             t0 = time.perf_counter()
             s, st = self._memo_finalize(s, st, plan)
@@ -1757,8 +1845,8 @@ class BatchedRunner:
                   *, runner=None) -> dict:
         """The JAX ``summarize`` counters of a batched state; given the
         ``stream`` carry, also its ``memo`` and ``serve`` books (the JAX
-        keys; zeros until the memo plane and serving are ported); given
-        the ``runner`` that ran it, also its ``megatick``, ``fused_tick``
+        keys); given the ``runner`` that ran it, also its ``megatick``,
+        ``fused_tick``
         (the kernel's ``fused``: "on" or "off"), ``fused_reason``,
         ``fused_tile`` (the layout: "on" off the block's own shared
         memory, "off" resident) and ``fused_tile_reason``."""

@@ -45,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from chandy_lamport_tpu_torch.config import ENGINE_KNOBS
 from chandy_lamport_tpu_torch.utils.atomicio import (
     crash_failpoint,
     fsync_dir,
@@ -52,9 +53,8 @@ from chandy_lamport_tpu_torch.utils.atomicio import (
 )
 from chandy_lamport_tpu_torch.utils.filelock import locked
 
-# the memo knob's spellings, an opt-in ladder (the JAX package's
-# ENGINE_KNOBS["memo"])
-MEMO_MODES = ("off", "admit", "full", "prefix")
+# the memo knob's spellings, an opt-in ladder (config.ENGINE_KNOBS)
+MEMO_MODES = ENGINE_KNOBS["memo"]
 
 # the memocache schema version (the JAX package's), bumped on any breaking
 # change of the cache line layout or the digest recipe (a recipe change
@@ -107,6 +107,21 @@ def _canon(x: Any) -> Any:
     return repr(x)
 
 
+# the canonical nodes and links of the last topology digested: a pool's
+# digests all hash one topology, whose encoding is most of a digest's
+# host time on a wide graph (the bytes hashed are the same)
+_TOPO_CANON: list = [None, None, None]
+
+
+def _topo_canon(topo_spec) -> tuple:
+    if _TOPO_CANON[0] is not topo_spec:
+        _TOPO_CANON[:] = [
+            topo_spec,
+            _canon(sorted((str(k), int(v)) for k, v in topo_spec.nodes)),
+            _canon(sorted((str(s), str(d)) for s, d in topo_spec.links))]
+    return _TOPO_CANON[1], _TOPO_CANON[2]
+
+
 def job_digest(*, topo_spec, script, fault_key, delay_row, scheduler: str,
                knobs: Dict[str, str], config_fields: Dict[str, Any]) -> str:
     """The content address of one stream job (module docstring recipe).
@@ -120,10 +135,11 @@ def job_digest(*, topo_spec, script, fault_key, delay_row, scheduler: str,
     the canonical encoding so the digest is process- and
     platform-stable.
     """
+    nodes, links = _topo_canon(topo_spec)
     payload = {
         "schema": MEMOCACHE_SCHEMA_VERSION,
-        "nodes": _canon(sorted((str(k), int(v)) for k, v in topo_spec.nodes)),
-        "links": _canon(sorted((str(s), str(d)) for s, d in topo_spec.links)),
+        "nodes": nodes,
+        "links": links,
         "script": _canon(list(script)),
         "fault_key": _canon(fault_key),
         "delay_row": _canon(delay_row),
@@ -345,11 +361,12 @@ def prefix_seed_digest(*, topo_spec, fault_key, delay_row, scheduler: str,
     identity AND their first d compiled script rows are byte-equal, so
     a checkpoint produced under one job's identity forks bit-exactly
     into any chain-sharing job."""
+    nodes, links = _topo_canon(topo_spec)
     payload = {
         "schema": PREFIXCACHE_SCHEMA_VERSION,
         "plane": "prefix",
-        "nodes": _canon(sorted((str(k), int(v)) for k, v in topo_spec.nodes)),
-        "links": _canon(sorted((str(s), str(d)) for s, d in topo_spec.links)),
+        "nodes": nodes,
+        "links": links,
         "fault_key": _canon(fault_key),
         "delay_row": _canon(delay_row),
         "scheduler": str(scheduler),

@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs forty-eight
-phases, each printing one JSON line:
+kernels/csrc`` (one nvcc per source, in parallel), then runs fifty phases,
+each printing one JSON line (a phase's with ``elapsed_s``, the
+seconds since the start):
 
   device       nvidia-smi's name and power limit, torch / CUDA versions,
                the build seconds;
@@ -189,7 +190,7 @@ phases, each printing one JSON line:
                (B=256, 16 phases, 1 snapshot) at megatick 8, tiled by
                "auto", fault-free and under fault_storm's adversary less
                its marker drops (no supervisor): clean, and equal to the
-               same storm at megatick 1 leaf for leaf;
+               same storm at megatick 1 through the wave leaf for leaf;
   config5_wave_fused_storm main path 10: config 5 (SF-8k, N=8,192,
                E=24,572, B=512, 16 phases, 8 snapshots; the JAX
                measurement plan's exact wave row) at megatick 8, its lane
@@ -259,11 +260,36 @@ phases, each printing one JSON line:
                device ms a step (CUDA events, the full arm's final
                state);
   prefix_stream main path 20: the same cell at prefix overlap 0.75, J
-               cut to 4,096, memo "prefix" against "off" on the
+               cut to 2,048, memo "prefix" against "off" on the
                prefix-packed pool: rows equal, forked jobs equal to the
                planned ones and above 0; the mean fork depth, the bank's
                rows and bytes, the producer's seconds and the fork
                audit's count;
+  serve_edf    main path 29: the serve loop (``serving.serve_run``) on
+               the streaming cell (ER-256, B=4,096, the exact cascade at
+               megatick 8, row 8's gated stream drain): J = 3 x B
+               requests of the JAX serve CLI's traffic (4 Zipf tenants, 2
+               priority classes, deadline slack 64-256, no duplicates)
+               arriving at twice the jobs a step stream_exact's drive
+               retired (printed with its derivation); an edf arm through
+               a cold ``ExecutableCache`` and a fifo arm through a
+               restarted one over the same directory, armed
+               (``RuntimeGuards()``: the sync debug mode "error"): 64
+               sampled rows equal their solo runs, the fifo rows the edf
+               rows less ``admit_step``, ``deadline_misses`` and
+               ``tenant_served`` the harvests read back after each step,
+               fused_scan launched and its plain form never called, the
+               restarted cache's source "disk" with no nvcc run, the
+               armed arm's books with no kernel build; served jobs/s,
+               admit p50/p99, misses, occupancy and the cold and warm
+               warmups;
+  serve_memo_quota main path 30: the sync scheduler (the serve CLI's
+               default) on the same graph and batch, J cut to 4,096 at
+               duplicate rate 0.8, under quotas, over a summary-cache
+               file a serve of its first 1,024 requests warmed: the
+               cache-served count and the per-tenant refusals equal
+               ``plan_ingest``'s plan, every follower row its leader's,
+               every cache-served row the file's entry;
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -308,7 +334,11 @@ phases, each printing one JSON line:
                a ring-8 exact stream at megatick 8 under memo "admit",
                "full" and "prefix" (every served job shadowed), every
                leaf and every row (digests included) equal between the
-               card and the CPU.
+               card and the CPU; and a ring-8 exact serve at megatick 8
+               under edf with quotas over a warm summary cache, killed
+               after its first save on each device and each file resumed
+               on both, every leaf and row equal to the uninterrupted
+               CPU run.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
 ``{"kernels": [...]}`` summary (the segment sums' entries add the device
@@ -351,6 +381,12 @@ the wrapper's and its caller's host time and the caller's device time
 (``TickKernel._append_rows``, for the broadcast ``_broadcast_markers``),
 5 rounds each, and prints one JSON line, nothing else; with
 ``--package-root`` the package (and its API) is another checkout's.
+
+    python3 chip_smoke.py --ptxas [--package-root DIR]
+
+compiles each CUDA source of the package to a cubin with its build flags
+and ``-Xptxas -v`` and prints one JSON line a source: nvcc's seconds and
+each kernel's registers, spills and stack frame.
 
     python3 chip_smoke.py --queue-timing [--package-root DIR]
 
@@ -440,10 +476,11 @@ ST_TWIN_JOBS_PER_LANE, ST_TWIN_MAX_PHASES = 1, 8
 ST_CAPTURE_STEPS = 8
 # the memo cells: the streaming cell's queue at the README's 80 %
 # duplicate shape (memo_stream, J = 3 x B), and at prefix overlap 0.75
-# (prefix_stream) with J cut to 4,096, so that the prefix bank on the card
-# and the in-memory prefix store stay near 0.36 GB and 0.5 GB (one ER-256
-# lane at C=24 holds about 347 KB)
-MEMO_DUP, MEMO_OVERLAP, PREFIX_JOBS = 0.8, 0.75, 4096
+# (prefix_stream) with J cut to 2,048: at 4,096 (the bank near 0.18 GB on
+# the card, the in-memory store ~1.33x that; one ER-256 lane at C=24 holds
+# about 347 KB) its two drives took 61 s of the smoke, cut for the serve
+# phases' time
+MEMO_DUP, MEMO_OVERLAP, PREFIX_JOBS = 0.8, 0.75, 2048
 # the lane count of append_rows' lane-limit check (ring-10 sync storms run
 # at this batch)
 WIDE_LANES = 131_072
@@ -492,7 +529,14 @@ TURN_KEYS = ("ms_turns", "library_ms_turns", "vs_library",
              "host_us_turns", "library_host_us_turns")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``elapsed_s``, the seconds
+    since the script started (the smoke's time budget, by phase)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2071,6 +2115,56 @@ def drain_timing(cell: str, batch=None) -> None:
           "nvidia_smi": nvidia_smi()})
 
 
+def ptxas_report() -> int:
+    """``--ptxas``: each CUDA source of the imported package compiled to a
+    cubin with that package's ``_build.NVCC_FLAGS`` (less the shared
+    library's) and ``-Xptxas -v``, the sources in parallel; one JSON line
+    a source: nvcc's seconds and, per kernel (mangled name), ptxas's
+    registers, spill stores and loads, and stack frame bytes."""
+    import re
+    import tempfile
+
+    from chandy_lamport_tpu_torch.kernels import _build
+
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    procs = {}
+    for name in _build.SOURCES:
+        cmd = [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+               os.path.join(tmp, f"{name}.cubin"),
+               os.path.join(_build.CSRC, f"{name}.cu")]
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    for name, (t0, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            print(out, file=sys.stderr)
+            return 1
+        kernels, fn = {}, None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+                kernels[fn] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and fn and "registers" not in kernels[fn]:
+                kernels[fn].update(stack=int(m.group(1)),
+                                   spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                kernels[fn]["registers"] = int(m.group(1))
+        print(json.dumps({"source": f"{name}.cu", "flags": flags,
+                          "nvcc_s": seconds, "package": _build.CSRC,
+                          "kernels": kernels}), flush=True)
+    return 0
+
+
 def spread_timing() -> int:
     """``--spread-timing``: ``spread`` at the faulted crash gate's shape
     (``X_BATCH`` lanes of one bool per ER-256 node onto its in-edges,
@@ -2822,8 +2916,10 @@ def phase_tiled_vs_resident(storms) -> dict:
 def phase_sf2048_tiled_cascade_storm() -> dict:
     """The oversized cascade lane: SF-2048 at S=8 (``T_*``), megatick 8,
     tiled by "auto", fault-free and under ``T_PROGRAM``: each clean and
-    leaf-equal to the same storm at megatick 1. Returns the megatick-8
-    runs' launch counts, by path."""
+    leaf-equal to the same storm at megatick 1 through the wave (which
+    gives the cascade's bits without a supervisor; the cascade's own
+    megatick-1 twin folded ~9,100 host steps, 30-33 s a twin). Returns
+    the megatick-8 runs' launch counts, by path."""
     from chandy_lamport_tpu_torch.models.faults import Faults
 
     paths, out = {}, {}
@@ -2833,7 +2929,8 @@ def phase_sf2048_tiled_cascade_storm() -> dict:
         for k in (MEGATICK, 1):
             runner, prog = exact_runner("cuda", T_BATCH, T_NODES, T_PHASES,
                                         T_SNAPSHOTS, graph="sf", megatick=k,
-                                        **kw)
+                                        exact_impl="cascade" if k > 1
+                                        else "wave", **kw)
             final, m = _timed_storm(runner, prog, warm=False)
             runs[k] = (runner, final, m)
         runner, final, m = runs[MEGATICK]
@@ -2845,9 +2942,10 @@ def phase_sf2048_tiled_cascade_storm() -> dict:
         out[arm] = {**_storm_meta(arm, runner, prog, "sf", T_SNAPSHOTS),
                     **m, **checks, "mismatched": bad,
                     "workspace_bytes": runner.kernel.fused_workspace.numel(),
-                    "megatick1_twin": {key: twin_m[key] for key in (
-                        "run_s", "fold_steps", "drain_fold_steps",
-                        "node_ticks_per_s")}}
+                    "megatick1_twin": {"exact_impl": "wave", **{
+                        key: twin_m[key] for key in (
+                            "run_s", "fold_steps", "drain_fold_steps",
+                            "node_ticks_per_s")}}}
         paths[f"sf2048_tiled_cascade_{arm}"] = m["launches"]
         del final
         if failed or bad or runner.fused_tile != "on" or \
@@ -3239,6 +3337,7 @@ def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
         line["cascade_megatick1_twin"] = _cascade_twin(make)
         if not line["cascade_megatick1_twin"]["rows_equal"]:
             bad.append("rows differ from the cascade's megatick-1 twin's")
+    STREAM_JOBS_PER_STEP[name] = jcount / m["steps"]
     picks = _sample(jcount, sampled)
     t0 = time.perf_counter()
     oracle = static_oracle(lambda: make(MEGATICK, batch=1)[0], pool, jobs,
@@ -3252,6 +3351,11 @@ def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
         raise AssertionError(f"{name}: {bad}")
     _check_launches(name, m["launches"], path_kernels, idle_kernels)
     return m["launches"]
+
+
+# each stream phase's jobs retired a step (its stream drive's J / steps):
+# serve_edf's arrival rate is twice stream_exact's
+STREAM_JOBS_PER_STEP: dict = {}
 
 
 def sync_stream_runner(batch=SS_BATCH):
@@ -3423,7 +3527,7 @@ def phase_memo_stream() -> dict:
 
 
 def phase_prefix_stream() -> dict:
-    """The same cell at prefix overlap 0.75, J cut to 4,096
+    """The same cell at prefix overlap 0.75, J cut to 2,048
     (``PREFIX_JOBS``), packed by the "prefix" runner: memo "off" against
     "prefix" (in-memory prefix store) on that pool. Every row of the
     prefix arm equals the off arm's, and ``forked_jobs == prefix_hits >
@@ -3462,6 +3566,416 @@ def phase_prefix_stream() -> dict:
         raise AssertionError(f"prefix_stream: {pl['forked_jobs']} forks "
                              f"made, {pl['prefix_hits']} planned")
     return pl["launches"]
+
+
+# ---- serving (serve_edf, serve_memo_quota) ------------------------------------
+
+# the serve cells' traffic (the JAX serve CLI's defaults): 4 Zipf tenants,
+# 2 priority classes, deadline slack 64-256 steps; serve_edf's J = 3 x B
+# (the CLI's --requests 0), 64 sampled rows held to their solo runs;
+# serve_memo_quota on the sync scheduler with J cut to 4,096, at the
+# memo cell's duplicate rate, over a summary cache warmed by its first
+# SV_WARM_REQUESTS requests, with quotas that refuse part of tenants 0
+# and 2
+SV_TENANTS, SV_PRIORITIES, SV_SLACK = 4, 2, (64, 256)
+SV_SYNC_JOBS, SV_WARM_REQUESTS = 4096, 1024
+SV_QUOTAS = (1500, 0, 300, 0)
+
+
+def _serve_requests(spec, count, rate, dup_rate=0.0):
+    from chandy_lamport_tpu_torch.models.workloads import serve_workload
+
+    return serve_workload(spec, count, seed=DELAY_SEED, rate=rate,
+                          tenants=SV_TENANTS, priorities=SV_PRIORITIES,
+                          deadline_slack=SV_SLACK, dup_rate=dup_rate,
+                          base_phases=4, tail_alpha=1.1,
+                          max_phases=ST_PHASES)
+
+
+def _serve_drive(runner, requests, spy=False, **kw) -> tuple:
+    """One ``serve_run`` with the launch counts zeroed just before it and
+    calls of row 8's plain form counted; with ``spy`` the jobs each step
+    harvested, read from the ring after the step (the books' independent
+    check). Returns (state, stream, report, measurements)."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.kernels import megatick as km
+    from chandy_lamport_tpu_torch.serving import serve_run
+
+    plain, harvested = [0], []
+    real_plain, real_step = km.fused_ticks_plain, runner._stream_step
+
+    def count_plain(*a, **k):
+        plain[0] += 1
+        return real_plain(*a, **k)
+
+    def spy_step(s, st, *a, **k):
+        before = int(st.res_count)
+        step = int(st.steps)
+        s, st = real_step(s, st, *a, **k)
+        after = int(st.res_count)
+        ring = st.res_job.cpu().tolist()
+        harvested.extend((step, ring[i % len(ring)])
+                         for i in range(before, after))
+        return s, st
+
+    km.fused_ticks_plain = count_plain
+    if spy:
+        runner._stream_step = spy_step
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, stream, report = serve_run(runner, requests,
+                                          stretch=ST_STRETCH,
+                                          drain_chunk=ST_CHUNK, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        km.fused_ticks_plain = real_plain
+        if spy:
+            del runner._stream_step
+    return state, stream, report, {
+        "run_s": dt, "launches": launch_counts(), "plain_calls": plain[0],
+        "harvested": harvested}
+
+
+def _serve_report(report) -> dict:
+    keys = ("policy", "requests", "steps", "exec_jobs", "served_total",
+            "served_cache", "served_coalesced", "refused_total",
+            "refused_by_tenant", "occupancy", "deadline_misses",
+            "tenant_served", "admit_p50", "admit_p99", "admit_max",
+            "wall_s", "warmup_s", "warmup_source", "fused_tick",
+            "fused_tile")
+    out = {k: report[k] for k in keys}
+    out["served_jobs_per_s"] = (report["served_total"] / report["wall_s"]
+                                if report["wall_s"] else None)
+    return out
+
+
+def phase_serve_edf(stream_jobs_per_step: float) -> dict:
+    """Main path 29: the streaming cell (ER-256, B=4,096, the exact
+    cascade at megatick 8) serving J = 3 x B requests of the JAX serve
+    CLI's traffic at twice the jobs a step the off-arm streaming cell
+    (stream_exact) retired, so a backlog stands for most of the run. The
+    edf arm through a cold ``ExecutableCache`` over a temporary
+    directory, its harvests read back after each step; then a fifo arm on
+    a fresh runner through a restarted cache over that directory, armed
+    (``RuntimeGuards()``: transfers "disallow", the card's sync debug
+    mode "error"). Checks: 64 sampled rows equal their solo runs, the
+    fifo rows the edf rows less ``admit_step``, the device's
+    ``deadline_misses`` and ``tenant_served`` the harvests read back,
+    fused_scan launched and its plain form never called, the restarted
+    cache's source "disk" with no nvcc run, and the armed arm's books
+    with no kernel build. Returns the edf arm's launch counts."""
+    import shutil
+    import tempfile
+
+    from chandy_lamport_tpu_torch.kernels import _build
+    from chandy_lamport_tpu_torch.serving import ExecutableCache
+    from chandy_lamport_tpu_torch.utils.guards import RuntimeGuards
+
+    rate = 2.0 * stream_jobs_per_step
+    runner, spec = stream_runner("cuda")
+    requests = _serve_requests(spec, 3 * runner.batch, rate)
+    # the pool serve_run packs (content keys), kept for the solo runs
+    pools, pack = [], runner.pack_jobs
+    runner.pack_jobs = lambda *a, **k: pools.append(pack(*a, **k)) or \
+        pools[-1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        cold = ExecutableCache(tmp)
+        _, stream, rep, m = _serve_drive(runner, requests, spy=True,
+                                         policy="edf", exec_cache=cold)
+        rows = runner.stream_results(stream)
+        builds = _build.builds
+        del stream, runner.pack_jobs
+        warm = ExecutableCache(tmp)
+        guards = RuntimeGuards()
+        frunner, _ = stream_runner("cuda")
+        _, fstream, frep, fm = _serve_drive(frunner, requests,
+                                            policy="fifo", exec_cache=warm,
+                                            guards=guards)
+        frows = frunner.stream_results(fstream)
+        warm_last = dict(warm.last)
+        del fstream
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = []
+    jcount = len(requests)
+    if len(rows) != jcount or any(r["error"] for r in rows):
+        bad.append(f"{jcount - len(rows)} requests unserved or errored")
+
+    def no_admit(rs):
+        return [{k: v for k, v in r.items() if k != "admit_step"}
+                for r in rs]
+
+    if no_admit(frows) != no_admit(rows):
+        bad.append("the fifo rows differ from the edf rows")
+    # the books against the harvests read back after each step
+    misses = sum(1 for step, j in m["harvested"]
+                 if step - requests[j].deadline_step > 0)
+    served = [0] * SV_TENANTS
+    for _, j in m["harvested"]:
+        served[requests[j].tenant] += 1
+    books = {"deadline_misses": misses, "tenant_served": served,
+             "harvests": len(m["harvested"])}
+    if (misses != rep["deadline_misses"] or served != rep["tenant_served"]
+            or len(m["harvested"]) != rep["exec_jobs"]):
+        bad.append(f"the device's books {rep['deadline_misses']}, "
+                   f"{rep['tenant_served']} != the harvests' {books}")
+    (pool,) = pools
+    picks = _sample(jcount, ST_SAMPLED)
+    t0 = time.perf_counter()
+    oracle = static_oracle(lambda: stream_runner("cuda", 1)[0], pool,
+                           [r.events for r in requests], rows, picks)
+    oracle_s = time.perf_counter() - t0
+    if oracle:
+        bad.append(f"sampled rows differ from their solo runs: {oracle}")
+    for arm, mm in (("edf", m), ("fifo", fm)):
+        if mm["launches"]["fused_scan"] <= 0 or mm["plain_calls"]:
+            bad.append(f"{arm}: fused_scan launched "
+                       f"{mm['launches']['fused_scan']} times, its plain "
+                       f"form called {mm['plain_calls']} times")
+    if warm_last["source"] != "disk" or warm_last["builds"] \
+            or _build.builds != builds:
+        bad.append(f"the restarted cache: {warm_last}")
+    gbooks = guards.books()
+    if gbooks["compiles"] or gbooks["armed_regions"] != 1:
+        bad.append(f"the armed fifo arm's books: {gbooks}")
+    emit({"phase": "serve_edf", "graph": f"er-{X_NODES}",
+          "batch": runner.batch, "requests": jcount,
+          "scheduler": "exact/cascade", "megatick": MEGATICK,
+          "stretch": ST_STRETCH, "drain_chunk": ST_CHUNK,
+          "tenants": SV_TENANTS, "priorities": SV_PRIORITIES,
+          "deadline_slack": list(SV_SLACK), "dup_rate": 0.0,
+          "rate": rate,
+          "rate_from": f"2 x {stream_jobs_per_step:.4f} jobs a step, "
+                       f"stream_exact's off-arm drive (J / its steps)",
+          "edf": {**_serve_report(rep), "run_s": m["run_s"],
+                  "plain_calls": m["plain_calls"],
+                  "warmup_builds": cold.last["builds"]},
+          "fifo_armed": {**_serve_report(frep), "run_s": fm["run_s"],
+                         "plain_calls": fm["plain_calls"],
+                         "warmup": {k: warm_last[k] for k in (
+                             "source", "warmup_s", "builds")},
+                         "guards": gbooks},
+          "warmup_cold_s": rep["warmup_s"],
+          "warmup_warm_s": frep["warmup_s"],
+          "books_from_harvests": books,
+          "static_oracle": {"sampled": len(picks), "mismatched": oracle,
+                            "run_s": oracle_s},
+          "launches_fifo": fm["launches"]})
+    if bad:
+        raise AssertionError(f"serve_edf: {bad}")
+    _check_launches("serve_edf", m["launches"], MEMO_KERNELS,
+                    ("sum_segments", "select_pop"))
+    return m["launches"]
+
+
+def phase_serve_memo_quota(rate: float) -> dict:
+    """Main path 30: the sync scheduler (the serve CLI's default) on the
+    streaming cell's graph (ER-256, B=4,096, split markers), J cut to
+    4,096 requests at duplicate rate 0.8 and serve_edf's rate, with
+    quotas that refuse part of tenants 0 and 2, over a summary-cache
+    file a first serve of the first 1,024 requests warmed. The main
+    serve (launch counts zeroed just before it): its cache-served count
+    and per-tenant refusals equal ``plan_ingest``'s plan over the warm
+    file, every follower row equals its leader's row (less job, admit
+    step and provenance), every cache-served row the file's entry, no
+    errored job; the sync path's kernels launched, fused_scan never.
+    Returns its launch counts."""
+    import shutil
+    import tempfile
+
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.workloads import erdos_renyi
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+    from chandy_lamport_tpu_torch.serving import plan_ingest
+    from chandy_lamport_tpu_torch.utils.memocache import SummaryCache
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_memo_")
+    try:
+        cache = os.path.join(tmp, "summaries.jsonl")
+        spec = erdos_renyi(X_NODES, 3.0, seed=3, tokens=ST_PHASES + 10)
+        cfg = SimConfig.for_workload(snapshots=ST_SNAPSHOTS,
+                                     split_markers=True,
+                                     record_dtype="int16")
+
+        def make():
+            return BatchedRunner(spec, cfg, HashDelay(DELAY_SEED), X_BATCH,
+                                 scheduler="sync", device="cuda",
+                                 memo_cache=cache)
+
+        requests = _serve_requests(spec, SV_SYNC_JOBS, rate, MEMO_DUP)
+        t0 = time.perf_counter()
+        _serve_drive(make(), requests[:SV_WARM_REQUESTS])
+        warm_s = time.perf_counter() - t0
+        runner = make()
+        pool = runner.pack_jobs([r.events for r in requests],
+                                content_keys=True)
+        digests = [bytes(d).hex() for d in pool.digest.cpu().numpy()]
+        plan = plan_ingest(requests, digests, SummaryCache(cache),
+                           list(SV_QUOTAS))
+        _, stream, rep, m = _serve_drive(runner, requests,
+                                         quotas=list(SV_QUOTAS))
+        rows = {r["job"]: r for r in runner.stream_results(stream)}
+        warm_entries = SummaryCache(cache)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_cache = sum(1 for s in plan["status"] if s == "cache")
+    want_refused = {str(t): c for t, c in sorted(plan["refused"].items())}
+    summary = BatchedRunner._summary_of
+    bad = []
+    if rep["served_cache"] != want_cache:
+        bad.append(f"{rep['served_cache']} served from the cache, the "
+                   f"plan says {want_cache}")
+    if rep["refused_by_tenant"] != want_refused:
+        bad.append(f"refusals {rep['refused_by_tenant']} != the plan's "
+                   f"{want_refused}")
+    fan = 0
+    for leader, fls in plan["followers"].items():
+        want = {k: v for k, v in summary(rows[leader]).items()
+                if k not in ("digest", "served_from")}
+        for j in fls:
+            got = {k: v for k, v in summary(rows[j]).items()
+                   if k not in ("digest", "served_from")}
+            fan += 1
+            if got != want or rows[j]["served_from"] != "coalesce":
+                bad.append(f"follower {j} != its leader {leader}")
+                break
+    cached = [j for j, s in enumerate(plan["status"]) if s == "cache"]
+    for j in cached:
+        if rows[j]["served_from"] != "cache" or rows[j]["time"] != \
+                warm_entries.get(digests[j])["time"]:
+            bad.append(f"cache-served row {j} != the file's entry")
+            break
+    if len(rows) != SV_SYNC_JOBS - rep["refused_total"] or any(
+            r["error"] for r in rows.values()):
+        bad.append("not every accepted request was served cleanly")
+    if not (want_cache and fan and rep["refused_total"]):
+        bad.append(f"the cell exercised too little: {want_cache} cache "
+                   f"hits, {fan} followers, {rep['refused_total']} "
+                   "refusals")
+    emit({"phase": "serve_memo_quota", "graph": f"er-{X_NODES}",
+          "batch": X_BATCH, "requests": SV_SYNC_JOBS, "scheduler": "sync",
+          "dup_rate": MEMO_DUP, "rate": rate, "quotas": list(SV_QUOTAS),
+          "warm_requests": SV_WARM_REQUESTS, "warm_s": warm_s,
+          "plan": {"exec": len(plan["exec"]), "cache": want_cache,
+                   "followers": fan, "refused": want_refused},
+          "serve": {**_serve_report(rep), "run_s": m["run_s"]},
+          "launches": m["launches"]})
+    if bad:
+        raise AssertionError(f"serve_memo_quota: {bad}")
+    _check_launches("serve_memo_quota", m["launches"],
+                    ("head_fields", "sum_by_perm", "spread"),
+                    ("fused_scan", "queue_step"))
+    return m["launches"]
+
+
+def serve_card_vs_cpu() -> dict:
+    """A ring-8 exact serve at megatick 8 (B=4, 24 requests, 3 tenants,
+    duplicate rate 0.4) under edf with quotas, over a summary-cache file a
+    serve of its first 8 requests warmed: killed after its first save
+    (checkpoint every 2 steps) on the card and on the CPU, each file
+    resumed on both devices. Every resumed run and the uninterrupted CPU
+    run end with every leaf of the state and the stream, and every row
+    (digests included), equal. Returns the line's fields."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        serve_workload,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import HashDelay
+    from chandy_lamport_tpu_torch.serving import serve_run
+    from chandy_lamport_tpu_torch.utils.carry import (
+        state_to_numpy,
+        stream_to_numpy,
+    )
+    from chandy_lamport_tpu_torch.utils.checkpoint import load_state
+
+    spec = ring_topology(8, tokens=16)
+    requests = serve_workload(spec, 24, seed=DELAY_SEED, rate=1.0,
+                              tenants=3, priorities=2, dup_rate=0.4,
+                              base_phases=3, max_phases=10)
+    quotas = [6, 0, 3]
+    kw = dict(policy="edf", quotas=quotas, stretch=2, drain_chunk=8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_card_vs_cpu_")
+
+    def runner(device, name):
+        # each run on its own copy of the warm file (a finished serve
+        # flushes into its file)
+        path = os.path.join(tmp, f"{name}.jsonl")
+        shutil.copyfile(os.path.join(tmp, "warm.jsonl"), path)
+        return BatchedRunner(spec, SimConfig.for_workload(snapshots=4),
+                             HashDelay(DELAY_SEED), 4, scheduler="exact",
+                             device=device, megatick=MEGATICK,
+                             memo_cache=path)
+
+    def host(r, out):
+        state, stream = out[0], out[1]
+        return ([x for leaf in state_to_numpy(state, r.delay)
+                 for x in (leaf if isinstance(leaf, tuple) else (leaf,))]
+                + list(stream_to_numpy(stream)), r.stream_results(stream))
+
+    def equal(a, b):
+        return len(a[0]) == len(b[0]) and all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(a[0], b[0])) and a[1] == b[1]
+
+    try:
+        open(os.path.join(tmp, "warm.jsonl"), "w").close()
+        warm = runner("cpu", "warming")
+        serve_run(warm, requests[:8], stretch=2, drain_chunk=8)
+        shutil.copyfile(os.path.join(tmp, "warming.jsonl"),
+                        os.path.join(tmp, "warm.jsonl"))
+        r = runner("cpu", "whole")
+        out = serve_run(r, requests, **kw)
+        want, report = host(r, out), out[2]
+        runs = {}
+        for writer in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{writer}.npz")
+            r = runner(writer, f"{writer}-killed")
+            killed = serve_run(r, requests, checkpoint=path,
+                               checkpoint_every=2, kill_after_saves=1,
+                               **kw)[2]
+            for reader in ("cuda", "cpu"):
+                r = runner(reader, f"{writer}-on-{reader}")
+                pool = r.pack_jobs([q.events for q in requests],
+                                   content_keys=True)
+                (s, st), meta = load_state(
+                    path, (r.init_batch_device(),
+                           r.init_stream(pool, tenants=3,
+                                         tenant_quota=quotas)),
+                    delay=r.delay)
+                got = host(r, serve_run(r, requests, state=s, stream=st,
+                                        **kw))
+                runs[f"{writer}_file_on_{reader}"] = {
+                    "killed_at_step": killed["steps"],
+                    "resumed_at_step": meta["stream_steps"],
+                    "fused_tick": r.fused, "equal": equal(got, want)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [k for k, v in runs.items() if not v["equal"]]
+    if bad:
+        raise AssertionError(f"resumed serves differ from the "
+                             f"uninterrupted run: {bad}")
+    if not (report["served_cache"] and report["refused_total"]):
+        raise AssertionError(f"the small serve took nothing from the warm "
+                             f"cache or refused nothing: {report}")
+    return {"graph": "ring-8", "batch": 4, "requests": 24,
+            "quotas": quotas, "served_cache": report["served_cache"],
+            "served_coalesced": report["served_coalesced"],
+            "refused_total": report["refused_total"], "runs": runs}
 
 
 # ---- the slice-17 phases: faults in DenseSim, the fold, the threefry
@@ -3842,8 +4356,9 @@ def phase_cpu_vs_cuda() -> None:
     megatick-8 exact storms and the wave's at megatick 8 (faulted and
     not) on the card and on the CPU: identical leaves; then a small
     faulted sync stream checkpointed, killed and resumed
-    (``stream_checkpoint_card_vs_cpu``), and small streams under each
-    memo mode (``memo_streams_card_vs_cpu``)."""
+    (``stream_checkpoint_card_vs_cpu``), small streams under each
+    memo mode (``memo_streams_card_vs_cpu``) and a small serve killed and
+    resumed across the devices (``serve_card_vs_cpu``)."""
     import functools
 
     import numpy as np
@@ -3951,6 +4466,7 @@ def phase_cpu_vs_cuda() -> None:
                                  "bits")
     result["stream_checkpoint"] = stream_checkpoint_card_vs_cpu()
     result["memo_streams"] = memo_streams_card_vs_cpu()
+    result["serve"] = serve_card_vs_cpu()
     emit(result)
 
 
@@ -4405,6 +4921,10 @@ def main(argv=None) -> int:
     ap.add_argument("--append-timing", action="store_true",
                     help="only time append_rows and its callers at their "
                          "three shapes")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="only compile each CUDA source to a cubin with "
+                         "-Xptxas -v and print its kernels' registers and "
+                         "spills")
     ap.add_argument("--queue-timing", action="store_true",
                     help="only time head_fields, queue_step and "
                          "select_pop at their timed shapes")
@@ -4417,7 +4937,7 @@ def main(argv=None) -> int:
                          "this one)")
     args = ap.parse_args(argv)
     timing = (args.drain_timing or args.spread_timing or args.append_timing
-              or args.queue_timing)
+              or args.queue_timing or args.ptxas)
     if args.batch and not args.drain_timing:
         ap.error("--batch goes with --drain-timing")
     if args.package_root and not timing:
@@ -4445,6 +4965,8 @@ def main(argv=None) -> int:
         return spread_timing()
     if args.append_timing:
         return append_timing()
+    if args.ptxas:
+        return ptxas_report()
     if args.queue_timing:
         return queue_timing()
     smi = nvidia_smi()
@@ -4602,6 +5124,9 @@ def main(argv=None) -> int:
     paths["trace_stream"] = phase_trace_stream()
     paths["memo_stream"] = phase_memo_stream()
     paths["prefix_stream"] = phase_prefix_stream()
+    per_step = STREAM_JOBS_PER_STEP["stream_exact"]
+    paths["serve_edf"] = phase_serve_edf(per_step)
+    paths["serve_memo_quota"] = phase_serve_memo_quota(2.0 * per_step)
     paths["golden"] = phase_golden()
     paths["trace_golden"] = phase_trace_golden()
     uniform_paths, uniform_row = phase_uniform(rows["fused_scan"][0])

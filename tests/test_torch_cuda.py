@@ -1509,3 +1509,109 @@ def test_fold_dense_faults_and_uint16_on_the_card(dev):
             ends.append(runner.run_storm(runner.init_batch_device(), prog))
         _leaves_equal(*ends)
         assert int(ends[0].error.max()) == 0
+
+
+# ---- serving (serving/server.py) on the card ---------------------------------
+
+@pytest.mark.parametrize("scheduler,megatick", [("sync", 1), ("exact", 8)],
+                         ids=["sync", "exact-megatick-8"])
+def test_serve_cuda_equals_cpu_armed(dev, scheduler, megatick):
+    """A ring-8 serve (24 requests, 3 tenants, quotas, duplicate rate 0.4)
+    on the card under ``RuntimeGuards()`` (transfers "disallow": the sync
+    debug mode "error", so any sync outside a named site raises) equals
+    the same serve on the CPU: every result row, every leaf of the state
+    and the stream, the report less its timing; the two devices' site
+    books are equal, with no kernel build while armed; at megatick 8 its
+    drains launch ``fused_scan``."""
+    from chandy_lamport_tpu_torch.kernels import reset_launch_counts
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        serve_workload,
+    )
+    from chandy_lamport_tpu_torch.serving import serve_run
+    from chandy_lamport_tpu_torch.utils.carry import stream_to_numpy
+    from chandy_lamport_tpu_torch.utils.guards import RuntimeGuards
+
+    spec = ring_topology(8, tokens=16)
+    requests = serve_workload(spec, 24, seed=17, rate=1.0, tenants=3,
+                              dup_rate=0.4, base_phases=3, max_phases=10)
+    out = {}
+    for where in ("cpu", dev):
+        guards = RuntimeGuards()
+        runner = BatchedRunner(
+            spec, SimConfig.for_workload(snapshots=4,
+                                         split_markers=scheduler == "sync"),
+            HashDelay(17), 4, scheduler=scheduler, device=where,
+            megatick=megatick, guards=guards)
+        reset_launch_counts()
+        state, stream, report = serve_run(runner, requests,
+                                          quotas=[6, 0, 3], stretch=2,
+                                          drain_chunk=8)
+        out[str(where)] = (runner.stream_results(stream), state, stream,
+                           {k: v for k, v in report.items()
+                            if k not in ("wall_s", "warmup_s",
+                                         "fused_tick")},
+                           guards.books(), launch_counts()["fused_scan"])
+    rows, state, stream, report, books, _ = out["cpu"]
+    rows_c, state_c, stream_c, report_c, books_c, launched = out[str(dev)]
+    assert rows_c == rows and report_c == report
+    _leaves_equal(state_c, state)
+    for x, y in zip(stream_to_numpy(stream_c), stream_to_numpy(stream)):
+        assert np.array_equal(x, y)
+    assert books_c == books and books_c["compiles"] == 0
+    assert (launched > 0) == (megatick > 1)
+
+
+def test_guards_disallow_raises_on_a_stray_sync(dev):
+    """Inside an armed region of ``RuntimeGuards()`` a read of a CUDA
+    tensor outside a named site raises; inside ``relaxed_site`` it is
+    counted and allowed; the mode is restored after the region."""
+    from chandy_lamport_tpu_torch.utils.guards import (
+        RuntimeGuards,
+        relaxed_site,
+    )
+
+    g = RuntimeGuards()
+    x = torch.arange(4, device=dev)
+    before = torch.cuda.get_sync_debug_mode()
+    with g.armed():
+        with pytest.raises(RuntimeError):
+            int(x.sum())
+        with relaxed_site(g, "probe"):
+            assert int(x.sum()) == 6
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert g.books()["transfers"] == {"probe": 1}
+
+
+def test_exec_cache_restart_loads_without_nvcc(dev, tmp_path):
+    """The serve-step cache on the card: a fresh cache over an empty
+    directory makes the kernels ready and writes its record; a restarted
+    cache over the directory finds the record and the built libraries
+    ("disk") and runs no nvcc; a changed step shape is another bucket."""
+    from chandy_lamport_tpu_torch.kernels import _build
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        serve_workload,
+    )
+    from chandy_lamport_tpu_torch.serving import ExecutableCache, serve_run
+
+    spec = ring_topology(8, tokens=16)
+    requests = serve_workload(spec, 8, seed=3, rate=1.0, max_phases=8)
+
+    def serve(cache, stretch=2):
+        runner = BatchedRunner(spec, SimConfig.for_workload(snapshots=4),
+                               HashDelay(17), 4, scheduler="exact",
+                               device=dev, megatick=8)
+        serve_run(runner, requests, stretch=stretch, drain_chunk=8,
+                  exec_cache=cache)
+        return dict(cache.last)
+
+    path = str(tmp_path / "exec")
+    first = serve(ExecutableCache(path))
+    builds = _build.builds
+    again = serve(ExecutableCache(path))
+    other = serve(ExecutableCache(path), stretch=3)
+    assert first["source"] == "fresh" and first["persisted"]
+    assert again["source"] == "disk" and again["builds"] == 0
+    assert again["bucket"] == first["bucket"] != other["bucket"]
+    assert other["source"] == "fresh" and _build.builds == builds

@@ -478,6 +478,32 @@ def test_config_knobs_checked_as_jax(field, bad):
     assert str(got.value) == str(want.value)
 
 
+def test_engine_knob_rows_are_the_jax_rows():
+    """``config.ENGINE_KNOBS`` has every JAX row, ``memo`` and
+    ``serve_policy`` included, in the JAX order with its spellings; the
+    memo and serve-policy resolvers validate against them with the JAX
+    messages."""
+    from chandy_lamport_tpu import config as jax_config
+    from chandy_lamport_tpu.serving import admission as jax_admission
+    from chandy_lamport_tpu.utils import memocache as jax_memocache
+    from chandy_lamport_tpu_torch.config import ENGINE_KNOBS
+    from chandy_lamport_tpu_torch.serving import admission
+    from chandy_lamport_tpu_torch.utils import memocache
+
+    assert list(ENGINE_KNOBS.items()) == \
+        list(jax_config.ENGINE_KNOBS.items())
+    for mine, theirs, good in (
+            (memocache.resolve_memo, jax_memocache.resolve_memo, "prefix"),
+            (admission.resolve_serve_policy,
+             jax_admission.resolve_serve_policy, "fifo")):
+        assert mine(good) == theirs(good) == good
+        with pytest.raises(ValueError) as want:
+            theirs("auto")
+        with pytest.raises(ValueError) as got:
+            mine("auto")
+        assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("knob, values", [
     ("kernel_engine", ("auto", "xla", "pallas")),
     ("queue_engine", ("auto", "gather", "mask")),
@@ -583,8 +609,9 @@ def test_fused_knobs_on_the_runners():
 
 def test_constructors_take_the_jax_keywords():
     """``DenseSim`` and ``BatchedRunner`` take every JAX keyword in the
-    JAX position; ``guards`` (ROADMAP A12) raises NotImplementedError by
-    name; the resolutions are on the objects."""
+    JAX position; ``guards`` (utils/guards.RuntimeGuards) arms the
+    runner's stream loop with the JAX site books (the port's own lane-pass
+    site aside); the resolutions are on the objects."""
     spec = workloads.ring_topology(4)
     sim = DenseSim(spec, HashDelay(1), None, "cascade", 4, "mask", "xla",
                    None, None, "off", 32, device="cpu")
@@ -597,9 +624,26 @@ def test_constructors_take_the_jax_keywords():
             for p in inspect.signature(DenseSim.__init__).parameters
             if p not in ("self", "device")]
     assert mine == jnames
-    with pytest.raises(NotImplementedError, match="A12"):
-        BatchedRunner(spec, None, HashDelay(1), 2, device="cpu",
-                      guards=object())
+    from chandy_lamport_tpu.utils.guards import RuntimeGuards as JaxGuards
+    from chandy_lamport_tpu_torch.utils.guards import RuntimeGuards
+
+    jobs = workloads.stream_jobs(spec, 4, seed=2, max_phases=6)
+    jspec = jax_workloads.ring_topology(4)
+    books = []
+    for runner in (JaxRunner(jspec, None, HashJaxDelay(1), 2,
+                             guards=JaxGuards()),
+                   BatchedRunner(spec, None, HashDelay(1), 2, device="cpu",
+                                 guards=RuntimeGuards())):
+        pool = runner.pack_jobs(jax_workloads.stream_jobs(
+            jspec, 4, seed=2, max_phases=6) if isinstance(runner, JaxRunner)
+            else jobs)
+        runner.run_stream(pool, stretch=2, drain_chunk=8)
+        books.append(runner.guards.books())
+    want, got = books
+    lane_pass = got["transfers"].pop("stream-lane-pass")
+    assert got["transfers"] == want["transfers"]
+    assert lane_pass == want["transfers"]["stream-termination-scalars"] - 1
+    assert got["armed_regions"] == want["armed_regions"] == 1
 
 
 def test_run_events_file_keywords_are_the_jax_ones():
