@@ -15,9 +15,16 @@
                                                        serving over the
                                                        stream step (the
                                                        JAX CLI's ``serve``)
-    python -m chandy_lamport_tpu_torch test [--device cpu]
-                                                       the 7 reference goldens
-                                                       (DenseSim, megatick 8)
+    python -m chandy_lamport_tpu_torch run TOP EVENTS [--backend B]
+                     [--seed S] [--trace] [--exact-impl I] [--device D]
+                                                       one fixture's
+                                                       snapshots (the JAX
+                                                       CLI's ``run``)
+    python -m chandy_lamport_tpu_torch test [--backend B] [--exact-impl I]
+                     [--device D]                      the 7 reference goldens
+                                                       (torch: DenseSim,
+                                                       megatick 8; or the
+                                                       parity oracle)
     python -m chandy_lamport_tpu_torch trace TOP EVENTS [--perfetto P]
                      [--telemetry P] [--device D]      a fixture with the
                                                        flight recorder armed:
@@ -36,23 +43,88 @@ from chandy_lamport_tpu_torch.bench import main as bench_main
 from chandy_lamport_tpu_torch.parallel.batch import resolve_device
 
 
+def run_cmd(argv) -> int:
+    """The JAX CLI's ``run`` (``cli.py:40``): run a fixture pair through
+    ``run_events_file`` on ``--backend`` (the torch backend, ``DenseSim``
+    at megatick 8, by default: the port's rule; the JAX default is the
+    parity oracle) and print each snapshot as the JAX CLI does: its id,
+    ``node tokens`` lines in sorted order, ``src dest message`` lines, a
+    blank line. ``--trace`` prints the timeline on stderr (the parity
+    backend's ``EpochTrace`` or the flight recorder: the same text)."""
+    from chandy_lamport_tpu_torch.api import BACKENDS, run_events_file
+    from chandy_lamport_tpu_torch.config import REFERENCE_TEST_SEED
+
+    p = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
+                                     "run")
+    p.add_argument("topology")
+    p.add_argument("events")
+    p.add_argument("--backend", choices=BACKENDS, default="torch")
+    p.add_argument("--seed", type=int, default=REFERENCE_TEST_SEED + 1)
+    p.add_argument("--trace", action="store_true")
+    p.add_argument("--exact-impl", choices=["cascade", "wave", "fold"],
+                   default="cascade",
+                   help="torch backend: which bit-identical formulation of "
+                        "the reference scheduler runs the script ('wave' "
+                        "needs a position-addressable sampler, so it "
+                        "refuses the default Go-exact stream)")
+    p.add_argument("--device", default=None,
+                   help="torch backend: torch device (default: the card)")
+    args = p.parse_args(argv)
+    device = (resolve_device(args.device) if args.backend == "torch"
+              else None)
+    snaps, sim = run_events_file(args.topology, args.events, args.backend,
+                                 seed=args.seed, trace=args.trace,
+                                 exact_impl=args.exact_impl, device=device)
+    for snap in snaps:
+        print(snap.id)
+        for nid in sorted(snap.token_map):
+            print(f"{nid} {snap.token_map[nid]}")
+        for m in snap.messages:
+            print(f"{m.src} {m.dest} {m.message}")
+        print()
+    if args.trace:
+        print(sim.trace.pretty(), file=sys.stderr)
+    return 0
+
+
 def golden_test(argv) -> int:
-    """Run the 7 goldens, print PASS/FAIL per case, the count and the
-    device that ran them; exit 1 on any mismatch (the JAX package's
-    ``test --backend jax``)."""
+    """Run the 7 goldens on ``--backend`` (the JAX CLI's ``test``, its
+    default "torch": ``DenseSim`` at megatick 8), print PASS/FAIL per
+    case and the count — on the torch backend also the device that ran
+    them; exit 1 on any mismatch. ``--exact-impl wave`` on the torch
+    backend is refused with exit 2, as in JAX (the goldens replay the
+    order-dependent Go-exact stream); the parity backend ignores the
+    flag."""
+    from chandy_lamport_tpu_torch.api import BACKENDS
+
     p = argparse.ArgumentParser(prog="python -m chandy_lamport_tpu_torch "
                                      "test")
+    p.add_argument("--backend", choices=BACKENDS, default="torch")
+    p.add_argument("--exact-impl", choices=["cascade", "wave", "fold"],
+                   default="cascade",
+                   help="torch backend: run the golden suite through this "
+                        "formulation of the reference scheduler (the "
+                        "goldens replay the Go-exact stream, which 'wave' "
+                        "refuses by design)")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the card)")
+                   help="torch backend: torch device (default: the card)")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    results = run_reference_tests(device)
+    torch_backend = args.backend == "torch"
+    if torch_backend and args.exact_impl == "wave":
+        print("the golden suite replays the order-dependent Go-exact "
+              "delay stream; exact_impl='wave' cannot serve it — use "
+              "cascade or fold", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device) if torch_backend else None
+    impl = args.exact_impl if torch_backend else "cascade"
+    results = run_reference_tests(device, args.backend, exact_impl=impl)
     for name, _, why in results:
         print(f"PASS {name}" if why is None else f"FAIL {name}: {why}")
     failures = sum(why is not None for _, _, why in results)
     print(f"{len(results) - failures}/{len(results)} passed")
-    print("device: " + (torch.cuda.get_device_name(device)
-                        if device.type == "cuda" else device.type))
+    if torch_backend:
+        print("device: " + (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else device.type))
     return 1 if failures else 0
 
 
@@ -813,12 +885,13 @@ def serve_cmd(argv) -> int:
 
 
 COMMANDS = {"storm": storm_run, "bench": bench_main, "stream": stream_run,
-            "serve": serve_cmd, "test": golden_test, "trace": trace_run}
+            "serve": serve_cmd, "run": run_cmd, "test": golden_test,
+            "trace": trace_run}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
     if not args or args[0] not in COMMANDS:
         sys.exit("usage: python -m chandy_lamport_tpu_torch "
-                 "{storm,bench,stream,serve,test,trace} [flags] (see "
+                 "{storm,bench,stream,serve,run,test,trace} [flags] (see "
                  "<command> --help)")
     sys.exit(COMMANDS[args[0]](args[1:]))

@@ -62,6 +62,24 @@ pass at the same schedule. The row: ``serve_effective_jobs_per_sec``
 p50/p99, deadline misses, the memo books, the cold and warm warmups, and
 the fifo baseline's misses, p99 and occupancy.
 
+``--fleet N`` measures the serving fleet instead (the JAX bench's
+``--fleet`` row, ``bench.py:1278``; ``--graph ring`` only, since the
+workers rebuild a ring-stream engine from a picklable recipe): the
+``--serve`` schedule of ``--jobs`` requests (0 = 3x ``--batch``;
+``max_phases=max(--phases, 4)``, seed 17) admitted into a fresh
+write-ahead spool and served by N spawned workers on the card
+(``serving.fleet_run``), each cold request run alone through
+``run_stream``, duplicates answered from the shared summary cache.
+``--fleet-crashes K`` SIGKILLs a live worker K times (at 4 s, then every
+2 s); ``--fleet-lease-ttl`` is the lease expiry. The row:
+``fleet_served_jobs_per_sec`` with goodput, latency p50/p99/max, the
+takeover/restart books and the spool audit; exit 1 on a timed-out run
+or an audit with a lost or double-served request.
+
+The storm, stream and serve rows carry ``cost_model``
+(``utils/metrics.tick_cost_model`` at the row's shape with the runner's
+queue engine), as the JAX rows do.
+
 ``--trace`` (or ``--trace-capacity K``) arms the flight recorder
 (utils/tracing.py) for the measured runs, as the JAX bench's ``--trace``
 does: the storm row gains ``trace_capacity``, ``trace_events``,
@@ -109,6 +127,7 @@ from chandy_lamport_tpu_torch.parallel.batch import (
 from chandy_lamport_tpu_torch.utils.metrics import (
     conservation_delta,
     instance_footprint_bytes,
+    tick_cost_model,
 )
 from chandy_lamport_tpu_torch.utils.tracing import Trace, trace_counts
 
@@ -227,6 +246,21 @@ def _parser() -> argparse.ArgumentParser:
                    help="--serve: Zipf-weighted tenant population")
     z.add_argument("--priorities", type=int, default=2,
                    help="--serve: priority classes")
+    w = p.add_argument_group("the serving fleet (the JAX bench's --fleet "
+                             "row)")
+    w.add_argument("--fleet", type=int, default=0, metavar="N",
+                   help="measure serving.fleet_run instead of the storm: N "
+                        "spawned workers on the card over one write-ahead "
+                        "spool serving --jobs requests at the --rate/"
+                        "--tenants/--priorities schedule; served jobs/s "
+                        "with goodput, latency percentiles and the spool "
+                        "audit in one row; requires --graph ring")
+    w.add_argument("--fleet-crashes", type=int, default=0, metavar="K",
+                   help="--fleet: SIGKILL a live worker K times on a fixed "
+                        "schedule mid-run (the degraded-mode row)")
+    w.add_argument("--fleet-lease-ttl", type=float, default=4.0,
+                   help="--fleet: lease expiry (s) before a silent "
+                        "worker's in-flight requests are redelivered")
     f = p.add_argument_group("fault adversary and snapshot supervisor "
                              "(the JAX storm CLI's flags)")
     for name, what in (("--fault-drop", "per-(edge, tick) token drop"),
@@ -473,6 +507,9 @@ def run_stream_worker(args, device, spec, cfg) -> int:
         recorded, dropped = trace_counts(finals["stream"])
         result.update(trace_capacity=runner.config.trace_capacity,
                       trace_events=recorded, trace_dropped=dropped)
+    result["cost_model"] = tick_cost_model(
+        runner.topo.n, runner.topo.e, cfg, batch=args.batch,
+        queue_engine=runner.queue_engine)
     result["memo"] = args.memo
     result["effective_jobs_per_sec"] = best["stream"]
     if memo_runner is not None:
@@ -595,6 +632,106 @@ def run_serve_worker(args, device, spec, cfg) -> int:
         "deadline_misses_fifo": rep_fifo["deadline_misses"],
         "admit_p99_fifo": rep_fifo["admit_p99"],
         "occupancy_fifo": rep_fifo["occupancy"],
+    }
+    result["cost_model"] = tick_cost_model(
+        runner.topo.n, runner.topo.e, cfg, batch=args.batch,
+        queue_engine=runner.queue_engine)
+    if device.type != "cuda":
+        result["note"] = ("CPU run of the plain PyTorch versions; not a "
+                          "device measurement")
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def run_fleet_worker(args, device, spec, cfg) -> int:
+    """``--fleet N`` (module docstring): the JAX bench's fleet row on the
+    port. One seeded Poisson/Zipf schedule admitted into a fresh spool
+    and served by N spawned workers on ``device``; ``--fleet-crashes K``
+    adds the degraded-mode arm. Returns the exit code."""
+    import os
+    import shutil
+    import tempfile
+
+    from chandy_lamport_tpu_torch.models.workloads import (
+        crash_schedule,
+        serve_workload,
+    )
+    from chandy_lamport_tpu_torch.serving import fleet_run
+
+    if args.graph != "ring":
+        log("--fleet requires --graph ring: the spawn-crossing worker "
+            "recipe reconstructs a ring-stream engine")
+        return 1
+    rcount = args.jobs or 3 * args.batch
+    requests = serve_workload(spec, rcount, seed=17, rate=args.rate,
+                              tenants=args.tenants,
+                              priorities=args.priorities,
+                              dup_rate=args.dup_rate,
+                              max_phases=max(args.phases, 4))
+    log(f"fleet: {rcount} requests, {args.fleet} worker(s) on {device}, "
+        f"rate {args.rate}/step, crashes={args.fleet_crashes}, "
+        f"lease_ttl={args.fleet_lease_ttl}s")
+    run_dir = tempfile.mkdtemp(prefix="clsim-fleet-")
+    recipe = {"kind": "ring-stream", "n": args.nodes,
+              "tokens": args.phases + 10, "snapshots": args.snapshots,
+              "max_recorded": cfg.max_recorded,
+              "batch": args.batch, "scheduler": args.scheduler,
+              "delay": args.delay,
+              "memo_cache": os.path.join(run_dir, "memo.jsonl")}
+    kills = crash_schedule(args.fleet_crashes, 2.0, start_s=4.0)
+    try:
+        t0 = time.perf_counter()
+        rep = fleet_run(requests,
+                        spool_path=os.path.join(run_dir, "wal.jsonl"),
+                        workers=args.fleet, recipe=recipe,
+                        lease_ttl=args.fleet_lease_ttl,
+                        crash_schedule=kills, restart_backoff=0.2,
+                        stretch=args.stretch, drain_chunk=args.drain_chunk,
+                        max_wall_s=420.0, device=str(device))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    if rep["timed_out"]:
+        log("ERROR: fleet run hit max_wall_s before every request was "
+            "terminal — results invalid")
+        return 1
+    if rep["audit"]["lost"] or rep["audit"]["double_served"]:
+        log(f"ERROR: spool audit failed — lost={rep['audit']['lost']}, "
+            f"double_served={rep['audit']['double_served']}")
+        return 1
+    log(f"fleet: served {rep['served']}/{rcount} in {rep['wall_s']:.1f}s "
+        f"(goodput {rep['goodput']:.2f}), deaths="
+        f"{rep['books']['worker_deaths']} takeovers="
+        f"{rep['books']['takeovers']} restarts={rep['books']['restarts']}")
+    result = {
+        "metric": "fleet_served_jobs_per_sec",
+        "value": round(rep["served"] / rep["wall_s"], 2)
+        if rep["wall_s"] else 0.0,
+        "unit": "jobs/s",
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device_kind": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "scheduler": (args.scheduler if args.scheduler == "sync"
+                      else f"exact/{args.exact_impl}"),
+        "graph": args.graph, "nodes": args.nodes, "batch": args.batch,
+        "requests": rcount, "rate": args.rate, "tenants": args.tenants,
+        "workers": args.fleet, "crashes_injected": args.fleet_crashes,
+        "lease_ttl_s": args.fleet_lease_ttl,
+        "stretch": args.stretch, "drain_chunk": args.drain_chunk,
+        "served": rep["served"], "goodput": rep["goodput"],
+        "shed": len(rep["shed"]), "poisoned": len(rep["poisoned"]),
+        "lat_p50_s": rep["lat_p50_s"], "lat_p99_s": rep["lat_p99_s"],
+        "lat_max_s": rep["lat_max_s"],
+        "worker_deaths": rep["books"]["worker_deaths"],
+        "takeovers": rep["books"]["takeovers"],
+        "restarts": rep["books"]["restarts"],
+        "cache_served": sum(1 for v in rep["results"].values()
+                            if v.get("served_from") == "fleet-cache"),
+        "audit_lost": rep["audit"]["lost"],
+        "audit_double_served": rep["audit"]["double_served"],
+        "wall_total_s": round(wall, 2),
+        "serve_wall_s": rep["wall_s"],
+        "serve_schema": rep["serve_schema"],
     }
     if device.type != "cuda":
         result["note"] = ("CPU run of the plain PyTorch versions; not a "
@@ -725,6 +862,12 @@ def main(argv=None) -> int:
     if args.capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=args.capacity)
     faults = _faults(args)
+    if args.fleet:
+        if faults is not None or args.quarantine or args.stream \
+                or args.serve:
+            parser.error("--fleet runs the JAX bench's fleet row, which "
+                         "arms no adversary and is not --stream or --serve")
+        return run_fleet_worker(args, device, spec, cfg)
     if args.serve:
         if faults is not None or args.quarantine or args.stream:
             parser.error("--serve runs the JAX bench's serve row, which "
@@ -868,6 +1011,10 @@ def main(argv=None) -> int:
         "straggler_waste": summary["straggler_waste"],
         "snapshot_lifecycle": summary["snapshot_lifecycle"],
     }
+    # the analytic per-tick cost at this shape (the JAX row's)
+    result["cost_model"] = tick_cost_model(
+        topo.n, topo.e, cfg, batch=args.batch,
+        queue_engine=runner.queue_engine)
     if faults is not None:
         result.update(faults=faults.describe(), quarantine=quarantine,
                       snapshot_timeout=cfg.snapshot_timeout,

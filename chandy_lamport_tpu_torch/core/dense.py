@@ -44,6 +44,8 @@ from chandy_lamport_tpu_torch.core.state import (
     decode_snapshot,
     init_single_state,
 )
+from chandy_lamport_tpu_torch.models.delay import DelayModel
+from chandy_lamport_tpu_torch.ops.delay import from_host_model
 from chandy_lamport_tpu_torch.ops.tick import TickKernel
 from chandy_lamport_tpu_torch.parallel.batch import resolve_device
 from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
@@ -111,10 +113,14 @@ class DenseSim:
         ``kernel_engine``, ``fused_tick`` (None: the config's) and
         ``fused_block_edges`` are the JAX knobs, resolved by
         ``TickKernel`` (``self.kernel_engine`` and the kernel's
-        ``*_reason`` attributes)."""
+        ``*_reason`` attributes). ``delay``: a device sampler
+        (ops/delay.py) or a host model (models/delay.py), mapped to its
+        device twin by ``ops/delay.from_host_model`` as in JAX."""
         self.device = resolve_device(device)
         self.config = config or SimConfig()
         self.topo = DenseTopology(topology)
+        if isinstance(delay, DelayModel):
+            delay = from_host_model(delay)
         self.delay = delay
         # the flush must cover the sampler's max delay
         if delay.max_delay != self.config.max_delay:

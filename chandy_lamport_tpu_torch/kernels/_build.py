@@ -7,7 +7,12 @@ The libraries land in ``kernels/build/`` (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing is built at import time:
 the first kernel launch builds every source at once, one ``nvcc`` each,
-all started together.
+all started together. The build runs under an exclusive file lock in
+``kernels/build/`` and checks its targets again once it holds it, so
+processes that start together on a cold directory (the serving fleet's
+workers) run ``nvcc`` once between them: the first builds, the others
+wait and load its libraries, and ``builds`` counts only in the process
+that built.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code.
@@ -22,6 +27,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from chandy_lamport_tpu_torch.utils.filelock import locked
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -59,29 +66,31 @@ def _target(name: str) -> str:
 
 
 def _build_all() -> None:
-    """Compile every missing library in parallel; raise with nvcc's
+    """Compile every missing library in parallel, under the build
+    directory's exclusive lock (module docstring); raise with nvcc's
     output if any compile fails."""
     global build_seconds, builds
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    nvcc = _nvcc()
-    procs = []
-    for name in SOURCES:
-        out = _target(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        builds += 1
-    failures = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{name}.cu:\n{log.decode(errors='replace')}")
-        else:
-            os.replace(tmp, out)   # atomic: a reader never sees half a file
+    with locked(os.path.join(BUILD_DIR, "nvcc")):
+        missing = [n for n in SOURCES if not os.path.exists(_target(n))]
+        nvcc = _nvcc() if missing else None
+        procs = []
+        for name in missing:
+            out = _target(name)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+            builds += 1
+        failures = []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+            else:
+                os.replace(tmp, out)   # atomic: no reader sees half a file
     if failures:
         raise RuntimeError("nvcc failed\n" + "\n".join(failures))
     build_seconds = time.perf_counter() - t0

@@ -253,6 +253,20 @@ def burst_workload(spec: TopologySpec, count: int, seed: int,
     return out
 
 
+def crash_schedule(kills: int, period_s: float,
+                   start_s: float = 1.0) -> List[float]:
+    """Deterministic worker-kill times (elapsed seconds) for
+    serving/fleet.fleet_run's injected crash schedule (the JAX
+    ``crash_schedule``): the degraded-mode arm SIGKILLs one live worker
+    at each returned instant, the first at ``start_s``, then every
+    ``period_s``."""
+    if kills < 0:
+        raise ValueError("kills must be >= 0")
+    if period_s <= 0 or start_s < 0:
+        raise ValueError("period_s must be > 0 and start_s >= 0")
+    return [start_s + k * period_s for k in range(kills)]
+
+
 class StormProgram(NamedTuple):
     """Compiled storm traffic: T phases, each = bulk sends + snapshot
     initiations + one tick."""

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from chandy_lamport_tpu_torch.config import MAX_DELAY
+from chandy_lamport_tpu_torch.models import delay as host
 from chandy_lamport_tpu_torch.ops.gorand import LEN as _GO_LEN
 from chandy_lamport_tpu_torch.ops.gorand import GoRand
 
@@ -424,3 +425,17 @@ def make_fast_delay(name: str, seed: int, max_delay: int = MAX_DELAY):
     if name == "hash":
         return HashDelay(seed, max_delay)
     raise ValueError(f"unknown fast delay sampler {name!r}")
+
+
+def from_host_model(model):
+    """Map a host model (models/delay.py) to its device sampler (the JAX
+    ``from_host_model``): the same stream where the model is
+    reproducible — ``GoExactDelay`` re-seeds from its recorded seed,
+    ``FixedDelay`` is stateless. Any other model raises TypeError."""
+    if isinstance(model, host.GoExactDelay):
+        return GoExactDelay(model.seed, model.max_delay)
+    if isinstance(model, host.FixedDelay):
+        return FixedDelay(model.delay)
+    raise TypeError(
+        f"no device twin for delay model {type(model).__name__}; "
+        "pass a device sampler directly")

@@ -1,5 +1,5 @@
 """The online serving front-end over the stream engine (the JAX package's
-``serving/``, less its spool and fleet: ROADMAP A10b).
+``serving/``).
 
 Layers (each its own module, host-side unless noted):
 
@@ -15,6 +15,15 @@ Layers (each its own module, host-side unless noted):
   server       ``serve_run``: the host loop driving BatchedRunner's
                serving-mode stream step (the device half is
                ``_stream_step(serve=True)`` in parallel/batch.py).
+  spool        the write-ahead admission spool: an fsync-appended
+               journal of admit/lease/done records arbitrating
+               exactly-once serving across worker crashes (the JAX
+               journal byte for byte; ``WAL_SCHEMA_VERSION`` stamps every
+               record, a stale journal is refused with ``SpoolError``).
+  fleet        the multi-process worker fleet over the spool: the
+               supervisor (lease reclaim, doubling-backoff restart,
+               poison quarantine, deadline-aware shedding) and the
+               worker serve loop, its workers on the card.
 
 ``SERVE_SCHEMA_VERSION`` stamps every serve telemetry record
 (``serve_schema`` key) and checkpoint meta, as in JAX.
@@ -31,19 +40,37 @@ from chandy_lamport_tpu_torch.serving.executables import (
     EXEC_CACHE_SCHEMA_VERSION,
     ExecutableCache,
 )
+from chandy_lamport_tpu_torch.serving.fleet import (
+    fleet_run,
+    recipe_runner,
+    worker_serve,
+)
 from chandy_lamport_tpu_torch.serving.server import (
     SERVE_SCHEMA_VERSION,
     serve_run,
+)
+from chandy_lamport_tpu_torch.serving.spool import (
+    WAL_SCHEMA_VERSION,
+    AdmissionSpool,
+    SpoolError,
+    request_digest,
 )
 
 __all__ = [
     "EXEC_CACHE_SCHEMA_VERSION",
     "ExecutableCache",
     "SERVE_SCHEMA_VERSION",
+    "WAL_SCHEMA_VERSION",
+    "AdmissionSpool",
+    "SpoolError",
     "admission_key",
+    "fleet_run",
     "order_eligible",
     "plan_ingest",
+    "recipe_runner",
+    "request_digest",
     "resolve_serve_policy",
     "serve_run",
     "shed_order",
+    "worker_serve",
 ]

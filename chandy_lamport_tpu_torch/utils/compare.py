@@ -5,6 +5,9 @@ The exact comparison semantics of the reference test harness:
   - assert_snapshots_equal   test_common.go:222-285
   - sort_snapshots           test_common.go:288-294
   - check_tokens             test_common.go:298-328
+
+and ``dense_state_mismatches``, the leaf-for-leaf state comparison behind
+the exact ticks' differentials.
 """
 
 from __future__ import annotations
@@ -86,3 +89,41 @@ def check_tokens(current_node_tokens: Dict[str, int], snapshots: List[GlobalSnap
                 f"snapshot {snap.id}: simulator has {expected} tokens, snapshot has {got}"
             )
 
+
+def _leaves(x) -> list:
+    """The tensor and array leaves of a state field, in order (a field is
+    a tensor, a tuple of them — the delay sampler's words — or None)."""
+    if x is None:
+        return []
+    if isinstance(x, (tuple, list)):
+        return [leaf for item in x for leaf in _leaves(item)]
+    return [x]
+
+
+def _host(x):
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def dense_state_mismatches(a, b) -> List[str]:
+    """Field names where two DenseStates are not bit-equal (the JAX
+    ``dense_state_mismatches``, without ``jax.tree_util``): every leaf
+    compared exactly — rings, shared log, recording windows, the sticky
+    error mask and the delay sampler's stream position included — on the
+    host, whatever devices the two states live on. Empty means the two
+    runs produced indistinguishable simulations."""
+    import numpy as np
+
+    bad = []
+    for name in a._fields:
+        xs = _leaves(getattr(a, name))
+        ys = _leaves(getattr(b, name))
+        if len(xs) != len(ys) or any(
+                not np.array_equal(_host(x), _host(y))
+                for x, y in zip(xs, ys)):
+            bad.append(name)
+    return bad

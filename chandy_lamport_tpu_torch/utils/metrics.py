@@ -109,6 +109,15 @@ def straggler_waste(state: DenseState):
                        torch.zeros_like(mx))
 
 
+def stream_occupancy(stream) -> float:
+    """Fraction of lane-steps that held a live job during a
+    ``run_stream`` drive (the JAX ``stream_occupancy``; one lane-step =
+    one slot for one stream step): 1.0 means every slot held working
+    jobs the whole run."""
+    total = int(stream.lane_steps_total)
+    return float(int(stream.lane_steps_live)) / total if total else 0.0
+
+
 def stream_counters(stream) -> Dict[str, Any]:
     """Host-side scalars of a ``StreamState`` (the JAX
     ``stream_counters``): jobs admitted and harvested, refills
@@ -168,6 +177,37 @@ def instance_footprint_bytes(num_nodes: int, num_edges: int,
     scalars = 4 * 3 + 4 * 10 + s * 4 + 4 * 3 + 4
     trace = 12 * cfg.trace_capacity + 8   # the ring, tr_count / tr_on
     return queues + nodes + rec_log + snaps + scalars + trace
+
+
+def max_batch_estimate(num_nodes: int, num_edges: int, cfg: SimConfig,
+                       hbm_bytes: int, working_set_factor: float = 2.0) -> int:
+    """Instances that fit one card's device memory (the JAX
+    ``max_batch_estimate``): capacity / (footprint x factor), the factor
+    covering a second live copy of the state (2.0, as in JAX)."""
+    per = instance_footprint_bytes(num_nodes, num_edges, cfg)
+    return max(1, int(hbm_bytes / (per * working_set_factor)))
+
+
+def tick_cost_model(num_nodes: int, num_edges: int, cfg: SimConfig,
+                    batch: int = 1,
+                    queue_engine: str = "gather") -> Dict[str, Any]:
+    """Analytic per-tick cost of the dense engine at a bench shape (the
+    JAX ``tick_cost_model``, the same numbers for the same arguments):
+    ``hbm_bytes_per_tick`` = 2 x instance_footprint_bytes x batch (every
+    state leaf read and written once a tick), ``elem_ops_per_tick`` the
+    queue engine's head touch ("gather": ~4 x E element ops a lane,
+    "mask": 2 x E x C) x batch. The bench rows carry it with the runner's
+    resolved ``queue_engine`` (the port's is "gather")."""
+    per = instance_footprint_bytes(num_nodes, num_edges, cfg)
+    e, c = num_edges, cfg.queue_capacity
+    elem = (2 * e * c if queue_engine == "mask" else 4 * e) * batch
+    return {
+        "instance_bytes": int(per),
+        "hbm_bytes_per_tick": int(2 * per * batch),
+        "elem_ops_per_tick": int(elem),
+        "queue_engine": queue_engine,
+        "batch": int(batch),
+    }
 
 
 def or_reduce(mask):

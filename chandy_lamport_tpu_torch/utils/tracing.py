@@ -1,6 +1,13 @@
-"""The flight recorder: a per-lane ring of packed event words, written
-inside the ticks at the sites where the reference Logger records
-(logger.go:12-76, common.go:75-122), and its host side.
+"""Event tracing: the parity backend's epoch log and the flight recorder,
+a per-lane ring of packed event words written inside the ticks at the
+sites where the reference Logger records (logger.go:12-76,
+common.go:75-122), and its host side.
+
+``EpochTrace`` (with ``TraceEvent``) is the JAX package's copy of the
+reference Logger for the parity oracle (core/parity.py): events bucketed
+per time step, each with the node's balance when recorded (a send records
+the balance before the debit, node.go:118-120), printed in the
+reference's record strings. Host-only.
 
 The port of the JAX package's ``utils/tracing.py`` device ring, with its
 own copy of the vocabulary. Three int32 planes of ``SimConfig.
@@ -67,6 +74,62 @@ EVENT_KIND_NAMES = (
 
 _KIND_BITS = 5
 _KIND_MASK = (1 << _KIND_BITS) - 1
+
+
+@dataclasses.dataclass
+class TraceEvent:
+    node_id: str
+    node_tokens: int  # balance when recorded (logger.go:18-23)
+    text: str
+
+
+class EpochTrace:
+    """The reference Logger (logger.go:12-76) for the parity oracle: one
+    epoch of events per time step; a no-op unless ``enabled``."""
+
+    def __init__(self, enabled: bool = False):
+        self.enabled = enabled
+        self.epochs: List[List[TraceEvent]] = []
+
+    def new_epoch(self) -> None:
+        if self.enabled:
+            self.epochs.append([])
+
+    def _record(self, node, text: str) -> None:
+        if self.enabled:
+            self.epochs[-1].append(TraceEvent(node.id, node.tokens, text))
+
+    def sent(self, node, dest: str, msg) -> None:
+        if not self.enabled:
+            return
+        if msg.is_marker:
+            self._record(node, f"{node.id} sent marker({msg.data}) to {dest}")
+        else:
+            self._record(node, f"{node.id} sent {msg.data} tokens to {dest}")
+
+    def received(self, node, src: str, msg) -> None:
+        if not self.enabled:
+            return
+        if msg.is_marker:
+            self._record(node,
+                         f"{node.id} received marker({msg.data}) from {src}")
+        else:
+            self._record(node,
+                         f"{node.id} received {msg.data} tokens from {src}")
+
+    def start_snapshot(self, node, snapshot_id: int) -> None:
+        self._record(node, f"{node.id} startSnapshot({snapshot_id})")
+
+    def end_snapshot(self, node, snapshot_id: int) -> None:
+        self._record(node, f"{node.id} endSnapshot({snapshot_id})")
+
+    def pretty(self) -> str:
+        out = []
+        for t, events in enumerate(self.epochs):
+            if events:
+                out.append(f"Time {t}:")
+                out.extend(f"\t{e.node_id}: {e.text}" for e in events)
+        return "\n".join(out)
 
 _i32 = torch.int32
 

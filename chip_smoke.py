@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs fifty phases,
+kernels/csrc`` (one nvcc per source, in parallel), then runs fifty-two
+phases,
 each printing one JSON line (a phase's with ``elapsed_s``, the
 seconds since the start):
 
@@ -224,7 +225,7 @@ seconds since the start):
                twin's (the same queue through the wave at megatick 1),
                and a queue of 4,096 jobs of at most 8 phases at the
                same width gives the same rows through the cascade at
-               megatick 8 and megatick 1; 16 sampled jobs each equal the
+               megatick 8 and megatick 1; 32 sampled jobs each equal the
                same job run alone
                through ``run``; fused_scan, queue_step,
                append_marker_rows and sum_by_perm launched, sum_segments
@@ -274,7 +275,7 @@ seconds since the start):
                retired (printed with its derivation); an edf arm through
                a cold ``ExecutableCache`` and a fifo arm through a
                restarted one over the same directory, armed
-               (``RuntimeGuards()``: the sync debug mode "error"): 64
+               (``RuntimeGuards()``: the sync debug mode "error"): 32
                sampled rows equal their solo runs, the fifo rows the edf
                rows less ``admit_step``, ``deadline_misses`` and
                ``tenant_served`` the harvests read back after each step,
@@ -290,6 +291,35 @@ seconds since the start):
                cache-served count and the per-tenant refusals equal
                ``plan_ingest``'s plan, every follower row its leader's,
                every cache-served row the file's entry;
+  fleet        main path 31: the serving fleet (``serving.fleet_run``) at
+               the JAX bench's ``--fleet`` cell (``FL_*``: ring-1024,
+               2,048 lanes, the sync scheduler, hash delay, 8 snapshots,
+               stretch 4, drain chunk 32; ``serve_workload(seed=17,
+               rate=2.0, tenants=4, priorities=2, max_phases=32)`` at
+               duplicate rate 0.5), the requests cut in depth to the
+               first 2 of the bench trace's most requested content, the
+               lease 360 s; 2 spawned workers on the card, each cold
+               request a singleton stream drive. Arm A, clean, alone on
+               the card: none lost or double-served, digests intact, no
+               takeover or death, some served from the shared summary
+               cache. Then arms B (the bench's crash schedule: a death
+               and a restart, the audit balanced) and C (the in-flight
+               takeover: a takeover, none lost or double-served) on the
+               same requests over a copy of arm A's summary cache,
+               beside the content's solo run here on the card. Every row
+               of every arm equals the solo run, and B's and C's their
+               arm-A rows; served jobs/s, latency p50/p99, the books of
+               each arm and of each worker, the solo run's seconds, ticks
+               and launches; the path's launches are arm A's workers'
+               (their books);
+  host_surface main path 32: the 7 goldens through ``run --trace`` on
+               ``--backend torch`` (the card, megatick 8) and ``--backend
+               parity``: equal stdout and equal stderr (the device
+               recorder's timeline is the oracle's ``EpochTrace``);
+               ``test --backend parity`` 7 of 7; the card's sync storm on
+               ring-8 and ER-16 equal to ``SyncOracle``; the exact
+               cell's cascade and wave storms (B=512, megatick 8) with
+               no ``dense_state_mismatches``;
   golden       main path 5: the 7 reference goldens (21 snapshots)
                through the port's ``run_events_file`` on the card
                (``DenseSim`` at its default megatick 8), each snapshot
@@ -458,7 +488,7 @@ SMALL_SYNC_FAULTS = dict(drop_rate=0.02, dup_rate=0.02, jitter_rate=0.02,
 # recipe :541-547, :904-907) on the exact cell, ``storm --stream --graph er
 # --nodes 256 --batch 4096 --scheduler exact --megatick 8``: J = 3 x B jobs
 # of ``stream_jobs(seed=17, base_phases=4, tail_alpha=1.1, max_phases=32)``,
-# 8 snapshot slots, stretch 4, drain chunk 32; 64 of its jobs are held to
+# 8 snapshot slots, stretch 4, drain chunk 32; 32 of its jobs are held to
 # the same job run alone
 ST_PHASES, ST_SNAPSHOTS, ST_STRETCH, ST_CHUNK = 32, 8, 4, 32
 ST_SAMPLED = 64
@@ -3572,7 +3602,7 @@ def phase_prefix_stream() -> dict:
 
 # the serve cells' traffic (the JAX serve CLI's defaults): 4 Zipf tenants,
 # 2 priority classes, deadline slack 64-256 steps; serve_edf's J = 3 x B
-# (the CLI's --requests 0), 64 sampled rows held to their solo runs;
+# (the CLI's --requests 0), 32 sampled rows held to their solo runs;
 # serve_memo_quota on the sync scheduler with J cut to 4,096, at the
 # memo cell's duplicate rate, over a summary cache warmed by its first
 # SV_WARM_REQUESTS requests, with quotas that refuse part of tenants 0
@@ -3666,7 +3696,7 @@ def phase_serve_edf(stream_jobs_per_step: float) -> dict:
     directory, its harvests read back after each step; then a fifo arm on
     a fresh runner through a restarted cache over that directory, armed
     (``RuntimeGuards()``: transfers "disallow", the card's sync debug
-    mode "error"). Checks: 64 sampled rows equal their solo runs, the
+    mode "error"). Checks: 32 sampled rows equal their solo runs, the
     fifo rows the edf rows less ``admit_step``, the device's
     ``deadline_misses`` and ``tenant_served`` the harvests read back,
     fused_scan launched and its plain form never called, the restarted
@@ -3875,6 +3905,430 @@ def phase_serve_memo_quota(rate: float) -> dict:
                     ("head_fields", "sum_by_perm", "spread"),
                     ("fused_scan", "queue_step"))
     return m["launches"]
+
+
+# the fleet cell: the JAX bench's ``--fleet`` row (bench.py:1278-1378),
+# ``bench --fleet 2 --graph ring --nodes 1024 --batch 2048 --scheduler
+# sync``: ring-1024 with tokens phases + 10 = 42, 8 snapshots, the hash
+# sampler, stretch 4, drain chunk 32, 2,048 lanes; the traffic of
+# ``serve_workload(seed=17, rate=2.0, tenants=4, priorities=2,
+# max_phases=32)`` over the bench's 3 x B requests at duplicate rate 0.5;
+# 2 spawned workers on the card. One cold request is one singleton stream
+# drive of ~3,080 sync ticks at the full 2,048 lanes (a snapshot's markers
+# go round the ring), ~38 s on an NVIDIA H100 80GB HBM3 at 700 W, so the
+# requests are cut in depth, never in width: every arm serves the first
+# ``FL_REQUESTS`` requests of the trace's most requested content. The
+# worker that leases first takes both, executes one and serves the other
+# from the shared summary cache; from 3 requests on, the other worker
+# executes an in-flight duplicate at the same time, and two executions
+# take turns on the card (~40 s more: at 32 requests the phase took
+# ~126 s, too close to the smoke's limit). Arms B and C run over a copy
+# of arm A's summary cache (their checks are the spool's and the
+# supervisor's; each cold execution would cost the card ~38 s). The lease is
+# ``FL_LEASE_TTL``: the bench's 4 s would expire mid-request, and the JAX
+# rule keeps the lease above a lease batch's execution
+FL_NODES, FL_BATCH, FL_PHASES, FL_SNAPSHOTS = 1024, 2048, 32, 8
+FL_REQUESTS = 2
+FL_WORKERS, FL_LEASE_TTL, FL_DUP, FL_MAX_WALL = 2, 360.0, 0.5, 420.0
+FL_DEVICE = "cuda"
+# the sync oracle's graphs (tests/test_sync_differential.py's draw)
+SO_CASES = (("ring", 8, 0), ("er", 16, 1))
+
+
+def fleet_recipe(memo_cache) -> dict:
+    """The bench's fleet recipe at ``FL_*`` (bench.py:1311-1316)."""
+    from chandy_lamport_tpu_torch import SimConfig
+
+    cfg = SimConfig.for_workload(snapshots=FL_SNAPSHOTS,
+                                 record_dtype="int16", split_markers=True)
+    return {"kind": "ring-stream", "n": FL_NODES,
+            "tokens": FL_PHASES + 10, "snapshots": FL_SNAPSHOTS,
+            "max_recorded": cfg.max_recorded, "batch": FL_BATCH,
+            "scheduler": "sync", "delay": "hash",
+            "memo_cache": memo_cache}
+
+
+def fleet_requests() -> list:
+    """The fleet cell's requests: the bench's trace of 3 x B requests,
+    cut to the first ``FL_REQUESTS`` requests of its most requested
+    content (the first such content on a tie)."""
+    from collections import Counter
+
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        serve_workload,
+    )
+
+    trace = serve_workload(ring_topology(FL_NODES, tokens=FL_PHASES + 10),
+                           3 * FL_BATCH, seed=DELAY_SEED, rate=2.0,
+                           tenants=4, priorities=2, dup_rate=FL_DUP,
+                           max_phases=FL_PHASES)
+    counts = Counter(str(r.events) for r in trace)
+    top = max(counts.values())
+    hot = next(r.events for r in trace if counts[str(r.events)] == top)
+    return [r for r in trace if r.events == hot][:FL_REQUESTS]
+
+
+def _fleet_arm(requests, tmp, name, **kw) -> tuple:
+    """One ``fleet_run`` of ``requests`` on a fresh spool under
+    ``tmp/name``, over the summary-cache file there (empty, or a copy of
+    another arm's), timed. Returns (report, seconds)."""
+    from chandy_lamport_tpu_torch.serving import fleet_run
+
+    os.makedirs(os.path.join(tmp, name), exist_ok=True)
+    recipe = fleet_recipe(os.path.join(tmp, name, "memo.jsonl"))
+    t0 = time.perf_counter()
+    rep = fleet_run(requests,
+                    spool_path=os.path.join(tmp, name, "wal.jsonl"),
+                    workers=FL_WORKERS, recipe=recipe,
+                    lease_ttl=FL_LEASE_TTL, restart_backoff=0.2,
+                    stretch=ST_STRETCH, drain_chunk=ST_CHUNK,
+                    max_wall_s=FL_MAX_WALL, device=FL_DEVICE, **kw)
+    return rep, time.perf_counter() - t0
+
+
+def _fleet_books(rep, seconds) -> dict:
+    """What a fleet arm's line prints: the report's books and, for each
+    worker incarnation that ran to its end, how many requests it leased,
+    served, answered from the cache and executed."""
+    return {"served": rep["served"], "requests": rep["requests"],
+            "wall_s": rep["wall_s"], "run_s": seconds,
+            "fleet_served_jobs_per_sec": (rep["served"] / rep["wall_s"]
+                                          if rep["wall_s"] else None),
+            "lat_p50_s": rep["lat_p50_s"], "lat_p99_s": rep["lat_p99_s"],
+            "lat_max_s": rep["lat_max_s"], "timed_out": rep["timed_out"],
+            "goodput": rep["goodput"],
+            "executed": sum(1 for v in rep["results"].values()
+                            if v.get("served_from") == "fleet-exec"),
+            "cache_served": sum(1 for v in rep["results"].values()
+                                if v.get("served_from") == "fleet-cache"),
+            "books": rep["books"], "audit": rep["audit"],
+            "worker_books": [{**{k: b[k] for k in (
+                "worker", "device", "leased", "served", "cache_served",
+                "late_rejected", "batches", "idle_polls",
+                "cuda_peak_allocated_bytes") if k in b},
+                "executed": b["served"] + b["late_rejected"]
+                - b["cache_served"]}
+                for b in rep["worker_books"]]}
+
+
+def _summary_only(row) -> dict:
+    """A fleet summary less its provenance (``served_from``) and its
+    digest (a solo row has none)."""
+    return {k: v for k, v in row.items()
+            if k not in ("digest", "served_from")}
+
+
+def phase_fleet() -> dict:
+    """Main path 31: the serving fleet (``serving.fleet_run``) at the JAX
+    bench's ``--fleet`` cell (``FL_*``: 2,048 lanes, the requests cut in
+    depth to 2 of one content). Arm A, clean, alone on the card: 2 spawned
+    workers, each cold request a singleton ``run_stream`` on a ring-1024
+    sync runner (rows 1, 3 and 4); every request served once (audit: none
+    lost or double-served, digests intact), no takeover, no death, no
+    timeout, some served from the shared summary cache. Then, over a copy
+    of arm A's summary cache and side by side in two threads, arm B, the
+    bench's degraded arm (``crash_schedule(1, 2.0, start_s=4.0)``: a
+    worker death and a restart, the audit balanced), and arm C, the
+    in-flight takeover (the JAX chaos smoke's: ``kill_on_job`` = the first
+    job leased, once; a takeover, none lost or double-served); beside them
+    the content's solo ``run_stream`` through ``recipe_runner({**recipe,
+    "memo_cache": None})`` here on the card. Every row of every arm,
+    executed or from the cache, equals the solo run (less ``served_from``
+    and the digest), and every row of B and C its arm-A row with the
+    digest. The path's launches are arm A's workers' (their books: the
+    counts start at 0 in each worker and are read at its end). Returns
+    them."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.models.workloads import crash_schedule
+    from chandy_lamport_tpu_torch.serving import recipe_runner
+
+    requests = fleet_requests()
+    first = min(requests, key=lambda r: (r.arrival_step, r.job)).job
+    torch.cuda.empty_cache()   # this process's pool, for the workers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        rep_a, run_a = _fleet_arm(requests, tmp, "clean")
+        for arm in ("degraded", "takeover"):
+            os.makedirs(os.path.join(tmp, arm))
+            shutil.copyfile(os.path.join(tmp, "clean", "memo.jsonl"),
+                            os.path.join(tmp, arm, "memo.jsonl"))
+        counter = os.path.join(tmp, "kills")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            arm_b = pool.submit(
+                _fleet_arm, requests, tmp, "degraded",
+                crash_schedule=crash_schedule(1, 2.0, start_s=4.0))
+            arm_c = pool.submit(
+                _fleet_arm, requests, tmp, "takeover",
+                chaos={"kill_on_job": first, "kill_limit": 1,
+                       "counter_path": counter})
+            solo = recipe_runner(fleet_recipe(None), device=FL_DEVICE)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            jobs = solo.pack_jobs([requests[0].events], content_keys=True)
+            _, stream = solo.run_stream(jobs, stretch=ST_STRETCH,
+                                        drain_chunk=ST_CHUNK)
+            torch.cuda.synchronize()
+            solo_s = time.perf_counter() - t0
+            solo_launches = {k: n for k, n in launch_counts().items() if n}
+            (row,) = solo.stream_results(stream)
+            solo_steps = int(stream.steps)
+            del solo, jobs, stream
+            rep_b, run_b = arm_b.result()
+            rep_c, run_c = arm_c.result()
+        with open(counter, encoding="utf-8") as f:
+            kills_c = int(f.read().strip() or 0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    solo_row = {k: v for k, v in row.items()
+                if k not in ("job", "admit_step")}
+    bad = []
+
+    def audit_ok(arm, rep, want_served):
+        a = rep["audit"]
+        if a["lost"] or a["double_served"] or not a["digests_ok"] \
+                or rep["served"] != want_served or rep["timed_out"]:
+            bad.append(f"arm {arm}: audit {a}, served {rep['served']} of "
+                       f"{want_served}, timed out {rep['timed_out']}")
+
+    res_a = rep_a["results"]
+    audit_ok("A", rep_a, len(requests))
+    if rep_a["books"]["takeovers"] or rep_a["books"]["worker_deaths"]:
+        bad.append(f"arm A (clean) books: {rep_a['books']}")
+    if not any(v.get("served_from") == "fleet-cache"
+               for v in res_a.values()):
+        bad.append("arm A served nothing from the shared summary cache")
+    audit_ok("B", rep_b, len(requests))
+    if rep_b["books"]["worker_deaths"] < 1 or rep_b["books"]["restarts"] < 1:
+        bad.append(f"arm B (degraded) killed or restarted nothing: "
+                   f"{rep_b['books']}")
+    audit_ok("C", rep_c, len(requests))
+    if rep_c["books"]["takeovers"] < 1 or kills_c != 1:
+        bad.append(f"arm C took nothing over: {rep_c['books']}, "
+                   f"{kills_c} kills")
+    vs_solo = {arm: [j for j, v in rep["results"].items()
+                     if _summary_only(v) != solo_row]
+               for arm, rep in (("A", rep_a), ("B", rep_b), ("C", rep_c))}
+    if any(vs_solo.values()):
+        bad.append(f"fleet rows differ from the solo run: {vs_solo}")
+    vs_a = {arm: [j for j, v in rep["results"].items()
+                  if {**v, "served_from": None}
+                  != {**res_a.get(j, {}), "served_from": None}]
+            for arm, rep in (("B", rep_b), ("C", rep_c))}
+    if any(vs_a.values()):
+        bad.append(f"arm B or C rows differ from arm A's: {vs_a}")
+    launches = {k: 0 for k in launch_counts()}
+    for b in rep_a["worker_books"]:
+        for k, n in b["launches"].items():
+            launches[k] += n
+    if sorted(b["device"] for b in rep_a["worker_books"]) != \
+            ["cuda"] * FL_WORKERS:
+        bad.append(f"arm A's workers: {rep_a['worker_books']}")
+    emit({"phase": "fleet", "main_path": True, "graph": f"ring-{FL_NODES}",
+          "batch": FL_BATCH, "scheduler": "sync", "delay": "hash",
+          "snapshots": FL_SNAPSHOTS, "stretch": ST_STRETCH,
+          "drain_chunk": ST_CHUNK, "requests": [r.job for r in requests],
+          "trace": f"the first {FL_REQUESTS} requests of the most "
+          f"requested content of the bench's {3 * FL_BATCH}",
+          "dup_rate": FL_DUP,
+          "workers": FL_WORKERS, "lease_ttl_s": FL_LEASE_TTL,
+          "clean": _fleet_books(rep_a, run_a),
+          "degraded": _fleet_books(rep_b, run_b),
+          "takeover": {**_fleet_books(rep_c, run_c), "kill_on_job": first,
+                       "kills": kills_c},
+          "solo": {"run_s": solo_s, "beside": ["degraded", "takeover"],
+                   "steps": solo_steps, "ticks": solo_row["time"],
+                   "ms_per_tick": solo_s / solo_row["time"] * 1e3,
+                   "launches": solo_launches},
+          "rows_vs_solo": vs_solo, "launches": launches})
+    if bad:
+        raise AssertionError(f"fleet: {bad}")
+    _check_launches("fleet", launches,
+                    ("head_fields", "sum_by_perm", "spread"),
+                    ("fused_scan", "queue_step"))
+    return launches
+
+
+def _sync_program(rng, topo, phases, max_snapshots):
+    """tests/test_sync_differential.py's random storm program (its
+    ``_random_program``): sends within a balance floor and up to two
+    initiations a phase. Returns (program, snapshots started)."""
+    import numpy as np
+
+    from chandy_lamport_tpu_torch.models.workloads import StormProgram
+
+    amounts = np.zeros((phases, topo.e), np.int32)
+    floor = topo.tokens0.astype(np.int64).copy()
+    for ph in range(phases):
+        for e in rng.sample(range(topo.e), k=max(1, topo.e // 3)):
+            src = int(topo.edge_src[e])
+            if floor[src] >= 2:
+                amt = rng.randrange(1, 3)
+                amounts[ph, e] += amt
+                floor[src] -= amt
+    n_snaps = rng.randrange(1, max_snapshots)
+    snap = np.full((phases, 2), -1, np.int32)
+    per_phase, used = {}, 0
+    for _ in range(n_snaps):
+        ph, node = rng.randrange(phases), rng.randrange(topo.n)
+        per_phase.setdefault(ph, []).append(node)
+    for ph, nodes in per_phase.items():
+        nodes = sorted(set(nodes))[:2]
+        snap[ph, :len(nodes)] = nodes
+        used += len(nodes)
+    return StormProgram(amounts, snap), used
+
+
+def sync_oracle_case(graph, nodes, case, device) -> dict:
+    """One card sync storm (one lane, fixed delay) against ``SyncOracle``
+    on the same program, as tests/test_sync_differential.py runs it.
+    Returns the comparison's fields."""
+    import random
+
+    import numpy as np
+
+    from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
+    from chandy_lamport_tpu_torch.core.state import recorded_window
+    from chandy_lamport_tpu_torch.core.syncsim import SyncOracle
+    from chandy_lamport_tpu_torch.models import delay as host_delay
+    from chandy_lamport_tpu_torch.models.workloads import (
+        erdos_renyi,
+        ring_topology,
+    )
+    from chandy_lamport_tpu_torch.ops.delay import FixedDelay
+    from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
+
+    rng = random.Random(5000 + case)
+    spec = (ring_topology(nodes, tokens=60) if graph == "ring"
+            else erdos_renyi(nodes, 2.5, seed=case, tokens=60))
+    fixed = rng.randrange(1, 5)
+    runner = BatchedRunner(spec, SimConfig(queue_capacity=32,
+                                           max_recorded=64),
+                           FixedDelay(fixed), 1, scheduler="sync",
+                           device=device)
+    topo = runner.topo
+    prog, n_snaps = _sync_program(rng, topo, rng.randrange(6, 16), 6)
+    final = runner.run_storm(runner.init_batch_device(), prog)
+    host = state_to_numpy(final, runner.delay)
+    lane = type(host)(*(tuple(w[0] for w in leaf) if isinstance(leaf, tuple)
+                        else leaf[0] for leaf in host))
+    oracle = SyncOracle(topo, host_delay.FixedDelay(fixed))
+    for ph in range(len(prog.amounts)):
+        oracle.bulk_send([int(a) for a in np.asarray(prog.amounts[ph])])
+        started = [int(x) for x in prog.snap[ph] if x >= 0]
+        if started:
+            oracle.start_snapshots(started)
+        oracle.tick()
+    oracle.drain_and_flush()
+    windows = sum(
+        oracle.recorded[sid].get(e, []) != recorded_window(lane, sid, e)
+        for sid in range(n_snaps) for e in range(topo.e))
+    frozen = sum(oracle.frozen[sid][v] != int(lane.frozen[sid, v])
+                 for sid in range(n_snaps) for v in range(topo.n))
+    ok = (int(lane.error) == 0 and oracle.time == int(lane.time)
+          and oracle.tokens == [int(t) for t in lane.tokens]
+          and oracle.next_sid == int(lane.next_sid) == n_snaps
+          and all(oracle.completed[s] == int(lane.completed[s]) == topo.n
+                  for s in range(n_snaps))
+          and windows == 0 and frozen == 0)
+    return {"graph": f"{graph}-{nodes}", "edges": topo.e, "delay": fixed,
+            "snapshots": n_snaps, "ticks": int(lane.time),
+            "windows_differing": windows, "frozen_differing": frozen,
+            "equal": ok}
+
+
+def phase_host_surface() -> dict:
+    """Main path 32: the host surface on the card. The 7 goldens through
+    the ``run`` command on ``--backend torch`` (the card: ``DenseSim`` at
+    megatick 8, fused_scan; launch counts zeroed just before) and on
+    ``--backend parity`` (the pure-Python oracle), ``--trace`` on: equal
+    stdout and equal stderr, the device recorder's timeline being the
+    parity oracle's ``EpochTrace.pretty()``; ``test --backend parity``
+    passing 7 of 7; the card's sync storm on ring-8 and ER-16 against
+    ``SyncOracle`` (``sync_oracle_case``); and ``dense_state_mismatches``
+    of the exact cell's cascade and wave storms (ER-256 at B=512,
+    megatick 8) empty. Returns the torch runs' launches."""
+    import contextlib
+    import io
+
+    from chandy_lamport_tpu_torch.__main__ import golden_test, run_cmd
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from chandy_lamport_tpu_torch.utils.compare import (
+        dense_state_mismatches,
+    )
+    from chandy_lamport_tpu_torch.utils.goldens import (
+        REFERENCE_TESTS,
+        fixture_path,
+    )
+
+    def captured(fn, argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = fn(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    bad, cases, launches = [], {}, None
+    t0 = time.perf_counter()
+    for i, (top, events, _) in enumerate(REFERENCE_TESTS):
+        paths = [fixture_path(top), fixture_path(events), "--trace"]
+        parity = captured(run_cmd, paths + ["--backend", "parity"])
+        if i == 0:
+            reset_launch_counts()
+        before = launch_counts()["fused_scan"]
+        card = captured(run_cmd, paths + ["--backend", "torch"])
+        name = events.removesuffix(".events")
+        cases[name] = {"stdout_equal": card[1] == parity[1],
+                       "trace_equal": card[2] == parity[2],
+                       "stdout_lines": card[1].count("\n"),
+                       "trace_lines": card[2].count("\n"),
+                       "fused_scan": launch_counts()["fused_scan"] - before}
+        if card[0] or parity[0] or card[1] != parity[1] \
+                or card[2] != parity[2] or not card[2].strip():
+            bad.append(f"run {name}: torch on the card != parity")
+    launches = launch_counts()
+    run_s = time.perf_counter() - t0
+    rc, out, _ = captured(golden_test, ["--backend", "parity"])
+    test_parity = out.strip().splitlines()[-1]
+    if rc or test_parity != "7/7 passed":
+        bad.append(f"test --backend parity: {test_parity}")
+    oracle = [sync_oracle_case(g, n, c, "cuda") for g, n, c in SO_CASES]
+    if not all(o["equal"] for o in oracle):
+        bad.append(f"the card's sync storm != SyncOracle: {oracle}")
+    finals = {}
+    for impl in ("cascade", "wave"):
+        runner, prog = exact_runner("cuda", batch=512, megatick=MEGATICK,
+                                    exact_impl=impl)
+        finals[impl] = runner.run_storm(runner.init_batch_device(), prog)
+    mism = dense_state_mismatches(finals["cascade"], finals["wave"])
+    if mism:
+        bad.append(f"cascade and wave storms differ in {mism}")
+    emit({"phase": "host_surface", "main_path": True, "run": cases,
+          "run_s": run_s, "test_parity": test_parity,
+          "sync_oracle": oracle,
+          "cascade_vs_wave": {"graph": f"er-{X_NODES}", "batch": 512,
+                              "megatick": MEGATICK, "mismatched": mism},
+          "launches": launches})
+    if bad:
+        raise AssertionError(f"host_surface: {bad}")
+    idle = [c for c, v in cases.items() if v["fused_scan"] <= 0]
+    if idle:
+        raise AssertionError(f"host_surface: goldens that never launched "
+                             f"fused_scan: {idle}")
+    _check_launches("host_surface", launches, ("fused_scan",))
+    return launches
 
 
 def serve_card_vs_cpu() -> dict:
@@ -5127,6 +5581,8 @@ def main(argv=None) -> int:
     per_step = STREAM_JOBS_PER_STEP["stream_exact"]
     paths["serve_edf"] = phase_serve_edf(per_step)
     paths["serve_memo_quota"] = phase_serve_memo_quota(2.0 * per_step)
+    paths["fleet"] = phase_fleet()
+    paths["host_surface"] = phase_host_surface()
     paths["golden"] = phase_golden()
     paths["trace_golden"] = phase_trace_golden()
     uniform_paths, uniform_row = phase_uniform(rows["fused_scan"][0])

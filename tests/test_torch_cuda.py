@@ -34,7 +34,10 @@ device loads on the other and resumes to the uninterrupted run. The
 segment sums
 (rows 1-2) take two paths, staged and tiled (``segment_plan``); each, on
 both dtypes, with and without perm, must equal the plain version, and
-every C entry point must load. Run on a GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+every C entry point must load. A 2-worker ring-8 fleet runs its spawned
+workers on the card, every summary equal to a solo CPU run, and ``run
+--backend torch`` on the card prints what ``--backend parity`` prints.
+Run on a GPU machine with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
 import ctypes
@@ -1615,3 +1618,66 @@ def test_exec_cache_restart_loads_without_nvcc(dev, tmp_path):
     assert again["source"] == "disk" and again["builds"] == 0
     assert again["bucket"] == first["bucket"] != other["bucket"]
     assert other["source"] == "fresh" and _build.builds == builds
+
+
+def test_fleet_on_the_card_equals_solo(dev, tmp_path):
+    """A 2-worker ring-8 fleet whose spawned workers run on the card
+    (``device=None``: the supervisor resolves the card): every request
+    served once, the books balanced, every summary equal to a solo run of
+    its request on the CPU (less the digest's value, which hashes the
+    same knobs on both devices), and the workers' launches of rows 1, 3
+    and 4 (the sync stream's kernels) in their books."""
+    from chandy_lamport_tpu_torch.models.workloads import (
+        ring_topology,
+        serve_workload,
+    )
+    from chandy_lamport_tpu_torch.serving import fleet_run, recipe_runner
+
+    recipe = {"kind": "ring-stream", "n": 8, "tokens": 16, "snapshots": 2,
+              "max_recorded": 32, "batch": 2, "scheduler": "sync",
+              "memo_cache": str(tmp_path / "memo.jsonl")}
+    reqs = serve_workload(ring_topology(8, tokens=16), 6, seed=13,
+                          rate=2.0, tenants=2, priorities=3, max_phases=4,
+                          deadline_slack=(8, 64), dup_rate=0.5)
+    rep = fleet_run(reqs, spool_path=str(tmp_path / "wal.jsonl"),
+                    workers=2, recipe=recipe, lease_ttl=30.0,
+                    max_wall_s=240)
+    assert rep["device"] == "cuda" and not rep["timed_out"]
+    assert rep["served"] == len(reqs)
+    assert rep["audit"]["lost"] == 0 and rep["audit"]["double_served"] == 0
+    solo = recipe_runner({**recipe, "memo_cache": None}, device="cpu")
+    for j, row in rep["results"].items():
+        pool = solo.pack_jobs([reqs[int(j)].events], content_keys=True)
+        _, stream = solo.run_stream(pool, stretch=2, drain_chunk=8)
+        (srow,) = solo.stream_results(stream)
+        assert {k: v for k, v in row.items()
+                if k not in ("digest", "served_from")} == \
+            {k: v for k, v in srow.items()
+             if k not in ("job", "admit_step")}, j
+    books = rep["worker_books"]
+    assert {b["device"] for b in books} == {"cuda"}
+    for name in ("sum_by_perm", "spread", "head_fields"):
+        assert sum(b["launches"][name] for b in books) > 0, name
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_run_torch_on_the_card_equals_parity(dev, case, capsys):
+    """``run --backend torch`` on the card (DenseSim at megatick 8,
+    fused_scan) prints what ``run --backend parity`` prints, trace
+    included, for each golden."""
+    from chandy_lamport_tpu_torch.__main__ import run_cmd
+    from chandy_lamport_tpu_torch.kernels import reset_launch_counts
+    from chandy_lamport_tpu_torch.utils.goldens import (
+        REFERENCE_TESTS,
+        fixture_path,
+    )
+
+    top, events, _ = REFERENCE_TESTS[case]
+    paths = [fixture_path(top), fixture_path(events)]
+    assert run_cmd(paths + ["--backend", "parity", "--trace"]) == 0
+    want = capsys.readouterr()
+    reset_launch_counts()
+    assert run_cmd(paths + ["--backend", "torch", "--trace"]) == 0
+    got = capsys.readouterr()
+    assert launch_counts()["fused_scan"] > 0
+    assert (got.out, got.err) == (want.out, want.err)

@@ -380,10 +380,10 @@ def test_tick_kernel_positional_order_as_jax():
 
 
 def test_top_level_names_as_jax():
-    """The JAX package's top-level names import from the port (less
-    ``run_events`` and ``make_backend``, ROADMAP A12), each the port's
-    own and equal in use: ``MAX_DELAY``, the event and snapshot types,
-    ``__version__``."""
+    """The JAX package's top-level names import from the port, every one
+    of them (``run_events`` and ``make_backend`` with the parity backend),
+    each the port's own and equal in use: ``MAX_DELAY``, the event and
+    snapshot types, ``__version__``."""
     import chandy_lamport_tpu as jax_pkg
     import chandy_lamport_tpu_torch as pkg
     from chandy_lamport_tpu_torch import (  # noqa: F401
@@ -398,7 +398,7 @@ def test_top_level_names_as_jax():
     )
 
     missing = set(jax_pkg.__all__) - set(pkg.__all__)
-    assert missing == {"run_events", "make_backend"}
+    assert missing == set()
     assert __version__ == jax_pkg.__version__ == "0.1.0"
     assert MAX_DELAY == jax_pkg.MAX_DELAY
     for name in ("Message", "MsgSnapshot", "GlobalSnapshot",
@@ -647,12 +647,18 @@ def test_constructors_take_the_jax_keywords():
 
 
 def test_run_events_file_keywords_are_the_jax_ones():
-    """``run_events_file``'s keywords are the JAX function's, with its
-    defaults, less ``backend`` (the parity backend, ROADMAP A12), plus
-    the port's ``device``."""
+    """``run_events_file``'s parameters are the JAX function's, with its
+    defaults, ``backend`` in the JAX third position, plus the port's
+    ``device``. The one pinned difference: the default backend is
+    "torch" (the port's dense backend, on the card), where JAX's is
+    "parity"."""
     mine = inspect.signature(api.run_events_file).parameters
     want = inspect.signature(jax_api.run_events_file).parameters
-    assert set(mine) - {"device"} == set(want) - {"backend"}
+    assert set(mine) - {"device"} == set(want)
+    assert list(mine)[:3] == list(want)[:3] == \
+        ["top_path", "events_path", "backend"]
+    assert (mine["backend"].default, want["backend"].default) == \
+        ("torch", "parity")
     for name, p in want.items():
         if name not in ("backend", "top_path", "events_path"):
             assert mine[name].default == p.default, name
