@@ -15,7 +15,9 @@ compiled event scripts and the streaming job engine
 the stream's memo plane (``BatchedRunner(memo=...)``,
 ``utils/memocache.py``), the serving front-end (``serving/``) with the
 runtime guards (``utils/guards.py``), the write-ahead admission spool and
-the worker fleet (``serving/spool.py``, ``serving/fleet.py``), and the
+the worker fleet (``serving/spool.py``, ``serving/fleet.py``), graph
+sharding (``parallel/graphshard.py`` over ``parallel/mesh.py``'s stacked
+or ``torch.distributed`` meshes, ``parallel/multihost.py``), and the
 Pallas kernels of those paths hand-written in CUDA C++
 (``kernels/csrc``).
 It imports neither jax nor chandy_lamport_tpu.

@@ -27,6 +27,15 @@ They combine with ``--megatick K``: the faulted, supervised drain and
 flush then run through the fused megatick too (the row's ``fused_tick``
 says "on" on the card).
 
+``--graphshard K`` measures the graph-sharded runner instead (the JAX
+bench's ``--graphshard`` row, ``bench.py:1382``): one giant instance of
+the same storm over K shards, stacked on the card, or one shard a
+process when ``parallel/multihost.initialize()`` finds a process group;
+``--comm-engine`` picks the exchange and ``--megatick`` the drain's
+blocks. The row carries the JAX row's fields (``comm_bytes_model``,
+``per_tick_ms``, the doubling retry) plus ``backend`` and ``devices``,
+the devices ``node_ticks_per_sec_per_chip`` divides by.
+
 ``--stream`` measures the streaming job engine instead (the JAX bench's
 ``--stream`` row, ``bench.py:871``): a heavy-tailed queue of ``--jobs``
 jobs (``stream_jobs(seed=17, base_phases=4, tail_alpha=1.1,
@@ -199,6 +208,24 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-capacity", type=int, default=0, metavar="K",
                    help="ring slots per lane (0 = Trace's default when "
                         "--trace is set); implies --trace when > 0")
+    g = p.add_argument_group("graph sharding (the JAX bench's "
+                             "--graphshard row)")
+    g.add_argument("--graphshard", type=int, default=0, metavar="K",
+                   help="measure the graph-sharded runner (one giant "
+                        "instance split over K shards, parallel/"
+                        "graphshard.py) instead of the batched runner: "
+                        "stacked on the device, or one shard a process "
+                        "under a process group (parallel/multihost); "
+                        "--batch is ignored (B=1). Node count must divide "
+                        "by K")
+    g.add_argument("--comm-engine", choices=["auto", "dense", "sparse"],
+                   default="auto",
+                   help="--graphshard only: the cross-shard exchange, "
+                        "'dense' (whole planes summed across the shards) "
+                        "or 'sparse' (the boundary halo exchange); 'auto' "
+                        "= sparse. Equal results; the row records the "
+                        "resolved engine and comm_bytes_model. --megatick "
+                        "K runs the drain in K-tick blocks")
     q = p.add_argument_group("the streaming job engine (the JAX bench's "
                              "--stream row)")
     q.add_argument("--stream", action="store_true",
@@ -388,6 +415,140 @@ def _trace(args):
     if args.trace or args.trace_capacity:
         return Trace(capacity=args.trace_capacity)
     return None
+
+
+def run_graphshard_worker(args, device, spec, cfg) -> int:
+    """``--graphshard K`` (the JAX bench's row, ``bench.py:1382``): one
+    giant instance over K shards with the per-shard threefry streams
+    (seed 17), the storm of the batched row; a warm run doubles as the
+    check (doubling queue and record capacity on their overflow bits,
+    as JAX does), then ``--repeats`` timed runs. The mesh is dist when
+    ``multihost.initialize()`` finds a process group (K must be its
+    size; only rank 0 prints), stacked on ``device`` otherwise.
+    ``node_ticks_per_sec_per_chip`` divides by the devices the shards
+    occupy: 1 stacked, the world size dist."""
+    from chandy_lamport_tpu_torch.parallel import multihost
+    from chandy_lamport_tpu_torch.parallel.graphshard import (
+        GraphShardedRunner,
+    )
+    from chandy_lamport_tpu_torch.parallel.mesh import Mesh
+
+    k = args.graphshard
+    if args.nodes % k:
+        log(f"--nodes {args.nodes} not divisible by {k} shards")
+        return 1
+    if multihost.initialize(device=device):
+        mesh = multihost.hybrid_mesh(graph=k, device=device)
+        devices = mesh.world
+    else:
+        mesh = Mesh({"graph": k}, device=device)
+        devices = 1
+
+    def make(cfg):
+        return GraphShardedRunner(spec, cfg, mesh, seed=17,
+                                  comm_engine=args.comm_engine,
+                                  megatick=args.megatick)
+
+    runner = make(cfg)
+    topo = runner.topo
+    log(f"graphshard: {topo.n} nodes / {k} shards ({runner.nl} nodes, "
+        f"{runner.em} edge slots a shard), {topo.e} edges, "
+        f"{mesh.backend} mesh on {device}")
+    prog = storm_program(
+        topo, phases=args.phases, amount=1,
+        snapshot_phases=staggered_snapshots(topo, args.snapshots, 1, 2,
+                                            max_phases=args.phases))
+    recoverable = ERR_QUEUE_OVERFLOW | ERR_RECORD_OVERFLOW
+    for cap_try in range(3):
+        t0 = time.perf_counter()
+        final = runner.run_storm(runner.init_state(), prog.amounts,
+                                 prog.snap)
+        _sync(device)
+        log(f"warm run: {time.perf_counter() - t0:.1f}s")
+        bits = int(final.error)
+        del final
+        if not bits:
+            break
+        for name, msg in zip(decode_error_bits(bits), decode_errors(bits)):
+            log(f"error bit {name}: {msg}")
+        if (bits & ~recoverable) or cap_try == 2:
+            log("ERROR: error flags — results invalid")
+            return 1
+        cfg = dataclasses.replace(cfg, queue_capacity=2 * cfg.queue_capacity,
+                                  max_recorded=2 * cfg.max_recorded)
+        log(f"retrying with queue_capacity={cfg.queue_capacity}, "
+            f"max_recorded={cfg.max_recorded}")
+        runner = make(cfg)
+    times, ticks_seen, mem = [], [], {}
+    for r in range(args.repeats):
+        state = runner.init_state()
+        _sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        final = runner.run_storm(state, prog.amounts, prog.snap)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        ticks = int(final.time)
+        if device.type == "cuda" and r == args.repeats - 1:
+            mem = {"peak_allocated_bytes":
+                   int(torch.cuda.max_memory_allocated(device))}
+        del state, final
+        times.append(dt)
+        ticks_seen.append(ticks)
+        log(f"run {r}: {dt:.3f}s, {ticks} ticks ({dt / ticks * 1e3:.2f}ms "
+            f"a tick) -> {ticks * topo.n / dt / 1e6:.3f}M node-ticks/s")
+    best = max(t * topo.n / dt for t, dt in zip(ticks_seen, times))
+    per_chip = best / devices
+    if args.profile:
+        state = runner.init_state()
+        _profile(lambda: runner.run_storm(state, prog.amounts, prog.snap),
+                 device, args.profile)
+    result = {
+        "metric": "node_ticks_per_sec_per_chip",
+        "value": per_chip,
+        "unit": "node-ticks/s/chip",
+        "vs_baseline": per_chip / args.target,
+        "value_aggregate": best,
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device_kind": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "scheduler": "sync",
+        "queue_engine": runner.queue_engine,
+        "kernel_engine": runner.kernel_engine,
+        "fused_tick": runner.fused,
+        "fused_tile": runner.fused_tile,
+        "fused_emulated": False,
+        "comm_engine": runner.comm_engine,
+        "megatick": runner.megatick,
+        "comm_bytes_model": runner.comm_model(),
+        "mode": "graphshard",
+        "graphshard": k,
+        "backend": mesh.backend,
+        "devices": devices,
+        "staged_through_host": mesh.staged,
+        "graph": args.graph,
+        "nodes": args.nodes,
+        "edges": topo.e,
+        "batch": 1,
+        "phases": args.phases,
+        "repeats": args.repeats,
+        "queue_capacity": runner.config.queue_capacity,
+        "record_dtype": runner.config.record_dtype,
+        "max_recorded": runner.config.max_recorded,
+        "per_tick_ms": times[-1] / ticks_seen[-1] * 1e3,
+        "error_bits": bits,
+        "errors_decoded": decode_error_bits(bits),
+        "straggler_waste": 0.0,
+    }
+    result.update(mem)
+    result["note"] = (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else
+                      "CPU run of the plain PyTorch versions; not a "
+                      "device measurement")
+    if mesh.rank == 0:
+        print(json.dumps(result), flush=True)
+    return 0
 
 
 def run_stream_worker(args, device, spec, cfg) -> int:
@@ -862,6 +1023,13 @@ def main(argv=None) -> int:
     if args.capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=args.capacity)
     faults = _faults(args)
+    if args.graphshard:
+        if faults is not None or args.quarantine or args.stream \
+                or args.serve or args.fleet or args.scheduler != "sync":
+            parser.error("--graphshard runs the JAX bench's graphshard "
+                         "row: the sync scheduler, no adversary, not "
+                         "--stream/--serve/--fleet")
+        return run_graphshard_worker(args, device, spec, cfg)
     if args.fleet:
         if faults is not None or args.quarantine or args.stream \
                 or args.serve:

@@ -18,6 +18,7 @@ words) is held as an int64 tensor with values in ``[0, 2^32)``
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -87,6 +88,9 @@ NUM_FAULT_CLASSES = 7
 # largest token amount the sync scheduler's value-range contract admits;
 # amounts at or beyond it fire ERR_VALUE_OVERFLOW
 F32_EXACT_LIMIT = 1 << 24
+# error bits in the word (the JAX ``NUM_ERROR_BITS``): the graph-sharded
+# runner ORs the word across shards bit by bit
+NUM_ERROR_BITS = len(ERROR_NAMES)
 
 # largest receive time a packed ring slot (rtime << 1 | is_marker in one
 # int32) can carry; push sites fire ERR_VALUE_OVERFLOW at the bound
@@ -191,35 +195,51 @@ class DenseTopology:
         tokens0 = dict(spec.nodes)
         self.tokens0 = np.array([tokens0[nid] for nid in self.ids],
                                 dtype=np.int32)
-        for src, dest in spec.links:
-            if src not in self.index:
-                raise ValueError(f"node {src} does not exist")
-            if dest not in self.index:
-                raise ValueError(f"node {dest} does not exist")
-        # self-links ignored, duplicate arcs collapse (node.go:88-93)
-        edges = sorted({(self.index[s], self.index[d])
-                        for s, d in spec.links if s != d})
-        self.e = len(edges)
-        self.edge_src = np.array([s for s, _ in edges], dtype=np.int32)
-        self.edge_dst = np.array([d for _, d in edges], dtype=np.int32)
-        self.edge_index: Dict[Tuple[int, int], int] = {
-            (s, d): i for i, (s, d) in enumerate(edges)}
+        src = [self.index.get(a) for a, _ in spec.links]
+        dst = [self.index.get(b) for _, b in spec.links]
+        if None in src or None in dst:
+            for (a, b), i, j in zip(spec.links, src, dst):
+                if i is None:
+                    raise ValueError(f"node {a} does not exist")
+                if j is None:
+                    raise ValueError(f"node {b} does not exist")
+        # self-links ignored, duplicate arcs collapse (node.go:88-93): the
+        # distinct (src, dst) pairs in order, as one int64 code each
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        keep = src != dst
+        code = np.unique(src[keep] * self.n + dst[keep])
+        self.e = len(code)
+        self.edge_src = (code // max(self.n, 1)).astype(np.int32)
+        self.edge_dst = (code % max(self.n, 1)).astype(np.int32)
         out_count = np.bincount(self.edge_src, minlength=self.n)
         self.in_degree = np.bincount(self.edge_dst,
                                      minlength=self.n).astype(np.int32)
         self.d = int(out_count.max()) if self.e else 1
         self.edge_table = np.full((self.n, self.d), -1, dtype=np.int32)
-        fill = np.zeros(self.n, dtype=np.int64)
-        for i, (s, _) in enumerate(edges):
-            self.edge_table[s, fill[s]] = i  # dest-sorted within each row
-            fill[s] += 1
+        # each source's edges in dest order (edges are (src, dst)-sorted)
+        first = np.concatenate([[0], np.cumsum(out_count)[:-1]])
+        self.edge_table[self.edge_src,
+                        np.arange(self.e) - first[self.edge_src]] = \
+            np.arange(self.e, dtype=np.int32)
         # dst-sorted edge permutation (stable: src order kept within a
         # destination) + per-node segment bounds in that order
         self.by_dst = np.argsort(self.edge_dst, kind="stable")
         self.dst_bounds = np.concatenate(
             [[0], np.cumsum(np.bincount(self.edge_dst, minlength=self.n))])
-        self.in_edges: List[np.ndarray] = np.split(
-            self.by_dst, self.dst_bounds[1:-1])
+
+    # built on first use: at a million nodes each takes seconds, and the
+    # storm paths read neither
+    @functools.cached_property
+    def edge_index(self) -> Dict[Tuple[int, int], int]:
+        """(src, dst) node indices -> edge index."""
+        return dict(zip(zip(self.edge_src.tolist(), self.edge_dst.tolist()),
+                        range(self.e)))
+
+    @functools.cached_property
+    def in_edges(self) -> List[np.ndarray]:
+        """Each node's inbound edges, in source order."""
+        return np.split(self.by_dst, self.dst_bounds[1:-1])
 
 
 class DenseState(NamedTuple):

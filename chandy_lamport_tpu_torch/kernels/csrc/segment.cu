@@ -80,7 +80,9 @@
 //   thread divides once (32-bit) for its word's first output and steps
 //   through the rest. Rows too wide for the plan's share
 //   (spread_direct_kernel) read idx and x through L1/L2 in the same
-//   words.
+//   words, each row cut into spans of kDirectSpan outputs so that a few
+//   wide rows (the giant sharded cell: 8 rows of 3.1M edges) still give
+//   every SM its blocks.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a plan it refuses); the
@@ -534,15 +536,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // spread, direct: rows whose tables and two row buffers do not fit the
-// plan's share read idx and x through L1 and L2; one row per block step,
-// the same words.
+// plan's share read idx and x through L1 and L2, the same words. The
+// work is spans of kDirectSpan outputs of one row, one span per block
+// step; span-major, so the blocks of one step share idx's span (and x's
+// rows stay in L2).
+constexpr int kDirectSpan = 8192;
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     spread_direct_kernel(const T* __restrict__ x,
                          const int32_t* __restrict__ idx,
                          T* __restrict__ out, long long rows, int n, int e) {
-  for (long long r = blockIdx.x; r < rows; r += gridDim.x)
-    spread_rows<T>(x + r * n, idx, out + r * e, 1, n, e);
+  const long long spans = (e + kDirectSpan - 1) / kDirectSpan;
+  for (long long w = blockIdx.x; w < rows * spans; w += gridDim.x) {
+    const long long span = w / rows, r = w - span * rows;
+    const int j0 = (int)span * kDirectSpan;
+    spread_rows<T>(x + r * n, idx + j0, out + r * e + j0, 1, n,
+                   min(kDirectSpan, e - j0));
+  }
 }
 
 template <typename T>
@@ -570,7 +581,9 @@ int launch_spread(const T* x, const int32_t* idx, T* out, long long rows,
     spread_staged_kernel<T><<<(unsigned int)grid, kThreads, (size_t)smem,
                               stream>>>(x, idx, out, rows, n, e, k);
   } else {
-    spread_direct_kernel<T><<<(unsigned int)std::min(rows, resident),
+    const long long spans = (e + kDirectSpan - 1) / kDirectSpan;
+    spread_direct_kernel<T><<<(unsigned int)std::min(rows * spans,
+                                                     resident),
                               kThreads, 0, stream>>>(x, idx, out, rows, n,
                                                      e);
   }

@@ -133,7 +133,8 @@ def spread_plan(rows: int, e: int, n: int, elem_size: int) -> SpreadPlan:
     ``e`` edges: staged groups of ~SPREAD_GROUP outputs (at least one
     row, never more than ``rows``) when the block's layout fits
     SPREAD_SMEM; else direct (``rows_per_group`` 0), reading idx and x
-    through the caches."""
+    through the caches, each row cut over blocks in spans of 8,192
+    outputs (``csrc/segment.cu``'s kDirectSpan)."""
     k = max(1, min(rows, -(-SPREAD_GROUP // max(e, 1))))
     while k > 1 and spread_smem_bytes(e, n, k, elem_size) > SPREAD_SMEM:
         k //= 2

@@ -281,14 +281,15 @@ def storm_program(topo: DenseTopology, phases: int, amount: int = 1,
     """Every phase, every node sends ``amount`` on one outbound edge,
     cycling round-robin over its out-links; ``snapshot_phases`` is
     [(phase, node_index), ...]."""
-    t, e, n = phases, topo.e, topo.n
+    t, e = phases, topo.e
     amounts = np.zeros((t, e), np.int32)
-    out_edges = [list(row[row >= 0]) for row in topo.edge_table]
+    # a node's out-edges are its edge_table row, -1 padded at the end; each
+    # edge has one source, so a phase's picks are distinct edges
+    degree = (topo.edge_table >= 0).sum(1)
+    senders = np.flatnonzero(degree)
     for ph in range(t):
-        for node in range(n):
-            oe = out_edges[node]
-            if oe:
-                amounts[ph, oe[ph % len(oe)]] += amount
+        picks = topo.edge_table[senders, ph % degree[senders]]
+        amounts[ph, picks] += amount
     sched = list(snapshot_phases or [])
     per_phase: List[List[int]] = [[] for _ in range(t)]
     for ph, node in sched:

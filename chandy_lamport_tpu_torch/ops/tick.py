@@ -148,8 +148,10 @@ def resolve_knobs(topo: DenseTopology, cfg: SimConfig, device,
     kernels' integer sums (rows 1-3, the JAX "segsum"). Where the JAX
     package refuses (a forced bfloat16 count past its exact degree bound,
     on the matmul formulation its "auto" picks) the port raises the same
-    ValueError. ``comm_engine`` belongs to graph sharding (ROADMAP A11)
-    and is stored."""
+    ValueError. ``comm_engine`` is the graph-sharded runner's, which
+    resolves it by ``resolve_comm_engine`` (parallel/graphshard.py); the
+    batched ticks exchange nothing between shards and keep its
+    spelling."""
     kernel_engine = _knob("kernel_engine", cfg.kernel_engine
                           if kernel_engine is None else kernel_engine)
     queue_engine = _knob("queue_engine", queue_engine)
@@ -179,8 +181,22 @@ def resolve_knobs(topo: DenseTopology, cfg: SimConfig, device,
             f"count_dtype={cfg.count_dtype!r}: the segment sums count in "
             "int32, exactly")),
         "comm_engine": (cfg.comm_engine, (
-            "the graph-sharded runner's knob (ROADMAP A11), stored")),
+            f"comm_engine={cfg.comm_engine!r}: the graph-sharded runner's "
+            "cross-shard exchange, resolved there (resolve_comm_engine, "
+            "parallel/graphshard.py); a batched tick exchanges nothing")),
     }
+
+
+def resolve_comm_engine(engine: str) -> str:
+    """The graph-sharded runner's cross-shard traffic knob (the JAX
+    ``resolve_comm_engine``): "dense" sums whole [S+1, N] planes across
+    the shards and gathers the created flags; "sparse" moves only the
+    boundary rows, one exchange per ring distance. "auto" resolves to
+    "sparse" everywhere (its bytes scale with the cut,
+    ``utils/metrics.comm_bytes_model``); both are equal in result."""
+    if engine not in ENGINE_KNOBS["comm_engine"]:
+        raise ValueError(f"unknown comm_engine {engine!r}")
+    return "sparse" if engine == "auto" else engine
 
 
 def merge_keymult(max_snapshots: int) -> int:

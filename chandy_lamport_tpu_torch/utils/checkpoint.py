@@ -1,8 +1,10 @@
 """Checkpoints of the port's state, in the JAX package's file format.
 
 The port of the JAX package's ``utils/checkpoint.py``: ``save_state`` and
-``load_state`` for a batched ``DenseState`` or the streaming engine's
-``(DenseState, StreamState)`` pair, ``restore_from_snapshot`` for the
+``load_state`` for a batched ``DenseState``, the streaming engine's
+``(DenseState, StreamState)`` pair or a graph-sharded ``ShardedState``
+(parallel/graphshard.py; its 0-d replicated leaves included, the JAX
+package writing ``meta={"kind": "sharded", "shards": P}`` beside it), ``restore_from_snapshot`` for the
 protocol's own recovery line, and ``CheckpointError``.
 
 The file is the JAX package's: one ``.npz`` holding every leaf as
@@ -45,6 +47,13 @@ from chandy_lamport_tpu_torch.core.state import (
     recorded_window,
 )
 from chandy_lamport_tpu_torch.parallel.batch import StreamState, resolve_device
+from chandy_lamport_tpu_torch.parallel.graphshard import ShardedState
+from chandy_lamport_tpu_torch.parallel.graphshard import (
+    state_from_numpy as sharded_from_numpy,
+)
+from chandy_lamport_tpu_torch.parallel.graphshard import (
+    state_to_numpy as sharded_to_numpy,
+)
 from chandy_lamport_tpu_torch.utils.atomicio import (
     crash_failpoint,
     fsync_dir,
@@ -83,9 +92,9 @@ def _node(name: str, fields, words: int = -1, bare: bool = False) -> str:
 
 
 def _split(tree):
-    """(state, stream or None) of a DenseState or a (state, stream)
-    pair."""
-    if isinstance(tree, DenseState):
+    """(state, stream or None) of a DenseState, a ShardedState or a
+    (state, stream) pair."""
+    if isinstance(tree, (DenseState, ShardedState)):
         return tree, None
     state, stream = tree
     if not (isinstance(state, DenseState)
@@ -101,6 +110,8 @@ def treedef_string(tree, delay=None) -> str:
     whose words ``delay_state`` holds (a ``bare_leaf`` sampler's key is
     one leaf in the JAX tree)."""
     state, stream = _split(tree)
+    if isinstance(state, ShardedState):
+        return f"PyTreeDef({_node('ShardedState', ShardedState._fields)})"
     node = _node("DenseState", DenseState._fields, len(state.delay_state),
                  getattr(delay, "bare_leaf", False))
     if stream is None:
@@ -113,6 +124,8 @@ def _flatten_host(tree, delay) -> List[np.ndarray]:
     """The tree's leaves as numpy arrays with the JAX dtypes, in the JAX
     flatten order."""
     state, stream = _split(tree)
+    if isinstance(state, ShardedState):
+        return list(sharded_to_numpy(state))
     host = state_to_numpy(state, delay)
     leaves = []
     for leaf in host:
@@ -131,6 +144,14 @@ def _expected(like, delay) -> List[Tuple[tuple, np.dtype]]:
     order, read off the tensors without copying them to the host."""
     state, stream = _split(like)
     out = []
+    if isinstance(state, ShardedState):
+        for name, leaf in zip(ShardedState._fields, state):
+            dtype = (np.dtype(np.uint32) if name == "delay_key"
+                     else np.dtype(np.uint16)
+                     if name in WINDOW_LEAVES and leaf.dtype == torch.int16
+                     else _np_dtype(leaf))
+            out.append((tuple(leaf.shape), dtype))
+        return out
     for name, leaf in zip(DenseState._fields, state):
         if name == "delay_state":
             dtypes = (delay.host_dtypes if delay is not None
@@ -150,8 +171,8 @@ def _expected(like, delay) -> List[Tuple[tuple, np.dtype]]:
 
 def save_state(path: str, state, meta: dict | None = None, *,
                delay=None) -> None:
-    """Write a batched ``DenseState`` or a ``(DenseState, StreamState)``
-    pair to ``path`` (.npz) atomically: the bytes land in ``path +
+    """Write a batched ``DenseState``, a ``(DenseState, StreamState)``
+    pair or a ``ShardedState`` to ``path`` (.npz) atomically: the bytes land in ``path +
     '.tmp'``, are fsynced and renamed over ``path``. ``delay``: the port
     sampler whose words ``delay_state`` holds (their JAX dtypes; default
     uint32 words, as the hash sampler's)."""
@@ -185,7 +206,8 @@ def save_state(path: str, state, meta: dict | None = None, *,
 
 def load_state(path: str, like, *, delay=None):
     """Restore what ``save_state`` (of either package) wrote. ``like``: a
-    ``DenseState`` or ``(DenseState, StreamState)`` pair of the same
+    ``DenseState``, ``(DenseState, StreamState)`` pair or ``ShardedState``
+    of the same
     topology, config, batch and sampler (its values are not read); the
     result lands on ``like``'s device. ``delay`` as in ``save_state``.
     Returns (tree, meta). Every damaged file raises ``CheckpointError``
@@ -234,6 +256,9 @@ def load_state(path: str, like, *, delay=None):
                 f"!= expected {dtype}")
     state_like, stream_like = _split(like)
     device = state_like.time.device
+    if isinstance(state_like, ShardedState):
+        return sharded_from_numpy(ShardedState(*leaves), device), \
+            header["meta"]
     fields, k = {}, 0
     for name, leaf in zip(DenseState._fields, state_like):
         if name == "delay_state":

@@ -188,6 +188,41 @@ def max_batch_estimate(num_nodes: int, num_edges: int, cfg: SimConfig,
     return max(1, int(hbm_bytes / (per * working_set_factor)))
 
 
+def comm_bytes_model(num_nodes: int, max_snapshots: int, shards: int,
+                     halo_rows: int, cut_edges: int | None = None,
+                     cut_rows: int | None = None,
+                     count_bytes: int = 4) -> Dict[str, Any]:
+    """Per-shard, per-tick cross-shard payload bytes of the graph-sharded
+    runner's two comm engines (the JAX ``comm_bytes_model``, the same
+    numbers for the same arguments; parallel/graphshard.py):
+
+      dense  = 4*N credit sums + cb*S*N marker-arrival sums (``count_bytes``)
+             + S*N created-flags gather (bool) + 4*S finalization sum
+      sparse = (P-1) * ((S+1)*H*4 forward rows, int32 + S*H reverse
+               rows, bool) + 4*S finalization sum
+
+    H = ``halo_rows``, the most boundary rows one shard owes another
+    (parallel/mesh.BoundaryTables): sparse scales with the partition's
+    cut, dense with N. The error-bit folds are the same on both sides and
+    left out. ``cut_edges`` / ``cut_rows`` ride along when known."""
+    n, s, p, h = num_nodes, max_snapshots, shards, halo_rows
+    neighbors = max(p - 1, 0)
+    dense = 4 * n + count_bytes * s * n + s * n + 4 * s
+    sparse = neighbors * ((s + 1) * h * 4 + s * h) + 4 * s
+    out: Dict[str, Any] = {
+        "dense_bytes_per_tick": int(dense),
+        "sparse_bytes_per_tick": int(sparse),
+        "halo_rows": int(h),
+        "neighbors": int(neighbors),
+        "sparse_over_dense": round(sparse / dense, 4) if dense else 0.0,
+    }
+    if cut_edges is not None:
+        out["cut_edges"] = int(cut_edges)
+    if cut_rows is not None:
+        out["cut_rows"] = int(cut_rows)
+    return out
+
+
 def tick_cost_model(num_nodes: int, num_edges: int, cfg: SimConfig,
                     batch: int = 1,
                     queue_engine: str = "gather") -> Dict[str, Any]:

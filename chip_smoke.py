@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``chandy_lamport_tpu_torch/
-kernels/csrc`` (one nvcc per source, in parallel), then runs fifty-two
+kernels/csrc`` (one nvcc per source, in parallel), then runs sixty-one
 phases,
 each printing one JSON line (a phase's with ``elapsed_s``, the
 seconds since the start):
@@ -122,15 +122,17 @@ seconds since the start):
                on its own operands 8 phases in (the crash gate's spread
                of the down nodes, the closed windows' sum_by_perm, the
                faulted rings' heads, the duplicates' append_rows), then a
-               warm run at 256 lanes and the timed run at B=2048, judged
+               warm run at 256 lanes and the timed run at B=1,024 (cut
+               from config 4's 2,048 for the smoke's time), judged
                by the faulted rule (conservation delta 0, no bit but
                ERR_SNAPSHOT_TIMEOUT, every snapshot of a clean lane
                complete); rows 1-5 launched, rows 6-8 never; its wall,
                node-ticks/s, fault events, skew, lifecycle and
                quarantined lanes;
   checkpoint   ``utils/checkpoint`` on the card: fault_sync_storm (at
-               512 lanes, against its own uninterrupted run) and the
-               faulted ER-256 storm at megatick 8, each run again in
+               256 lanes, against its own uninterrupted run) and the
+               faulted ER-256 storm at megatick 8 (2,048 lanes; both cut
+               for the smoke's time), each run again in
                chunks of 16 phases with a save after each, resumed from
                disk after the first by a fresh runner (the megatick-8
                one's drain in fused_scan), every leaf equal to the
@@ -138,7 +140,9 @@ seconds since the start):
                load's seconds (in a temporary directory it removes);
   exact_storm  main path 2: the exact-at-scale cell through
                ``BatchedRunner(scheduler="exact").run_storm``, with the
-               same checks;
+               same checks, on its first 2,048 lanes (``M1_BATCH``, cut
+               for the smoke's time: a lane's streams depend on its index
+               alone, so its twins are held to it on those lanes);
   fused_storm  main path 4: the same cell at megatick 8
                (``BatchedRunner(scheduler="exact", megatick=8)``, the JAX
                storm CLI's default): the storm phases tick one at a time,
@@ -157,8 +161,9 @@ seconds since the start):
                snapshot supervisor and quarantine (``Faults(3, ...)``
                below, ``snapshot_timeout=64``) through
                ``BatchedRunner(scheduler="exact", faults=..., quarantine=
-               True).run_storm`` (warm run at a smaller batch, timed run at
-               B=4096): every fault class fired, the supervisor retried,
+               True).run_storm`` (warm run at a smaller batch, timed run on
+               the cell's first 2,048 lanes, as exact_storm): every fault
+               class fired, the supervisor retried,
                conservation delta 0, no bit but ERR_SNAPSHOT_TIMEOUT, every
                snapshot of every clean lane complete, every kernel of the
                path launched and queue_step never;
@@ -183,7 +188,8 @@ seconds since the start):
                fault_wave_fused_storm with the flight recorder armed
                (``trace=Trace()``, 4,096 slots a lane): clean, the
                recorder arm launched, every leaf equal to the traced
-               megatick-1 twin, every leaf but the ring equal to the
+               megatick-1 twin (on its first 2,048 lanes, where the twin
+               runs), every leaf but the ring equal to the
                untraced run of this call; ``trace_events``,
                ``trace_dropped``, ``trace_overhead_pct`` (the wall against
                the untraced run's) and the ring's events by kind;
@@ -216,7 +222,8 @@ seconds since the start):
                megatick timed per launch beside its bound;
   stream_exact main path 11: the streaming cell, the JAX bench's
                ``--stream`` row on the exact cell at full width (ER-256,
-               B=4096, J=12,288 jobs of ``stream_jobs(seed=17,
+               B=4096, J=6,144 jobs (the row's 12,288, cut for the
+               smoke's time) of ``stream_jobs(seed=17,
                base_phases=4, tail_alpha=1.1, max_phases=32)``, S=8,
                stretch 4, drain chunk 32) through ``run_stream`` at
                megatick 8 (its drain slices and flushes in fused_scan):
@@ -237,7 +244,7 @@ seconds since the start):
                runs;
   stream_fault the wave stream under fault_storm's adversary armed on
                every third job, with its supervisor and quarantine
-               (B=512, J=1,536): no bit but ERR_SNAPSHOT_TIMEOUT, stream
+               (B=512, J=768): no bit but ERR_SNAPSHOT_TIMEOUT, stream
                against gang, its megatick-1 twin and 16 sampled static
                runs;
   stream_sync  the sync scheduler's stream on config 4's graph (SF-1k,
@@ -248,7 +255,8 @@ seconds since the start):
                slices and flushes, its lane admits and harvests in the
                rings (a lane whose ring did not wrap holds one harvest per
                admit);
-  memo_stream  main path 19: the streaming cell's queue (J=12,288) at
+  memo_stream  main path 19: the streaming cell's queue, cut to J=6,144
+               (of 12,288) for the smoke's time, at
                the README's 80 % duplicate shape, packed once with
                content keys, through memo "off", "full" (a cold
                summary-cache file in a temporary directory) and a warm
@@ -261,15 +269,16 @@ seconds since the start):
                device ms a step (CUDA events, the full arm's final
                state);
   prefix_stream main path 20: the same cell at prefix overlap 0.75, J
-               cut to 2,048, memo "prefix" against "off" on the
+               cut to 1,024, memo "prefix" against "off" on the
                prefix-packed pool: rows equal, forked jobs equal to the
                planned ones and above 0; the mean fork depth, the bank's
                rows and bytes, the producer's seconds and the fork
                audit's count;
   serve_edf    main path 29: the serve loop (``serving.serve_run``) on
                the streaming cell (ER-256, B=4,096, the exact cascade at
-               megatick 8, row 8's gated stream drain): J = 3 x B
-               requests of the JAX serve CLI's traffic (4 Zipf tenants, 2
+               megatick 8, row 8's gated stream drain): J = 1.5 x B
+               requests (the CLI's 3 x B, cut for the smoke's time) of
+               the JAX serve CLI's traffic (4 Zipf tenants, 2
                priority classes, deadline slack 64-256, no duplicates)
                arriving at twice the jobs a step stream_exact's drive
                retired (printed with its derivation); an edf arm through
@@ -334,7 +343,8 @@ seconds since the start):
   uniform_sync_storm, uniform_kernel, uniform_fused_storm main paths
                25-26, the threefry sampler (``UniformDelay(17)``): config
                4's sync storm, clean with every snapshot complete; the
-               exact cell at megatick 8, its drain megatick through row
+               exact cell at 2,048 lanes (cut from 4,096 for the smoke's
+               time) at megatick 8, its drain megatick through row
                8's threefry kind bit-equal to the plain form and timed
                beside the hash arm, and the storm itself;
   dense_faults_golden, dense_faults_script main paths 21-22,
@@ -350,8 +360,41 @@ seconds since the start):
                exact cell cut to 4 phases and 1 snapshot, equal to the
                cascade's storm leaf for leaf; ms per fold tick and row-5
                launches per tick;
+  graphshard_giant_fixed, graphshard_giant_uniform main path 33, graph
+               sharding at scale: ``scale_free(1_048_576, 2, seed=3)``
+               (E=3,145,723) over 4 shards stacked on the card (the sparse
+               exchange, megatick 4) under the bench's storm (32 phases, 8
+               snapshots, C=16, L=32, int16 log): under ``fixed_delay=2``
+               its ``gather_dense`` equals the unsharded sync runner's
+               final state (B=1) leaf for leaf on every field it fills;
+               under the per-shard threefry streams (seed 17, the
+               conservation check every 8 phases) error 0, every snapshot
+               complete, frozen + recorded equal to the tokens; rows 1-5
+               launched, rows 6-8 never; wall, ticks, ms a tick,
+               node-ticks/s, the cut, the halo, ``comm_bytes_model``, peak
+               bytes; rows 4-5 at the stacked [4, Em, 16] rings bit for bit
+               against their plain versions, timed beside their bounds, and
+               rows 1-3 at the exchange's shapes beside index_add_ /
+               index_select;
+  graphshard_row_sparse, graphshard_row_dense, graphshard_row_sparse_vs_dense,
+  graphshard_lanes_fixed, graphshard_lanes_uniform main path 34, the JAX
+               bench's graphshard row (sf-1024 over 8 shards, megatick 4,
+               seed 17): both engines, their de-sharded finals equal; the
+               data x graph mode, 256 lanes x 4 shards of the same graph:
+               under the fixed delay every lane equals the single-instance
+               run, under the per-(lane, shard) streams every lane clean,
+               complete and conserved;
+  graphshard_dist_gloo, graphshard_dist_nccl main path 35, the dist
+               backend on the card: two spawned processes on the one card
+               over gloo (the exchanged rows staged through host memory),
+               P = 2 over sf-1024, both engines under the fixed delay, each
+               process's shard equal to the stacked run's on the card; NCCL
+               at world size 1 (P = 1) equal to stacked P = 1 (NCCL beyond
+               one process is not checked: one card, and NCCL does not put
+               two processes on one device); the processes' launches;
   cpu_vs_cuda  small sync, exact, faulted exact and megatick-8 exact storms
-               (the faulted one with lossy crashes at a fixed window,
+               (4 lanes of sf-64; the faulted one with lossy crashes at a
+               fixed window,
                marker drops and the supervisor with its daemon, at
                megatick 1 and 8), the wave's at megatick 8, faulted
                and not, and a faulted sync storm (every class, lossy
@@ -371,7 +414,9 @@ seconds since the start):
                CPU run.
 
 Then, on lines of their own: nvidia-smi's name/power-limit line, one
-``{"kernels": [...]}`` summary (the segment sums' entries add the device
+``{"kernels": [...]}`` summary (rows 1-5 add ``graphshard_shapes``,
+their times at the giant graphshard cell's shapes; the segment sums'
+entries add the device
 and host times and a ``shapes`` list of every timed shape; fused_scan's
 a ``shapes`` list of its fault-free and faulted drain megaticks, cascade
 and wave, resident and tiled, untraced and traced, and config 5's,
@@ -505,12 +550,16 @@ ST_TWIN_JOBS_PER_LANE, ST_TWIN_MAX_PHASES = 1, 8
 # one that runs both a drain slice and a flush
 ST_CAPTURE_STEPS = 8
 # the memo cells: the streaming cell's queue at the README's 80 %
-# duplicate shape (memo_stream, J = 3 x B), and at prefix overlap 0.75
-# (prefix_stream) with J cut to 2,048: at 4,096 (the bank near 0.18 GB on
+# duplicate shape (memo_stream, J = MEMO_PER_LANE x B), and at prefix
+# overlap 0.75
+# (prefix_stream) with J cut to 1,024: at 4,096 (the bank near 0.18 GB on
 # the card, the in-memory store ~1.33x that; one ER-256 lane at C=24 holds
-# about 347 KB) its two drives took 61 s of the smoke, cut for the serve
-# phases' time
-MEMO_DUP, MEMO_OVERLAP, PREFIX_JOBS = 0.8, 0.75, 2048
+# about 347 KB) its two drives took 61 s of the smoke, cut to 2,048 for the
+# serve phases' time and to 1,024 for graph sharding's (slice 20)
+MEMO_DUP, MEMO_OVERLAP, PREFIX_JOBS = 0.8, 0.75, 1024
+# memo_stream's jobs a lane: the streaming cell's 3, cut to 1.5 (J 12,288
+# -> 6,144) for the smoke's time (graph sharding's phases, slice 20)
+MEMO_PER_LANE = 1.5
 # the lane count of append_rows' lane-limit check (ring-10 sync storms run
 # at this batch)
 WIDE_LANES = 131_072
@@ -542,12 +591,27 @@ KERNELS = {
 MEGATICK = 8
 # the checkpoint phase's chunk: phases run between two saves
 CK_CHUNK = 16
-# the lanes of the checkpoint phase's faulted sync storm: a quarter of
-# main path 18's, whose every lane runs its retries out over ~970 ticks
-# (~45 s at B=2048); at B=512 its uninterrupted and its chunked run take
-# about a quarter of that each, which keeps the smoke inside its time
-# with the memo phases
-CK_SYNC_BATCH = 512
+# the lanes of the checkpoint phase's faulted sync storm, whose every lane
+# runs its retries out over ~970 ticks (~45 s at B=2048): 512 since the
+# memo phases, 256 since graph sharding's (slice 20), for the smoke's
+# time
+CK_SYNC_BATCH = 256
+# the lanes of main path 18's timed run, cut from config 4's 2,048 for the
+# smoke's time (graph sharding's phases, slice 20): its ~970 ticks took
+# 43.8 s at 2,048 lanes
+FS_BATCH = 1024
+# cut in depth for the same reason (slice 20): the checkpoint phase's
+# faulted ER-256 storm (4,096 lanes before), the threefry cell of
+# uniform_kernel / uniform_fused_storm (4,096 before; its plain drain
+# megatick ~20 s there), the jobs a lane of stream_exact and stream_fault
+# (3 before: J 12,288 -> 6,144 and 1,536 -> 768) and the lanes of
+# cpu_vs_cuda's storms (8 before)
+CK_EXACT_BATCH, U_BATCH, ST_PER_LANE, CV_BATCH = 2048, 2048, 1.5, 4
+# the megatick-1 cascade storms exact_storm and fault_storm run the first
+# M1_BATCH lanes of their 4,096-lane cell (a lane's streams depend on its
+# index alone), and their megatick-8 and wave twins are held to them on
+# those lanes; fault_storm took 61-85 s at 4,096
+M1_BATCH = 2048
 # launches averaged by --drain-timing
 DRAIN_LAUNCHES = 10
 # what split_times adds to a row
@@ -1467,6 +1531,14 @@ def _leaves(state) -> list:
             for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
 
 
+def _first_lanes(state, n: int):
+    """``state`` cut to its first ``n`` lanes (every leaf, the sampler's
+    words included)."""
+    return type(state)(*(tuple(w[:n] for w in leaf)
+                         if isinstance(leaf, tuple) else leaf[:n]
+                         for leaf in state))
+
+
 def _mismatched(a, b) -> list:
     """Names of the leaves where two states differ (value, dtype or
     shape)."""
@@ -1718,7 +1790,11 @@ def fused_edge_cases(layouts=("resident",), capacity=None) -> list:
 def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
                      impl, layouts, capacity) -> list:
     """One case of ``fused_edge_cases`` through the ``impl`` step body,
-    in each of ``layouts``, traced with ``capacity`` slots when given."""
+    in each of ``layouts``, traced with ``capacity`` slots when given. The
+    case's state is built and its plain version run on the CPU (the same
+    functions on the same inputs; these small host-bound runs take about
+    a third of their card time there), every launch's result copied back
+    to be held to it."""
     import torch
 
     from chandy_lamport_tpu_torch import BatchedRunner
@@ -1726,18 +1802,21 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
     from chandy_lamport_tpu_torch.kernels import megatick as km
     from chandy_lamport_tpu_torch.utils.tracing import Trace
 
-    runners = {}
-    for layout in layouts:
-        runners[layout] = BatchedRunner(
-            spec, cfg, delay, 4, scheduler="exact", device="cuda",
+    def build(device, layout):
+        return BatchedRunner(
+            spec, cfg, delay, 4, scheduler="exact", device=device,
             faults=faults, quarantine=quarantine, megatick=MEGATICK,
             exact_impl=impl,
             trace=None if capacity is None else Trace(capacity),
             **(TILED if layout == "tiled" else {}))
+
+    runners = {layout: build("cuda", layout) for layout in layouts}
     runner = runners[layouts[0]]
-    tk = runner.kernel
-    s = (runner.init_batch_device() if check == "never_quiet"
-         else loaded_state(runner, min(3, cfg.max_snapshots)))
+    # the plain runs' kernel, and the host-bound set-up's, on the CPU
+    plain = build("cpu", "resident")
+    tk = plain.kernel
+    s = (plain.init_batch_device() if check == "never_quiet"
+         else loaded_state(plain, min(3, cfg.max_snapshots)))
     if quarantine and faults is None and check is None:
         s.error[2] |= ERR_QUEUE_OVERFLOW
     if check == "disarmed":
@@ -1757,8 +1836,9 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
                                  s.min_prot + off),
             rec_start=(s.rec_start.to(torch.int32) + off).to(wd),
             rec_end=(s.rec_end.to(torch.int32) + off).to(wd))
+    s = _to_device(s, runner.device)
     seen = _watch_waves(tk) if impl == "wave" else None
-    live = ~tk._halted(s)
+    live = ~runner.kernel._halted(s)
     live[1] = False
     ticks = 40 if faults is None else 24
     rows = []
@@ -1768,17 +1848,19 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
             ("drain", MEGATICK, {"limit": s.time
                                  + runner.config.max_ticks}),
             ("flush", runner.config.max_delay + 1, {})):
-        want = km.fused_ticks_plain(tk, BatchedRunner._own(s),
-                                    mode=mode, length=length, **kw)
+        want = km.fused_ticks_plain(tk, _to_device(s, "cpu"), mode=mode,
+                                    length=length,
+                                    **{k: v.cpu() for k, v in kw.items()})
         for r in runners.values():
             got = km.fused_ticks(r.kernel, BatchedRunner._own(s), mode=mode,
                                  length=length, **kw)
-            err = max_abs_err(_leaves(got), _leaves(want))
-            if err or _mismatched(got, want):
+            got_cpu = _to_device(got, "cpu")
+            err = max_abs_err(_leaves(got_cpu), _leaves(want))
+            if err or _mismatched(got_cpu, want):
                 raise AssertionError(
                     f"fused_scan ({impl}, {_layout(r)}, capacity "
                     f"{capacity}) != plain on {note}, {mode}: "
-                    f"{_mismatched(got, want)}")
+                    f"{_mismatched(got_cpu, want)}")
             if mode == "ticks" and not all(
                     bool(torch.equal(x[1], y[1]))
                     for x, y in zip(_leaves(got), _leaves(s))):
@@ -1800,6 +1882,14 @@ def _fused_edge_case(note, spec, cfg, delay, faults, quarantine, check,
                          "max_abs_err": err})
             del got
     return rows
+
+
+def _to_device(state, device):
+    """A private copy of a state on ``device`` (the sampler's words
+    included)."""
+    return type(state)(*(tuple(w.to(device, copy=True) for w in leaf)
+                         if isinstance(leaf, tuple)
+                         else leaf.to(device, copy=True) for leaf in state))
 
 
 def _watch_waves(tk) -> dict:
@@ -2226,6 +2316,28 @@ def spread_timing() -> int:
           "shape": f"[{X_BATCH},{runner.topo.n}] bool -> "
                    f"[{X_BATCH},{idx.numel()}]",
           **in_turns(kernel, library), "nvidia_smi": nvidia_smi()})
+    # the giant sharded cell's created-flag spread, the direct path: 8
+    # rows of its 2,101,412 segments onto its 3,145,728 stacked edges,
+    # through a uniform random stand-in for dst_seg
+    segs, edges = GS_SPREAD_SEGMENTS, GS_SHARDS * GS_SPREAD_EM
+    flags = (torch.rand((1, SNAPSHOTS, segs), generator=gen) < 0.3).cuda()
+    dst = torch.randint(0, segs, (edges,), generator=gen,
+                        dtype=torch.int32).cuda()
+    dst_long = dst.to(torch.int64)
+    if ks.spread_plan(SNAPSHOTS, edges, segs, 1).rows_per_group:
+        raise AssertionError("the giant spread is expected on the direct "
+                             "path")
+    if not torch.equal(ks.spread(flags, dst),
+                       ks.spread_plain(flags, dst)):
+        raise AssertionError("spread != its plain version at the giant "
+                             "shape")
+    emit({"phase": "spread_timing_giant",
+          "package": os.path.dirname(ks.__file__),
+          "shape": f"[1,{SNAPSHOTS},{segs}] bool -> [1,{SNAPSHOTS},{edges}]"
+                   " (random idx)",
+          **in_turns(lambda: ks.spread(flags, dst),
+                     lambda: torch.index_select(flags, -1, dst_long)),
+          **bound(flags.numel() + 4 * edges + SNAPSHOTS * edges, 0)})
     return 0
 
 
@@ -2695,7 +2807,8 @@ def phase_storm(name, runner, prog, graph, snapshots, path_kernels):
 def phase_fault_storm(name, runner, prog, path_kernels):
     """Main paths 3, 6 and 9, the faulted exact storm at megatick 1 and 8
     (module docstring): warm run at F_WARM_BATCH lanes over a few phases,
-    timed run at B=4096. Returns (final state, measurements)."""
+    timed run at the runner's batch. Returns (final state,
+    measurements)."""
     warm_runner, _ = fault_runner("cuda", F_WARM_BATCH, runner.megatick,
                                   runner.kernel.exact_impl)
     final, m = _timed_storm(runner, prog, warm_runner,
@@ -2775,7 +2888,7 @@ def phase_fault_sync_storm(runner, prog):
     adversary, its supervisor and quarantine (the JAX storm CLI's default
     scheduler under faults): the kernel checks on its operands
     (``fault_sync_kernel_checks``), a warm run at F_WARM_BATCH lanes over
-    4 phases, the timed run at B=2048, judged by the faulted rule; rows
+    4 phases, the timed run at FS_BATCH lanes, judged by the faulted rule; rows
     1-5 launched, rows 6-8 never. Returns (final state, measurements)."""
     checks = fault_sync_kernel_checks(runner, prog)
     warm_runner, _ = config4_runner("cuda", faulted=True,
@@ -2881,11 +2994,13 @@ def phase_checkpoint() -> None:
                                    batch=CK_SYNC_BATCH)[0], tmp)
         line["fault_sync_storm"]["batch"] = CK_SYNC_BATCH
         del sync_runner, sync_final
-        f8runner, f8prog = fault_runner("cuda", megatick=MEGATICK)
+        f8runner, f8prog = fault_runner("cuda", CK_EXACT_BATCH,
+                                        megatick=MEGATICK)
         whole = f8runner.run_storm(f8runner.init_batch_device(), f8prog)
         line["fault_fused_storm"] = _chunked_resume(
             "fault_fused_storm", f8runner, f8prog, whole,
-            lambda: fault_runner("cuda", megatick=MEGATICK)[0], tmp)
+            lambda: fault_runner("cuda", CK_EXACT_BATCH,
+                                 megatick=MEGATICK)[0], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(line)
@@ -3306,7 +3421,8 @@ def _cascade_twin(make) -> dict:
 
 
 def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
-                 faulted=False, twin=None, cascade_twin=False) -> dict:
+                 faulted=False, twin=None, cascade_twin=False,
+                 per_lane=3) -> dict:
     """A streaming run through ``run_stream`` (``make(megatick)`` builds
     the runner and its spec): the stream drive with the launch counts
     zeroed just before it (the main path's), then the gang drive, the
@@ -3314,7 +3430,8 @@ def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
     runner, None for none: the wave folds a few hundred host steps where
     the cascade folds tens of thousands, and the two give the same bits),
     with ``cascade_twin`` the cascade's own megatick-1 twin at reduced
-    depth (``_cascade_twin``), and ``sampled`` jobs alone through ``run``.
+    depth (``_cascade_twin``), and ``sampled`` jobs alone through ``run``;
+    the queue holds ``per_lane`` x B jobs.
     Every job retires (with error 0, unless ``faulted``: then no bit but
     ERR_SNAPSHOT_TIMEOUT), stream and gang give equal job rows, every row
     (``admit_step`` included) equals its megatick-1 twin's and every
@@ -3325,7 +3442,7 @@ def phase_stream(name, make, sampled: int, path_kernels, idle_kernels=(),
     from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
 
     runner, spec = make(MEGATICK)
-    jobs, pool = stream_queue(runner, spec, faulted)
+    jobs, pool = stream_queue(runner, spec, faulted, per_lane=per_lane)
     jcount = pool.num_jobs
     _, stream, m = drive_stream(runner, pool)
     rows = runner.stream_results(stream)
@@ -3424,7 +3541,7 @@ def phase_streams() -> tuple:
         idle_kernels=("sum_segments", "select_pop"),
         twin=lambda: stream_runner("cuda", X_BATCH, 1,
                                    exact_impl="wave")[0],
-        cascade_twin=True)}
+        cascade_twin=True, per_lane=ST_PER_LANE)}
     paths["stream_wave"] = phase_stream(
         "stream_wave", lambda k, batch=STW_BATCH: stream_runner(
             "cuda", batch, k, exact_impl="wave"), SMALL_SAMPLED,
@@ -3440,7 +3557,7 @@ def phase_streams() -> tuple:
                         "spread"),
         idle_kernels=("queue_step",), faulted=True,
         twin=lambda: stream_runner("cuda", STF_BATCH, 1, exact_impl="wave",
-                                   faulted=True)[0])
+                                   faulted=True)[0], per_lane=ST_PER_LANE)
     # the sync scheduler ticks one at a time: no megatick, so no twin
     paths["stream_sync"] = phase_stream(
         "stream_sync", lambda k, batch=SS_BATCH: sync_stream_runner(batch),
@@ -3490,8 +3607,9 @@ MEMO_KERNELS = ("fused_scan", "queue_step", "append_marker_rows",
 
 
 def phase_memo_stream() -> dict:
-    """The streaming cell's queue (J=12,288) at the README's 80 %
-    duplicate shape, packed once with content keys, through three arms:
+    """The streaming cell's queue cut to J = MEMO_PER_LANE x B = 6,144 at
+    the README's 80 % duplicate shape, packed once with content keys,
+    through three arms:
     memo "off"; "full" on a cold summary-cache file in a temporary
     directory (empty at its start, as an in-memory cache; the arm
     flushes it at its end); and a warm "admit" on that file. Every row
@@ -3508,7 +3626,8 @@ def phase_memo_stream() -> dict:
     try:
         cache = os.path.join(tmp, "summaries.jsonl")
         full, spec = stream_runner("cuda", memo="full", memo_cache=cache)
-        pool = stream_queue(full, spec, dup_rate=MEMO_DUP)[1]
+        pool = stream_queue(full, spec, per_lane=MEMO_PER_LANE,
+                            dup_rate=MEMO_DUP)[1]
         off, _ = stream_runner("cuda")
         _, ostream, om = drive_stream(off, pool)
         off_rows = served_rows(off, ostream)
@@ -3557,7 +3676,7 @@ def phase_memo_stream() -> dict:
 
 
 def phase_prefix_stream() -> dict:
-    """The same cell at prefix overlap 0.75, J cut to 2,048
+    """The same cell at prefix overlap 0.75, J cut to 1,024
     (``PREFIX_JOBS``), packed by the "prefix" runner: memo "off" against
     "prefix" (in-memory prefix store) on that pool. Every row of the
     prefix arm equals the off arm's, and ``forked_jobs == prefix_hits >
@@ -3601,13 +3720,17 @@ def phase_prefix_stream() -> dict:
 # ---- serving (serve_edf, serve_memo_quota) ------------------------------------
 
 # the serve cells' traffic (the JAX serve CLI's defaults): 4 Zipf tenants,
-# 2 priority classes, deadline slack 64-256 steps; serve_edf's J = 3 x B
-# (the CLI's --requests 0), 32 sampled rows held to their solo runs;
+# 2 priority classes, deadline slack 64-256 steps; serve_edf's J =
+# SV_PER_LANE x B (the CLI's --requests 0 is 3 x B), 32 sampled rows held
+# to their solo runs;
 # serve_memo_quota on the sync scheduler with J cut to 4,096, at the
 # memo cell's duplicate rate, over a summary cache warmed by its first
 # SV_WARM_REQUESTS requests, with quotas that refuse part of tenants 0
 # and 2
 SV_TENANTS, SV_PRIORITIES, SV_SLACK = 4, 2, (64, 256)
+# serve_edf's requests a lane: the CLI's 3, cut to 1.5 (J 12,288 -> 6,144)
+# for the smoke's time (graph sharding's phases, slice 20)
+SV_PER_LANE = 1.5
 SV_SYNC_JOBS, SV_WARM_REQUESTS = 4096, 1024
 SV_QUOTAS = (1500, 0, 300, 0)
 
@@ -3689,8 +3812,8 @@ def _serve_report(report) -> dict:
 
 def phase_serve_edf(stream_jobs_per_step: float) -> dict:
     """Main path 29: the streaming cell (ER-256, B=4,096, the exact
-    cascade at megatick 8) serving J = 3 x B requests of the JAX serve
-    CLI's traffic at twice the jobs a step the off-arm streaming cell
+    cascade at megatick 8) serving J = SV_PER_LANE x B requests of the JAX
+    serve CLI's traffic at twice the jobs a step the off-arm streaming cell
     (stream_exact) retired, so a backlog stands for most of the run. The
     edf arm through a cold ``ExecutableCache`` over a temporary
     directory, its harvests read back after each step; then a fifo arm on
@@ -3711,7 +3834,8 @@ def phase_serve_edf(stream_jobs_per_step: float) -> dict:
 
     rate = 2.0 * stream_jobs_per_step
     runner, spec = stream_runner("cuda")
-    requests = _serve_requests(spec, 3 * runner.batch, rate)
+    requests = _serve_requests(spec, int(SV_PER_LANE * runner.batch),
+                               rate)
     # the pool serve_run packs (content keys), kept for the solo runs
     pools, pack = [], runner.pack_jobs
     runner.pack_jobs = lambda *a, **k: pools.append(pack(*a, **k)) or \
@@ -4660,7 +4784,7 @@ def phase_uniform(hash_row: dict) -> tuple:
                         "head_fields", "append_rows"))
     paths = {"uniform_sync_storm": m["launches"]}
     del runner
-    urunner, uprog = exact_runner("cuda", megatick=MEGATICK,
+    urunner, uprog = exact_runner("cuda", U_BATCH, megatick=MEGATICK,
                                   delay=UniformDelay(UNIFORM_SEED))
     (row,) = drain_megatick_rows(urunner, uprog, "threefry")
     row = {**row, "arm": "threefry", "hash_ms": hash_row["ms"],
@@ -4805,98 +4929,89 @@ def phase_window16(sync_final, int32_rows: dict) -> tuple:
 
 
 
-def phase_cpu_vs_cuda() -> None:
-    """Small sync, faulted sync, exact, faulted exact (megatick 1 and 8),
-    megatick-8 exact storms and the wave's at megatick 8 (faulted and
-    not) on the card and on the CPU: identical leaves; then a small
-    faulted sync stream checkpointed, killed and resumed
-    (``stream_checkpoint_card_vs_cpu``), small streams under each
-    memo mode (``memo_streams_card_vs_cpu``) and a small serve killed and
-    resumed across the devices (``serve_card_vs_cpu``)."""
-    import functools
+CV_KINDS = ("sync", "faulted_sync", "exact", "faulted_exact",
+            "faulted_exact_megatick8", "exact_megatick8",
+            "exact_wave_megatick8", "faulted_exact_wave_megatick8")
 
-    import numpy as np
 
+def _cv_storm(kind, device) -> tuple:
+    """cpu_vs_cuda's small storm ``kind`` (``CV_KINDS``) on ``device``:
+    (runner, program). sf-64, ``CV_BATCH`` lanes, 6 phases, 4 snapshots;
+    the faulted sync storm with every message and marker class and lossy
+    crashes at tick 70 after the first snapshots completed, the
+    supervisor with its daemon; the faulted exact ones with lossy crashes
+    of half the nodes at tick 70 (restored from the first snapshots),
+    rare marker drops and the supervisor's daemon every 12 ticks."""
     from chandy_lamport_tpu_torch import BatchedRunner, SimConfig
-    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
+    from chandy_lamport_tpu_torch.models.faults import Faults
     from chandy_lamport_tpu_torch.models.workloads import (
         scale_free,
         staggered_snapshots,
         storm_program,
     )
     from chandy_lamport_tpu_torch.ops.delay import HashDelay
+
+    if kind in ("sync", "faulted_sync"):
+        faulted = kind == "faulted_sync"
+        runner = BatchedRunner(
+            scale_free(64, 2, seed=3, tokens=16),
+            SimConfig.for_workload(
+                snapshots=4, split_markers=True, record_dtype="int16",
+                **(dict(snapshot_timeout=F_TIMEOUT, snapshot_every=12)
+                   if faulted else {})),
+            HashDelay(DELAY_SEED), CV_BATCH, scheduler="sync", device=device,
+            **(dict(faults=Faults(3, **SMALL_SYNC_FAULTS), quarantine=True)
+               if faulted else {}))
+        prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
+            runner.topo, 4, 1, 1, max_phases=6))
+        return runner, prog
+    kw = dict(megatick=MEGATICK if "megatick8" in kind else 1,
+              exact_impl="wave" if "wave" in kind else "cascade")
+    if kind.startswith("faulted"):
+        kw.update(faults=Faults(3, crash_rate=0.5, crash_mode="lossy",
+                                crash_start=70, marker_drop_rate=0.002),
+                  snapshot_timeout=F_TIMEOUT, snapshot_every=12)
+    return exact_runner(device, batch=CV_BATCH, nodes=64, phases=6,
+                        snapshots=4, graph="sf", **kw)
+
+
+def _cv_finals(device) -> list:
+    """The final states (numpy) of every ``CV_KINDS`` storm on
+    ``device``."""
     from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
 
-    def sync_storm(device):
-        runner = BatchedRunner(
-            scale_free(64, 2, seed=3, tokens=16),
-            SimConfig.for_workload(snapshots=4, split_markers=True,
-                                   record_dtype="int16"),
-            HashDelay(DELAY_SEED), 8, scheduler="sync", device=device)
-        prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
-            runner.topo, 4, 1, 1, max_phases=6))
-        return runner, prog
+    out = []
+    for kind in CV_KINDS:
+        runner, prog = _cv_storm(kind, device)
+        out.append(state_to_numpy(
+            runner.run_storm(runner.init_batch_device(), prog)))
+    return out
 
-    def faulted_sync_storm(device):
-        # every message and marker class, lossy crashes at tick 70 after
-        # the first snapshots completed, the supervisor with its daemon
-        from chandy_lamport_tpu_torch.models.faults import Faults
 
-        runner = BatchedRunner(
-            scale_free(64, 2, seed=3, tokens=16),
-            SimConfig.for_workload(snapshots=4, split_markers=True,
-                                   record_dtype="int16",
-                                   snapshot_timeout=F_TIMEOUT,
-                                   snapshot_every=12),
-            HashDelay(DELAY_SEED), 8, scheduler="sync", device=device,
-            faults=Faults(3, **SMALL_SYNC_FAULTS), quarantine=True)
-        prog = storm_program(runner.topo, 6, 1, staggered_snapshots(
-            runner.topo, 4, 1, 1, max_phases=6))
-        return runner, prog
+def phase_cpu_vs_cuda() -> None:
+    """Small sync, faulted sync, exact, faulted exact (megatick 1 and 8),
+    megatick-8 exact storms and the wave's at megatick 8 (faulted and
+    not) on the card and on the CPU (the CPU's in a spawned process at the
+    same time): identical leaves; then a small faulted sync stream
+    checkpointed, killed and resumed (``stream_checkpoint_card_vs_cpu``),
+    small streams under each memo mode (``memo_streams_card_vs_cpu``) and
+    a small serve killed and resumed across the devices
+    (``serve_card_vs_cpu``)."""
+    import concurrent.futures
+    import multiprocessing
 
-    def exact_storm(device):
-        return exact_runner(device, batch=8, nodes=64, phases=6,
-                            snapshots=4, graph="sf")
+    import numpy as np
 
-    def fused_storm(device, exact_impl="cascade"):
-        return exact_runner(device, batch=8, nodes=64, phases=6,
-                            snapshots=4, graph="sf", megatick=MEGATICK,
-                            exact_impl=exact_impl)
+    from chandy_lamport_tpu_torch.core.state import ERR_SNAPSHOT_TIMEOUT
 
-    def faulted_storm(device, megatick=1, exact_impl="cascade"):
-        # lossy crashes of half the nodes at tick 70, after the first
-        # snapshots completed (restored from them), rare marker drops, the
-        # supervisor with its daemon every 12 ticks
-        from chandy_lamport_tpu_torch.models.faults import Faults
-
-        return exact_runner(device, batch=8, nodes=64, phases=6,
-                            snapshots=4, graph="sf",
-                            faults=Faults(3, crash_rate=0.5,
-                                          crash_mode="lossy", crash_start=70,
-                                          marker_drop_rate=0.002),
-                            megatick=megatick, exact_impl=exact_impl,
-                            snapshot_timeout=F_TIMEOUT, snapshot_every=12)
-
-    result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": 8,
+    result = {"phase": "cpu_vs_cuda", "graph": "sf-64", "batch": CV_BATCH,
               "phases": 6, "snapshots": 4}
-    for scheduler, build in (("sync", sync_storm),
-                             ("faulted_sync", faulted_sync_storm),
-                             ("exact", exact_storm),
-                             ("faulted_exact", faulted_storm),
-                             ("faulted_exact_megatick8", functools.partial(
-                                 faulted_storm, megatick=MEGATICK)),
-                             ("exact_megatick8", fused_storm),
-                             ("exact_wave_megatick8", functools.partial(
-                                 fused_storm, exact_impl="wave")),
-                             ("faulted_exact_wave_megatick8",
-                              functools.partial(faulted_storm,
-                                                megatick=MEGATICK,
-                                                exact_impl="wave"))):
-        finals = []
-        for device in ("cuda", "cpu"):
-            runner, prog = build(device)
-            finals.append(state_to_numpy(
-                runner.run_storm(runner.init_batch_device(), prog)))
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = pool.submit(_cv_finals, "cpu")
+        cuda = _cv_finals("cuda")
+        cpu = cpu.result()
+    for scheduler, *finals in zip(CV_KINDS, cuda, cpu):
         mismatched = []
         for name, a, b in zip(finals[0]._fields, *finals):
             pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
@@ -5234,7 +5349,9 @@ def _trace_storm_line(name, runner, prog, graph, snapshots, final, m,
                                     if n not in RING]}
     if twin is not None:
         line["megatick1_twin"] = {
-            "mismatched": _mismatched(final, twin),
+            "mismatched": _mismatched(
+                _first_lanes(final, int(twin.time.shape[0])), twin),
+            "lanes": int(twin.time.shape[0]),
             **{key: twin_m[key] for key in ("run_s", "fold_steps",
                                             "drain_fold_steps")}}
     return line
@@ -5246,9 +5363,9 @@ def phase_trace_storms(resident) -> dict:
     and the faulted wave (``resident``: the untraced megatick-8 runs of
     this call, name -> (program, final, measurements)). Each, with the
     launch counts zeroed just before it, launches the recorder arm, is
-    clean, equals its traced megatick-1 twin on every leaf and the
-    untraced run on every leaf but the ring. Returns the launch counts by
-    path."""
+    clean, equals its traced megatick-1 twin (run on the first
+    ``M1_BATCH`` lanes) on those lanes on every leaf and the untraced run
+    on every leaf but the ring. Returns the launch counts by path."""
     from chandy_lamport_tpu_torch.utils.tracing import Trace
 
     paths = {}
@@ -5263,8 +5380,8 @@ def phase_trace_storms(resident) -> dict:
         runner, _ = make("cuda", megatick=MEGATICK, exact_impl=impl,
                          trace=Trace())
         final, m = _timed_storm(runner, prog, warm=False)
-        twin_runner, _ = make("cuda", megatick=1, exact_impl=impl,
-                              trace=Trace())
+        twin_runner, _ = make("cuda", M1_BATCH, megatick=1,
+                              exact_impl=impl, trace=Trace())
         twin, twin_m = _timed_storm(twin_runner, prog, warm=False)
         line = _trace_storm_line(name, runner, prog, "er", X_SNAPSHOTS,
                                  final, m, untraced, untraced_m, twin,
@@ -5358,6 +5475,497 @@ def phase_trace_stream() -> dict:
     _check_launches("trace_stream", m["launches"],
                     ("fused_scan", "fused_scan_traced", "spread"))
     return m["launches"]
+
+
+# graph sharding (slice 20): the giant cell, the JAX bench's row and the
+# dist backend
+GS_NODES, GS_SHARDS, GS_MEGATICK = 1_048_576, 4, 4
+GS_ROW_SHARDS, GS_LANES, GS_LANE_SHARDS = 8, 256, 4
+# the giant cell's shard edge width Em and its exchange's segments
+# P * (Nl + R + 1) (--spread-timing's giant shape)
+GS_SPREAD_EM, GS_SPREAD_SEGMENTS = 786_432, 2_101_412
+# rows 1-5 run on every sharded path; rows 6-8 (and the exact broadcast's
+# routed append) never do
+GS_PATH = ("sum_by_perm", "sum_segments", "spread", "head_fields",
+           "append_rows")
+GS_IDLE = ("queue_step", "select_pop", "append_marker_rows", "fused_scan")
+# the DenseState fields gather_dense fills from a ShardedState (the JAX
+# tests' list)
+GS_FIELDS = ("time", "tokens", "q_meta", "q_data", "q_head", "q_len",
+             "tok_pushed", "mk_cnt", "m_pending", "m_rtime", "m_key",
+             "next_sid", "started", "has_local", "frozen", "rem",
+             "done_local", "recording", "rec_cnt", "min_prot", "log_amt",
+             "rec_start", "rec_end", "completed", "error")
+
+
+def _gs_config():
+    """The port's bench config for ``--graph sf --snapshots 8 --phases
+    32`` (C=16, S=8, L=32, int16 log)."""
+    from chandy_lamport_tpu_torch.config import SimConfig
+
+    return SimConfig.for_workload(snapshots=SNAPSHOTS, record_dtype="int16",
+                                  split_markers=True)
+
+
+def _gs_program(topo):
+    from chandy_lamport_tpu_torch.models.workloads import (
+        staggered_snapshots,
+        storm_program,
+    )
+
+    return storm_program(topo, phases=PHASES, amount=1,
+                         snapshot_phases=staggered_snapshots(
+                             topo, SNAPSHOTS, 1, 2, max_phases=PHASES))
+
+
+def _gs_recorded(final, cfg) -> list:
+    """Each slot's recorded tokens summed over every edge of a
+    single-instance ShardedState on the card: a slot's window on an edge
+    covers ring positions (start + k) % L, k < (end or the live count) -
+    start (int32 windows)."""
+    import torch
+
+    lcap = final.log_amt.shape[1]
+    ll = torch.arange(lcap, dtype=torch.int32, device=final.log_amt.device)
+    out = []
+    for sid in range(cfg.max_snapshots):
+        start = final.rec_start[:, sid].unsqueeze(1)          # [P, 1, Em]
+        end = torch.where(final.recording[:, sid], final.rec_cnt,
+                          final.rec_end[:, sid]).unsqueeze(1)
+        inside = ((ll[None, :, None] - start) % lcap) < (end - start)
+        out.append(int(torch.where(inside, final.log_amt, 0)
+                       .sum(dtype=torch.int64)))
+    return out
+
+
+def _gs_run(name, runner, prog, extra=None) -> tuple:
+    """One sharded storm on the card with the launch counts zeroed just
+    before it: rows 1-5 launched, rows 6-8 never. Returns (final, the
+    phase line's fields)."""
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    state = runner.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    final = runner.run_storm(state, prog.amounts, prog.snap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    _check_launches(name, launches, GS_PATH, GS_IDLE)
+    ticks = int(final.time)
+    del state
+    return final, {
+        "phase": name, "nodes": runner.topo.n, "edges": runner.topo.e,
+        "shards": runner.shards, "backend": runner.mesh.backend,
+        "comm_engine": runner.comm_engine, "megatick": runner.megatick,
+        "delay": (f"fixed({runner.fixed_delay})" if runner.fixed_delay
+                  else f"threefry({runner.seed})"),
+        "queue_capacity": runner.config.queue_capacity,
+        "max_recorded": runner.config.max_recorded, "em": runner.em,
+        "nl": runner.nl, "wall_s": wall, "ticks": ticks,
+        "ms_per_tick": wall / ticks * 1e3,
+        "node_ticks_per_s": ticks * runner.topo.n / wall,
+        "cut_edges": runner._bt.cut_edges, "halo": runner.halo,
+        "comm_bytes_model": runner.comm_model(),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "error_bits": int(final.error), "launches": launches,
+        **(extra or {})}
+
+
+def _gs_kernel_rows(gs, final, prog) -> dict:
+    """Rows 4 and 5 at the giant cell's stacked shapes ([P, Em, C] rings
+    of ``final``; the append of phase 0's sends on them), bit for bit
+    against their plain versions, timed beside their bounds as the kernels
+    phase times them; rows 1-3 at the shapes this path gives them, beside
+    index_add_ / index_select. Returns {kernel: [row, ...]}."""
+    import numpy as np
+    import torch
+
+    from chandy_lamport_tpu_torch.kernels import queue as kq
+    from chandy_lamport_tpu_torch.kernels import segment as ks
+
+    p, em, c = final.q_meta.shape
+    rows = {}
+
+    def record(name, note, got, want, kernel_fn, plain_fn, nbytes, ops,
+               library_fn=None):
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} ({note}): kernel != plain, max "
+                                 f"|diff| {err}")
+        rows.setdefault(name, []).append({
+            "shape": note, "max_abs_err": err, "ms": time_ms(kernel_fn, 5),
+            "plain_ms": time_ms(plain_fn, 3),
+            "library_ms": time_ms(library_fn, 5) if library_fn else None,
+            **bound(nbytes, ops)})
+
+    q_meta, q_data, q_head = final.q_meta, final.q_data, final.q_head
+    record("head_fields", f"[{p},{em},{c}] planes (stacked shards)",
+           list(kq.head_fields(q_meta, q_data, q_head)),
+           list(kq.head_fields_plain(q_meta, q_data, q_head)),
+           lambda: kq.head_fields(q_meta, q_data, q_head),
+           lambda: kq.head_fields_plain(q_meta, q_data, q_head),
+           p * em * (4 + 2 * 32 + 9), 3 * p * em)
+    amounts = gs.shard_program(np.asarray(prog.amounts[:1]),
+                               np.asarray(prog.snap[:1]))[0][0]
+    active = amounts > 0
+    rt = torch.full((p, em), int(final.time) + 3, dtype=torch.int32,
+                    device=amounts.device)
+    leaves = (final.q_meta, final.q_data, final.q_head, final.q_len,
+              final.tok_pushed, torch.zeros(p, dtype=torch.int32,
+                                            device=amounts.device))
+    rows_in = (active, rt, False, amounts)
+    lk, lp = clones(leaves), clones(leaves)
+    kw = dict(capacity=c, key_limit=gs._key_limit, flag_queue_overflow=False)
+    got = kq.append_rows(*lk, *rows_in, **kw)
+    want = kq.append_rows_plain(*lp, *rows_in, **kw)
+    record("append_rows", f"[{p},{em},{c}] planes (stacked shards), "
+                          f"{int(active.sum())} active rows",
+           list(got), list(want),
+           lambda: kq.append_rows(*lk, *rows_in, **kw),
+           lambda: kq.append_rows_plain(*lp, *rows_in, **kw),
+           *append_work(p * em, int(active.sum()), p))
+    del lk, lp
+    # rows 1-3 at the sparse exchange's shapes: the [S+1, P*Em] payload
+    # into P*(Nl+R+1) segments, the debits, the created flags onto edges
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    s1 = gs.config.max_snapshots + 1
+    pe, segs = p * em, gs._t_seg_lo.numel()
+    payload = torch.randint(0, 2, (1, s1, pe), generator=gen,
+                            dtype=torch.int32).to(amounts.device)
+    perm, lo, hi = gs._t_seg_perm, gs._t_seg_lo, gs._t_seg_hi
+    seg_of = torch.empty(pe, dtype=torch.int64, device=amounts.device)
+    seg_of[perm.long()] = torch.repeat_interleave(
+        torch.arange(segs, device=amounts.device), (hi - lo).long())
+    lib = torch.zeros((1, s1, segs), dtype=torch.int32,
+                      device=amounts.device)
+    record("sum_by_perm", f"[1,{s1},{pe}] int32 -> {segs} segments",
+           [ks.sum_by_perm(payload, perm, lo, hi)],
+           [ks.sum_by_perm_plain(payload, perm, lo, hi)],
+           lambda: ks.sum_by_perm(payload, perm, lo, hi),
+           lambda: ks.sum_by_perm_plain(payload, perm, lo, hi),
+           payload.numel() * 4 + 4 * pe + 8 * segs + 4 * s1 * segs,
+           payload.numel(), lambda: lib.index_add_(-1, seg_of, payload))
+    amt = amounts.reshape(-1).contiguous()
+    dlo, dhi = gs._t_dlo, gs._t_dhi
+    nodes = dlo.numel()
+    src_l = gs._t_src_l.long()      # pads carry 0 onto their shard's node 0
+    lib1 = torch.zeros(nodes, dtype=torch.int32, device=amt.device)
+    record("sum_segments", f"[{pe}] int32 -> {nodes} sources",
+           [ks.sum_segments(amt, dlo, dhi)],
+           [ks.sum_segments_plain(amt, dlo, dhi)],
+           lambda: ks.sum_segments(amt, dlo, dhi),
+           lambda: ks.sum_segments_plain(amt, dlo, dhi),
+           4 * pe + 8 * nodes + 4 * nodes, pe,
+           lambda: lib1.index_add_(0, src_l, amt))
+    flags = (torch.rand((1, s1 - 1, segs), generator=gen) < 0.3).to(
+        amounts.device)
+    idx = gs._t_dst_seg
+    idx_long = idx.long()
+    record("spread", f"[1,{s1 - 1},{segs}] bool -> {pe} edges (dst_seg)",
+           [ks.spread(flags, idx)], [ks.spread_plain(flags, idx)],
+           lambda: ks.spread(flags, idx),
+           lambda: ks.spread_plain(flags, idx),
+           flags.numel() + 4 * pe + (s1 - 1) * pe, 0,
+           lambda: torch.index_select(flags, -1, idx_long))
+    return rows
+
+
+def phase_graphshard_giant() -> tuple:
+    """Main path 33: ``scale_free(1_048_576, 2, seed=3)`` split four ways,
+    stacked on the card (sparse engine, megatick 4): under the fixed
+    delay its de-sharded final state equals the unsharded sync runner's
+    on the same program leaf for leaf, and under the per-shard threefry
+    streams (seed 17, the conservation check every 8 phases) it is clean
+    with every snapshot complete and frozen + recorded equal to the
+    tokens; rows 4-5 at its stacked shapes against their plain versions.
+    Returns ({path: launches}, {kernel: rows})."""
+    import numpy as np
+    import torch
+
+    from chandy_lamport_tpu_torch import BatchedRunner
+    from chandy_lamport_tpu_torch.models.workloads import scale_free
+    from chandy_lamport_tpu_torch.ops.delay import FixedDelay
+    from chandy_lamport_tpu_torch.parallel.graphshard import (
+        GraphShardedRunner,
+    )
+    from chandy_lamport_tpu_torch.parallel.mesh import Mesh
+    from chandy_lamport_tpu_torch.utils.carry import state_to_numpy
+
+    t0 = time.perf_counter()
+    spec = scale_free(GS_NODES, ATTACH, seed=3, tokens=PHASES + 10)
+    cfg = _gs_config()
+    ref = BatchedRunner(spec, cfg, FixedDelay(2), 1, scheduler="sync",
+                        device="cuda")
+    topo = ref.topo
+    prog = _gs_program(topo)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_final = ref.run_storm(ref.init_batch_device(), prog)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_host = state_to_numpy(ref_final)
+    want = {name: np.asarray(getattr(ref_host, name))[0]
+            for name in GS_FIELDS}
+    ref_ticks = int(ref_final.time[0])
+    del ref, ref_final, ref_host
+    mesh = Mesh({"graph": GS_SHARDS}, device="cuda")
+    paths, rows = {}, {}
+    total = int(topo.tokens0.sum())
+    for label, kw in (("fixed", {"fixed_delay": 2}),
+                      ("uniform", {"seed": DELAY_SEED, "check_every": 8})):
+        t0 = time.perf_counter()
+        gs = GraphShardedRunner(topo, cfg, mesh, comm_engine="sparse",
+                                megatick=GS_MEGATICK, **kw)
+        build_s = time.perf_counter() - t0
+        name = f"graphshard_giant_{label}"
+        final, line = _gs_run(name, gs, prog, {"runner_build_s": build_s})
+        paths[name] = line["launches"]
+        bad = []
+        if label == "fixed":
+            got = gs.gather_dense(final)
+            mism = [f for f in GS_FIELDS if not np.array_equal(
+                np.asarray(getattr(got, f)), want[f])]
+            line.update(setup_s=setup_s, unsharded_run_s=ref_s,
+                        unsharded_ticks=ref_ticks, leaves=len(GS_FIELDS),
+                        mismatched=mism)
+            if mism:
+                bad.append(f"differs from the unsharded sync runner in "
+                           f"{mism}")
+            rows = _gs_kernel_rows(gs, final, prog)
+            line["kernel_rows"] = rows
+        else:
+            started = final.started.cpu().numpy()
+            completed = final.completed.cpu().numpy()
+            frozen = final.frozen.sum(dim=(0, 2), dtype=torch.int64)
+            recorded = _gs_recorded(final, gs.config)
+            sums = [int(frozen[i]) + recorded[i]
+                    for i in range(gs.config.max_snapshots) if started[i]]
+            line.update(snapshots_started=int(started.sum()),
+                        snapshots_completed=int(
+                            (started & (completed >= topo.n)).sum()),
+                        frozen_plus_recorded=sums, tokens_total=total)
+            if int(started.sum()) != SNAPSHOTS or not (
+                    completed[started] >= topo.n).all():
+                bad.append("a snapshot did not complete")
+            if any(x != total for x in sums):
+                bad.append(f"frozen + recorded {sums} != tokens {total}")
+        if line["error_bits"]:
+            bad.append(f"error bits {line['error_bits']}")
+        emit(line)
+        if bad:
+            raise AssertionError(f"{name}: {bad}")
+        del final, gs
+    return paths, rows
+
+
+def phase_graphshard_row() -> dict:
+    """Main path 34, the JAX bench's graphshard row (sf-1024 over 8
+    shards, megatick 4, the per-shard streams of seed 17): the sparse and
+    dense engines' de-sharded finals equal; then the data x graph mode,
+    ``run_storm_batched`` over 256 lanes x 4 shards of the same graph:
+    under the fixed delay every lane equals the single-instance run, under
+    the per-(lane, shard) streams every lane is clean, complete and
+    conserved. Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from chandy_lamport_tpu_torch.models.workloads import scale_free
+    from chandy_lamport_tpu_torch.parallel.graphshard import (
+        GraphShardedRunner,
+        state_to_numpy,
+    )
+    from chandy_lamport_tpu_torch.parallel.mesh import Mesh
+    from chandy_lamport_tpu_torch.utils.metrics import _occupied
+
+    spec = scale_free(NODES, ATTACH, seed=3, tokens=PHASES + 10)
+    cfg = _gs_config()
+    paths, dense = {}, {}
+    mesh = Mesh({"graph": GS_ROW_SHARDS}, device="cuda")
+    for engine in ("sparse", "dense"):
+        gs = GraphShardedRunner(spec, cfg, mesh, seed=DELAY_SEED,
+                                comm_engine=engine, megatick=GS_MEGATICK)
+        prog = _gs_program(gs.topo)
+        name = f"graphshard_row_{engine}"
+        final, line = _gs_run(name, gs, prog)
+        paths[name] = line["launches"]
+        dense[engine] = gs.gather_dense(final)
+        emit(line)
+        if line["error_bits"]:
+            raise AssertionError(f"{name}: error bits {line['error_bits']}")
+    mism = [f for f in GS_FIELDS if not np.array_equal(
+        np.asarray(getattr(dense["sparse"], f)),
+        np.asarray(getattr(dense["dense"], f)))]
+    emit({"phase": "graphshard_row_sparse_vs_dense",
+          "leaves": len(GS_FIELDS), "mismatched": mism})
+    if mism:
+        raise AssertionError(f"sparse and dense differ in {mism}")
+    from chandy_lamport_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    lane_mesh = Mesh({"data": 1, "graph": GS_LANE_SHARDS}, device="cuda")
+    for label, kw in (("fixed", {"fixed_delay": 2}),
+                      ("uniform", {"seed": DELAY_SEED, "check_every": 8})):
+        gs = GraphShardedRunner(spec, cfg, lane_mesh, comm_engine="sparse",
+                                megatick=GS_MEGATICK, **kw)
+        prog = _gs_program(gs.topo)
+        state = gs.init_batch(GS_LANES)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        final = gs.run_storm_batched(state, prog.amounts, prog.snap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = f"graphshard_lanes_{label}"
+        paths[name] = launch_counts()
+        _check_launches(name, paths[name], GS_PATH, GS_IDLE)
+        bad = []
+        n = gs.topo.n
+        done = (final.started & (final.completed >= n)).sum(-1)
+        occ = _occupied(final._replace(q_head=final.q_head.flatten(1),
+                                       q_len=final.q_len.flatten(1)),
+                        gs.config)
+        held = (final.tokens.sum(dim=(1, 2), dtype=torch.int64)
+                + torch.where(occ, final.q_data.flatten(1, 2), 0)
+                .sum(dim=(1, 2), dtype=torch.int64))
+        total = int(gs.topo.tokens0.sum())
+        line = {"phase": name, "lanes": GS_LANES, "shards": gs.shards,
+                "wall_s": wall, "max_lane_ticks": int(final.time.max()),
+                "lane_ticks": int(final.time.sum()),
+                "node_ticks_per_s": int(final.time.sum()) * n / wall,
+                "lanes_with_errors": int((final.error != 0).sum()),
+                "lanes_complete": int((done == SNAPSHOTS).sum()),
+                "lanes_conserved": int((held == total).sum()),
+                "launches": paths[name]}
+        if label == "fixed":
+            single = state_to_numpy(gs.run_storm(gs.init_state(),
+                                                 prog.amounts, prog.snap))
+            host = state_to_numpy(final)
+            differ = sorted({f for f, a, b in zip(single._fields, host,
+                                                  single)
+                             if f != "delay_key"
+                             and not (a == b[None]).all()})
+            line["lane_vs_single_mismatched"] = differ
+            if differ:
+                bad.append(f"lanes differ from the single instance in "
+                           f"{differ}")
+        for key in ("lanes_complete", "lanes_conserved"):
+            if line[key] != GS_LANES:
+                bad.append(f"{key} {line[key]} of {GS_LANES}")
+        if line["lanes_with_errors"]:
+            bad.append(f"{line['lanes_with_errors']} lanes with errors")
+        emit(line)
+        if bad:
+            raise AssertionError(f"{name}: {bad}")
+        del final, state
+    return paths
+
+
+def phase_graphshard_dist() -> dict:
+    """The dist backend on the card: two processes on the one card over
+    gloo (its CUDA rows staged through host memory, ``Mesh.staged``), P =
+    2 over sf-1024, both engines under the fixed delay, each process's
+    shard equal to the matching shard of the stacked run on the card; and
+    NCCL at world size 1 (P = 1), equal to stacked P = 1. NCCL beyond one
+    process is not checked here: the machine has one card, and NCCL does
+    not put two processes on one device. Returns {path: launches}."""
+    import tempfile
+
+    from chandy_lamport_tpu_torch.parallel import multihost
+
+    paths = {}
+    jobs = (("gloo", 2, ("sparse", "dense")), ("nccl", 1, ("sparse",)))
+    with tempfile.TemporaryDirectory() as tmp:
+        # both jobs at once (their processes start up together)
+        t0 = time.perf_counter()
+        procs = []
+        for backend, world, engines in jobs:
+            os.makedirs(f"{tmp}/{backend}")
+            procs.append(multihost.spawn(
+                ["-m", "chandy_lamport_tpu_torch.parallel.multihost",
+                 "--case", "--graph", "sf", "--nodes", str(NODES),
+                 "--phases", str(PHASES), "--snapshots", str(SNAPSHOTS),
+                 "--fixed-delay", "2", "--device", "cuda", "--backend",
+                 backend, "--out", f"{tmp}/{backend}", "--engine",
+                 *engines], world))
+        try:
+            _gs_dist_check(jobs, procs, tmp, t0, paths)
+        finally:
+            for job in procs:
+                for p in job:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+    return paths
+
+
+def _gs_dist_check(jobs, procs, tmp, t0, paths) -> None:
+    """Collect each dist job of ``phase_graphshard_dist``, hold every
+    process's shard to the stacked run on the card, emit its line and add
+    its processes' launches to ``paths``."""
+    import numpy as np
+
+    from chandy_lamport_tpu_torch.kernels import launch_counts
+    from chandy_lamport_tpu_torch.parallel import multihost
+    from chandy_lamport_tpu_torch.parallel.graphshard import (
+        _SHARDED,
+        state_to_numpy,
+    )
+    from chandy_lamport_tpu_torch.parallel.mesh import Mesh
+
+    class Case:
+        graph, nodes, phases, snapshots = "sf", NODES, PHASES, SNAPSHOTS
+        seed, megatick, fixed_delay = DELAY_SEED, 1, 2
+
+    for (backend, world, engines), job in zip(jobs, procs):
+        results = multihost.collect(job, timeout=300)
+        job_s = time.perf_counter() - t0
+        rows = []
+        for rank, (rc, out, err) in enumerate(results):
+            if rc != 0:
+                raise AssertionError(f"{backend} rank {rank} rc={rc}: "
+                                     f"{err[-2000:]}")
+            rows.append(json.loads(out.strip().splitlines()[-1]))
+        mism = {}
+        for engine in engines:
+            runner, prog = multihost.case_runner(
+                Case, Mesh({"graph": world}, device="cuda"), engine)
+            want = state_to_numpy(runner.run_storm(
+                runner.init_state(), prog.amounts, prog.snap))
+            for rank in range(world):
+                with np.load(f"{tmp}/{backend}/rank{rank}-{engine}"
+                             ".npz") as z:
+                    got = {k: z[k] for k in z.files}
+                bad = [f for f in want._fields if not np.array_equal(
+                    got[f], np.asarray(getattr(want, f))[rank:rank + 1]
+                    if f in _SHARDED else np.asarray(getattr(want, f)))]
+                if bad:
+                    mism[f"{engine} rank {rank}"] = bad
+        name = f"graphshard_dist_{backend}"
+        launches = {k: sum(r["launches"][k] for row in rows
+                           for r in row["runs"])
+                    for k in launch_counts()}
+        paths[name] = launches
+        emit({"phase": name, "world": world, "backend": backend,
+              "shards": world, "engines": list(engines),
+              "staged_through_host": rows[0]["staged_through_host"],
+              "job_s": job_s, "ranks": rows, "mismatched": mism,
+              "launches": launches,
+              "nccl_beyond_one_process": "not checked: one card, and "
+              "NCCL does not put two processes on one device"})
+        if mism:
+            raise AssertionError(f"{name}: a shard differs from the "
+                                 f"stacked run: {mism}")
+        _check_launches(name, launches, GS_PATH, GS_IDLE)
 
 
 def main(argv=None) -> int:
@@ -5475,28 +6083,30 @@ def main(argv=None) -> int:
     paths.update(w16_paths)
     rows["fused_scan"] += w16_rows
     del sync_final
-    fsrunner, fsprog = config4_runner("cuda", faulted=True)
+    fsrunner, fsprog = config4_runner("cuda", faulted=True,
+                                      batch=FS_BATCH)
     fs_final, m = phase_fault_sync_storm(fsrunner, fsprog)
     paths["fault_sync_storm"] = m["launches"]
     del fsrunner, fs_final
     phase_checkpoint()
     # the resident megatick-8 storms' finals, for their tiled twins
     resident = {}
-    exact_final, exact_m = phase_storm(
-        "exact_storm", xrunner, xprog, "er", X_SNAPSHOTS,
-        ("queue_step", "append_rows", "append_marker_rows", "sum_by_perm",
-         "sum_segments"))
-    paths["exact_storm"] = exact_m["launches"]
     del xrunner
+    exact_final, exact_m = phase_storm(
+        "exact_storm", exact_runner("cuda", M1_BATCH)[0], xprog, "er",
+        X_SNAPSHOTS, ("queue_step", "append_rows", "append_marker_rows",
+                      "sum_by_perm", "sum_segments"))
+    paths["exact_storm"] = exact_m["launches"]
     fused_final, m = phase_storm(
         "fused_storm", mrunner, mprog, "er", X_SNAPSHOTS,
         ("fused_scan", "queue_step", "append_rows", "append_marker_rows",
          "sum_by_perm", "sum_segments"))
     paths["fused_storm"] = m["launches"]
     resident["fused_storm"] = (mprog, fused_final, m)
-    bad = _mismatched(fused_final, exact_final)
+    bad = _mismatched(_first_lanes(fused_final, M1_BATCH), exact_final)
     emit({"phase": "fused_storm_vs_exact_storm",
           "leaves": len(exact_final._fields), "mismatched": bad,
+          "lanes_compared": M1_BATCH,
           "queue_step_launches": m["launches"]["queue_step"],
           "storm_phases": X_PHASES})
     if bad:
@@ -5516,7 +6126,8 @@ def main(argv=None) -> int:
              m, ("fused_scan",) + exact_kernels)):
         final, wm = phase_storm(name, wr, xprog, "er", X_SNAPSHOTS, kernels)
         paths[name] = wm["launches"]
-        _twin_check(name, final, wm, twin_name, twin, twin_m)
+        _twin_check(name, _first_lanes(final, int(twin.time.shape[0])), wm,
+                    twin_name, twin, twin_m)
         if name == "wave_fused_storm":
             if wm["launches"]["queue_step"] != X_PHASES:
                 raise AssertionError("wave_fused_storm ran queue_step "
@@ -5526,18 +6137,20 @@ def main(argv=None) -> int:
     del wrunner, w8runner, exact_final, fused_final
     fault_kernels = ("select_pop", "head_fields", "spread", "append_rows",
                      "append_marker_rows", "sum_by_perm", "sum_segments")
-    fault_final, m = phase_fault_storm("fault_storm", frunner, fprog,
-                                       fault_kernels)
-    paths["fault_storm"] = m["launches"]
     del frunner
+    fault_final, m = phase_fault_storm(
+        "fault_storm", fault_runner("cuda", M1_BATCH)[0], fprog,
+        fault_kernels)
+    paths["fault_storm"] = m["launches"]
     fused_final, m = phase_fault_storm("fault_fused_storm", f8runner,
                                        f8prog, ("fused_scan",)
                                        + fault_kernels)
     paths["fault_fused_storm"] = m["launches"]
     resident["fault_fused_storm"] = (f8prog, fused_final, m)
-    bad = _mismatched(fused_final, fault_final)
+    bad = _mismatched(_first_lanes(fused_final, M1_BATCH), fault_final)
     emit({"phase": "fault_fused_storm_vs_fault_storm",
           "leaves": len(fault_final._fields), "mismatched": bad,
+          "lanes_compared": M1_BATCH,
           "fused_scan_launches": m["launches"]["fused_scan"],
           "drain_fold_steps": m["drain_fold_steps"],
           "fold_steps": m["fold_steps"]})
@@ -5590,6 +6203,10 @@ def main(argv=None) -> int:
     rows["fused_scan"].append(uniform_row)
     paths.update(phase_dense_faults())
     paths.update(phase_fold())
+    gs_paths, gs_rows = phase_graphshard_giant()
+    paths.update(gs_paths)
+    paths.update(phase_graphshard_row())
+    paths.update(phase_graphshard_dist())
     phase_cpu_vs_cuda()
 
     kernels = []
@@ -5642,6 +6259,14 @@ def main(argv=None) -> int:
                 path: counts["fused_scan_traced"]
                 for path, counts in paths.items()
                 if counts["fused_scan_traced"]}
+        if name in gs_rows:
+            # the giant graphshard cell's shapes (rows 4-5 at the stacked
+            # [P, Em, C] rings, rows 1-3 at the sparse exchange's)
+            entry["graphshard_shapes"] = [
+                {key: r[key] for key in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "max_abs_err")}
+                for r in gs_rows[name]]
         if timed:
             entry.update({key: row[key] for key in SPLIT_KEYS})
         if timed and name != "spread":
